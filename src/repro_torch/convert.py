@@ -1,0 +1,82 @@
+"""Carry a planning problem across from the reference package.
+
+The reference's ``ScenarioEngine`` keeps its problem as numpy constants
+(``compute``, ``memory``, ``act_bits``, ``input_bits``, ``mem_cap``,
+``compute_cap``, ``throughput`` and the device ``order``) and its radio
+as a frozen ``RadioParams``.  ``engine_arrays`` reads those off any engine
+by attribute (it imports nothing of the reference), and
+``engine_from_arrays`` / ``fleet_from_arrays`` build the port's engine for
+the same problem, so both packages plan identical inputs.  Rollout state
+and random streams cross as numpy arrays: ``FleetRollout.run`` makes its
+host draws in the reference's order.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+
+from repro_torch.core.channel import RadioParams
+from repro_torch.core.cost_model import LayerCost, ModelCost
+from repro_torch.core.placement import Device
+from repro_torch.core.rollout import PositionSpec, RolloutSpec
+from repro_torch.device import DeviceLike
+from repro_torch.runtime.fleet_rollout import FleetRollout
+from repro_torch.runtime.scenario_engine import PlanFnCache, ScenarioEngine
+
+ARRAY_KEYS = ("compute", "memory", "act_bits", "mem_cap", "compute_cap",
+              "throughput")
+
+
+def engine_arrays(engine) -> dict:
+    """The numpy constants of an engine (reference or port), by attribute."""
+    out = {k: np.asarray(getattr(engine, k), np.float64) for k in ARRAY_KEYS}
+    out["input_bits"] = float(engine.input_bits)
+    out["order"] = tuple(int(o) for o in engine.order)
+    return out
+
+
+def _problem(arrays: Mapping, radio: Mapping):
+    params = RadioParams(**dict(radio))
+    L = len(arrays["compute"])
+    model = ModelCost("converted", tuple(
+        LayerCost(f"layer{j}", float(arrays["compute"][j]),
+                  float(arrays["memory"][j]), float(arrays["act_bits"][j]))
+        for j in range(L)), float(arrays["input_bits"]))
+    devices = [Device(f"uav{i}", float(m), float(c), float(e))
+               for i, (m, c, e) in enumerate(zip(arrays["mem_cap"],
+                                                 arrays["compute_cap"],
+                                                 arrays["throughput"]))]
+    return params, devices, model, tuple(arrays["order"])
+
+
+def engine_from_arrays(arrays: Mapping, radio: Mapping,
+                       device: DeviceLike = None, *,
+                       position_spec: Optional[PositionSpec] = None,
+                       plan_cache: Optional[PlanFnCache] = None
+                       ) -> ScenarioEngine:
+    """The port's ``ScenarioEngine`` for the problem in ``arrays`` (see
+    ``engine_arrays``) and ``radio`` (``dataclasses.asdict`` of a
+    ``RadioParams``)."""
+    params, devices, model, order = _problem(arrays, radio)
+    return ScenarioEngine(params, devices, model, device_order=order,
+                          plan_cache=plan_cache, position_spec=position_spec,
+                          device=device)
+
+
+def fleet_from_arrays(arrays: Mapping, radio: Mapping, spec: RolloutSpec,
+                      device: DeviceLike = None, *, seed: int = 0,
+                      position_spec: Optional[PositionSpec] = None,
+                      plan_cache: Optional[PlanFnCache] = None
+                      ) -> FleetRollout:
+    """The port's ``FleetRollout`` for the problem in ``arrays`` and
+    ``radio``; with the reference's ``seed`` its host draws are the
+    reference's."""
+    params, devices, model, order = _problem(arrays, radio)
+    return FleetRollout(params, devices, model, spec, device_order=order,
+                        plan_cache=plan_cache, position_spec=position_spec,
+                        seed=seed, device=device)
+
+
+__all__ = ["ARRAY_KEYS", "engine_arrays", "engine_from_arrays",
+           "fleet_from_arrays"]

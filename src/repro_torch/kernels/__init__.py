@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels of the port, one package per kernel.
+
+Each ``<name>/`` holds ``<name>.py`` (the ctypes wrapper of
+``csrc/<name>.cu``, with a ``launches`` counter), ``ref.py`` (the plain
+PyTorch version) and ``ops.py`` (the dispatcher: CUDA tensors launch the
+kernel or raise, CPU tensors take the plain version).  ``_build``
+compiles the sources with ``nvcc`` at first use.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+
+def _wrappers():
+    from repro_torch.kernels.link_geometry.link_geometry import link_geometry
+    from repro_torch.kernels.tropical_dp.tropical_dp import tropical_dp_step
+    return {"link_geometry": link_geometry, "tropical_dp": tropical_dp_step}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last ``reset_launch_counts``, by kernel."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+__all__ = ["launch_counts", "reset_launch_counts"]

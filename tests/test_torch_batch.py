@@ -1,0 +1,216 @@
+"""The port's batched planner pieces against the reference on the CPU.
+
+* Prefix sums (``pre_c``/``pre_m``) of the LeNet and AlexNet costs equal
+  ``jnp.cumsum``'s bit for bit: they feed the DP's discrete ``ok`` mask.
+* The chain DP (``_chain_dp_solve_kernelized`` and its single-source
+  slice) fed the SAME rate tensor as the reference's
+  ``_chain_dp_solve_multi`` / ``_chain_dp_solve``: bitwise assignments and
+  latencies, with dead UAVs, a permuted device order and tie-heavy rates.
+* The used-links mask, the aggregate load and the shared-cap check.
+* P2 (``_positions_pgd``): elementwise within 1e-4 m after 3 steps; after
+  30 steps + repair the invariants (2R separation, coverage, monotone
+  trace) and the objective within rtol 1e-4 — ulp differences compound
+  over the gradient steps, so elementwise parity is not expected there.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.alexnet import ALEXNET  # noqa: E402
+from repro.configs.lenet import LENET  # noqa: E402
+from repro.core import batch as jb  # noqa: E402
+from repro.core.channel import RadioParams as JParams  # noqa: E402
+from repro.core.cost_model import cnn_cost  # noqa: E402
+from repro.core.swarm import make_devices  # noqa: E402
+from repro.kernels.link_geometry.ref import link_geometry_ref  # noqa: E402
+from repro_torch.core import batch as tb  # noqa: E402
+
+MODELS = {"lenet": LENET, "alexnet": ALEXNET}
+
+
+def problem(name, U):
+    mc, devs = cnn_cost(MODELS[name]), make_devices(U)
+    return dict(
+        compute=np.array([l.flops for l in mc.layers]),
+        memory=np.array([l.weight_bytes for l in mc.layers]),
+        act_bits=np.array([l.act_bits for l in mc.layers]),
+        input_bits=float(mc.input_bits),
+        mem_cap=np.array([d.mem_cap for d in devs]),
+        compute_cap=np.array([d.compute_cap for d in devs]),
+        throughput=np.array([d.throughput for d in devs]))
+
+
+def jax_args(p):
+    return (jnp.asarray(p["compute"], jnp.float32),
+            jnp.asarray(p["memory"], jnp.float32),
+            jnp.asarray(p["act_bits"], jnp.float32),
+            jnp.float32(p["input_bits"]),
+            jnp.asarray(p["mem_cap"], jnp.float32),
+            jnp.asarray(p["compute_cap"], jnp.float32),
+            jnp.asarray(p["throughput"], jnp.float32))
+
+
+def reference_rate(seed, B, U, spread=90.0, dead=0.2):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, spread, (B, U, 2)).astype(np.float32)
+    active = rng.random((B, U)) >= dead
+    active[:, 0] = True
+    _, _, rate = link_geometry_ref(jnp.asarray(pos), jnp.asarray(active),
+                                   None, params=JParams())
+    return np.array(rate), active
+
+
+@pytest.mark.parametrize("name", ["lenet", "alexnet"])
+def test_prefix_sums_match_jnp_cumsum(name):
+    p = problem(name, 4)
+    pre_c, pre_m = tb.prefix_sums(torch.as_tensor(p["compute"],
+                                                  dtype=torch.float32),
+                                  torch.as_tensor(p["memory"],
+                                                  dtype=torch.float32))
+    for got, key in ((pre_c, "compute"), (pre_m, "memory")):
+        x = jnp.asarray(p[key], jnp.float32)
+        ref = jnp.concatenate([jnp.zeros(1), jnp.cumsum(x)])
+        np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
+@pytest.mark.parametrize("order", [(0, 1, 2, 3, 4), (3, 0, 4, 1, 2)])
+@pytest.mark.parametrize("name", ["lenet", "alexnet"])
+def test_chain_dp_multi_source_bitwise(name, order):
+    U, B = 5, 4
+    p = problem(name, U)
+    rate, active = reference_rate(1, B, U)
+    sources = np.tile(np.arange(U, dtype=np.int32), (B, 1))
+    ref_assign, ref_lat = jb._chain_dp_solve_multi(
+        *jax_args(p), jnp.asarray(rate), jnp.asarray(sources),
+        jnp.asarray(active), order)
+    tables = tb.chain_dp_tables(**p, order=order, device=torch.device("cpu"))
+    assign, lat = tb._chain_dp_solve_kernelized(
+        tables, torch.as_tensor(rate), torch.as_tensor(sources),
+        torch.as_tensor(active))
+    np.testing.assert_array_equal(np.asarray(ref_assign), assign.numpy())
+    np.testing.assert_array_equal(np.asarray(ref_lat), lat.numpy())
+    assert np.isfinite(lat.numpy()).any()
+
+
+def test_chain_dp_single_source_bitwise_with_ties():
+    """Rates drawn from three values make equal-latency placements
+    common; the first-improvement tie-break must pick the same one."""
+    U, B = 4, 6
+    p = problem("lenet", U)
+    rng = np.random.default_rng(4)
+    rate = rng.choice(np.array([0.0, 1e6, 2e6], np.float32), (B, U, U))
+    rate[:, np.arange(U), np.arange(U)] = np.inf
+    active = np.ones((B, U), dtype=bool)
+    active[2, 1] = False
+    source = rng.integers(0, U, B).astype(np.int32)
+    ref_assign, ref_lat = jb._chain_dp_solve(
+        *jax_args(p), jnp.asarray(rate), jnp.asarray(source),
+        jnp.asarray(active), (0, 1, 2, 3))
+    tables = tb.chain_dp_tables(**p, order=(0, 1, 2, 3),
+                                device=torch.device("cpu"))
+    assign, lat = tb._chain_dp_solve(tables, torch.as_tensor(rate),
+                                     torch.as_tensor(source),
+                                     torch.as_tensor(active))
+    np.testing.assert_array_equal(np.asarray(ref_assign), assign.numpy())
+    np.testing.assert_array_equal(np.asarray(ref_lat), lat.numpy())
+
+
+def test_chain_dp_all_dead_or_unreachable_is_infeasible():
+    U, B = 4, 2
+    p = problem("alexnet", U)
+    rate = np.zeros((B, U, U), np.float32)          # no link at all
+    rate[:, np.arange(U), np.arange(U)] = np.inf
+    active = np.ones((B, U), dtype=bool)
+    active[1] = False
+    tables = tb.chain_dp_tables(**p, order=(0, 1, 2, 3),
+                                device=torch.device("cpu"))
+    assign, lat = tb._chain_dp_solve(tables, torch.as_tensor(rate),
+                                     torch.tensor([0, 0]),
+                                     torch.as_tensor(active))
+    ref_assign, ref_lat = jb._chain_dp_solve(
+        *jax_args(p), jnp.asarray(rate), jnp.asarray([0, 0], jnp.int32),
+        jnp.asarray(active), (0, 1, 2, 3))
+    np.testing.assert_array_equal(np.asarray(ref_assign), assign.numpy())
+    np.testing.assert_array_equal(np.asarray(ref_lat), lat.numpy())
+    assert np.isinf(lat[1].item()) and (assign[1] == -1).all()
+
+
+def test_links_load_and_cap_match():
+    rng = np.random.default_rng(2)
+    B, S, L, U = 3, 4, 7, 4
+    assign = rng.integers(-1, U, (B, S, L)).astype(np.int32)
+    src = rng.integers(0, U, (B, S)).astype(np.int32)
+    weights = rng.integers(0, 3, (B, S)).astype(np.float32)
+    compute = rng.uniform(1e6, 5e8, L).astype(np.float32)
+    cap = rng.uniform(1e8, 1e9, U).astype(np.float32)
+    for s in range(S):
+        ref = jb.links_from_assignment_batched(jnp.asarray(assign[:, s]),
+                                               jnp.asarray(src[:, s]), U)
+        got = tb.links_from_assignment_batched(torch.as_tensor(assign[:, s]),
+                                               torch.as_tensor(src[:, s]), U)
+        np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+    ref_load = jb.placement_compute_load(jnp.asarray(assign),
+                                         jnp.asarray(weights),
+                                         jnp.asarray(compute), U)
+    load = tb.placement_compute_load(torch.as_tensor(assign),
+                                     torch.as_tensor(weights),
+                                     torch.as_tensor(compute), U)
+    np.testing.assert_allclose(load.numpy(), np.asarray(ref_load), rtol=1e-6)
+    ref_ok = jb.shared_cap_feasible(ref_load, jnp.asarray(cap))
+    ok = tb.shared_cap_feasible(load, torch.as_tensor(cap))
+    np.testing.assert_array_equal(np.asarray(ref_ok), ok.numpy())
+
+
+# ---------------------------------------------------------------------------
+# P2
+# ---------------------------------------------------------------------------
+
+
+def p2_case(seed, B=4, U=5, radius=20.0):
+    rng = np.random.default_rng(seed)
+    pos0 = rng.uniform(-60, 60, (B, U, 2)).astype(np.float32)
+    links = np.broadcast_to(jb.chain_links(U), (B, U, U)).copy()
+    consts = dict(coeff=jb.position_coeff(JParams()), lr=0.5,
+                  two_r=2.0 * radius,
+                  cover_r=jb.coverage_radius(U, radius))
+    return pos0, links, consts
+
+
+def run_both(pos0, links, consts, steps, repair):
+    center = pos0.mean(1)
+    ref = jb._positions_pgd(
+        jnp.asarray(pos0), jnp.asarray(links),
+        *(jnp.float32(consts[k]) for k in ("coeff", "lr", "two_r",
+                                            "cover_r")),
+        jnp.asarray(center), steps, repair)
+    f = {k: torch.tensor(np.float32(v)) for k, v in consts.items()}
+    got = tb._positions_pgd(torch.as_tensor(pos0), torch.as_tensor(links),
+                            f["coeff"], f["lr"], f["two_r"], f["cover_r"],
+                            torch.as_tensor(center), steps, repair)
+    return [np.asarray(r) for r in ref], [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_p2_three_steps_elementwise(seed):
+    pos0, links, consts = p2_case(seed)
+    ref, got = run_both(pos0, links, consts, steps=3, repair=3)
+    np.testing.assert_allclose(got[0], ref[0], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got[3], ref[3], rtol=1e-5)
+
+
+def test_p2_thirty_steps_invariants_and_objective():
+    pos0, links, consts = p2_case(3, B=6, U=6)
+    ref, got = run_both(pos0, links, consts, steps=30, repair=25)
+    pos, obj, viol, trace = got
+    d = np.sqrt(((pos[:, :, None] - pos[:, None]) ** 2).sum(-1))
+    d[:, np.eye(6, dtype=bool)] = np.inf
+    assert d.min() >= consts["two_r"] - 0.5
+    assert viol.max() < 0.5
+    assert (np.diff(trace, axis=1) <= 0.0).all()
+    r = np.linalg.norm(pos - pos0.mean(1)[:, None], axis=-1)
+    assert r.max() <= consts["cover_r"] + 1e-3
+    np.testing.assert_allclose(obj, ref[1], rtol=1e-4)
+    np.testing.assert_allclose(trace[:, -1], ref[3][:, -1], rtol=1e-4)

@@ -1,0 +1,104 @@
+"""The port on a CUDA card: each kernel against its plain version, and a
+small planning run on the card against the CPU plain path.
+
+Imports no JAX (the card's machine has none).  Without a CUDA device
+every test skips, decided by a fixture when the test runs; on the card:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch.configs.alexnet import ALEXNET  # noqa: E402
+from repro_torch.core.channel import RadioChannel, RadioParams  # noqa: E402
+from repro_torch.core.cost_model import cnn_cost  # noqa: E402
+from repro_torch.core.positions import hex_init  # noqa: E402
+from repro_torch.core.swarm import make_devices  # noqa: E402
+from repro_torch.kernels.link_geometry.ops import \
+    fused_link_geometry  # noqa: E402
+from repro_torch.kernels.link_geometry.ref import \
+    link_geometry_ref  # noqa: E402
+from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
+from repro_torch.kernels.tropical_dp.ref import dp_step_ref  # noqa: E402
+from repro_torch.runtime.scenario_engine import (PlanFnCache,  # noqa: E402
+                                                 ScenarioEngine,
+                                                 ScenarioGenerator)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("gain", [False, True])
+def test_link_geometry_kernel_matches_plain(cuda, gain):
+    rng = np.random.default_rng(11)
+    B, U = 64, 8
+    pos = torch.as_tensor(rng.uniform(0, 120, (B, U, 2)),
+                          dtype=torch.float32, device=cuda)
+    active = torch.as_tensor(rng.random((B, U)) > 0.2, device=cuda)
+    gs = torch.as_tensor(10.0 ** (rng.normal(0, 3, (B, U, U)) / 10.0),
+                         dtype=torch.float32, device=cuda) if gain else None
+    kernels.reset_launch_counts()
+    got = fused_link_geometry(pos, RadioParams(), active=active,
+                              gain_scale=gs)
+    ref = link_geometry_ref(pos, active, gs, params=RadioParams())
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["link_geometry"] == 1
+    for a, b in zip(ref[:2], got[:2]):          # dist, threshold
+        assert torch.equal(a, b)
+    assert torch.equal(ref[2] == 0, got[2] == 0)
+    assert torch.equal(torch.isinf(ref[2]), torch.isinf(got[2]))
+    fin = torch.isfinite(ref[2])
+    torch.testing.assert_close(got[2][fin], ref[2][fin], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_dp_step_kernel_matches_plain_on_a_table_slice(cuda, ties):
+    rng = np.random.default_rng(4)
+    B, M, L, S = 256, 4, 11, 8
+
+    def draw(shape):
+        x = (rng.integers(0, 3, shape) if ties
+             else rng.uniform(0, 5, shape)).astype(np.float32)
+        x[rng.random(shape) < 0.2] = np.inf
+        return torch.as_tensor(x, device=cuda)
+
+    table = torch.full((B, M, L + 1, S + 1), float("inf"), device=cuda)
+    table[:, :, :L] = draw((B, M, L, S + 1))
+    ok = torch.as_tensor(rng.random((L, S)) < 0.8, dtype=torch.float32,
+                         device=cuda)
+    ok[:, 0] = 0.0
+    args = (table[:, :, :L], draw((B, L, S, S + 1)), draw((B, M, S)),
+            torch.as_tensor(rng.integers(0, 2, (L, S)), dtype=torch.float32,
+                            device=cuda), ok)
+    kernels.reset_launch_counts()
+    got = dp_wavefront_step(*args)
+    ref = dp_step_ref(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["tropical_dp"] == 1
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+
+
+def test_plan_batch_multi_on_the_card_equals_the_cpu(cuda):
+    ch, devs, mc = RadioChannel(), make_devices(8), cnn_cost(ALEXNET)
+    batch = ScenarioGenerator(hex_init(8, 40.0, jitter=0.5), pos_sigma_m=4.0,
+                              failure_prob=0.1, shadow_sigma_db=2.0,
+                              seed=2).draw(32)
+    n_req = np.random.default_rng(0).multinomial(4, np.full(8, 0.125), 32)
+    plans = [ScenarioEngine(ch, devs, mc, plan_cache=PlanFnCache(),
+                            device=d).plan_batch_multi(batch, n_req)
+             for d in (cuda, "cpu")]
+    for f in ("assign", "cap_feasible", "feasible"):
+        np.testing.assert_array_equal(getattr(plans[0], f),
+                                      getattr(plans[1], f))
+    for f in ("latency", "source_latency", "power", "load"):
+        np.testing.assert_allclose(getattr(plans[0], f),
+                                   getattr(plans[1], f), rtol=1e-5)
+    assert plans[0].n_feasible > 0

@@ -1,0 +1,148 @@
+"""Guards of the PyTorch port's boundaries.
+
+* No module under ``src/repro_torch`` nor ``chip_smoke.py`` imports
+  ``jax`` or anything of ``repro`` (an AST scan, so a lazy import inside a
+  function is caught too).
+* Entry points built without ``device=`` run on CUDA or raise; they never
+  fall back to the CPU.
+* A CPU tensor given to a kernel dispatcher takes the plain version and
+  leaves the kernel's launch counter alone.
+"""
+import ast
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch.configs.lenet import LENET  # noqa: E402
+from repro_torch.core.channel import RadioChannel, RadioParams  # noqa: E402
+from repro_torch.core.cost_model import cnn_cost  # noqa: E402
+from repro_torch.core.rollout import RolloutSpec, make_plan_fn  # noqa: E402
+from repro_torch.core.swarm import make_devices  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels.link_geometry.ops import \
+    fused_link_geometry  # noqa: E402
+from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
+from repro_torch.runtime.fleet_rollout import FleetRollout  # noqa: E402
+from repro_torch.runtime.scenario_engine import ScenarioEngine  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.lineno, str(node.args[0].value).split(".")[0]
+
+
+def test_port_scan_covers_the_package_and_chip_smoke():
+    files = _port_files()
+    assert os.path.join(ROOT, "chip_smoke.py") in files
+    assert any(f.endswith(os.path.join("core", "rollout.py")) for f in files)
+    assert len(files) >= 20
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = [(line, mod) for line, mod in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert bad == [], f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _problem():
+    return RadioChannel(), make_devices(4), cnn_cost(LENET)
+
+
+def test_engine_without_device_raises(monkeypatch):
+    _no_cuda(monkeypatch)
+    ch, devs, mc = _problem()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ScenarioEngine(ch, devs, mc)
+
+
+def test_fleet_rollout_without_device_raises(monkeypatch):
+    _no_cuda(monkeypatch)
+    ch, devs, mc = _problem()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetRollout(ch, devs, mc, RolloutSpec(frames=2))
+
+
+def test_make_plan_fn_without_device_raises(monkeypatch):
+    _no_cuda(monkeypatch)
+    ch, devs, mc = _problem()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_plan_fn(params=ch.params,
+                     compute=[l.flops for l in mc.layers],
+                     memory=[l.weight_bytes for l in mc.layers],
+                     act_bits=[l.act_bits for l in mc.layers],
+                     input_bits=mc.input_bits,
+                     mem_cap=[d.mem_cap for d in devs],
+                     compute_cap=[d.compute_cap for d in devs],
+                     throughput=[d.throughput for d in devs],
+                     order=(0, 1, 2, 3))
+
+
+def test_cpu_tensors_take_the_plain_path_without_counting():
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    pos = torch.as_tensor(rng.uniform(0, 80, (2, 4, 2)), dtype=torch.float32)
+    dist, th, rate = fused_link_geometry(pos, RadioParams())
+    assert dist.shape == th.shape == rate.shape == (2, 4, 4)
+    B, M, L, S = 2, 3, 5, 4
+    dp = torch.as_tensor(rng.uniform(0, 5, (B, M, L, S + 1)),
+                         dtype=torch.float32)
+    tr = torch.as_tensor(rng.uniform(0, 5, (B, L, S, S + 1)),
+                         dtype=torch.float32)
+    tr0 = torch.as_tensor(rng.uniform(0, 5, (B, M, S)), dtype=torch.float32)
+    ct = torch.as_tensor(rng.uniform(0, 1, (L, S)), dtype=torch.float32)
+    ok = torch.ones((L, S))
+    row, pa, ps = dp_wavefront_step(dp, tr, tr0, ct, ok)
+    assert row.shape == pa.shape == ps.shape == (B, M, S)
+    assert pa.dtype == ps.dtype == torch.int32
+    assert kernels.launch_counts() == {"link_geometry": 0, "tropical_dp": 0}
+
+
+def test_cpu_engine_plans_without_counting():
+    kernels.reset_launch_counts()
+    ch, devs, mc = _problem()
+    from repro_torch.runtime.scenario_engine import ScenarioGenerator
+    batch = ScenarioGenerator(np.arange(8.0).reshape(4, 2) * 10.0,
+                              pos_sigma_m=2.0, seed=1).draw(3)
+    plan = ScenarioEngine(ch, devs, mc, device="cpu").plan_batch(batch)
+    assert plan.assign.shape == (3, len(mc.layers))
+    assert kernels.launch_counts() == {"link_geometry": 0, "tropical_dp": 0}
