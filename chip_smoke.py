@@ -24,9 +24,25 @@ Phases, each raising on failure (the script then exits non-zero):
    "error", so a host synchronisation inside the loop fails the phase;
 6. each kernel's time (CUDA events over a CUDA graph of many launches,
    and eager back-to-back launches) beside its plain version's and its
-   bound at the published H100 SXM peaks.
+   bound at the published H100 SXM peaks;
+7. the conv2d GEMM kernel against its plain version at AlexNet's five
+   conv GEMMs (batch 32 and 1) and ragged shapes, relu on and off, atol
+   5e-4 rtol 1e-3, two launches bitwise equal; the conv2d op against a
+   direct float32 convolution at the five conv layers;
+8. the CNN path: ``LLHRPlanner.plan`` (P2 200 steps on the card) for four
+   AlexNet requests on U = 8 UAVs with a fifth of the memory each, so
+   every request spans >= 2 UAVs; each request's 32 images through
+   ``distributed_forward`` sliced by its placement, launch counters set
+   to 0 just before and read just after (4 x 5 conv2d launches); sliced
+   equals monolithic bitwise; then the four requests served again and
+   again over a window of at least 1.5 s (images/s over the window, the
+   spread per serve and per request); the replan without request 0's
+   first UAV; the same path at 2 images against the CPU plain path;
+9. the conv2d kernel's time at the five conv GEMMs (batch 32) beside its
+   plain version, ``torch.addmm`` and its bound.
 
-The last two lines are the ``nvidia-smi`` line and the result object.
+The last lines are the CNN path's serving numbers, the per-layer conv2d
+times, the kernels line, the ``nvidia-smi`` line and the result object.
 Without CUDA it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -44,6 +60,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 U, L_ALEXNET = 8, 11
 MAIN_B, MAIN_T, REQUESTS = 256, 32, 4
+MAIN_N_IMG = 32                  # images per request on the CNN path
+CONV_ITERS = 20                  # timed conv GEMM launches per measurement
+CNN_WINDOW_S = 1.5               # least timed serving window of the CNN path
 
 
 def log(*args):
@@ -236,7 +255,8 @@ def run_main_path(np, torch, device):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    want = {"link_geometry": MAIN_T, "tropical_dp": MAIN_T * L_ALEXNET}
+    want = {"link_geometry": MAIN_T, "tropical_dp": MAIN_T * L_ALEXNET,
+            "conv2d": 0}
     if launches != want:
         raise AssertionError(f"rollout launches {launches} != {want}")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -286,7 +306,7 @@ def run_main_path(np, torch, device):
     plan = fleet.plan_batch_multi(batch, n_req)
     plan_s = time.perf_counter() - t0
     plan_launches = kernels.launch_counts()
-    want = {"link_geometry": 1, "tropical_dp": L_ALEXNET}
+    want = {"link_geometry": 1, "tropical_dp": L_ALEXNET, "conv2d": 0}
     if plan_launches != want:
         raise AssertionError(f"plan_batch_multi launches {plan_launches} "
                              f"!= {want}")
@@ -382,6 +402,291 @@ def time_kernels(np, torch, params, device, launches, errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the CNN path: conv2d kernel, LLHR planner, placement-sliced AlexNet
+# ---------------------------------------------------------------------------
+
+
+def conv_layers(batch):
+    """AlexNet's conv layers at ``batch``: (name, spec, input NHWC shape,
+    GEMM (M, K, N))."""
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.models.cnn import layer_shapes
+    return [(spec.name, spec, x_shape,
+             (y_shape[0] * y_shape[1] * y_shape[2],
+              spec.kernel ** 2 * x_shape[3], y_shape[3]))
+            for spec, (x_shape, y_shape) in zip(
+                ALEXNET.layers, layer_shapes(ALEXNET, batch))
+            if spec.kind == "conv"]
+
+
+def gemm_inputs(np, torch, seed, m, k, n, device):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    b = rng.standard_normal(n, dtype=np.float32)
+    return [torch.as_tensor(a, device=device) for a in (x, w, b)]
+
+
+def check_fp32(torch):
+    """Every comparison below is in full float32: no TF32 anywhere."""
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.get_float32_matmul_precision() != "highest" or \
+            torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("float32 matmul precision is not 'highest'")
+
+
+def check_conv2d_kernel(np, torch, device):
+    """``matmul_bias_act`` against ``matmul_ref`` at AlexNet's five conv
+    GEMMs (batch 32 and 1) and ragged shapes, relu on and off, atol 5e-4
+    rtol 1e-3; two launches bitwise equal; ``conv2d`` against
+    ``conv2d_ref`` at the five conv layers.  Returns the max abs error at
+    conv2, batch 32."""
+    from repro_torch.kernels.conv2d.conv2d import matmul_bias_act
+    from repro_torch.kernels.conv2d.ops import conv2d
+    from repro_torch.kernels.conv2d.ref import conv2d_ref, matmul_ref
+    check_fp32(torch)
+    cases = [(f"{name} N={bs}", mkn, True) for bs in (MAIN_N_IMG, 1)
+             for name, _, _, mkn in conv_layers(bs)]
+    cases += [(f"ragged {m}x{k}x{n}", (m, k, n), relu)
+              for m, k, n in ((1, 363, 96), (1, 17, 5), (67, 2401, 33),
+                              (130, 1, 257)) for relu in (True, False)]
+    conv2_err = None
+    for i, (label, (m, k, n), relu) in enumerate(cases):
+        x, w, b = gemm_inputs(np, torch, 10 + i, m, k, n, device)
+        got = matmul_bias_act(x, w, b, relu=relu)
+        again = matmul_bias_act(x, w, b, relu=relu)
+        ref = matmul_ref(x, w, b, relu=relu)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"matmul_bias_act {label}: two launches "
+                                 f"differ")
+        torch.testing.assert_close(got, ref, atol=5e-4, rtol=1e-3)
+        err = float((got.double() - ref.double()).abs().max())
+        if label == f"conv2 N={MAIN_N_IMG}":
+            conv2_err = err
+        log(f"  matmul_bias_act {label} (M={m} K={k} N={n}, relu={relu}): "
+            f"max abs err {err:.3g}, two launches bitwise equal")
+    rng = np.random.default_rng(20)
+    for name, spec, shape, _ in conv_layers(MAIN_N_IMG):
+        x = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device=device)
+        fan_in = spec.kernel ** 2 * shape[-1]
+        w = torch.as_tensor((rng.standard_normal(
+            (spec.kernel, spec.kernel, shape[-1], spec.out_channels))
+            / np.sqrt(fan_in)).astype(np.float32), device=device)
+        b = torch.as_tensor(rng.standard_normal(spec.out_channels,
+                                                dtype=np.float32),
+                            device=device)
+        got = conv2d(x, w, b, stride=spec.stride, padding=spec.padding)
+        ref = conv2d_ref(x, w, b, stride=spec.stride, padding=spec.padding)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, atol=5e-4, rtol=1e-3)
+        log(f"  conv2d {name} {tuple(shape)} -> {tuple(got.shape)}: max abs "
+            f"err {float((got - ref).abs().max()):.3g} against conv2d_ref")
+    return conv2_err
+
+
+def plan_cnn_path(np, torch, device, images):
+    """``LLHRPlanner.plan`` (P2 200 steps on ``device``, P1/P3 on the
+    host) for four AlexNet requests on eight UAVs with a fifth of the
+    memory each; seeded parameters and ``images`` seeded 227 x 227 x 3
+    images per request.  Returns (planner, plan, problems, params, xs,
+    planning wall in s)."""
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.core.channel import RadioChannel
+    from repro_torch.core.cost_model import cnn_cost
+    from repro_torch.core.planner import LLHRPlanner
+    from repro_torch.core.swarm import make_devices
+    from repro_torch.models.cnn import init_cnn
+    planner = LLHRPlanner(RadioChannel(), position_steps=200, device=device)
+    t0 = time.perf_counter()
+    plan, problems = planner.plan(cnn_cost(ALEXNET),
+                                  make_devices(U, mem_frac=0.2),
+                                  requests=list(range(REQUESTS)))
+    plan_s = time.perf_counter() - t0
+    params = init_cnn(ALEXNET, torch.Generator().manual_seed(0),
+                      device=device)
+    rng = np.random.default_rng(0)
+    xs = [torch.as_tensor(rng.standard_normal(
+        (images, 227, 227, 3), dtype=np.float32), device=device)
+        for _ in plan.placements]
+    return planner, plan, problems, params, xs, plan_s
+
+
+def serve(torch, params, xs, assigns, walls=None):
+    """Each request's images through ``distributed_forward`` sliced by its
+    placement, one request after another, each ending in a device
+    synchronise; appends each request's wall (s) to ``walls``.  Returns
+    [(logits, hand-offs)]."""
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.models.cnn import distributed_forward
+    outs = []
+    for x, a in zip(xs, assigns):
+        t0 = time.perf_counter()
+        outs.append(distributed_forward(ALEXNET, params, x, a))
+        torch.cuda.synchronize()
+        if walls is not None:
+            walls.append(time.perf_counter() - t0)
+    return outs
+
+
+def serve_window(torch, params, xs, assigns, min_s):
+    """Serve the requests again and again for at least ``min_s`` seconds.
+    Returns images/s over the whole window, the number of serves, the
+    images/s of each serve and every request's wall (s)."""
+    walls, per_serve = [], []
+    images = sum(x.shape[0] for x in xs)
+    t_start = time.perf_counter()
+    while time.perf_counter() - t_start < min_s:
+        t0 = time.perf_counter()
+        serve(torch, params, xs, assigns, walls)
+        per_serve.append(images / (time.perf_counter() - t0))
+    window_s = time.perf_counter() - t_start
+    return images * len(per_serve) / window_s, len(per_serve), per_serve, \
+        walls
+
+
+def run_cnn_path(np, torch, device):
+    """The paper's distributed inference on the card: the LLHR plan, then
+    each request's batch of 32 images through ``distributed_forward``
+    sliced by its placement, counted once and then timed over a window of
+    at least ``CNN_WINDOW_S``."""
+    from repro_torch import kernels
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.models.cnn import distributed_forward, forward
+    check_fp32(torch)
+    t0 = time.perf_counter()
+    planner, plan, problems, params, xs, plan_s = plan_cnn_path(
+        np, torch, device, MAIN_N_IMG)
+    if not plan.feasible:
+        raise AssertionError("CNN path: a request is infeasible")
+    assigns = [s.assign for s in plan.placements]
+    for r, a in enumerate(assigns):
+        log(f"  request {r} (source UAV {r}): placement {a}, latency "
+            f"{plan.placements[r].latency:.6f} s")
+        if len(set(a)) < 2:
+            raise AssertionError(f"request {r} runs on one UAV")
+    parts = {k: float(v) for k, v in plan.latency_breakdown(problems).items()}
+    log(f"  plan: total latency {plan.total_latency:.6f} s, power "
+        f"{plan.total_power:.6f} W, breakdown {parts}, wall {plan_s:.3f} s "
+        f"(P2 200 steps on the card); with parameters and inputs "
+        f"{time.perf_counter() - t0:.2f} s")
+    distributed_forward(ALEXNET, params, xs[0], assigns[0])      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    outs = serve(torch, params, xs, assigns)
+    launches = kernels.launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    n_conv = sum(s.kind == "conv" for s in ALEXNET.layers)
+    want = {"link_geometry": 0, "tropical_dp": 0,
+            "conv2d": n_conv * len(assigns)}
+    if launches != want:
+        raise AssertionError(f"CNN path launches {launches} != {want}")
+    for r, ((y, hand), x, a) in enumerate(zip(outs, xs, assigns)):
+        changes = sum(p != q for p, q in zip(a[:-1], a[1:]))
+        if hand != changes:
+            raise AssertionError(f"request {r}: {hand} hand-offs, placement "
+                                 f"has {changes} device changes")
+        if y.shape != (MAIN_N_IMG, 1000) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"request {r}: bad logits {tuple(y.shape)}")
+        if not torch.equal(y, forward(ALEXNET, params, x)):
+            raise AssertionError(f"request {r}: sliced forward != monolithic")
+    log(f"  served {len(assigns)} requests x {MAIN_N_IMG} images: launches "
+        f"{launches}; sliced == monolithic bitwise; hand-offs "
+        f"{[h for _, h in outs]}; peak device memory {peak_mb:.1f} MiB")
+    rate, n_serves, per_serve, walls = serve_window(torch, params, xs,
+                                                    assigns, CNN_WINDOW_S)
+    walls_ms = sorted(w * 1e3 for w in walls)
+    cnn = {"images_per_s": rate, "serves": n_serves,
+           "images_per_serve": len(assigns) * MAIN_N_IMG,
+           "serve_images_per_s_min": min(per_serve),
+           "serve_images_per_s_max": max(per_serve),
+           "request_ms_min": walls_ms[0],
+           "request_ms_median": walls_ms[len(walls_ms) // 2],
+           "request_ms_max": walls_ms[-1], "peak_mib": peak_mb,
+           "plan_s": plan_s}
+    log(f"  timed window: {n_serves} serves of {len(assigns)} requests x "
+        f"{MAIN_N_IMG} images, {rate:.1f} images/s over the window (per "
+        f"serve {min(per_serve):.1f} to {max(per_serve):.1f}); wall per "
+        f"request min {walls_ms[0]:.4f} median "
+        f"{walls_ms[len(walls_ms) // 2]:.4f} max {walls_ms[-1]:.4f} ms")
+
+    dead = assigns[0][0]
+    re_plan, _ = planner.replan_on_failure(plan, problems, dead)
+    if not re_plan.feasible:
+        raise AssertionError(f"replan without UAV {dead} is infeasible")
+    re_assign = re_plan.placements[0].assign
+    y_re, _ = distributed_forward(ALEXNET, params, xs[0], re_assign)
+    if not torch.equal(y_re, outs[0][0]):
+        raise AssertionError("replanned sliced forward != monolithic")
+    log(f"  replan without UAV {dead}: feasible, request 0 now "
+        f"{re_assign} (survivor indices), latency "
+        f"{re_plan.placements[0].latency:.6f} s; its sliced forward equals "
+        f"the monolithic one")
+
+    # the same path small, card against the CPU plain path
+    params_cpu = [{k: v.cpu() for k, v in p.items()} for p in params]
+    x2 = xs[0][:2]
+    y_gpu, _ = distributed_forward(ALEXNET, params, x2, assigns[0])
+    y_cpu, _ = distributed_forward(ALEXNET, params_cpu, x2.cpu(), assigns[0])
+    torch.testing.assert_close(y_gpu.cpu(), y_cpu, atol=5e-4, rtol=1e-3)
+    log(f"  N=2 logits, card against the CPU plain path: max abs err "
+        f"{float((y_gpu.cpu() - y_cpu).abs().max()):.3g}")
+    return launches, cnn
+
+
+def time_conv2d(np, torch, device, launches, conv2_err):
+    """``matmul_bias_act`` at AlexNet's five conv GEMMs, batch 32, beside
+    its plain version, ``torch.addmm`` and the bound.  Returns the
+    per-layer rows and the ``kernels`` row at conv2."""
+    from repro_torch.kernels.conv2d.conv2d import matmul_bias_act
+    from repro_torch.kernels.conv2d.ref import matmul_ref
+    layers = []
+    for i, (name, _, _, (m, k, n)) in enumerate(conv_layers(MAIN_N_IMG)):
+        x, w, b = gemm_inputs(np, torch, 30 + i, m, k, n, device)
+        nbytes = 4 * (m * k + k * n + n + m * n)
+        nops = 2 * m * n * k
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / FP32_OPS_PER_S * 1e3
+        row = {"layer": name, "M": m, "K": k, "N": n,
+               "ms": time_ms(torch, lambda: matmul_bias_act(x, w, b),
+                             CONV_ITERS, graph=True),
+               "eager_ms": time_ms(torch, lambda: matmul_bias_act(x, w, b),
+                                   CONV_ITERS, graph=False),
+               "plain_ms": time_ms(torch, lambda: matmul_ref(x, w, b),
+                                   CONV_ITERS, graph=True),
+               "plain_eager_ms": time_ms(torch, lambda: matmul_ref(x, w, b),
+                                         CONV_ITERS, graph=False),
+               "library_ms": time_ms(torch, lambda: torch.addmm(b, x, w),
+                                     CONV_ITERS, graph=True),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "operations": nops}
+        row["tflops"] = nops / row["ms"] / 1e9
+        layers.append(row)
+        log(f"  {name} M={m} K={k} N={n}: kernel {row['ms']:.4f} ms (graph),"
+            f" {row['eager_ms']:.4f} ms eager, {row['tflops']:.2f} TFLOP/s; "
+            f"plain {row['plain_ms']:.4f} ms ({row['plain_eager_ms']:.4f} "
+            f"eager); torch.addmm (GEMM + bias, no "
+            f"ReLU) {row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']})")
+    c2 = next(r for r in layers if r["layer"] == "conv2")
+    kernel_row = {
+        "name": "conv2d", "route": "cuda",
+        "source": "src/repro_torch/csrc/conv2d.cu",
+        "replaces": "src/repro/kernels/conv2d/conv2d.py:50",
+        "launches": launches["conv2d"], "max_abs_err": conv2_err,
+        "ms": c2["ms"], "plain_ms": c2["plain_ms"],
+        "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"],
+        "library_ms": c2["library_ms"], "eager_ms": c2["eager_ms"],
+        "plain_eager_ms": c2["plain_eager_ms"],
+        "shape": [c2["M"], c2["K"], c2["N"]], "bytes": c2["bytes"],
+        "operations": c2["operations"]}
+    return layers, kernel_row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -416,7 +721,17 @@ def main() -> int:
     launches = run_main_path(np, torch, device)
     log("[6] kernel times (CUDA events)")
     rows = time_kernels(np, torch, params, device, launches, errs)
+    log("[7] conv2d kernel against its plain version on the card")
+    conv2_err = check_conv2d_kernel(np, torch, device)
+    log("[8] CNN path: LLHR plan, then placement-sliced AlexNet")
+    cnn_launches, cnn = run_cnn_path(np, torch, device)
+    log("[9] conv2d kernel times (CUDA events), batch 32")
+    layers, conv_row = time_conv2d(np, torch, device, cnn_launches,
+                                   conv2_err)
+    rows.append(conv_row)
 
+    print(json.dumps({"cnn_path": cnn}))
+    print(json.dumps({"conv2d_layers": layers}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,19 +8,22 @@ by attribute (it imports nothing of the reference), and
 ``engine_from_arrays`` / ``fleet_from_arrays`` build the port's engine for
 the same problem, so both packages plan identical inputs.  Rollout state
 and random streams cross as numpy arrays: ``FleetRollout.run`` makes its
-host draws in the reference's order.
+host draws in the reference's order.  ``cnn_params_from_arrays`` carries
+a CNN's parameters (HWIO conv filters, [in, out] FC weights, as numpy
+arrays) into the port's tensors, so both packages run the same network.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.channel import RadioParams
 from repro_torch.core.cost_model import LayerCost, ModelCost
 from repro_torch.core.placement import Device
 from repro_torch.core.rollout import PositionSpec, RolloutSpec
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.runtime.fleet_rollout import FleetRollout
 from repro_torch.runtime.scenario_engine import PlanFnCache, ScenarioEngine
 
@@ -78,5 +81,16 @@ def fleet_from_arrays(arrays: Mapping, radio: Mapping, spec: RolloutSpec,
                         seed=seed, device=device)
 
 
-__all__ = ["ARRAY_KEYS", "engine_arrays", "engine_from_arrays",
-           "fleet_from_arrays"]
+def cnn_params_from_arrays(arrays: Sequence[Mapping],
+                           device: DeviceLike = None
+                           ) -> List[dict]:
+    """One ``{"w", "b"}`` dict of numpy arrays per layer (``{}`` for a
+    pool), in the reference's layouts -> the same list of float32 tensors
+    on ``device``."""
+    dev = resolve_device(device)
+    return [{k: torch.tensor(np.asarray(v, np.float32), device=dev)
+             for k, v in layer.items()} for layer in arrays]
+
+
+__all__ = ["ARRAY_KEYS", "cnn_params_from_arrays", "engine_arrays",
+           "engine_from_arrays", "fleet_from_arrays"]

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.channel import RadioParams
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step
 
 INF = math.inf
@@ -254,6 +255,63 @@ def _positions_pgd(pos0: torch.Tensor, links: torch.Tensor,
     return pos, link_obj, viol, trace_t
 
 
+@dataclass(frozen=True)
+class BatchPositionSolution:
+    """Batched P2 solution, on the host.
+
+    ``objective`` is the raw eq. (9) link objective after repair;
+    ``objective_trace`` is the penalized objective of the best-so-far
+    iterate per GD step (non-increasing)."""
+
+    positions: np.ndarray        # [B, U, 2]
+    objective: np.ndarray        # [B]
+    max_violation: np.ndarray    # [B] residual separation violation (m)
+    objective_trace: np.ndarray  # [B, steps]
+    iterations: int
+
+
+def solve_positions_batched(init_positions: np.ndarray,
+                            params: RadioParams,
+                            radius: float = 20.0,
+                            links: Optional[np.ndarray] = None,
+                            steps: int = 800,
+                            lr: float = 0.5,
+                            repair_iters: int = 50,
+                            center: Optional[Tuple[float, float]] = None,
+                            device: DeviceLike = None
+                            ) -> BatchPositionSolution:
+    """Batched P2 (eq. 8-9) on ``device``: ``_positions_pgd`` over a
+    [B, U, 2] batch of initial positions, results copied to the host.
+
+    ``links``: [U, U] or [B, U, U] bool transfer topology (default: the
+    chain i -> i+1).  ``center``: coverage-circle center shared by the
+    batch; default is each scenario's initial centroid.
+    """
+    dev = resolve_device(device)
+    pos0 = torch.as_tensor(np.asarray(init_positions), dtype=torch.float32,
+                           device=dev)
+    B, U = pos0.shape[0], pos0.shape[1]
+    links = np.asarray(chain_links(U) if links is None else links, bool)
+    links_t = torch.as_tensor(np.broadcast_to(links, (B, U, U)).copy(),
+                              device=dev)
+    if center is None:
+        center_t = pos0.mean(1)
+    else:
+        center_t = torch.as_tensor(np.asarray(center, np.float32),
+                                   device=dev).expand(B, 2)
+    f32 = [torch.tensor(v, dtype=torch.float32, device=dev) for v in
+           (position_coeff(params), lr, 2.0 * radius,
+            coverage_radius(U, radius))]
+    pos, obj, viol, trace = _positions_pgd(pos0, links_t, *f32, center_t,
+                                           steps, repair_iters)
+    return BatchPositionSolution(
+        positions=pos.cpu().numpy().astype(np.float64),
+        objective=obj.cpu().numpy().astype(np.float64),
+        max_violation=viol.cpu().numpy().astype(np.float64),
+        objective_trace=trace.cpu().numpy().astype(np.float64),
+        iterations=steps)
+
+
 def links_from_assignment_batched(assign: torch.Tensor, source: torch.Tensor,
                                   n_uavs: int) -> torch.Tensor:
     """[..., L] chain-DP assignment (+ [...] source) -> [..., U, U] bool
@@ -461,4 +519,5 @@ __all__ = [
     "solve_power_batched", "rate_matrix_batched", "position_coeff",
     "coverage_radius", "chain_links", "links_from_assignment_batched",
     "placement_compute_load", "shared_cap_feasible", "prefix_sums",
+    "BatchPositionSolution", "solve_positions_batched",
 ]

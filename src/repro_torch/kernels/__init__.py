@@ -12,9 +12,11 @@ from typing import Dict
 
 
 def _wrappers():
+    from repro_torch.kernels.conv2d.conv2d import matmul_bias_act
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
     from repro_torch.kernels.tropical_dp.tropical_dp import tropical_dp_step
-    return {"link_geometry": link_geometry, "tropical_dp": tropical_dp_step}
+    return {"link_geometry": link_geometry, "tropical_dp": tropical_dp_step,
+            "conv2d": matmul_bias_act}
 
 
 def launch_counts() -> Dict[str, int]:

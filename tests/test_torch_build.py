@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.channel import RadioParams  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.conv2d.conv2d import matmul_bias_act  # noqa: E402
 from repro_torch.kernels.link_geometry.link_geometry import (  # noqa: E402
     link_geometry, radio_constants)
 from repro_torch.kernels.tropical_dp.tropical_dp import \
@@ -21,7 +22,8 @@ from repro_torch.kernels.tropical_dp.tropical_dp import \
 
 
 def test_sources_are_the_two_main_path_kernels():
-    assert _build.sources() == ("link_geometry", "tropical_dp")
+    """The planner's two kernels and the CNN path's conv GEMM."""
+    assert _build.sources() == ("conv2d", "link_geometry", "tropical_dp")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -82,10 +84,14 @@ def test_wrappers_reject_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA"):
         tropical_dp_step(dp, torch.zeros((2, 3, 4, 5)), torch.zeros(2, 1, 4),
                          torch.zeros(3, 4), torch.ones(3, 4))
+    with pytest.raises(ValueError, match="CUDA float32"):
+        matmul_bias_act(torch.zeros((3, 4)), torch.zeros((4, 5)),
+                        torch.zeros(5))
 
 
 def test_rejections_do_not_count_launches():
-    before = (link_geometry.launches, tropical_dp_step.launches)
+    before = (link_geometry.launches, tropical_dp_step.launches,
+              matmul_bias_act.launches)
     with pytest.raises(ValueError):
         link_geometry(torch.zeros((1, 2, 2)), torch.ones((1, 2)), None,
                       params=RadioParams())
@@ -93,4 +99,8 @@ def test_rejections_do_not_count_launches():
         tropical_dp_step(torch.zeros((1, 1, 2, 3)), torch.zeros((1, 2, 2, 3)),
                          torch.zeros(1, 1, 2), torch.zeros(2, 2),
                          torch.ones(2, 2))
-    assert (link_geometry.launches, tropical_dp_step.launches) == before
+    with pytest.raises(ValueError):
+        matmul_bias_act(torch.zeros((3, 4)), torch.zeros((5, 5)),
+                        torch.zeros(5))
+    assert (link_geometry.launches, tropical_dp_step.launches,
+            matmul_bias_act.launches) == before

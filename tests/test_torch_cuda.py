@@ -1,5 +1,6 @@
-"""The port on a CUDA card: each kernel against its plain version, and a
-small planning run on the card against the CPU plain path.
+"""The port on a CUDA card: each kernel against its plain version, a
+small planning run on the card against the CPU plain path, and the
+sliced LeNet forward against the monolithic one.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -13,16 +14,21 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs.alexnet import ALEXNET  # noqa: E402
+from repro_torch.configs.lenet import LENET  # noqa: E402
 from repro_torch.core.channel import RadioChannel, RadioParams  # noqa: E402
 from repro_torch.core.cost_model import cnn_cost  # noqa: E402
 from repro_torch.core.positions import hex_init  # noqa: E402
 from repro_torch.core.swarm import make_devices  # noqa: E402
+from repro_torch.kernels.conv2d.conv2d import matmul_bias_act  # noqa: E402
+from repro_torch.kernels.conv2d.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
 from repro_torch.kernels.link_geometry.ref import \
     link_geometry_ref  # noqa: E402
 from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
 from repro_torch.kernels.tropical_dp.ref import dp_step_ref  # noqa: E402
+from repro_torch.models.cnn import (distributed_forward,  # noqa: E402
+                                   forward, init_cnn)
 from repro_torch.runtime.scenario_engine import (PlanFnCache,  # noqa: E402
                                                  ScenarioEngine,
                                                  ScenarioGenerator)
@@ -102,3 +108,39 @@ def test_plan_batch_multi_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_allclose(getattr(plans[0], f),
                                    getattr(plans[1], f), rtol=1e-5)
     assert plans[0].n_feasible > 0
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("m,k,n", [(5408, 2304, 384), (67, 363, 33)])
+def test_matmul_bias_act_kernel_matches_plain(cuda, m, k, n, relu):
+    """AlexNet conv3 at a batch of 32, and a ragged shape; atol 5e-4,
+    rtol 1e-3 (float32 sums in another order).  Two launches on the same
+    inputs are bitwise equal, and each adds one to the counter."""
+    rng = np.random.default_rng(m + n)
+    x = torch.as_tensor(rng.normal(size=(m, k)), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(rng.normal(size=(k, n)) / np.sqrt(k),
+                        dtype=torch.float32, device=cuda)
+    b = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=cuda)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    kernels.reset_launch_counts()
+    got = matmul_bias_act(x, w, b, relu=relu)
+    again = matmul_bias_act(x, w, b, relu=relu)
+    ref = matmul_ref(x, w, b, relu=relu)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv2d"] == 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref, atol=5e-4, rtol=1e-3)
+
+
+def test_lenet_sliced_forward_is_bitwise_on_the_card(cuda):
+    params = init_cnn(LENET, torch.Generator().manual_seed(0), device=cuda)
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(4, 32, 32, 3)),
+                        dtype=torch.float32, device=cuda)
+    kernels.reset_launch_counts()
+    y0 = forward(LENET, params, x)
+    assert kernels.launch_counts()["conv2d"] == 2
+    for n_dev in (2, 3, 5):
+        assign = [j % n_dev for j in range(len(LENET.layers))]
+        y1, transfers = distributed_forward(LENET, params, x, assign)
+        assert torch.equal(y0, y1) and transfers > 0

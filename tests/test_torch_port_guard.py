@@ -5,8 +5,9 @@
   function is caught too).
 * Entry points built without ``device=`` run on CUDA or raise; they never
   fall back to the CPU.
-* A CPU tensor given to a kernel dispatcher takes the plain version and
-  leaves the kernel's launch counter alone.
+* A CPU tensor given to a kernel dispatcher (link geometry, the DP step,
+  conv2d) takes the plain version and leaves the kernel's launch counter
+  alone.
 """
 import ast
 import os
@@ -20,12 +21,16 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs.lenet import LENET  # noqa: E402
 from repro_torch.core.channel import RadioChannel, RadioParams  # noqa: E402
 from repro_torch.core.cost_model import cnn_cost  # noqa: E402
+from repro_torch.core.planner import LLHRPlanner  # noqa: E402
 from repro_torch.core.rollout import RolloutSpec, make_plan_fn  # noqa: E402
 from repro_torch.core.swarm import make_devices  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels.conv2d.ops import conv2d  # noqa: E402
+from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
 from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
 from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
+from repro_torch.models.cnn import init_cnn  # noqa: E402
 from repro_torch.runtime.fleet_rollout import FleetRollout  # noqa: E402
 from repro_torch.runtime.scenario_engine import ScenarioEngine  # noqa: E402
 
@@ -60,6 +65,7 @@ def test_port_scan_covers_the_package_and_chip_smoke():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
     assert any(f.endswith(os.path.join("core", "rollout.py")) for f in files)
+    assert any(f.endswith(os.path.join("models", "cnn.py")) for f in files)
     assert len(files) >= 20
 
 
@@ -134,7 +140,8 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     row, pa, ps = dp_wavefront_step(dp, tr, tr0, ct, ok)
     assert row.shape == pa.shape == ps.shape == (B, M, S)
     assert pa.dtype == ps.dtype == torch.int32
-    assert kernels.launch_counts() == {"link_geometry": 0, "tropical_dp": 0}
+    assert kernels.launch_counts() == {"link_geometry": 0, "tropical_dp": 0,
+                                       "conv2d": 0}
 
 
 def test_cpu_engine_plans_without_counting():
@@ -145,4 +152,30 @@ def test_cpu_engine_plans_without_counting():
                               pos_sigma_m=2.0, seed=1).draw(3)
     plan = ScenarioEngine(ch, devs, mc, device="cpu").plan_batch(batch)
     assert plan.assign.shape == (3, len(mc.layers))
-    assert kernels.launch_counts() == {"link_geometry": 0, "tropical_dp": 0}
+    assert kernels.launch_counts() == {"link_geometry": 0, "tropical_dp": 0,
+                                       "conv2d": 0}
+
+
+def test_planner_without_device_raises(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLHRPlanner(RadioChannel())
+
+
+def test_init_cnn_without_device_raises(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cnn(LENET, torch.Generator().manual_seed(0))
+
+
+def test_cpu_conv2d_takes_the_plain_path_without_counting():
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.normal(size=(2, 9, 9, 3)), dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=(3, 3, 3, 5)), dtype=torch.float32)
+    b = torch.zeros(5)
+    y = conv2d(x, w, b, stride=2, padding=1)
+    assert y.shape == (2, 5, 5, 5) and y.device.type == "cpu"
+    torch.testing.assert_close(y, conv2d_ref(x, w, b, stride=2, padding=1),
+                               atol=5e-4, rtol=1e-3)
+    assert kernels.launch_counts()["conv2d"] == 0
