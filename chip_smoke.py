@@ -39,14 +39,44 @@ Phases, each raising on failure (the script then exits non-zero):
    spread per serve and per request); the replan without request 0's
    first UAV; the same path at 2 images against the CPU plain path;
 9. the conv2d kernel's time at the five conv GEMMs (batch 32) beside its
-   plain version, ``torch.addmm`` and its bound.
+   plain version, ``torch.addmm`` and its bound;
+10. the flash- and decode-attention kernels against their plain versions
+    on the card, float32 (atol 2e-5, rtol 2e-4) and bfloat16 (the
+    reference's atol 2e-2, rtol 2e-1, and within atol 1e-3, rtol 1e-2:
+    one bf16 rounding of the output), two launches bitwise equal: flash
+    at the reference's kernel-test grid, gemma2-9b's prefill (B 1, H 16,
+    KV 8, S 2048, D 256, causal, cap 50, window 0 and 1024), ragged S
+    (1, 1000) and the serving run's shapes (B 8 at S 1345, its first
+    prefill, and at S 2048, the timed one); decode at the reference's
+    grid and gemma2-9b's decode (B 8, KV 8, G 2, S 4096, D 256, cap 50,
+    pos with 0 and S - 1);
+11. the reduced gemma2-9b and phi4-mini in float32, card against the CPU
+    plain path: prefill and decode logits within 1e-4, and
+    ``ContinuousBatcher`` token ids equal;
+12. the LM serving path: gemma2-9b at full width (bfloat16 weights from a
+    seeded card generator) serving 12 requests (prompts of 256-1536
+    tokens, max_new 8-40) through ``ContinuousBatcher`` at max_batch 8,
+    max_seq 4096, greedy, launch counters set to 0 just before and read
+    just after (42 flash launches per prefill call, 42 decode launches
+    per decode step); prefill and decode-step walls, decode tokens/s,
+    time to first token per request, peak memory; then one 6144-token
+    request at max_seq 8192 (the 4096 window bites); then one prefill and
+    4 decode steps through the kernels against the plain versions inside
+    the model: in float32 (the weights widened) the logits within atol
+    1e-2, rtol 1e-3; in bfloat16 the difference within 1.5 times the
+    plain version's own under reordered sums;
+13. both attention kernels' times at gemma2-9b's shapes in bfloat16
+    beside their plain versions, ``F.scaled_dot_product_attention``
+    (without the softcap) and their bounds.
 
-The last lines are the CNN path's serving numbers, the per-layer conv2d
-times, the kernels line, the ``nvidia-smi`` line and the result object.
+The last lines are the CNN path's and the LM path's serving numbers, the
+per-layer conv2d times, the kernels line, the ``nvidia-smi`` line and the
+result object.
 Without CUDA it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -58,11 +88,29 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 U, L_ALEXNET = 8, 11
 MAIN_B, MAIN_T, REQUESTS = 256, 32, 4
 MAIN_N_IMG = 32                  # images per request on the CNN path
 CONV_ITERS = 20                  # timed conv GEMM launches per measurement
 CNN_WINDOW_S = 1.5               # least timed serving window of the CNN path
+LM_ARCH = "gemma2-9b"            # the LM serving path's model, full width
+LM_BATCH, LM_MAX_SEQ = 8, 4096   # ServeConfig of the serving run
+LM_REQUESTS = 12                 # requests of the serving run
+LM_PROMPT = (256, 1536)          # prompt lengths, inclusive
+LM_MAX_NEW = (8, 40)             # max_new, inclusive
+LONG_PROMPT, LONG_MAX_SEQ, LONG_MAX_NEW = 6144, 8192, 16
+LM_CHECK_TOKENS = 1024           # prompt of the kernels-vs-plain check
+#: the reference's attention kernel-test tolerance (tests/test_kernels.py)
+ATTN_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
+            "bfloat16": dict(atol=2e-2, rtol=2e-1)}
+#: bfloat16 attention held tighter as well: the kernel and the plain
+#: version agree in float32, so their bf16 outputs differ by at most one
+#: rounding (2^-7 relative), far inside the reference's band
+ATTN_BF16_ROUNDING = dict(atol=1e-3, rtol=1e-2)
+#: bf16 logits through 42 layers: kernels vs plain at most this many times
+#: the plain version's own spread when only its q.k sums are reordered
+LM_BF16_GAP = 1.5
 
 
 def log(*args):
@@ -256,7 +304,8 @@ def run_main_path(np, torch, device):
     wall_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     want = {"link_geometry": MAIN_T, "tropical_dp": MAIN_T * L_ALEXNET,
-            "conv2d": 0}
+            "conv2d": 0, "flash_attention": 0,
+            "decode_attention": 0}
     if launches != want:
         raise AssertionError(f"rollout launches {launches} != {want}")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -306,7 +355,8 @@ def run_main_path(np, torch, device):
     plan = fleet.plan_batch_multi(batch, n_req)
     plan_s = time.perf_counter() - t0
     plan_launches = kernels.launch_counts()
-    want = {"link_geometry": 1, "tropical_dp": L_ALEXNET, "conv2d": 0}
+    want = {"link_geometry": 1, "tropical_dp": L_ALEXNET, "conv2d": 0,
+            "flash_attention": 0, "decode_attention": 0}
     if plan_launches != want:
         raise AssertionError(f"plan_batch_multi launches {plan_launches} "
                              f"!= {want}")
@@ -581,7 +631,8 @@ def run_cnn_path(np, torch, device):
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     n_conv = sum(s.kind == "conv" for s in ALEXNET.layers)
     want = {"link_geometry": 0, "tropical_dp": 0,
-            "conv2d": n_conv * len(assigns)}
+            "conv2d": n_conv * len(assigns), "flash_attention": 0,
+            "decode_attention": 0}
     if launches != want:
         raise AssertionError(f"CNN path launches {launches} != {want}")
     for r, ((y, hand), x, a) in enumerate(zip(outs, xs, assigns)):
@@ -687,6 +738,571 @@ def time_conv2d(np, torch, device, launches, conv2_err):
     return layers, kernel_row
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path: flash and decode attention kernels, gemma2-9b
+# ---------------------------------------------------------------------------
+
+
+def attn_inputs(torch, seed, shapes, dtype, device):
+    """Standard-normal tensors of ``shapes`` drawn on the card, in
+    ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(sh, generator=gen, device=device).to(dtype)
+            for sh in shapes]
+
+
+def flash_case(torch, seed, b, h, kv, s, d, dtype, device):
+    """q, k, v as transposed views of [B, S, heads, D] tensors, the way
+    the model passes them."""
+    q, k, v = attn_inputs(torch, seed, [(b, s, h, d), (b, s, kv, d),
+                                        (b, s, kv, d)], dtype, device)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def decode_case(torch, seed, b, kv, g, s, d, dtype, device):
+    """q [B,KV,G,D]; k/v transposed views of [B, S, KV, D] caches; pos
+    with 0, S - 1 and random slots between."""
+    q, k, v = attn_inputs(torch, seed, [(b, kv, g, d), (b, s, kv, d),
+                                        (b, s, kv, d)], dtype, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    pos = torch.randint(0, s, (b,), generator=gen, device=device,
+                        dtype=torch.int32)
+    pos[0] = 0
+    pos[-1] = s - 1
+    return q, k.transpose(1, 2), v.transpose(1, 2), pos
+
+
+def check_attention_kernels(np, torch, device):
+    """Both attention kernels against their plain versions on the card,
+    float32 and bfloat16 at the reference's tolerance, two launches
+    bitwise equal: flash at the reference's kernel-test grid, at
+    gemma2-9b's prefill (B 1, H 16, KV 8, S 2048, D 256, causal, cap 50,
+    window 0 and 1024), ragged S (1, 1000) and the serving run's prefill
+    shapes (B 8 at S 1345 and 2048); decode at the reference's grid and
+    gemma2-9b's decode (B 8, KV 8, G 2, S 4096, D 256, cap 50); bfloat16
+    also within one output rounding.  Returns the max abs errors in
+    bfloat16 at the shapes phase 13 times."""
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    errs = {}
+    flash = [(1, 2, 2, 128, 32, True, 0, 0.0), (2, 4, 2, 256, 64, True, 0,
+                                                50.0),
+             (1, 2, 1, 256, 32, True, 64, 0.0), (1, 2, 2, 128, 64, False, 0,
+                                                 0.0),
+             (1, 8, 4, 384, 128, True, 128, 30.0),
+             (1, 16, 8, 2048, 256, True, 0, 50.0),
+             (1, 16, 8, 2048, 256, True, 1024, 50.0),
+             (1, 16, 8, 1, 256, True, 0, 50.0),
+             (1, 16, 8, 1000, 256, True, 0, 50.0),
+             (8, 16, 8, 1345, 256, True, 0, 50.0),
+             (8, 16, 8, 2048, 256, True, 0, 50.0)]
+    decode = [(2, 2, 4, 512, 64, 0.0), (1, 4, 1, 1024, 32, 50.0),
+              (3, 1, 8, 256, 128, 0.0), (8, 8, 2, 4096, 256, 50.0)]
+
+    def hold(got, ref, dtype):
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **ATTN_TOL[str(dtype).split(".")[1]])
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       **ATTN_BF16_ROUNDING)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (b, h, kv, s, d, causal, window, cap) in enumerate(flash):
+            q, k, v = flash_case(torch, 100 + i, b, h, kv, s, d, dtype,
+                                 device)
+            kw = dict(causal=causal, window=window, cap=cap)
+            got = flash_attention(q, k, v, **kw)
+            again = flash_attention(q, k, v, **kw)
+            ref = attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_attention {b, h, kv, s, d}: two "
+                                     f"launches differ")
+            hold(got, ref, dtype)
+            err = float((got.double() - ref.double()).abs().max())
+            if (b, s) == (8, 2048) and dtype == torch.bfloat16:
+                errs["flash_attention"] = err
+            log(f"  flash_attention {str(dtype)[6:]} B={b} H={h} KV={kv} "
+                f"S={s} D={d} causal={causal} window={window} cap={cap}: "
+                f"max abs err {err:.3g}, two launches bitwise equal")
+        for i, (b, kv, g, s, d, cap) in enumerate(decode):
+            q, k, v, pos = decode_case(torch, 200 + i, b, kv, g, s, d, dtype,
+                                       device)
+            got = decode_attention(q, k, v, pos, cap=cap)
+            again = decode_attention(q, k, v, pos, cap=cap)
+            ref = decode_ref(q, k, v, pos, cap=cap)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"decode_attention {b, kv, g, s, d}: "
+                                     f"two launches differ")
+            hold(got, ref, dtype)
+            err = float((got.double() - ref.double()).abs().max())
+            if s == 4096 and dtype == torch.bfloat16:
+                errs["decode_attention"] = err
+            log(f"  decode_attention {str(dtype)[6:]} B={b} KV={kv} G={g} "
+                f"S={s} D={d} cap={cap} pos={pos.tolist()}: max abs err "
+                f"{err:.3g}, two launches bitwise equal")
+    return errs
+
+
+class plain_attention:
+    """Inside this block a CUDA tensor takes the attention kernels' plain
+    versions (the dispatch tables' ``cuda`` entries swapped): the model
+    run through it is a comparison's other side.  ``reorder`` reverses
+    the head dimension of q and k first: the same logits, summed in
+    another order, which measures how far such rounding alone moves the
+    model's output."""
+
+    def __init__(self, reorder: bool = False):
+        self.reorder = reorder
+
+    def __enter__(self):
+        from repro_torch.kernels.decode_attention import ops as dops
+        from repro_torch.kernels.decode_attention.ref import decode_ref
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.flash_attention.ref import attention_ref
+        self.saved = [(fops._BY_DEVICE, fops._BY_DEVICE["cuda"]),
+                      (dops._BY_DEVICE, dops._BY_DEVICE["cuda"])]
+        if self.reorder:
+            def flip(x):
+                return x.flip(-1)
+
+            fops._BY_DEVICE["cuda"] = lambda q, k, v, **kw: attention_ref(
+                flip(q), flip(k), v, **kw)
+            dops._BY_DEVICE["cuda"] = lambda q, k, v, pos, **kw: decode_ref(
+                flip(q), flip(k), v, pos, **kw)
+        else:
+            fops._BY_DEVICE["cuda"] = attention_ref
+            dops._BY_DEVICE["cuda"] = decode_ref
+        return self
+
+    def __exit__(self, *exc):
+        for table, fn in self.saved:
+            table["cuda"] = fn
+        return False
+
+
+def lm_requests(np, cls, vocab, n, prompt, max_new, seed=0):
+    rng = np.random.default_rng(seed)
+    return [cls(rid=i, prompt=[int(x) for x in rng.integers(
+        2, vocab, size=int(rng.integers(prompt[0], prompt[1] + 1)))],
+        max_new=int(rng.integers(max_new[0], max_new[1] + 1)))
+        for i in range(n)]
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of a parameter or cache tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def check_reduced_lms(np, torch, device):
+    """Reduced gemma2-9b and phi4-mini in float32 on the card against the
+    CPU plain path with the same parameters: prefill (40 tokens, cache
+    48, so gemma2's 32-token window rolls) and 4 decode steps' logits
+    within atol / rtol 1e-4, then ``ContinuousBatcher`` token ids equal
+    (with an untied head: a tied random table makes greedy decoding echo
+    the last token)."""
+    import dataclasses
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.runtime.serve_loop import ContinuousBatcher, Request
+
+    def pair(cfg):
+        cpu = TransformerLM(cfg, device="cpu")
+        p_cpu = cpu.init(torch.Generator().manual_seed(0))
+        return ((cpu, p_cpu), (TransformerLM(cfg, device=device),
+                               tree_map(lambda t: t.to(device), p_cpu)))
+
+    for arch in ("gemma2-9b", "phi4-mini-3.8b"):
+        cfg = get_arch(arch).reduced()
+        (cpu, p_cpu), (gpu, p_gpu) = pair(cfg)
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 40)), dtype=torch.int32)
+        lc, cc = cpu.prefill(p_cpu, toks, 48)
+        lg, cg = gpu.prefill(p_gpu, toks.to(device), 48)
+        worst = 0.0
+        for i in range(5):
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+            if i == 4:
+                break
+            nxt = torch.argmax(lc, -1).to(torch.int32)[:, None]
+            pos = torch.full((2, 1), 40 + i, dtype=torch.int32)
+            lc, cc = cpu.decode_step(p_cpu, nxt, pos, cc)
+            lg, cg = gpu.decode_step(p_gpu, nxt.to(device), pos.to(device),
+                                     cg)
+        log(f"  {cfg.name} (window {cfg.attention.window}, 40-token prompt,"
+            f" cache 48): prefill + 4 decode logits, card vs CPU max abs "
+            f"diff {worst:.3g}")
+        untied = dataclasses.replace(cfg, tie_embeddings=False)
+        outs = []
+        for model, params in pair(untied):
+            bat = ContinuousBatcher(model, untied,
+                                    ServeConfig(max_batch=2, max_seq=64),
+                                    params)
+            for r in lm_requests(np, Request, cfg.vocab_size, 5, (4, 14),
+                                 (3, 9), seed=7):
+                bat.submit(r)
+            outs.append({r.rid: r.out for r in bat.run()})
+        if outs[0] != outs[1]:
+            raise AssertionError(f"{cfg.name}: batcher tokens differ card "
+                                 f"vs CPU: {outs}")
+        log(f"  {cfg.name} untied head, ContinuousBatcher 5 requests at "
+            f"max_batch 2: token ids equal card vs CPU "
+            f"({sum(len(v) for v in outs[0].values())} tokens)")
+
+
+class StepTimer:
+    """Wraps a batcher's prefill and decode steps: each call's wall (it
+    ends in a device synchronise), its kernel launches, and each
+    request's time to first token (the prefill that gives a request its
+    first token, from the start of ``run``).  Each call runs in the
+    profiler range ``serve.prefill`` or ``serve.decode``."""
+
+    def __init__(self, torch, batcher):
+        from repro_torch import kernels
+        self.torch, self.kernels, self.batcher = torch, kernels, batcher
+        self.prefill, self.decode, self.ttft = [], [], {}
+        self.t_start = None
+        pre, dec = batcher.prefill_step, batcher.decode_step
+        batcher.prefill_step = lambda *a: self._call("prefill", pre, a)
+        batcher.decode_step = lambda *a: self._call("decode", dec, a)
+
+    def _call(self, kind, fn, args):
+        first = [r.rid for r in self.batcher.active if not r.out]
+        before = self.kernels.launch_counts()
+        with self.torch.profiler.record_function(f"serve.{kind}"):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self.torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        after = self.kernels.launch_counts()
+        rows = args[1].shape[0] if kind == "prefill" else args[2].shape[0]
+        (self.prefill if kind == "prefill" else self.decode).append(
+            {"s": t1 - t0, "batch": rows,
+             "tokens": args[1].shape[1] if kind == "prefill" else 1,
+             "launches": {k: after[k] - before[k] for k in after}})
+        if kind == "prefill":
+            for rid in first:
+                self.ttft[rid] = t1 - self.t_start
+        return out
+
+    def run(self):
+        self.t_start = time.perf_counter()
+        return self.batcher.run()
+
+
+def serve_lm(np, torch, model, params, scfg, requests, n_layers):
+    """Serve ``requests`` through a fresh ``ContinuousBatcher`` with the
+    launch counters reset just before and read just after; every prefill
+    call must launch ``n_layers`` flash kernels and every decode step
+    ``n_layers`` decode kernels.  Returns (finished requests, timer,
+    launches, peak device MiB)."""
+    from repro_torch import kernels
+    from repro_torch.runtime.serve_loop import ContinuousBatcher
+    batcher = ContinuousBatcher(model, model.cfg, scfg, params)
+    for r in requests:
+        batcher.submit(r)
+    timer = StepTimer(torch, batcher)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    done = timer.run()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    zero = {"link_geometry": 0, "tropical_dp": 0, "conv2d": 0,
+            "flash_attention": 0, "decode_attention": 0}
+    for kind, calls, name in (("prefill", timer.prefill, "flash_attention"),
+                              ("decode", timer.decode, "decode_attention")):
+        for c in calls:
+            want = dict(zero, **{name: n_layers})
+            if c["launches"] != want:
+                raise AssertionError(f"{kind} call launched {c['launches']}"
+                                     f", want {want}")
+    want = dict(zero, flash_attention=n_layers * len(timer.prefill),
+                decode_attention=n_layers * len(timer.decode))
+    if launches != want:
+        raise AssertionError(f"serving launches {launches} != {want}")
+    if len(done) != len(requests) or any(
+            not r.done or not 1 <= len(r.out) <= r.max_new for r in done):
+        raise AssertionError("serving: a request did not finish")
+    return done, timer, launches, peak
+
+
+def lm_sides(torch, model, params, prompts, steps=4):
+    """One prefill and ``steps`` decode steps three ways on the card, same
+    weights: through the kernels, through the plain versions, and
+    through the plain versions with the q.k sums reordered.  Every side
+    decodes from a copy of the plain side's prefill cache and is fed the
+    plain side's greedy tokens, so each step compares like with like.
+    Returns the max abs logit difference from the plain side, per side,
+    over the prefill and the decode steps."""
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=model.device)
+    b, s = toks.shape
+    cache_len = s + steps
+    sides = {"kernels": contextlib.nullcontext,
+             "reordered": lambda: plain_attention(True)}
+    with plain_attention():
+        ref, cache = model.prefill(params, toks, cache_len)
+    logits = {}
+    for name, ctx in sides.items():
+        with ctx():
+            logits[name] = [model.prefill(params, toks, cache_len)[0]]
+    caches = {name: [{k: t.clone() for k, t in c.items()} for c in cache]
+              for name in sides}
+    refs = [ref]
+    nxt = torch.argmax(ref, -1).to(torch.int32)[:, None]
+    for i in range(steps):
+        pos = torch.full((b, 1), s + i, dtype=torch.int32,
+                         device=model.device)
+        with plain_attention():
+            ref, cache = model.decode_step(params, nxt, pos, cache)
+        refs.append(ref)
+        for name, ctx in sides.items():
+            with ctx():
+                out, caches[name] = model.decode_step(params, nxt, pos,
+                                                      caches[name])
+            logits[name].append(out)
+        nxt = torch.argmax(ref, -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    diff = {name: max(float((a.float() - r.float()).abs().max())
+                      for a, r in zip(outs, refs))
+            for name, outs in logits.items()}
+    return diff, logits["kernels"], refs
+
+
+def check_lm_kernels_vs_plain(torch, model, params, prompts):
+    """The kernels against the plain versions inside the full model, in
+    its bfloat16 and with the same weights in float32.  In float32 the
+    logits must agree within atol 1e-2, rtol 1e-3; in bfloat16 the
+    difference must stay within ``LM_BF16_GAP`` times what reordering the
+    plain version's sums alone gives (one bf16 ulp of an activation,
+    carried through 42 layers).  Returns both."""
+    import dataclasses
+    from repro_torch.models.transformer import TransformerLM
+    out = {}
+    bf16, _, _ = lm_sides(torch, model, params, prompts)
+    if not bf16["kernels"] <= LM_BF16_GAP * bf16["reordered"]:
+        raise AssertionError(
+            f"bfloat16 logits: kernels {bf16['kernels']} from plain, more "
+            f"than {LM_BF16_GAP} x the reordered plain {bf16['reordered']}")
+    out["bfloat16"] = bf16
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    model32 = TransformerLM(cfg32, device=model.device)
+
+    params32 = tree_map(lambda t: t.float(), params)
+    fp32, got, ref = lm_sides(torch, model32, params32, prompts)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=1e-2, rtol=1e-3)
+    out["float32"] = fp32
+    del params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
+
+
+def run_lm_path(np, torch, device):
+    """gemma2-9b at full width on the card: seeded bfloat16 weights, 12
+    requests (prompts 256-1536 tokens, max_new 8-40) through
+    ``ContinuousBatcher`` at max_batch 8, max_seq 4096, greedy; then one
+    6144-token request at max_seq 8192 (the 4096 window bites in prefill,
+    local layers decode from a rolling cache); then the kernels against
+    the plain versions inside the model."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import Request
+    cfg = get_arch(LM_ARCH)
+    model = build_model(cfg, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    w_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    log(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters, {w_gb:.2f} GB "
+        f"held, initialised on the card in {init_s:.2f} s")
+    scfg = ServeConfig(max_batch=LM_BATCH, max_seq=LM_MAX_SEQ)
+    # warm-up: cuBLAS handles and the kernels' first launches
+    serve_lm(np, torch, model, params, scfg, lm_requests(
+        np, Request, cfg.vocab_size, 2, (64, 64), (3, 3), seed=99),
+        cfg.n_layers)
+    reqs = lm_requests(np, Request, cfg.vocab_size, LM_REQUESTS, LM_PROMPT,
+                       LM_MAX_NEW)
+    t0 = time.perf_counter()
+    done, timer, launches, peak = serve_lm(np, torch, model, params, scfg,
+                                           reqs, cfg.n_layers)
+    wall = time.perf_counter() - t0
+    pre = [c["s"] for c in timer.prefill]
+    dec = [c["s"] for c in timer.decode]
+    dec_tokens = sum(c["batch"] for c in timer.decode)
+    ttft = [timer.ttft[r.rid] for r in sorted(done, key=lambda r: r.rid)]
+    lm = {"model": cfg.name, "requests": len(done),
+          "prompt_tokens": sum(len(r.prompt) for r in reqs),
+          "generated_tokens": sum(len(r.out) for r in done),
+          "prefill_calls": len(pre), "decode_steps": len(dec),
+          "prefill_shapes": [[c["batch"], c["tokens"]]
+                             for c in timer.prefill],
+          "prefill_s_median": pct(pre, 50), "prefill_s_max": max(pre),
+          "decode_step_ms_min": min(dec) * 1e3,
+          "decode_step_ms_median": pct(dec, 50) * 1e3,
+          "decode_step_ms_max": max(dec) * 1e3,
+          "decode_tokens_per_s": dec_tokens / sum(dec),
+          "ttft_s": ttft, "ttft_s_median": pct(ttft, 50),
+          "wall_s": wall, "tokens_per_s": sum(len(r.out) for r in done) / wall,
+          "peak_gib": peak / 1024, "launches": launches,
+          "init_s": init_s, "weights_gb": w_gb}
+    log(f"  served {len(done)} requests ({lm['prompt_tokens']} prompt "
+        f"tokens, {lm['generated_tokens']} generated) in {wall:.2f} s: "
+        f"{len(pre)} prefill calls (batch x tokens "
+        f"{lm['prefill_shapes']}), {len(dec)} decode steps; launches "
+        f"{launches} ({cfg.n_layers} flash per prefill, {cfg.n_layers} "
+        f"decode per step)")
+    log(f"  prefill wall median {lm['prefill_s_median']:.3f} s, max "
+        f"{max(pre):.3f} s; decode step min / median / max "
+        f"{lm['decode_step_ms_min']:.2f} / "
+        f"{lm['decode_step_ms_median']:.2f} / "
+        f"{lm['decode_step_ms_max']:.2f} ms; {lm['decode_tokens_per_s']:.1f}"
+        f" decode tokens/s; TTFT median {lm['ttft_s_median']:.3f} s "
+        f"(per request {[round(x, 3) for x in ttft]}); peak device memory "
+        f"{lm['peak_gib']:.2f} GiB")
+
+    long_req = lm_requests(np, Request, cfg.vocab_size, 1,
+                           (LONG_PROMPT, LONG_PROMPT),
+                           (LONG_MAX_NEW, LONG_MAX_NEW), seed=1)
+    done, lt, l_launches, l_peak = serve_lm(
+        np, torch, model, params,
+        ServeConfig(max_batch=1, max_seq=LONG_MAX_SEQ), long_req,
+        cfg.n_layers)
+    l_dec = [c["s"] for c in lt.decode]
+    lm["long"] = {"prompt_tokens": LONG_PROMPT, "max_seq": LONG_MAX_SEQ,
+                  "generated_tokens": len(done[0].out),
+                  "prefill_s": lt.prefill[0]["s"],
+                  "decode_step_ms_median": pct(l_dec, 50) * 1e3
+                  if l_dec else None,
+                  "launches": l_launches, "peak_gib": l_peak / 1024}
+    log(f"  {LONG_PROMPT}-token request at max_seq {LONG_MAX_SEQ}: prefill "
+        f"{lt.prefill[0]['s']:.3f} s, {len(l_dec)} decode steps median "
+        f"{lm['long']['decode_step_ms_median']} ms, launches {l_launches}, "
+        f"peak {l_peak / 1024:.2f} GiB")
+
+    del timer, lt            # they hold the batchers, which hold params
+    prompts = np.stack([np.asarray(r.prompt[:LM_CHECK_TOKENS], np.int32)
+                        for r in reqs
+                        if len(r.prompt) >= LM_CHECK_TOKENS][:2])
+    diffs = check_lm_kernels_vs_plain(torch, model, params, prompts)
+    lm["kernels_vs_plain_max_abs_logit_diff"] = diffs
+    for dt, d in diffs.items():
+        log(f"  {dt}: B={len(prompts)} x {LM_CHECK_TOKENS}-token prefill + "
+            f"4 decode steps, max abs logit diff from the plain versions: "
+            f"kernels {d['kernels']:.4g}, plain with reordered sums "
+            f"{d['reordered']:.4g}"
+            + (" (held within atol 1e-2, rtol 1e-3)" if dt == "float32"
+               else f" (held within {LM_BF16_GAP} x the reordered)"))
+    del params
+    torch.cuda.empty_cache()
+    return lm
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def time_attention(torch, device, lm_launches, attn_errs):
+    """Both attention kernels at gemma2-9b's shapes in bfloat16 (flash:
+    B 8, H 16, KV 8, S 2048, D 256, causal, cap 50; decode: B 8, KV 8,
+    G 2, a 4096-slot cache all valid, cap 50) beside their plain versions
+    and ``F.scaled_dot_product_attention`` (no softcap: the cap-0
+    variant), with the bound from this run's shapes.  Returns the two
+    ``kernels`` rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    bf = torch.bfloat16
+    B, H, KV, S, D, cap = 8, 16, 8, 2048, 256, 50.0
+    q, k, v = flash_case(torch, 300, B, H, KV, S, D, bf, device)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    pairs = S * (S + 1) // 2                       # causal (q, k) pairs
+    f_ops = 4 * B * H * D * pairs
+    f_bytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+    G, SC = H // KV, 4096
+    dq, dk, dv, _ = decode_case(torch, 301, B, KV, G, SC, D, bf, device)
+    pos = torch.full((B,), SC - 1, dtype=torch.int32, device=device)
+    d_ops = 4 * B * KV * G * D * SC
+    d_bytes = 2 * (2 * B * KV * G * D + 2 * B * KV * SC * D) + 4 * B
+    dq_h = dq.reshape(B, H, 1, D)
+    cases = [
+        ("flash_attention", "src/repro/kernels/flash_attention/"
+         "flash_attention.py:86",
+         lambda: flash_attention(q, k, v, causal=True, cap=cap),
+         lambda: attention_ref(q, k, v, causal=True, cap=cap),
+         lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                                enable_gqa=True),
+         f_bytes, f_ops, 3, [B, H, KV, S, D]),
+        ("decode_attention", "src/repro/kernels/decode_attention/"
+         "decode_attention.py:68",
+         lambda: decode_attention(dq, dk, dv, pos, cap=cap),
+         lambda: decode_ref(dq, dk, dv, pos, cap=cap),
+         lambda: F.scaled_dot_product_attention(dq_h, dk, dv,
+                                                enable_gqa=True),
+         d_bytes, d_ops, 20, [B, KV, G, SC, D]),
+    ]
+    rows = []
+    for name, replaces, kern, plain, lib, nbytes, nops, iters, shape in \
+            cases:
+        ms = time_ms(torch, kern, iters, graph=True)
+        eager_ms = time_ms(torch, kern, iters, graph=False)
+        plain_ms = time_ms(torch, plain, iters, graph=True)
+        plain_eager_ms = time_ms(torch, plain, iters, graph=False)
+        lib_ms = time_ms(torch, lib, iters, graph=True)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / BF16_OPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": lm_launches[name],
+            "max_abs_err": attn_errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "library": "F.scaled_dot_product_attention"
+            " (enable_gqa, no softcap)", "eager_ms": eager_ms,
+            "plain_eager_ms": plain_eager_ms, "shape": shape,
+            "dtype": "bfloat16", "bytes": nbytes, "operations": nops,
+            "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6})
+        log(f"  {name} {shape} bf16: {ms:.4f} ms in a graph, {eager_ms:.4f}"
+            f" ms eager ({nops / ms / 1e9:.2f} TFLOP/s, "
+            f"{nbytes / ms / 1e6:.1f} GB/s); plain {plain_ms:.4f} ms "
+            f"({plain_eager_ms:.4f} eager); SDPA (cap 0) {lib_ms:.4f} ms; "
+            f"bound {max(t_bytes, t_ops):.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -729,8 +1345,18 @@ def main() -> int:
     layers, conv_row = time_conv2d(np, torch, device, cnn_launches,
                                    conv2_err)
     rows.append(conv_row)
+    log("[10] attention kernels against their plain versions on the card")
+    attn_errs = check_attention_kernels(np, torch, device)
+    log("[11] reduced LMs: card against the CPU plain path")
+    check_reduced_lms(np, torch, device)
+    log(f"[12] LM serving path: {LM_ARCH} at full width through "
+        f"ContinuousBatcher")
+    lm = run_lm_path(np, torch, device)
+    log("[13] attention kernel times (CUDA events), gemma2-9b shapes")
+    rows += time_attention(torch, device, lm["launches"], attn_errs)
 
     print(json.dumps({"cnn_path": cnn}))
+    print(json.dumps({"lm_serve": lm}))
     print(json.dumps({"conv2d_layers": layers}))
     print(json.dumps({"kernels": rows}))
     print(smi)

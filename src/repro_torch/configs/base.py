@@ -1,7 +1,9 @@
-"""CNN config dataclasses: the paper's eq. (1)-(3) layer parameterization."""
+"""Config dataclasses: the paper's CNNs (eq. (1)-(3) layer
+parameterization), the served LM architectures and the serving loop."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Tuple
 
 
@@ -34,4 +36,104 @@ class CNNConfig:
         return "cnn"
 
 
-__all__ = ["ConvLayerSpec", "CNNConfig"]
+# ---------------------------------------------------------------------------
+# LM architecture config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block shape (no served family has one yet; the
+    reference's routing knobs come with the MoE slice)."""
+
+    n_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0          # per-expert hidden size
+
+    @property
+    def enabled(self) -> bool:
+        return self.n_experts > 0
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    """Attention block parameters (full / local / alternating)."""
+
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    qkv_bias: bool = False
+    logit_softcap: float = 0.0        # gemma2: 50.0 on attention logits
+    window: int = 0                    # sliding window size; 0 = full
+    # pattern over layers: 'full', 'local', 'alternating' (gemma2 L/G),
+    # 'griffin' (2 recurrent : 1 local-attn)
+    pattern: str = "full"
+    rope_theta: float = 10000.0
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """Architecture of one LM: the reference's fields that the served
+    families read.  The reference's fields of the families still to port
+    (griffin, whisper, the VLM), of training and of its dry-run shapes
+    come with those slices, and its parameter count (``n_params``) with
+    the architecture cost model (ROADMAP queue 1 items 2 and 14)."""
+
+    name: str
+    family: str                 # dense | ssm | hybrid | audio | vlm | moe
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attention: AttentionConfig = field(default_factory=AttentionConfig)
+    moe: MoEConfig = field(default_factory=MoEConfig)
+
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    final_logit_softcap: float = 0.0   # gemma2: 30.0
+    act: str = "silu"                  # mlp activation ('silu'|'gelu'|'relu')
+    glu: bool = True                   # gated MLP (SwiGLU/GeGLU)
+    xlstm_mlstm_every: int = 2         # xlstm: one mLSTM block every n
+    dtype: str = "bfloat16"            # compute (and weight matrix) dtype
+
+    @property
+    def head_dim(self) -> int:
+        a = self.attention
+        if a.head_dim:
+            return a.head_dim
+        return self.d_model // max(a.n_heads, 1)
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU tests (the reference's rule for
+        the attention families: <= 4 heads of width 16, <= 4 layers,
+        d_ff 128, vocab 256, window <= 32, float32)."""
+        a = self.attention
+        heads = min(a.n_heads, 4) or 4
+        kv = max(1, min(a.n_kv_heads, heads))
+        if a.n_kv_heads and a.n_kv_heads < a.n_heads:
+            kv = max(1, heads // 2)     # GQA stays GQA
+        red_attn = dataclasses.replace(
+            a, n_heads=heads, n_kv_heads=kv, head_dim=16,
+            window=min(a.window, 32) if a.window else 0)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=min(self.n_layers, 4),
+            d_model=heads * 16,
+            d_ff=128,
+            vocab_size=256,
+            attention=red_attn,
+            dtype="float32",
+        )
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_batch: int = 8
+    max_seq: int = 2048
+    eos_id: int = 1
+    temperature: float = 0.0
+
+
+__all__ = ["ArchConfig", "AttentionConfig", "CNNConfig", "ConvLayerSpec",
+           "MoEConfig", "ServeConfig"]

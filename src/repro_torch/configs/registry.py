@@ -1,0 +1,29 @@
+"""``get_arch(name)``: the architectures the port serves so far (the dense
+LMs and the paper's CNNs), by their reference ids."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Union
+
+from repro_torch.configs.base import ArchConfig, CNNConfig
+
+_MODULES: Dict[str, str] = {
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+}
+_CNNS = {"lenet": "LENET", "alexnet": "ALEXNET"}
+
+
+def get_arch(name: str) -> Union[ArchConfig, CNNConfig]:
+    if name in _CNNS:
+        return getattr(importlib.import_module(f"repro_torch.configs.{name}"),
+                       _CNNS[name])
+    if name not in _MODULES:
+        raise KeyError(f"unknown or unported arch {name!r}; ported: "
+                       f"{sorted(_MODULES) + sorted(_CNNS)}")
+    return importlib.import_module(_MODULES[name]).CONFIG
+
+
+__all__ = ["get_arch"]

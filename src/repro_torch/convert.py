@@ -10,15 +10,17 @@ the same problem, so both packages plan identical inputs.  Rollout state
 and random streams cross as numpy arrays: ``FleetRollout.run`` makes its
 host draws in the reference's order.  ``cnn_params_from_arrays`` carries
 a CNN's parameters (HWIO conv filters, [in, out] FC weights, as numpy
-arrays) into the port's tensors, so both packages run the same network.
+arrays) into the port's tensors, so both packages run the same network;
+``lm_params_from_arrays`` does the same for an LM's parameter tree.
 """
 from __future__ import annotations
 
-from typing import List, Mapping, Optional, Sequence
+from typing import Any, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.channel import RadioParams
 from repro_torch.core.cost_model import LayerCost, ModelCost
 from repro_torch.core.placement import Device
@@ -92,5 +94,53 @@ def cnn_params_from_arrays(arrays: Sequence[Mapping],
              for k, v in layer.items()} for layer in arrays]
 
 
+#: leaves the port holds in float32 whatever the compute dtype: norm
+#: scales and the qkv biases (the reference casts them at use too)
+_FLOAT32_LEAVES = ("scale", "bq", "bk", "bv")
+
+
+def lm_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
+                          device: DeviceLike = None) -> dict:
+    """A reference ``TransformerLM`` parameter tree as numpy arrays
+    (``embed``, ``final_norm``, ``blocks`` stacked per period slot
+    ``b0``, ``b1``, ..., optional ``rem`` and ``head``) -> the port's
+    parameters on ``device``: the same dict with ``layers`` in layer
+    order, layer ``j * period + i`` from ``blocks["b{i}"][j]`` (for
+    gemma2's alternating stack ``b0`` holds the local layers 0, 2, ...
+    and ``b1`` the global 1, 3, ...), then the ``rem`` layers.  Matrices
+    are cast to ``cfg.dtype``; norm scales and qkv biases stay float32."""
+    dev = resolve_device(device)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+    def leaf(name, a):
+        dt = torch.float32 if name in _FLOAT32_LEAVES else dtype
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
+
+    def tree(t, name=""):
+        if isinstance(t, Mapping):
+            return {k: tree(v, k) for k, v in t.items()}
+        return leaf(name, t)
+
+    def slice_j(t, j):
+        if isinstance(t, Mapping):
+            return {k: slice_j(v, j) for k, v in t.items()}
+        return np.asarray(t)[j]
+
+    blocks = arrays["blocks"]
+    period = len(blocks)
+    n_full = len(np.asarray(blocks["b0"]["ln1"]["scale"]))
+    layers = [tree(slice_j(blocks[f"b{i}"], j)) for j in range(n_full)
+              for i in range(period)]
+    layers += [tree(r) for r in arrays.get("rem", [])]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers in the tree, config has "
+                         f"{cfg.n_layers}")
+    out = {"embed": tree(arrays["embed"]),
+           "final_norm": tree(arrays["final_norm"]), "layers": layers}
+    if "head" in arrays:
+        out["head"] = tree(arrays["head"])
+    return out
+
+
 __all__ = ["ARRAY_KEYS", "cnn_params_from_arrays", "engine_arrays",
-           "engine_from_arrays", "fleet_from_arrays"]
+           "engine_from_arrays", "fleet_from_arrays", "lm_params_from_arrays"]

@@ -1,4 +1,5 @@
-"""Per-layer CNN cost model — the paper's eq. (1)-(3), exactly.
+"""Per-layer CNN cost model — the paper's eq. (1)-(3), exactly — and the
+block kind sequence of an LM stack (``_block_kinds``).
 
 P3 only needs, for every layer j:
   c_j  — compute load (multiplications)                eq. (1)/(2)
@@ -10,7 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
-from repro_torch.configs.base import CNNConfig
+from repro_torch.configs.base import ArchConfig, CNNConfig
 
 
 @dataclass(frozen=True)
@@ -84,6 +85,27 @@ def cnn_cost(cfg: CNNConfig, act_bits_per_elem: int = 32) -> ModelCost:
             raise ValueError(f"unknown layer kind {spec.kind}")
     input_bits = float(cfg.input_hw ** 2 * cfg.input_channels * 8)  # 8-bit px
     return ModelCost(cfg.name, tuple(layers), input_bits)
+
+
+def _block_kinds(cfg: ArchConfig) -> List[str]:
+    """Per-layer block kind sequence of an LM stack (the reference's
+    ``core/cost_model.py::_block_kinds``): the same strings name the
+    planner's units and the model's blocks."""
+    kinds: List[str] = []
+    pat = cfg.attention.pattern
+    for i in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            kinds.append("mlstm" if (i % cfg.xlstm_mlstm_every)
+                         == cfg.xlstm_mlstm_every - 1 else "slstm")
+        elif pat == "griffin":
+            kinds.append("attn_local" if i % 3 == 2 else "rglru")
+        elif pat == "alternating":
+            kinds.append("attn_local" if i % 2 == 0 else "attn_full")
+        elif pat == "local":
+            kinds.append("attn_local")
+        else:
+            kinds.append("attn_full")
+    return kinds
 
 
 __all__ = ["LayerCost", "ModelCost", "cnn_cost"]

@@ -13,10 +13,15 @@ from typing import Dict
 
 def _wrappers():
     from repro_torch.kernels.conv2d.conv2d import matmul_bias_act
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
     from repro_torch.kernels.tropical_dp.tropical_dp import tropical_dp_step
     return {"link_geometry": link_geometry, "tropical_dp": tropical_dp_step,
-            "conv2d": matmul_bias_act}
+            "conv2d": matmul_bias_act, "flash_attention": flash_attention,
+            "decode_attention": decode_attention}
 
 
 def launch_counts() -> Dict[str, int]:

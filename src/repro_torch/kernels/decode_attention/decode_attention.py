@@ -1,0 +1,79 @@
+"""CUDA wrapper for one decode step's attention
+(``csrc/decode_attention.cu``).
+
+Replaces the Pallas kernel ``src/repro/kernels/decode_attention/
+decode_attention.py`` (``decode_attention``): one query token per
+sequence, its G = H / KV query heads packed per kv head, against the KV
+cache with an online softmax over the slots; slot ``s`` of sequence
+``b`` is valid iff ``s <= pos[b]``; optional tanh softcap; float32 math
+from float32 or bfloat16 inputs, output in ``q.dtype``.  Bound by bytes
+(the cache rows up to ``pos[b]``, read once); the kernel is one block per
+(b, kv head) that reads only the slots ``<= pos[b]`` (the rest carry
+zero weight), deterministic launch to launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.flash_attention import (
+    HEAD_DIMS, check_operand)
+
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 6 + [ctypes.c_float] * 2
+             + [ctypes.c_void_p])
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GROUP = 8          # query heads per kv head the kernel holds
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, *,
+                     cap: float = 0.0) -> torch.Tensor:
+    """q [B,KV,G,D] contiguous (G <= 8; D in 16, 32, 64, 128, 256); k/v
+    [B,KV,S,D] (strided views allowed with D contiguous); pos [B] int32;
+    float32 or bfloat16, all on one CUDA device -> [B,KV,G,D] in
+    ``q.dtype``, on the current stream without synchronising."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or pos.dim() != 1:
+        raise ValueError(f"decode_attention: want q [B,KV,G,D], k/v "
+                         f"[B,KV,S,D], pos [B]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(pos.shape)}")
+    B, KV, G, D = q.shape
+    S = k.shape[2]
+    if q.dtype not in _DTYPES or D not in HEAD_DIMS or not \
+            1 <= G <= MAX_GROUP:
+        raise ValueError(f"decode_attention: dtype {q.dtype} (want float32 "
+                         f"or bfloat16), head dim {D} (want {HEAD_DIMS}), "
+                         f"group {G} (want 1..{MAX_GROUP})")
+    if not q.is_contiguous():
+        raise ValueError("decode_attention: q must be contiguous")
+    check_operand("decode_attention", "q", q, q, (B, KV, G, D), 8)
+    for name, t in (("k", k), ("v", v)):
+        check_operand("decode_attention", name, t, q, (B, KV, S, D), 8)
+    if pos.device != q.device or pos.dtype != torch.int32 or \
+            tuple(pos.shape) != (B,) or not pos.is_contiguous():
+        raise ValueError(f"decode_attention: pos must be a contiguous CUDA "
+                         f"int32 tensor of shape ({B},) on {q.device}; got "
+                         f"{pos.device} {pos.dtype} {tuple(pos.shape)}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    scale = 1.0 / math.sqrt(D)
+    lib = _build.load("decode_attention")
+    fn = lib.repro_decode_attention
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+                 out.data_ptr(), B, KV, G, S, D, _DTYPES[q.dtype],
+                 *k.stride()[:3], *v.stride()[:3], float(scale), float(cap),
+                 stream)
+    _build.check_launch(lib, "decode_attention", err)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

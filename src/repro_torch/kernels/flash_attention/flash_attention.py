@@ -1,0 +1,85 @@
+"""CUDA wrapper for prefill attention (``csrc/flash_attention.cu``).
+
+Replaces the Pallas kernel ``src/repro/kernels/flash_attention/
+flash_attention.py`` (``flash_attention``): online-softmax attention
+with a causal mask, a sliding window and a tanh logit softcap, GQA by
+``kv head = h // (H / KV)``, masked positions at ``-1e30`` and the
+running sum clamped at ``1e-30``; float32 math from float32 or bfloat16
+inputs, output in ``q.dtype``.  Bound by operations at the serving
+shapes (4 B H S^2 D / 2 flops for causal rows); the kernel is a SIMT
+tile of 64 query rows per block with the kv-tile loop inside, kv tiles
+wholly above the diagonal or outside the window skipped (exact: they
+carry zero weight), deterministic launch to launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def check_operand(fn: str, name: str, t: torch.Tensor, ref: torch.Tensor,
+                  shape, vec: int) -> None:
+    """Raise unless ``t`` is a CUDA tensor on ``ref``'s device, of its
+    dtype and of ``shape``, with the last dim contiguous and rows of
+    ``vec`` elements aligned for vector loads (any strides above that)."""
+    item = t.element_size()
+    if t.device != ref.device or t.device.type != "cuda" or \
+            t.dtype != ref.dtype or tuple(t.shape) != tuple(shape) or \
+            t.stride(-1) != 1 or t.data_ptr() % (vec * item) or \
+            any(st % vec for st in t.stride()[:-1]):
+        raise ValueError(
+            f"{fn}: {name} must be a CUDA {ref.dtype} tensor of shape "
+            f"{tuple(shape)} on {ref.device} with the last dim contiguous "
+            f"and strides a multiple of {vec}; got {t.device} {t.dtype} "
+            f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    cap: float = 0.0) -> torch.Tensor:
+    """q [B,H,S,D]; k/v [B,KV,S,D] (KV divides H; D in 16, 32, 64, 128, 256;
+    float32 or bfloat16, all one dtype, on one CUDA device; strided views
+    allowed with D contiguous) -> [B,H,S,D] contiguous, in ``q.dtype``,
+    on the current stream without synchronising."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention: want q [B,H,S,D], k/v "
+                         f"[B,KV,S,D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    if q.dtype not in _DTYPES or D not in HEAD_DIMS or KV < 1 or H % KV:
+        raise ValueError(f"flash_attention: dtype {q.dtype} (want float32 "
+                         f"or bfloat16), head dim {D} (want {HEAD_DIMS}), "
+                         f"{H} heads over {KV} kv heads")
+    for name, t, shape in (("q", q, (B, H, S, D)), ("k", k, (B, KV, S, D)),
+                           ("v", v, (B, KV, S, D))):
+        check_operand("flash_attention", name, t, q, shape, 4)
+    out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    scale = 1.0 / math.sqrt(D)
+    lib = _build.load("flash_attention")
+    fn = lib.repro_flash_attention
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, H, KV, S, D, _DTYPES[q.dtype],
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 int(causal), int(window), float(scale), float(cap), stream)
+    _build.check_launch(lib, "flash_attention", err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

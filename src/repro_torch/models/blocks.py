@@ -1,0 +1,148 @@
+"""Residual block kinds of the served LMs, with the reference's kind
+strings (``core.cost_model._block_kinds``), so the planner's units and the
+model's blocks agree.
+
+``apply(params, x, state, ctx) -> (x, new_state)``; ``ctx.mode`` is
+``prefill`` or ``decode``.  Only the attention blocks (``attn_full``,
+``attn_local``) with a dense MLP are ported; the recurrent kinds and MoE
+blocks raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import mlp, mlp_init, rmsnorm, rmsnorm_init
+
+Params = Dict[str, Any]
+
+#: block kinds and families that later slices port, with where they wait
+LATER = {
+    "rglru": "ROADMAP queue 1 item 14 (recurrent blocks) and queue 2 "
+             "item 7 (rglru_scan)",
+    "slstm": "ROADMAP queue 1 item 14 (recurrent blocks)",
+    "mlstm": "ROADMAP queue 1 item 14 (recurrent blocks) and queue 2 "
+             "item 8 (mlstm_chunk)",
+    "moe": "ROADMAP queue 1 item 14 (MoE blocks) and queue 2 item 6 "
+           "(moe_matmul)",
+}
+
+
+class Ctx(NamedTuple):
+    cfg: ArchConfig
+    mode: str                   # 'prefill' | 'decode'
+    pos: torch.Tensor           # [B, S] int32
+    cache_len: int = 0          # decode cache size (flat)
+
+
+def _norms_init(cfg: ArchConfig, post: bool, device) -> Params:
+    p = {"ln1": rmsnorm_init(cfg.d_model, device),
+         "ln2": rmsnorm_init(cfg.d_model, device)}
+    if post:
+        p["ln1p"] = rmsnorm_init(cfg.d_model, device)
+        p["ln2p"] = rmsnorm_init(cfg.d_model, device)
+    return p
+
+
+def _post(p: Params, name: str, x: torch.Tensor, cfg: ArchConfig):
+    return rmsnorm(p[name], x, cfg.norm_eps) if name in p else x
+
+
+def _attn_block_init(cfg: ArchConfig, generator: torch.Generator,
+                     dtype: torch.dtype) -> Params:
+    if cfg.moe.enabled:
+        raise NotImplementedError(f"MoE blocks wait for {LATER['moe']}")
+    a = cfg.attention
+    # gemma2 style post-norms exist only with an attention softcap
+    p = _norms_init(cfg, post=a.logit_softcap > 0, device=generator.device)
+    p["attn"] = attn_mod.attn_init(cfg.d_model, a.n_heads, a.n_kv_heads,
+                                   cfg.head_dim, a.qkv_bias, generator,
+                                   dtype)
+    if cfg.d_ff:
+        p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, cfg.glu, generator, dtype)
+    return p
+
+
+def _attn_window(cfg: ArchConfig, local: bool) -> int:
+    return cfg.attention.window if local else 0
+
+
+def _attn_block_apply(local: bool) -> Callable:
+    def apply(p: Params, x: torch.Tensor, state, ctx: Ctx):
+        cfg = ctx.cfg
+        a = cfg.attention
+        win = _attn_window(cfg, local)
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        if ctx.mode == "decode":
+            y, new_state = attn_mod.decode_attention(
+                p["attn"], h, ctx.pos, state, window=win,
+                cap=a.logit_softcap, theta=a.rope_theta)
+        else:
+            y, k, v = attn_mod.attention(
+                p["attn"], h, ctx.pos, window=win, cap=a.logit_softcap,
+                theta=a.rope_theta)
+            new_state = _prefill_cache(k, v, ctx, win)
+        x = x + _post(p, "ln1p", y, cfg)
+        if cfg.d_ff:
+            y2 = mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act,
+                     cfg.glu)
+            x = x + _post(p, "ln2p", y2, cfg)
+        return x, new_state
+    return apply
+
+
+def _prefill_cache(k: torch.Tensor, v: torch.Tensor, ctx: Ctx,
+                   win: int) -> Dict[str, torch.Tensor]:
+    """Lay the prompt's rotated K/V out as a decode-ready cache: the
+    last ``size`` positions rolled into their ``pos % size`` slots for a
+    rolling cache the prompt fills, else zero-padded (or cut) to size."""
+    s = k.shape[1]
+    size = min(win, ctx.cache_len) if win else ctx.cache_len
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        if win and s >= size:
+            t = torch.roll(t[:, -size:], s % size, dims=1)
+        elif s < size:
+            t = torch.cat([t, t.new_zeros((t.shape[0], size - s)
+                                          + t.shape[2:])], dim=1)
+        else:
+            t = t[:, :size]
+        out[name] = t.contiguous()
+    return out
+
+
+def _attn_state_init(local: bool) -> Callable:
+    def init(cfg: ArchConfig, batch: int, dtype, cache_len: int, device):
+        return attn_mod.init_cache(batch, cache_len,
+                                   cfg.attention.n_kv_heads, cfg.head_dim,
+                                   _attn_window(cfg, local), dtype, device)
+    return init
+
+
+class BlockDef(NamedTuple):
+    init: Any
+    apply: Any
+    state_init: Any
+
+
+BLOCK_KINDS: Dict[str, BlockDef] = {
+    "attn_full": BlockDef(_attn_block_init, _attn_block_apply(False),
+                          _attn_state_init(False)),
+    "attn_local": BlockDef(_attn_block_init, _attn_block_apply(True),
+                           _attn_state_init(True)),
+}
+
+
+def block_def(kind: str) -> BlockDef:
+    """The block of ``kind``; a kind not ported yet raises, naming the
+    ROADMAP item it waits for."""
+    if kind in LATER:
+        raise NotImplementedError(f"block kind {kind!r} waits for "
+                                  f"{LATER[kind]}")
+    return BLOCK_KINDS[kind]
+
+
+__all__ = ["BLOCK_KINDS", "BlockDef", "Ctx", "LATER", "block_def"]

@@ -1,0 +1,133 @@
+"""Shared LM building blocks on tensors, the serving subset of the
+reference's ``models/layers.py``: initialisers, ``rmsnorm``, the (gated)
+MLP, rotary embeddings, ``softcap``, the embedding lookup and the LM head.
+
+Parameters are dicts of tensors in the reference's layouts (``dense``
+weights ``[d_in, d_out]``, the embedding table ``[V, d]``).  Each weight
+is cast to the activation's dtype at use, as the reference does, so a
+matrix held in the compute dtype gives the same result as an fp32 one
+cast there.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+
+
+def truncated_normal(shape, scale: float, generator: torch.Generator,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, 1) truncated to [-2, 2], times ``scale``, drawn in float32 on
+    the generator's device and then cast to ``dtype``."""
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return w.mul_(scale).to(dtype)
+
+
+def dense_init(d_in: int, d_out: int, generator: torch.Generator,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return truncated_normal((d_in, d_out), 1.0 / math.sqrt(d_in), generator,
+                            dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norm, MLP
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, device) -> Params:
+    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in float32 with gemma's ``(1 + scale)``, cast back."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + p["scale"])).to(dt)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")    # jax.nn.gelu's default
+
+
+_ACT = {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}
+
+
+def mlp_init(d: int, d_ff: int, glu: bool, generator: torch.Generator,
+             dtype: torch.dtype) -> Params:
+    p = {"w_in": dense_init(d, d_ff, generator, dtype),
+         "w_out": dense_init(d_ff, d, generator, dtype)}
+    if glu:
+        p["w_gate"] = dense_init(d, d_ff, generator, dtype)
+    return p
+
+
+def mlp(p: Params, x: torch.Tensor, act: str, glu: bool) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ p["w_in"].to(dt)
+    if glu:
+        h = _ACT[act](x @ p["w_gate"].to(dt)) * h
+    else:
+        h = _ACT[act](h)
+    return h @ p["w_out"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x [B, S, H, D]; pos [B, S].  Rotates the two halves of the head
+    (not interleaved pairs), in float32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # [D/2]
+    angles = pos[..., None].to(torch.float32) * freqs          # [B, S, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def embed_init(vocab: int, d: int, generator: torch.Generator,
+               dtype: torch.dtype) -> Params:
+    return {"table": truncated_normal((vocab, d), 1.0, generator, dtype)}
+
+
+def embed_lookup(p: Params, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    return F.embedding(tokens, p["table"].to(dtype))
+
+
+def lm_head(table_or_w: torch.Tensor, x: torch.Tensor,
+            final_cap: float = 0.0) -> torch.Tensor:
+    """x [..., d] @ table [V, d]^T, then the final logit softcap."""
+    return softcap(x @ table_or_w.to(x.dtype).T, final_cap)
+
+
+__all__ = ["apply_rope", "dense_init", "embed_init", "embed_lookup",
+           "lm_head", "mlp", "mlp_init", "rmsnorm", "rmsnorm_init",
+           "rope_freqs", "softcap", "truncated_normal"]

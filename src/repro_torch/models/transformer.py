@@ -1,0 +1,137 @@
+"""Layer-stacked LM for the dense families (minicpm, phi4, qwen1.5,
+gemma2's alternating local/global attention with softcaps), served
+through ``prefill`` and ``decode_step``.
+
+The kind sequence comes from ``core.cost_model._block_kinds``, as in the
+reference.  Parameters are a dict with ``embed`` (``table [V, d]``),
+``final_norm``, ``head`` (untied only) and ``layers``, a list of one
+block's params per layer in layer order; the reference stacks layers per
+period slot instead (``convert.lm_params_from_arrays`` interleaves).
+Weight matrices are held in the compute dtype (``cfg.dtype``), norm
+scales and qkv biases in float32: the reference casts each weight to the
+compute dtype at use, so the results agree and the memory is half.
+Families ``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``audio``, and
+training, wait for later slices (ROADMAP queue 1 item 14).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.cost_model import _block_kinds as block_kinds
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.blocks import LATER, Ctx, block_def
+from repro_torch.models.layers import (embed_init, embed_lookup, lm_head,
+                                       rmsnorm, rmsnorm_init,
+                                       truncated_normal)
+
+Params = Dict[str, Any]
+Cache = List[Dict[str, torch.Tensor]]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_FAMILIES_LATER = {
+    "moe": LATER["moe"],
+    "ssm": "ROADMAP queue 1 item 14 (xLSTM family)",
+    "hybrid": "ROADMAP queue 1 item 14 (griffin family)",
+    "vlm": "ROADMAP queue 1 item 14 (VLM family)",
+    "audio": "ROADMAP queue 1 item 14 (whisper)",
+}
+
+
+class TransformerLM:
+    """Functional LM on ``device`` (``None`` = the card; raises without
+    one): parameters are plain dicts of tensors, the methods pure except
+    that ``decode_step`` writes the new K/V into the cache in place."""
+
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+        if cfg.family in _FAMILIES_LATER:
+            raise NotImplementedError(f"family {cfg.family!r} waits for "
+                                      f"{_FAMILIES_LATER[cfg.family]}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.kinds = block_kinds(cfg)
+        self.blocks = [block_def(k) for k in self.kinds]
+        self.dtype = _DTYPES[cfg.dtype]
+        # gemma scales embeddings by sqrt(d) rounded to the compute dtype
+        self.embed_scale = float(torch.tensor(math.sqrt(cfg.d_model),
+                                              dtype=self.dtype)) \
+            if cfg.name.startswith(("gemma", "recurrentgemma")) else None
+
+    # ------------------------------------------------------------------
+    def init(self, generator: torch.Generator) -> Params:
+        """Random parameters drawn tensor by tensor on the generator's
+        device (which must be the model's), each in float32 and then cast
+        to its held dtype."""
+        if torch.device(generator.device).type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        cfg = self.cfg
+        params: Params = {
+            "embed": embed_init(cfg.vocab_size, cfg.d_model, generator,
+                                self.dtype),
+            "final_norm": rmsnorm_init(cfg.d_model, self.device),
+            "layers": [blk.init(cfg, generator, self.dtype)
+                       for blk in self.blocks],
+        }
+        if not cfg.tie_embeddings:
+            params["head"] = {"w": truncated_normal(
+                (cfg.vocab_size, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
+                generator, self.dtype)}
+        return params
+
+    # ------------------------------------------------------------------
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        x = embed_lookup(params["embed"], tokens, self.dtype)
+        if self.embed_scale is not None:
+            x = x * self.embed_scale
+        return x
+
+    def _positions(self, batch: int, s: int) -> torch.Tensor:
+        pos = torch.arange(s, dtype=torch.int32, device=self.device)
+        return pos[None, :].expand(batch, s)
+
+    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        table = params["embed"]["table"] if cfg.tie_embeddings \
+            else params["head"]["w"]
+        return lm_head(table, x, cfg.final_logit_softcap)
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def prefill(self, params: Params, tokens: torch.Tensor,
+                cache_len: int) -> Tuple[torch.Tensor, Cache]:
+        """tokens [B, S] -> (last-position logits [B, V], decode-ready
+        cache: one ``{"k", "v"}`` per layer)."""
+        x = self._embed(params, tokens)
+        b, s = x.shape[:2]
+        ctx = Ctx(self.cfg, "prefill", self._positions(b, s),
+                  cache_len=cache_len)
+        cache: Cache = []
+        for blk, p in zip(self.blocks, params["layers"]):
+            x, st = blk.apply(p, x, None, ctx)
+            cache.append(st)
+        return self._head(params, x[:, -1:])[:, 0], cache
+
+    def decode_step(self, params: Params, tokens: torch.Tensor,
+                    pos: torch.Tensor, cache: Cache
+                    ) -> Tuple[torch.Tensor, Cache]:
+        """One token per sequence.  tokens [B, 1]; pos [B, 1] int32.
+        Returns (logits [B, V], the cache, updated in place)."""
+        x = self._embed(params, tokens)
+        ctx = Ctx(self.cfg, "decode", pos)
+        for i, (blk, p) in enumerate(zip(self.blocks, params["layers"])):
+            x, cache[i] = blk.apply(p, x, cache[i], ctx)
+        return self._head(params, x)[:, 0], cache
+
+    def init_cache(self, batch: int, cache_len: int) -> Cache:
+        """Zeroed decode cache, one ``{"k", "v"}`` per layer."""
+        return [blk.state_init(self.cfg, batch, self.dtype, cache_len,
+                               self.device) for blk in self.blocks]
+
+
+__all__ = ["TransformerLM"]

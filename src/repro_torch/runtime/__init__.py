@@ -1,2 +1,2 @@
-"""Host-facing runtime layers of the port: the scenario engine and the
-fleet rollout.  Import the submodules directly."""
+"""Host-facing runtime layers of the port: the scenario engine, the
+fleet rollout and the LM serving loop.  Import the submodules directly."""

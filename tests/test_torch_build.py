@@ -22,8 +22,11 @@ from repro_torch.kernels.tropical_dp.tropical_dp import \
 
 
 def test_sources_are_the_two_main_path_kernels():
-    """The planner's two kernels and the CNN path's conv GEMM."""
-    assert _build.sources() == ("conv2d", "link_geometry", "tropical_dp")
+    """The planner's two kernels, the CNN path's conv GEMM and the LM
+    serving path's two attention kernels."""
+    assert _build.sources() == ("conv2d", "decode_attention",
+                                "flash_attention", "link_geometry",
+                                "tropical_dp")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -104,3 +107,39 @@ def test_rejections_do_not_count_launches():
                         torch.zeros(5))
     assert (link_geometry.launches, tropical_dp_step.launches,
             matmul_bias_act.launches) == before
+
+
+def _attn(b=1, h=4, kv=2, s=8, d=32, dtype=torch.float32):
+    return (torch.zeros((b, h, s, d), dtype=dtype),
+            torch.zeros((b, kv, s, d), dtype=dtype),
+            torch.zeros((b, kv, s, d), dtype=dtype))
+
+
+@pytest.mark.parametrize("case", ["cpu", "head_dim", "dtype", "heads",
+                                  "rank"])
+def test_flash_attention_rejects_before_building(case):
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    q, k, v = {"cpu": lambda: _attn(), "head_dim": lambda: _attn(d=48),
+               "dtype": lambda: _attn(dtype=torch.float16),
+               "heads": lambda: _attn(h=3, kv=2),
+               "rank": lambda: (torch.zeros((4, 8, 32)),) + _attn()[1:]}[
+        case]()
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="flash_attention"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("case", ["cpu", "group", "head_dim", "pos"])
+def test_decode_attention_rejects_before_building(case):
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    g, d = {"group": (9, 32), "head_dim": (2, 24)}.get(case, (2, 32))
+    q = torch.zeros((2, 2, g, d))
+    k = torch.zeros((2, 2, 16, d))
+    pos = torch.zeros(2, dtype=torch.int64 if case == "pos" else torch.int32)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="decode_attention"):
+        decode_attention(q, k, k, pos)
+    assert decode_attention.launches == before

@@ -1,6 +1,7 @@
 """The port on a CUDA card: each kernel against its plain version, a
-small planning run on the card against the CPU plain path, and the
-sliced LeNet forward against the monolithic one.
+small planning run on the card against the CPU plain path, the sliced
+LeNet forward against the monolithic one, and the attention kernels
+(prefill and decode) against their plain versions.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -21,6 +22,13 @@ from repro_torch.core.positions import hex_init  # noqa: E402
 from repro_torch.core.swarm import make_devices  # noqa: E402
 from repro_torch.kernels.conv2d.conv2d import matmul_bias_act  # noqa: E402
 from repro_torch.kernels.conv2d.ref import matmul_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.decode_attention import \
+    decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import decode_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import \
+    flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    attention_ref  # noqa: E402
 from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
 from repro_torch.kernels.link_geometry.ref import \
@@ -144,3 +152,68 @@ def test_lenet_sliced_forward_is_bitwise_on_the_card(cuda):
         assign = [j % n_dev for j in range(len(LENET.layers))]
         y1, transfers = distributed_forward(LENET, params, x, assign)
         assert torch.equal(y0, y1) and transfers > 0
+
+
+#: the reference's kernel-test tolerance (tests/test_kernels.py TOL, rtol
+#: ten times atol): float32 sums in another order; bfloat16 outputs may
+#: round one ulp apart
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window,cap", [
+    (1, 2, 2, 128, 32, True, 0, 0.0), (2, 4, 2, 256, 64, True, 0, 50.0),
+    (1, 2, 1, 256, 32, True, 64, 0.0), (1, 2, 2, 128, 64, False, 0, 0.0),
+    (1, 8, 4, 384, 128, True, 128, 30.0), (1, 2, 1, 1, 256, True, 0, 50.0),
+    (1, 4, 2, 1000, 256, True, 300, 50.0), (1, 2, 2, 77, 128, False, 16, 0.0),
+    (2, 4, 2, 40, 16, True, 32, 50.0)])
+def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, causal,
+                                              window, cap, dtype):
+    """The reference's kernel grid plus ragged S (1, 77, 1000) at D up to
+    256 and the reduced configs' D = 16; q/k/v are transposed views of [B, S, heads, D] tensors, as the
+    model passes them.  Two launches are bitwise equal."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, s, n, d)),
+                               dtype=torch.float32, device=cuda)
+               .to(dtype).transpose(1, 2) for n in (h, kv, kv))
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    again = flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    ref = attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,kv,g,s,d,cap", [
+    (2, 2, 4, 512, 64, 0.0), (1, 4, 1, 1024, 32, 50.0),
+    (3, 1, 8, 256, 128, 0.0), (8, 8, 2, 4096, 256, 50.0),
+    (2, 2, 3, 37, 256, 0.0), (2, 2, 2, 48, 16, 50.0)])
+def test_decode_attention_kernel_matches_plain(cuda, b, kv, g, s, d, cap,
+                                               dtype):
+    """The reference's decode grid plus gemma2-9b's decode shape, a
+    ragged cache and D = 16; pos holds 0 and S - 1 and random slots between; the
+    cache is a transposed view of [B, S, KV, D], as the model keeps it."""
+    rng = np.random.default_rng(s + g)
+    q = torch.as_tensor(rng.normal(size=(b, kv, g, d)), dtype=torch.float32,
+                        device=cuda).to(dtype)
+    k, v = (torch.as_tensor(rng.normal(size=(b, s, kv, d)),
+                            dtype=torch.float32, device=cuda)
+            .to(dtype).transpose(1, 2) for _ in range(2))
+    pos = rng.integers(0, s, size=b)
+    pos[0] = 0
+    pos[-1] = s - 1
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    got = decode_attention(q, k, v, pos, cap=cap)
+    again = decode_attention(q, k, v, pos, cap=cap)
+    ref = decode_ref(q, k, v, pos, cap=cap)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])

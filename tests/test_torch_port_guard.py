@@ -6,9 +6,13 @@
 * Entry points built without ``device=`` run on CUDA or raise; they never
   fall back to the CPU.
 * A CPU tensor given to a kernel dispatcher (link geometry, the DP step,
-  conv2d) takes the plain version and leaves the kernel's launch counter
-  alone.
+  conv2d, prefill and decode attention) takes the plain version and
+  leaves the kernel's launch counter alone.
+* The LM serving path (``TransformerLM``, ``build_model``,
+  ``ContinuousBatcher``) runs on CUDA or raises; families and block
+  kinds not ported yet raise naming their ROADMAP item.
 """
+import dataclasses
 import ast
 import os
 
@@ -27,15 +31,25 @@ from repro_torch.core.swarm import make_devices  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels.conv2d.ops import conv2d  # noqa: E402
 from repro_torch.kernels.conv2d.ref import conv2d_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import decode_mha  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import mha  # noqa: E402
 from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
 from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
+from repro_torch.configs.base import ServeConfig  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.blocks import block_def  # noqa: E402
 from repro_torch.models.cnn import init_cnn  # noqa: E402
+from repro_torch.models.transformer import TransformerLM  # noqa: E402
+from repro_torch.runtime.serve_loop import ContinuousBatcher  # noqa: E402
 from repro_torch.runtime.fleet_rollout import FleetRollout  # noqa: E402
 from repro_torch.runtime.scenario_engine import ScenarioEngine  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "repro")
+NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "conv2d": 0,
+               "flash_attention": 0, "decode_attention": 0}
 
 
 def _port_files():
@@ -140,8 +154,7 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     row, pa, ps = dp_wavefront_step(dp, tr, tr0, ct, ok)
     assert row.shape == pa.shape == ps.shape == (B, M, S)
     assert pa.dtype == ps.dtype == torch.int32
-    assert kernels.launch_counts() == {"link_geometry": 0, "tropical_dp": 0,
-                                       "conv2d": 0}
+    assert kernels.launch_counts() == NO_LAUNCHES
 
 
 def test_cpu_engine_plans_without_counting():
@@ -152,8 +165,7 @@ def test_cpu_engine_plans_without_counting():
                               pos_sigma_m=2.0, seed=1).draw(3)
     plan = ScenarioEngine(ch, devs, mc, device="cpu").plan_batch(batch)
     assert plan.assign.shape == (3, len(mc.layers))
-    assert kernels.launch_counts() == {"link_geometry": 0, "tropical_dp": 0,
-                                       "conv2d": 0}
+    assert kernels.launch_counts() == NO_LAUNCHES
 
 
 def test_planner_without_device_raises(monkeypatch):
@@ -179,3 +191,47 @@ def test_cpu_conv2d_takes_the_plain_path_without_counting():
     torch.testing.assert_close(y, conv2d_ref(x, w, b, stride=2, padding=1),
                                atol=5e-4, rtol=1e-3)
     assert kernels.launch_counts()["conv2d"] == 0
+
+
+def test_launch_counts_cover_every_kernel():
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts() == NO_LAUNCHES
+
+
+def test_cpu_attention_takes_the_plain_path_without_counting():
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(2)
+    q = torch.as_tensor(rng.normal(size=(2, 9, 4, 16)), dtype=torch.float32)
+    k = torch.as_tensor(rng.normal(size=(2, 9, 2, 16)), dtype=torch.float32)
+    assert mha(q, k, k, window=4, cap=50.0).shape == (2, 9, 4, 16)
+    pos = torch.tensor([0, 8], dtype=torch.int32)
+    assert decode_mha(q[:, :1], k, k, pos, cap=50.0).shape == (2, 1, 4, 16)
+    assert kernels.launch_counts() == NO_LAUNCHES
+
+
+def test_lm_entry_points_without_device_raise(monkeypatch):
+    _no_cuda(monkeypatch)
+    cfg = get_arch("gemma2-9b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransformerLM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatcher(TransformerLM(cfg), cfg, ServeConfig(), params={})
+    cpu = TransformerLM(cfg, device="cpu")
+    assert ContinuousBatcher(cpu, cfg, ServeConfig(), {}).device == \
+        torch.device("cpu")
+
+
+@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "audio"])
+def test_unported_families_name_their_roadmap_item(family):
+    cfg = dataclasses.replace(get_arch("phi4-mini-3.8b").reduced(),
+                              family=family)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        TransformerLM(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["rglru", "slstm", "mlstm"])
+def test_unported_block_kinds_name_their_roadmap_item(kind):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        block_def(kind)
