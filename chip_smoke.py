@@ -63,20 +63,46 @@ Phases, each raising on failure (the script then exits non-zero):
     request at max_seq 8192 (the 4096 window bites); then one prefill and
     4 decode steps through the kernels against the plain versions inside
     the model: in float32 (the weights widened) the logits within atol
-    1e-2, rtol 1e-3; in bfloat16 the difference within 1.5 times the
-    plain version's own under reordered sums;
+    1e-2, rtol 1e-3; in bfloat16 each logit's difference within the
+    larger of 1.5 times the plain versions' own largest under reordered
+    sums and 2 bf16 ulps of that logit;
 13. both attention kernels' times at gemma2-9b's shapes in bfloat16
     beside their plain versions, ``F.scaled_dot_product_attention``
-    (without the softcap) and their bounds.
+    (without the softcap) and their bounds;
+14. the expert GEMM (``moe_matmul``) against its plain version at the
+    reference's kernel-test grid and olmoe-1b-7b's prefill (E 64, C 8 x
+    240) and decode (C 8) GEMMs, float32 (atol 1e-5 sqrt(D), rtol 1e-4)
+    and bfloat16 (atol 1e-3, rtol 1e-2, and the reference's TOL); the
+    RG-LRU scan bitwise against its sequential plain version at the
+    reference's grid and recurrentgemma-9b's prefill (B 8, T 1536, W
+    4096); decode attention at G = 16 (B 8, KV 1, 2048 slots, D 256);
+    each two launches bitwise equal;
+15. the reduced granite-moe, olmoe and recurrentgemma in float32, card
+    against the CPU plain path, as phase 11;
+16. olmoe-1b-7b at full width serving 8 requests (prompts 256-1024,
+    max_new 8-24) at max_batch 8, max_seq 2048: exactly 48 expert-GEMM
+    and 16 flash launches per prefill call, 48 expert-GEMM and 16 decode
+    launches per decode step; then kernels against plain inside the model
+    as in phase 12;
+17. recurrentgemma-9b at full width serving 8 requests (prompts
+    256-1536, max_new 8-24) at max_seq 4096, then one 3072-token request
+    (its 2048 window rolls): exactly 26 RG-LRU-scan and 12 flash launches
+    per prefill call and 12 decode launches per decode step; then kernels
+    against plain inside the model;
+18. the expert GEMM's and the RG-LRU scan's times at the served shapes in
+    bfloat16, each first checked against its plain version at that
+    shape, beside their plain versions, ``torch.bmm`` (the GEMM) and
+    their bounds.
 
-The last lines are the CNN path's and the LM path's serving numbers, the
-per-layer conv2d times, the kernels line, the ``nvidia-smi`` line and the
-result object.
+The last lines are the CNN path's and the three LM paths' serving
+numbers, the per-layer conv2d times, the kernels line, the
+``nvidia-smi`` line and the result object.
 Without CUDA it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -95,12 +121,37 @@ MAIN_N_IMG = 32                  # images per request on the CNN path
 CONV_ITERS = 20                  # timed conv GEMM launches per measurement
 CNN_WINDOW_S = 1.5               # least timed serving window of the CNN path
 LM_ARCH = "gemma2-9b"            # the LM serving path's model, full width
-LM_BATCH, LM_MAX_SEQ = 8, 4096   # ServeConfig of the serving run
-LM_REQUESTS = 12                 # requests of the serving run
-LM_PROMPT = (256, 1536)          # prompt lengths, inclusive
-LM_MAX_NEW = (8, 40)             # max_new, inclusive
-LONG_PROMPT, LONG_MAX_SEQ, LONG_MAX_NEW = 6144, 8192, 16
+LM_BATCH = 8                     # ServeConfig.max_batch of the served runs
 LM_CHECK_TOKENS = 1024           # prompt of the kernels-vs-plain check
+#: the served runs at full width (phases 12, 16, 17), all at max_batch 8:
+#: requests, prompt and max_new ranges (inclusive), max_seq, the kernel
+#: launches every prefill call and every decode step must make (16
+#: layers x 3 expert GEMMs for olmoe; recurrentgemma's 38 layers are 26
+#: RG-LRU and 12 local attention), and the long request (prompt, max_seq,
+#: max_new) or None
+SERVED = {
+    LM_ARCH: dict(requests=12, prompt=(256, 1536), max_new=(8, 40),
+                  max_seq=4096, prefill={"flash_attention": 42},
+                  decode={"decode_attention": 42}, long=(6144, 8192, 16)),
+    "olmoe-1b-7b": dict(requests=8, prompt=(256, 1024), max_new=(8, 24),
+                        max_seq=2048,
+                        prefill={"moe_matmul": 48, "flash_attention": 16},
+                        decode={"moe_matmul": 48, "decode_attention": 16},
+                        long=None),
+    "recurrentgemma-9b": dict(requests=8, prompt=(256, 1536),
+                              max_new=(8, 24), max_seq=4096,
+                              prefill={"rglru_scan": 26,
+                                       "flash_attention": 12},
+                              decode={"decode_attention": 12},
+                              long=(3072, 4096, 16)),
+}
+#: the expert GEMM against its plain version: float32 sums in another
+#: order grow with sqrt(D); bfloat16 within one output rounding, beside
+#: the reference's kernel-test TOL (atol TOL sqrt(D), rtol 10 TOL)
+MOE_TOL = {"float32": lambda d: dict(atol=1e-5 * d ** 0.5, rtol=1e-4),
+           "bfloat16": lambda d: dict(atol=1e-3, rtol=1e-2)}
+MOE_REF_TOL = {"float32": lambda d: dict(atol=2e-5 * d ** 0.5, rtol=2e-4),
+               "bfloat16": lambda d: dict(atol=2e-2 * d ** 0.5, rtol=2e-1)}
 #: the reference's attention kernel-test tolerance (tests/test_kernels.py)
 ATTN_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
             "bfloat16": dict(atol=2e-2, rtol=2e-1)}
@@ -108,13 +159,42 @@ ATTN_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
 #: version agree in float32, so their bf16 outputs differ by at most one
 #: rounding (2^-7 relative), far inside the reference's band
 ATTN_BF16_ROUNDING = dict(atol=1e-3, rtol=1e-2)
-#: bf16 logits through 42 layers: kernels vs plain at most this many times
-#: the plain version's own spread when only its q.k sums are reordered
+#: bf16 logits through every layer: each logit's gap from the plain
+#: versions' at most this many times the plain versions' own largest gap
+#: when only their sums are reordered, ...
 LM_BF16_GAP = 1.5
+#: ... or this many bf16 ulps of that logit, whichever is larger: the
+#: reordered side's own worst at the large logits is one ulp, and bf16
+#: logits resolve nothing finer
+LM_BF16_ULPS = 2
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def ptxas_resources(build_log: str):
+    """(kernel instantiation, registers line, spills line) per entry
+    function in an ``nvcc -Xptxas -v`` log; the instantiation is the
+    mangled name's template arguments (``f`` float32, ``13__nv_bfloat16``
+    bfloat16, ``Li<n>E`` an integer)."""
+    rows, entry, spills = [], "?", ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            kern = mangled[mangled.find("_kernel"):]
+            entry = kern[len("_kernel"):kern.find("EEv") + 1] or mangled
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            rows.append((entry, line.split(":", 1)[-1].strip(), spills))
+    return rows
+
+
+def only(launches, **nonzero):
+    """The launch counts a run must show: ``nonzero``, every other kernel
+    of ``launches`` 0."""
+    return dict(dict.fromkeys(launches, 0), **nonzero)
 
 
 def nvidia_smi_line() -> str:
@@ -303,9 +383,8 @@ def run_main_path(np, torch, device):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    want = {"link_geometry": MAIN_T, "tropical_dp": MAIN_T * L_ALEXNET,
-            "conv2d": 0, "flash_attention": 0,
-            "decode_attention": 0}
+    want = only(launches, link_geometry=MAIN_T,
+                tropical_dp=MAIN_T * L_ALEXNET)
     if launches != want:
         raise AssertionError(f"rollout launches {launches} != {want}")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -355,8 +434,7 @@ def run_main_path(np, torch, device):
     plan = fleet.plan_batch_multi(batch, n_req)
     plan_s = time.perf_counter() - t0
     plan_launches = kernels.launch_counts()
-    want = {"link_geometry": 1, "tropical_dp": L_ALEXNET, "conv2d": 0,
-            "flash_attention": 0, "decode_attention": 0}
+    want = only(plan_launches, link_geometry=1, tropical_dp=L_ALEXNET)
     if plan_launches != want:
         raise AssertionError(f"plan_batch_multi launches {plan_launches} "
                              f"!= {want}")
@@ -630,9 +708,7 @@ def run_cnn_path(np, torch, device):
     launches = kernels.launch_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     n_conv = sum(s.kind == "conv" for s in ALEXNET.layers)
-    want = {"link_geometry": 0, "tropical_dp": 0,
-            "conv2d": n_conv * len(assigns), "flash_attention": 0,
-            "decode_attention": 0}
+    want = only(launches, conv2d=n_conv * len(assigns))
     if launches != want:
         raise AssertionError(f"CNN path launches {launches} != {want}")
     for r, ((y, hand), x, a) in enumerate(zip(outs, xs, assigns)):
@@ -849,13 +925,15 @@ def check_attention_kernels(np, torch, device):
     return errs
 
 
-class plain_attention:
-    """Inside this block a CUDA tensor takes the attention kernels' plain
-    versions (the dispatch tables' ``cuda`` entries swapped): the model
-    run through it is a comparison's other side.  ``reorder`` reverses
-    the head dimension of q and k first: the same logits, summed in
-    another order, which measures how far such rounding alone moves the
-    model's output."""
+class plain_kernels:
+    """Inside this block a CUDA tensor takes the LM kernels' plain
+    versions (the dispatch tables' ``cuda`` entries swapped: flash and
+    decode attention, the expert GEMM, the RG-LRU scan): the model run
+    through it is a comparison's other side.  ``reorder`` sums the plain
+    versions in another order: q and k with their head dimension
+    reversed, the expert GEMM with its contraction reversed, the RG-LRU
+    recurrence as a log-depth scan.  That measures how far such rounding
+    alone moves the model's output."""
 
     def __init__(self, reorder: bool = False):
         self.reorder = reorder
@@ -865,8 +943,13 @@ class plain_attention:
         from repro_torch.kernels.decode_attention.ref import decode_ref
         from repro_torch.kernels.flash_attention import ops as fops
         from repro_torch.kernels.flash_attention.ref import attention_ref
-        self.saved = [(fops._BY_DEVICE, fops._BY_DEVICE["cuda"]),
-                      (dops._BY_DEVICE, dops._BY_DEVICE["cuda"])]
+        from repro_torch.kernels.moe_matmul import ops as mops
+        from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref
+        from repro_torch.kernels.rglru_scan import ops as rops
+        from repro_torch.kernels.rglru_scan.ref import rglru_ref
+        tables = (fops._BY_DEVICE, dops._BY_DEVICE, mops._BY_DEVICE,
+                  rops._BY_DEVICE)
+        self.saved = [(t, t["cuda"]) for t in tables]
         if self.reorder:
             def flip(x):
                 return x.flip(-1)
@@ -875,15 +958,37 @@ class plain_attention:
                 flip(q), flip(k), v, **kw)
             dops._BY_DEVICE["cuda"] = lambda q, k, v, pos, **kw: decode_ref(
                 flip(q), flip(k), v, pos, **kw)
+            mops._BY_DEVICE["cuda"] = lambda x, w: moe_matmul_ref(
+                flip(x), w.flip(1))
+            rops._BY_DEVICE["cuda"] = rglru_log_depth
         else:
             fops._BY_DEVICE["cuda"] = attention_ref
             dops._BY_DEVICE["cuda"] = decode_ref
+            mops._BY_DEVICE["cuda"] = moe_matmul_ref
+            rops._BY_DEVICE["cuda"] = rglru_ref
         return self
 
     def __exit__(self, *exc):
         for table, fn in self.saved:
             table["cuda"] = fn
         return False
+
+
+def rglru_log_depth(a, b, h0):
+    """The RG-LRU recurrence as a Hillis-Steele scan in float32 (log2 T
+    rounds of ``(A, H)[t] <- (A[t] A[t-off], A[t] H[t-off] + H[t])``), the
+    initial state folded into the first step as the reference's
+    ``rglru_ref`` does: the sequential recurrence's sums in another
+    order."""
+    import torch
+    A, H = a.float(), b.float().clone()
+    H[:, 0] = A[:, 0] * h0.float() + H[:, 0]
+    off = 1
+    while off < A.shape[1]:
+        H = torch.cat([H[:, :off], A[:, off:] * H[:, :-off] + H[:, off:]], 1)
+        A = torch.cat([A[:, :off], A[:, off:] * A[:, :-off]], 1)
+        off *= 2
+    return H.to(a.dtype), H[:, -1].to(h0.dtype)
 
 
 def lm_requests(np, cls, vocab, n, prompt, max_new, seed=0):
@@ -903,13 +1008,13 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def check_reduced_lms(np, torch, device):
-    """Reduced gemma2-9b and phi4-mini in float32 on the card against the
-    CPU plain path with the same parameters: prefill (40 tokens, cache
-    48, so gemma2's 32-token window rolls) and 4 decode steps' logits
-    within atol / rtol 1e-4, then ``ContinuousBatcher`` token ids equal
-    (with an untied head: a tied random table makes greedy decoding echo
-    the last token)."""
+def check_reduced_lms(np, torch, device, archs):
+    """Reduced ``archs`` in float32 on the card against the CPU plain
+    path with the same parameters: prefill (40 tokens, cache 48, so a
+    32-token window rolls) and 4 decode steps' logits within atol / rtol
+    1e-4, then ``ContinuousBatcher`` token ids equal (with an untied
+    head: a tied random table makes greedy decoding echo the last
+    token)."""
     import dataclasses
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_arch
@@ -922,7 +1027,7 @@ def check_reduced_lms(np, torch, device):
         return ((cpu, p_cpu), (TransformerLM(cfg, device=device),
                                tree_map(lambda t: t.to(device), p_cpu)))
 
-    for arch in ("gemma2-9b", "phi4-mini-3.8b"):
+    for arch in archs:
         cfg = get_arch(arch).reduced()
         (cpu, p_cpu), (gpu, p_gpu) = pair(cfg)
         toks = torch.as_tensor(np.random.default_rng(1).integers(
@@ -1001,12 +1106,12 @@ class StepTimer:
         return self.batcher.run()
 
 
-def serve_lm(np, torch, model, params, scfg, requests, n_layers):
+def serve_lm(np, torch, model, params, scfg, requests, want):
     """Serve ``requests`` through a fresh ``ContinuousBatcher`` with the
     launch counters reset just before and read just after; every prefill
-    call must launch ``n_layers`` flash kernels and every decode step
-    ``n_layers`` decode kernels.  Returns (finished requests, timer,
-    launches, peak device MiB)."""
+    call must launch exactly ``want["prefill"]`` and every decode step
+    ``want["decode"]`` (kernel name -> launches; every other kernel 0).
+    Returns (finished requests, timer, launches, peak device MiB)."""
     from repro_torch import kernels
     from repro_torch.runtime.serve_loop import ContinuousBatcher
     batcher = ContinuousBatcher(model, model.cfg, scfg, params)
@@ -1019,19 +1124,16 @@ def serve_lm(np, torch, model, params, scfg, requests, n_layers):
     done = timer.run()
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    zero = {"link_geometry": 0, "tropical_dp": 0, "conv2d": 0,
-            "flash_attention": 0, "decode_attention": 0}
-    for kind, calls, name in (("prefill", timer.prefill, "flash_attention"),
-                              ("decode", timer.decode, "decode_attention")):
+    for kind, calls in (("prefill", timer.prefill), ("decode", timer.decode)):
         for c in calls:
-            want = dict(zero, **{name: n_layers})
-            if c["launches"] != want:
+            if c["launches"] != only(launches, **want[kind]):
                 raise AssertionError(f"{kind} call launched {c['launches']}"
-                                     f", want {want}")
-    want = dict(zero, flash_attention=n_layers * len(timer.prefill),
-                decode_attention=n_layers * len(timer.decode))
-    if launches != want:
-        raise AssertionError(f"serving launches {launches} != {want}")
+                                     f", want {want[kind]}")
+    total = {k: want["prefill"].get(k, 0) * len(timer.prefill)
+             + want["decode"].get(k, 0) * len(timer.decode)
+             for k in launches}
+    if launches != total:
+        raise AssertionError(f"serving launches {launches} != {total}")
     if len(done) != len(requests) or any(
             not r.done or not 1 <= len(r.out) <= r.max_new for r in done):
         raise AssertionError("serving: a request did not finish")
@@ -1041,17 +1143,17 @@ def serve_lm(np, torch, model, params, scfg, requests, n_layers):
 def lm_sides(torch, model, params, prompts, steps=4):
     """One prefill and ``steps`` decode steps three ways on the card, same
     weights: through the kernels, through the plain versions, and
-    through the plain versions with the q.k sums reordered.  Every side
+    through the plain versions with their sums reordered.  Every side
     decodes from a copy of the plain side's prefill cache and is fed the
     plain side's greedy tokens, so each step compares like with like.
-    Returns the max abs logit difference from the plain side, per side,
-    over the prefill and the decode steps."""
+    Returns each side's logits over the prefill and the decode steps, and
+    the plain side's."""
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=model.device)
     b, s = toks.shape
     cache_len = s + steps
     sides = {"kernels": contextlib.nullcontext,
-             "reordered": lambda: plain_attention(True)}
-    with plain_attention():
+             "reordered": lambda: plain_kernels(True)}
+    with plain_kernels():
         ref, cache = model.prefill(params, toks, cache_len)
     logits = {}
     for name, ctx in sides.items():
@@ -1064,7 +1166,7 @@ def lm_sides(torch, model, params, prompts, steps=4):
     for i in range(steps):
         pos = torch.full((b, 1), s + i, dtype=torch.int32,
                          device=model.device)
-        with plain_attention():
+        with plain_kernels():
             ref, cache = model.decode_step(params, nxt, pos, cache)
         refs.append(ref)
         for name, ctx in sides.items():
@@ -1074,36 +1176,71 @@ def lm_sides(torch, model, params, prompts, steps=4):
             logits[name].append(out)
         nxt = torch.argmax(ref, -1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
-    diff = {name: max(float((a.float() - r.float()).abs().max())
-                      for a, r in zip(outs, refs))
-            for name, outs in logits.items()}
-    return diff, logits["kernels"], refs
+    return logits, refs
+
+
+def bf16_ulp(torch, x):
+    """The spacing of bfloat16 values (8 significant bits) at each |x|,
+    that of the smallest normal below it."""
+    x = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+
+
+def logit_gaps(torch, logits, refs):
+    """Each side's max abs logit difference from the plain side over the
+    prefill and the decode steps, and the largest |logit|."""
+    out = {name: max(float((a.float() - r.float()).abs().max())
+                     for a, r in zip(outs, refs))
+           for name, outs in logits.items()}
+    out["max_abs_logit"] = max(float(r.float().abs().max()) for r in refs)
+    return out
 
 
 def check_lm_kernels_vs_plain(torch, model, params, prompts):
     """The kernels against the plain versions inside the full model, in
     its bfloat16 and with the same weights in float32.  In float32 the
-    logits must agree within atol 1e-2, rtol 1e-3; in bfloat16 the
-    difference must stay within ``LM_BF16_GAP`` times what reordering the
-    plain version's sums alone gives (one bf16 ulp of an activation,
-    carried through 42 layers).  Returns both."""
+    logits must agree within atol 1e-2, rtol 1e-3.  In bfloat16 each
+    logit's gap must stay within the larger of ``LM_BF16_GAP`` times the
+    largest gap that reordering the plain versions' sums alone gives (one
+    bf16 ulp of an activation, carried through every layer) and
+    ``LM_BF16_ULPS`` ulps of that logit.  Returns both, with each side's
+    worst gap in ulps where the ulp term sets the limit."""
     import dataclasses
     from repro_torch.models.transformer import TransformerLM
     out = {}
-    bf16, _, _ = lm_sides(torch, model, params, prompts)
-    if not bf16["kernels"] <= LM_BF16_GAP * bf16["reordered"]:
-        raise AssertionError(
-            f"bfloat16 logits: kernels {bf16['kernels']} from plain, more "
-            f"than {LM_BF16_GAP} x the reordered plain {bf16['reordered']}")
+    logits, refs = lm_sides(torch, model, params, prompts)
+    bf16 = logit_gaps(torch, logits, refs)
+    bf16["limit_abs"] = LM_BF16_GAP * bf16["reordered"]
+    bf16["limit_ulps"] = LM_BF16_ULPS
+    share = 0.0
+    for name, outs in logits.items():
+        ulps = 0.0
+        for a, r in zip(outs, refs):
+            gap, ulp = (a.float() - r.float()).abs(), bf16_ulp(torch, r)
+            limit = (LM_BF16_ULPS * ulp).clamp_min(bf16["limit_abs"])
+            by_ulp = LM_BF16_ULPS * ulp > bf16["limit_abs"]
+            if by_ulp.any():
+                ulps = max(ulps, float((gap / ulp)[by_ulp].max()))
+            if name == "kernels":
+                share = max(share, float((gap / limit).max()))
+        bf16[f"{name}_ulps_where_ulp_limit"] = ulps
+    bf16["kernels_share_of_limit"] = share
     out["bfloat16"] = bf16
+    if not share <= 1.0:
+        raise AssertionError(
+            f"{model.cfg.name} bfloat16 logits: kernels reach {share:.3g} x "
+            f"the per-logit limit (the larger of {LM_BF16_GAP} x the "
+            f"reordered plain's {bf16['reordered']} and {LM_BF16_ULPS} "
+            f"bf16 ulps of the logit); largest gap {bf16['kernels']}, "
+            f"largest |logit| {bf16['max_abs_logit']}")
     cfg32 = dataclasses.replace(model.cfg, dtype="float32")
     model32 = TransformerLM(cfg32, device=model.device)
 
     params32 = tree_map(lambda t: t.float(), params)
-    fp32, got, ref = lm_sides(torch, model32, params32, prompts)
-    for a, r in zip(got, ref):
+    logits, refs = lm_sides(torch, model32, params32, prompts)
+    out["float32"] = logit_gaps(torch, logits, refs)
+    for a, r in zip(logits["kernels"], refs):
         torch.testing.assert_close(a, r, atol=1e-2, rtol=1e-3)
-    out["float32"] = fp32
     del params32
     torch.cuda.empty_cache()
     return out
@@ -1114,18 +1251,59 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
 
 
-def run_lm_path(np, torch, device):
-    """gemma2-9b at full width on the card: seeded bfloat16 weights, 12
-    requests (prompts 256-1536 tokens, max_new 8-40) through
-    ``ContinuousBatcher`` at max_batch 8, max_seq 4096, greedy; then one
-    6144-token request at max_seq 8192 (the 4096 window bites in prefill,
-    local layers decode from a rolling cache); then the kernels against
-    the plain versions inside the model."""
+def serve_summary(timer, reqs, done, wall, launches, peak):
+    """The served run's numbers: prefill and decode-step walls, decode
+    tokens/s, TTFT per request, peak memory, launches."""
+    pre = [c["s"] for c in timer.prefill]
+    dec = [c["s"] for c in timer.decode]
+    dec_tokens = sum(c["batch"] for c in timer.decode)
+    ttft = [timer.ttft[r.rid] for r in sorted(done, key=lambda r: r.rid)]
+    out = {"requests": len(done),
+           "prompt_tokens": sum(len(r.prompt) for r in reqs),
+           "generated_tokens": sum(len(r.out) for r in done),
+           "prefill_calls": len(pre), "decode_steps": len(dec),
+           "prefill_shapes": [[c["batch"], c["tokens"]]
+                              for c in timer.prefill],
+           "prefill_s_median": pct(pre, 50), "prefill_s_max": max(pre),
+           "decode_step_ms_min": min(dec) * 1e3 if dec else None,
+           "decode_step_ms_median": pct(dec, 50) * 1e3 if dec else None,
+           "decode_step_ms_max": max(dec) * 1e3 if dec else None,
+           "decode_tokens_per_s": dec_tokens / sum(dec) if dec else None,
+           "ttft_s": ttft, "ttft_s_median": pct(ttft, 50),
+           "wall_s": wall,
+           "tokens_per_s": sum(len(r.out) for r in done) / wall,
+           "peak_gib": peak / 1024, "launches": launches}
+    log(f"  served {len(done)} requests ({out['prompt_tokens']} prompt "
+        f"tokens, {out['generated_tokens']} generated) in {wall:.2f} s: "
+        f"{len(pre)} prefill calls (batch x tokens "
+        f"{out['prefill_shapes']}), {len(dec)} decode steps; launches "
+        f"{launches}")
+    log(f"  prefill wall median {out['prefill_s_median']:.3f} s, max "
+        f"{max(pre):.3f} s; decode step min / median / max "
+        f"{out['decode_step_ms_min']:.2f} / "
+        f"{out['decode_step_ms_median']:.2f} / "
+        f"{out['decode_step_ms_max']:.2f} ms; "
+        f"{out['decode_tokens_per_s']:.1f} decode tokens/s; TTFT median "
+        f"{out['ttft_s_median']:.3f} s (per request "
+        f"{[round(x, 3) for x in ttft]}); peak device memory "
+        f"{out['peak_gib']:.2f} GiB")
+    return out
+
+
+def run_lm_path(np, torch, device, arch):
+    """``arch`` at full width on the card, as ``SERVED[arch]`` says:
+    seeded bfloat16 weights, its requests through ``ContinuousBatcher``
+    (greedy), every prefill call and decode step launching exactly the
+    kernels it lists; then its long request (a window rolls in prefill
+    and the local layers decode from a rolling cache); then the kernels
+    against the plain versions inside the model."""
     from repro_torch.configs.base import ServeConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import build_model
     from repro_torch.runtime.serve_loop import Request
-    cfg = get_arch(LM_ARCH)
+    spec = SERVED[arch]
+    want = {"prefill": spec["prefill"], "decode": spec["decode"]}
+    cfg = get_arch(arch)
     model = build_model(cfg, device=device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1135,85 +1313,68 @@ def run_lm_path(np, torch, device):
     n_params = sum(t.numel() for t in _leaves(params))
     w_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
     log(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters, {w_gb:.2f} GB "
-        f"held, initialised on the card in {init_s:.2f} s")
-    scfg = ServeConfig(max_batch=LM_BATCH, max_seq=LM_MAX_SEQ)
+        f"held, initialised on the card in {init_s:.2f} s; every prefill "
+        f"call must launch {spec['prefill']}, every decode step "
+        f"{spec['decode']}")
+    scfg = ServeConfig(max_batch=LM_BATCH, max_seq=spec["max_seq"])
     # warm-up: cuBLAS handles and the kernels' first launches
     serve_lm(np, torch, model, params, scfg, lm_requests(
-        np, Request, cfg.vocab_size, 2, (64, 64), (3, 3), seed=99),
-        cfg.n_layers)
-    reqs = lm_requests(np, Request, cfg.vocab_size, LM_REQUESTS, LM_PROMPT,
-                       LM_MAX_NEW)
+        np, Request, cfg.vocab_size, 2, (64, 64), (3, 3), seed=99), want)
+    reqs = lm_requests(np, Request, cfg.vocab_size, spec["requests"],
+                       spec["prompt"], spec["max_new"])
     t0 = time.perf_counter()
     done, timer, launches, peak = serve_lm(np, torch, model, params, scfg,
-                                           reqs, cfg.n_layers)
-    wall = time.perf_counter() - t0
-    pre = [c["s"] for c in timer.prefill]
-    dec = [c["s"] for c in timer.decode]
-    dec_tokens = sum(c["batch"] for c in timer.decode)
-    ttft = [timer.ttft[r.rid] for r in sorted(done, key=lambda r: r.rid)]
-    lm = {"model": cfg.name, "requests": len(done),
-          "prompt_tokens": sum(len(r.prompt) for r in reqs),
-          "generated_tokens": sum(len(r.out) for r in done),
-          "prefill_calls": len(pre), "decode_steps": len(dec),
-          "prefill_shapes": [[c["batch"], c["tokens"]]
-                             for c in timer.prefill],
-          "prefill_s_median": pct(pre, 50), "prefill_s_max": max(pre),
-          "decode_step_ms_min": min(dec) * 1e3,
-          "decode_step_ms_median": pct(dec, 50) * 1e3,
-          "decode_step_ms_max": max(dec) * 1e3,
-          "decode_tokens_per_s": dec_tokens / sum(dec),
-          "ttft_s": ttft, "ttft_s_median": pct(ttft, 50),
-          "wall_s": wall, "tokens_per_s": sum(len(r.out) for r in done) / wall,
-          "peak_gib": peak / 1024, "launches": launches,
-          "init_s": init_s, "weights_gb": w_gb}
-    log(f"  served {len(done)} requests ({lm['prompt_tokens']} prompt "
-        f"tokens, {lm['generated_tokens']} generated) in {wall:.2f} s: "
-        f"{len(pre)} prefill calls (batch x tokens "
-        f"{lm['prefill_shapes']}), {len(dec)} decode steps; launches "
-        f"{launches} ({cfg.n_layers} flash per prefill, {cfg.n_layers} "
-        f"decode per step)")
-    log(f"  prefill wall median {lm['prefill_s_median']:.3f} s, max "
-        f"{max(pre):.3f} s; decode step min / median / max "
-        f"{lm['decode_step_ms_min']:.2f} / "
-        f"{lm['decode_step_ms_median']:.2f} / "
-        f"{lm['decode_step_ms_max']:.2f} ms; {lm['decode_tokens_per_s']:.1f}"
-        f" decode tokens/s; TTFT median {lm['ttft_s_median']:.3f} s "
-        f"(per request {[round(x, 3) for x in ttft]}); peak device memory "
-        f"{lm['peak_gib']:.2f} GiB")
+                                           reqs, want)
+    lm = {"model": cfg.name, "max_seq": spec["max_seq"],
+          **serve_summary(timer, reqs, done, time.perf_counter() - t0,
+                          launches, peak),
+          "init_s": init_s, "weights_gb": w_gb, "params": n_params}
 
-    long_req = lm_requests(np, Request, cfg.vocab_size, 1,
-                           (LONG_PROMPT, LONG_PROMPT),
-                           (LONG_MAX_NEW, LONG_MAX_NEW), seed=1)
-    done, lt, l_launches, l_peak = serve_lm(
-        np, torch, model, params,
-        ServeConfig(max_batch=1, max_seq=LONG_MAX_SEQ), long_req,
-        cfg.n_layers)
-    l_dec = [c["s"] for c in lt.decode]
-    lm["long"] = {"prompt_tokens": LONG_PROMPT, "max_seq": LONG_MAX_SEQ,
-                  "generated_tokens": len(done[0].out),
-                  "prefill_s": lt.prefill[0]["s"],
-                  "decode_step_ms_median": pct(l_dec, 50) * 1e3
-                  if l_dec else None,
-                  "launches": l_launches, "peak_gib": l_peak / 1024}
-    log(f"  {LONG_PROMPT}-token request at max_seq {LONG_MAX_SEQ}: prefill "
-        f"{lt.prefill[0]['s']:.3f} s, {len(l_dec)} decode steps median "
-        f"{lm['long']['decode_step_ms_median']} ms, launches {l_launches}, "
-        f"peak {l_peak / 1024:.2f} GiB")
+    if spec["long"]:
+        prompt, max_seq, max_new = spec["long"]
+        long_req = lm_requests(np, Request, cfg.vocab_size, 1,
+                               (prompt, prompt), (max_new, max_new), seed=1)
+        done, lt, l_launches, l_peak = serve_lm(
+            np, torch, model, params,
+            ServeConfig(max_batch=1, max_seq=max_seq), long_req, want)
+        l_dec = [c["s"] for c in lt.decode]
+        lm["long"] = {"prompt_tokens": prompt, "max_seq": max_seq,
+                      "generated_tokens": len(done[0].out),
+                      "prefill_s": lt.prefill[0]["s"],
+                      "decode_step_ms_median": pct(l_dec, 50) * 1e3
+                      if l_dec else None,
+                      "launches": l_launches, "peak_gib": l_peak / 1024}
+        log(f"  {prompt}-token request at max_seq {max_seq}: prefill "
+            f"{lt.prefill[0]['s']:.3f} s, {len(l_dec)} decode steps median "
+            f"{lm['long']['decode_step_ms_median']} ms, launches "
+            f"{l_launches}, peak {l_peak / 1024:.2f} GiB")
+        del lt
 
-    del timer, lt            # they hold the batchers, which hold params
-    prompts = np.stack([np.asarray(r.prompt[:LM_CHECK_TOKENS], np.int32)
-                        for r in reqs
-                        if len(r.prompt) >= LM_CHECK_TOKENS][:2])
+    del timer                # it holds the batcher, which holds params
+    long_prompts = [r.prompt[:LM_CHECK_TOKENS] for r in reqs
+                    if len(r.prompt) >= LM_CHECK_TOKENS]
+    prompts = np.asarray(long_prompts[:2], np.int32) \
+        if len(long_prompts) >= 2 else np.random.default_rng(2).integers(
+            2, cfg.vocab_size, (2, LM_CHECK_TOKENS)).astype(np.int32)
     diffs = check_lm_kernels_vs_plain(torch, model, params, prompts)
     lm["kernels_vs_plain_max_abs_logit_diff"] = diffs
     for dt, d in diffs.items():
         log(f"  {dt}: B={len(prompts)} x {LM_CHECK_TOKENS}-token prefill + "
             f"4 decode steps, max abs logit diff from the plain versions: "
             f"kernels {d['kernels']:.4g}, plain with reordered sums "
-            f"{d['reordered']:.4g}"
+            f"{d['reordered']:.4g}, largest |logit| "
+            f"{d['max_abs_logit']:.4g}"
             + (" (held within atol 1e-2, rtol 1e-3)" if dt == "float32"
-               else f" (held within {LM_BF16_GAP} x the reordered)"))
-    del params
+               else f"; per logit held within the larger of "
+               f"{d['limit_abs']:.4g} ({LM_BF16_GAP} x the reordered) and "
+               f"{LM_BF16_ULPS} bf16 ulps of the logit: kernels at "
+               f"{d['kernels_share_of_limit']:.3g} of that limit; where the "
+               f"ulp term sets it, kernels "
+               f"{d['kernels_ulps_where_ulp_limit']:.3g} ulps, reordered "
+               f"{d['reordered_ulps_where_ulp_limit']:.3g} ulps"))
+    # the batchers' step wrappers hold them in reference cycles
+    del params, model
+    gc.collect()
     torch.cuda.empty_cache()
     return lm
 
@@ -1303,6 +1464,227 @@ def time_attention(torch, device, lm_launches, attn_errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# MoE and griffin serving: the expert GEMM and RG-LRU scan kernels
+# ---------------------------------------------------------------------------
+
+
+def moe_operands(torch, seed, e, c, d, f, dtype, device):
+    """x ~ N(0, 1) [E, C, D] and w ~ N(0, 1/D) [E, D, F] drawn on the card
+    in float32, then cast to ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((e, c, d), generator=gen, device=device)
+    w = torch.randn((e, d, f), generator=gen, device=device) / d ** 0.5
+    return x.to(dtype), w.to(dtype)
+
+
+def rglru_operands(torch, seed, b, t, w, dtype, device):
+    """a = sigmoid(N(0, 1)), b = 0.1 N(0, 1) [B, T, W] and h0 = N(0, 1)
+    [B, W] drawn on the card in float32, then cast to ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.sigmoid(torch.randn((b, t, w), generator=gen, device=device))
+    bb = 0.1 * torch.randn((b, t, w), generator=gen, device=device)
+    h0 = torch.randn((b, w), generator=gen, device=device)
+    return a.to(dtype), bb.to(dtype), h0.to(dtype)
+
+
+def check_moe_rglru_kernels(np, torch, device):
+    """The expert GEMM, the RG-LRU scan and decode attention at G = 16
+    against their plain versions on the card, float32 and bfloat16, two
+    launches bitwise equal.  Expert GEMM at the reference's kernel-test
+    grid and olmoe-1b-7b's GEMMs (E 64, D/F 2048/1024 both ways) at
+    prefill (C = 8 x 240) and decode (C = 8), within ``MOE_TOL`` and the
+    reference's TOL; RG-LRU scan at the reference's grid and
+    recurrentgemma-9b's prefill (B 8, T 1536, W 4096), bitwise; decode
+    attention at recurrentgemma's decode (B 8, KV 1, G 16, a 2048-slot
+    window cache, D 256) within ``ATTN_TOL`` and, in bfloat16, one output
+    rounding.  Phase 18 checks both kernels again at the shapes it
+    times."""
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
+    from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    moe = [(4, 64, 96, 160), (8, 32, 128, 64), (2, 128, 64, 256),
+           (64, 1920, 2048, 1024), (64, 1920, 1024, 2048),
+           (64, 8, 2048, 1024), (64, 8, 1024, 2048)]
+    scans = [(2, 64, 256), (1, 128, 128), (3, 32, 384), (8, 1536, 4096)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for i, (e, c, d, f) in enumerate(moe):
+            x, w = moe_operands(torch, 400 + i, e, c, d, f, dtype, device)
+            got = moe_matmul(x, w)
+            again = moe_matmul(x, w)
+            ref = moe_matmul_ref(x, w)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"moe_matmul {e, c, d, f}: two "
+                                     f"launches differ")
+            for tol in (MOE_TOL[dname](d), MOE_REF_TOL[dname](d)):
+                torch.testing.assert_close(got.float(), ref.float(), **tol)
+            err = float((got.double() - ref.double()).abs().max())
+            log(f"  moe_matmul {dname} E={e} C={c} D={d} F={f}: max abs "
+                f"err {err:.3g}, two launches bitwise equal")
+            del x, w, got, again, ref
+        for i, (b, t, w) in enumerate(scans):
+            a, bb, h0 = rglru_operands(torch, 450 + i, b, t, w, dtype, device)
+            h, hT = rglru_scan(a, bb, h0)
+            h2, hT2 = rglru_scan(a, bb, h0)
+            rh, rhT = rglru_ref(a, bb, h0)
+            torch.cuda.synchronize()
+            if not (torch.equal(h, h2) and torch.equal(hT, hT2)):
+                raise AssertionError(f"rglru_scan {b, t, w}: two launches "
+                                     f"differ")
+            if not (torch.equal(h, rh) and torch.equal(hT, rhT)):
+                n_diff = int((h != rh).sum())
+                raise AssertionError(f"rglru_scan {dname} {b, t, w}: "
+                                     f"{n_diff} elements differ from the "
+                                     f"plain version")
+            log(f"  rglru_scan {dname} B={b} T={t} W={w}: bitwise equal to "
+                f"the sequential plain version, two launches bitwise equal")
+            del a, bb, h0, h, h2, rh
+        q, k, v, pos = decode_case(torch, 500, 8, 1, 16, 2048, 256, dtype,
+                                   device)
+        got = decode_attention(q, k, v, pos)
+        again = decode_attention(q, k, v, pos)
+        ref = decode_ref(q, k, v, pos)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("decode_attention G=16: two launches "
+                                 "differ")
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **ATTN_TOL[dname])
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       **ATTN_BF16_ROUNDING)
+        err = float((got.double() - ref.double()).abs().max())
+        log(f"  decode_attention {dname} B=8 KV=1 G=16 S=2048 D=256 "
+            f"pos={pos.tolist()}: max abs err {err:.3g}, two launches "
+            f"bitwise equal")
+
+
+def held_at_timed_shape(torch, name, got, want, d):
+    """A timed kernel's output against its plain version's on the same
+    operands: the expert GEMM within ``MOE_TOL`` and the reference's TOL
+    (contraction ``d``), the RG-LRU scan's ``(h, hT)`` bitwise.  Returns
+    the max abs error, which the timed row reports."""
+    if name == "rglru_scan":
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("rglru_scan at the timed shape differs "
+                                 "from the sequential plain version")
+        got, want = got[0], want[0]
+    else:
+        for tol in (MOE_TOL["bfloat16"](d), MOE_REF_TOL["bfloat16"](d)):
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+    return float((got.double() - want.double()).abs().max())
+
+
+def time_moe_rglru(torch, device, served):
+    """The expert GEMM and the RG-LRU scan at the served shapes in
+    bfloat16, beside their plain versions, ``torch.bmm`` (the expert
+    GEMM; no single PyTorch call computes the recurrence) and their
+    bounds from this run's shapes.  Expert GEMM: olmoe's w_in GEMM (D
+    2048, F 1024) at the largest served prefill's rows (B x cap) and at a
+    decode step's 8 rows; RG-LRU scan: recurrentgemma's largest served
+    prefill (B x T, W 4096).  Each is first checked against its plain
+    version at the shape it is timed at.  Returns the two ``kernels``
+    rows."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
+    from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    from repro_torch.models.moe import capacity
+    bf = torch.bfloat16
+    ocfg = get_arch("olmoe-1b-7b")
+    om = served["olmoe-1b-7b"]
+    pb, ps = max(om["prefill_shapes"], key=lambda bs: bs[0] * bs[1])
+    E, D, F = ocfg.moe.n_experts, ocfg.d_model, ocfg.moe.d_expert
+    rows = []
+
+    def moe_case(c):
+        x, w = moe_operands(torch, 600 + c, E, c, D, F, bf, device)
+        return (lambda: moe_matmul(x, w), lambda: moe_matmul_ref(x, w),
+                lambda: torch.bmm(x, w), 2 * (E * c * D + E * D * F + E * c * F),
+                2 * E * c * D * F, BF16_OPS_PER_S)
+
+    gm = served["recurrentgemma-9b"]
+    gb, gt = max(gm["prefill_shapes"], key=lambda bs: bs[0] * bs[1])
+    W = get_arch("recurrentgemma-9b").rglru_width
+    a, b, h0 = rglru_operands(torch, 700, gb, gt, W, bf, device)
+    cases = [
+        ("moe_matmul", "src/repro/kernels/moe_matmul/moe_matmul.py:44",
+         [E, pb * capacity(ps, ocfg.moe.top_k, E, ocfg.moe.capacity_factor),
+          D, F], om["launches"]["moe_matmul"]),
+        ("rglru_scan", "src/repro/kernels/rglru_scan/rglru_scan.py:41",
+         [gb, gt, W], gm["launches"]["rglru_scan"]),
+    ]
+    for name, replaces, shape, launches in cases:
+        if name == "moe_matmul":
+            kern, plain, lib, nbytes, nops, peak = moe_case(shape[1])
+            iters, plain_graph = 5, True
+        else:
+            kern = lambda: rglru_scan(a, b, h0)              # noqa: E731
+            plain = lambda: rglru_ref(a, b, h0)              # noqa: E731
+            lib = None
+            nbytes = 2 * (3 * gb * gt * W + 2 * gb * W)
+            nops, peak = 2 * gb * gt * W, FP32_OPS_PER_S
+            iters, plain_graph = 20, False    # plain: T steps of launches
+        err = held_at_timed_shape(torch, name, kern(), plain(), D)
+        ms = time_ms(torch, kern, iters, graph=True)
+        eager_ms = time_ms(torch, kern, iters, graph=False)
+        plain_ms = time_ms(torch, plain, iters if plain_graph else 1,
+                           graph=plain_graph)
+        plain_eager_ms = time_ms(torch, plain, iters if plain_graph else 1,
+                                 graph=False)
+        lib_ms = time_ms(torch, lib, iters, graph=True) if lib else None
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / peak * 1e3
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/csrc/{name}.cu",
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": lib_ms,
+               "library": "torch.bmm" if lib else None,
+               "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
+               "plain_timing": "graph" if plain_graph else "eager",
+               "shape": shape, "dtype": "bfloat16", "bytes": nbytes,
+               "operations": nops, "tflops": nops / ms / 1e9,
+               "gb_per_s": nbytes / ms / 1e6}
+        if name == "moe_matmul":
+            dk, dp, dl, db, do, _ = moe_case(LM_BATCH)
+            d_err = held_at_timed_shape(torch, name, dk(), dp(), D)
+            d_ms = time_ms(torch, dk, 20, graph=True)
+            row["decode"] = {
+                "shape": [E, LM_BATCH, D, F], "max_abs_err": d_err,
+                "ms": d_ms,
+                "eager_ms": time_ms(torch, dk, 20, graph=False),
+                "plain_ms": time_ms(torch, dp, 20, graph=True),
+                "library_ms": time_ms(torch, dl, 20, graph=True),
+                "bound_ms": max(db / HBM_BYTES_PER_S, do / BF16_OPS_PER_S)
+                * 1e3, "gb_per_s": db / d_ms / 1e6}
+            log(f"  moe_matmul decode {row['decode']['shape']} bf16: "
+                f"max abs err {d_err:.3g}; {d_ms:.4f} ms in a graph ({row['decode']['gb_per_s']:.1f} "
+                f"GB/s), {row['decode']['eager_ms']:.4f} eager; plain "
+                f"{row['decode']['plain_ms']:.4f} ms; torch.bmm "
+                f"{row['decode']['library_ms']:.4f} ms; bound "
+                f"{row['decode']['bound_ms']:.4f} ms (bytes)")
+        rows.append(row)
+        log(f"  {name} {shape} bf16: max abs err {err:.3g}"
+            f"{' (bitwise)' if name == 'rglru_scan' else ''}; "
+            f"{ms:.4f} ms in a graph, {eager_ms:.4f}"
+            f" ms eager ({nops / ms / 1e9:.2f} TFLOP/s, "
+            f"{nbytes / ms / 1e6:.1f} GB/s); plain {plain_ms:.4f} ms "
+            f"({row['plain_timing']}; {plain_eager_ms:.4f} eager)"
+            + (f"; torch.bmm {lib_ms:.4f} ms" if lib else "")
+            + f"; bound {max(t_bytes, t_ops):.4f} ms ({row['bound_by']})")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1324,9 +1706,8 @@ def main() -> int:
     log(f"[2] kernels built in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
     for name in _build.sources():
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for entry, regs, spills in ptxas_resources(_build.build_log(name)):
+            log(f"  {name}: {entry}: {regs}; {spills}")
 
     params = RadioParams()
     log("[3] kernels against their plain versions on the card")
@@ -1348,15 +1729,34 @@ def main() -> int:
     log("[10] attention kernels against their plain versions on the card")
     attn_errs = check_attention_kernels(np, torch, device)
     log("[11] reduced LMs: card against the CPU plain path")
-    check_reduced_lms(np, torch, device)
+    check_reduced_lms(np, torch, device, ("gemma2-9b", "phi4-mini-3.8b"))
     log(f"[12] LM serving path: {LM_ARCH} at full width through "
         f"ContinuousBatcher")
-    lm = run_lm_path(np, torch, device)
+    served = {LM_ARCH: run_lm_path(np, torch, device, LM_ARCH)}
     log("[13] attention kernel times (CUDA events), gemma2-9b shapes")
-    rows += time_attention(torch, device, lm["launches"], attn_errs)
+    rows += time_attention(torch, device, served[LM_ARCH]["launches"],
+                           attn_errs)
+    log("[14] expert GEMM, RG-LRU scan and decode attention at G = 16 "
+        "against their plain versions on the card")
+    check_moe_rglru_kernels(np, torch, device)
+    log("[15] reduced MoE and griffin LMs: card against the CPU plain path")
+    check_reduced_lms(np, torch, device, ("granite-moe-1b-a400m",
+                                          "olmoe-1b-7b", "recurrentgemma-9b"))
+    for phase, arch in ((16, "olmoe-1b-7b"), (17, "recurrentgemma-9b")):
+        log(f"[{phase}] LM serving path: {arch} at full width through "
+            f"ContinuousBatcher")
+        served[arch] = run_lm_path(np, torch, device, arch)
+    log("[18] expert GEMM and RG-LRU scan times (CUDA events), served "
+        "shapes")
+    rows += time_moe_rglru(torch, device, served)
+    for row in rows:
+        if row["name"] in ("flash_attention", "decode_attention"):
+            row["launches_by_path"] = {a: s["launches"][row["name"]]
+                                       for a, s in served.items()}
 
     print(json.dumps({"cnn_path": cnn}))
-    print(json.dumps({"lm_serve": lm}))
+    for arch, lm in served.items():
+        print(json.dumps({"lm_serve": lm}))
     print(json.dumps({"conv2d_layers": layers}))
     print(json.dumps({"kernels": rows}))
     print(smi)

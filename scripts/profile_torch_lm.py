@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Where the time of the port's LM serving path goes, on one CUDA card.
 
-    PYTHONPATH=src python3 scripts/profile_torch_lm.py [--out build/profile_lm.json]
+    PYTHONPATH=src python3 scripts/profile_torch_lm.py \
+        [--arch gemma2-9b|olmoe-1b-7b|recurrentgemma-9b] \
+        [--out build/profile_lm.json]
 
-Builds gemma2-9b at full width as ``chip_smoke.py`` does (bfloat16
+Builds the model at full width as ``chip_smoke.py`` does (bfloat16
 weights from a seeded card generator), warms up, and traces the smoke's
-serving run under ``torch.profiler``: its 12 requests through
-``ContinuousBatcher`` at max_batch 8, max_seq 4096
-(``chip_smoke.serve_lm``).  Each prefill call and decode step runs in the
+serving run of that model under ``torch.profiler``: its requests through
+``ContinuousBatcher`` at max_batch 8 (``chip_smoke.SERVED``,
+``chip_smoke.serve_lm``).  Each prefill call and decode step runs in the
 profiler range ``serve.prefill`` or ``serve.decode`` and ends in a device
 synchronise (``chip_smoke.StepTimer``); a kernel counts for the range its
 launch call lies in, matched by the tracer's correlation id, so the
 ctypes kernels count as well as PyTorch's own.  For each of the two
 ranges: calls, wall (profiler on), kernel launches, summed device time
 (busy share = device time / wall), device time by kind of kernel (the
-flash- and decode-attention kernels, GEMMs by cuBLAS / CUTLASS names,
-and the rest: norms, RoPE, activations, casts, copies) and the kernels
-that take the most.
+flash- and decode-attention, expert-GEMM and RG-LRU-scan kernels, GEMMs
+by cuBLAS / CUTLASS names, and the rest: norms, RoPE, routing,
+activations, casts, copies) and the kernels that take the most.
 
 Writes the numbers as JSON to ``--out`` and prints them.
 """
@@ -42,6 +44,10 @@ def kind_of(name: str) -> str:
         return "flash_attention"
     if "decode_attention_kernel" in name:
         return "decode_attention"
+    if "moe_matmul_kernel" in name:
+        return "moe_matmul"
+    if "rglru_scan_kernel" in name:
+        return "rglru_scan"
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
         return "gemm"
@@ -98,6 +104,8 @@ def range_times(torch, prof):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=chip_smoke.LM_ARCH,
+                    choices=sorted(chip_smoke.SERVED))
     ap.add_argument("--out", default="build/profile_lm.json")
     args = ap.parse_args()
 
@@ -114,26 +122,28 @@ def main() -> int:
     from repro_torch.runtime.serve_loop import Request
 
     smi = chip_smoke.nvidia_smi_line()
-    cfg = get_arch(chip_smoke.LM_ARCH)
+    spec = chip_smoke.SERVED[args.arch]
+    cfg = get_arch(args.arch)
     model = build_model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     scfg = ServeConfig(max_batch=chip_smoke.LM_BATCH,
-                       max_seq=chip_smoke.LM_MAX_SEQ)
+                       max_seq=spec["max_seq"])
 
     def requests(n, prompt, max_new, seed=0):
         return chip_smoke.lm_requests(np, Request, cfg.vocab_size, n, prompt,
                                       max_new, seed)
 
+    want = {"prefill": spec["prefill"], "decode": spec["decode"]}
     chip_smoke.serve_lm(np, torch, model, params, scfg,             # warm-up
-                        requests(2, (64, 64), (3, 3), seed=99), cfg.n_layers)
+                        requests(2, (64, 64), (3, 3), seed=99), want)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         done, timer, launches, _ = chip_smoke.serve_lm(
             np, torch, model, params, scfg,
-            requests(chip_smoke.LM_REQUESTS, chip_smoke.LM_PROMPT,
-                     chip_smoke.LM_MAX_NEW), cfg.n_layers)
+            requests(spec["requests"], spec["prompt"], spec["max_new"]),
+            want)
         wall = time.perf_counter() - t0
     result = {"card": smi, "torch": torch.__version__,
               "config": {"model": cfg.name, "dtype": cfg.dtype,

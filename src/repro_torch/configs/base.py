@@ -43,12 +43,14 @@ class CNNConfig:
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts block shape (no served family has one yet; the
-    reference's routing knobs come with the MoE slice)."""
+    """Mixture-of-experts block parameters."""
 
     n_experts: int = 0
     top_k: int = 0
     d_expert: int = 0          # per-expert hidden size
+    # expert capacity = ceil(S * top_k / n_experts * capacity_factor);
+    # E/top_k makes dispatch drop-free (used by reduced smoke configs).
+    capacity_factor: float = 1.25
 
     @property
     def enabled(self) -> bool:
@@ -75,9 +77,9 @@ class AttentionConfig:
 class ArchConfig:
     """Architecture of one LM: the reference's fields that the served
     families read.  The reference's fields of the families still to port
-    (griffin, whisper, the VLM), of training and of its dry-run shapes
-    come with those slices, and its parameter count (``n_params``) with
-    the architecture cost model (ROADMAP queue 1 items 2 and 14)."""
+    (whisper, the VLM), of training and of its dry-run shapes come with
+    those slices, and its parameter count (``n_params``) with the
+    architecture cost model (ROADMAP queue 1 items 2 and 14)."""
 
     name: str
     family: str                 # dense | ssm | hybrid | audio | vlm | moe
@@ -94,6 +96,9 @@ class ArchConfig:
     act: str = "silu"                  # mlp activation ('silu'|'gelu'|'relu')
     glu: bool = True                   # gated MLP (SwiGLU/GeGLU)
     xlstm_mlstm_every: int = 2         # xlstm: one mLSTM block every n
+    # griffin / recurrentgemma: RG-LRU width & conv1d size
+    rglru_width: int = 0
+    rglru_conv_size: int = 4
     dtype: str = "bfloat16"            # compute (and weight matrix) dtype
 
     @property
@@ -104,9 +109,10 @@ class ArchConfig:
         return self.d_model // max(a.n_heads, 1)
 
     def reduced(self) -> "ArchConfig":
-        """Tiny same-family config for CPU tests (the reference's rule for
-        the attention families: <= 4 heads of width 16, <= 4 layers,
-        d_ff 128, vocab 256, window <= 32, float32)."""
+        """Tiny same-family config for CPU tests (the reference's rule:
+        <= 4 heads of width 16, <= 4 layers, d_ff 128, vocab 256, window
+        <= 32, float32; MoE at <= 8 experts, top-k <= 2, d_expert 32 and a
+        drop-free capacity factor; RG-LRU width 64)."""
         a = self.attention
         heads = min(a.n_heads, 4) or 4
         kv = max(1, min(a.n_kv_heads, heads))
@@ -115,6 +121,13 @@ class ArchConfig:
         red_attn = dataclasses.replace(
             a, n_heads=heads, n_kv_heads=kv, head_dim=16,
             window=min(a.window, 32) if a.window else 0)
+        red_moe = self.moe
+        if self.moe.enabled:
+            ne = min(8, self.moe.n_experts)
+            tk = min(2, self.moe.top_k)
+            red_moe = dataclasses.replace(
+                self.moe, n_experts=ne, top_k=tk, d_expert=32,
+                capacity_factor=float(ne) / tk)   # drop-free for exact tests
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
@@ -123,6 +136,8 @@ class ArchConfig:
             d_ff=128,
             vocab_size=256,
             attention=red_attn,
+            moe=red_moe,
+            rglru_width=64 if self.rglru_width else 0,
             dtype="float32",
         )
 

@@ -1,5 +1,6 @@
 """``get_arch(name)``: the architectures the port serves so far (the dense
-LMs and the paper's CNNs), by their reference ids."""
+LMs, the MoE LMs, recurrentgemma and the paper's CNNs), by their
+reference ids."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +13,9 @@ _MODULES: Dict[str, str] = {
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 _CNNS = {"lenet": "LENET", "alexnet": "ALEXNET"}
 

@@ -95,8 +95,10 @@ def cnn_params_from_arrays(arrays: Sequence[Mapping],
 
 
 #: leaves the port holds in float32 whatever the compute dtype: norm
-#: scales and the qkv biases (the reference casts them at use too)
-_FLOAT32_LEAVES = ("scale", "bq", "bk", "bv")
+#: scales, the qkv biases and the RG-LRU gate biases (the reference casts
+#: them at use too), and the RG-LRU's ``log_lambda``, whose softplus the
+#: reference takes in float32
+_FLOAT32_LEAVES = ("scale", "bq", "bk", "bv", "b_a", "b_i", "log_lambda")
 
 
 def lm_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
@@ -107,8 +109,11 @@ def lm_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
     parameters on ``device``: the same dict with ``layers`` in layer
     order, layer ``j * period + i`` from ``blocks["b{i}"][j]`` (for
     gemma2's alternating stack ``b0`` holds the local layers 0, 2, ...
-    and ``b1`` the global 1, 3, ...), then the ``rem`` layers.  Matrices
-    are cast to ``cfg.dtype``; norm scales and qkv biases stay float32."""
+    and ``b1`` the global 1, 3, ...; for griffin's period of 3 ``b0`` and
+    ``b1`` the RG-LRU layers, ``b2`` the local attention), then the
+    ``rem`` layers.  Matrices (MoE experts and router, RG-LRU weights
+    included) are cast to ``cfg.dtype``; the leaves of
+    ``_FLOAT32_LEAVES`` stay float32."""
     dev = resolve_device(device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
 

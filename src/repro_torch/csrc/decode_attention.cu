@@ -19,9 +19,9 @@
 // cache row of D elements is read by D / 8 lanes, 16 bytes (8 bf16) or 32
 // bytes (8 floats) a lane, so a warp reads 32 / (D / 8) rows at once and
 // the block 8 times that (one "row group" per D / 8 lanes).  Each row
-// group walks its own slots in tiles of 4 (all 8 K and V loads of a tile
-// are issued before they are used), reduces the 4 dot products over its
-// lanes with xor shuffles and keeps its own online-softmax state (m, l,
+// group walks its own slots in tiles of TS (all 2 TS K and V loads of a
+// tile are issued before they are used), reduces the TS dot products over
+// its lanes with xor shuffles and keeps its own online-softmax state (m, l,
 // and 8 columns of acc per query head in registers).  Only slots up to
 // pos[b] are read: a later slot carries exactly zero weight (its logit is
 // -1e30; once a group has a finite max, exp(-1e30 - m) is 0, and a group
@@ -31,14 +31,21 @@
 // so a launch is deterministic.  The query heads sit in shared memory.  The
 // grid is B x KV blocks (64 at gemma2's batch of 8 on 132 SMs); split-KV
 // across blocks comes later.
+//
+// Group sizes: the per-thread state is sized at compile time for GM query
+// heads.  G <= 8 (gemma2's 2) takes the GM = 8 build with tiles of TS = 4
+// slots; 8 < G <= 16 (recurrentgemma's 16 heads over 1 kv head) takes a
+// GM = 16 build with tiles of TS = 2 slots, which halves the per-tile
+// logits and loads held beside the 16 heads' accumulators (16 x 8 floats
+// a lane).  Each launch still reads every valid cache row once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256, WARPS = THREADS / 32, VEC = 8, TS = 4;
-constexpr int GMAX = 8;
+constexpr int THREADS = 256, WARPS = THREADS / 32, VEC = 8;
+constexpr int GMAX = 16;           // query heads per kv head, at most
 constexpr float NEG_INF = -1e30f;
 
 struct Row8 {
@@ -101,7 +108,8 @@ __host__ __device__ constexpr int smem_floats(int G) {
   return G * D + n_groups<D>() * G * D + 2 * n_groups<D>() * G;
 }
 
-template <typename T, int D>
+// GM: query heads the thread state holds; TS: slots per tile of a row group
+template <typename T, int D, int GM, int TS>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
@@ -131,9 +139,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * ksb + kvh * ksh + d0;
   const T* vb = v + b * vsb + kvh * vsh + d0;
 
-  float m[GMAX], l[GMAX], acc[GMAX][VEC];
+  float m[GM], l[GM], acc[GM][VEC];
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
+  for (int g = 0; g < GM; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
@@ -153,12 +161,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         load_raw(vr[t], vb + (long long)(s0 + t) * vss);
       }
     }
-    float sc[GMAX][TS];
+    float sc[GM][TS];
 #pragma unroll
     for (int t = 0; t < TS; ++t) {
       const Row8 kf = widen(kr[t]);
 #pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
+      for (int g = 0; g < GM; ++g) {
         if (g >= G) break;
         const float4 qa = *reinterpret_cast<const float4*>(qs + g * D + d0);
         const float4 qb = *reinterpret_cast<const float4*>(qs + g * D + d0 + 4);
@@ -178,7 +186,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int off = LPR / 2; off >= 1; off >>= 1)
 #pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
+      for (int g = 0; g < GM; ++g) {
         if (g >= G) break;
 #pragma unroll
         for (int t = 0; t < TS; ++t)
@@ -188,7 +196,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < TS; ++t) vf[t] = widen(vr[t]);
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
+    for (int g = 0; g < GM; ++g) {
       if (g >= G) break;
       float mx = NEG_INF;
 #pragma unroll
@@ -221,7 +229,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // merge the row groups in a fixed order
   if (li == 0) {
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
+    for (int g = 0; g < GM; ++g) {
       if (g >= G) break;
       ms[grp * G + g] = m[g];
       ls[grp * G + g] = l[g];
@@ -229,7 +237,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
+  for (int g = 0; g < GM; ++g) {
     if (g >= G) break;
     float mt = NEG_INF;
     for (int i = 0; i < NG; ++i) mt = fmaxf(mt, ms[i * G + g]);
@@ -252,12 +260,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* pos,
-           void* out, int B, int KV, int G, int S, const long long* st,
-           float scale, float cap, cudaStream_t stream) {
+template <typename T, int D, int GM, int TS>
+int launch_g(const void* q, const void* k, const void* v, const void* pos,
+             void* out, int B, int KV, int G, int S, const long long* st,
+             float scale, float cap, cudaStream_t stream) {
   const int bytes = smem_floats<D>(G) * (int)sizeof(float);
-  auto kern = decode_attention_kernel<T, D>;
+  auto kern = decode_attention_kernel<T, D, GM, TS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -265,6 +273,17 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
       (const T*)q, (const T*)k, (const T*)v, (const int*)pos, (T*)out, KV, G,
       S, st[0], st[1], st[2], st[3], st[4], st[5], scale, cap);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* pos,
+           void* out, int B, int KV, int G, int S, const long long* st,
+           float scale, float cap, cudaStream_t stream) {
+  if (G <= 8)
+    return launch_g<T, D, 8, 4>(q, k, v, pos, out, B, KV, G, S, st, scale,
+                                cap, stream);
+  return launch_g<T, D, 16, 2>(q, k, v, pos, out, B, KV, G, S, st, scale,
+                               cap, stream);
 }
 
 template <typename T>

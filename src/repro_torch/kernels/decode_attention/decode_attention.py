@@ -26,13 +26,13 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 6 + [ctypes.c_float] * 2
              + [ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP = 8          # query heads per kv head the kernel holds
+MAX_GROUP = 16         # query heads per kv head the kernel holds
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor, *,
                      cap: float = 0.0) -> torch.Tensor:
-    """q [B,KV,G,D] contiguous (G <= 8; D in 16, 32, 64, 128, 256); k/v
+    """q [B,KV,G,D] contiguous (G <= 16; D in 16, 32, 64, 128, 256); k/v
     [B,KV,S,D] (strided views allowed with D contiguous); pos [B] int32;
     float32 or bfloat16, all on one CUDA device -> [B,KV,G,D] in
     ``q.dtype``, on the current stream without synchronising."""

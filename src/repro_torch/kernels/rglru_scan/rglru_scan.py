@@ -1,0 +1,66 @@
+"""CUDA wrapper for the RG-LRU linear recurrence (``csrc/rglru_scan.cu``).
+
+Replaces the Pallas kernel ``src/repro/kernels/rglru_scan/rglru_scan.py``
+(``rglru_scan``): ``h_t = a_t h_{t-1} + b_t`` over ``[B, T, W]`` from
+``h0``, float32 math, ``h`` in ``a.dtype`` and ``hT`` in ``h0.dtype``.
+Bound by bytes (one read of a and b, one write of h); the kernel is one
+thread per (b, w) channel with the T loop inside, a chunk of steps'
+loads issued ahead of their dependent chain, each step one FMA rounded
+once, as the Pallas kernel and the plain version compute it, so it
+equals the plain version bitwise.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_BATCH = 65535          # the grid's y extent
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a, b [B, T, W] contiguous, of one dtype; h0 [B, W] contiguous;
+    float32 or bfloat16 CUDA tensors on one device -> (h [B, T, W] in
+    ``a.dtype``, hT [B, W] in ``h0.dtype``), on the current stream
+    without synchronising."""
+    if a.dim() != 3 or tuple(b.shape) != tuple(a.shape) or h0.dim() != 2 \
+            or tuple(h0.shape) != (a.shape[0], a.shape[2]):
+        raise ValueError(f"rglru_scan: want a, b [B, T, W] and h0 [B, W]; "
+                         f"got {tuple(a.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(h0.shape)}")
+    B, T, W = a.shape
+    if B > MAX_BATCH:
+        raise ValueError(f"rglru_scan: batch {B}, at most {MAX_BATCH}")
+    for name, t, dt in (("a", a, a.dtype), ("b", b, a.dtype),
+                        ("h0", h0, h0.dtype)):
+        if t.device != a.device or t.device.type != "cuda" or \
+                t.dtype not in _DTYPES or t.dtype != dt or \
+                not t.is_contiguous():
+            raise ValueError(
+                f"rglru_scan: {name} must be a contiguous CUDA float32 or "
+                f"bfloat16 tensor on {a.device} (b of a's dtype); got "
+                f"{t.device} {t.dtype}")
+    h = torch.empty_like(a)
+    hT = torch.empty_like(h0)
+    if hT.numel() == 0:
+        return h, hT
+    lib = _build.load("rglru_scan")
+    fn = lib.repro_rglru_scan
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
+                 hT.data_ptr(), B, T, W, _DTYPES[a.dtype], _DTYPES[h0.dtype],
+                 stream)
+    _build.check_launch(lib, "rglru_scan", err)
+    rglru_scan.launches += 1
+    return h, hT
+
+
+rglru_scan.launches = 0

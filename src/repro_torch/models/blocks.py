@@ -3,9 +3,11 @@ strings (``core.cost_model._block_kinds``), so the planner's units and the
 model's blocks agree.
 
 ``apply(params, x, state, ctx) -> (x, new_state)``; ``ctx.mode`` is
-``prefill`` or ``decode``.  Only the attention blocks (``attn_full``,
-``attn_local``) with a dense MLP are ported; the recurrent kinds and MoE
-blocks raise ``NotImplementedError`` naming their ROADMAP item.
+``prefill`` or ``decode``.  The attention blocks (``attn_full``,
+``attn_local``) with a dense or MoE MLP and the RG-LRU block (``rglru``)
+are ported; the xLSTM kinds raise ``NotImplementedError`` naming their
+ROADMAP item.  The MoE load-balancing loss is a training term: serving
+drops it, as the reference's prefill and decode do.
 """
 from __future__ import annotations
 
@@ -15,19 +17,17 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.layers import mlp, mlp_init, rmsnorm, rmsnorm_init
+from repro_torch.models.moe import moe_apply, moe_init
 
 Params = Dict[str, Any]
 
 #: block kinds and families that later slices port, with where they wait
 LATER = {
-    "rglru": "ROADMAP queue 1 item 14 (recurrent blocks) and queue 2 "
-             "item 7 (rglru_scan)",
-    "slstm": "ROADMAP queue 1 item 14 (recurrent blocks)",
-    "mlstm": "ROADMAP queue 1 item 14 (recurrent blocks) and queue 2 "
+    "slstm": "ROADMAP queue 1 item 14 (xLSTM blocks)",
+    "mlstm": "ROADMAP queue 1 item 14 (xLSTM blocks) and queue 2 "
              "item 8 (mlstm_chunk)",
-    "moe": "ROADMAP queue 1 item 14 (MoE blocks) and queue 2 item 6 "
-           "(moe_matmul)",
 }
 
 
@@ -53,15 +53,16 @@ def _post(p: Params, name: str, x: torch.Tensor, cfg: ArchConfig):
 
 def _attn_block_init(cfg: ArchConfig, generator: torch.Generator,
                      dtype: torch.dtype) -> Params:
-    if cfg.moe.enabled:
-        raise NotImplementedError(f"MoE blocks wait for {LATER['moe']}")
     a = cfg.attention
     # gemma2 style post-norms exist only with an attention softcap
     p = _norms_init(cfg, post=a.logit_softcap > 0, device=generator.device)
     p["attn"] = attn_mod.attn_init(cfg.d_model, a.n_heads, a.n_kv_heads,
                                    cfg.head_dim, a.qkv_bias, generator,
                                    dtype)
-    if cfg.d_ff:
+    if cfg.moe.enabled:
+        p["moe"] = moe_init(cfg.d_model, cfg.moe.n_experts,
+                            cfg.moe.d_expert, cfg.glu, generator, dtype)
+    elif cfg.d_ff:
         p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, cfg.glu, generator, dtype)
     return p
 
@@ -86,11 +87,16 @@ def _attn_block_apply(local: bool) -> Callable:
                 theta=a.rope_theta)
             new_state = _prefill_cache(k, v, ctx, win)
         x = x + _post(p, "ln1p", y, cfg)
-        if cfg.d_ff:
-            y2 = mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act,
-                     cfg.glu)
-            x = x + _post(p, "ln2p", y2, cfg)
-        return x, new_state
+        if not (cfg.moe.enabled or cfg.d_ff):
+            return x, new_state
+        h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if cfg.moe.enabled:
+            y2, _ = moe_apply(p["moe"], h2, top_k=cfg.moe.top_k,
+                              act=cfg.act, glu=cfg.glu,
+                              capacity_factor=cfg.moe.capacity_factor)
+        else:
+            y2 = mlp(p["mlp"], h2, cfg.act, cfg.glu)
+        return x + _post(p, "ln2p", y2, cfg), new_state
     return apply
 
 
@@ -122,6 +128,42 @@ def _attn_state_init(local: bool) -> Callable:
     return init
 
 
+def _rglru_width(cfg: ArchConfig) -> int:
+    return cfg.rglru_width or cfg.d_model
+
+
+def _rglru_block_init(cfg: ArchConfig, generator: torch.Generator,
+                      dtype: torch.dtype) -> Params:
+    p = _norms_init(cfg, post=False, device=generator.device)
+    p["rglru"] = rec_mod.rglru_init(cfg.d_model, _rglru_width(cfg),
+                                    cfg.rglru_conv_size, generator, dtype)
+    if cfg.d_ff:
+        p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, cfg.glu, generator, dtype)
+    return p
+
+
+def _rglru_block_apply(p: Params, x: torch.Tensor, state, ctx: Ctx):
+    cfg = ctx.cfg
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if state is None:
+        state = rec_mod.rglru_block_state(x.shape[0], _rglru_width(cfg),
+                                          cfg.rglru_conv_size, x.dtype,
+                                          x.device)
+    y, new_state = rec_mod.rglru_block_apply(p["rglru"], h, state,
+                                             decode=ctx.mode == "decode")
+    x = x + y
+    if cfg.d_ff:
+        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act,
+                    cfg.glu)
+    return x, new_state
+
+
+def _rglru_state_init(cfg: ArchConfig, batch: int, dtype, cache_len: int,
+                      device):
+    return rec_mod.rglru_block_state(batch, _rglru_width(cfg),
+                                     cfg.rglru_conv_size, dtype, device)
+
+
 class BlockDef(NamedTuple):
     init: Any
     apply: Any
@@ -133,6 +175,8 @@ BLOCK_KINDS: Dict[str, BlockDef] = {
                           _attn_state_init(False)),
     "attn_local": BlockDef(_attn_block_init, _attn_block_apply(True),
                            _attn_state_init(True)),
+    "rglru": BlockDef(_rglru_block_init, _rglru_block_apply,
+                      _rglru_state_init),
 }
 
 

@@ -1,0 +1,125 @@
+"""Mixture-of-Experts MLP (granite-moe, olmoe): top-k routing with
+capacity-based dispatch (the reference's ``models/moe.py``, its
+single-device ``moe_apply``).
+
+Tokens are laid into a dense, statically shaped buffer, as in the
+reference (GShard style): groups are sequences, so a token's position in
+its expert is a cumsum over its own sequence's ``S * k`` picks, and a
+pick past the capacity ``cap = max(1, ceil(S k cf / E))`` is dropped (it
+adds nothing and gets zero combine weight).  The reference's buffer is
+``[B, E, cap, d]``; here it is ``[E, B * cap, d]``, flat row
+``e * B * cap + b * cap + pos``, so each expert's rows are contiguous for
+the grouped GEMM kernel (``ops.expert_gemm``) with no transposed copy.
+The products are the same.  Routing, scatter and combine are plain
+PyTorch, as they are outside the Pallas kernel in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.moe_matmul.ops import expert_gemm
+from repro_torch.models.layers import _ACT, dense_init, truncated_normal
+
+Params = Dict[str, torch.Tensor]
+
+
+def moe_init(d: int, n_experts: int, d_expert: int, glu: bool,
+             generator: torch.Generator, dtype: torch.dtype) -> Params:
+    scale_in = 1.0 / math.sqrt(d)
+    scale_out = 1.0 / math.sqrt(d_expert)
+    p = {
+        "router": dense_init(d, n_experts, generator, dtype),
+        "w_in": truncated_normal((n_experts, d, d_expert), scale_in,
+                                 generator, dtype),
+        "w_out": truncated_normal((n_experts, d_expert, d), scale_out,
+                                  generator, dtype),
+    }
+    if glu:
+        p["w_gate"] = truncated_normal((n_experts, d, d_expert), scale_in,
+                                       generator, dtype)
+    return p
+
+
+def capacity(s: int, top_k: int, n_experts: int,
+             capacity_factor: float) -> int:
+    """Slots per expert per sequence (the reference's formula)."""
+    return max(1, int(math.ceil(s * top_k * capacity_factor / n_experts)))
+
+
+def moe_route(p: Params, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float) -> Dict[str, torch.Tensor]:
+    """Routing of x [B, S, d]: ``gate`` and ``idx`` [B, S, k] (the top-k
+    probabilities in descending order, ties to the lower expert, as
+    ``jax.lax.top_k``; gates renormalised), ``pos`` and ``keep``
+    [B, S * k] (position in the expert within the sequence, and whether
+    it is under the capacity), ``aux`` (the Switch load-balancing loss)
+    and ``cap``."""
+    dt = x.dtype
+    b, s, _ = x.shape
+    e = p["router"].shape[1]
+    cap = capacity(s, top_k, e, capacity_factor)
+    logits = x @ p["router"].to(dt)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    # a stable descending sort keeps equal probabilities in index order
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[..., :top_k], idx[..., :top_k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    me = probs.mean(dim=(0, 1))                                     # [E]
+    ce = F.one_hot(idx, e).to(torch.float32).mean(dim=(0, 1, 2))    # [E]
+    aux = e * torch.sum(me * ce)
+
+    idx_flat = idx.reshape(b, s * top_k)
+    onehot = F.one_hot(idx_flat, e).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
+    pos = torch.gather(pos, -1, idx_flat[..., None])[..., 0]
+    return {"gate": gate, "idx": idx, "pos": pos, "keep": pos < cap,
+            "aux": aux, "cap": cap}
+
+
+def moe_apply(p: Params, x: torch.Tensor, *, top_k: int, act: str,
+              glu: bool, capacity_factor: float = 1.25
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (y [B, S, d], aux loss)."""
+    dt = x.dtype
+    b, s, d = x.shape
+    e = p["w_in"].shape[0]
+    r = moe_route(p, x, top_k=top_k, capacity_factor=capacity_factor)
+    cap, keep = r["cap"], r["keep"]
+    idx_flat = r["idx"].reshape(b, s * top_k)
+    rows = b * cap                                  # slots of one expert
+    n_slots = e * rows
+
+    # --- dispatch: slot -> source token (dropped picks go to a trash
+    # slot; empty slots read an appended zero row) -----------------------
+    seq = torch.arange(b, device=x.device)[:, None]
+    slot = idx_flat * rows + seq * cap + torch.clamp(r["pos"], max=cap - 1)
+    dest = torch.where(keep, slot, torch.full_like(slot, n_slots))
+    tok = (seq * s + torch.arange(s * top_k, device=x.device)[None, :]
+           // top_k)
+    src = torch.full((n_slots + 1,), b * s, dtype=torch.long,
+                     device=x.device)
+    src.index_copy_(0, dest.reshape(-1), tok.reshape(-1))
+    x_ext = torch.cat([x.reshape(b * s, d), x.new_zeros((1, d))])
+    buf = x_ext.index_select(0, src[:n_slots]).view(e, rows, d)
+
+    # --- expert GEMMs --------------------------------------------------
+    h = expert_gemm(buf, p["w_in"].to(dt))
+    if glu:
+        h = _ACT[act](expert_gemm(buf, p["w_gate"].to(dt))) * h
+    else:
+        h = _ACT[act](h)
+    y_buf = expert_gemm(h, p["w_out"].to(dt)).view(n_slots, d)
+
+    # --- combine -------------------------------------------------------
+    y_tok = y_buf.index_select(0, slot.reshape(-1)).view(b, s * top_k, d)
+    w = (r["gate"].reshape(b, s * top_k) * keep.to(torch.float32)).to(dt)
+    y = (y_tok * w[..., None]).view(b, s, top_k, d).sum(dim=2)
+    return y, r["aux"]
+
+
+__all__ = ["capacity", "moe_apply", "moe_init", "moe_route"]

@@ -1,6 +1,8 @@
 """Layer-stacked LM for the dense families (minicpm, phi4, qwen1.5,
-gemma2's alternating local/global attention with softcaps), served
-through ``prefill`` and ``decode_step``.
+gemma2's alternating local/global attention with softcaps), the MoE
+family (granite-moe, olmoe) and griffin (recurrentgemma: two RG-LRU
+blocks to one local-attention block), served through ``prefill`` and
+``decode_step``.
 
 The kind sequence comes from ``core.cost_model._block_kinds``, as in the
 reference.  Parameters are a dict with ``embed`` (``table [V, d]``),
@@ -10,8 +12,8 @@ period slot instead (``convert.lm_params_from_arrays`` interleaves).
 Weight matrices are held in the compute dtype (``cfg.dtype``), norm
 scales and qkv biases in float32: the reference casts each weight to the
 compute dtype at use, so the results agree and the memory is half.
-Families ``moe``, ``ssm``, ``hybrid``, ``vlm`` and ``audio``, and
-training, wait for later slices (ROADMAP queue 1 item 14).
+Families ``ssm``, ``vlm`` and ``audio``, and training, wait for later
+slices (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -33,9 +35,7 @@ Cache = List[Dict[str, torch.Tensor]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _FAMILIES_LATER = {
-    "moe": LATER["moe"],
-    "ssm": "ROADMAP queue 1 item 14 (xLSTM family)",
-    "hybrid": "ROADMAP queue 1 item 14 (griffin family)",
+    "ssm": LATER["mlstm"],
     "vlm": "ROADMAP queue 1 item 14 (VLM family)",
     "audio": "ROADMAP queue 1 item 14 (whisper)",
 }
@@ -44,7 +44,8 @@ _FAMILIES_LATER = {
 class TransformerLM:
     """Functional LM on ``device`` (``None`` = the card; raises without
     one): parameters are plain dicts of tensors, the methods pure except
-    that ``decode_step`` writes the new K/V into the cache in place."""
+    that ``decode_step`` writes the new K/V into the cache in place (an
+    RG-LRU layer's state is replaced)."""
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
         if cfg.family in _FAMILIES_LATER:
@@ -106,7 +107,8 @@ class TransformerLM:
     def prefill(self, params: Params, tokens: torch.Tensor,
                 cache_len: int) -> Tuple[torch.Tensor, Cache]:
         """tokens [B, S] -> (last-position logits [B, V], decode-ready
-        cache: one ``{"k", "v"}`` per layer)."""
+        cache: one state per layer, ``{"k", "v"}`` for attention and
+        ``{"h", "conv"}`` for an RG-LRU block)."""
         x = self._embed(params, tokens)
         b, s = x.shape[:2]
         ctx = Ctx(self.cfg, "prefill", self._positions(b, s),
@@ -129,7 +131,7 @@ class TransformerLM:
         return self._head(params, x)[:, 0], cache
 
     def init_cache(self, batch: int, cache_len: int) -> Cache:
-        """Zeroed decode cache, one ``{"k", "v"}`` per layer."""
+        """Zeroed decode cache, one state per layer."""
         return [blk.state_init(self.cfg, batch, self.dtype, cache_len,
                                self.device) for blk in self.blocks]
 

@@ -21,12 +21,13 @@ from repro_torch.kernels.tropical_dp.tropical_dp import \
     tropical_dp_step  # noqa: E402
 
 
-def test_sources_are_the_two_main_path_kernels():
-    """The planner's two kernels, the CNN path's conv GEMM and the LM
-    serving path's two attention kernels."""
+def test_sources_are_the_ported_kernels():
+    """The planner's two kernels, the CNN path's conv GEMM, the LM
+    serving path's two attention kernels, the MoE expert GEMM and the
+    RG-LRU scan."""
     assert _build.sources() == ("conv2d", "decode_attention",
                                 "flash_attention", "link_geometry",
-                                "tropical_dp")
+                                "moe_matmul", "rglru_scan", "tropical_dp")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -135,7 +136,7 @@ def test_flash_attention_rejects_before_building(case):
 def test_decode_attention_rejects_before_building(case):
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
-    g, d = {"group": (9, 32), "head_dim": (2, 24)}.get(case, (2, 32))
+    g, d = {"group": (17, 32), "head_dim": (2, 24)}.get(case, (2, 32))
     q = torch.zeros((2, 2, g, d))
     k = torch.zeros((2, 2, 16, d))
     pos = torch.zeros(2, dtype=torch.int64 if case == "pos" else torch.int32)
@@ -143,3 +144,37 @@ def test_decode_attention_rejects_before_building(case):
     with pytest.raises(ValueError, match="decode_attention"):
         decode_attention(q, k, k, pos)
     assert decode_attention.launches == before
+
+
+@pytest.mark.parametrize("case", ["cpu", "rank", "inner", "dtype", "mixed"])
+def test_moe_matmul_rejects_before_building(case):
+    from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
+    x, w = {"cpu": lambda: (torch.zeros((2, 3, 4)), torch.zeros((2, 4, 5))),
+            "rank": lambda: (torch.zeros((3, 4)), torch.zeros((2, 4, 5))),
+            "inner": lambda: (torch.zeros((2, 3, 4)), torch.zeros((2, 6, 5))),
+            "dtype": lambda: (torch.zeros((2, 3, 4), dtype=torch.float16),
+                              torch.zeros((2, 4, 5), dtype=torch.float16)),
+            "mixed": lambda: (torch.zeros((2, 3, 4)),
+                              torch.zeros((2, 4, 5), dtype=torch.bfloat16)),
+            }[case]()
+    before = moe_matmul.launches
+    with pytest.raises(ValueError, match="moe_matmul"):
+        moe_matmul(x, w)
+    assert moe_matmul.launches == before
+
+
+@pytest.mark.parametrize("case", ["cpu", "shape", "h0", "dtype"])
+def test_rglru_scan_rejects_before_building(case):
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    a = torch.zeros((2, 5, 8))
+    b, h0 = torch.zeros((2, 5, 8)), torch.zeros((2, 8))
+    if case == "shape":
+        b = torch.zeros((2, 4, 8))
+    elif case == "h0":
+        h0 = torch.zeros((2, 7))
+    elif case == "dtype":
+        a = b = torch.zeros((2, 5, 8), dtype=torch.float64)
+    before = rglru_scan.launches
+    with pytest.raises(ValueError, match="rglru_scan"):
+        rglru_scan(a, b, h0)
+    assert rglru_scan.launches == before

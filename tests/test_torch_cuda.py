@@ -1,7 +1,8 @@
 """The port on a CUDA card: each kernel against its plain version, a
 small planning run on the card against the CPU plain path, the sliced
-LeNet forward against the monolithic one, and the attention kernels
-(prefill and decode) against their plain versions.
+LeNet forward against the monolithic one, the attention kernels
+(prefill and decode, G up to 16) and the MoE and RG-LRU kernels against
+their plain versions.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -33,6 +34,10 @@ from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
 from repro_torch.kernels.link_geometry.ref import \
     link_geometry_ref  # noqa: E402
+from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul  # noqa
+from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan  # noqa
 from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
 from repro_torch.kernels.tropical_dp.ref import dp_step_ref  # noqa: E402
 from repro_torch.models.cnn import (distributed_forward,  # noqa: E402
@@ -193,11 +198,15 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, causal,
 @pytest.mark.parametrize("b,kv,g,s,d,cap", [
     (2, 2, 4, 512, 64, 0.0), (1, 4, 1, 1024, 32, 50.0),
     (3, 1, 8, 256, 128, 0.0), (8, 8, 2, 4096, 256, 50.0),
-    (2, 2, 3, 37, 256, 0.0), (2, 2, 2, 48, 16, 50.0)])
+    (2, 2, 3, 37, 256, 0.0), (2, 2, 2, 48, 16, 50.0),
+    (8, 1, 16, 2048, 256, 0.0), (2, 2, 12, 300, 64, 50.0),
+    (2, 1, 16, 48, 16, 0.0)])
 def test_decode_attention_kernel_matches_plain(cuda, b, kv, g, s, d, cap,
                                                dtype):
     """The reference's decode grid plus gemma2-9b's decode shape, a
-    ragged cache and D = 16; pos holds 0 and S - 1 and random slots between; the
+    ragged cache and D = 16, and groups above 8 (recurrentgemma-9b's 16
+    query heads over one kv head at its 2048-slot window, G = 12, and
+    D = 16 at G = 16); pos holds 0 and S - 1 and random slots between; the
     cache is a transposed view of [B, S, KV, D], as the model keeps it."""
     rng = np.random.default_rng(s + g)
     q = torch.as_tensor(rng.normal(size=(b, kv, g, d)), dtype=torch.float32,
@@ -217,3 +226,61 @@ def test_decode_attention_kernel_matches_plain(cuda, b, kv, g, s, d, cap,
     assert kernels.launch_counts()["decode_attention"] == 2
     assert got.dtype == dtype and torch.equal(got, again)
     torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
+
+
+#: tolerances of the expert GEMM: float32 sums in another order grow
+#: with sqrt(D); bfloat16 outputs one rounding apart
+MOE_TOL = {torch.float32: lambda d: dict(atol=1e-5 * d ** 0.5, rtol=1e-4),
+           torch.bfloat16: lambda d: dict(atol=1e-3, rtol=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("e,c,d,f", [
+    (4, 64, 96, 160), (8, 32, 128, 64), (2, 128, 64, 256),
+    (64, 8, 2048, 1024), (64, 8, 1024, 2048), (8, 16, 64, 32),
+    (8, 17, 64, 32), (3, 5, 7, 9)])
+def test_moe_matmul_kernel_matches_plain(cuda, e, c, d, f, dtype):
+    """The reference's kernel grid, olmoe-1b-7b's decode GEMMs (C = 8 rows:
+    the decode tile), both sides of the tile choice (C 16 and 17) and a
+    ragged shape.  Two launches are bitwise equal."""
+    rng = np.random.default_rng(e * c + f)
+    x = torch.as_tensor(rng.normal(size=(e, c, d)), dtype=torch.float32,
+                        device=cuda).to(dtype)
+    w = torch.as_tensor(rng.normal(size=(e, d, f)) / np.sqrt(d),
+                        dtype=torch.float32, device=cuda).to(dtype)
+    kernels.reset_launch_counts()
+    got = moe_matmul(x, w)
+    again = moe_matmul(x, w)
+    ref = moe_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_matmul"] == 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **MOE_TOL[dtype](d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,w", [(2, 64, 256), (1, 128, 128), (3, 32, 384),
+                                   (2, 37, 100), (8, 300, 4096)])
+def test_rglru_scan_kernel_is_bitwise_the_plain_version(cuda, b, t, w,
+                                                        dtype):
+    """The reference's kernel grid, a ragged shape and recurrentgemma's
+    width; h0 nonzero.  Bitwise, launch to launch too."""
+    rng = np.random.default_rng(b * t + w)
+    a = torch.as_tensor(1.0 / (1.0 + np.exp(-rng.normal(size=(b, t, w)))),
+                        dtype=torch.float32, device=cuda).to(dtype)
+    bb = torch.as_tensor(rng.normal(size=(b, t, w)) * 0.1,
+                         dtype=torch.float32, device=cuda).to(dtype)
+    h0 = torch.as_tensor(rng.normal(size=(b, w)), dtype=torch.float32,
+                         device=cuda).to(dtype)
+    kernels.reset_launch_counts()
+    h, hT = rglru_scan(a, bb, h0)
+    h2, hT2 = rglru_scan(a, bb, h0)
+    rh, rhT = rglru_ref(a, bb, h0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rglru_scan"] == 2
+    assert h.dtype == hT.dtype == dtype
+    assert torch.equal(h, h2) and torch.equal(hT, hT2)
+    assert torch.equal(h, rh) and torch.equal(hT, rhT)

@@ -6,8 +6,9 @@
 * Entry points built without ``device=`` run on CUDA or raise; they never
   fall back to the CPU.
 * A CPU tensor given to a kernel dispatcher (link geometry, the DP step,
-  conv2d, prefill and decode attention) takes the plain version and
-  leaves the kernel's launch counter alone.
+  conv2d, prefill and decode attention, the expert GEMM, the RG-LRU
+  scan) takes the plain version and leaves the kernel's launch counter
+  alone.
 * The LM serving path (``TransformerLM``, ``build_model``,
   ``ContinuousBatcher``) runs on CUDA or raises; families and block
   kinds not ported yet raise naming their ROADMAP item.
@@ -49,7 +50,8 @@ from repro_torch.runtime.scenario_engine import ScenarioEngine  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "conv2d": 0,
-               "flash_attention": 0, "decode_attention": 0}
+               "flash_attention": 0, "decode_attention": 0, "moe_matmul": 0,
+               "rglru_scan": 0}
 
 
 def _port_files():
@@ -209,9 +211,14 @@ def test_cpu_attention_takes_the_plain_path_without_counting():
     assert kernels.launch_counts() == NO_LAUNCHES
 
 
-def test_lm_entry_points_without_device_raise(monkeypatch):
+@pytest.mark.parametrize("arch,reduced", [
+    ("gemma2-9b", True), ("olmoe-1b-7b", False),
+    ("granite-moe-1b-a400m", False), ("recurrentgemma-9b", False)])
+def test_lm_entry_points_without_device_raise(monkeypatch, arch, reduced):
+    """Every served family defaults to the card (the full MoE and griffin
+    configs too: the check comes before any parameter exists)."""
     _no_cuda(monkeypatch)
-    cfg = get_arch("gemma2-9b").reduced()
+    cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
     with pytest.raises(RuntimeError, match="CUDA"):
         TransformerLM(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -223,7 +230,7 @@ def test_lm_entry_points_without_device_raise(monkeypatch):
         torch.device("cpu")
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["ssm", "vlm", "audio"])
 def test_unported_families_name_their_roadmap_item(family):
     cfg = dataclasses.replace(get_arch("phi4-mini-3.8b").reduced(),
                               family=family)
@@ -231,7 +238,7 @@ def test_unported_families_name_their_roadmap_item(family):
         TransformerLM(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["rglru", "slstm", "mlstm"])
+@pytest.mark.parametrize("kind", ["slstm", "mlstm"])
 def test_unported_block_kinds_name_their_roadmap_item(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         block_def(kind)
