@@ -2,7 +2,7 @@
 """Where the time of the port's LM serving path goes, on one CUDA card.
 
     PYTHONPATH=src python3 scripts/profile_torch_lm.py \
-        [--arch gemma2-9b|olmoe-1b-7b|recurrentgemma-9b] \
+        [--arch gemma2-9b|olmoe-1b-7b|recurrentgemma-9b|xlstm-350m] \
         [--out build/profile_lm.json]
 
 Builds the model at full width as ``chip_smoke.py`` does (bfloat16
@@ -16,9 +16,10 @@ launch call lies in, matched by the tracer's correlation id, so the
 ctypes kernels count as well as PyTorch's own.  For each of the two
 ranges: calls, wall (profiler on), kernel launches, summed device time
 (busy share = device time / wall), device time by kind of kernel (the
-flash- and decode-attention, expert-GEMM and RG-LRU-scan kernels, GEMMs
-by cuBLAS / CUTLASS names, and the rest: norms, RoPE, routing,
-activations, casts, copies) and the kernels that take the most.
+flash- and decode-attention, expert-GEMM, RG-LRU-scan and mLSTM-chunk
+kernels, GEMMs by cuBLAS / CUTLASS names, and the rest: norms, RoPE,
+routing, activations, the sLSTM step's elementwise ops, casts, copies)
+and the kernels that take the most.
 
 Writes the numbers as JSON to ``--out`` and prints them.
 """
@@ -48,6 +49,8 @@ def kind_of(name: str) -> str:
         return "moe_matmul"
     if "rglru_scan_kernel" in name:
         return "rglru_scan"
+    if "mlstm_chunk_kernel" in name:
+        return "mlstm_chunk"
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
         return "gemm"

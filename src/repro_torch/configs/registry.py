@@ -1,6 +1,6 @@
 """``get_arch(name)``: the architectures the port serves so far (the dense
-LMs, the MoE LMs, recurrentgemma and the paper's CNNs), by their
-reference ids."""
+LMs, the MoE LMs, recurrentgemma, xlstm and the paper's CNNs), by
+their reference ids."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +16,7 @@ _MODULES: Dict[str, str] = {
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
 _CNNS = {"lenet": "LENET", "alexnet": "ALEXNET"}
 

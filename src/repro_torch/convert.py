@@ -110,9 +110,12 @@ def lm_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
     order, layer ``j * period + i`` from ``blocks["b{i}"][j]`` (for
     gemma2's alternating stack ``b0`` holds the local layers 0, 2, ...
     and ``b1`` the global 1, 3, ...; for griffin's period of 3 ``b0`` and
-    ``b1`` the RG-LRU layers, ``b2`` the local attention), then the
-    ``rem`` layers.  Matrices (MoE experts and router, RG-LRU weights
-    included) are cast to ``cfg.dtype``; the leaves of
+    ``b1`` the RG-LRU layers, ``b2`` the local attention; for xLSTM's
+    period of 2 ``b0`` the sLSTM layers, ``b1`` the mLSTM), then the
+    ``rem`` layers.  Matrices (MoE experts and router, RG-LRU weights,
+    the xLSTM cells' ``w_if``, ``b_if``, ``w_in``, ``r``, ``b`` and
+    ``wo`` included) keep the reference's shapes and are cast to
+    ``cfg.dtype``, where the reference casts them at use; the leaves of
     ``_FLOAT32_LEAVES`` stay float32."""
     dev = resolve_device(device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]

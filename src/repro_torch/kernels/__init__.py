@@ -18,13 +18,14 @@ def _wrappers():
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
     from repro_torch.kernels.tropical_dp.tropical_dp import tropical_dp_step
     return {"link_geometry": link_geometry, "tropical_dp": tropical_dp_step,
             "conv2d": matmul_bias_act, "flash_attention": flash_attention,
             "decode_attention": decode_attention, "moe_matmul": moe_matmul,
-            "rglru_scan": rglru_scan}
+            "rglru_scan": rglru_scan, "mlstm_chunk": mlstm_chunk}
 
 
 def launch_counts() -> Dict[str, int]:

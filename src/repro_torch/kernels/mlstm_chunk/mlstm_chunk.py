@@ -1,0 +1,85 @@
+"""CUDA wrapper for the chunkwise mLSTM cell (``csrc/mlstm_chunk.cu``).
+
+Replaces the Pallas kernel ``src/repro/kernels/mlstm_chunk/mlstm_chunk.py``
+(``mlstm_chunk``), with two additions for serving: it starts from a
+given state ``(C0, n0, m0)`` and returns the final one, and it takes any
+``S >= 1`` (its own chunks of 32 steps, the last one ragged).  Bound by
+operations in prefill (the two ``D x D`` products a token) and by bytes
+in decode (reading and writing ``C``); the kernel is a SIMT block per
+(b, head, value tile of 64 columns) holding its tile of ``C`` in shared
+memory over the whole sequence.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + \
+    [ctypes.c_float, ctypes.c_void_p]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+CHUNK = 32                       # the kernel's chunk length (LC)
+MAX_ROWS = 2 ** 31 - 1           # B x H, the grid's x extent
+
+
+def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                i_pre: torch.Tensor, f_pre: torch.Tensor, C0: torch.Tensor,
+                n0: torch.Tensor, m0: torch.Tensor, scale: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """q, k, v [B, S, H, D] contiguous, of one dtype (float32 or
+    bfloat16; q unscaled), i_pre, f_pre [B, S, H] and the state C0
+    [B, H, D, D], n0 [B, H, D], m0 [B, H] contiguous float32, all CUDA
+    tensors on one device; D in ``HEAD_DIMS``, S >= 1 -> (h [B, S, H, D]
+    in q's dtype, C1, n1, m1), on the current stream without
+    synchronising."""
+    if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) or \
+            tuple(v.shape) != tuple(q.shape):
+        raise ValueError(f"mlstm_chunk: want q, k, v [B, S, H, D] of one "
+                         f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, D = q.shape
+    want = {"i_pre": (B, S, H), "f_pre": (B, S, H), "C0": (B, H, D, D),
+            "n0": (B, H, D), "m0": (B, H)}
+    got = {"i_pre": i_pre, "f_pre": f_pre, "C0": C0, "n0": n0, "m0": m0}
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(f"mlstm_chunk: {name} must be {shape}; got "
+                             f"{tuple(got[name].shape)}")
+    if D not in HEAD_DIMS or S < 1 or B * H > MAX_ROWS:
+        raise ValueError(f"mlstm_chunk: head dim {D} (want one of "
+                         f"{HEAD_DIMS}), S {S} (want >= 1), B x H {B * H}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.dtype not in _DTYPES or \
+                t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"mlstm_chunk: {name} must be a contiguous "
+                             f"CUDA float32 or bfloat16 tensor of q's "
+                             f"dtype; got {t.device} {t.dtype}")
+    for name, t in got.items():
+        if t.device != q.device or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"mlstm_chunk: {name} must be a contiguous "
+                             f"CUDA float32 tensor on {q.device}; got "
+                             f"{t.device} {t.dtype}")
+    h = torch.empty_like(q)
+    C1, n1, m1 = (torch.empty_like(t) for t in (C0, n0, m0))
+    lib = _build.load("mlstm_chunk")
+    fn = lib.repro_mlstm_chunk
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
+                 f_pre.data_ptr(), C0.data_ptr(), n0.data_ptr(),
+                 m0.data_ptr(), h.data_ptr(), C1.data_ptr(), n1.data_ptr(),
+                 m1.data_ptr(), B, S, H, D, _DTYPES[q.dtype], float(scale),
+                 stream)
+    _build.check_launch(lib, "mlstm_chunk", err)
+    mlstm_chunk.launches += 1
+    return h, C1, n1, m1
+
+
+mlstm_chunk.launches = 0

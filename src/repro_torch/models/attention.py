@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_mha
 from repro_torch.kernels.flash_attention.ops import mha
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import (apply_rope, dense_init, head_out,
+                                       head_proj)
 
 Params = Dict[str, torch.Tensor]
 
@@ -46,16 +47,10 @@ def attn_init(d: int, n_heads: int, n_kv: int, head_dim: int,
     return p
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [B, T, d] @ w [d, heads, Dh] -> [B, T, heads, Dh]."""
-    b, t, d = x.shape
-    return (x @ w.to(x.dtype).reshape(d, -1)).view(b, t, *w.shape[1:])
-
-
 def _qkv(p: Params, x: torch.Tensor, pos: torch.Tensor, theta: float
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     dt = x.dtype
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = (head_proj(x, p[n]) for n in ("wq", "wk", "wv"))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -64,13 +59,6 @@ def _qkv(p: Params, x: torch.Tensor, pos: torch.Tensor, theta: float
         q = apply_rope(q, pos, theta)
         k = apply_rope(k, pos, theta)
     return q, k, v
-
-
-def _out(p: Params, o: torch.Tensor) -> torch.Tensor:
-    """o [B, T, H, Dh] @ wo [H, Dh, d] -> [B, T, d]."""
-    b, t = o.shape[:2]
-    wo = p["wo"]
-    return o.reshape(b, t, -1) @ wo.to(o.dtype).reshape(-1, wo.shape[-1])
 
 
 def attention(p: Params, x: torch.Tensor, pos: torch.Tensor, *,
@@ -83,7 +71,7 @@ def attention(p: Params, x: torch.Tensor, pos: torch.Tensor, *,
     reference recomputes them)."""
     q, k, v = _qkv(p, x, pos, theta)
     o = mha(q, k, v, causal=True, window=window, cap=cap)
-    return _out(p, o), k, v
+    return head_out(o, p["wo"]), k, v
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +114,7 @@ def decode_attention(p: Params, x: torch.Tensor, pos: torch.Tensor,
     v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
     last = torch.clamp(cur, max=size - 1).to(torch.int32)
     o = decode_mha(q, k_cache, v_cache, last, cap=cap)
-    return _out(p, o), cache
+    return head_out(o, p["wo"]), cache
 
 
 __all__ = ["attention", "attn_init", "decode_attention", "init_cache"]

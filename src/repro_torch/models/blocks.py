@@ -4,10 +4,10 @@ model's blocks agree.
 
 ``apply(params, x, state, ctx) -> (x, new_state)``; ``ctx.mode`` is
 ``prefill`` or ``decode``.  The attention blocks (``attn_full``,
-``attn_local``) with a dense or MoE MLP and the RG-LRU block (``rglru``)
-are ported; the xLSTM kinds raise ``NotImplementedError`` naming their
-ROADMAP item.  The MoE load-balancing loss is a training term: serving
-drops it, as the reference's prefill and decode do.
+``attn_local``) with a dense or MoE MLP, the RG-LRU block (``rglru``) and
+the xLSTM blocks (``slstm``, ``mlstm``) are ported.  The MoE
+load-balancing loss is a training term: serving drops it, as the
+reference's prefill and decode do.
 """
 from __future__ import annotations
 
@@ -22,14 +22,6 @@ from repro_torch.models.layers import mlp, mlp_init, rmsnorm, rmsnorm_init
 from repro_torch.models.moe import moe_apply, moe_init
 
 Params = Dict[str, Any]
-
-#: block kinds and families that later slices port, with where they wait
-LATER = {
-    "slstm": "ROADMAP queue 1 item 14 (xLSTM blocks)",
-    "mlstm": "ROADMAP queue 1 item 14 (xLSTM blocks) and queue 2 "
-             "item 8 (mlstm_chunk)",
-}
-
 
 class Ctx(NamedTuple):
     cfg: ArchConfig
@@ -164,6 +156,54 @@ def _rglru_state_init(cfg: ArchConfig, batch: int, dtype, cache_len: int,
                                      cfg.rglru_conv_size, dtype, device)
 
 
+def _xlstm_block_init(flavor: str) -> Callable:
+    cell_init = rec_mod.mlstm_init if flavor == "mlstm" \
+        else rec_mod.slstm_init
+
+    def init(cfg: ArchConfig, generator: torch.Generator,
+             dtype: torch.dtype) -> Params:
+        p = _norms_init(cfg, post=False, device=generator.device)
+        p["cell"] = cell_init(cfg.d_model, cfg.attention.n_heads,
+                              cfg.head_dim, generator, dtype)
+        if cfg.d_ff:
+            p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, cfg.glu, generator,
+                                dtype)
+        return p
+    return init
+
+
+def _xlstm_state(flavor: str, cfg: ArchConfig, batch: int, dtype, device):
+    a = cfg.attention
+    if flavor == "mlstm":
+        return rec_mod.mlstm_state(batch, a.n_heads, cfg.head_dim, device)
+    return rec_mod.slstm_state(batch, a.n_heads, cfg.head_dim, dtype, device)
+
+
+def _xlstm_block_apply(flavor: str) -> Callable:
+    cell = rec_mod.mlstm_seq if flavor == "mlstm" else rec_mod.slstm_seq
+
+    def apply(p: Params, x: torch.Tensor, state, ctx: Ctx):
+        """Prefill starts from the zero state; decode (S = 1) carries
+        ``state`` and replaces it."""
+        cfg = ctx.cfg
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        if state is None:
+            state = _xlstm_state(flavor, cfg, x.shape[0], x.dtype, x.device)
+        y, new_state = cell(p["cell"], h, state)
+        x = x + y
+        if cfg.d_ff:
+            x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                        cfg.act, cfg.glu)
+        return x, new_state
+    return apply
+
+
+def _xlstm_state_init(flavor: str) -> Callable:
+    def init(cfg: ArchConfig, batch: int, dtype, cache_len: int, device):
+        return _xlstm_state(flavor, cfg, batch, dtype, device)
+    return init
+
+
 class BlockDef(NamedTuple):
     init: Any
     apply: Any
@@ -177,16 +217,20 @@ BLOCK_KINDS: Dict[str, BlockDef] = {
                            _attn_state_init(True)),
     "rglru": BlockDef(_rglru_block_init, _rglru_block_apply,
                       _rglru_state_init),
+    "slstm": BlockDef(_xlstm_block_init("slstm"), _xlstm_block_apply("slstm"),
+                      _xlstm_state_init("slstm")),
+    "mlstm": BlockDef(_xlstm_block_init("mlstm"), _xlstm_block_apply("mlstm"),
+                      _xlstm_state_init("mlstm")),
 }
 
 
 def block_def(kind: str) -> BlockDef:
-    """The block of ``kind``; a kind not ported yet raises, naming the
-    ROADMAP item it waits for."""
-    if kind in LATER:
-        raise NotImplementedError(f"block kind {kind!r} waits for "
-                                  f"{LATER[kind]}")
+    """The block of ``kind``; an unknown kind raises ``KeyError`` naming
+    the ported ones."""
+    if kind not in BLOCK_KINDS:
+        raise KeyError(f"unknown block kind {kind!r}; ported: "
+                       f"{sorted(BLOCK_KINDS)}")
     return BLOCK_KINDS[kind]
 
 
-__all__ = ["BLOCK_KINDS", "BlockDef", "Ctx", "LATER", "block_def"]
+__all__ = ["BLOCK_KINDS", "BlockDef", "Ctx", "block_def"]

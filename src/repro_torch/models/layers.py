@@ -1,6 +1,7 @@
 """Shared LM building blocks on tensors, the serving subset of the
-reference's ``models/layers.py``: initialisers, ``rmsnorm``, the (gated)
-MLP, rotary embeddings, ``softcap``, the embedding lookup and the LM head.
+reference's ``models/layers.py``: initialisers, the per-head projections
+(``head_proj``, ``head_out``), ``rmsnorm``, the (gated) MLP, rotary
+embeddings, ``softcap``, the embedding lookup and the LM head.
 
 Parameters are dicts of tensors in the reference's layouts (``dense``
 weights ``[d_in, d_out]``, the embedding table ``[V, d]``).  Each weight
@@ -32,6 +33,19 @@ def dense_init(d_in: int, d_out: int, generator: torch.Generator,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return truncated_normal((d_in, d_out), 1.0 / math.sqrt(d_in), generator,
                             dtype)
+
+
+def head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, T, d] @ w [d, heads, ...] -> [B, T, heads, ...] as one
+    matrix product."""
+    b, t, d = x.shape
+    return (x @ w.to(x.dtype).reshape(d, -1)).view(b, t, *w.shape[1:])
+
+
+def head_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """o [B, T, H, Dh] @ wo [H, Dh, d] -> [B, T, d]."""
+    b, t = o.shape[:2]
+    return o.reshape(b, t, -1) @ wo.to(o.dtype).reshape(-1, wo.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -129,5 +143,5 @@ def lm_head(table_or_w: torch.Tensor, x: torch.Tensor,
 
 
 __all__ = ["apply_rope", "dense_init", "embed_init", "embed_lookup",
-           "lm_head", "mlp", "mlp_init", "rmsnorm", "rmsnorm_init",
-           "rope_freqs", "softcap", "truncated_normal"]
+           "head_out", "head_proj", "lm_head", "mlp", "mlp_init", "rmsnorm",
+           "rmsnorm_init", "rope_freqs", "softcap", "truncated_normal"]

@@ -1,13 +1,19 @@
-"""Recurrent blocks: the RG-LRU of Griffin / RecurrentGemma (the
-reference's ``models/recurrent.py``, its RG-LRU half; the xLSTM cells
-come with the xLSTM slice, ROADMAP queue 1 item 14).
+"""Recurrent blocks (the reference's ``models/recurrent.py``): the
+RG-LRU of Griffin / RecurrentGemma and the xLSTM cells, mLSTM and sLSTM.
 
-Prefill runs the recurrence through the RG-LRU scan kernel
+RG-LRU prefill runs the recurrence through the RG-LRU scan kernel
 (``ops.linear_recurrence``: sequential in time, float32), where the
 reference takes ``jax.lax.associative_scan`` (the same sums in another
 order).  Decode carries O(1) state per layer, ``h [B, w]`` and the
 conv history ``[B, K - 1, w]``, and takes one elementwise step in the
 compute dtype, as the reference's ``rglru_step`` does.
+
+The mLSTM cell runs its recurrence, prefill and decode alike, through
+the chunkwise mLSTM kernel (``ops.mlstm``, from the carried state
+``C [B, H, D, D]``, ``n [B, H, D]``, ``m [B, H]``, float32), where the
+reference model computes ``mlstm_chunk_math`` in jnp.  The sLSTM cell is
+a step loop in plain torch, as the reference's ``lax.scan``; its state is
+``c, n, m`` in float32 and ``h`` in the compute dtype.
 """
 from __future__ import annotations
 
@@ -16,8 +22,11 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels.mlstm_chunk.ops import mlstm
+from repro_torch.kernels.mlstm_chunk.ref import NEG_BIG
 from repro_torch.kernels.rglru_scan.ops import linear_recurrence
-from repro_torch.models.layers import _ACT, dense_init, truncated_normal
+from repro_torch.models.layers import (_ACT, dense_init, head_out,
+                                       head_proj, truncated_normal)
 
 Params = Dict[str, torch.Tensor]
 
@@ -133,5 +142,122 @@ def rglru_block_state(batch: int, width: int, conv_size: int, dtype,
                                 device=device)}
 
 
-__all__ = ["causal_conv1d", "causal_conv1d_step", "rglru_block_apply",
-           "rglru_block_state", "rglru_init", "rglru_seq", "rglru_step"]
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory, chunkwise kernel) and sLSTM (scalar memory)
+# ---------------------------------------------------------------------------
+
+
+def mlstm_init(d: int, n_heads: int, head_dim: int,
+               generator: torch.Generator, dtype: torch.dtype) -> Params:
+    """The reference's layout: q/k/v ``[d, H, D]``, ``wo [H, D, d]``,
+    ``w_if [d, 2H]`` (input then forget pre-activations) and ``b_if``
+    (0 for the input gates, 3 for the forget gates), all in ``dtype``
+    (the reference casts them to the compute dtype at use)."""
+    width = n_heads * head_dim
+
+    def proj():
+        return dense_init(d, width, generator, dtype).reshape(
+            d, n_heads, head_dim)
+
+    p = {"wq": proj(), "wk": proj(), "wv": proj(),
+         "wo": dense_init(width, d, generator, dtype).reshape(
+             n_heads, head_dim, d),
+         "w_if": dense_init(d, 2 * n_heads, generator, dtype)}
+    p["b_if"] = torch.cat([torch.zeros(n_heads), torch.full((n_heads,), 3.0)]
+                          ).to(device=generator.device, dtype=dtype)
+    return p
+
+
+def _mlstm_qkvg(p: Params, x: torch.Tensor):
+    """q, k, v [B, S, H, D] in ``x.dtype``; the gate pre-activations
+    [B, S, H] in float32, their bias added in the compute dtype."""
+    dt = x.dtype
+    q, k, v = (head_proj(x, p[n]) for n in ("wq", "wk", "wv"))
+    gates = x @ p["w_if"].to(dt) + p["b_if"].to(dt)
+    h = q.shape[2]
+    i_pre = gates[..., :h].to(torch.float32).contiguous()
+    f_pre = gates[..., h:].to(torch.float32).contiguous()
+    return q, k, v, i_pre, f_pre
+
+
+def mlstm_seq(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """mLSTM over x [B, S, d] from ``state`` (``C, n, m``); S = 1 is a
+    decode step.  Returns (y [B, S, d], the final state)."""
+    q, k, v, i_pre, f_pre = _mlstm_qkvg(p, x)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    h, C, n, m = mlstm(q, k, v, i_pre, f_pre, state["C"], state["n"],
+                       state["m"], scale)
+    return head_out(h, p["wo"]), {"C": C, "n": n, "m": m}
+
+
+def mlstm_state(batch: int, n_heads: int, head_dim: int, device
+                ) -> Dict[str, torch.Tensor]:
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, n_heads, head_dim, head_dim), **f32),
+            "n": torch.zeros((batch, n_heads, head_dim), **f32),
+            "m": torch.full((batch, n_heads), NEG_BIG, **f32)}
+
+
+def slstm_init(d: int, n_heads: int, head_dim: int,
+               generator: torch.Generator, dtype: torch.dtype) -> Params:
+    """The reference's layout: ``w_in [d, 4, H, D]`` (gates i, f, z, o),
+    the per-head recurrent matrices ``r [4, H, D, D]``, the bias ``b
+    [4, H, D]`` and ``wo [H, D, d]``, all in ``dtype``."""
+    width = n_heads * head_dim
+    return {
+        "w_in": dense_init(d, 4 * width, generator, dtype).reshape(
+            d, 4, n_heads, head_dim),
+        "r": truncated_normal((4, n_heads, head_dim, head_dim),
+                              1.0 / math.sqrt(head_dim), generator, dtype),
+        "b": torch.zeros((4, n_heads, head_dim), dtype=dtype,
+                         device=generator.device),
+        "wo": dense_init(width, d, generator, dtype).reshape(
+            n_heads, head_dim, d),
+    }
+
+
+def slstm_seq(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """sLSTM with exponential gating and per-head recurrent mixing over
+    x [B, S, d], one step at a time.  The pre-activation plus the
+    recurrent term is added in the compute dtype, the cell in float32,
+    ``h`` carried in the compute dtype.  Returns (y [B, S, d], the final
+    state ``c, n, h, m`` [B, H, D])."""
+    dt = x.dtype
+    _, g, nh, hd = p["w_in"].shape
+    pre_all = head_proj(x, p["w_in"]) + p["b"].to(dt)     # [B, S, 4, H, D]
+    # r as [H, D, 4 D]: one batched product over the heads a step
+    r = p["r"].to(dt).permute(1, 2, 0, 3).reshape(nh, hd, g * hd)
+    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+    ys = []
+    for t in range(x.shape[1]):
+        rec = torch.bmm(h.transpose(0, 1), r).unflatten(-1, (g, hd))
+        z_all = (pre_all[:, t] + rec.permute(1, 2, 0, 3)).to(torch.float32)
+        i_pre, f_pre, z_pre, o_pre = z_all.unbind(1)
+        log_f_m = -_softplus(-f_pre) + m
+        m_new = torch.maximum(log_f_m, i_pre)
+        i_ = torch.exp(i_pre - m_new)
+        f_ = torch.exp(log_f_m - m_new)
+        c = f_ * c + i_ * torch.tanh(z_pre)
+        n = f_ * n + i_
+        h = (torch.sigmoid(o_pre) * c / torch.clamp(n, min=1.0)).to(dt)
+        m = m_new
+        ys.append(h)
+    y = head_out(torch.stack(ys, dim=1), p["wo"])
+    return y, {"c": c, "n": n, "h": h, "m": m}
+
+
+def slstm_state(batch: int, n_heads: int, head_dim: int, dtype, device
+                ) -> Dict[str, torch.Tensor]:
+    shape = (batch, n_heads, head_dim)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"c": torch.zeros(shape, **f32), "n": torch.zeros(shape, **f32),
+            "h": torch.zeros(shape, dtype=dtype, device=device),
+            "m": torch.full(shape, NEG_BIG, **f32)}
+
+
+__all__ = ["causal_conv1d", "causal_conv1d_step", "mlstm_init", "mlstm_seq",
+           "mlstm_state", "rglru_block_apply", "rglru_block_state",
+           "rglru_init", "rglru_seq", "rglru_step", "slstm_init", "slstm_seq",
+           "slstm_state"]

@@ -1,7 +1,8 @@
 """Layer-stacked LM for the dense families (minicpm, phi4, qwen1.5,
 gemma2's alternating local/global attention with softcaps), the MoE
-family (granite-moe, olmoe) and griffin (recurrentgemma: two RG-LRU
-blocks to one local-attention block), served through ``prefill`` and
+family (granite-moe, olmoe), griffin (recurrentgemma: two RG-LRU blocks
+to one local-attention block) and xLSTM (family ``ssm``, xlstm-350m:
+sLSTM and mLSTM blocks alternating), served through ``prefill`` and
 ``decode_step``.
 
 The kind sequence comes from ``core.cost_model._block_kinds``, as in the
@@ -12,8 +13,8 @@ period slot instead (``convert.lm_params_from_arrays`` interleaves).
 Weight matrices are held in the compute dtype (``cfg.dtype``), norm
 scales and qkv biases in float32: the reference casts each weight to the
 compute dtype at use, so the results agree and the memory is half.
-Families ``ssm``, ``vlm`` and ``audio``, and training, wait for later
-slices (ROADMAP queue 1 item 14).
+Families ``vlm`` and ``audio``, and training, wait for later slices
+(ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cost_model import _block_kinds as block_kinds
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.blocks import LATER, Ctx, block_def
+from repro_torch.models.blocks import Ctx, block_def
 from repro_torch.models.layers import (embed_init, embed_lookup, lm_head,
                                        rmsnorm, rmsnorm_init,
                                        truncated_normal)
@@ -35,7 +36,6 @@ Cache = List[Dict[str, torch.Tensor]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _FAMILIES_LATER = {
-    "ssm": LATER["mlstm"],
     "vlm": "ROADMAP queue 1 item 14 (VLM family)",
     "audio": "ROADMAP queue 1 item 14 (whisper)",
 }
@@ -45,7 +45,7 @@ class TransformerLM:
     """Functional LM on ``device`` (``None`` = the card; raises without
     one): parameters are plain dicts of tensors, the methods pure except
     that ``decode_step`` writes the new K/V into the cache in place (an
-    RG-LRU layer's state is replaced)."""
+    RG-LRU or xLSTM layer's state is replaced)."""
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
         if cfg.family in _FAMILIES_LATER:
@@ -107,8 +107,9 @@ class TransformerLM:
     def prefill(self, params: Params, tokens: torch.Tensor,
                 cache_len: int) -> Tuple[torch.Tensor, Cache]:
         """tokens [B, S] -> (last-position logits [B, V], decode-ready
-        cache: one state per layer, ``{"k", "v"}`` for attention and
-        ``{"h", "conv"}`` for an RG-LRU block)."""
+        cache: one state per layer, ``{"k", "v"}`` for attention,
+        ``{"h", "conv"}`` for an RG-LRU block, ``{"C", "n", "m"}`` for an
+        mLSTM block and ``{"c", "n", "h", "m"}`` for an sLSTM block)."""
         x = self._embed(params, tokens)
         b, s = x.shape[:2]
         ctx = Ctx(self.cfg, "prefill", self._positions(b, s),

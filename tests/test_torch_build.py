@@ -23,11 +23,12 @@ from repro_torch.kernels.tropical_dp.tropical_dp import \
 
 def test_sources_are_the_ported_kernels():
     """The planner's two kernels, the CNN path's conv GEMM, the LM
-    serving path's two attention kernels, the MoE expert GEMM and the
-    RG-LRU scan."""
+    serving path's two attention kernels, the MoE expert GEMM, the
+    RG-LRU scan and the mLSTM chunk."""
     assert _build.sources() == ("conv2d", "decode_attention",
                                 "flash_attention", "link_geometry",
-                                "moe_matmul", "rglru_scan", "tropical_dp")
+                                "mlstm_chunk", "moe_matmul", "rglru_scan",
+                                "tropical_dp")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -178,3 +179,26 @@ def test_rglru_scan_rejects_before_building(case):
     with pytest.raises(ValueError, match="rglru_scan"):
         rglru_scan(a, b, h0)
     assert rglru_scan.launches == before
+
+
+@pytest.mark.parametrize("case", ["cpu", "shape", "state", "head_dim",
+                                  "dtype", "empty"])
+def test_mlstm_chunk_rejects_before_building(case, monkeypatch):
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    b, s, h, d = 2, 5, 2, 16
+    if case == "head_dim":
+        d = 24
+    elif case == "empty":
+        s = 0
+    dt = torch.float16 if case == "dtype" else torch.float32
+    q = torch.zeros((b, s, h, d), dtype=dt)
+    k = torch.zeros((b, s + 1, h, d)) if case == "shape" else q
+    gates = torch.zeros((b, s, h))
+    C0 = torch.zeros((b, h, d, d + (case == "state")))
+    before = mlstm_chunk.launches
+    with pytest.raises(ValueError, match="mlstm_chunk"):
+        mlstm_chunk(q, k, q, gates, gates, C0, torch.zeros((b, h, d)),
+                    torch.zeros((b, h)), 0.25)
+    assert mlstm_chunk.launches == before

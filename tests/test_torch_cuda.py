@@ -1,8 +1,8 @@
 """The port on a CUDA card: each kernel against its plain version, a
 small planning run on the card against the CPU plain path, the sliced
 LeNet forward against the monolithic one, the attention kernels
-(prefill and decode, G up to 16) and the MoE and RG-LRU kernels against
-their plain versions.
+(prefill and decode, G up to 16) and the MoE, RG-LRU and mLSTM kernels
+against their plain versions.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -34,6 +34,8 @@ from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
 from repro_torch.kernels.link_geometry.ref import \
     link_geometry_ref  # noqa: E402
+from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk  # noqa
+from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref  # noqa: E402
 from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul  # noqa
 from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_ref  # noqa: E402
@@ -284,3 +286,43 @@ def test_rglru_scan_kernel_is_bitwise_the_plain_version(cuda, b, t, w,
     assert h.dtype == hT.dtype == dtype
     assert torch.equal(h, h2) and torch.equal(hT, hT2)
     assert torch.equal(h, rh) and torch.equal(hT, rhT)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,s,d", [(2, 3, 128, 32), (1, 2, 64, 64),
+                                     (2, 1, 256, 32), (2, 2, 37, 16),
+                                     (1, 4, 1000, 256), (8, 4, 1, 256),
+                                     (2, 2, 70, 128)])
+def test_mlstm_chunk_kernel_matches_plain(cuda, b, h, s, d, dtype):
+    """The reference's kernel grid, ragged S, xlstm-350m's head width in
+    prefill and decode (S 1), from a nonzero state.  The kernel's chunks
+    of 32 against the plain version's 256 (or S): h within the
+    reference's kernel-test atol 5e-4, rtol 1e-3 (bf16: one output
+    rounding more), the state within the same; launch to launch
+    bitwise."""
+    rng = np.random.default_rng(b * s + d)
+
+    def t(x, dt=torch.float32):
+        return torch.as_tensor(np.asarray(x, np.float32), device=cuda).to(dt)
+
+    q, k, v = (t(rng.normal(0, 0.5, (b, s, h, d)), dtype) for _ in range(3))
+    ip = t(rng.normal(size=(b, s, h)))
+    fp = t(rng.normal(size=(b, s, h)) + 3.0)
+    state = (t(rng.normal(0, 0.1, (b, h, d, d))),
+             t(rng.normal(0, 0.1, (b, h, d))), t(rng.normal(size=(b, h))))
+    scale = 1.0 / d ** 0.5
+    kernels.reset_launch_counts()
+    got = mlstm_chunk(q, k, v, ip, fp, *state, scale)
+    again = mlstm_chunk(q, k, v, ip, fp, *state, scale)
+    ref = mlstm_chunk_ref(q, k, v, ip, fp, *state, scale)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mlstm_chunk"] == 2
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for a, a2, r in zip(got, again, ref):
+        assert torch.equal(a, a2)
+    tol = dict(atol=5e-4, rtol=1e-3) if dtype == torch.float32 \
+        else dict(atol=1e-3, rtol=1e-2)
+    torch.testing.assert_close(got[0].float(), ref[0].float(), **tol)
+    for a, r in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, r, atol=5e-4, rtol=1e-3)

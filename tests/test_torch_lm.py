@@ -8,16 +8,17 @@ attention path).
   logits and the final cache, against the reference for the reduced
   gemma2-9b (also with an odd layer count, so one layer is ``rem``),
   phi4-mini, qwen1.5-4b (qkv bias), minicpm-2b, the MoE granite-moe and
-  olmoe, and griffin's recurrentgemma (RG-LRU state in the cache, one
-  ``rem`` layer) in float32, within atol / rtol 1e-4 (float32 sums in
-  another order through 4 layers);
+  olmoe, griffin's recurrentgemma (RG-LRU state in the cache, one
+  ``rem`` layer) and xlstm (sLSTM and mLSTM states in the cache, the
+  mLSTM cell through the chunkwise plain version) in float32, within
+  atol / rtol 1e-4 (float32 sums in another order through 4 layers);
 * a reduced gemma2-9b and a reduced recurrentgemma-9b with a 40-token
   prompt, window 32 and cache 48: the prefill's window mask and rolling
   cache and the decode's ``pos`` mapping on the rolling buffer all bite;
 * ``ContinuousBatcher.run`` over 5 requests at ``max_batch=2`` with
   differing ``max_new``: token ids equal to the reference batcher's;
 * ``lm_params_from_arrays`` interleaves ``b0`` / ``b1`` and appends
-  ``rem``.
+  ``rem``, and carries xLSTM's cell leaves across unchanged.
 
 Parameters come from the reference's ``init`` with its zero norm scales
 and biases replaced by numpy draws, so every leaf matters, and are
@@ -52,7 +53,8 @@ from repro_torch.runtime.serve_loop import (ContinuousBatcher,  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["gemma2-9b", "phi4-mini-3.8b", "qwen1.5-4b", "minicpm-2b",
-         "granite-moe-1b-a400m", "olmoe-1b-7b", "recurrentgemma-9b"]
+         "granite-moe-1b-a400m", "olmoe-1b-7b", "recurrentgemma-9b",
+         "xlstm-350m"]
 
 
 def t(x):
@@ -163,8 +165,8 @@ def test_gemma_embedding_scale_is_rounded_to_bfloat16():
 # ---------------------------------------------------------------------------
 
 
-#: leaves the reference initialises to zero
-_ZERO_LEAVES = ("scale", "bq", "bk", "bv", "b_a", "b_i")
+#: leaves the reference initialises to zero (``b``: the sLSTM gate bias)
+_ZERO_LEAVES = ("scale", "bq", "bk", "bv", "b_a", "b_i", "b")
 
 
 def _perturbed(params, seed):
@@ -198,7 +200,8 @@ def _pair(arch, seed=0, **overrides):
 
 def _j_cache_layers(jm, cache):
     """The reference's per-period-slot cache -> one state per layer
-    ({"k", "v"}, or {"h", "conv"} for an RG-LRU layer)."""
+    ({"k", "v"}, {"h", "conv"} for an RG-LRU layer, {"C", "n", "m"} or
+    {"c", "n", "h", "m"} for an xLSTM layer)."""
     blocks = cache["blocks"]
     n = len(np.asarray(next(iter(blocks["b0"].values()))))
     out = [{k: np.asarray(v[j]) for k, v in blocks[f"b{i}"].items()}
@@ -281,7 +284,7 @@ def _requests(cls, vocab):
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "qwen1.5-4b",
                                   "granite-moe-1b-a400m", "olmoe-1b-7b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "xlstm-350m"])
 def test_continuous_batcher_tokens_equal_reference(arch):
     """Untied heads: with a tied random table greedy decoding only echoes
     the last token, which would test little."""
@@ -316,6 +319,27 @@ def test_lm_params_interleave_period_slots_and_append_rem():
         np.testing.assert_array_equal(g, w)
     assert "ln1p" in got["layers"][0] and got["embed"]["table"].shape == \
         (tcfg.vocab_size, tcfg.d_model)
+
+
+def test_lm_params_carry_the_xlstm_cells():
+    """xLSTM's period of 2: ``b0`` the sLSTM layers, ``b1`` the mLSTM;
+    every cell leaf keeps the reference's shape and values."""
+    jcfg = j_get_arch("xlstm-350m").reduced()
+    tcfg = get_arch("xlstm-350m").reduced()
+    arrays = jax.tree.map(np.asarray, JLM(jcfg).init(jax.random.PRNGKey(4)))
+    got = lm_params_from_arrays(tcfg, arrays, "cpu")
+    assert TransformerLM(tcfg, device="cpu").kinds == \
+        ["slstm", "mlstm", "slstm", "mlstm"]
+    for j, lay in enumerate(got["layers"]):
+        src = arrays["blocks"][f"b{j % 2}"]["cell"]
+        assert set(lay["cell"]) == set(src)
+        for name, a in src.items():
+            np.testing.assert_array_equal(lay["cell"][name].numpy(),
+                                          a[j // 2])
+    assert set(got["layers"][0]["cell"]) == {"w_in", "r", "b", "wo"}
+    assert set(got["layers"][1]["cell"]) == {"wq", "wk", "wv", "wo",
+                                             "w_if", "b_if"}
+    assert "mlp" in got["layers"][0]          # the reduced d_ff of 128
 
 
 def test_full_width_weights_are_bfloat16_and_norms_float32():

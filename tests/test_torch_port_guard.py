@@ -7,11 +7,11 @@
   fall back to the CPU.
 * A CPU tensor given to a kernel dispatcher (link geometry, the DP step,
   conv2d, prefill and decode attention, the expert GEMM, the RG-LRU
-  scan) takes the plain version and leaves the kernel's launch counter
-  alone.
+  scan, the mLSTM chunk) takes the plain version and leaves the kernel's
+  launch counter alone; a tensor on another device raises.
 * The LM serving path (``TransformerLM``, ``build_model``,
-  ``ContinuousBatcher``) runs on CUDA or raises; families and block
-  kinds not ported yet raise naming their ROADMAP item.
+  ``ContinuousBatcher``) runs on CUDA or raises; families not ported yet
+  raise naming their ROADMAP item, an unknown block kind raises.
 """
 import dataclasses
 import ast
@@ -36,6 +36,7 @@ from repro_torch.kernels.decode_attention.ops import decode_mha  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import mha  # noqa: E402
 from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
+from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
 from repro_torch.configs.base import ServeConfig  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
@@ -51,7 +52,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "conv2d": 0,
                "flash_attention": 0, "decode_attention": 0, "moe_matmul": 0,
-               "rglru_scan": 0}
+               "rglru_scan": 0, "mlstm_chunk": 0}
 
 
 def _port_files():
@@ -213,7 +214,8 @@ def test_cpu_attention_takes_the_plain_path_without_counting():
 
 @pytest.mark.parametrize("arch,reduced", [
     ("gemma2-9b", True), ("olmoe-1b-7b", False),
-    ("granite-moe-1b-a400m", False), ("recurrentgemma-9b", False)])
+    ("granite-moe-1b-a400m", False), ("recurrentgemma-9b", False),
+    ("xlstm-350m", False)])
 def test_lm_entry_points_without_device_raise(monkeypatch, arch, reduced):
     """Every served family defaults to the card (the full MoE and griffin
     configs too: the check comes before any parameter exists)."""
@@ -230,7 +232,7 @@ def test_lm_entry_points_without_device_raise(monkeypatch, arch, reduced):
         torch.device("cpu")
 
 
-@pytest.mark.parametrize("family", ["ssm", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_unported_families_name_their_roadmap_item(family):
     cfg = dataclasses.replace(get_arch("phi4-mini-3.8b").reduced(),
                               family=family)
@@ -238,7 +240,33 @@ def test_unported_families_name_their_roadmap_item(family):
         TransformerLM(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["slstm", "mlstm"])
-def test_unported_block_kinds_name_their_roadmap_item(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        block_def(kind)
+def test_xlstm_model_alternates_slstm_and_mlstm_blocks():
+    cfg = get_arch("xlstm-350m").reduced()
+    lm = TransformerLM(cfg, device="cpu")
+    assert lm.kinds == ["slstm", "mlstm", "slstm", "mlstm"]
+    assert lm.blocks == [block_def(k) for k in lm.kinds]
+    full = TransformerLM(get_arch("xlstm-350m"), device="cpu")
+    assert full.kinds == ["slstm", "mlstm"] * 12
+
+
+def test_block_def_rejects_an_unknown_kind():
+    with pytest.raises(KeyError, match="unknown block kind 'lstm'"):
+        block_def("lstm")
+
+
+def test_mlstm_dispatch_raises_on_an_unsupported_device():
+    """The CPU takes the plain version without counting; a device with no
+    entry in the dispatch table raises before any work."""
+    b, s, h, d = 1, 3, 2, 16
+    q = torch.zeros((b, s, h, d))
+    gates = torch.zeros((b, s, h))
+    state = (torch.zeros((b, h, d, d)), torch.zeros((b, h, d)),
+             torch.full((b, h), -1e30))
+    kernels.reset_launch_counts()
+    out, C, n, m = mlstm_ops.mlstm(q, q, q, gates, gates, *state, 0.25)
+    assert out.shape == q.shape and C.shape == (b, h, d, d)
+    assert kernels.launch_counts() == NO_LAUNCHES
+    meta = q.to("meta")
+    with pytest.raises(ValueError, match="mlstm: unsupported device meta"):
+        mlstm_ops.mlstm(meta, meta, meta, gates.to("meta"), gates.to("meta"),
+                        *(t.to("meta") for t in state), 0.25)
