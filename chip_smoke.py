@@ -46,10 +46,13 @@ Phases, each raising on failure (the script then exits non-zero):
     one bf16 rounding of the output), two launches bitwise equal: flash
     at the reference's kernel-test grid, gemma2-9b's prefill (B 1, H 16,
     KV 8, S 2048, D 256, causal, cap 50, window 0 and 1024), ragged S
-    (1, 1000) and the serving run's shapes (B 8 at S 1345, its first
-    prefill, and at S 2048, the timed one); decode at the reference's
-    grid and gemma2-9b's decode (B 8, KV 8, G 2, S 4096, D 256, cap 50,
-    pos with 0 and S - 1);
+    (1, 1000), the serving run's shapes (B 8 at S 1345, its first
+    prefill, and at S 2048, the timed one), olmoe-1b-7b's (B 8, H 16,
+    KV 16, S 1024, D 128) and recurrentgemma-9b's (H 16 over KV 1, D 256,
+    window 2048, B 8 at S 1536 and B 1 at S 3072), every flash launch on
+    the wgmma route in bfloat16 and the SIMT route in float32; decode at
+    the reference's grid and gemma2-9b's decode (B 8, KV 8, G 2, S 4096,
+    D 256, cap 50, pos with 0 and S - 1);
 11. the reduced gemma2-9b and phi4-mini in float32, card against the CPU
     plain path: prefill and decode logits within 1e-4, and
     ``ContinuousBatcher`` token ids equal;
@@ -57,9 +60,10 @@ Phases, each raising on failure (the script then exits non-zero):
     seeded card generator) serving 12 requests (prompts of 256-1536
     tokens, max_new 8-40) through ``ContinuousBatcher`` at max_batch 8,
     max_seq 4096, greedy, launch counters set to 0 just before and read
-    just after (42 flash launches per prefill call, 42 decode launches
-    per decode step); prefill and decode-step walls, decode tokens/s,
-    time to first token per request, peak memory; then one 6144-token
+    just after (42 flash launches per prefill call, every one on the
+    wgmma route, 42 decode launches per decode step); prefill and
+    decode-step walls, decode tokens/s, time to first token per request,
+    peak memory; then one 6144-token
     request at max_seq 8192 (the 4096 window bites); then one prefill and
     4 decode steps through the kernels against the plain versions inside
     the model: each logit's difference within the larger of 1.5 times
@@ -68,11 +72,15 @@ Phases, each raising on failure (the script then exits non-zero):
     bfloat16 2 bf16 ulps of it;
 13. both attention kernels' times at gemma2-9b's shapes in bfloat16
     beside their plain versions, ``F.scaled_dot_product_attention``
-    (without the softcap) and their bounds;
+    (without the softcap), their bounds, the route the launches took and
+    flash's earlier (SIMT) time;
 14. the expert GEMM (``moe_matmul``) against its plain version at the
     reference's kernel-test grid and olmoe-1b-7b's prefill (E 64, C 8 x
-    240) and decode (C 8) GEMMs, float32 (atol 1e-5 sqrt(D), rtol 1e-4)
-    and bfloat16 (atol 1e-3, rtol 1e-2, and the reference's TOL); the
+    240 and the served 1144) and decode (C 8) GEMMs, a ragged C 97 and
+    D, F not multiples of 8, float32 (atol 1e-5 sqrt(D), rtol 1e-4) and
+    bfloat16 (atol 1e-3, rtol 1e-2, and the reference's TOL), each launch
+    on the wgmma route in bfloat16 where TMA takes the shape and on the
+    SIMT route otherwise; the
     RG-LRU scan bitwise against its sequential plain version at the
     reference's grid and recurrentgemma-9b's prefill (B 8, T 1536, W
     4096); decode attention at G = 16 (B 8, KV 1, 2048 slots, D 256);
@@ -82,17 +90,18 @@ Phases, each raising on failure (the script then exits non-zero):
 16. olmoe-1b-7b at full width serving 8 requests (prompts 256-1024,
     max_new 8-24) at max_batch 8, max_seq 2048: exactly 48 expert-GEMM
     and 16 flash launches per prefill call, 48 expert-GEMM and 16 decode
-    launches per decode step; then kernels against plain inside the model
-    as in phase 12;
+    launches per decode step, every expert-GEMM and flash launch on the
+    wgmma route; then kernels against plain inside the model as in phase
+    12;
 17. recurrentgemma-9b at full width serving 8 requests (prompts
     256-1536, max_new 8-24) at max_seq 4096, then one 3072-token request
     (its 2048 window rolls): exactly 26 RG-LRU-scan and 12 flash launches
-    per prefill call and 12 decode launches per decode step; then kernels
-    against plain inside the model;
+    per prefill call (flash on the wgmma route) and 12 decode launches
+    per decode step; then kernels against plain inside the model;
 18. the expert GEMM's and the RG-LRU scan's times at the served shapes in
     bfloat16, each first checked against its plain version at that
-    shape, beside their plain versions, ``torch.bmm`` (the GEMM) and
-    their bounds;
+    shape, beside their plain versions, ``torch.bmm`` (the GEMM), their
+    bounds, the expert GEMM's route and its earlier (SIMT) times;
 19. the chunkwise mLSTM kernel (``mlstm_chunk``) against its plain
     version from nonzero initial states: the reference's kernel-test
     grid, xlstm-350m's prefill (B 8, H 4, D 256, S 1024 and S 1000: a
@@ -199,6 +208,10 @@ LM_GAP = 1.5
 #: at logits of 170, ROADMAP section 3)
 LM_BF16_ULPS = 2
 LM_F32_TOL = dict(atol=1e-2, rtol=1e-3)
+#: the kernels with a wgmma route (bfloat16) beside a SIMT one (float32,
+#: and for the expert GEMM bfloat16 shapes TMA cannot take): every launch
+#: of theirs in a served bfloat16 run must take the wgmma route
+WGMMA_KERNELS = ("moe_matmul", "flash_attention")
 
 
 def log(*args):
@@ -208,14 +221,20 @@ def log(*args):
 def ptxas_resources(build_log: str):
     """(kernel instantiation, registers line, spills line) per entry
     function in an ``nvcc -Xptxas -v`` log; the instantiation is the
-    mangled name's template arguments (``f`` float32, ``13__nv_bfloat16``
-    bfloat16, ``Li<n>E`` an integer)."""
+    kernel's name and its mangled template arguments (``f`` float32,
+    ``13__nv_bfloat16`` bfloat16, ``Li<n>E`` an integer)."""
     rows, entry, spills = [], "?", ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            kern = mangled[mangled.find("_kernel"):]
-            entry = kern[len("_kernel"):kern.find("EEv") + 1] or mangled
+            end = mangled.find("_kernel") + len("_kernel")
+            start = end - len("_kernel")
+            while start and (mangled[start - 1].isalpha()
+                             or mangled[start - 1] == "_"):
+                start -= 1
+            args = mangled[end:mangled.find("EEv", end) + 1] \
+                if mangled[end:end + 1] == "I" else ""
+            entry = mangled[start:end] + args
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line:
@@ -227,6 +246,25 @@ def only(launches, **nonzero):
     """The launch counts a run must show: ``nonzero``, every other kernel
     of ``launches`` 0."""
     return dict(dict.fromkeys(launches, 0), **nonzero)
+
+
+def take_route(fn, call):
+    """``call()``, one launch of the two-route kernel ``fn``; returns its
+    result and the route the launch took."""
+    before = dict(fn.launches_by_route)
+    out = call()
+    taken = [r for r, n in fn.launches_by_route.items() if n != before[r]]
+    if len(taken) != 1 or fn.launches_by_route[taken[0]] != \
+            before[taken[0]] + 1:
+        raise AssertionError(f"{fn.__name__}: one launch, routes moved "
+                             f"from {before} to {fn.launches_by_route}")
+    return out, taken[0]
+
+
+def want_route(name, route, want):
+    if route != want:
+        raise AssertionError(f"{name}: launch took the {route} route, want "
+                             f"{want}")
 
 
 def nvidia_smi_line() -> str:
@@ -885,11 +923,15 @@ def check_attention_kernels(np, torch, device):
     float32 and bfloat16 at the reference's tolerance, two launches
     bitwise equal: flash at the reference's kernel-test grid, at
     gemma2-9b's prefill (B 1, H 16, KV 8, S 2048, D 256, causal, cap 50,
-    window 0 and 1024), ragged S (1, 1000) and the serving run's prefill
-    shapes (B 8 at S 1345 and 2048); decode at the reference's grid and
-    gemma2-9b's decode (B 8, KV 8, G 2, S 4096, D 256, cap 50); bfloat16
-    also within one output rounding.  Returns the max abs errors in
-    bfloat16 at the shapes phase 13 times."""
+    window 0 and 1024), ragged S (1, 1000), the serving run's prefill
+    shapes (B 8 at S 1345 and 2048), olmoe-1b-7b's (B 8, H 16, KV 16,
+    S 1024, D 128) and recurrentgemma-9b's (H 16 over KV 1, D 256, window
+    2048: B 8 at S 1536, and B 1 at S 3072, where the window bites), each
+    flash launch on the wgmma route in bfloat16 and the SIMT route in
+    float32; decode at the reference's grid and gemma2-9b's decode (B 8,
+    KV 8, G 2, S 4096, D 256, cap 50); bfloat16 also within one output
+    rounding.  Returns the max abs errors in bfloat16 at the shapes phase
+    13 times."""
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_ref
@@ -907,7 +949,10 @@ def check_attention_kernels(np, torch, device):
              (1, 16, 8, 1, 256, True, 0, 50.0),
              (1, 16, 8, 1000, 256, True, 0, 50.0),
              (8, 16, 8, 1345, 256, True, 0, 50.0),
-             (8, 16, 8, 2048, 256, True, 0, 50.0)]
+             (8, 16, 8, 2048, 256, True, 0, 50.0),
+             (8, 16, 16, 1024, 128, True, 0, 0.0),
+             (8, 16, 1, 1536, 256, True, 2048, 0.0),
+             (1, 16, 1, 3072, 256, True, 2048, 0.0)]
     decode = [(2, 2, 4, 512, 64, 0.0), (1, 4, 1, 1024, 32, 50.0),
               (3, 1, 8, 256, 128, 0.0), (8, 8, 2, 4096, 256, 50.0)]
 
@@ -923,7 +968,10 @@ def check_attention_kernels(np, torch, device):
             q, k, v = flash_case(torch, 100 + i, b, h, kv, s, d, dtype,
                                  device)
             kw = dict(causal=causal, window=window, cap=cap)
-            got = flash_attention(q, k, v, **kw)
+            got, route = take_route(flash_attention, lambda: flash_attention(
+                q, k, v, **kw))
+            want_route("flash_attention", route,
+                       "wgmma" if dtype == torch.bfloat16 else "simt")
             again = flash_attention(q, k, v, **kw)
             ref = attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -936,7 +984,8 @@ def check_attention_kernels(np, torch, device):
                 errs["flash_attention"] = err
             log(f"  flash_attention {str(dtype)[6:]} B={b} H={h} KV={kv} "
                 f"S={s} D={d} causal={causal} window={window} cap={cap}: "
-                f"max abs err {err:.3g}, two launches bitwise equal")
+                f"{route} route, max abs err {err:.3g}, two launches "
+                f"bitwise equal")
         for i, (b, kv, g, s, d, cap) in enumerate(decode):
             q, k, v, pos = decode_case(torch, 200 + i, b, kv, g, s, d, dtype,
                                        device)
@@ -1149,8 +1198,10 @@ def serve_lm(np, torch, model, params, scfg, requests, want):
     """Serve ``requests`` through a fresh ``ContinuousBatcher`` with the
     launch counters reset just before and read just after; every prefill
     call must launch exactly ``want["prefill"]`` and every decode step
-    ``want["decode"]`` (kernel name -> launches; every other kernel 0).
-    Returns (finished requests, timer, launches, peak device MiB)."""
+    ``want["decode"]`` (kernel name -> launches; every other kernel 0),
+    and every expert-GEMM and flash launch must take the wgmma route (the
+    served runs are bfloat16).  Returns (finished requests, timer,
+    launches, peak device MiB)."""
     from repro_torch import kernels
     from repro_torch.runtime.serve_loop import ContinuousBatcher
     batcher = ContinuousBatcher(model, model.cfg, scfg, params)
@@ -1173,6 +1224,12 @@ def serve_lm(np, torch, model, params, scfg, requests, want):
              for k in launches}
     if launches != total:
         raise AssertionError(f"serving launches {launches} != {total}")
+    routes = kernels.route_counts()
+    for name in WGMMA_KERNELS:
+        if routes[name] != {"simt": 0, "wgmma": launches[name]}:
+            raise AssertionError(f"serving: {name} launches by route "
+                                 f"{routes[name]}, want every one of the "
+                                 f"{launches[name]} on the wgmma route")
     if len(done) != len(requests) or any(
             not r.done or not 1 <= len(r.out) <= r.max_new for r in done):
         raise AssertionError("serving: a request did not finish")
@@ -1449,8 +1506,9 @@ def time_attention(torch, device, lm_launches, attn_errs):
     B 8, H 16, KV 8, S 2048, D 256, causal, cap 50; decode: B 8, KV 8,
     G 2, a 4096-slot cache all valid, cap 50) beside their plain versions
     and ``F.scaled_dot_product_attention`` (no softcap: the cap-0
-    variant), with the bound from this run's shapes.  Returns the two
-    ``kernels`` rows."""
+    variant), with the bound from this run's shapes; flash's row names the
+    route its launches took (``kernel_route``; ``route`` is the build
+    route, CUDA C++).  Returns the two ``kernels`` rows."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
@@ -1490,6 +1548,8 @@ def time_attention(torch, device, lm_launches, attn_errs):
     rows = []
     for name, replaces, kern, plain, lib, nbytes, nops, iters, shape in \
             cases:
+        kernel_route = (take_route(flash_attention, kern)[1]
+                        if name == "flash_attention" else None)
         ms = time_ms(torch, kern, iters, graph=True)
         eager_ms = time_ms(torch, kern, iters, graph=False)
         plain_ms = time_ms(torch, plain, iters, graph=True)
@@ -1509,7 +1569,11 @@ def time_attention(torch, device, lm_launches, attn_errs):
             "plain_eager_ms": plain_eager_ms, "shape": shape,
             "dtype": "bfloat16", "bytes": nbytes, "operations": nops,
             "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6})
-        log(f"  {name} {shape} bf16: {ms:.4f} ms in a graph, {eager_ms:.4f}"
+        if kernel_route:
+            rows[-1]["kernel_route"] = kernel_route
+        via = f" ({kernel_route} route)" if kernel_route else ""
+        log(f"  {name} {shape} bf16{via}: {ms:.4f} ms in "
+            f"a graph, {eager_ms:.4f}"
             f" ms eager ({nops / ms / 1e9:.2f} TFLOP/s, "
             f"{nbytes / ms / 1e6:.1f} GB/s); plain {plain_ms:.4f} ms "
             f"({plain_eager_ms:.4f} eager); SDPA (cap 0) {lib_ms:.4f} ms; "
@@ -1547,12 +1611,15 @@ def check_moe_rglru_kernels(np, torch, device):
     against their plain versions on the card, float32 and bfloat16, two
     launches bitwise equal.  Expert GEMM at the reference's kernel-test
     grid and olmoe-1b-7b's GEMMs (E 64, D/F 2048/1024 both ways) at
-    prefill (C = 8 x 240) and decode (C = 8), within ``MOE_TOL`` and the
-    reference's TOL; RG-LRU scan at the reference's grid and
-    recurrentgemma-9b's prefill (B 8, T 1536, W 4096), bitwise; decode
-    attention at recurrentgemma's decode (B 8, KV 1, G 16, a 2048-slot
-    window cache, D 256) within ``ATTN_TOL`` and, in bfloat16, one output
-    rounding.  Phase 18 checks both kernels again at the shapes it
+    prefill (C = 8 x 240, and the served run's 1144, not a multiple of
+    64) and decode (C = 8), a ragged C 97 and a D and F that are not
+    multiples of 8, within ``MOE_TOL`` and the reference's TOL, each
+    launch on the wgmma route in bfloat16 where TMA takes the shape (D
+    and F multiples of 8) and the SIMT route otherwise; RG-LRU scan at
+    the reference's grid and recurrentgemma-9b's prefill (B 8, T 1536, W
+    4096), bitwise; decode attention at recurrentgemma's decode (B 8, KV
+    1, G 16, a 2048-slot window cache, D 256) within ``ATTN_TOL`` and, in
+    bfloat16, one output rounding.  Phase 18 checks both kernels again at the shapes it
     times."""
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
@@ -1563,13 +1630,17 @@ def check_moe_rglru_kernels(np, torch, device):
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
     moe = [(4, 64, 96, 160), (8, 32, 128, 64), (2, 128, 64, 256),
            (64, 1920, 2048, 1024), (64, 1920, 1024, 2048),
-           (64, 8, 2048, 1024), (64, 8, 1024, 2048)]
+           (64, 1144, 2048, 1024), (64, 1144, 1024, 2048), (8, 97, 200, 72),
+           (3, 40, 100, 36), (64, 8, 2048, 1024), (64, 8, 1024, 2048)]
     scans = [(2, 64, 256), (1, 128, 128), (3, 32, 384), (8, 1536, 4096)]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for i, (e, c, d, f) in enumerate(moe):
             x, w = moe_operands(torch, 400 + i, e, c, d, f, dtype, device)
-            got = moe_matmul(x, w)
+            got, route = take_route(moe_matmul, lambda: moe_matmul(x, w))
+            want_route("moe_matmul", route,
+                       "wgmma" if dtype == torch.bfloat16 and d % 8 == 0
+                       and f % 8 == 0 else "simt")
             again = moe_matmul(x, w)
             ref = moe_matmul_ref(x, w)
             torch.cuda.synchronize()
@@ -1579,8 +1650,8 @@ def check_moe_rglru_kernels(np, torch, device):
             for tol in (MOE_TOL[dname](d), MOE_REF_TOL[dname](d)):
                 torch.testing.assert_close(got.float(), ref.float(), **tol)
             err = float((got.double() - ref.double()).abs().max())
-            log(f"  moe_matmul {dname} E={e} C={c} D={d} F={f}: max abs "
-                f"err {err:.3g}, two launches bitwise equal")
+            log(f"  moe_matmul {dname} E={e} C={c} D={d} F={f}: {route} "
+                f"route, max abs err {err:.3g}, two launches bitwise equal")
             del x, w, got, again, ref
         for i, (b, t, w) in enumerate(scans):
             a, bb, h0 = rglru_operands(torch, 450 + i, b, t, w, dtype, device)
@@ -1643,8 +1714,9 @@ def time_moe_rglru(torch, device, served):
     2048, F 1024) at the largest served prefill's rows (B x cap) and at a
     decode step's 8 rows; RG-LRU scan: recurrentgemma's largest served
     prefill (B x T, W 4096).  Each is first checked against its plain
-    version at the shape it is timed at.  Returns the two ``kernels``
-    rows."""
+    version at the shape it is timed at; the expert GEMM's rows name the
+    route its launches took and carry its earlier time.  Returns the two
+    ``kernels`` rows."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
     from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref
@@ -1686,7 +1758,11 @@ def time_moe_rglru(torch, device, served):
             nbytes = 2 * (3 * gb * gt * W + 2 * gb * W)
             nops, peak = 2 * gb * gt * W, FP32_OPS_PER_S
             iters, plain_graph = 20, False    # plain: T steps of launches
-        err = held_at_timed_shape(torch, name, kern(), plain(), D)
+        if name == "moe_matmul":
+            got, kernel_route = take_route(moe_matmul, kern)
+        else:
+            got, kernel_route = kern(), None
+        err = held_at_timed_shape(torch, name, got, plain(), D)
         ms = time_ms(torch, kern, iters, graph=True)
         eager_ms = time_ms(torch, kern, iters, graph=False)
         plain_ms = time_ms(torch, plain, iters if plain_graph else 1,
@@ -1709,9 +1785,12 @@ def time_moe_rglru(torch, device, served):
                "shape": shape, "dtype": "bfloat16", "bytes": nbytes,
                "operations": nops, "tflops": nops / ms / 1e9,
                "gb_per_s": nbytes / ms / 1e6}
+        if kernel_route:
+            row["kernel_route"] = kernel_route
         if name == "moe_matmul":
             dk, dp, dl, db, do, _ = moe_case(LM_BATCH)
-            d_err = held_at_timed_shape(torch, name, dk(), dp(), D)
+            got, d_route = take_route(moe_matmul, dk)
+            d_err = held_at_timed_shape(torch, name, got, dp(), D)
             d_ms = time_ms(torch, dk, 20, graph=True)
             row["decode"] = {
                 "shape": [E, LM_BATCH, D, F], "max_abs_err": d_err,
@@ -1720,15 +1799,18 @@ def time_moe_rglru(torch, device, served):
                 "plain_ms": time_ms(torch, dp, 20, graph=True),
                 "library_ms": time_ms(torch, dl, 20, graph=True),
                 "bound_ms": max(db / HBM_BYTES_PER_S, do / BF16_OPS_PER_S)
-                * 1e3, "gb_per_s": db / d_ms / 1e6}
-            log(f"  moe_matmul decode {row['decode']['shape']} bf16: "
+                * 1e3, "gb_per_s": db / d_ms / 1e6, "kernel_route": d_route}
+            log(f"  moe_matmul decode {row['decode']['shape']} bf16 "
+                f"({d_route} route): "
                 f"max abs err {d_err:.3g}; {d_ms:.4f} ms in a graph ({row['decode']['gb_per_s']:.1f} "
                 f"GB/s), {row['decode']['eager_ms']:.4f} eager; plain "
                 f"{row['decode']['plain_ms']:.4f} ms; torch.bmm "
                 f"{row['decode']['library_ms']:.4f} ms; bound "
                 f"{row['decode']['bound_ms']:.4f} ms (bytes)")
         rows.append(row)
-        log(f"  {name} {shape} bf16: max abs err {err:.3g}"
+        via = f" ({kernel_route} route)" if kernel_route else ""
+        log(f"  {name} {shape} bf16{via}: max abs err "
+            f"{err:.3g}"
             f"{' (bitwise)' if name == 'rglru_scan' else ''}; "
             f"{ms:.4f} ms in a graph, {eager_ms:.4f}"
             f" ms eager ({nops / ms / 1e9:.2f} TFLOP/s, "

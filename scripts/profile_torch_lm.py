@@ -41,11 +41,12 @@ RANGES = ("serve.prefill", "serve.decode")
 
 
 def kind_of(name: str) -> str:
-    if "flash_attention_kernel" in name:
+    if "flash_attention_kernel" in name or "flash_wgmma_kernel" in name:
         return "flash_attention"
     if "decode_attention_kernel" in name:
         return "decode_attention"
-    if "moe_matmul_kernel" in name:
+    if any(k in name for k in ("moe_matmul_kernel", "moe_wide_kernel",
+                               "moe_decode_kernel")):
         return "moe_matmul"
     if "rglru_scan_kernel" in name:
         return "rglru_scan"

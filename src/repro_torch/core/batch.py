@@ -343,10 +343,20 @@ def prefix_sums(compute: torch.Tensor, memory: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[L+1] float32 prefix sums of the layer compute and memory, with a
     leading 0 — the DP's block-cost tables.  Taken on the CPU, once per
-    plan function: the values feed the discrete ``ok`` mask directly."""
-    zero = torch.zeros(1, dtype=torch.float32)
-    return (torch.cat([zero, torch.cumsum(compute.cpu(), 0)]),
-            torch.cat([zero, torch.cumsum(memory.cpu(), 0)]))
+    plan function: the values feed the discrete ``ok`` mask directly.
+
+    Each sum is a sequential float32 one (``np.add.accumulate`` adds in
+    index order), which is what the reference's ``jnp.cumsum`` gives on
+    the CPU up to L = 17; ``torch.cumsum`` adds in another order and
+    differs in the last bit.  From L = 18 XLA's order differs from a
+    sequential one too (ROADMAP item 17)."""
+    def seq(x: torch.Tensor) -> torch.Tensor:
+        acc = np.add.accumulate(x.detach().cpu().numpy().astype(np.float32),
+                                dtype=np.float32)
+        return torch.from_numpy(np.concatenate(
+            [np.zeros(1, np.float32), acc]))
+
+    return seq(compute), seq(memory)
 
 
 @dataclass(frozen=True)

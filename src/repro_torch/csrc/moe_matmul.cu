@@ -7,30 +7,44 @@
 // operands' dtype (the reference's moe_matmul_ref: an fp32 einsum cast
 // back).
 //
-// Bound: at olmoe-1b-7b's prefill (E 64, C = 8 sequences x 240 slots,
-// D 2048, F 1024) operations: 2 E C D F = 515 GFLOP on ~1 GB; at its
-// decode (C = 8 rows, one slot per sequence) bytes: the weights, 268 MB
-// in bfloat16 per GEMM, against 17 GFLOP.
+// Bound: at olmoe-1b-7b's prefill (E 64, C 1144 slots, D 2048, F 1024)
+// operations: 2 E C D F = 307 GFLOP on 0.72 GB; at its decode (C = 8
+// rows, one slot per sequence) bytes: the weights, 268 MB in bfloat16 per
+// GEMM, against 2 GFLOP.
 //
-// Design: a shared-memory tiled SIMT GEMM, conv2d.cu's tile with a third
-// grid axis over the experts.  Each block owns a BM x BN output tile of
-// one expert and walks the whole D axis itself in steps of BK (the Pallas
-// grid's sequential contraction axis with its VMEM accumulator becomes a
-// register accumulator); each thread holds a TM x TN register tile.
-// Operands are widened to float32 as they are stored into shared memory
-// (the x tile transposed, k-major, so both are read along the tile edge),
-// and every product is an fp32 fmaf: no tensor cores, no TF32.  Two tile
-// shapes, chosen by the launcher from C:
-//   * C > 16 (prefill): 64 x 64 tiles, BK 16, 4 x 4 per thread;
-//   * C <= 16 (decode): 16 x 64 tiles, BK 64, 4 x 1 per thread, so one
-//     row of blocks covers all C rows and each weight is read from device
-//     memory once; the tile's wasted rows cost arithmetic, not bytes.
-// Ragged C, D and F are masked: out-of-range loads put 0 into shared
-// memory, out-of-range outputs are not stored, so no padded copy is made.
-// The D reduction has one fixed order and no split-K, so a launch is
-// deterministic.  wgmma/TMA come later.
+// Routes, chosen by the launcher and reported to the wrapper:
+//
+// * wgmma (bfloat16 with D and F multiples of 8: TMA's strides must be
+//   multiples of 16 bytes; the wrapper refuses such operands whose data
+//   is not 16-byte aligned).  Operands
+//   come in by TMA through 3D tensor maps over x [E, C, D] and w [E, D, F]
+//   with 128-byte swizzle; out-of-bounds rows and columns of a box read as
+//   zeros, so ragged C, D and F need no padded copy and a box never spills
+//   into the next expert.  One producer thread keeps a ring of stages
+//   full (an mbarrier pair per stage); consumer warpgroups multiply with
+//   wgmma into fp32 registers, each wgmma group overlapping the next
+//   stage's wait, and store bf16 outputs masked at C and F.  The D
+//   reduction has one fixed order and no split-K, so two launches are
+//   bitwise equal.  Two tile shapes, chosen from C:
+//     - C > 16 (prefill): a 128 x 128 output tile of one expert per block,
+//       two consumer warpgroups of 64 rows each, K steps of 64 through a
+//       5-stage ring (x box [1, 128, 64] K-major, w box [1, 64, 64] twice,
+//       MN-major: F is w's contiguous axis and wgmma transposes bf16 B);
+//     - C <= 16 (decode): y[e]^T = w[e]^T x[e]^T, so F is wgmma's M (64 a
+//       block) and C its N (8 or 16): every MMA row is real and the
+//       weights stream through an 8-stage ring, 2 blocks an SM, ~160 KB
+//       of loads in flight per SM against the weight-byte bound.
+// * simt (float32, and bfloat16 with D or F not a multiple of 8).  The first
+//   port's kernel, unchanged: a shared-memory tiled SIMT GEMM with a grid axis
+//   over the experts, each block walking the whole D axis for a BM x BN
+//   tile, fp32 fmaf products (wgmma has no fp32 input, and TF32 would
+//   break the float32 tolerance), 64 x 64 tiles for C > 16 and 16 x 64
+//   for C <= 16 (each weight read once), masked ragged edges, one fixed
+//   D order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -137,18 +151,247 @@ int dispatch_c(const void* x, const void* w, void* y, int E, int C, int D,
   return launch<T, 64, 64, 16, 4, 4>(x, w, y, E, C, D, F, s);
 }
 
+// ---------------------------------------------------------------------------
+// wgmma route (bfloat16)
+// ---------------------------------------------------------------------------
+
+using hopper::desc;
+
+constexpr int KSTEP = 64;                   // bf16 elements: one 128 B row
+constexpr int ROW_BYTES = KSTEP * 2;
+constexpr int BOX_BYTES = 64 * ROW_BYTES;   // a 64 x 64 bf16 box
+
+// prefill tile: 128 x 128 outputs, two consumer warpgroups, one producer
+// warp
+constexpr int WM = 128, WN = 128, W_STAGES = 5;
+constexpr int W_THREADS = 2 * 128 + 32;
+constexpr int WA_BYTES = WM * ROW_BYTES;             // x box [128, 64]
+constexpr int WB_BYTES = (WN / 64) * BOX_BYTES;      // w boxes [64, 64]
+constexpr int W_SMEM = 1024 + W_STAGES * (WA_BYTES + WB_BYTES) +
+                       2 * W_STAGES * 8;
+
+__global__ void __launch_bounds__(W_THREADS, 1)
+moe_wide_kernel(const __grid_constant__ CUtensorMap tx,
+                const __grid_constant__ CUtensorMap tw,
+                __nv_bfloat16* __restrict__ y, int C, int D, int F) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* As = hopper::align1024(smem_raw);
+  uint8_t* Bs = As + W_STAGES * WA_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + W_STAGES * WB_BYTES);
+  uint64_t* empty = full + W_STAGES;
+
+  const int m0 = blockIdx.x * WM, n0 = blockIdx.y * WN, e = blockIdx.z;
+  const int nk = (D + KSTEP - 1) / KSTEP;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2);       // one arrival per warpgroup
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {                           // producer
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % W_STAGES;
+        hopper::mbar_wait(&empty[s], ((kt / W_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], WA_BYTES + WB_BYTES);
+        hopper::tma_load_3d(As + s * WA_BYTES, &tx, &full[s], kt * KSTEP,
+                            m0, e);
+#pragma unroll
+        for (int j = 0; j < WN / 64; ++j)
+          hopper::tma_load_3d(Bs + s * WB_BYTES + j * BOX_BYTES, &tw,
+                              &full[s], n0 + 64 * j, kt * KSTEP, e);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;                   // rows 64 wg .. 64 wg + 63
+  float acc[WN / 2];
+#pragma unroll
+  for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % W_STAGES;
+    hopper::mbar_wait(&full[s], (kt / W_STAGES) & 1);
+    const uint8_t* a = As + s * WA_BYTES + wg * 64 * ROW_BYTES;
+    const uint8_t* b = Bs + s * WB_BYTES;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEP / 16; ++kk)
+      hopper::wgmma_ss<0, 1>(acc, desc<128>(a + kk * 32, 16, 1024),
+                             desc<128>(b + kk * 16 * ROW_BYTES, BOX_BYTES,
+                                       1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();                 // step kt - 1 has finished
+    hopper::fence_regs(acc);
+    if (kt > 0 && threadIdx.x % 128 == 0)
+      hopper::mbar_arrive(&empty[(kt - 1) % W_STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  const int w4 = warp % 4;
+  const int r = m0 + wg * 64 + 16 * w4 + lane / 4;
+  __nv_bfloat16* ye = y + (long long)e * C * F;
+#pragma unroll
+  for (int j = 0; j < WN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+    if (col >= F) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      if (row < C)
+        *reinterpret_cast<__nv_bfloat162*>(ye + (long long)row * F + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// decode tile: y[e]^T [64 f, CN c] = w[e]^T x[e]^T, one consumer
+// warpgroup, one producer warp
+constexpr int DF = 64, D_STAGES = 8;
+constexpr int D_THREADS = 128 + 32;
+constexpr int DW_BYTES = BOX_BYTES;                  // w box [64 d, 64 f]
+constexpr int D_STAGE = DW_BYTES + 16 * ROW_BYTES;   // + x box [<=16 c, 64 d]
+constexpr int D_SMEM = 1024 + D_STAGES * D_STAGE + 2 * D_STAGES * 8;
+
+template <int CN>
+__global__ void __launch_bounds__(D_THREADS, 2)
+moe_decode_kernel(const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tw,
+                  __nv_bfloat16* __restrict__ y, int C, int D, int F) {
+  static_assert(CN == 8 || CN == 16, "decode N is 8 or 16");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + D_STAGES * D_STAGE);
+  uint64_t* empty = full + D_STAGES;
+
+  const int f0 = blockIdx.x * DF, e = blockIdx.y;
+  const int nk = (D + KSTEP - 1) / KSTEP;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr uint32_t STAGE_TX = DW_BYTES + CN * ROW_BYTES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < D_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 1);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {                           // producer
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % D_STAGES;
+        uint8_t* st = ring + s * D_STAGE;
+        hopper::mbar_wait(&empty[s], ((kt / D_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], STAGE_TX);
+        hopper::tma_load_3d(st, &tw, &full[s], f0, kt * KSTEP, e);
+        hopper::tma_load_3d(st + DW_BYTES, &tx, &full[s], kt * KSTEP, 0, e);
+      }
+    }
+    return;
+  }
+
+  float acc[CN / 2];
+#pragma unroll
+  for (int i = 0; i < CN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % D_STAGES;
+    const uint8_t* st = ring + s * D_STAGE;
+    hopper::mbar_wait(&full[s], (kt / D_STAGES) & 1);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEP / 16; ++kk)
+      hopper::wgmma_ss<1, 0>(acc,
+                             desc<128>(st + kk * 16 * ROW_BYTES, BOX_BYTES,
+                                       1024),
+                             desc<128>(st + DW_BYTES + kk * 32, 16, 1024),
+                             1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(acc);
+    if (kt > 0 && threadIdx.x == 0)
+      hopper::mbar_arrive(&empty[(kt - 1) % D_STAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // acc element (row f, column c) is y[e][c][f]
+  const int f = f0 + 16 * warp + lane / 4;
+  __nv_bfloat16* ye = y + (long long)e * C * F;
+#pragma unroll
+  for (int j = 0; j < CN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = 8 * j + 2 * (lane % 4) + (i & 1);
+      const int fr = f + 8 * (i >> 1);
+      if (c < C && fr < F)
+        ye[(long long)c * F + fr] = __float2bfloat16_rn(acc[4 * j + i]);
+    }
+}
+
+// the wgmma route takes bf16 with D, F multiples of 8 (TMA strides); the
+// wrapper refuses such operands off 16 bytes (TMA base addresses)
+bool wgmma_takes(int D, int F) { return D > 0 && D % 8 == 0 && F % 8 == 0; }
+
+int launch_wgmma(const void* x, const void* w, void* y, int E, int C, int D,
+                 int F, cudaStream_t stream) {
+  const int CN = C <= 8 ? 8 : 16;
+  const bool wide = C > SKINNY_MAX_C;
+  // x [E, C, D] and w [E, D, F], innermost first
+  const uint64_t xd[3] = {(uint64_t)D, (uint64_t)C, (uint64_t)E};
+  const uint64_t xs[2] = {(uint64_t)D * 2, (uint64_t)C * D * 2};
+  const uint64_t wd[3] = {(uint64_t)F, (uint64_t)D, (uint64_t)E};
+  const uint64_t ws[2] = {(uint64_t)F * 2, (uint64_t)D * F * 2};
+  const uint32_t xbox[3] = {KSTEP, (uint32_t)(wide ? WM : CN), 1};
+  const uint32_t wbox[3] = {64, KSTEP, 1};
+  CUtensorMap tx, tw;
+  int err = hopper::encode_bf16(&tx, 3, x, xd, xs, xbox, 128);
+  if (!err) err = hopper::encode_bf16(&tw, 3, w, wd, ws, wbox, 128);
+  if (err) return err;
+  __nv_bfloat16* out = (__nv_bfloat16*)y;
+  if (wide) {
+    cudaError_t e = cudaFuncSetAttribute(
+        moe_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)((C + WM - 1) / WM), (unsigned)((F + WN - 1) / WN),
+                    (unsigned)E);
+    moe_wide_kernel<<<grid, W_THREADS, W_SMEM, stream>>>(tx, tw, out, C, D, F);
+    return (int)cudaGetLastError();
+  }
+  auto kern = CN == 8 ? moe_decode_kernel<8> : moe_decode_kernel<16>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, D_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((F + DF - 1) / DF), (unsigned)E);
+  kern<<<grid, D_THREADS, D_SMEM, stream>>>(tx, tw, out, C, D, F);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype 0 = float32, 1 = bfloat16; x [E, C, D], w [E, D, F] and y [E, C, F]
-// contiguous, all of one dtype
+// contiguous, all of one dtype.  *route is set to the route launched:
+// 1 = wgmma, 0 = simt.
 extern "C" int repro_moe_matmul(const void* x, const void* w, void* y, int E,
-                                int C, int D, int F, int dtype, void* stream) {
+                                int C, int D, int F, int dtype, void* stream,
+                                int* route) {
   if (E <= 0 || C <= 0 || D < 0 || F <= 0 || E > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  *route = 0;
   if (dtype == 0) return dispatch_c<float>(x, w, y, E, C, D, F, s);
-  if (dtype == 1) return dispatch_c<__nv_bfloat16>(x, w, y, E, C, D, F, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (!wgmma_takes(D, F))
+    return dispatch_c<__nv_bfloat16>(x, w, y, E, C, D, F, s);
+  *route = 1;
+  return launch_wgmma(x, w, y, E, C, D, F, s);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels of the port, one package per kernel.
 
 Each ``<name>/`` holds ``<name>.py`` (the ctypes wrapper of
-``csrc/<name>.cu``, with a ``launches`` counter), ``ref.py`` (the plain
-PyTorch version) and ``ops.py`` (the dispatcher: CUDA tensors launch the
-kernel or raise, CPU tensors take the plain version).  ``_build``
+``csrc/<name>.cu``, with a ``launches`` counter, and a
+``launches_by_route`` count where the kernel has two routes),
+``ref.py`` (the plain PyTorch version) and ``ops.py`` (the dispatcher:
+CUDA tensors launch the kernel or raise, CPU tensors take the plain
+version).  ``_build``
 compiles the sources with ``nvcc`` at first use.
 """
 from __future__ import annotations
@@ -33,9 +35,19 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def route_counts() -> Dict[str, Dict[str, int]]:
+    """Launches by route since the last ``reset_launch_counts``, for the
+    kernels that have more than one route (``wgmma`` / ``simt``)."""
+    return {name: dict(fn.launches_by_route)
+            for name, fn in _wrappers().items()
+            if hasattr(fn, "launches_by_route")}
+
+
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        for route in getattr(fn, "launches_by_route", ()):
+            fn.launches_by_route[route] = 0
 
 
-__all__ = ["launch_counts", "reset_launch_counts"]
+__all__ = ["launch_counts", "reset_launch_counts", "route_counts"]

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface (no PyTorch headers, so ``nvcc`` takes seconds, not minutes).
 All missing libraries are compiled together, one ``nvcc`` process per
 source started at once, into ``build/repro_torch_kernels/`` at the repo
-root, keyed by a hash of the source and the flags: an edited source
-rebuilds, an unchanged one is reused.
+root, keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags: an edited source or header rebuilds, an unchanged one is
+reused.
 
 A launcher takes device pointers and the stream as ``c_void_p`` and ints
 as ``c_int``, launches on that stream without synchronising, and returns
@@ -45,9 +46,13 @@ def _nvcc() -> str:
 
 
 def _artifact(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    """The library's path, keyed by the source, every shared header
+    (``csrc/*.cuh``, which a source may include) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, float]:

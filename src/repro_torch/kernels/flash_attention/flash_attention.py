@@ -6,10 +6,20 @@ with a causal mask, a sliding window and a tanh logit softcap, GQA by
 ``kv head = h // (H / KV)``, masked positions at ``-1e30`` and the
 running sum clamped at ``1e-30``; float32 math from float32 or bfloat16
 inputs, output in ``q.dtype``.  Bound by operations at the serving
-shapes (4 B H S^2 D / 2 flops for causal rows); the kernel is a SIMT
-tile of 64 query rows per block with the kv-tile loop inside, kv tiles
-wholly above the diagonal or outside the window skipped (exact: they
-carry zero weight), deterministic launch to launch.
+shapes (4 B H S^2 D / 2 flops for causal rows, at the H100's 989 bf16
+TFLOP/s).  Two routes, counted in ``flash_attention.launches_by_route``:
+
+* ``wgmma`` (bfloat16): 64 query rows per consumer warpgroup, two a
+  block up to D 128 and one at D 256, Q and 64-key K and V tiles brought
+  in by TMA through 2-stage mbarrier rings by a producer thread, Q K^T
+  and P V by ``wgmma`` with fp32 accumulators (a tile's Q K^T beside the
+  previous tile's P V), the softmax on the accumulator fragment in
+  registers, P as a bf16 high + low pair;
+* ``simt`` (float32): a SIMT tile of 64 query rows a block with fp32
+  ``fmaf`` products (``wgmma`` has no fp32 input).
+
+Both skip kv tiles wholly above the diagonal or outside the window
+(exact: they carry zero weight) and are deterministic launch to launch.
 """
 from __future__ import annotations
 
@@ -22,9 +32,12 @@ from repro_torch.kernels import _build
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
-             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+             + [ctypes.POINTER(ctypes.c_int)])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: launcher route codes
+ROUTES = ("simt", "wgmma")
 
 
 def check_operand(fn: str, name: str, t: torch.Tensor, ref: torch.Tensor,
@@ -61,6 +74,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: dtype {q.dtype} (want float32 "
                          f"or bfloat16), head dim {D} (want {HEAD_DIMS}), "
                          f"{H} heads over {KV} kv heads")
+    # the bf16 route reads by TMA: 16-byte aligned rows and strides
+    for t in (q, k, v):
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1])):
+            raise ValueError(
+                f"flash_attention: bfloat16 operands are read by TMA and "
+                f"need 16-byte aligned data and strides (multiples of 8 "
+                f"elements); got data_ptr % 16 = {t.data_ptr() % 16}, "
+                f"strides {t.stride()}")
     for name, t, shape in (("q", q, (B, H, S, D)), ("k", k, (B, KV, S, D)),
                            ("v", v, (B, KV, S, D))):
         check_operand("flash_attention", name, t, q, shape, 4)
@@ -71,15 +93,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, H, KV, S, D, _DTYPES[q.dtype],
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 int(causal), int(window), float(scale), float(cap), stream)
+                 int(causal), int(window), float(scale), float(cap), stream,
+                 ctypes.byref(route))
     _build.check_launch(lib, "flash_attention", err)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[ROUTES[route.value]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -1,7 +1,9 @@
 """The port's batched planner pieces against the reference on the CPU.
 
-* Prefix sums (``pre_c``/``pre_m``) of the LeNet and AlexNet costs equal
-  ``jnp.cumsum``'s bit for bit: they feed the DP's discrete ``ok`` mask.
+* Prefix sums (``pre_c``/``pre_m``) of the LeNet and AlexNet costs, and
+  of random float32 costs at L 2-17, equal ``jnp.cumsum``'s bit for bit:
+  they feed the DP's discrete ``ok`` mask.  The chain DP on a scaled
+  AlexNet (another 11-layer CNN) is bitwise with the reference's.
 * The chain DP (``_chain_dp_solve_kernelized`` and its single-source
   slice) fed the SAME rate tensor as the reference's
   ``_chain_dp_solve_multi`` / ``_chain_dp_solve``: bitwise assignments and
@@ -74,6 +76,54 @@ def test_prefix_sums_match_jnp_cumsum(name):
         x = jnp.asarray(p[key], jnp.float32)
         ref = jnp.concatenate([jnp.zeros(1), jnp.cumsum(x)])
         np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
+@pytest.mark.parametrize("L", range(2, 18))
+def test_prefix_sums_match_jnp_cumsum_on_random_costs(L):
+    """Random float32 costs at L 2-17, eight seeds each: bitwise equal to
+    ``jnp.cumsum`` (from L 18 XLA's order departs from a sequential sum:
+    ROADMAP item 17)."""
+    for seed in range(8):
+        rng = np.random.default_rng(100 * L + seed)
+        c, m = (rng.uniform(0.1, 10.0, L).astype(np.float32)
+                for _ in range(2))
+        got = tb.prefix_sums(torch.as_tensor(c), torch.as_tensor(m))
+        for x, g in zip((c, m), got):
+            ref = jnp.concatenate([jnp.zeros(1), jnp.cumsum(jnp.asarray(x))])
+            assert g.dtype == torch.float32
+            np.testing.assert_array_equal(np.asarray(ref), g.numpy())
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_chain_dp_bitwise_on_a_scaled_alexnet(seed):
+    """Another 11-layer CNN: AlexNet's compute and memory each scaled by
+    ``uniform(0.5, 1.5, 11)``, U 5, B 4, all five sources.  The prefix
+    sums, latencies and assignments equal the reference's
+    ``_chain_dp_solve_kernelized`` bit for bit."""
+    U, B, order = 5, 4, (0, 1, 2, 3, 4)
+    p = problem("alexnet", U)
+    rng = np.random.default_rng(seed)
+    for key in ("compute", "memory"):
+        p[key] = (p[key] * rng.uniform(0.5, 1.5, 11)).astype(np.float32)
+    rate, active = reference_rate(1, B, U)
+    sources = np.tile(np.arange(U, dtype=np.int32), (B, 1))
+    ref_assign, ref_lat = jb._chain_dp_solve_kernelized(
+        *jax_args(p), jnp.asarray(rate), jnp.asarray(sources),
+        jnp.asarray(active), order)
+    tables = tb.chain_dp_tables(**p, order=order, device=torch.device("cpu"))
+    for got, key in zip(tb.prefix_sums(torch.as_tensor(p["compute"]),
+                                       torch.as_tensor(p["memory"])),
+                        ("compute", "memory")):
+        x = jnp.asarray(p[key], jnp.float32)
+        np.testing.assert_array_equal(
+            np.asarray(jnp.concatenate([jnp.zeros(1), jnp.cumsum(x)])),
+            got.numpy())
+    assign, lat = tb._chain_dp_solve_kernelized(
+        tables, torch.as_tensor(rate), torch.as_tensor(sources),
+        torch.as_tensor(active))
+    np.testing.assert_array_equal(np.asarray(ref_assign), assign.numpy())
+    np.testing.assert_array_equal(np.asarray(ref_lat), lat.numpy())
+    assert np.isfinite(lat.numpy()).any()
 
 
 @pytest.mark.parametrize("order", [(0, 1, 2, 3, 4), (3, 0, 4, 1, 2)])

@@ -2,9 +2,10 @@
 
 ``nvcc`` and the card are absent here, so these tests hold what runs
 before a build or a launch: the wrappers reject what their kernels do not
-take before touching ``nvcc``, a build is keyed by the source's content,
-a missing ``nvcc`` raises, and a nonzero launcher return raises with the
-CUDA error string.
+take before touching ``nvcc``, a build is keyed by the source's content
+and the shared headers', a missing ``nvcc`` raises, a nonzero launcher
+return raises with the CUDA error string, and the two-route kernels
+count their launches by route.
 """
 import ctypes
 
@@ -42,6 +43,25 @@ def test_artifact_is_keyed_by_source_content(tmp_path, monkeypatch):
     src.write_text("// two\n")
     assert _build._artifact("k") != first
     assert first.parent == tmp_path / "out" and first.suffix == ".so"
+
+
+def test_artifact_is_keyed_by_shared_headers(tmp_path, monkeypatch):
+    """An edit to a ``csrc/*.cuh`` header rebuilds every kernel (each may
+    include it); the header is no source of its own."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "j.cu").write_text('#include "h.cuh"\n// j\n')
+    alone = {n: _build._artifact(n) for n in "jk"}
+    hdr = tmp_path / "h.cuh"
+    hdr.write_text("// one\n")
+    first = {n: _build._artifact(n) for n in "jk"}
+    assert all(first[n] != alone[n] for n in "jk")
+    hdr.write_text("// two\n")
+    assert all(_build._artifact(n) != first[n] for n in "jk")
+    hdr.write_text("// one\n")
+    assert {n: _build._artifact(n) for n in "jk"} == first
+    assert _build.sources() == ("j", "k")
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
@@ -131,6 +151,78 @@ def test_flash_attention_rejects_before_building(case):
     with pytest.raises(ValueError, match="flash_attention"):
         flash_attention(q, k, v)
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("case", ["pointer", "stride"])
+def test_flash_attention_rejects_bf16_tma_misalignment(case, monkeypatch):
+    """The bfloat16 route reads q, k, v by TMA: a data pointer off 16
+    bytes, or a (b, head, s) stride off 8 elements, is refused before a
+    build, whatever else the operands are."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    q, k, v = _attn(dtype=torch.bfloat16)
+    if case == "pointer":
+        q = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(
+            q.shape)
+    else:
+        q = torch.zeros(q.shape[:-1] + (q.shape[-1] + 4,),
+                        dtype=torch.bfloat16)[..., :q.shape[-1]]
+    before = (flash_attention.launches,
+              dict(flash_attention.launches_by_route))
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention(q, k, v)
+    assert (flash_attention.launches,
+            flash_attention.launches_by_route) == before
+
+
+@pytest.mark.parametrize("operand", ["x", "w"])
+def test_moe_matmul_rejects_bf16_tma_misalignment(operand, monkeypatch):
+    """With D and F multiples of 8 the bfloat16 expert GEMM reads x and w
+    by TMA: a data pointer off 16 bytes is refused before a build."""
+    from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    shapes = {"x": (2, 3, 16), "w": (2, 16, 8)}
+    x, w = (torch.zeros(shapes[n], dtype=torch.bfloat16) for n in "xw")
+    if operand == "x":
+        x = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(
+            x.shape)
+    else:
+        w = torch.zeros(w.numel() + 1, dtype=torch.bfloat16)[1:].view(
+            w.shape)
+    before = (moe_matmul.launches, dict(moe_matmul.launches_by_route))
+    with pytest.raises(ValueError, match="TMA"):
+        moe_matmul(x, w)
+    assert (moe_matmul.launches, moe_matmul.launches_by_route) == before
+
+
+def test_route_counts_reset_with_the_launch_counts():
+    """The expert GEMM and prefill attention count launches by route
+    (wgmma, simt) beside their totals; one reset clears both."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
+    saved = [(f, f.launches, dict(f.launches_by_route))
+             for f in (flash_attention, moe_matmul)]
+    try:
+        moe_matmul.launches = 3
+        moe_matmul.launches_by_route.update(wgmma=2, simt=1)
+        flash_attention.launches_by_route["wgmma"] = 5
+        counts = kernels.route_counts()
+        assert counts == {"flash_attention": {"simt": 0, "wgmma": 5},
+                          "moe_matmul": {"simt": 1, "wgmma": 2}}
+        kernels.reset_launch_counts()
+        assert kernels.route_counts() == {
+            "flash_attention": {"simt": 0, "wgmma": 0},
+            "moe_matmul": {"simt": 0, "wgmma": 0}}
+        assert kernels.launch_counts()["moe_matmul"] == 0
+    finally:
+        for f, n, routes in saved:
+            f.launches = n
+            f.launches_by_route.update(routes)
 
 
 @pytest.mark.parametrize("case", ["cpu", "group", "head_dim", "pos"])

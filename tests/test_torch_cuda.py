@@ -2,7 +2,8 @@
 small planning run on the card against the CPU plain path, the sliced
 LeNet forward against the monolithic one, the attention kernels
 (prefill and decode, G up to 16) and the MoE, RG-LRU and mLSTM kernels
-against their plain versions.
+against their plain versions; the two kernels with a wgmma route
+(expert GEMM, prefill attention) also by the route each launch took.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -175,12 +176,17 @@ ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
     (1, 2, 1, 256, 32, True, 64, 0.0), (1, 2, 2, 128, 64, False, 0, 0.0),
     (1, 8, 4, 384, 128, True, 128, 30.0), (1, 2, 1, 1, 256, True, 0, 50.0),
     (1, 4, 2, 1000, 256, True, 300, 50.0), (1, 2, 2, 77, 128, False, 16, 0.0),
-    (2, 4, 2, 40, 16, True, 32, 50.0)])
+    (2, 4, 2, 40, 16, True, 32, 50.0), (1, 4, 2, 63, 64, True, 0, 0.0),
+    (1, 4, 2, 65, 128, True, 0, 50.0), (1, 4, 2, 129, 256, True, 0, 50.0),
+    (1, 2, 2, 129, 16, True, 16, 0.0), (1, 16, 1, 300, 256, True, 2048, 0.0),
+    (2, 16, 1, 129, 128, False, 40, 0.0)])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, causal,
                                               window, cap, dtype):
-    """The reference's kernel grid plus ragged S (1, 77, 1000) at D up to
-    256 and the reduced configs' D = 16; q/k/v are transposed views of [B, S, heads, D] tensors, as the
-    model passes them.  Two launches are bitwise equal."""
+    """The reference's kernel grid plus ragged S (1, 63, 65, 77, 129,
+    1000) at D 16 to 256, a window smaller than a kv tile and 16 query
+    heads over one kv head; q/k/v are transposed views of [B, S, heads,
+    D] tensors, as the model passes them.  bfloat16 takes the wgmma
+    route, float32 the SIMT route.  Two launches are bitwise equal."""
     rng = np.random.default_rng(s + d)
     q, k, v = (torch.as_tensor(rng.normal(size=(b, s, n, d)),
                                dtype=torch.float32, device=cuda)
@@ -191,6 +197,9 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, causal,
     ref = attention_ref(q, k, v, causal=causal, window=window, cap=cap)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention"] == 2
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert kernels.route_counts()["flash_attention"] == \
+        {"simt": 0, "wgmma": 0, route: 2}
     assert got.dtype == dtype and torch.equal(got, again)
     torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
 
@@ -241,11 +250,16 @@ MOE_TOL = {torch.float32: lambda d: dict(atol=1e-5 * d ** 0.5, rtol=1e-4),
 @pytest.mark.parametrize("e,c,d,f", [
     (4, 64, 96, 160), (8, 32, 128, 64), (2, 128, 64, 256),
     (64, 8, 2048, 1024), (64, 8, 1024, 2048), (8, 16, 64, 32),
-    (8, 17, 64, 32), (3, 5, 7, 9)])
+    (8, 17, 64, 32), (3, 5, 7, 9), (4, 63, 64, 64), (4, 65, 64, 64),
+    (4, 127, 128, 64), (4, 129, 200, 72), (64, 1144, 2048, 1024),
+    (4, 33, 100, 36)])
 def test_moe_matmul_kernel_matches_plain(cuda, e, c, d, f, dtype):
     """The reference's kernel grid, olmoe-1b-7b's decode GEMMs (C = 8 rows:
-    the decode tile), both sides of the tile choice (C 16 and 17) and a
-    ragged shape.  Two launches are bitwise equal."""
+    the decode tile) and a served prefill GEMM (C 1144), both sides of the
+    tile choice (C 16 and 17), C at 64k +- 1, D and F not multiples of 64,
+    and ragged shapes with D, F not multiples of 8.  bfloat16 takes the
+    wgmma route where TMA takes the shape (D and F multiples of 8), else
+    the SIMT route, as float32 does.  Two launches are bitwise equal."""
     rng = np.random.default_rng(e * c + f)
     x = torch.as_tensor(rng.normal(size=(e, c, d)), dtype=torch.float32,
                         device=cuda).to(dtype)
@@ -257,6 +271,10 @@ def test_moe_matmul_kernel_matches_plain(cuda, e, c, d, f, dtype):
     ref = moe_matmul_ref(x, w)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["moe_matmul"] == 2
+    route = "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and \
+        f % 8 == 0 else "simt"
+    assert kernels.route_counts()["moe_matmul"] == \
+        {"simt": 0, "wgmma": 0, route: 2}
     assert got.dtype == dtype and torch.equal(got, again)
     torch.testing.assert_close(got.float(), ref.float(),
                                **MOE_TOL[dtype](d))
