@@ -26,20 +26,24 @@ Phases, each raising on failure (the script then exits non-zero):
    and eager back-to-back launches) beside its plain version's and its
    bound at the published H100 SXM peaks;
 7. the conv2d GEMM kernel against its plain version at AlexNet's five
-   conv GEMMs (batch 32 and 1) and ragged shapes, relu on and off, atol
-   5e-4 rtol 1e-3, two launches bitwise equal; the conv2d op against a
-   direct float32 convolution at the five conv layers;
+   conv GEMMs (batch 32 and 1; conv1 at K 363 and padded to 364) and
+   ragged shapes, relu on and off, atol 5e-4 rtol 1e-3, each launch on
+   the route its K gives (the 3xTF32 wgmma route for K a multiple of 4,
+   the SIMT route otherwise), two launches bitwise equal; the conv2d op
+   against a direct float32 convolution at the five conv layers;
 8. the CNN path: ``LLHRPlanner.plan`` (P2 200 steps on the card) for four
    AlexNet requests on U = 8 UAVs with a fifth of the memory each, so
    every request spans >= 2 UAVs; each request's 32 images through
    ``distributed_forward`` sliced by its placement, launch counters set
-   to 0 just before and read just after (4 x 5 conv2d launches); sliced
-   equals monolithic bitwise; then the four requests served again and
+   to 0 just before and read just after (4 x 5 conv2d launches, every one
+   on the wgmma route); sliced equals monolithic bitwise; then the four requests served again and
    again over a window of at least 1.5 s (images/s over the window, the
    spread per serve and per request); the replan without request 0's
    first UAV; the same path at 2 images against the CPU plain path;
-9. the conv2d kernel's time at the five conv GEMMs (batch 32) beside its
-   plain version, ``torch.addmm`` and its bound;
+9. the conv2d kernel's time at the five conv GEMMs as served (batch 32,
+   conv1's K padded to 364) beside its plain version, ``torch.addmm``,
+   the route and tile its launches took and both bounds (3xTF32 on the
+   tensor cores, fp32 outside them; ``bound_ms`` is the smaller);
 10. the flash- and decode-attention kernels against their plain versions
     on the card, float32 (atol 2e-5, rtol 2e-4) and bfloat16 (the
     reference's atol 2e-2, rtol 2e-1, and within atol 1e-3, rtol 1e-2:
@@ -52,7 +56,10 @@ Phases, each raising on failure (the script then exits non-zero):
     window 2048, B 8 at S 1536 and B 1 at S 3072), every flash launch on
     the wgmma route in bfloat16 and the SIMT route in float32; decode at
     the reference's grid and gemma2-9b's decode (B 8, KV 8, G 2, S 4096,
-    D 256, cap 50, pos with 0 and S - 1);
+    D 256, cap 50, pos with 0 and S - 1), and with pos at the split-KV
+    edges (L - 1, L, S - 1 for the split length L, S not a multiple of
+    L) at gemma2's widths (S 4001), recurrentgemma's decode (B KV 8 at
+    G 16) and olmoe's D 128;
 11. the reduced gemma2-9b and phi4-mini in float32, card against the CPU
     plain path: prefill and decode logits within 1e-4, and
     ``ContinuousBatcher`` token ids equal;
@@ -72,8 +79,8 @@ Phases, each raising on failure (the script then exits non-zero):
     bfloat16 2 bf16 ulps of it;
 13. both attention kernels' times at gemma2-9b's shapes in bfloat16
     beside their plain versions, ``F.scaled_dot_product_attention``
-    (without the softcap), their bounds, the route the launches took and
-    flash's earlier (SIMT) time;
+    (without the softcap), their bounds, the route flash's launches took
+    and decode's splits;
 14. the expert GEMM (``moe_matmul``) against its plain version at the
     reference's kernel-test grid and olmoe-1b-7b's prefill (E 64, C 8 x
     240 and the served 1144) and decode (C 8) GEMMs, a ragged C 97 and
@@ -83,7 +90,8 @@ Phases, each raising on failure (the script then exits non-zero):
     SIMT route otherwise; the
     RG-LRU scan bitwise against its sequential plain version at the
     reference's grid and recurrentgemma-9b's prefill (B 8, T 1536, W
-    4096); decode attention at G = 16 (B 8, KV 1, 2048 slots, D 256);
+    4096); decode attention at G = 16 (B 8, KV 1, 2048 slots, D 256),
+    random pos and pos at the split edges;
     each two launches bitwise equal;
 15. the reduced granite-moe, olmoe and recurrentgemma in float32, card
     against the CPU plain path, as phase 11;
@@ -101,7 +109,10 @@ Phases, each raising on failure (the script then exits non-zero):
 18. the expert GEMM's and the RG-LRU scan's times at the served shapes in
     bfloat16, each first checked against its plain version at that
     shape, beside their plain versions, ``torch.bmm`` (the GEMM), their
-    bounds, the expert GEMM's route and its earlier (SIMT) times;
+    bounds and the expert GEMM's route; decode attention at
+    recurrentgemma-9b's decode (B 8, KV 1, G 16, 2048 slots, D 256)
+    beside SDPA with ``enable_gqa`` and its bytes bound (the decode
+    row's ``g16``);
 19. the chunkwise mLSTM kernel (``mlstm_chunk``) against its plain
     version from nonzero initial states: the reference's kernel-test
     grid, xlstm-350m's prefill (B 8, H 4, D 256, S 1024 and S 1000: a
@@ -141,6 +152,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor cores
 U, L_ALEXNET = 8, 11
 MAIN_B, MAIN_T, REQUESTS = 256, 32, 4
 MAIN_N_IMG = 32                  # images per request on the CNN path
@@ -208,9 +220,10 @@ LM_GAP = 1.5
 #: at logits of 170, ROADMAP section 3)
 LM_BF16_ULPS = 2
 LM_F32_TOL = dict(atol=1e-2, rtol=1e-3)
-#: the kernels with a wgmma route (bfloat16) beside a SIMT one (float32,
-#: and for the expert GEMM bfloat16 shapes TMA cannot take): every launch
-#: of theirs in a served bfloat16 run must take the wgmma route
+#: the LM kernels with a wgmma route (bfloat16) beside a SIMT one
+#: (float32, and for the expert GEMM bfloat16 shapes TMA cannot take):
+#: every launch of theirs in a served bfloat16 run must take the wgmma
+#: route (the conv GEMM's 3xTF32 wgmma route is gated on the CNN path)
 WGMMA_KERNELS = ("moe_matmul", "flash_attention")
 
 
@@ -636,23 +649,32 @@ def check_fp32(torch):
 
 def check_conv2d_kernel(np, torch, device):
     """``matmul_bias_act`` against ``matmul_ref`` at AlexNet's five conv
-    GEMMs (batch 32 and 1) and ragged shapes, relu on and off, atol 5e-4
-    rtol 1e-3; two launches bitwise equal; ``conv2d`` against
-    ``conv2d_ref`` at the five conv layers.  Returns the max abs error at
-    conv2, batch 32."""
-    from repro_torch.kernels.conv2d.conv2d import matmul_bias_act
+    GEMMs (batch 32 and 1; conv1 at its raw K 363, the SIMT route, and
+    at the served padded K 364) and ragged shapes, relu on and off, atol
+    5e-4 rtol 1e-3, each launch on the route its K gives (``wgmma`` for
+    K a multiple of 4, else ``simt``); two launches bitwise equal;
+    ``conv2d`` against ``conv2d_ref`` at the five conv layers.  Returns
+    the max abs error at conv2, batch 32."""
+    from repro_torch.kernels.conv2d.conv2d import gemm_route, matmul_bias_act
     from repro_torch.kernels.conv2d.ops import conv2d
     from repro_torch.kernels.conv2d.ref import conv2d_ref, matmul_ref
     check_fp32(torch)
     cases = [(f"{name} N={bs}", mkn, True) for bs in (MAIN_N_IMG, 1)
              for name, _, _, mkn in conv_layers(bs)]
+    cases += [(f"conv1 N={bs} padded", (m, k + (-k) % 4, n), True)
+              for bs in (MAIN_N_IMG, 1)
+              for name, _, _, (m, k, n) in conv_layers(bs)
+              if name == "conv1"]
     cases += [(f"ragged {m}x{k}x{n}", (m, k, n), relu)
               for m, k, n in ((1, 363, 96), (1, 17, 5), (67, 2401, 33),
-                              (130, 1, 257)) for relu in (True, False)]
+                              (130, 1, 257), (67, 2400, 33), (130, 4, 257),
+                              (1, 364, 96)) for relu in (True, False)]
     conv2_err = None
     for i, (label, (m, k, n), relu) in enumerate(cases):
         x, w, b = gemm_inputs(np, torch, 10 + i, m, k, n, device)
-        got = matmul_bias_act(x, w, b, relu=relu)
+        got, route = take_route(matmul_bias_act, lambda: matmul_bias_act(
+            x, w, b, relu=relu))
+        want_route("matmul_bias_act", route, gemm_route(k))
         again = matmul_bias_act(x, w, b, relu=relu)
         ref = matmul_ref(x, w, b, relu=relu)
         torch.cuda.synchronize()
@@ -664,7 +686,8 @@ def check_conv2d_kernel(np, torch, device):
         if label == f"conv2 N={MAIN_N_IMG}":
             conv2_err = err
         log(f"  matmul_bias_act {label} (M={m} K={k} N={n}, relu={relu}): "
-            f"max abs err {err:.3g}, two launches bitwise equal")
+            f"{route} route, max abs err {err:.3g}, two launches bitwise "
+            f"equal")
     rng = np.random.default_rng(20)
     for name, spec, shape, _ in conv_layers(MAIN_N_IMG):
         x = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32),
@@ -781,6 +804,11 @@ def run_cnn_path(np, torch, device):
     want = only(launches, conv2d=n_conv * len(assigns))
     if launches != want:
         raise AssertionError(f"CNN path launches {launches} != {want}")
+    routes = kernels.route_counts()["conv2d"]
+    if routes != {"simt": 0, "wgmma": launches["conv2d"]}:
+        raise AssertionError(f"CNN path conv2d launches by route {routes}, "
+                             f"want all {launches['conv2d']} on the wgmma "
+                             f"(3xTF32) route")
     for r, ((y, hand), x, a) in enumerate(zip(outs, xs, assigns)):
         changes = sum(p != q for p, q in zip(a[:-1], a[1:]))
         if hand != changes:
@@ -791,7 +819,8 @@ def run_cnn_path(np, torch, device):
         if not torch.equal(y, forward(ALEXNET, params, x)):
             raise AssertionError(f"request {r}: sliced forward != monolithic")
     log(f"  served {len(assigns)} requests x {MAIN_N_IMG} images: launches "
-        f"{launches}; sliced == monolithic bitwise; hand-offs "
+        f"{launches}, conv2d by route {routes}; sliced == monolithic "
+        f"bitwise; hand-offs "
         f"{[h for _, h in outs]}; peak device memory {peak_mb:.1f} MiB")
     rate, n_serves, per_serve, walls = serve_window(torch, params, xs,
                                                     assigns, CNN_WINDOW_S)
@@ -835,19 +864,33 @@ def run_cnn_path(np, torch, device):
 
 
 def time_conv2d(np, torch, device, launches, conv2_err):
-    """``matmul_bias_act`` at AlexNet's five conv GEMMs, batch 32, beside
-    its plain version, ``torch.addmm`` and the bound.  Returns the
-    per-layer rows and the ``kernels`` row at conv2."""
-    from repro_torch.kernels.conv2d.conv2d import matmul_bias_act
+    """``matmul_bias_act`` at AlexNet's five conv GEMMs as served (batch
+    32, conv1's K padded to 364), each first checked against its plain
+    version, beside its plain version, ``torch.addmm``, the route and tile
+    its launches take and both bounds: on the tensor cores (3xTF32: three
+    products at the dense TF32 peak) and in fp32 outside them.  The row's
+    ``bound_ms`` is the smaller, the least time for the float32-accurate
+    work.  Returns the per-layer rows and the ``kernels`` row at conv2."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.conv2d.conv2d import (conv_tile_n, gemm_route,
+                                                   matmul_bias_act)
     from repro_torch.kernels.conv2d.ref import matmul_ref
     layers = []
     for i, (name, _, _, (m, k, n)) in enumerate(conv_layers(MAIN_N_IMG)):
+        k += (-k) % 4                     # the served K (ops.conv2d pads)
         x, w, b = gemm_inputs(np, torch, 30 + i, m, k, n, device)
+        got, route = take_route(matmul_bias_act,
+                                lambda: matmul_bias_act(x, w, b))
+        want_route("matmul_bias_act", route, gemm_route(k))
+        torch.testing.assert_close(got, matmul_ref(x, w, b), atol=5e-4,
+                                   rtol=1e-3)
         nbytes = 4 * (m * k + k * n + n + m * n)
         nops = 2 * m * n * k
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / FP32_OPS_PER_S * 1e3
-        row = {"layer": name, "M": m, "K": k, "N": n,
+        t_simt = max(t_bytes, nops / FP32_OPS_PER_S * 1e3)
+        t_tc = max(t_bytes, 3 * nops / TF32_OPS_PER_S * 1e3)
+        row = {"layer": name, "M": m, "K": k, "N": n, "route": route,
+               "tile": [128, conv_tile_n(m, n, sm_count(device))],
                "ms": time_ms(torch, lambda: matmul_bias_act(x, w, b),
                              CONV_ITERS, graph=True),
                "eager_ms": time_ms(torch, lambda: matmul_bias_act(x, w, b),
@@ -858,17 +901,20 @@ def time_conv2d(np, torch, device, launches, conv2_err):
                                          CONV_ITERS, graph=False),
                "library_ms": time_ms(torch, lambda: torch.addmm(b, x, w),
                                      CONV_ITERS, graph=True),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_ms": min(t_tc, t_simt), "bound_by": "operations"
+               if min(t_tc, t_simt) > t_bytes else "bytes",
+               "bound_tensor_core_ms": t_tc, "bound_fp32_simt_ms": t_simt,
                "bytes": nbytes, "operations": nops}
         row["tflops"] = nops / row["ms"] / 1e9
         layers.append(row)
-        log(f"  {name} M={m} K={k} N={n}: kernel {row['ms']:.4f} ms (graph),"
-            f" {row['eager_ms']:.4f} ms eager, {row['tflops']:.2f} TFLOP/s; "
-            f"plain {row['plain_ms']:.4f} ms ({row['plain_eager_ms']:.4f} "
-            f"eager); torch.addmm (GEMM + bias, no "
-            f"ReLU) {row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} "
-            f"ms ({row['bound_by']})")
+        log(f"  {name} M={m} K={k} N={n} ({route} route, tile "
+            f"{row['tile'][0]}x{row['tile'][1]}): kernel {row['ms']:.4f} ms "
+            f"(graph), {row['eager_ms']:.4f} ms eager, {row['tflops']:.2f} "
+            f"TFLOP/s; plain {row['plain_ms']:.4f} ms "
+            f"({row['plain_eager_ms']:.4f} eager); torch.addmm (GEMM + "
+            f"bias, no ReLU) {row['library_ms']:.4f} ms; bound "
+            f"{t_tc:.4f} ms on the tensor cores (3xTF32), {t_simt:.4f} ms "
+            f"in fp32 SIMT")
     c2 = next(r for r in layers if r["layer"] == "conv2")
     kernel_row = {
         "name": "conv2d", "route": "cuda",
@@ -877,8 +923,11 @@ def time_conv2d(np, torch, device, launches, conv2_err):
         "launches": launches["conv2d"], "max_abs_err": conv2_err,
         "ms": c2["ms"], "plain_ms": c2["plain_ms"],
         "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"],
-        "library_ms": c2["library_ms"], "eager_ms": c2["eager_ms"],
-        "plain_eager_ms": c2["plain_eager_ms"],
+        "library_ms": c2["library_ms"], "library": "torch.addmm",
+        "kernel_route": c2["route"], "tile": c2["tile"],
+        "bound_tensor_core_ms": c2["bound_tensor_core_ms"],
+        "bound_fp32_simt_ms": c2["bound_fp32_simt_ms"],
+        "eager_ms": c2["eager_ms"], "plain_eager_ms": c2["plain_eager_ms"],
         "shape": [c2["M"], c2["K"], c2["N"]], "bytes": c2["bytes"],
         "operations": c2["operations"]}
     return layers, kernel_row
@@ -918,6 +967,24 @@ def decode_case(torch, seed, b, kv, g, s, d, dtype, device):
     return q, k.transpose(1, 2), v.transpose(1, 2), pos
 
 
+def decode_edge_case(torch, seed, b, kv, g, s, d, dtype, device):
+    """``decode_case`` with pos at the edges of the split-KV kernel's
+    splits on this card: a split's last slot (L - 1), the next one's first
+    (L), the cache's last (S - 1) and 0, repeated over the batch.  Returns
+    (q, k, v, pos, L); S must not be a multiple of L."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_splits
+    n_split, length = decode_splits(b, kv, s, sm_count(device))
+    if n_split < 2 or s % length == 0:
+        raise AssertionError(f"decode edge case B={b} KV={kv} S={s}: "
+                             f"{n_split} splits of {length} slots")
+    q, k, v, _ = decode_case(torch, seed, b, kv, g, s, d, dtype, device)
+    pos = torch.tensor(([length - 1, length, s - 1, 0] * b)[:b],
+                       dtype=torch.int32, device=device)
+    return q, k, v, pos, length
+
+
 def check_attention_kernels(np, torch, device):
     """Both attention kernels against their plain versions on the card,
     float32 and bfloat16 at the reference's tolerance, two launches
@@ -955,6 +1022,11 @@ def check_attention_kernels(np, torch, device):
              (1, 16, 1, 3072, 256, True, 2048, 0.0)]
     decode = [(2, 2, 4, 512, 64, 0.0), (1, 4, 1, 1024, 32, 50.0),
               (3, 1, 8, 256, 128, 0.0), (8, 8, 2, 4096, 256, 50.0)]
+    # pos at the split edges, S not a multiple of the split length:
+    # gemma2's widths at a 4001-slot cache, recurrentgemma's decode (B KV
+    # 8 at G 16), olmoe's D 128
+    decode_edges = [(8, 8, 2, 4001, 256, 50.0), (8, 1, 16, 2048, 256, 0.0),
+                    (8, 16, 1, 2001, 128, 0.0)]
 
     def hold(got, ref, dtype):
         torch.testing.assert_close(got.float(), ref.float(),
@@ -986,9 +1058,15 @@ def check_attention_kernels(np, torch, device):
                 f"S={s} D={d} causal={causal} window={window} cap={cap}: "
                 f"{route} route, max abs err {err:.3g}, two launches "
                 f"bitwise equal")
-        for i, (b, kv, g, s, d, cap) in enumerate(decode):
-            q, k, v, pos = decode_case(torch, 200 + i, b, kv, g, s, d, dtype,
-                                       device)
+        for i, (b, kv, g, s, d, cap) in enumerate(decode + decode_edges):
+            if i < len(decode):
+                q, k, v, pos = decode_case(torch, 200 + i, b, kv, g, s, d,
+                                           dtype, device)
+                edge = ""
+            else:
+                q, k, v, pos, length = decode_edge_case(
+                    torch, 200 + i, b, kv, g, s, d, dtype, device)
+                edge = f" (split length {length})"
             got = decode_attention(q, k, v, pos, cap=cap)
             again = decode_attention(q, k, v, pos, cap=cap)
             ref = decode_ref(q, k, v, pos, cap=cap)
@@ -1001,8 +1079,8 @@ def check_attention_kernels(np, torch, device):
             if s == 4096 and dtype == torch.bfloat16:
                 errs["decode_attention"] = err
             log(f"  decode_attention {str(dtype)[6:]} B={b} KV={kv} G={g} "
-                f"S={s} D={d} cap={cap} pos={pos.tolist()}: max abs err "
-                f"{err:.3g}, two launches bitwise equal")
+                f"S={s} D={d} cap={cap} pos={pos.tolist()}{edge}: max abs "
+                f"err {err:.3g}, two launches bitwise equal")
     return errs
 
 
@@ -1510,8 +1588,9 @@ def time_attention(torch, device, lm_launches, attn_errs):
     route its launches took (``kernel_route``; ``route`` is the build
     route, CUDA C++).  Returns the two ``kernels`` rows."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.decode_attention import \
-        decode_attention
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention, decode_splits)
     from repro_torch.kernels.decode_attention.ref import decode_ref
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
@@ -1571,6 +1650,9 @@ def time_attention(torch, device, lm_launches, attn_errs):
             "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6})
         if kernel_route:
             rows[-1]["kernel_route"] = kernel_route
+        if name == "decode_attention":
+            rows[-1]["splits"] = list(decode_splits(B, KV, SC,
+                                                    sm_count(device)))
         via = f" ({kernel_route} route)" if kernel_route else ""
         log(f"  {name} {shape} bf16{via}: {ms:.4f} ms in "
             f"a graph, {eager_ms:.4f}"
@@ -1580,6 +1662,58 @@ def time_attention(torch, device, lm_launches, attn_errs):
             f"bound {max(t_bytes, t_ops):.4f} ms "
             f"({'bytes' if t_bytes >= t_ops else 'operations'})")
     return rows
+
+
+def time_decode_g16(torch, device, served):
+    """Decode attention at recurrentgemma-9b's served decode shape in
+    bfloat16 (B 8, KV 1, G 16, its 2048-slot window cache all valid, D
+    256, no cap), first checked against its plain version, beside the
+    plain version, ``F.scaled_dot_product_attention`` with ``enable_gqa``
+    and its bytes bound.  Returns the entry for the decode row's
+    ``g16`` key (its launches: recurrentgemma's served run)."""
+    import torch.nn.functional as F
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention, decode_splits)
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    B, KV, G, S, D = 8, 1, 16, 2048, 256
+    q, k, v, _ = decode_case(torch, 302, B, KV, G, S, D, torch.bfloat16,
+                             device)
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=device)
+    got = decode_attention(q, k, v, pos)
+    want = decode_ref(q, k, v, pos)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ATTN_BF16_ROUNDING)
+    q_h = q.reshape(B, KV * G, 1, D)
+    nbytes = 2 * (2 * B * KV * G * D + 2 * B * KV * S * D) + 4 * B
+    nops = 4 * B * KV * G * D * S
+    kern = lambda: decode_attention(q, k, v, pos)            # noqa: E731
+    plain = lambda: decode_ref(q, k, v, pos)                 # noqa: E731
+    entry = {
+        "shape": [B, KV, G, S, D], "dtype": "bfloat16",
+        "launches": served["recurrentgemma-9b"]["launches"][
+            "decode_attention"],
+        "max_abs_err": float((got.double() - want.double()).abs().max()),
+        "ms": time_ms(torch, kern, 20, graph=True),
+        "eager_ms": time_ms(torch, kern, 20, graph=False),
+        "plain_ms": time_ms(torch, plain, 20, graph=True),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q_h, k, v, enable_gqa=True), 20, graph=True),
+        "library": "F.scaled_dot_product_attention (enable_gqa)",
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        nops / FP32_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >=
+        nops / FP32_OPS_PER_S else "operations",
+        "splits": list(decode_splits(B, KV, S, sm_count(device))),
+        "bytes": nbytes, "operations": nops}
+    entry["gb_per_s"] = nbytes / entry["ms"] / 1e6
+    log(f"  decode_attention {entry['shape']} bf16 (splits "
+        f"{entry['splits']}): max abs err {entry['max_abs_err']:.3g}; "
+        f"{entry['ms']:.4f} ms in a graph ({entry['gb_per_s']:.1f} GB/s), "
+        f"{entry['eager_ms']:.4f} eager; plain {entry['plain_ms']:.4f} ms; "
+        f"SDPA {entry['library_ms']:.4f} ms; bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -1670,24 +1804,30 @@ def check_moe_rglru_kernels(np, torch, device):
             log(f"  rglru_scan {dname} B={b} T={t} W={w}: bitwise equal to "
                 f"the sequential plain version, two launches bitwise equal")
             del a, bb, h0, h, h2, rh
-        q, k, v, pos = decode_case(torch, 500, 8, 1, 16, 2048, 256, dtype,
-                                   device)
-        got = decode_attention(q, k, v, pos)
-        again = decode_attention(q, k, v, pos)
-        ref = decode_ref(q, k, v, pos)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError("decode_attention G=16: two launches "
-                                 "differ")
-        torch.testing.assert_close(got.float(), ref.float(),
-                                   **ATTN_TOL[dname])
-        if dtype == torch.bfloat16:
+        for edge in (False, True):
+            if edge:
+                q, k, v, pos, length = decode_edge_case(
+                    torch, 501, 8, 1, 16, 2048, 256, dtype, device)
+            else:
+                q, k, v, pos = decode_case(torch, 500, 8, 1, 16, 2048, 256,
+                                           dtype, device)
+            got = decode_attention(q, k, v, pos)
+            again = decode_attention(q, k, v, pos)
+            ref = decode_ref(q, k, v, pos)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError("decode_attention G=16: two launches "
+                                     "differ")
             torch.testing.assert_close(got.float(), ref.float(),
-                                       **ATTN_BF16_ROUNDING)
-        err = float((got.double() - ref.double()).abs().max())
-        log(f"  decode_attention {dname} B=8 KV=1 G=16 S=2048 D=256 "
-            f"pos={pos.tolist()}: max abs err {err:.3g}, two launches "
-            f"bitwise equal")
+                                       **ATTN_TOL[dname])
+            if dtype == torch.bfloat16:
+                torch.testing.assert_close(got.float(), ref.float(),
+                                           **ATTN_BF16_ROUNDING)
+            err = float((got.double() - ref.double()).abs().max())
+            log(f"  decode_attention {dname} B=8 KV=1 G=16 S=2048 D=256 "
+                f"pos={pos.tolist()}"
+                f"{f' (split length {length})' if edge else ''}: max abs "
+                f"err {err:.3g}, two launches bitwise equal")
 
 
 def held_at_timed_shape(torch, name, got, want, d):
@@ -2022,9 +2162,11 @@ def main() -> int:
         log(f"[{phase}] LM serving path: {arch} at full width through "
             f"ContinuousBatcher")
         served[arch] = run_lm_path(np, torch, device, arch)
-    log("[18] expert GEMM and RG-LRU scan times (CUDA events), served "
-        "shapes")
+    log("[18] expert GEMM, RG-LRU scan and G = 16 decode attention times "
+        "(CUDA events), served shapes")
     rows += time_moe_rglru(torch, device, served)
+    next(r for r in rows if r["name"] == "decode_attention")["g16"] = \
+        time_decode_g16(torch, device, served)
     log("[19] mLSTM chunk kernel against its plain version on the card")
     check_mlstm_kernel(np, torch, device)
     log("[20] reduced xLSTM LM: card against the CPU plain path")

@@ -43,7 +43,8 @@ RANGES = ("serve.prefill", "serve.decode")
 def kind_of(name: str) -> str:
     if "flash_attention_kernel" in name or "flash_wgmma_kernel" in name:
         return "flash_attention"
-    if "decode_attention_kernel" in name:
+    if any(k in name for k in ("decode_split_kernel", "decode_mma_kernel",
+                               "decode_merge_kernel")):
         return "decode_attention"
     if any(k in name for k in ("moe_matmul_kernel", "moe_wide_kernel",
                                "moe_decode_kernel")):

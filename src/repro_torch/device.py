@@ -5,6 +5,7 @@ a machine without it raises, and the CPU runs only when named.
 """
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -24,4 +25,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device", "DeviceLike"]
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the kernels' wrappers
+    size their grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+__all__ = ["resolve_device", "sm_count", "DeviceLike"]

@@ -7,9 +7,15 @@ sequence, its G = H / KV query heads packed per kv head, against the KV
 cache with an online softmax over the slots; slot ``s`` of sequence
 ``b`` is valid iff ``s <= pos[b]``; optional tanh softcap; float32 math
 from float32 or bfloat16 inputs, output in ``q.dtype``.  Bound by bytes
-(the cache rows up to ``pos[b]``, read once); the kernel is one block per
-(b, kv head) that reads only the slots ``<= pos[b]`` (the rest carry
-zero weight), deterministic launch to launch.
+(the cache rows up to ``pos[b]``, read once).  Split-KV: the slot axis
+is cut into ``decode_splits`` ranges; one block per (b, kv head, range)
+streams only the slots ``<= pos[b]`` of its range (bulk copies into a
+shared-memory ring) into a float32 partial (workspace from
+``torch.empty``), and a second kernel merges the partials in split
+order.  bfloat16 with more than 8 query heads a kv head forms q kᵀ and
+P V on the tensor cores (``mma.sync``); other shapes on the SIMT cores.
+A call is two CUDA launches, counted once in ``launches``, and is
+deterministic launch to launch.
 """
 from __future__ import annotations
 
@@ -18,15 +24,44 @@ import math
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.flash_attention import (
     HEAD_DIMS, check_operand)
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 6 + [ctypes.c_float] * 2
              + [ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 16         # query heads per kv head the kernel holds
+#: the shortest split, in slots: below it a block's fixed cost (q, the
+#: ring's fill, its partial and their merge) outweighs its slots
+MIN_SPLIT = 32
+MAX_SPLITS = 4096      # the merge kernel's weights in shared memory
+#: blocks of the split kernel an SM holds at once (96 registers a thread,
+#: 288 threads, 96 KB of ring in bfloat16)
+BLOCKS_PER_SM = 2
+
+
+def decode_splits(B: int, KV: int, S: int, n_sm: int):
+    """(splits, slots a split) for a cache of ``S`` slots.  The (B * KV) x
+    splits blocks fill at least two waves of ``n_sm`` SMs; among up to
+    twice that many splits, the count that leaves the fewest idle places
+    in the last round of ``BLOCKS_PER_SM`` resident blocks an SM is taken
+    (the fewest splits on a tie).  No split is shorter than ``MIN_SPLIT``
+    slots.  The splits ``[j L, min((j + 1) L, S))`` cover ``[0, S)``;
+    shapes only, never ``pos``."""
+    rows, resident = B * KV, BLOCKS_PER_SM * n_sm
+    least = max(1, -(-2 * n_sm // rows))
+    best = None
+    for want in range(least, 2 * least + 1):
+        length = max(-(-S // want), MIN_SPLIT, -(-S // MAX_SPLITS))
+        n = -(-S // length)
+        blocks = rows * n
+        idle = -(-blocks // resident) * resident - blocks
+        if best is None or idle * best[2] < best[0] * blocks:
+            best = (idle, (n, length), blocks)
+    return best[1]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,13 +97,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     scale = 1.0 / math.sqrt(D)
+    n_split, length = decode_splits(B, KV, S, sm_count(q.device))
+    part_acc = torch.empty((B * KV * n_split * G * D,), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B * KV * n_split * 2 * G,), dtype=torch.float32,
+                          device=q.device)
     lib = _build.load("decode_attention")
     fn = lib.repro_decode_attention
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), B, KV, G, S, D, _DTYPES[q.dtype],
+                 out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B,
+                 KV, G, S, D, length, n_split, _DTYPES[q.dtype],
                  *k.stride()[:3], *v.stride()[:3], float(scale), float(cap),
                  stream)
     _build.check_launch(lib, "decode_attention", err)

@@ -199,30 +199,122 @@ def test_moe_matmul_rejects_bf16_tma_misalignment(operand, monkeypatch):
 
 
 def test_route_counts_reset_with_the_launch_counts():
-    """The expert GEMM and prefill attention count launches by route
-    (wgmma, simt) beside their totals; one reset clears both."""
+    """The expert GEMM, prefill attention and the conv GEMM count launches
+    by route (wgmma, simt) beside their totals; one reset clears both."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
     saved = [(f, f.launches, dict(f.launches_by_route))
-             for f in (flash_attention, moe_matmul)]
+             for f in (flash_attention, moe_matmul, matmul_bias_act)]
     try:
         moe_matmul.launches = 3
         moe_matmul.launches_by_route.update(wgmma=2, simt=1)
         flash_attention.launches_by_route["wgmma"] = 5
+        matmul_bias_act.launches = 4
+        matmul_bias_act.launches_by_route.update(wgmma=3, simt=1)
         counts = kernels.route_counts()
         assert counts == {"flash_attention": {"simt": 0, "wgmma": 5},
-                          "moe_matmul": {"simt": 1, "wgmma": 2}}
+                          "moe_matmul": {"simt": 1, "wgmma": 2},
+                          "conv2d": {"simt": 1, "wgmma": 3}}
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
             "flash_attention": {"simt": 0, "wgmma": 0},
-            "moe_matmul": {"simt": 0, "wgmma": 0}}
+            "moe_matmul": {"simt": 0, "wgmma": 0},
+            "conv2d": {"simt": 0, "wgmma": 0}}
         assert kernels.launch_counts()["moe_matmul"] == 0
+        assert kernels.launch_counts()["conv2d"] == 0
     finally:
         for f, n, routes in saved:
             f.launches = n
             f.launches_by_route.update(routes)
+
+
+@pytest.mark.parametrize("k,route", [(4, "wgmma"), (364, "wgmma"),
+                                     (2400, "wgmma"), (3456, "wgmma"),
+                                     (1, "simt"), (17, "simt"),
+                                     (363, "simt"), (2401, "simt"),
+                                     (0, "simt")])
+def test_conv_gemm_route_follows_k(k, route):
+    """The conv GEMM takes the wgmma (3xTF32) route where TMA can read x's
+    rows (K a multiple of 4), the SIMT route otherwise: by shape, decided
+    before any build."""
+    from repro_torch.kernels.conv2d.conv2d import gemm_route
+    assert gemm_route(k) == route
+
+
+def test_conv_tile_n_at_alexnets_conv_layers():
+    """128-column tiles where they fill a wave of 132 SMs (conv2), 96 at
+    conv1's 96 channels, 64 where 128 x 128 tiles would not (conv3-5 at
+    a batch of 32: 129 and 86 tiles)."""
+    from repro_torch.kernels.conv2d.conv2d import conv_tile_n
+    layers = {"conv1": (96800, 96), "conv2": (23328, 256),
+              "conv3": (5408, 384), "conv4": (5408, 384),
+              "conv5": (5408, 256)}
+    want = {"conv1": 96, "conv2": 128, "conv3": 64, "conv4": 64,
+            "conv5": 64}
+    assert {n: conv_tile_n(m, c, 132) for n, (m, c) in layers.items()} \
+        == want
+    assert conv_tile_n(1, 33, 132) == 64 and conv_tile_n(1, 257, 132) == 64
+    assert conv_tile_n(10 ** 6, 257, 132) == 128
+
+
+@pytest.mark.parametrize("k", [4, 2400])
+def test_matmul_bias_act_rejects_tma_misalignment(k, monkeypatch):
+    """With K a multiple of 4 the conv GEMM reads x by TMA: x whose data is
+    off 16 bytes is refused before a build and counts no launch."""
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    x = torch.zeros(3 * k + 1)[1:].view(3, k)
+    before = (matmul_bias_act.launches,
+              dict(matmul_bias_act.launches_by_route))
+    with pytest.raises(ValueError, match="TMA"):
+        matmul_bias_act(x, torch.zeros((k, 5)), torch.zeros(5))
+    assert (matmul_bias_act.launches,
+            matmul_bias_act.launches_by_route) == before
+
+
+def test_matmul_bias_act_simt_route_takes_any_alignment(monkeypatch):
+    """K not a multiple of 4 goes to the SIMT route, which reads x with
+    plain loads: an x off 16 bytes is not refused for alignment (here it
+    is refused only for lying on the CPU), and nothing is built."""
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    x = torch.zeros(3 * 17 + 1)[1:].view(3, 17)
+    before = dict(matmul_bias_act.launches_by_route)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        matmul_bias_act(x, torch.zeros((17, 5)), torch.zeros(5))
+    assert matmul_bias_act.launches_by_route == before
+
+
+@pytest.mark.parametrize("b,kv,s", [(8, 8, 4096), (8, 1, 2048),
+                                    (1, 8, 8192), (8, 16, 2048),
+                                    (3, 2, 37), (1, 1, 1), (2, 2, 48),
+                                    (64, 8, 100), (1, 1, 10 ** 7)])
+def test_decode_splits_cover_the_cache(b, kv, s):
+    """The splits [j L, min((j + 1) L, S)) cover [0, S) exactly, each
+    non-empty; none shorter than MIN_SPLIT unless the whole cache is; the
+    grid's y extent holds them."""
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        MAX_SPLITS, MIN_SPLIT, decode_splits)
+    n, length = decode_splits(b, kv, s, 132)
+    assert 1 <= n <= MAX_SPLITS
+    bounds = [(j * length, min((j + 1) * length, s)) for j in range(n)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == s
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b_[0] for a, b_ in zip(bounds, bounds[1:]))
+    assert length >= MIN_SPLIT or n == 1
+
+
+@pytest.mark.parametrize("name,b,kv,s", [("gemma2-9b", 8, 8, 4096),
+                                         ("recurrentgemma-9b", 8, 1, 2048)])
+def test_decode_splits_fill_two_waves(name, b, kv, s):
+    """At the served decode shapes the (B KV) x splits blocks fill at
+    least two waves of an H100's 132 SMs."""
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_splits
+    n, _ = decode_splits(b, kv, s, 132)
+    assert b * kv * n >= 2 * 132
 
 
 @pytest.mark.parametrize("case", ["cpu", "group", "head_dim", "pos"])

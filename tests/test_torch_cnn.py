@@ -1,7 +1,9 @@
 """The port's conv2d op and CNN against the reference on the CPU.
 
 * ``_im2col`` equals the reference's patch matrix bit for bit, (KH, KW, C)
-  feature order included, at 3x3, 5x5 and 11x11 filters.
+  feature order included, at 3x3, 5x5 and 11x11 filters; the padded patch
+  matrix the GEMM takes is ``_im2col``'s bit for bit plus zero columns up
+  to a multiple of 4 features, and the GEMM only ever sees such a K.
 * ``conv2d`` (im2col + the GEMM's plain version) against the reference's
   ``conv2d`` (its Pallas kernel in interpret mode) and against both
   packages' ``conv2d_ref``; ``matmul_ref`` against the reference's,
@@ -78,6 +80,51 @@ def test_conv2d_matches_reference_kernel_and_oracle(n, hw, cin, cout, k,
     np.testing.assert_allclose(got, np.asarray(j_kernel), **TOL)
     np.testing.assert_allclose(got, np.asarray(j_oracle), **TOL)
     np.testing.assert_allclose(t_oracle, np.asarray(j_oracle), **TOL)
+
+
+#: n, hw, cin, cout, k, stride, pad with K = k * k * cin not a multiple of
+#: 4: AlexNet's conv1 filter (K 363) on a smaller image, and two other
+#: ragged channel counts (K 45 and 175)
+RAGGED_K = [(1, 40, 3, 16, 11, 4, 0), (2, 15, 5, 8, 3, 1, 1),
+            (1, 20, 7, 6, 5, 2, 2)]
+
+
+@pytest.mark.parametrize("n,hw,cin,cout,k,stride,pad",
+                         RAGGED_K + [(2, 13, 4, 8, 3, 1, 1)])
+def test_padded_patches_are_im2col_plus_zero_columns(n, hw, cin, cout, k,
+                                                     stride, pad):
+    x, _, _ = conv_inputs(4, n, hw, cin, cout, k)
+    got, shape = t_ops._im2col_padded(t(x), k, k, stride, pad)
+    want, want_shape = t_ops._im2col(t(x), k, k, stride, pad)
+    kk = k * k * cin
+    assert shape == want_shape and got.is_contiguous()
+    assert got.shape == (want.shape[0], kk + (-kk) % 4)
+    assert torch.equal(got[:, :kk], want)
+    assert not got[:, kk:].any()
+
+
+@pytest.mark.parametrize("n,hw,cin,cout,k,stride,pad", RAGGED_K)
+def test_conv2d_pads_k_and_matches_reference_kernel(n, hw, cin, cout, k,
+                                                    stride, pad,
+                                                    monkeypatch):
+    """``conv2d`` hands its GEMM a K padded to a multiple of 4 (zero
+    patch columns, zero filter rows) on the CPU as on the card, and still
+    equals the reference's ``conv2d`` (Pallas in interpret mode)."""
+    seen = []
+
+    def gemm(xm, wm, b, *, relu):
+        seen.append((xm.shape, wm.shape))
+        return t_ref.matmul_ref(xm, wm, b, relu=relu)
+
+    monkeypatch.setitem(t_ops._BY_DEVICE, "cpu", gemm)
+    x, w, b = conv_inputs(5, n, hw, cin, cout, k)
+    got = t_ops.conv2d(t(x), t(w), t(b), stride=stride, padding=pad).numpy()
+    want = j_ops.conv2d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                        stride=stride, padding=pad, interpret=True)
+    kk = k * k * cin
+    (xs, ws), = seen
+    assert xs[1] == ws[0] == kk + (-kk) % 4 and xs[1] % 4 == 0
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("relu", [True, False])

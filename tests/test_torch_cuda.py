@@ -127,11 +127,16 @@ def test_plan_batch_multi_on_the_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("relu", [True, False])
-@pytest.mark.parametrize("m,k,n", [(5408, 2304, 384), (67, 363, 33)])
+@pytest.mark.parametrize("m,k,n", [(5408, 2304, 384), (67, 363, 33),
+                                   (23328, 2400, 256), (1000, 364, 96),
+                                   (67, 2400, 33), (130, 4, 257),
+                                   (67, 2401, 33)])
 def test_matmul_bias_act_kernel_matches_plain(cuda, m, k, n, relu):
-    """AlexNet conv3 at a batch of 32, and a ragged shape; atol 5e-4,
-    rtol 1e-3 (float32 sums in another order).  Two launches on the same
-    inputs are bitwise equal, and each adds one to the counter."""
+    """AlexNet conv3 and conv2 at a batch of 32, conv1's padded K 364, and
+    ragged shapes; atol 5e-4, rtol 1e-3 (float32 sums in another order;
+    3xTF32 products on the wgmma route).  K a multiple of 4 takes the
+    wgmma route, other K the SIMT route.  Two launches on the same inputs
+    are bitwise equal, and each adds one to the counter."""
     rng = np.random.default_rng(m + n)
     x = torch.as_tensor(rng.normal(size=(m, k)), dtype=torch.float32,
                         device=cuda)
@@ -145,6 +150,9 @@ def test_matmul_bias_act_kernel_matches_plain(cuda, m, k, n, relu):
     ref = matmul_ref(x, w, b, relu=relu)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["conv2d"] == 2
+    route = "wgmma" if k % 4 == 0 else "simt"
+    assert kernels.route_counts()["conv2d"] == \
+        {"simt": 0, "wgmma": 0, route: 2}
     assert torch.equal(got, again)
     torch.testing.assert_close(got, ref, atol=5e-4, rtol=1e-3)
 
@@ -237,6 +245,42 @@ def test_decode_attention_kernel_matches_plain(cuda, b, kv, g, s, d, cap,
     assert kernels.launch_counts()["decode_attention"] == 2
     assert got.dtype == dtype and torch.equal(got, again)
     torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,kv,g,s,d,cap", [
+    (8, 1, 16, 2048, 256, 0.0), (4, 2, 16, 1000, 128, 50.0),
+    (8, 8, 2, 4001, 256, 50.0), (2, 4, 4, 777, 64, 0.0)])
+def test_decode_attention_at_split_edges(cuda, b, kv, g, s, d, cap, dtype):
+    """pos at a split's last slot (L - 1), the next split's first (L), the
+    cache's last (S - 1) and 0, with S not a multiple of the split length
+    L that ``decode_splits`` gives on this card; B KV = 8 at G 16
+    (recurrentgemma-9b's decode) among them.  Within the reference's
+    tolerance and, in bfloat16, one output rounding; two launches
+    bitwise equal."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_splits
+    n_split, length = decode_splits(b, kv, s, sm_count(cuda))
+    assert n_split > 1 and s % length
+    rng = np.random.default_rng(s + g + 1)
+    q = torch.as_tensor(rng.normal(size=(b, kv, g, d)), dtype=torch.float32,
+                        device=cuda).to(dtype)
+    k, v = (torch.as_tensor(rng.normal(size=(b, s, kv, d)),
+                            dtype=torch.float32, device=cuda)
+            .to(dtype).transpose(1, 2) for _ in range(2))
+    pos = [length - 1, length, s - 1, 0] * b
+    pos = torch.as_tensor(pos[:b], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, k, v, pos, cap=cap)
+    again = decode_attention(q, k, v, pos, cap=cap)
+    ref = decode_ref(q, k, v, pos, cap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-3,
+                                   rtol=1e-2)
 
 
 #: tolerances of the expert GEMM: float32 sums in another order grow
