@@ -89,8 +89,10 @@ Phases, each raising on failure (the script then exits non-zero):
     on the wgmma route in bfloat16 where TMA takes the shape and on the
     SIMT route otherwise; the
     RG-LRU scan bitwise against its sequential plain version at the
-    reference's grid and recurrentgemma-9b's prefill (B 8, T 1536, W
-    4096); decode attention at G = 16 (B 8, KV 1, 2048 slots, D 256),
+    reference's grid, recurrentgemma-9b's prefill (B 8, T 1536, W 4096)
+    and a W 102, each launch on the TMA-ring route where rows are a
+    multiple of 16 bytes and on the SIMT route otherwise (W 102); decode
+    attention at G = 16 (B 8, KV 1, 2048 slots, D 256),
     random pos and pos at the split edges;
     each two launches bitwise equal;
 15. the reduced granite-moe, olmoe and recurrentgemma in float32, card
@@ -104,32 +106,39 @@ Phases, each raising on failure (the script then exits non-zero):
 17. recurrentgemma-9b at full width serving 8 requests (prompts
     256-1536, max_new 8-24) at max_seq 4096, then one 3072-token request
     (its 2048 window rolls): exactly 26 RG-LRU-scan and 12 flash launches
-    per prefill call (flash on the wgmma route) and 12 decode launches
-    per decode step; then kernels against plain inside the model;
+    per prefill call (flash on the wgmma route, every scan on the tma
+    route) and 12 decode launches per decode step; then kernels against
+    plain inside the model;
 18. the expert GEMM's and the RG-LRU scan's times at the served shapes in
     bfloat16, each first checked against its plain version at that
     shape, beside their plain versions, ``torch.bmm`` (the GEMM), their
-    bounds and the expert GEMM's route; decode attention at
+    bounds and the route each took; decode attention at
     recurrentgemma-9b's decode (B 8, KV 1, G 16, 2048 slots, D 256)
     beside SDPA with ``enable_gqa`` and its bytes bound (the decode
     row's ``g16``);
 19. the chunkwise mLSTM kernel (``mlstm_chunk``) against its plain
     version from nonzero initial states: the reference's kernel-test
     grid, xlstm-350m's prefill (B 8, H 4, D 256, S 1024 and S 1000: a
-    ragged last chunk) and decode (S 1); float32 (h and the state within
-    the reference's kernel-test atol 5e-4, rtol 1e-3) and bfloat16 (h one
+    ragged last chunk) and decode (S 1), S 63, 64, 65 and 129 at the
+    wgmma route's chunk edges; float32 (h and the state within the
+    reference's kernel-test atol 5e-4, rtol 1e-3) and bfloat16 (h one
     output rounding more: atol 1e-3, rtol 1e-2); two launches bitwise
-    equal;
+    equal; each launch on the route its dtype and S give (bfloat16 with
+    S > 1 wgmma, S 1 decode, float32 with S > 1 simt);
 20. the reduced xlstm-350m in float32, card against the CPU plain path,
     as phase 11;
 21. xlstm-350m at full width serving 8 requests (prompts 256-1024,
     max_new 8-24) at max_batch 8, max_seq 2048: exactly 12 mlstm_chunk
-    launches per prefill call and 12 per decode step, no other kernel
-    (the 12 sLSTM layers are a plain torch step loop); then kernels
-    against plain inside the model as in phase 12;
+    launches per prefill call, every one on the wgmma route, and 12 per
+    decode step on the decode route, no other kernel (the 12 sLSTM
+    layers are a plain torch step loop); then kernels against plain
+    inside the model as in phase 12;
 22. the mLSTM kernel's time at the served prefill shape and at a decode
     step in bfloat16, each first checked against its plain version at
-    that shape, beside its plain version and its bound.
+    that shape, beside its plain version, the route it took and its
+    bounds (the prefill's on the tensor cores, split products counted
+    twice, and in fp32 SIMT; ``bound_ms`` the smaller), and the prefill
+    of one (b, h) sequence alone.
 
 The last lines are the CNN path's and the four LM paths' serving
 numbers, the per-layer conv2d times, the kernels line, the
@@ -220,11 +229,16 @@ LM_GAP = 1.5
 #: at logits of 170, ROADMAP section 3)
 LM_BF16_ULPS = 2
 LM_F32_TOL = dict(atol=1e-2, rtol=1e-3)
-#: the LM kernels with a wgmma route (bfloat16) beside a SIMT one
-#: (float32, and for the expert GEMM bfloat16 shapes TMA cannot take):
-#: every launch of theirs in a served bfloat16 run must take the wgmma
-#: route (the conv GEMM's 3xTF32 wgmma route is gated on the CNN path)
-WGMMA_KERNELS = ("moe_matmul", "flash_attention")
+#: the route every launch of a multi-route LM kernel must take in a
+#: served (bfloat16) run, by call kind: the expert GEMM and flash
+#: attention on wgmma (their SIMT routes take float32 and shapes TMA
+#: cannot read), the RG-LRU scan on its TMA ring, the mLSTM on wgmma in
+#: prefill and on its streaming route in decode (the conv GEMM's 3xTF32
+#: wgmma route is gated on the CNN path)
+SERVED_ROUTES = {
+    "prefill": {"moe_matmul": "wgmma", "flash_attention": "wgmma",
+                "rglru_scan": "tma", "mlstm_chunk": "wgmma"},
+    "decode": {"moe_matmul": "wgmma", "mlstm_chunk": "decode"}}
 
 
 def log(*args):
@@ -1234,7 +1248,8 @@ def check_reduced_lms(np, torch, device, archs):
 
 class StepTimer:
     """Wraps a batcher's prefill and decode steps: each call's wall (it
-    ends in a device synchronise), its kernel launches, and each
+    ends in a device synchronise), its kernel launches (in total and by
+    route), and each
     request's time to first token (the prefill that gives a request its
     first token, from the start of ``run``).  Each call runs in the
     profiler range ``serve.prefill`` or ``serve.decode``."""
@@ -1251,17 +1266,21 @@ class StepTimer:
     def _call(self, kind, fn, args):
         first = [r.rid for r in self.batcher.active if not r.out]
         before = self.kernels.launch_counts()
+        routes_before = self.kernels.route_counts()
         with self.torch.profiler.record_function(f"serve.{kind}"):
             t0 = time.perf_counter()
             out = fn(*args)
             self.torch.cuda.synchronize()
             t1 = time.perf_counter()
         after = self.kernels.launch_counts()
+        routes = self.kernels.route_counts()
         rows = args[1].shape[0] if kind == "prefill" else args[2].shape[0]
         (self.prefill if kind == "prefill" else self.decode).append(
             {"s": t1 - t0, "batch": rows,
              "tokens": args[1].shape[1] if kind == "prefill" else 1,
-             "launches": {k: after[k] - before[k] for k in after}})
+             "launches": {k: after[k] - before[k] for k in after},
+             "routes": {k: {r: n - routes_before[k][r] for r, n in v.items()}
+                        for k, v in routes.items()}})
         if kind == "prefill":
             for rid in first:
                 self.ttft[rid] = t1 - self.t_start
@@ -1277,9 +1296,9 @@ def serve_lm(np, torch, model, params, scfg, requests, want):
     launch counters reset just before and read just after; every prefill
     call must launch exactly ``want["prefill"]`` and every decode step
     ``want["decode"]`` (kernel name -> launches; every other kernel 0),
-    and every expert-GEMM and flash launch must take the wgmma route (the
-    served runs are bfloat16).  Returns (finished requests, timer,
-    launches, peak device MiB)."""
+    and every launch of a kernel in ``SERVED_ROUTES`` must take the route
+    it names for the call's kind (the served runs are bfloat16).  Returns
+    (finished requests, timer, launches, peak device MiB)."""
     from repro_torch import kernels
     from repro_torch.runtime.serve_loop import ContinuousBatcher
     batcher = ContinuousBatcher(model, model.cfg, scfg, params)
@@ -1297,17 +1316,18 @@ def serve_lm(np, torch, model, params, scfg, requests, want):
             if c["launches"] != only(launches, **want[kind]):
                 raise AssertionError(f"{kind} call launched {c['launches']}"
                                      f", want {want[kind]}")
+            for name, route in SERVED_ROUTES[kind].items():
+                got = c["routes"][name]
+                if got != only(got, **{route: c["launches"][name]}):
+                    raise AssertionError(
+                        f"{kind} call: {name} launches by route {got}, "
+                        f"want every one of the {c['launches'][name]} on "
+                        f"the {route} route")
     total = {k: want["prefill"].get(k, 0) * len(timer.prefill)
              + want["decode"].get(k, 0) * len(timer.decode)
              for k in launches}
     if launches != total:
         raise AssertionError(f"serving launches {launches} != {total}")
-    routes = kernels.route_counts()
-    for name in WGMMA_KERNELS:
-        if routes[name] != {"simt": 0, "wgmma": launches[name]}:
-            raise AssertionError(f"serving: {name} launches by route "
-                                 f"{routes[name]}, want every one of the "
-                                 f"{launches[name]} on the wgmma route")
     if len(done) != len(requests) or any(
             not r.done or not 1 <= len(r.out) <= r.max_new for r in done):
         raise AssertionError("serving: a request did not finish")
@@ -1457,12 +1477,18 @@ def serve_summary(timer, reqs, done, wall, launches, peak):
            "ttft_s": ttft, "ttft_s_median": pct(ttft, 50),
            "wall_s": wall,
            "tokens_per_s": sum(len(r.out) for r in done) / wall,
-           "peak_gib": peak / 1024, "launches": launches}
+           "peak_gib": peak / 1024, "launches": launches,
+           "launches_by_route": {
+               k: {r: sum(c["routes"][k][r]
+                          for c in timer.prefill + timer.decode)
+                   for r in v}
+               for k, v in timer.prefill[0]["routes"].items()
+               if launches[k]}}
     log(f"  served {len(done)} requests ({out['prompt_tokens']} prompt "
         f"tokens, {out['generated_tokens']} generated) in {wall:.2f} s: "
         f"{len(pre)} prefill calls (batch x tokens "
         f"{out['prefill_shapes']}), {len(dec)} decode steps; launches "
-        f"{launches}")
+        f"{launches}, by route {out['launches_by_route']}")
     log(f"  prefill wall median {out['prefill_s_median']:.3f} s, max "
         f"{max(pre):.3f} s; decode step min / median / max "
         f"{out['decode_step_ms_min']:.2f} / "
@@ -1750,9 +1776,12 @@ def check_moe_rglru_kernels(np, torch, device):
     multiples of 8, within ``MOE_TOL`` and the reference's TOL, each
     launch on the wgmma route in bfloat16 where TMA takes the shape (D
     and F multiples of 8) and the SIMT route otherwise; RG-LRU scan at
-    the reference's grid and recurrentgemma-9b's prefill (B 8, T 1536, W
-    4096), bitwise; decode attention at recurrentgemma's decode (B 8, KV
-    1, G 16, a 2048-slot window cache, D 256) within ``ATTN_TOL`` and, in
+    the reference's grid, recurrentgemma-9b's prefill (B 8, T 1536, W
+    4096) and a W 102 that TMA cannot read, bitwise, each launch on the
+    route its dtype and W give (``tma`` where rows are a multiple of 16
+    bytes, ``simt`` otherwise); decode attention at recurrentgemma's
+    decode (B 8, KV 1, G 16, a 2048-slot window cache, D 256) within
+    ``ATTN_TOL`` and, in
     bfloat16, one output rounding.  Phase 18 checks both kernels again at the shapes it
     times."""
     from repro_torch.kernels.decode_attention.decode_attention import \
@@ -1761,12 +1790,14 @@ def check_moe_rglru_kernels(np, torch, device):
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
     from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref
     from repro_torch.kernels.rglru_scan.ref import rglru_ref
-    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_route,
+                                                          rglru_scan)
     moe = [(4, 64, 96, 160), (8, 32, 128, 64), (2, 128, 64, 256),
            (64, 1920, 2048, 1024), (64, 1920, 1024, 2048),
            (64, 1144, 2048, 1024), (64, 1144, 1024, 2048), (8, 97, 200, 72),
            (3, 40, 100, 36), (64, 8, 2048, 1024), (64, 8, 1024, 2048)]
-    scans = [(2, 64, 256), (1, 128, 128), (3, 32, 384), (8, 1536, 4096)]
+    scans = [(2, 64, 256), (1, 128, 128), (3, 32, 384), (8, 1536, 4096),
+             (2, 37, 102)]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for i, (e, c, d, f) in enumerate(moe):
@@ -1789,7 +1820,9 @@ def check_moe_rglru_kernels(np, torch, device):
             del x, w, got, again, ref
         for i, (b, t, w) in enumerate(scans):
             a, bb, h0 = rglru_operands(torch, 450 + i, b, t, w, dtype, device)
-            h, hT = rglru_scan(a, bb, h0)
+            (h, hT), route = take_route(rglru_scan,
+                                        lambda: rglru_scan(a, bb, h0))
+            want_route("rglru_scan", route, rglru_route(dtype, t, w))
             h2, hT2 = rglru_scan(a, bb, h0)
             rh, rhT = rglru_ref(a, bb, h0)
             torch.cuda.synchronize()
@@ -1801,8 +1834,9 @@ def check_moe_rglru_kernels(np, torch, device):
                 raise AssertionError(f"rglru_scan {dname} {b, t, w}: "
                                      f"{n_diff} elements differ from the "
                                      f"plain version")
-            log(f"  rglru_scan {dname} B={b} T={t} W={w}: bitwise equal to "
-                f"the sequential plain version, two launches bitwise equal")
+            log(f"  rglru_scan {dname} B={b} T={t} W={w} ({route} route): "
+                f"bitwise equal to the sequential plain version, two "
+                f"launches bitwise equal")
             del a, bb, h0, h, h2, rh
         for edge in (False, True):
             if edge:
@@ -1854,9 +1888,8 @@ def time_moe_rglru(torch, device, served):
     2048, F 1024) at the largest served prefill's rows (B x cap) and at a
     decode step's 8 rows; RG-LRU scan: recurrentgemma's largest served
     prefill (B x T, W 4096).  Each is first checked against its plain
-    version at the shape it is timed at; the expert GEMM's rows name the
-    route its launches took and carry its earlier time.  Returns the two
-    ``kernels`` rows."""
+    version at the shape it is timed at; each row names the route its
+    launches took.  Returns the two ``kernels`` rows."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
     from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref
@@ -1898,10 +1931,8 @@ def time_moe_rglru(torch, device, served):
             nbytes = 2 * (3 * gb * gt * W + 2 * gb * W)
             nops, peak = 2 * gb * gt * W, FP32_OPS_PER_S
             iters, plain_graph = 20, False    # plain: T steps of launches
-        if name == "moe_matmul":
-            got, kernel_route = take_route(moe_matmul, kern)
-        else:
-            got, kernel_route = kern(), None
+        got, kernel_route = take_route(
+            moe_matmul if name == "moe_matmul" else rglru_scan, kern)
         err = held_at_timed_shape(torch, name, got, plain(), D)
         ms = time_ms(torch, kern, iters, graph=True)
         eager_ms = time_ms(torch, kern, iters, graph=False)
@@ -1925,8 +1956,7 @@ def time_moe_rglru(torch, device, served):
                "shape": shape, "dtype": "bfloat16", "bytes": nbytes,
                "operations": nops, "tflops": nops / ms / 1e9,
                "gb_per_s": nbytes / ms / 1e6}
-        if kernel_route:
-            row["kernel_route"] = kernel_route
+        row["kernel_route"] = kernel_route
         if name == "moe_matmul":
             dk, dp, dl, db, do, _ = moe_case(LM_BATCH)
             got, d_route = take_route(moe_matmul, dk)
@@ -1948,8 +1978,7 @@ def time_moe_rglru(torch, device, served):
                 f"{row['decode']['library_ms']:.4f} ms; bound "
                 f"{row['decode']['bound_ms']:.4f} ms (bytes)")
         rows.append(row)
-        via = f" ({kernel_route} route)" if kernel_route else ""
-        log(f"  {name} {shape} bf16{via}: max abs err "
+        log(f"  {name} {shape} bf16 ({kernel_route} route): max abs err "
             f"{err:.3g}"
             f"{' (bitwise)' if name == 'rglru_scan' else ''}; "
             f"{ms:.4f} ms in a graph, {eager_ms:.4f}"
@@ -1999,19 +2028,26 @@ def check_mlstm_kernel(np, torch, device):
     """The chunkwise mLSTM kernel against its plain version on the card
     from nonzero states, float32 and bfloat16, two launches bitwise
     equal: the reference's kernel-test grid, xlstm-350m's prefill (B 8,
-    H 4, D 256 at S 1024 and at S 1000, whose last chunk of 32 is ragged)
-    and decode (S 1).  Phase 22 checks it again at the shapes it
-    times."""
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
+    H 4, D 256 at S 1024 and at S 1000, whose last chunk is ragged on
+    both routes) and decode (S 1), and S at the wgmma route's chunk edges
+    (63, 64, 65, 129); each launch on the route its dtype and S give
+    (bfloat16 with S > 1 ``wgmma``, S 1 ``decode``, float32 with S > 1
+    ``simt``).  Phase 22 checks it again at the shapes it times."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (mlstm_chunk,
+                                                            mlstm_route)
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
     cases = [(2, 128, 3, 32), (1, 64, 2, 64), (2, 256, 1, 32),
-             (8, 1024, 4, 256), (8, 1000, 4, 256), (8, 1, 4, 256)]
+             (8, 1024, 4, 256), (8, 1000, 4, 256), (8, 1, 4, 256),
+             (2, 63, 4, 256), (2, 64, 4, 256), (2, 65, 4, 256),
+             (2, 129, 4, 256), (2, 37, 2, 16)]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for i, (b, s, h, d) in enumerate(cases):
             args = mlstm_operands(torch, 800 + i, b, s, h, d, dtype, device)
             scale = 1.0 / d ** 0.5
-            got = mlstm_chunk(*args, scale)
+            got, route = take_route(mlstm_chunk,
+                                    lambda: mlstm_chunk(*args, scale))
+            want_route("mlstm_chunk", route, mlstm_route(dtype, s))
             again = mlstm_chunk(*args, scale)
             ref = mlstm_chunk_ref(*args, scale)
             torch.cuda.synchronize()
@@ -2021,36 +2057,49 @@ def check_mlstm_kernel(np, torch, device):
             err = held_mlstm(torch, got, ref, dtype)
             state_err = max(float((a - r).abs().max())
                             for a, r in zip(got[1:], ref[1:]))
-            log(f"  mlstm_chunk {dname} B={b} S={s} H={h} D={d}: h max abs "
-                f"err {err:.3g}, state {state_err:.3g}, two launches "
-                f"bitwise equal")
+            log(f"  mlstm_chunk {dname} B={b} S={s} H={h} D={d} ({route} "
+                f"route): h max abs err {err:.3g}, state {state_err:.3g}, "
+                f"two launches bitwise equal")
             del args, got, again, ref
 
 
-def mlstm_work(b, s, h, d, elt):
-    """(bytes, operations) of the mLSTM over [B, S, H, D] from a state in
-    the kernel's chunks: q, k, v and the gates read once, h written once,
-    the state read and written once; per chunk of l steps the two D x D
-    products a step (q C
-    and the rank-one update of C), the causal half of q k^T and of sw v
-    (l (l + 1) / 2 pairs of D), and q n and the update of n; 2 operations
-    a multiply-add."""
+def mlstm_work(b, s, h, d, elt, route):
+    """(bytes, operations) of the mLSTM over [B, S, H, D] from a state on
+    ``route``, in that route's chunks (``CHUNK[route]``): q, k, v and the
+    gates read once, h written once, the state read and written once;
+    per chunk of l steps the two D x D products a step (q C and the
+    rank-one update of C), the causal half of q k^T and of sw v (l (l +
+    1) / 2 pairs of D), and q n and the update of n; 2 operations a
+    multiply-add.  On the ``wgmma`` route the products with a float32
+    operand (q C, the C update, sw v) are issued twice, as a bf16 high
+    and low part, and counted twice; q n and the update of n run on fp32
+    lanes beside them and are left out of its tensor-core count."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import CHUNK
     nbytes = 4 * b * s * h * d * elt + 2 * b * s * h * 4 \
         + 2 * b * h * (d * d + d + 1) * 4
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import CHUNK
-    fmas = 0
-    for c0 in range(0, s, CHUNK):
-        l = min(CHUNK, s - c0)
-        fmas += 2 * l * d * d + l * (l + 1) * d + 2 * l * d
+    chunk, fmas = CHUNK[route], 0
+    for c0 in range(0, s, chunk):
+        l = min(chunk, s - c0)
+        pairs = l * (l + 1) // 2
+        if route == "wgmma":
+            fmas += 2 * (2 * l * d * d) + pairs * d + 2 * pairs * d
+        else:
+            fmas += 2 * l * d * d + 2 * pairs * d + 2 * l * d
     return nbytes, 2 * b * h * fmas
 
 
 def time_mlstm(torch, device, served):
     """The mLSTM kernel at xlstm-350m's largest served prefill (B x S, H 4,
     D 256) and at a decode step (B 8, S 1) in bfloat16, beside its plain
-    version and its bound from this run's shapes (no single PyTorch call
+    version and its bounds from this run's shapes (no single PyTorch call
     computes the recurrence).  Each is first checked against its plain
-    version at the shape it is timed at.  Returns the ``kernels`` row."""
+    version at the shape it is timed at and names the route its launches
+    took; the prefill also at one (b, h) sequence of the same length.
+    The prefill carries two bounds, on the tensor cores (its
+    ``wgmma`` route's products, the split ones counted twice, at the bf16
+    peak) and in fp32 SIMT (the ``simt`` route's chunks of 32 at the
+    fp32 peak); ``bound_ms`` is the smaller, as the conv rows' is.
+    Returns the ``kernels`` row."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
@@ -2061,43 +2110,55 @@ def time_mlstm(torch, device, served):
     pb, ps = max(xm["prefill_shapes"], key=lambda bs: bs[0] * bs[1])
     scale = 1.0 / D ** 0.5
 
-    def case(b, s, seed):
-        args = mlstm_operands(torch, seed, b, s, H, D, bf, device)
+    def case(b, s, seed, h=H):
+        args = mlstm_operands(torch, seed, b, s, h, D, bf, device)
         kern = lambda: mlstm_chunk(*args, scale)            # noqa: E731
         plain = lambda: mlstm_chunk_ref(*args, scale)       # noqa: E731
-        err = held_mlstm(torch, kern(), plain(), bf)
-        nbytes, nops = mlstm_work(b, s, H, D, 2)
+        got, route = take_route(mlstm_chunk, kern)
+        err = held_mlstm(torch, got, plain(), bf)
+        nbytes, nops = mlstm_work(b, s, h, D, 2, route)
+        _, simt_ops = mlstm_work(b, s, h, D, 2, "simt")
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / FP32_OPS_PER_S * 1e3
+        t_simt = max(t_bytes, simt_ops / FP32_OPS_PER_S * 1e3)
+        t_tc = max(t_bytes, nops / BF16_OPS_PER_S * 1e3) \
+            if route == "wgmma" else None
+        bound = min(t_simt, t_tc) if t_tc else t_simt
         ms = time_ms(torch, kern, 20, graph=True)
-        return {"shape": [b, s, H, D], "max_abs_err": err, "ms": ms,
+        return {"shape": [b, s, h, D], "kernel_route": route,
+                "max_abs_err": err, "ms": ms,
                 "eager_ms": time_ms(torch, kern, 20, graph=False),
                 "plain_ms": time_ms(torch, plain, 5, graph=True),
                 "plain_eager_ms": time_ms(torch, plain, 5, graph=False),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bound_bf16_tensor_ms": max(t_bytes,
-                                            nops / BF16_OPS_PER_S * 1e3),
+                "bound_ms": bound,
+                "bound_by": "bytes" if bound <= t_bytes else "operations",
+                "bound_tensor_core_ms": t_tc, "bound_fp32_simt_ms": t_simt,
                 "bytes": nbytes, "operations": nops,
+                "operations_fp32_simt": simt_ops,
                 "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6}
 
     pre = case(pb, ps, 900)
     dec = case(LM_BATCH, 1, 901)
+    # one (b, h) sequence alone: its D / 64 blocks on an otherwise idle
+    # card; as long as the served prefill's 32 sequences, so the time is
+    # each block's chunk chain and not the card's throughput
+    one = case(1, ps, 902, h=1)
     row = {"name": "mlstm_chunk", "route": "cuda",
            "source": "src/repro_torch/csrc/mlstm_chunk.cu",
            "replaces": "src/repro/kernels/mlstm_chunk/mlstm_chunk.py:81",
            "launches": xm["launches"]["mlstm_chunk"],
            "library_ms": None, "library": None, "plain_timing": "graph",
-           "dtype": "bfloat16", **pre, "decode": dec}
-    for name, r in (("prefill", pre), ("decode", dec)):
-        log(f"  mlstm_chunk {name} {r['shape']} bf16: max abs err "
-            f"{r['max_abs_err']:.3g}; {r['ms']:.4f} ms in a graph, "
-            f"{r['eager_ms']:.4f} ms eager ({r['tflops']:.2f} TFLOP/s, "
-            f"{r['gb_per_s']:.1f} GB/s); plain {r['plain_ms']:.4f} ms "
-            f"(graph; {r['plain_eager_ms']:.4f} eager); bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
-            f"{r['bound_bf16_tensor_ms']:.4f} ms at the bf16 tensor-core "
-            f"rate)")
+           "dtype": "bfloat16", **pre, "decode": dec, "one_sequence": one}
+    for name, r in (("prefill", pre), ("decode", dec),
+                    ("one sequence", one)):
+        tc = r["bound_tensor_core_ms"]
+        log(f"  mlstm_chunk {name} {r['shape']} bf16 ({r['kernel_route']} "
+            f"route): max abs err {r['max_abs_err']:.3g}; {r['ms']:.4f} ms "
+            f"in a graph, {r['eager_ms']:.4f} ms eager "
+            f"({r['tflops']:.2f} TFLOP/s, {r['gb_per_s']:.1f} GB/s); plain "
+            f"{r['plain_ms']:.4f} ms (graph; {r['plain_eager_ms']:.4f} "
+            f"eager); bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            + (f"{tc:.4f} ms on the tensor cores, " if tc else "")
+            + f"{r['bound_fp32_simt_ms']:.4f} ms in fp32 SIMT)")
     return row
 
 

@@ -49,9 +49,10 @@ def kind_of(name: str) -> str:
     if any(k in name for k in ("moe_matmul_kernel", "moe_wide_kernel",
                                "moe_decode_kernel")):
         return "moe_matmul"
-    if "rglru_scan_kernel" in name:
+    if "rglru_scan_kernel" in name or "rglru_tma_kernel" in name:
         return "rglru_scan"
-    if "mlstm_chunk_kernel" in name:
+    if any(k in name for k in ("mlstm_chunk_kernel", "mlstm_wgmma_kernel",
+                               "mlstm_decode_kernel")):
         return "mlstm_chunk"
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):

@@ -60,15 +60,18 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// 0 = no swizzle (a plain row-major box, for tiles no wgmma reads)
 inline CUtensorMapSwizzle swizzle_mode(int sw_bytes) {
-  return sw_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+  return sw_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
          : sw_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                          : CU_TENSOR_MAP_SWIZZLE_32B;
+         : sw_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                          : CU_TENSOR_MAP_SWIZZLE_NONE;
 }
 
 // A tensor map of `rank` dims (innermost first) over elements of `type`:
 // extents `dims`, byte strides of dims 1.. in `strides` (multiples of 16),
-// box `box` with box[0] * element bytes == sw_bytes.  Out-of-bounds
+// box `box` with box[0] * element bytes == sw_bytes, or sw_bytes 0 for an
+// unswizzled box (box[0] * element bytes a multiple of 16).  Out-of-bounds
 // elements of a box read as zeros.  Returns 0 or a cudaError_t.
 inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
                   const void* base, const uint64_t* dims,
@@ -114,6 +117,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // memory is given 1 KB of slack for it)
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// Byte offset `o` inside a tile that TMA wrote with an SW-byte swizzle (or
+// that a wgmma reads as one), as the hardware places it: 16-byte chunk
+// bits [4, 7) XOR row bits [7, 10), as many of them as SW / 16 - 1 covers
+// (CUTLASS's Swizzle<3,4,3>, <2,4,3>, <1,4,3>).  `o` counts from a base
+// aligned to 1024 bytes.
+template <int SW>
+__device__ __forceinline__ uint32_t swizzle(uint32_t o) {
+  static_assert(SW == 32 || SW == 64 || SW == 128, "swizzle of 32/64/128 B");
+  return o ^ (((o >> 7) & (uint32_t)(SW / 16 - 1)) << 4);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

@@ -2,7 +2,7 @@
 
 Each ``<name>/`` holds ``<name>.py`` (the ctypes wrapper of
 ``csrc/<name>.cu``, with a ``launches`` counter, and a
-``launches_by_route`` count where the kernel has two routes),
+``launches_by_route`` count where the kernel has more than one route),
 ``ref.py`` (the plain PyTorch version) and ``ops.py`` (the dispatcher:
 CUDA tensors launch the kernel or raise, CPU tensors take the plain
 version).  ``_build``
@@ -37,7 +37,8 @@ def launch_counts() -> Dict[str, int]:
 
 def route_counts() -> Dict[str, Dict[str, int]]:
     """Launches by route since the last ``reset_launch_counts``, for the
-    kernels that have more than one route (``wgmma`` / ``simt``)."""
+    kernels that have more than one route (``wgmma`` / ``simt``, the
+    RG-LRU scan's ``tma`` / ``simt``, the mLSTM's ``decode`` besides)."""
     return {name: dict(fn.launches_by_route)
             for name, fn in _wrappers().items()
             if hasattr(fn, "launches_by_route")}

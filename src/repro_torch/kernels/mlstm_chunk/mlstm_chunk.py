@@ -3,11 +3,26 @@
 Replaces the Pallas kernel ``src/repro/kernels/mlstm_chunk/mlstm_chunk.py``
 (``mlstm_chunk``), with two additions for serving: it starts from a
 given state ``(C0, n0, m0)`` and returns the final one, and it takes any
-``S >= 1`` (its own chunks of 32 steps, the last one ragged).  Bound by
-operations in prefill (the two ``D x D`` products a token) and by bytes
-in decode (reading and writing ``C``); the kernel is a SIMT block per
-(b, head, value tile of 64 columns) holding its tile of ``C`` in shared
-memory over the whole sequence.
+``S >= 1`` (its own chunks, the last one ragged).  Bound by bytes in
+decode (reading and writing ``C``) and in bf16 prefill on the tensor
+cores; by operations in float32 prefill (the two ``D x D`` products a
+token on fp32 lanes).  Three routes, chosen by ``mlstm_route`` from the
+dtype and ``S`` alone and counted in ``mlstm_chunk.launches_by_route``:
+
+* ``wgmma`` (bfloat16, ``S > 1``): chunks of 64 steps; a block per
+  (b, head, value tile of 64 columns) holds its tile of ``C`` transposed
+  in fp32 ``wgmma`` accumulator registers for the whole sequence; q k^T,
+  q C, sw V and the C update are ``wgmma`` products, the float32
+  operands (C, sw, the decayed values) as bf16 high + low pairs; a
+  score warpgroup forms q k^T and sw a chunk ahead of the state's
+  chain, its TMA thread keeping a 2-stage ring of q, k, v full and its
+  gate warp taking the gate cumulatives by warp scans;
+* ``decode`` (``S == 1``, either dtype): the rank-one update streamed
+  over 16-column strips of ``C`` with 16-byte loads and stores;
+* ``simt`` (float32, ``S > 1``): chunks of 32 steps, a SIMT block per
+  (b, head, value tile) holding its tile of ``C`` in shared memory.
+
+Every route is deterministic launch to launch.
 """
 from __future__ import annotations
 
@@ -18,12 +33,24 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + \
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + \
     [ctypes.c_float, ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
-CHUNK = 32                       # the kernel's chunk length (LC)
+#: launcher route codes
+ROUTES = ("simt", "wgmma", "decode")
+#: each route's chunk length
+CHUNK = {"simt": 32, "wgmma": 64, "decode": 1}
 MAX_ROWS = 2 ** 31 - 1           # B x H, the grid's x extent
+
+
+def mlstm_route(dtype: torch.dtype, s: int) -> str:
+    """The route a launch over ``s`` steps of ``dtype`` takes: ``decode``
+    at ``s == 1``, else ``wgmma`` for bfloat16 and ``simt`` for
+    float32."""
+    if s == 1:
+        return "decode"
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,6 +80,13 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in HEAD_DIMS or S < 1 or B * H > MAX_ROWS:
         raise ValueError(f"mlstm_chunk: head dim {D} (want one of "
                          f"{HEAD_DIMS}), S {S} (want >= 1), B x H {B * H}")
+    route = mlstm_route(q.dtype, S)
+    # the wgmma route reads q, k, v by TMA: 16-byte aligned data
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(
+            f"mlstm_chunk: bfloat16 q, k, v with S > 1 are read by TMA and "
+            f"need 16-byte aligned data; got data_ptr % 16 = "
+            f"{[t.data_ptr() % 16 for t in (q, k, v)]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.dtype not in _DTYPES or \
                 t.dtype != q.dtype or not t.is_contiguous():
@@ -75,11 +109,13 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
                  f_pre.data_ptr(), C0.data_ptr(), n0.data_ptr(),
                  m0.data_ptr(), h.data_ptr(), C1.data_ptr(), n1.data_ptr(),
-                 m1.data_ptr(), B, S, H, D, _DTYPES[q.dtype], float(scale),
-                 stream)
+                 m1.data_ptr(), B, S, H, D, _DTYPES[q.dtype],
+                 ROUTES.index(route), float(scale), stream)
     _build.check_launch(lib, "mlstm_chunk", err)
     mlstm_chunk.launches += 1
+    mlstm_chunk.launches_by_route[route] += 1
     return h, C1, n1, m1
 
 
 mlstm_chunk.launches = 0
+mlstm_chunk.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -3,11 +3,19 @@
 Replaces the Pallas kernel ``src/repro/kernels/rglru_scan/rglru_scan.py``
 (``rglru_scan``): ``h_t = a_t h_{t-1} + b_t`` over ``[B, T, W]`` from
 ``h0``, float32 math, ``h`` in ``a.dtype`` and ``hT`` in ``h0.dtype``.
-Bound by bytes (one read of a and b, one write of h); the kernel is one
-thread per (b, w) channel with the T loop inside, a chunk of steps'
-loads issued ahead of their dependent chain, each step one FMA rounded
-once, as the Pallas kernel and the plain version compute it, so it
-equals the plain version bitwise.
+Bound by bytes (one read of a and b, one write of h).  Each step is one
+FMA rounded once, in step order, as the Pallas kernel and the plain
+version compute it, so both routes equal the plain version bitwise.
+Two routes, chosen by ``rglru_route`` from the shape and dtype alone and
+counted in ``rglru_scan.launches_by_route``:
+
+* ``tma`` (``W`` x element bytes a multiple of 16, ``T > 0``): a block
+  per (b, 64-channel strip); a producer warp keeps a 4-stage TMA ring of
+  [steps x 64 channels] boxes of a and b in flight while one thread a
+  channel runs the chain through them; h is staged in shared memory and
+  stored with 16-byte stores.  a and b off 16 bytes are refused;
+* ``simt`` (any other shape): one thread per (b, w) channel, a chunk of
+  steps' loads issued ahead of their dependent chain.
 """
 from __future__ import annotations
 
@@ -18,9 +26,18 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 65535          # the grid's y extent
+#: launcher route codes
+ROUTES = ("simt", "tma")
+
+
+def rglru_route(dtype: torch.dtype, t: int, w: int) -> str:
+    """``tma`` where TMA can read rows of ``w`` elements of ``dtype`` (a
+    multiple of 16 bytes) and there is a step to read, else ``simt``."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return "tma" if t > 0 and (w * item) % 16 == 0 else "simt"
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
@@ -37,6 +54,12 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     B, T, W = a.shape
     if B > MAX_BATCH:
         raise ValueError(f"rglru_scan: batch {B}, at most {MAX_BATCH}")
+    route = rglru_route(a.dtype, T, W)
+    if route == "tma" and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError(
+            f"rglru_scan: a and b are read by TMA at W {W} and need "
+            f"16-byte aligned data; got data_ptr % 16 = "
+            f"{a.data_ptr() % 16}, {b.data_ptr() % 16}")
     for name, t, dt in (("a", a, a.dtype), ("b", b, a.dtype),
                         ("h0", h0, h0.dtype)):
         if t.device != a.device or t.device.type != "cuda" or \
@@ -57,10 +80,12 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
                  hT.data_ptr(), B, T, W, _DTYPES[a.dtype], _DTYPES[h0.dtype],
-                 stream)
+                 ROUTES.index(route), stream)
     _build.check_launch(lib, "rglru_scan", err)
     rglru_scan.launches += 1
+    rglru_scan.launches_by_route[route] += 1
     return h, hT
 
 
 rglru_scan.launches = 0
+rglru_scan.launches_by_route = dict.fromkeys(ROUTES, 0)

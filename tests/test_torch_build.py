@@ -199,31 +199,46 @@ def test_moe_matmul_rejects_bf16_tma_misalignment(operand, monkeypatch):
 
 
 def test_route_counts_reset_with_the_launch_counts():
-    """The expert GEMM, prefill attention and the conv GEMM count launches
-    by route (wgmma, simt) beside their totals; one reset clears both."""
+    """The expert GEMM, prefill attention, the conv GEMM, the RG-LRU scan
+    and the mLSTM chunk count launches by route beside their totals; one
+    reset clears both."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
     saved = [(f, f.launches, dict(f.launches_by_route))
-             for f in (flash_attention, moe_matmul, matmul_bias_act)]
+             for f in (flash_attention, moe_matmul, matmul_bias_act,
+                       rglru_scan, mlstm_chunk)]
     try:
         moe_matmul.launches = 3
         moe_matmul.launches_by_route.update(wgmma=2, simt=1)
         flash_attention.launches_by_route["wgmma"] = 5
         matmul_bias_act.launches = 4
         matmul_bias_act.launches_by_route.update(wgmma=3, simt=1)
+        rglru_scan.launches = 27
+        rglru_scan.launches_by_route.update(tma=26, simt=1)
+        mlstm_chunk.launches = 25
+        mlstm_chunk.launches_by_route.update(wgmma=12, decode=12, simt=1)
         counts = kernels.route_counts()
         assert counts == {"flash_attention": {"simt": 0, "wgmma": 5},
                           "moe_matmul": {"simt": 1, "wgmma": 2},
-                          "conv2d": {"simt": 1, "wgmma": 3}}
+                          "conv2d": {"simt": 1, "wgmma": 3},
+                          "rglru_scan": {"simt": 1, "tma": 26},
+                          "mlstm_chunk": {"simt": 1, "wgmma": 12,
+                                          "decode": 12}}
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
             "flash_attention": {"simt": 0, "wgmma": 0},
             "moe_matmul": {"simt": 0, "wgmma": 0},
-            "conv2d": {"simt": 0, "wgmma": 0}}
+            "conv2d": {"simt": 0, "wgmma": 0},
+            "rglru_scan": {"simt": 0, "tma": 0},
+            "mlstm_chunk": {"simt": 0, "wgmma": 0, "decode": 0}}
         assert kernels.launch_counts()["moe_matmul"] == 0
         assert kernels.launch_counts()["conv2d"] == 0
+        assert kernels.launch_counts()["rglru_scan"] == 0
+        assert kernels.launch_counts()["mlstm_chunk"] == 0
     finally:
         for f, n, routes in saved:
             f.launches = n
@@ -386,3 +401,101 @@ def test_mlstm_chunk_rejects_before_building(case, monkeypatch):
         mlstm_chunk(q, k, q, gates, gates, C0, torch.zeros((b, h, d)),
                     torch.zeros((b, h)), 0.25)
     assert mlstm_chunk.launches == before
+
+
+@pytest.mark.parametrize("dtype,s,route", [
+    (torch.bfloat16, 2, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 910, "wgmma"), (torch.bfloat16, 1, "decode"),
+    (torch.float32, 1, "decode"), (torch.float32, 2, "simt"),
+    (torch.float32, 1024, "simt")])
+def test_mlstm_route_follows_dtype_and_s(dtype, s, route):
+    """One step takes the streaming decode route in either dtype; longer
+    bfloat16 runs the tensor-core route, longer float32 the SIMT one:
+    from the dtype and S alone.  Each route has its own chunk length."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (CHUNK,
+                                                            mlstm_route)
+    assert mlstm_route(dtype, s) == route
+    assert CHUNK == {"simt": 32, "wgmma": 64, "decode": 1}
+
+
+@pytest.mark.parametrize("dtype,t,w,route", [
+    (torch.bfloat16, 1345, 4096, "tma"), (torch.bfloat16, 5, 8, "tma"),
+    (torch.bfloat16, 37, 100, "simt"), (torch.bfloat16, 37, 102, "simt"),
+    (torch.float32, 37, 100, "tma"), (torch.float32, 37, 4, "tma"),
+    (torch.float32, 37, 102, "simt"), (torch.float32, 37, 1, "simt"),
+    (torch.bfloat16, 0, 4096, "simt")])
+def test_rglru_route_follows_the_row_bytes(dtype, t, w, route):
+    """The scan reads a and b by TMA where a row of W elements is a
+    multiple of 16 bytes (and there is a step to read), else by plain
+    loads: from the dtype and shape alone."""
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_route
+    assert rglru_route(dtype, t, w) == route
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+def test_mlstm_chunk_rejects_tma_misalignment(operand, monkeypatch):
+    """bfloat16 with S > 1 takes the wgmma route, which reads q, k, v by
+    TMA: data off 16 bytes is refused before a build and counts no
+    launch."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    b, s, h, d = 1, 5, 2, 16
+    ops = {n: torch.zeros((b, s, h, d), dtype=torch.bfloat16) for n in "qkv"}
+    ops[operand] = torch.zeros(b * s * h * d + 1,
+                               dtype=torch.bfloat16)[1:].view(b, s, h, d)
+    gates = torch.zeros((b, s, h))
+    before = (mlstm_chunk.launches, dict(mlstm_chunk.launches_by_route))
+    with pytest.raises(ValueError, match="TMA"):
+        mlstm_chunk(ops["q"], ops["k"], ops["v"], gates, gates,
+                    torch.zeros((b, h, d, d)), torch.zeros((b, h, d)),
+                    torch.zeros((b, h)), 0.25)
+    assert (mlstm_chunk.launches, mlstm_chunk.launches_by_route) == before
+
+
+@pytest.mark.parametrize("dtype,s", [(torch.bfloat16, 1),
+                                     (torch.float32, 5)])
+def test_mlstm_chunk_other_routes_take_any_alignment(dtype, s,
+                                                     monkeypatch):
+    """The decode and SIMT routes read q, k, v with plain loads: data off
+    16 bytes is not refused for alignment (here only for lying on the
+    CPU), and nothing is built."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    b, h, d = 1, 2, 16
+    q = torch.zeros(b * s * h * d + 1, dtype=dtype)[1:].view(b, s, h, d)
+    gates = torch.zeros((b, s, h))
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        mlstm_chunk(q, q, q, gates, gates, torch.zeros((b, h, d, d)),
+                    torch.zeros((b, h, d)), torch.zeros((b, h)), 0.25)
+
+
+@pytest.mark.parametrize("operand", ["a", "b"])
+def test_rglru_scan_rejects_tma_misalignment(operand, monkeypatch):
+    """Where the scan takes the TMA route (W 8 in bfloat16: 16-byte
+    rows), a or b whose data is off 16 bytes is refused before a build
+    and counts no launch."""
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    ops = {n: torch.zeros((2, 5, 8), dtype=torch.bfloat16) for n in "ab"}
+    ops[operand] = torch.zeros(81, dtype=torch.bfloat16)[1:].view(2, 5, 8)
+    before = (rglru_scan.launches, dict(rglru_scan.launches_by_route))
+    with pytest.raises(ValueError, match="TMA"):
+        rglru_scan(ops["a"], ops["b"], torch.zeros((2, 8),
+                                                   dtype=torch.bfloat16))
+    assert (rglru_scan.launches, rglru_scan.launches_by_route) == before
+
+
+def test_rglru_scan_simt_route_takes_any_alignment(monkeypatch):
+    """W 100 in bfloat16 (200-byte rows) takes the SIMT route, which reads
+    with plain loads: a off 16 bytes is not refused for alignment (here
+    only for lying on the CPU), and nothing is built."""
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    a = torch.zeros(1001, dtype=torch.bfloat16)[1:].view(2, 5, 100)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        rglru_scan(a, torch.zeros((2, 5, 100), dtype=torch.bfloat16),
+                   torch.zeros((2, 100), dtype=torch.bfloat16))

@@ -2,8 +2,9 @@
 small planning run on the card against the CPU plain path, the sliced
 LeNet forward against the monolithic one, the attention kernels
 (prefill and decode, G up to 16) and the MoE, RG-LRU and mLSTM kernels
-against their plain versions; the two kernels with a wgmma route
-(expert GEMM, prefill attention) also by the route each launch took.
+against their plain versions; the kernels with more than one route
+(expert GEMM, prefill attention, RG-LRU scan, mLSTM chunk) also by the
+route each launch took.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -35,12 +36,14 @@ from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
 from repro_torch.kernels.link_geometry.ref import \
     link_geometry_ref  # noqa: E402
-from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk  # noqa
+from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (  # noqa: E402
+    mlstm_chunk, mlstm_route)
 from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref  # noqa: E402
 from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul  # noqa
 from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_ref  # noqa: E402
-from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan  # noqa
+from repro_torch.kernels.rglru_scan.rglru_scan import (  # noqa: E402
+    rglru_route, rglru_scan)
 from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
 from repro_torch.kernels.tropical_dp.ref import dp_step_ref  # noqa: E402
 from repro_torch.models.cnn import (distributed_forward,  # noqa: E402
@@ -327,11 +330,14 @@ def test_moe_matmul_kernel_matches_plain(cuda, e, c, d, f, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,t,w", [(2, 64, 256), (1, 128, 128), (3, 32, 384),
-                                   (2, 37, 100), (8, 300, 4096)])
+                                   (2, 37, 100), (8, 300, 4096),
+                                   (2, 37, 102), (1, 5, 8)])
 def test_rglru_scan_kernel_is_bitwise_the_plain_version(cuda, b, t, w,
                                                         dtype):
-    """The reference's kernel grid, a ragged shape and recurrentgemma's
-    width; h0 nonzero.  Bitwise, launch to launch too."""
+    """The reference's kernel grid, ragged shapes and recurrentgemma's
+    width; h0 nonzero.  Each launch on the route its dtype and W give
+    (``tma`` for rows a multiple of 16 bytes: W 100 in float32, not in
+    bfloat16; W 102 ``simt`` in both).  Bitwise, launch to launch too."""
     rng = np.random.default_rng(b * t + w)
     a = torch.as_tensor(1.0 / (1.0 + np.exp(-rng.normal(size=(b, t, w)))),
                         dtype=torch.float32, device=cuda).to(dtype)
@@ -345,6 +351,9 @@ def test_rglru_scan_kernel_is_bitwise_the_plain_version(cuda, b, t, w,
     rh, rhT = rglru_ref(a, bb, h0)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["rglru_scan"] == 2
+    route = rglru_route(dtype, t, w)
+    assert kernels.route_counts()["rglru_scan"] == \
+        {"simt": 0, "tma": 0, route: 2}
     assert h.dtype == hT.dtype == dtype
     assert torch.equal(h, h2) and torch.equal(hT, hT2)
     assert torch.equal(h, rh) and torch.equal(hT, rhT)
@@ -355,14 +364,18 @@ def test_rglru_scan_kernel_is_bitwise_the_plain_version(cuda, b, t, w,
 @pytest.mark.parametrize("b,h,s,d", [(2, 3, 128, 32), (1, 2, 64, 64),
                                      (2, 1, 256, 32), (2, 2, 37, 16),
                                      (1, 4, 1000, 256), (8, 4, 1, 256),
-                                     (2, 2, 70, 128)])
+                                     (2, 2, 70, 128), (2, 4, 63, 256),
+                                     (2, 4, 64, 256), (2, 4, 65, 256),
+                                     (2, 4, 129, 256)])
 def test_mlstm_chunk_kernel_matches_plain(cuda, b, h, s, d, dtype):
     """The reference's kernel grid, ragged S, xlstm-350m's head width in
-    prefill and decode (S 1), from a nonzero state.  The kernel's chunks
-    of 32 against the plain version's 256 (or S): h within the
-    reference's kernel-test atol 5e-4, rtol 1e-3 (bf16: one output
-    rounding more), the state within the same; launch to launch
-    bitwise."""
+    prefill and decode (S 1), S at the wgmma route's chunk edges, from a
+    nonzero state; each launch on the route its dtype and S give
+    (bfloat16 S > 1 ``wgmma``, chunks of 64; float32 S > 1 ``simt``,
+    chunks of 32; S 1 ``decode``).  Against the plain version's chunks
+    of 256 (or S): h within the reference's kernel-test atol 5e-4, rtol
+    1e-3 (bf16: one output rounding more), the state within the same;
+    launch to launch bitwise."""
     rng = np.random.default_rng(b * s + d)
 
     def t(x, dt=torch.float32):
@@ -380,6 +393,9 @@ def test_mlstm_chunk_kernel_matches_plain(cuda, b, h, s, d, dtype):
     ref = mlstm_chunk_ref(q, k, v, ip, fp, *state, scale)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["mlstm_chunk"] == 2
+    route = mlstm_route(dtype, s)
+    assert kernels.route_counts()["mlstm_chunk"] == \
+        {"simt": 0, "wgmma": 0, "decode": 0, route: 2}
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     for a, a2, r in zip(got, again, ref):
         assert torch.equal(a, a2)
