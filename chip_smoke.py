@@ -9,22 +9,38 @@ Phases, each raising on failure (the script then exits non-zero):
 2. build every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``
    (``sm_90a``), print the build time and ``ptxas`` resource lines;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at B = 4096: link geometry (with and without
-   ``gain_scale``, with dead UAVs; ``dist`` and ``threshold`` bitwise,
-   ``rate`` within rtol 1e-6) and the tropical-DP step (random, tie-heavy
-   and all-inf inputs; bitwise);
+   main path's shapes and at B = 4096: link geometry (one thread a link
+   up to U 32: U 8 at B 256 and 4096, U 16, 32 and 5, 6 (not powers of
+   two), and U 80 (a warp a row); with and without ``gain_scale``, with
+   dead UAVs; ``dist`` and ``threshold`` bitwise, ``rate`` within rtol
+   1e-6), the tropical-DP step (random, tie-heavy and all-inf inputs;
+   bitwise) and the fused chain DP (``assign`` and ``latency`` bitwise
+   against ``chain_dp_ref``: AlexNet at the rollout's shape (U 8, 4
+   slots, B 256), 8 slots, B 4096, tie-heavy rates, dead UAVs and a
+   scenario with every UAV down, LeNet, U 32 with 32 slots, each one
+   launch on the ``fused`` route, its shared-memory total the launcher's
+   layout's; and U 80 on the ``step`` route, 11 step launches and no
+   fused one);
 4. a small rollout on the card against the same rollout on the CPU (the
    plain path): discrete fields exact, floats within rtol 1e-5;
 5. the main path: ``FleetRollout(...).run`` at AlexNet, U = 8, B = 256,
    T = 32 with the fused P2 stage, launch counters set to 0 just before
-   and read just after (32 link-geometry and 32 x 11 tropical-DP
-   launches), then ``ScenarioEngine.plan_batch_multi`` at B = 256
-   (1 and 11 launches); feasibility, latency percentiles, wall time; the
+   and read just after (32 link-geometry and 32 tropical-DP launches,
+   every chain DP on the ``fused`` route, no step launch), then
+   ``ScenarioEngine.plan_batch_multi`` at B = 256 (1 and 1 launches,
+   ``fused``); feasibility, latency percentiles, wall time; the
    warm-up rollout runs its frame loop under PyTorch's sync debug mode
    "error", so a host synchronisation inside the loop fails the phase;
+   then ``plan_batch_multi`` at U = 80 (B 16), whose tables take the
+   chain DP's ``step`` route: 1 link-geometry launch, no fused
+   tropical-DP launch and 11 ``tropical_dp_step`` launches, counted on
+   ``step``;
 6. each kernel's time (CUDA events over a CUDA graph of many launches,
    and eager back-to-back launches) beside its plain version's and its
-   bound at the published H100 SXM peaks;
+   bound at the published H100 SXM peaks: link geometry, the fused chain
+   DP at the rollout's shape (its ``kernel_route``) and the step kernel,
+   each with the launch floor (``launch_floor_ms``: a one-element
+   ``zero_()`` in the same harness, graph and eager);
 7. the conv2d GEMM kernel against its plain version at AlexNet's five
    conv GEMMs (batch 32 and 1; conv1 at K 363 and padded to 364) and
    ragged shapes, relu on and off, atol 5e-4 rtol 1e-3, each launch on
@@ -307,14 +323,14 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def geometry_inputs(np, torch, seed, B, gain, device):
+def geometry_inputs(np, torch, seed, B, gain, device, u=U):
     from repro_torch.core.positions import hex_init
     rng = np.random.default_rng(seed)
-    base = hex_init(U, 40.0, jitter=0.5, seed=seed)
-    pos = (base[None] + rng.normal(0, 15.0, (B, U, 2))).astype(np.float32)
-    pos[0, 1] = pos[0, 0] + 0.3                   # under the 1 m clamp
-    active = rng.random((B, U)) >= 0.15
-    gs = (10.0 ** (rng.normal(0, 3.0, (B, U, U)) / 10.0)).astype(
+    base = hex_init(u, 40.0, jitter=0.5, seed=seed)
+    pos = (base[None] + rng.normal(0, 15.0, (B, u, 2))).astype(np.float32)
+    pos[0, 1 % u] = pos[0, 0] + 0.3               # under the 1 m clamp
+    active = rng.random((B, u)) >= 0.15
+    gs = (10.0 ** (rng.normal(0, 3.0, (B, u, u)) / 10.0)).astype(
         np.float32) if gain else None
     return [None if x is None else torch.as_tensor(x, device=device)
             for x in (pos, active, gs)]
@@ -346,6 +362,38 @@ def dp_inputs(np, torch, seed, B, M, L, S, ties, device):
                             for x in (tr, tr0, ct, ok)]
 
 
+def chain_inputs(np, torch, seed, model, u, M, B, rates, device):
+    """Operands of the chain DP at a planner shape: ``model``'s tables
+    for ``u`` devices in a shuffled order, rates from hex-grid positions
+    through the plain link geometry (``geometry``) or integer multiples of
+    1e6 (``ties``: many equal-latency placements), a sixth of the UAVs
+    dead, scenario 0 with every UAV down (all its slots infeasible)."""
+    from repro_torch.core.batch import chain_dp_tables
+    from repro_torch.core.channel import RadioParams
+    from repro_torch.core.cost_model import cnn_cost
+    from repro_torch.core.swarm import make_devices
+    from repro_torch.kernels.link_geometry.ref import link_geometry_ref
+    rng = np.random.default_rng(seed)
+    mc, devs = cnn_cost(model), make_devices(u)
+    t = chain_dp_tables(
+        [x.flops for x in mc.layers], [x.weight_bytes for x in mc.layers],
+        [x.act_bits for x in mc.layers], mc.input_bits,
+        [d.mem_cap for d in devs], [d.compute_cap for d in devs],
+        [d.throughput for d in devs],
+        order=tuple(int(o) for o in rng.permutation(u)), device=device)
+    pos, active, _ = geometry_inputs(np, torch, seed, B, False, device, u)
+    active[0] = False
+    if rates == "ties":
+        rate = torch.as_tensor(rng.integers(0, 3, (B, u, u)) * 1e6,
+                               dtype=torch.float32, device=device)
+        rate[:, torch.arange(u), torch.arange(u)] = float("inf")
+    else:
+        rate = link_geometry_ref(pos, active, None, params=RadioParams())[2]
+    sources = torch.as_tensor(rng.integers(0, u, (B, M)), device=device)
+    return (rate, sources, active, t.order_arr, t.prev_dev, t.bits_in,
+            t.input_bits, t.ct, t.ok)
+
+
 def max_abs_err(torch, ref, got):
     worst = 0.0
     for a, b in zip(ref, got):
@@ -363,35 +411,101 @@ def max_abs_err(torch, ref, got):
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(np, torch, params, device):
+def check_geometry(np, torch, params, device, B, u, gain):
+    """The link-geometry kernel against its plain version; returns the max
+    abs error over the three outputs."""
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
     from repro_torch.kernels.link_geometry.ref import link_geometry_ref
+    pos, active, gs = geometry_inputs(np, torch, 1, B, gain, device, u)
+    got = link_geometry(pos, active.float(), gs, params=params)
+    ref = link_geometry_ref(pos, active, gs, params=params)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dist", "threshold"), ref, got):
+        if not torch.equal(a, b):
+            raise AssertionError(f"link_geometry {name} differs "
+                                 f"(B={B}, U={u}, gain={gain})")
+    a, b = ref[2], got[2]
+    if not torch.equal(a == 0, b == 0):
+        raise AssertionError("link_geometry rate zero masks differ")
+    fin = torch.isfinite(a)
+    rel = ((a[fin] - b[fin]).abs() / a[fin].abs().clamp_min(1e-30))
+    if float(rel.max()) > 1e-6:
+        raise AssertionError(f"link_geometry rate rtol "
+                             f"{float(rel.max())} > 1e-6 (B={B}, U={u})")
+    err = max_abs_err(torch, ref, got)
+    log(f"  link_geometry B={B} U={u} gain={gain}: dist/threshold bitwise,"
+        f" rate max rel {float(rel.max()):.3g}, max abs err {err}")
+    return err
+
+
+#: the chain-DP cases of phase 3: (name, model, U, slots, B, rates, route)
+CHAIN_CASES = (
+    ("rollout", "alexnet", U, REQUESTS, MAIN_B, "geometry", "fused"),
+    ("all slots", "alexnet", U, U, MAIN_B, "geometry", "fused"),
+    ("B 4096", "alexnet", U, REQUESTS, 4096, "geometry", "fused"),
+    ("ties", "alexnet", U, U, MAIN_B, "ties", "fused"),
+    ("lenet", "lenet", U, REQUESTS, MAIN_B, "ties", "fused"),
+    ("U 32", "alexnet", 32, 32, 64, "geometry", "fused"),
+    ("U 80", "alexnet", 80, 2, 16, "geometry", "step"))
+
+
+def check_chain(np, torch, device, name, model, u, M, B, rates, route):
+    """The chain DP through its dispatcher against ``chain_dp_ref``, bitwise:
+    one fused launch on the ``fused`` route, L step launches and no fused
+    one on the ``step`` route.  On the fused route the wrapper's
+    shared-memory total is also held against the launcher's layout."""
+    from repro_torch import kernels
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.configs.lenet import LENET
+    from repro_torch.kernels.tropical_dp import tropical_dp as tdp
+    from repro_torch.kernels.tropical_dp.ops import chain_dp
+    from repro_torch.kernels.tropical_dp.ref import chain_dp_ref
+    cfg = {"alexnet": ALEXNET, "lenet": LENET}[model]
+    L = len(cfg.layers)
+    args = chain_inputs(np, torch, 3, cfg, u, M, B, rates, device)
+    kernels.reset_launch_counts()
+    got = chain_dp(*args)
+    launches, routes = kernels.launch_counts(), kernels.route_counts()
+    ref = chain_dp_ref(*args)
+    torch.cuda.synchronize()
+    fused = route == "fused"
+    want = only(launches, tropical_dp=1) if fused else \
+        only(launches, tropical_dp_step=L)
+    want_routes = {"fused": 1, "step": 0} if fused else \
+        {"fused": 0, "step": L}
+    if launches != want or routes["tropical_dp"] != want_routes:
+        raise AssertionError(f"tropical_dp {name}: launches {launches}, "
+                             f"routes {routes['tropical_dp']}; want the "
+                             f"{route} route")
+    if fused:
+        mt, _, smem = tdp.chain_plan(M, L, u, u)
+        if tdp.kernel_smem_bytes(L, u, u, mt) != smem:
+            raise AssertionError(f"tropical_dp {name}: shared memory "
+                                 f"{smem} B, launcher's layout "
+                                 f"{tdp.kernel_smem_bytes(L, u, u, mt)} B")
+    for what, a, b in zip(("assign", "latency"), ref, got):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"tropical_dp {name}: {what} differs")
+    lat = got[1]
+    if not (torch.isinf(lat[0]).all() and (got[0][0] == -1).all()
+            and torch.isfinite(lat).any()):
+        raise AssertionError(f"tropical_dp {name}: infeasible rows")
+    log(f"  tropical_dp {name} ({model} L={L} U={u} M={M} B={B} {rates}): "
+        f"assign/latency bitwise on {route}; "
+        f"{int(torch.isfinite(lat).sum())}/{lat.numel()} slots feasible")
+    return max_abs_err(torch, ref[1:], got[1:])
+
+
+def check_kernels(np, torch, params, device):
     from repro_torch.kernels.tropical_dp.ref import dp_step_ref
     from repro_torch.kernels.tropical_dp.tropical_dp import tropical_dp_step
     errs = {}
-    for B in (MAIN_B, 4096):
+    for B, u in ((MAIN_B, U), (4096, U), (MAIN_B, 16), (MAIN_B, 32),
+                 (MAIN_B, 5), (MAIN_B, 6), (64, 80)):
         for gain in (False, True):
-            pos, active, gs = geometry_inputs(np, torch, 1, B, gain, device)
-            got = link_geometry(pos, active.float(), gs, params=params)
-            ref = link_geometry_ref(pos, active, gs, params=params)
-            torch.cuda.synchronize()
-            for name, a, b in zip(("dist", "threshold"), ref, got):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"link_geometry {name} differs "
-                                         f"(B={B}, gain={gain})")
-            a, b = ref[2], got[2]
-            if not torch.equal(a == 0, b == 0):
-                raise AssertionError("link_geometry rate zero masks differ")
-            fin = torch.isfinite(a)
-            rel = ((a[fin] - b[fin]).abs() / a[fin].abs().clamp_min(1e-30))
-            if float(rel.max()) > 1e-6:
-                raise AssertionError(f"link_geometry rate rtol "
-                                     f"{float(rel.max())} > 1e-6")
-            err = max_abs_err(torch, ref, got)
-            if B == MAIN_B and not gain:
+            err = check_geometry(np, torch, params, device, B, u, gain)
+            if (B, u, gain) == (MAIN_B, U, False):
                 errs["link_geometry"] = err
-            log(f"  link_geometry B={B} gain={gain}: dist/threshold bitwise,"
-                f" rate max rel {float(rel.max()):.3g}, max abs err {err}")
     for B in (MAIN_B, 4096):
         for ties in (False, True):
             args = dp_inputs(np, torch, 2, B, REQUESTS, L_ALEXNET, U, ties,
@@ -401,14 +515,18 @@ def check_kernels(np, torch, params, device):
             torch.cuda.synchronize()
             for name, a, b in zip(("row", "pa", "ps"), ref, got):
                 if not torch.equal(a, b):
-                    raise AssertionError(f"tropical_dp {name} differs "
+                    raise AssertionError(f"tropical_dp_step {name} differs "
                                          f"(B={B}, ties={ties})")
             n_dead = int(torch.isinf(got[0]).sum())
             err = max_abs_err(torch, ref[:1], got[:1])
             if B == MAIN_B and not ties:
-                errs["tropical_dp"] = err
-            log(f"  tropical_dp B={B} ties={ties}: row/pa/ps bitwise "
+                errs["tropical_dp_step"] = err
+            log(f"  tropical_dp_step B={B} ties={ties}: row/pa/ps bitwise "
                 f"({n_dead} all-inf outputs)")
+    for case in CHAIN_CASES:
+        err = check_chain(np, torch, device, *case)
+        if case[0] == "rollout":
+            errs["tropical_dp"] = err
     return errs
 
 
@@ -480,10 +598,11 @@ def run_main_path(np, torch, device):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    want = only(launches, link_geometry=MAIN_T,
-                tropical_dp=MAIN_T * L_ALEXNET)
-    if launches != want:
-        raise AssertionError(f"rollout launches {launches} != {want}")
+    routes = kernels.route_counts()["tropical_dp"]
+    want = only(launches, link_geometry=MAIN_T, tropical_dp=MAIN_T)
+    if launches != want or routes != {"fused": MAIN_T, "step": 0}:
+        raise AssertionError(f"rollout launches {launches} != {want}, "
+                             f"chain-DP routes {routes}")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     lat = trace.latency
     if lat.shape != (MAIN_B, MAIN_T) or \
@@ -509,7 +628,8 @@ def run_main_path(np, torch, device):
     spread = sorted({int(x) for x in np.unique(used) if x >= 0})
     p50, p95 = trace.latency_percentile(50), trace.latency_percentile(95)
     log(f"  rollout AlexNet U={U} B={MAIN_B} T={MAIN_T} RQ={REQUESTS} "
-        f"P2(30 steps, 25 repairs): launches {launches}")
+        f"P2(30 steps, 25 repairs): launches {launches}, chain-DP routes "
+        f"{routes}")
     log(f"  feasibility {trace.feasibility_rate:.6f}  latency p50 {p50:.6f}"
         f" s  p95 {p95:.6f} s  mean {trace.mean_latency:.6f} s")
     log(f"  UAVs hosting layers: {spread}; min pairwise distance "
@@ -531,16 +651,65 @@ def run_main_path(np, torch, device):
     plan = fleet.plan_batch_multi(batch, n_req)
     plan_s = time.perf_counter() - t0
     plan_launches = kernels.launch_counts()
-    want = only(plan_launches, link_geometry=1, tropical_dp=L_ALEXNET)
-    if plan_launches != want:
+    plan_routes = kernels.route_counts()["tropical_dp"]
+    want = only(plan_launches, link_geometry=1, tropical_dp=1)
+    if plan_launches != want or plan_routes != {"fused": 1, "step": 0}:
         raise AssertionError(f"plan_batch_multi launches {plan_launches} "
-                             f"!= {want}")
+                             f"!= {want}, chain-DP routes {plan_routes}")
     if not plan.n_feasible > 0 or not np.isfinite(
             plan.latency[plan.feasible]).all():
         raise AssertionError("plan_batch_multi: no feasible plan")
     log(f"  plan_batch_multi B={MAIN_B}: launches {plan_launches}, "
         f"feasible {plan.n_feasible}/{MAIN_B}, p50 "
         f"{plan.latency_percentile(50):.6f} s, wall {plan_s:.4f} s")
+    return launches
+
+
+#: the chain DP's step route through an entry point: a swarm whose
+#: transfer tensor (S 80 x L 11 x 81 floats) exceeds a block's shared memory
+STEP_U, STEP_B = 80, 16
+
+
+def run_step_route(np, torch, device):
+    """``plan_batch_multi`` on a swarm of ``STEP_U`` UAVs: the chain DP
+    takes its ``step`` route (11 step launches, no fused one), link
+    geometry its warp-a-row kernel.  Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.core.channel import RadioChannel
+    from repro_torch.core.cost_model import cnn_cost
+    from repro_torch.core.positions import hex_init
+    from repro_torch.core.swarm import make_devices
+    from repro_torch.runtime.scenario_engine import (PlanFnCache,
+                                                     ScenarioEngine,
+                                                     ScenarioGenerator)
+    engine = ScenarioEngine(RadioChannel(), make_devices(STEP_U),
+                            cnn_cost(ALEXNET), plan_cache=PlanFnCache(),
+                            device=device)
+    batch = ScenarioGenerator(hex_init(STEP_U, 40.0, jitter=0.5, seed=0),
+                              pos_sigma_m=2.0, failure_prob=0.05,
+                              seed=0).draw(STEP_B)
+    n_req = np.random.default_rng(0).multinomial(
+        REQUESTS, np.full(STEP_U, 1.0 / STEP_U), size=STEP_B)
+    engine.plan_batch_multi(batch, n_req)                   # builds + warms
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    plan = engine.plan_batch_multi(batch, n_req)
+    plan_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    routes = kernels.route_counts()["tropical_dp"]
+    want = only(launches, link_geometry=1, tropical_dp_step=L_ALEXNET)
+    if launches != want or routes != {"fused": 0, "step": L_ALEXNET}:
+        raise AssertionError(f"plan_batch_multi U={STEP_U} launches "
+                             f"{launches} != {want}, routes {routes}")
+    if plan.assign.shape != (STEP_B, STEP_U, L_ALEXNET) or \
+            not plan.n_feasible > 0:
+        raise AssertionError(f"plan_batch_multi U={STEP_U}: no feasible "
+                             f"plan or shape {plan.assign.shape}")
+    log(f"  plan_batch_multi U={STEP_U} B={STEP_B} (step route): launches "
+        f"{launches}, feasible {plan.n_feasible}/{STEP_B}, wall "
+        f"{plan_s:.4f} s")
     return launches
 
 
@@ -576,35 +745,73 @@ def time_ms(torch, fn, iters, graph):
     return start.elapsed_time(end) / iters
 
 
-def time_kernels(np, torch, params, device, launches, errs):
+def chain_work(B, U, M, L, S):
+    """Bytes (each input read once, each output written once) and
+    operations of one chain-DP solve at these shapes, as the fused kernel
+    does them: per output, each block start's min over s0 once (S + 1
+    adds and S compares for each of the L - 1 rows a >= 1), and at step j
+    an add, the mask and a compare for each of the j block starts that
+    ``ok`` leaves; per scenario the transfer tensor's divisions, per
+    output the source row's; per slot the backtrack's argmin and L
+    steps."""
+    nbytes = (4 * B * U * U + 8 * B * M + B * U + 8 * (2 * S + 1) + 4 * L
+              + 4 + 2 * 4 * L * L * S + 4 * B * M * L + 4 * B * M)
+    per_out = (L - 1) * (2 * S + 1) + 3 * L * (L + 1) // 2 + 1
+    nops = (B * M * S * per_out + B * (L - 1) * S * (S + 1) + B * M * S
+            + B * M * (S + 4 * L))
+    return nbytes, nops
+
+
+def time_kernels(np, torch, params, device, launches, step_launches, errs):
+    from repro_torch.configs.alexnet import ALEXNET
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
     from repro_torch.kernels.link_geometry.ref import link_geometry_ref
-    from repro_torch.kernels.tropical_dp.ref import dp_step_ref
-    from repro_torch.kernels.tropical_dp.tropical_dp import tropical_dp_step
+    from repro_torch.kernels.tropical_dp.ref import chain_dp_ref, dp_step_ref
+    from repro_torch.kernels.tropical_dp.tropical_dp import (
+        tropical_dp_chain, tropical_dp_step)
     B, M, L, S = MAIN_B, REQUESTS, L_ALEXNET, U
     pos, active, _ = geometry_inputs(np, torch, 5, B, False, device)
     act_f = active.float()
     geo_bytes = 4 * (B * U * 2 + B * U + 3 * B * U * U)
     geo_ops = 18 * B * U * U     # per link: dist 6, gain 3, threshold 2,
     #                              row max 2, rate 5
+    chain_args = chain_inputs(np, torch, 6, ALEXNET, U, M, B, "geometry",
+                              device)
+    chain_bytes, chain_ops = chain_work(B, U, M, L, S)
     dp_args = dp_inputs(np, torch, 6, B, M, L, S, False, device)
     dp_bytes = 4 * (B * M * L * (S + 1) + B * L * S * (S + 1) + B * M * S
                     + 2 * L * S + 3 * B * M * S)
     dp_ops = B * M * S * (L * (S + 1) * 2 + 3 * L)   # add+compare per s0,
     #                                                   add, mask, compare per a
+    one = torch.zeros(1, device=device)
+    floor_ms = time_ms(torch, one.zero_, 200, graph=True)
+    floor_eager_ms = time_ms(torch, one.zero_, 200, graph=False)
+    log(f"  launch floor (one-element zero_): {floor_ms * 1e3:.2f} us in a "
+        f"graph, {floor_eager_ms * 1e3:.2f} us eager")
+    _, chain_route = take_route(tropical_dp_chain,
+                                lambda: tropical_dp_chain(*chain_args))
     rows = []
     cases = [
         ("link_geometry", "src/repro_torch/csrc/link_geometry.cu",
          "src/repro/kernels/link_geometry/link_geometry.py:119",
          lambda: link_geometry(pos, act_f, None, params=params),
          lambda: link_geometry_ref(pos, active, None, params=params),
-         geo_bytes, geo_ops),
+         geo_bytes, geo_ops, launches["link_geometry"], {}),
         ("tropical_dp", "src/repro_torch/csrc/tropical_dp.cu",
          "src/repro/kernels/tropical_dp/tropical_dp.py:86",
+         lambda: tropical_dp_chain(*chain_args),
+         lambda: chain_dp_ref(*chain_args), chain_bytes, chain_ops,
+         launches["tropical_dp"], {"kernel_route": chain_route}),
+        ("tropical_dp_step", "src/repro_torch/csrc/tropical_dp.cu",
+         "src/repro/kernels/tropical_dp/tropical_dp.py:86",
          lambda: tropical_dp_step(*dp_args),
-         lambda: dp_step_ref(*dp_args), dp_bytes, dp_ops),
+         lambda: dp_step_ref(*dp_args), dp_bytes, dp_ops,
+         step_launches["tropical_dp_step"],
+         {"launches_path": f"plan_batch_multi at U {STEP_U} (chain DP on "
+                           f"its step route)"}),
     ]
-    for name, source, replaces, kern, plain, nbytes, nops in cases:
+    for (name, source, replaces, kern, plain, nbytes, nops, n_launch,
+         extra) in cases:
         ms = time_ms(torch, kern, 200, graph=True)
         plain_ms = time_ms(torch, plain, 50, graph=True)
         eager_ms = time_ms(torch, kern, 200, graph=False)
@@ -613,17 +820,19 @@ def time_kernels(np, torch, params, device, launches, errs):
         t_ops = nops / FP32_OPS_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n_launch,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "eager_ms": eager_ms,
             "plain_eager_ms": plain_eager_ms, "bytes": nbytes,
-            "operations": nops})
+            "operations": nops, "launch_floor_ms": floor_ms,
+            "launch_floor_eager_ms": floor_eager_ms, **extra})
         log(f"  {name}: {ms * 1e3:.2f} us/launch in a graph, "
             f"{eager_ms * 1e3:.2f} us eager; plain {plain_ms * 1e3:.2f} us "
             f"(graph), {plain_eager_ms * 1e3:.2f} us eager; bound "
-            f"{max(t_bytes, t_ops) * 1e3:.4f} us ({nbytes} B, {nops} ops)")
+            f"{max(t_bytes, t_ops) * 1e3:.4f} us ({nbytes} B, {nops} ops); "
+            f"launch floor {floor_ms * 1e3:.2f} us")
     return rows
 
 
@@ -2193,8 +2402,10 @@ def main() -> int:
     check_small_rollout(np, torch, device)
     log("[5] main path")
     launches = run_main_path(np, torch, device)
+    step_launches = run_step_route(np, torch, device)
     log("[6] kernel times (CUDA events)")
-    rows = time_kernels(np, torch, params, device, launches, errs)
+    rows = time_kernels(np, torch, params, device, launches, step_launches,
+                        errs)
     log("[7] conv2d kernel against its plain version on the card")
     conv2_err = check_conv2d_kernel(np, torch, device)
     log("[8] CNN path: LLHR plan, then placement-sliced AlexNet")

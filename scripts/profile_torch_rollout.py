@@ -16,9 +16,12 @@ P2 with 30 steps and 25 repairs) and reports:
   against that run's wall gives the rest (mobility, failures, arrivals,
   energy, stacking);
 * a ``torch.profiler`` trace of a ``--profile-frames`` rollout (the
-  trace of all 32 frames is too large to parse quickly): kernel launches,
-  the summed device time of all kernels (busy share = device time /
-  wall), and the kernels with the most device time.
+  trace of all 32 frames is too large to parse quickly): kernel launches
+  (in all and a frame), the summed device time of all kernels (busy
+  share = device time / wall), and the kernels with the most device time;
+* the replan latency: ``PLAN_REPS`` calls of ``plan_batch_multi`` at
+  ``--batch`` scenarios (4 requests over the 8 UAVs), each on the host
+  clock ending on the host copy of the plan, after a warm-up.
 
 Writes the numbers as JSON to ``--out`` and prints them.
 """
@@ -34,6 +37,9 @@ from collections import defaultdict
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
+
+#: timed ``plan_batch_multi`` calls after the warm-up
+PLAN_REPS = 20
 
 
 def build_fleet(torch, frames, device):
@@ -94,6 +100,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.positions import hex_init
+    from repro_torch.runtime.scenario_engine import ScenarioGenerator
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -116,6 +123,18 @@ def main() -> int:
     undo()
     stages = dict(totals)                        # the stages never nest
     stages["rest"] = staged_wall - sum(stages.values())
+
+    batch = ScenarioGenerator(base, pos_sigma_m=2.0, failure_prob=0.05,
+                              seed=0).draw(args.batch)
+    n_req = np.random.default_rng(0).multinomial(
+        4, np.full(8, 1.0 / 8), size=args.batch)
+    fleet.plan_batch_multi(batch, n_req)                       # warm-up
+    plan_walls = []
+    for _ in range(PLAN_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fleet.plan_batch_multi(batch, n_req)    # ends on the host copy
+        plan_walls.append(time.perf_counter() - t0)
 
     short = build_fleet(torch, args.profile_frames, "cuda")
     short.run(base, n_trajectories=args.batch)                 # warm-up
@@ -145,10 +164,13 @@ def main() -> int:
         "profiled_frames": args.profile_frames,
         "profiled_wall_s": prof_wall,
         "kernel_launches": len(kernels),
+        "kernel_launches_per_frame": len(kernels) / args.profile_frames,
         "device_busy_s": dev_us * 1e-6 if kernels else "not measured",
         "device_busy_share": busy,
         "top_kernels": [{"name": n[:90], "launches": c, "device_s": t * 1e-6}
                         for n, (c, t) in top],
+        "plan_batch_multi_wall_s": plan_walls,
+        "plan_batch_multi_median_s": float(np.median(plan_walls)),
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.channel import RadioParams
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step
+from repro_torch.kernels.tropical_dp.ops import chain_dp
 
 INF = math.inf
 
@@ -366,12 +366,10 @@ class ChainDPTables:
     and feasibility mask ``ok`` of every wavefront step, and the index
     tables of the transfer tensor.  Built once per plan function."""
 
-    order: Tuple[int, ...]
-    order_arr: torch.Tensor     # [S] int64
+    order_arr: torch.Tensor     # [S] int64: state s -> device
     prev_dev: torch.Tensor      # [S+1] int64: state s0 -> device
     bits_in: torch.Tensor       # [L] bits entering a block starting at a
     input_bits: torch.Tensor    # 0-dim
-    s0_lt_s: torch.Tensor       # [S+1, S] bool
     ct: torch.Tensor            # [L(step), L(a), S] float32
     ok: torch.Tensor            # [L(step), L(a), S] float32 0/1
 
@@ -411,82 +409,29 @@ def chain_dp_tables(compute, memory, act_bits, input_bits, mem_cap,
                    (a_ix < b)[:, None]).to(torch.float32))          # [L, S]
         ct.append(blk_c[:, None] / thr_o[None, :])                  # [L, S]
     prev_dev = torch.cat([torch.zeros(1, dtype=torch.long), order_arr])
-    s0_lt_s = (torch.arange(S + 1)[:, None]
-               < torch.arange(1, S + 1)[None, :])                   # [S+1, S]
     return ChainDPTables(
-        order=order, order_arr=order_arr.to(device),
+        order_arr=order_arr.to(device),
         prev_dev=prev_dev.to(device), bits_in=bits_in.to(device),
-        input_bits=input_bits.to(device), s0_lt_s=s0_lt_s.to(device),
+        input_bits=input_bits.to(device),
         ct=torch.stack(ct).to(device), ok=torch.stack(ok).to(device))
 
 
 def _chain_dp_solve_kernelized(tables: ChainDPTables, rate: torch.Tensor,
                                sources: torch.Tensor, active: torch.Tensor):
-    """The chain DP with a source-slot axis: one wavefront step (the
-    tropical-DP kernel on CUDA tensors, its plain version on CPU ones) per
-    layer over every (scenario, slot) pair, then the device-side
-    backtrack.
+    """The chain DP with a source-slot axis: the fused chain-DP kernel on
+    CUDA tensors (one launch for the whole solve), its plain version
+    (``kernels/tropical_dp/ref.py::chain_dp_ref``: L wavefront steps and
+    the backtrack) on CPU ones.
 
     ``rate`` [B, U, U] (inf diagonal, 0 = infeasible link), ``sources``
-    [B, M] capturing UAV per slot, ``active`` [B, U] bool.  The transfer
-    tensor ``tr`` is source-independent (its a = 0 row is dead: the step
-    takes the per-slot source row ``tr0`` there).  Returns
+    [B, M] capturing UAV per slot, ``active`` [B, U] bool.  Returns
     ``(assign [B, M, L] int32, latency [B, M])``; infeasible slots get
     assign -1 and latency inf.  Tie-breaks follow the scalar solver's loop
     order (a outer, s0 inner, first strict improvement).
     """
-    L = tables.n_layers
-    S = len(tables.order)
-    B, M = sources.shape
-    dev = rate.device
-    order_arr = tables.order_arr
-    active_o = active[:, order_arr]                                 # [B, S]
-
-    r_prev = rate[:, tables.prev_dev[:, None], order_arr[None, :]]  # [B,S+1,S]
-    r4 = r_prev[:, None, :, :]
-    tr = torch.where(r4 > 0, tables.bits_in[None, :, None, None] / r4,
-                     INF)                                           # [B,L,S+1,S]
-    tr = torch.where(tables.s0_lt_s[None, None]
-                     & active_o[:, None, None, :], tr, INF)
-    tr = tr.transpose(2, 3).contiguous()                            # [B,L,S,S+1]
-    rows = torch.arange(B, device=dev)
-    r_src = rate[rows[:, None], sources.long()][:, :, order_arr]    # [B, M, S]
-    tr_src = torch.where(r_src > 0, tables.input_bits / r_src, INF)
-    tr0 = torch.where(active_o[:, None, :], tr_src, INF).contiguous()
-
-    dp = torch.full((B, M, L + 1, S + 1), INF, dtype=torch.float32,
-                    device=dev)
-    dp[:, :, 0, 0] = 0.0
-    pa = torch.zeros((L, B, M, S + 1), dtype=torch.int32, device=dev)
-    ps = torch.zeros((L, B, M, S + 1), dtype=torch.int32, device=dev)
-    for b in range(1, L + 1):
-        row, pa_b, ps_b = dp_wavefront_step(
-            dp[:, :, :L], tr, tr0, tables.ct[b - 1], tables.ok[b - 1])
-        dp[:, :, b, 1:] = row
-        pa[b - 1, :, :, 1:] = pa_b
-        ps[b - 1, :, :, 1:] = ps_b
-
-    # backtrack on R = B * M flattened rows
-    R = B * M
-    final = dp[:, :, L, :].reshape(R, S + 1)
-    s = torch.argmin(final, 1)
-    latency = final.amin(1)
-    pa = pa.reshape(L, R, S + 1).long()
-    ps = ps.reshape(L, R, S + 1).long()
-    rrows = torch.arange(R, device=dev)
-    b = torch.full((R,), L, dtype=torch.long, device=dev)
-    devs = []
-    for j in range(L - 1, -1, -1):
-        devs.append(order_arr[torch.clamp_min(s - 1, 0)])
-        bi = torch.clamp(b - 1, 0, L - 1)
-        a = pa[bi, rrows, s]
-        s0 = ps[bi, rrows, s]
-        at_start = a == j          # layer j opens the block: hop to the
-        b = torch.where(at_start, a, b)      # parent state for layer j-1
-        s = torch.where(at_start, s0, s)
-    assign = torch.stack(devs[::-1], 1).to(torch.int32)            # [R, L]
-    assign = torch.where(torch.isfinite(latency)[:, None], assign, -1)
-    return assign.reshape(B, M, L), latency.reshape(B, M)
+    return chain_dp(rate, sources, active, tables.order_arr,
+                    tables.prev_dev, tables.bits_in, tables.input_bits,
+                    tables.ct, tables.ok)
 
 
 def _chain_dp_solve(tables: ChainDPTables, rate: torch.Tensor,

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels:
-// mbarriers, TMA tile loads, shared-memory matrix descriptors and the
-// warpgroup matrix-multiply (wgmma) issue wrappers (bf16 and tf32), the
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA tile loads, cp.async staging, shared-memory matrix descriptors and
+// the warpgroup matrix-multiply (wgmma) wrappers (bf16 and tf32), the
 // tf32 rounding, plus the host-side encoding of TMA tensor maps.
 //
 // The pattern these serve: one producer thread issues TMA copies of
@@ -111,6 +111,22 @@ inline int encode_f32(CUtensorMap* map, int rank, const void* base,
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// cp.async of BYTES (4, 8 or 16) from global into shared memory, both
+// aligned to BYTES: a thread's copies stay in flight together until
+// cp_async_wait_all, so staging many small arrays costs one round trip
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "4, 8 or 16 B");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // the first 1024-byte aligned address at or after p (dynamic shared

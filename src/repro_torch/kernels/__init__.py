@@ -23,22 +23,29 @@ def _wrappers():
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
-    from repro_torch.kernels.tropical_dp.tropical_dp import tropical_dp_step
-    return {"link_geometry": link_geometry, "tropical_dp": tropical_dp_step,
-            "conv2d": matmul_bias_act, "flash_attention": flash_attention,
+    from repro_torch.kernels.tropical_dp.tropical_dp import (
+        tropical_dp_chain, tropical_dp_step)
+    return {"link_geometry": link_geometry, "tropical_dp": tropical_dp_chain,
+            "tropical_dp_step": tropical_dp_step, "conv2d": matmul_bias_act,
+            "flash_attention": flash_attention,
             "decode_attention": decode_attention, "moe_matmul": moe_matmul,
             "rglru_scan": rglru_scan, "mlstm_chunk": mlstm_chunk}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last ``reset_launch_counts``, by kernel."""
+    """Kernel launches since the last ``reset_launch_counts``, by kernel.
+    ``tropical_dp`` counts the fused chain-DP kernel alone; a solve on the
+    chain DP's ``step`` route launches L ``tropical_dp_step`` kernels (and
+    runs a torch backtrack)."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def route_counts() -> Dict[str, Dict[str, int]]:
     """Launches by route since the last ``reset_launch_counts``, for the
     kernels that have more than one route (``wgmma`` / ``simt``, the
-    RG-LRU scan's ``tma`` / ``simt``, the mLSTM's ``decode`` besides)."""
+    RG-LRU scan's ``tma`` / ``simt``, the mLSTM's ``decode`` besides, the
+    chain DP's ``fused`` / ``step``, where ``step`` counts the step-kernel
+    launches of the solves on that route)."""
     return {name: dict(fn.launches_by_route)
             for name, fn in _wrappers().items()
             if hasattr(fn, "launches_by_route")}

@@ -33,6 +33,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LAUNCHERS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -107,6 +108,20 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def launcher(name: str, symbol: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The launcher ``symbol`` of ``csrc/<name>.cu`` (built and loaded on
+    first use), its argument types and return type (a CUDA error code by
+    default) bound once, so a call sets nothing."""
+    key = (name, symbol)
+    fn = _LAUNCHERS.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = argtypes, restype
+        _LAUNCHERS[key] = fn
+    return fn
+
+
 def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
     """Raise if a launcher returned a CUDA error (a refused launch never
     runs, and a later synchronise would not report it)."""
@@ -124,4 +139,4 @@ def sources() -> Tuple[str, ...]:
 
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "build_log",
-           "check_launch", "load", "sources"]
+           "check_launch", "launcher", "load", "sources"]

@@ -4,14 +4,16 @@ Replaces the Pallas kernel ``src/repro/kernels/link_geometry/link_geometry.py``
 (``link_geometry``, body ``_geometry_math``): distance -> eq. (4) gain ->
 eq. (7) threshold -> first-pass P1 power -> eq. (5) rate in one pass,
 where the plain version makes four [B, U, U] passes.  Bound by bytes (U
-positions in, 3 U floats out per row) and, at U = 8, by launch overhead;
-the kernel gives each (b, row) one warp and reduces the row's power with
-a warp shuffle, with every operation explicitly rounded in the
-reference's order.
+positions in, 3 U floats out per row) and, at U = 8, by launch overhead.
+For U <= 32 the kernel gives each link (b, i, k) one thread, next_pow2(U)
+lanes a row, computes each gain once and reduces the row's power with a
+segmented warp shuffle; for U > 32 a warp loops over a row.  Every
+operation is explicitly rounded in the reference's order.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -24,6 +26,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
              + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 
 
+@functools.lru_cache(maxsize=None)
 def radio_constants(params: RadioParams) -> dict:
     """The radio constants the kernel takes, computed in double as the
     reference's ``_radio_constants`` does (each rounds to float32 at the
@@ -54,9 +57,7 @@ def link_geometry(positions: torch.Tensor, active: torch.Tensor,
                 f"link_geometry: {name} must be a contiguous CUDA float32 "
                 f"tensor of shape {shape} on {positions.device}; got "
                 f"{t.device} {t.dtype} {tuple(t.shape)}")
-    lib = _build.load("link_geometry")
-    fn = lib.repro_link_geometry
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _build.launcher("link_geometry", "repro_link_geometry", _ARGTYPES)
     c = radio_constants(params)
     dist, th, rate = (torch.empty((B, U, U), dtype=torch.float32,
                                   device=positions.device) for _ in range(3))
@@ -67,7 +68,9 @@ def link_geometry(positions: torch.Tensor, active: torch.Tensor,
                  dist.data_ptr(), th.data_ptr(), rate.data_ptr(), B, U,
                  c["h0"], c["noise"], c["p_max"], c["bandwidth"],
                  c["expm1_spectral"], stream)
-    _build.check_launch(lib, "link_geometry", err)
+    if err:
+        _build.check_launch(_build.load("link_geometry"), "link_geometry",
+                            err)
     link_geometry.launches += 1
     return dist, th, rate
 

@@ -8,6 +8,11 @@
   slice) fed the SAME rate tensor as the reference's
   ``_chain_dp_solve_multi`` / ``_chain_dp_solve``: bitwise assignments and
   latencies, with dead UAVs, a permuted device order and tie-heavy rates.
+* The fused chain-DP kernel's plain version (``chain_dp_ref``, moved out
+  of ``core/batch.py``) against the reference's
+  ``_chain_dp_solve_kernelized``, bitwise: M 1, 4 and 8 source slots,
+  LeNet (L 7) and AlexNet (L 11), U 8 and 32, with dead UAVs, tie-heavy
+  integer rates and all-infeasible rows (assign -1, latency inf).
 * The used-links mask, the aggregate load and the shared-cap check.
 * P2 (``_positions_pgd``): elementwise within 1e-4 m after 3 steps; after
   30 steps + repair the invariants (2R separation, coverage, monotone
@@ -29,6 +34,7 @@ from repro.core.cost_model import cnn_cost  # noqa: E402
 from repro.core.swarm import make_devices  # noqa: E402
 from repro.kernels.link_geometry.ref import link_geometry_ref  # noqa: E402
 from repro_torch.core import batch as tb  # noqa: E402
+from repro_torch.kernels.tropical_dp.ref import chain_dp_ref  # noqa: E402
 
 MODELS = {"lenet": LENET, "alexnet": ALEXNET}
 
@@ -186,6 +192,63 @@ def test_chain_dp_all_dead_or_unreachable_is_infeasible():
     np.testing.assert_array_equal(np.asarray(ref_assign), assign.numpy())
     np.testing.assert_array_equal(np.asarray(ref_lat), lat.numpy())
     assert np.isinf(lat[1].item()) and (assign[1] == -1).all()
+
+
+def chain_rates(mode, seed, B, U, sources):
+    """[B, U, U] rates with an inf diagonal and [B, U] active flags:
+    ``geometry`` from random positions (a fifth of the UAVs dead);
+    ``ties`` integer multiples of 1e6 (0 = no link), so equal-latency
+    placements are common, with dead UAVs; ``infeasible`` as ``ties``,
+    with every UAV of scenario 0 down, and scenario 1 without a link and
+    its slots' source UAVs down."""
+    if mode == "geometry":
+        return reference_rate(seed, B, U)
+    rng = np.random.default_rng(seed)
+    rate = (rng.integers(0, 3, (B, U, U)) * 1e6).astype(np.float32)
+    active = rng.random((B, U)) >= 0.2
+    if mode == "infeasible":
+        active[0] = False
+        rate[1] = 0.0
+        active[1, sources[1]] = False
+    rate[:, np.arange(U), np.arange(U)] = np.inf
+    return rate, active
+
+
+CHAIN_SHAPES = [(name, U, M) for name in ("lenet", "alexnet")
+                for U in (8, 32) for M in (1, 4, 8)]
+
+
+@pytest.mark.parametrize("mode", ["geometry", "ties", "infeasible"])
+@pytest.mark.parametrize("name,U,M", CHAIN_SHAPES)
+def test_chain_dp_ref_bitwise_against_the_reference(name, U, M, mode):
+    """``chain_dp_ref`` (the fused kernel's plain version) fed the same
+    rates, sources, flags and device order as the reference's
+    ``_chain_dp_solve_kernelized``: assignments and latencies bitwise."""
+    B = 3
+    p = problem(name, U)
+    rng = np.random.default_rng(U + M)
+    order = tuple(int(o) for o in rng.permutation(U))
+    sources = rng.integers(0, U, (B, M)).astype(np.int32)
+    rate, active = chain_rates(mode, 10 * U + M, B, U, sources)
+    ref_assign, ref_lat = jb._chain_dp_solve_kernelized(
+        *jax_args(p), jnp.asarray(rate), jnp.asarray(sources),
+        jnp.asarray(active), order)
+    t = tb.chain_dp_tables(**p, order=order, device=torch.device("cpu"))
+    assign, lat = chain_dp_ref(torch.as_tensor(rate),
+                               torch.as_tensor(sources),
+                               torch.as_tensor(active), t.order_arr,
+                               t.prev_dev, t.bits_in, t.input_bits, t.ct,
+                               t.ok)
+    assert assign.dtype == torch.int32 and assign.shape == (B, M, len(
+        MODELS[name].layers))
+    np.testing.assert_array_equal(np.asarray(ref_assign), assign.numpy())
+    np.testing.assert_array_equal(np.asarray(ref_lat), lat.numpy())
+    dead = ~np.isfinite(lat.numpy())
+    assert (assign.numpy()[dead] == -1).all()
+    if mode == "infeasible":
+        assert dead[:2].all()
+    else:
+        assert np.isfinite(lat.numpy()).any()
 
 
 def test_links_load_and_cap_match():

@@ -5,7 +5,8 @@ before a build or a launch: the wrappers reject what their kernels do not
 take before touching ``nvcc``, a build is keyed by the source's content
 and the shared headers', a missing ``nvcc`` raises, a nonzero launcher
 return raises with the CUDA error string, and the two-route kernels
-count their launches by route.
+count their launches by route.  The fused chain DP's route, launch plan
+and shared-memory layout follow from the shapes alone.
 """
 import ctypes
 
@@ -18,6 +19,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv2d.conv2d import matmul_bias_act  # noqa: E402
 from repro_torch.kernels.link_geometry.link_geometry import (  # noqa: E402
     link_geometry, radio_constants)
+from repro_torch.kernels.tropical_dp import tropical_dp as tdp  # noqa: E402
 from repro_torch.kernels.tropical_dp.tropical_dp import \
     tropical_dp_step  # noqa: E402
 
@@ -199,9 +201,9 @@ def test_moe_matmul_rejects_bf16_tma_misalignment(operand, monkeypatch):
 
 
 def test_route_counts_reset_with_the_launch_counts():
-    """The expert GEMM, prefill attention, the conv GEMM, the RG-LRU scan
-    and the mLSTM chunk count launches by route beside their totals; one
-    reset clears both."""
+    """The expert GEMM, prefill attention, the conv GEMM, the RG-LRU scan,
+    the mLSTM chunk and the chain DP count launches by route beside their
+    totals; one reset clears both."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
@@ -210,7 +212,7 @@ def test_route_counts_reset_with_the_launch_counts():
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
     saved = [(f, f.launches, dict(f.launches_by_route))
              for f in (flash_attention, moe_matmul, matmul_bias_act,
-                       rglru_scan, mlstm_chunk)]
+                       rglru_scan, mlstm_chunk, tdp.tropical_dp_chain)]
     try:
         moe_matmul.launches = 3
         moe_matmul.launches_by_route.update(wgmma=2, simt=1)
@@ -221,24 +223,29 @@ def test_route_counts_reset_with_the_launch_counts():
         rglru_scan.launches_by_route.update(tma=26, simt=1)
         mlstm_chunk.launches = 25
         mlstm_chunk.launches_by_route.update(wgmma=12, decode=12, simt=1)
+        tdp.tropical_dp_chain.launches = 32
+        tdp.tropical_dp_chain.launches_by_route.update(fused=32, step=11)
         counts = kernels.route_counts()
         assert counts == {"flash_attention": {"simt": 0, "wgmma": 5},
                           "moe_matmul": {"simt": 1, "wgmma": 2},
                           "conv2d": {"simt": 1, "wgmma": 3},
                           "rglru_scan": {"simt": 1, "tma": 26},
                           "mlstm_chunk": {"simt": 1, "wgmma": 12,
-                                          "decode": 12}}
+                                          "decode": 12},
+                          "tropical_dp": {"fused": 32, "step": 11}}
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
             "flash_attention": {"simt": 0, "wgmma": 0},
             "moe_matmul": {"simt": 0, "wgmma": 0},
             "conv2d": {"simt": 0, "wgmma": 0},
             "rglru_scan": {"simt": 0, "tma": 0},
-            "mlstm_chunk": {"simt": 0, "wgmma": 0, "decode": 0}}
+            "mlstm_chunk": {"simt": 0, "wgmma": 0, "decode": 0},
+            "tropical_dp": {"fused": 0, "step": 0}}
         assert kernels.launch_counts()["moe_matmul"] == 0
         assert kernels.launch_counts()["conv2d"] == 0
         assert kernels.launch_counts()["rglru_scan"] == 0
         assert kernels.launch_counts()["mlstm_chunk"] == 0
+        assert kernels.launch_counts()["tropical_dp"] == 0
     finally:
         for f, n, routes in saved:
             f.launches = n
@@ -499,3 +506,128 @@ def test_rglru_scan_simt_route_takes_any_alignment(monkeypatch):
     with pytest.raises(ValueError, match="contiguous CUDA"):
         rglru_scan(a, torch.zeros((2, 5, 100), dtype=torch.bfloat16),
                    torch.zeros((2, 100), dtype=torch.bfloat16))
+
+
+def _chain_operands(B=2, U=4, M=3, L=5, device="cpu"):
+    """Well-formed operands of ``tropical_dp_chain`` (on the CPU, which it
+    refuses)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    return dict(rate=torch.ones((B, U, U), **f32),
+                sources=torch.zeros((B, M), **i64),
+                active=torch.ones((B, U), dtype=torch.bool, device=device),
+                order=torch.arange(U, **i64),
+                prev_dev=torch.arange(U + 1, **i64),
+                bits_in=torch.ones(L, **f32),
+                input_bits=torch.ones((), **f32),
+                ct=torch.zeros((L, L, U), **f32),
+                ok=torch.ones((L, L, U), **f32))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA"), ("rate_rank", "rate"), ("rate_square", "rate"),
+    ("sources_dtype", "sources"), ("active_dtype", "active"),
+    ("order_len", "order"), ("prev_dev_len", "prev_dev"),
+    ("bits_in_len", "bits_in"), ("input_bits_shape", "input_bits"),
+    ("ok_shape", "ok"), ("ct_strides", "contiguous"),
+    ("meta_device", "CUDA")])
+def test_chain_dp_rejects_before_building(case, match, monkeypatch):
+    """The fused chain-DP wrapper refuses what its kernel does not take
+    (CPU tensors, wrong ranks, shapes, dtypes, strides) with a
+    ``ValueError`` before a build, and counts no launch on either
+    route."""
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    ops = _chain_operands(device="meta" if case == "meta_device" else "cpu")
+    B, U, M, L = 2, 4, 3, 5
+    bad = {"rate_rank": ("rate", torch.ones((B, U))),
+           "rate_square": ("rate", torch.ones((B, U, U + 1))),
+           "sources_dtype": ("sources", torch.zeros((B, M),
+                                                    dtype=torch.int32)),
+           "active_dtype": ("active", torch.ones((B, U))),
+           "order_len": ("order", torch.arange(U - 1)),
+           "prev_dev_len": ("prev_dev", torch.arange(U)),
+           "bits_in_len": ("bits_in", torch.ones(L + 1)),
+           "input_bits_shape": ("input_bits", torch.ones(1)),
+           "ok_shape": ("ok", torch.ones((L - 1, L, U))),
+           "ct_strides": ("ct", torch.zeros((L, L, U)).transpose(0, 1))}
+    if case in bad:
+        ops[bad[case][0]] = bad[case][1]
+    chain = tdp.tropical_dp_chain
+    before = (chain.launches, dict(chain.launches_by_route),
+              tropical_dp_step.launches)
+    with pytest.raises(ValueError, match=match):
+        chain(**ops)
+    assert (chain.launches, chain.launches_by_route,
+            tropical_dp_step.launches) == before
+
+
+def test_chain_dp_takes_strided_sources_without_a_copy(monkeypatch):
+    """``sources`` may be any strided int64 view (the rollout's
+    ``arange(U).expand(B, U)``): it is not refused for its strides (here
+    only for lying on the CPU)."""
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    ops = _chain_operands(M=4)
+    ops["sources"] = torch.arange(4).expand(2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdp.tropical_dp_chain(**ops)
+
+
+@pytest.mark.parametrize("L,S,route", [
+    (11, 8, "fused"), (7, 8, "fused"), (11, 32, "fused"), (7, 32, "fused"),
+    (11, 58, "fused"), (11, 59, "step"), (11, 80, "step"), (1, 1, "fused"),
+    (57, 8, "fused"), (58, 8, "step"), (257, 1, "step"), (2, 255, "step")])
+def test_chain_route_follows_the_shapes(L, S, route):
+    """``fused`` wherever one slot's tables and the staged operands fit in
+    one block's 227 KB (AlexNet and LeNet at U 8 and 32: the rollout,
+    ``plan_batch_multi`` and the U 32 bench; up to U 58 at L 11, L 57 at
+    U 8), ``step`` beyond it or beyond 8-bit parents (L > 256, S > 255):
+    from the shapes alone (here U = S, a device order over every UAV)."""
+    assert tdp.chain_route(L, S, S) == route
+    fits = tdp.chain_smem_bytes(L, S, S, 1) <= tdp.SMEM_BUDGET
+    assert (route == "fused") == (fits and L <= 256 and S <= 255)
+
+
+@pytest.mark.parametrize("M,L,S,plan", [
+    (4, 11, 8, (4, 128)),           # the rollout: RQ 4 slots, AlexNet, U 8
+    (8, 11, 8, (8, 256)),           # plan_batch_multi: every UAV a slot
+    (1, 11, 8, (1, 128)),           # plan_batch: one source
+    (4, 7, 8, (4, 128)),            # LeNet
+    (32, 11, 32, (8, 1024)),        # U 32: slot tiles of 8
+    (3, 40, 6, (3, 128)),           # a 40-layer chain
+    (64, 11, 40, (6, 960))])
+def test_chain_plan_at_the_planners_shapes(M, L, S, plan):
+    """Slots a block and threads: ``LANES`` (4) threads for every output
+    of the block's slots, in whole warps, 128 to 1,024 of them, and the
+    block's tables within its shared memory."""
+    mt, threads, smem = tdp.chain_plan(M, L, S, S)
+    assert (mt, threads) == plan and tdp.LANES == 4
+    assert threads % 32 == 0 and 4 * mt * S <= threads <= 1024
+    assert smem == tdp.chain_smem_bytes(L, S, S, mt) <= tdp.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("L,S,U,slots", [(11, 8, 8, 4), (11, 8, 8, 8),
+                                         (7, 5, 6, 3), (11, 32, 32, 2),
+                                         (40, 6, 6, 3)])
+def test_chain_smem_layout_matches_the_kernel(L, S, U, slots):
+    """The fused kernel's shared memory, as its launcher lays it out
+    (``ChainSmem``; a launch whose total differs is refused): tr
+    [S][L][S+1] float32, ct and ok [L][L][S] float32, rates [U][U]
+    float32, bits_in and input_bits [L+1] float32, order [S] and prev_dev
+    [S+1] int64, sources [slots] int64, active [U] uint8, dp
+    [slots][L+1][S+1] float32, mn [slots][L][S] float32, s0b [slots][L][S]
+    uint8, pa and ps [slots][L][S+1] uint8, each padded to 16 bytes.  At
+    the rollout's shape (L 11, S 8, 4 slots) tr takes 3,168 B and each
+    slot's dp table 432 B."""
+    sizes = {"tr": 4 * S * L * (S + 1), "ct": 4 * L * L * S,
+             "ok": 4 * L * L * S, "rate": 4 * U * U, "bits": 4 * (L + 1),
+             "order": 8 * S, "prev": 8 * (S + 1), "src": 8 * slots,
+             "act": U, "dp": 4 * slots * (L + 1) * (S + 1),
+             "mn": 4 * slots * L * S, "s0b": slots * L * S,
+             "pa": slots * L * (S + 1), "ps": slots * L * (S + 1)}
+    total = tdp.chain_smem_bytes(L, S, U, slots)
+    assert total == sum((n + 15) // 16 * 16 for n in sizes.values())
+    if (L, S, U, slots) == (11, 8, 8, 4):
+        assert sizes["tr"] == 3168 and sizes["dp"] == 4 * 432
+        assert total == 15696

@@ -3,8 +3,9 @@ small planning run on the card against the CPU plain path, the sliced
 LeNet forward against the monolithic one, the attention kernels
 (prefill and decode, G up to 16) and the MoE, RG-LRU and mLSTM kernels
 against their plain versions; the kernels with more than one route
-(expert GEMM, prefill attention, RG-LRU scan, mLSTM chunk) also by the
-route each launch took.
+(expert GEMM, prefill attention, RG-LRU scan, mLSTM chunk, chain DP) also
+by the route each launch took.  The fused chain DP is bitwise with its
+plain version at one launch a call.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -44,8 +45,9 @@ from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan.rglru_scan import (  # noqa: E402
     rglru_route, rglru_scan)
-from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
 from repro_torch.kernels.tropical_dp.ref import dp_step_ref  # noqa: E402
+from repro_torch.kernels.tropical_dp.tropical_dp import \
+    tropical_dp_step  # noqa: E402
 from repro_torch.models.cnn import (distributed_forward,  # noqa: E402
                                    forward, init_cnn)
 from repro_torch.runtime.scenario_engine import (PlanFnCache,  # noqa: E402
@@ -103,12 +105,82 @@ def test_dp_step_kernel_matches_plain_on_a_table_slice(cuda, ties):
             torch.as_tensor(rng.integers(0, 2, (L, S)), dtype=torch.float32,
                             device=cuda), ok)
     kernels.reset_launch_counts()
-    got = dp_wavefront_step(*args)
+    got = tropical_dp_step(*args)
     ref = dp_step_ref(*args)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["tropical_dp"] == 1
+    assert kernels.launch_counts()["tropical_dp_step"] == 1
     for a, b in zip(ref, got):
         assert torch.equal(a, b)
+
+
+def chain_case(device, model, U, M, B, rates, seed):
+    """Chain-DP operands at a planner shape: the model's tables for U
+    devices in a shuffled order; rates from positions (``geometry``, with
+    dead UAVs) or integer multiples of 1e6 (``ties``); one scenario with
+    every UAV down, so some slots are infeasible."""
+    from repro_torch.core.batch import chain_dp_tables
+    rng = np.random.default_rng(seed)
+    mc, devs = cnn_cost(model), make_devices(U)
+    t = chain_dp_tables(
+        [x.flops for x in mc.layers], [x.weight_bytes for x in mc.layers],
+        [x.act_bits for x in mc.layers], mc.input_bits,
+        [d.mem_cap for d in devs], [d.compute_cap for d in devs],
+        [d.throughput for d in devs],
+        order=tuple(int(o) for o in rng.permutation(U)), device=device)
+    active = torch.as_tensor(rng.random((B, U)) >= 0.2, device=device)
+    active[0] = False
+    if rates == "ties":
+        rate = torch.as_tensor(rng.integers(0, 3, (B, U, U)) * 1e6,
+                               dtype=torch.float32, device=device)
+        rate[:, torch.arange(U), torch.arange(U)] = float("inf")
+    else:
+        pos = torch.as_tensor(rng.uniform(0, 90, (B, U, 2)),
+                              dtype=torch.float32, device=device)
+        rate = link_geometry_ref(pos, active, None, params=RadioParams())[2]
+    sources = torch.as_tensor(rng.integers(0, U, (B, M)), device=device)
+    return (rate, sources, active, t.order_arr, t.prev_dev, t.bits_in,
+            t.input_bits, t.ct, t.ok)
+
+
+@pytest.mark.parametrize("L,S,U,slots", [(11, 8, 8, 4), (11, 8, 8, 8),
+                                         (7, 8, 8, 4), (11, 32, 32, 8),
+                                         (40, 6, 6, 3), (11, 58, 58, 1)])
+def test_chain_smem_bytes_are_the_launchers(cuda, L, S, U, slots):
+    """The wrapper's shared-memory total, which picks the route and the
+    slots a block, is the one the kernel's launcher lays out."""
+    from repro_torch.kernels.tropical_dp import tropical_dp as tdp
+    assert tdp.kernel_smem_bytes(L, S, U, slots) == \
+        tdp.chain_smem_bytes(L, S, U, slots)
+
+
+@pytest.mark.parametrize("model,U,M,B,rates,route", [
+    (ALEXNET, 8, 4, 256, "geometry", "fused"),
+    (ALEXNET, 8, 8, 256, "geometry", "fused"),
+    (ALEXNET, 8, 4, 4096, "ties", "fused"),
+    (LENET, 8, 4, 64, "ties", "fused"),
+    (ALEXNET, 32, 32, 16, "geometry", "fused"),
+    (ALEXNET, 80, 2, 4, "geometry", "step")])
+def test_chain_dp_kernel_is_bitwise_the_plain_version(cuda, model, U, M, B,
+                                                      rates, route):
+    from repro_torch.kernels.tropical_dp.ops import chain_dp
+    from repro_torch.kernels.tropical_dp.ref import chain_dp_ref
+    args = chain_case(cuda, model, U, M, B, rates, seed=U + M)
+    kernels.reset_launch_counts()
+    got = chain_dp(*args)
+    torch.cuda.synchronize()
+    L = len(model.layers)
+    counts = kernels.launch_counts()
+    fused = route == "fused"
+    assert counts["tropical_dp"] == (1 if fused else 0)
+    assert counts["tropical_dp_step"] == (0 if fused else L)
+    assert kernels.route_counts()["tropical_dp"] == (
+        {"fused": 1, "step": 0} if fused else {"fused": 0, "step": L})
+    ref = chain_dp_ref(*args)
+    assert got[0].dtype == torch.int32 and got[0].shape == (B, M, L)
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+    assert torch.isinf(got[1][0]).all() and (got[0][0] == -1).all()
+    assert torch.isfinite(got[1]).any()
 
 
 def test_plan_batch_multi_on_the_card_equals_the_cpu(cuda):

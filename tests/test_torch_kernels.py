@@ -5,11 +5,13 @@ which imports no JAX so that it runs on the card's machine.
 
 Tolerances: the tropical-DP step is adds, mins and argmins, so it must
 be bitwise (``row``, ``pa``, ``ps``), engineered ties and all-inf rows
-included.  Link geometry: ``dist`` and ``threshold`` are correctly
-rounded sub/mul/add/sqrt/div in the reference's order, held to rtol 1e-6
-(bitwise in practice); ``rate`` goes through ``log2``, whose last ulp
-differs between XLA's and PyTorch's CPU math, so rtol 1e-5.  The zero
-(infeasible) and inf (diagonal) masks must be identical.
+included; so must the step cut to block starts a below the step, the
+fused chain-DP kernel's shortcut.  Link geometry: ``dist`` and
+``threshold`` are correctly rounded sub/mul/add/sqrt/div in the
+reference's order, held to rtol 1e-6 (bitwise in practice); ``rate``
+goes through ``log2``, whose last ulp differs between XLA's and
+PyTorch's CPU math, so rtol 1e-5.  The zero (infeasible) and inf
+(diagonal) masks must be identical.
 """
 import numpy as np
 import pytest
@@ -26,12 +28,16 @@ from repro.kernels.link_geometry.ref import \
 from repro.kernels.tropical_dp.ref import dp_step_ref as j_dp_ref  # noqa: E402
 from repro.kernels.tropical_dp.tropical_dp import \
     tropical_dp_step as j_dp_kernel  # noqa: E402
+from repro_torch.configs.alexnet import ALEXNET  # noqa: E402
+from repro_torch.configs.lenet import LENET  # noqa: E402
+from repro_torch.core.batch import chain_dp_tables  # noqa: E402
 from repro_torch.core.channel import RadioParams as TParams  # noqa: E402
+from repro_torch.core.cost_model import cnn_cost  # noqa: E402
+from repro_torch.core.swarm import make_devices  # noqa: E402
 from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
 from repro_torch.kernels.link_geometry.ref import \
     link_geometry_ref as t_geo_ref  # noqa: E402
-from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
 from repro_torch.kernels.tropical_dp.ref import \
     dp_step_ref as t_dp_ref  # noqa: E402
 
@@ -157,7 +163,7 @@ def test_dp_step_plain_matches_jnp_oracle(seed, ties):
 def test_dp_step_plain_matches_interpret_kernel(ties):
     args = dp_inputs(5, B=2, M=3, L=6, S=5, ties=ties)
     ref = j_dp_kernel(*(jnp.asarray(a) for a in args), interpret=True)
-    got = dp_wavefront_step(*(torch.as_tensor(a) for a in args))
+    got = t_dp_ref(*(torch.as_tensor(a) for a in args))
     assert_step_equal(ref, [g.numpy() for g in got])
 
 
@@ -167,3 +173,33 @@ def test_dp_step_all_inf_rows_point_at_first_parent():
     dead = torch.isinf(row)
     assert dead[:, :, 0].all()           # ok column 0 is all zero
     assert (pa[dead] == 0).all() and (ps[dead] == 0).all()
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("model", [LENET, ALEXNET], ids=["lenet", "alexnet"])
+def test_dp_step_cut_to_a_below_the_step_is_bitwise(model, ties):
+    """The fused kernel's shortcut: at step b it scans block starts a < b
+    only.  ``chain_dp_tables``' ok is 0 for every a >= b, a masked
+    candidate (inf) never replaces an earlier one, and an all-inf row
+    keeps a = 0, s0 = 0; so the step over the first b rows of dp, tr, ct
+    and ok equals the full step bit for bit at every b, with finite
+    junk in the cut rows, ties and all-inf rows."""
+    mc, U = cnn_cost(model), 6
+    devs = make_devices(U)
+    t = chain_dp_tables(
+        [x.flops for x in mc.layers], [x.weight_bytes for x in mc.layers],
+        [x.act_bits for x in mc.layers], mc.input_bits,
+        [d.mem_cap for d in devs], [d.compute_cap for d in devs],
+        [d.throughput for d in devs], order=tuple(range(U)),
+        device=torch.device("cpu"))
+    L = t.n_layers
+    dp, tr, tr0, _, _ = (torch.as_tensor(a) for a in dp_inputs(
+        11, B=3, M=2, L=L, S=U, ties=ties))
+    a_ix = torch.arange(L)[:, None]
+    for b in range(1, L + 1):
+        ct, ok = t.ct[b - 1], t.ok[b - 1]
+        assert (ok[a_ix.expand(L, U) >= b] == 0).all()
+        full = t_dp_ref(dp, tr, tr0, ct, ok)
+        cut = t_dp_ref(dp[:, :, :b], tr[:, :b], tr0, ct[:b], ok[:b])
+        assert_step_equal([f.numpy() for f in full],
+                          [c.numpy() for c in cut])

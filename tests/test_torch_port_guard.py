@@ -5,10 +5,10 @@
   function is caught too).
 * Entry points built without ``device=`` run on CUDA or raise; they never
   fall back to the CPU.
-* A CPU tensor given to a kernel dispatcher (link geometry, the DP step,
-  conv2d, prefill and decode attention, the expert GEMM, the RG-LRU
-  scan, the mLSTM chunk) takes the plain version and leaves the kernel's
-  launch counter alone; a tensor on another device raises.
+* A CPU tensor given to a kernel dispatcher (link geometry, the chain
+  DP, conv2d, prefill and decode attention, the expert GEMM,
+  the RG-LRU scan, the mLSTM chunk) takes the plain version and leaves
+  the kernel's launch counter alone; a tensor on another device raises.
 * The LM serving path (``TransformerLM``, ``build_model``,
   ``ContinuousBatcher``) runs on CUDA or raises; families not ported yet
   raise naming their ROADMAP item, an unknown block kind raises.
@@ -37,7 +37,7 @@ from repro_torch.kernels.flash_attention.ops import mha  # noqa: E402
 from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops  # noqa: E402
-from repro_torch.kernels.tropical_dp.ops import dp_wavefront_step  # noqa: E402
+from repro_torch.kernels.tropical_dp.ops import chain_dp  # noqa: E402
 from repro_torch.configs.base import ServeConfig  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -50,9 +50,9 @@ from repro_torch.runtime.scenario_engine import ScenarioEngine  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "repro")
-NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "conv2d": 0,
-               "flash_attention": 0, "decode_attention": 0, "moe_matmul": 0,
-               "rglru_scan": 0, "mlstm_chunk": 0}
+NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "tropical_dp_step": 0,
+               "conv2d": 0, "flash_attention": 0, "decode_attention": 0,
+               "moe_matmul": 0, "rglru_scan": 0, "mlstm_chunk": 0}
 
 
 def _port_files():
@@ -146,17 +146,10 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     pos = torch.as_tensor(rng.uniform(0, 80, (2, 4, 2)), dtype=torch.float32)
     dist, th, rate = fused_link_geometry(pos, RadioParams())
     assert dist.shape == th.shape == rate.shape == (2, 4, 4)
-    B, M, L, S = 2, 3, 5, 4
-    dp = torch.as_tensor(rng.uniform(0, 5, (B, M, L, S + 1)),
-                         dtype=torch.float32)
-    tr = torch.as_tensor(rng.uniform(0, 5, (B, L, S, S + 1)),
-                         dtype=torch.float32)
-    tr0 = torch.as_tensor(rng.uniform(0, 5, (B, M, S)), dtype=torch.float32)
-    ct = torch.as_tensor(rng.uniform(0, 1, (L, S)), dtype=torch.float32)
-    ok = torch.ones((L, S))
-    row, pa, ps = dp_wavefront_step(dp, tr, tr0, ct, ok)
-    assert row.shape == pa.shape == ps.shape == (B, M, S)
-    assert pa.dtype == ps.dtype == torch.int32
+    args, L = _chain_args()
+    assign, latency = chain_dp(*args)
+    assert assign.shape == (2, 3, L) and latency.shape == (2, 3)
+    assert assign.dtype == torch.int32
     assert kernels.launch_counts() == NO_LAUNCHES
 
 
@@ -270,3 +263,38 @@ def test_mlstm_dispatch_raises_on_an_unsupported_device():
     with pytest.raises(ValueError, match="mlstm: unsupported device meta"):
         mlstm_ops.mlstm(meta, meta, meta, gates.to("meta"), gates.to("meta"),
                         *(t.to("meta") for t in state), 0.25)
+
+
+def _chain_args():
+    """CPU operands of the chain DP: 2 scenarios, 3 source slots, the
+    small problem's tables; and its layer count."""
+    from repro_torch.core.batch import chain_dp_tables
+    ch, devs, mc = _problem()
+    U = len(devs)
+    t = chain_dp_tables([x.flops for x in mc.layers],
+                        [x.weight_bytes for x in mc.layers],
+                        [x.act_bits for x in mc.layers], mc.input_bits,
+                        [d.mem_cap for d in devs],
+                        [d.compute_cap for d in devs],
+                        [d.throughput for d in devs], order=tuple(range(U)),
+                        device=torch.device("cpu"))
+    rate = torch.full((2, U, U), 1e6)
+    rate[:, torch.arange(U), torch.arange(U)] = float("inf")
+    args = (rate, torch.zeros((2, 3), dtype=torch.int64),
+            torch.ones((2, U), dtype=torch.bool), t.order_arr, t.prev_dev,
+            t.bits_in, t.input_bits, t.ct, t.ok)
+    return args, len(mc.layers)
+
+
+def test_chain_dp_dispatch_raises_on_an_unsupported_device():
+    """The chain DP's dispatcher: CPU tensors take ``chain_dp_ref``
+    without counting a launch on either route; a device with no entry in
+    the dispatch table raises before any work."""
+    args, L = _chain_args()
+    kernels.reset_launch_counts()
+    assign, latency = chain_dp(*args)
+    assert assign.shape == (2, 3, L) and latency.shape == (2, 3)
+    assert kernels.launch_counts() == NO_LAUNCHES
+    assert kernels.route_counts()["tropical_dp"] == {"fused": 0, "step": 0}
+    with pytest.raises(ValueError, match="chain_dp: unsupported device meta"):
+        chain_dp(*(a.to("meta") for a in args))
