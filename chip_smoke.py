@@ -154,10 +154,26 @@ Phases, each raising on failure (the script then exits non-zero):
     that shape, beside its plain version, the route it took and its
     bounds (the prefill's on the tensor cores, split products counted
     twice, and in fp32 SIMT; ``bound_ms`` the smaller), and the prefill
-    of one (b, h) sequence alone.
+    of one (b, h) sequence alone;
+23. the paper's evaluation path, each run with the launch counters set
+    to 0 just before it and read just after: ``solve_chain_dp_batched``
+    (AlexNet, U 8, B 4096, a permuted device order, dead UAVs) and
+    ``solve_chain_dp_multisource`` (4 sources), each exactly one fused
+    chain-DP launch on the ``fused`` route and bitwise equal to the same
+    call on the CPU; a ``ContingencyTable`` at U 8 refreshed twice at
+    moved positions, each refresh 1 link-geometry + 1 fused chain-DP
+    launch and equal to the CPU's table (assignments exact, latency and
+    power within rtol 1e-5); ``SwarmSim`` at the example's configuration
+    (LeNet and AlexNet, 6 UAVs, 4 requests a frame, T = 8 frames): LLHR
+    with ``solve_chain_dp`` at 80 P2 steps on the rollout, exactly T
+    link-geometry and T fused chain-DP launches, the heuristic and
+    random baselines on the legacy loop, no launch; LLHR's mean latency
+    <= both baselines' (+1e-9) and its feasibility >= theirs; the
+    failure row (frame 1, UAV 2) replanned and every frame feasible;
+    ``solve_positions_legacy`` at U 8, 800 steps, keeping 2R apart.
 
-The last lines are the CNN path's and the four LM paths' serving
-numbers, the per-layer conv2d times, the kernels line, the
+The last lines are the evaluation path's walls and summaries, the CNN
+path's and the four LM paths' serving numbers, the per-layer conv2d times, the kernels line, the
 ``nvidia-smi`` line and the result object.
 Without CUDA it exits non-zero before printing any result.
 """
@@ -446,7 +462,11 @@ CHAIN_CASES = (
     ("ties", "alexnet", U, U, MAIN_B, "ties", "fused"),
     ("lenet", "lenet", U, REQUESTS, MAIN_B, "ties", "fused"),
     ("U 32", "alexnet", 32, 32, 64, "geometry", "fused"),
-    ("U 80", "alexnet", 80, 2, 16, "geometry", "step"))
+    ("U 80", "alexnet", 80, 2, 16, "geometry", "step"),
+    # phase 23's SwarmSim shape: S 6 is the runtime-S warp-a-slot body
+    ("swarm", "alexnet", 6, REQUESTS, 2, "geometry", "fused"),
+    ("swarm lenet", "lenet", 6, REQUESTS, 2, "geometry", "fused"),
+    ("swarm ties", "alexnet", 6, 6, MAIN_B, "ties", "fused"))
 
 
 def check_chain(np, torch, device, name, model, u, M, B, rates, route):
@@ -2371,6 +2391,251 @@ def time_mlstm(torch, device, served):
     return row
 
 
+#: phase 23: the batched wrappers' scenarios and source slots, the
+#: simulated frames, and the example's P2 steps and swarm
+EVAL_B, EVAL_SOURCES, EVAL_T, EVAL_P2_STEPS, EVAL_U = 4096, 4, 8, 80, 6
+
+
+def eval_wrappers(np, torch, device):
+    """``solve_chain_dp_batched`` and ``solve_chain_dp_multisource`` at
+    AlexNet, U 8, B ``EVAL_B``: one fused launch each, bitwise the CPU's.
+    Returns their rows."""
+    from repro_torch import kernels
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.core.batch import (solve_chain_dp_batched,
+                                        solve_chain_dp_multisource)
+    from repro_torch.core.cost_model import cnn_cost
+    from repro_torch.core.positions import hex_init
+    from repro_torch.core.swarm import make_devices
+    from repro_torch.kernels.link_geometry.ref import link_geometry_ref
+    from repro_torch.core.channel import RadioParams
+    rng = np.random.default_rng(23)
+    mc, devs = cnn_cost(ALEXNET), make_devices(U)
+    pos = hex_init(U, 40.0, jitter=0.5)[None] + rng.normal(
+        0.0, 8.0, (EVAL_B, U, 2))
+    active = rng.random((EVAL_B, U)) >= 0.1
+    rate = link_geometry_ref(torch.as_tensor(pos, dtype=torch.float32),
+                             torch.as_tensor(active), None,
+                             params=RadioParams())[2].numpy()
+    args = ([x.flops for x in mc.layers], [x.weight_bytes for x in mc.layers],
+            [x.act_bits for x in mc.layers], mc.input_bits,
+            [d.mem_cap for d in devs], [d.compute_cap for d in devs],
+            [d.throughput for d in devs], rate)
+    order = tuple(int(o) for o in rng.permutation(U))
+    rows = {}
+    for name, fn, src in (
+            ("solve_chain_dp_batched", solve_chain_dp_batched,
+             rng.integers(0, U, EVAL_B)),
+            ("solve_chain_dp_multisource", solve_chain_dp_multisource,
+             rng.integers(0, U, (EVAL_B, EVAL_SOURCES)))):
+        fn(*args, src, active, order, device=device)            # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        assign, lat = fn(*args, src, active, order, device=device)
+        wall = time.perf_counter() - t0                 # results on host
+        launches = kernels.launch_counts()
+        routes = kernels.route_counts()["tropical_dp"]
+        want = only(launches, tropical_dp=1)
+        if launches != want or routes != {"fused": 1, "step": 0}:
+            raise AssertionError(f"{name}: launches {launches} != {want}, "
+                                 f"routes {routes}")
+        ref = fn(*args, src, active, order, device="cpu")
+        if assign.dtype != np.int64 or lat.dtype != np.float64 or not (
+                np.array_equal(assign, ref[0])
+                and np.array_equal(lat, ref[1])):
+            raise AssertionError(f"{name}: the card's result is not the "
+                                 "CPU's bit for bit")
+        feas = np.isfinite(lat)
+        if not feas.any():
+            raise AssertionError(f"{name}: no feasible placement")
+        rows[name] = {"B": EVAL_B, "slots": 1 if src.ndim == 1 else
+                      src.shape[1], "U": U, "L": len(mc.layers),
+                      "launches": launches["tropical_dp"],
+                      "route": "fused", "wall_s": wall,
+                      "feasible": int(feas.sum()), "solves": int(lat.size),
+                      "mean_latency_s": float(lat[feas].mean())}
+        log(f"  {name} AlexNet U={U} B={EVAL_B} slots "
+            f"{rows[name]['slots']}: 1 fused launch, bitwise the CPU's; "
+            f"feasible {rows[name]['feasible']}/{lat.size}, wall "
+            f"{wall:.4f} s")
+    return rows
+
+
+def eval_contingency(np, torch, device):
+    """A ``ContingencyTable`` at AlexNet, U 8, refreshed twice at moved
+    positions: each refresh 1 link-geometry + 1 fused chain-DP launch
+    and the CPU's table.  Returns the refreshes' rows."""
+    from repro_torch import kernels
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.core.channel import RadioChannel
+    from repro_torch.core.cost_model import cnn_cost
+    from repro_torch.core.positions import hex_init
+    from repro_torch.core.swarm import make_devices
+    from repro_torch.runtime.scenario_engine import (ContingencyTable,
+                                                     PlanFnCache,
+                                                     ScenarioEngine)
+    base = hex_init(U, 40.0, jitter=0.5, seed=23)
+    tables = [ContingencyTable(ScenarioEngine(
+        RadioChannel(), make_devices(U), cnn_cost(ALEXNET),
+        plan_cache=PlanFnCache(), device=d), base, source=0)
+        for d in (device, "cpu")]
+    rng = np.random.default_rng(230)
+    rows = []
+    for k in range(2):
+        moved = base + rng.normal(0.0, 4.0, base.shape)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tables[0].refresh(moved, source=k)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        routes = kernels.route_counts()["tropical_dp"]
+        want = only(launches, link_geometry=1, tropical_dp=1)
+        if launches != want or routes != {"fused": 1, "step": 0}:
+            raise AssertionError(f"contingency refresh {k}: launches "
+                                 f"{launches} != {want}, routes {routes}")
+        tables[1].refresh(moved, source=k)
+        for name, got in tables[0].plans.items():
+            ref = tables[1].plans[name]
+            if got.assign != ref.assign or got.dead_index != ref.dead_index:
+                raise AssertionError(f"contingency refresh {k}: plan "
+                                     f"{name} differs card vs CPU")
+            np.testing.assert_allclose(got.latency, ref.latency, rtol=1e-5)
+            np.testing.assert_allclose(got.power, ref.power, rtol=1e-5)
+        feasible = sum(np.isfinite(p.latency)
+                       for p in tables[0].plans.values())
+        if not np.isfinite(tables[0].plans[None].latency):
+            raise AssertionError("contingency: the nominal plan is "
+                                 "infeasible")
+        rows.append({"refresh": k, "U": U, "scenarios": U + 1,
+                     "launches": {"link_geometry": 1, "tropical_dp": 1},
+                     "wall_s": wall, "feasible": int(feasible),
+                     "nominal_latency_s": tables[0].plans[None].latency})
+        log(f"  ContingencyTable U={U} refresh {k}: 1 + 1 launches, the "
+            f"CPU's table; {feasible}/{U + 1} plans feasible, wall "
+            f"{wall:.4f} s")
+    return rows
+
+
+def eval_swarm(np, torch, device):
+    """``SwarmSim`` at the example's configuration: per model, LLHR on the
+    rollout (T + T launches) and both baselines on the legacy loop (no
+    launch); Fig. 5's ordering; then the failure row.  Returns the
+    rows and the launches of the LLHR runs."""
+    from repro_torch import kernels
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.configs.lenet import LENET
+    from repro_torch.core.baselines import HeuristicPlanner, RandomPlanner
+    from repro_torch.core.channel import RadioChannel
+    from repro_torch.core.cost_model import cnn_cost
+    from repro_torch.core.placement import solve_chain_dp
+    from repro_torch.core.planner import LLHRPlanner
+    from repro_torch.core.swarm import (SwarmSim, average_power,
+                                        latency_summary, make_devices)
+    ch = RadioChannel()
+
+    def run(model, cfg, name, planner, fail=False):
+        sim = SwarmSim(cnn_cost(cfg), make_devices(EVAL_U), planner,
+                       requests_per_frame=REQUESTS,
+                       failure_frame=1 if fail else -1, failure_uav=2,
+                       device=device)
+        t0 = time.perf_counter()
+        sim.run(frames=EVAL_T)                       # builds + warms
+        first = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = sim.run(frames=EVAL_T)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        routes = kernels.route_counts()["tropical_dp"]
+        llhr = name == "LLHR"
+        want = only(launches, link_geometry=EVAL_T, tropical_dp=EVAL_T) \
+            if llhr else only(launches)
+        want_routes = {"fused": EVAL_T if llhr else 0, "step": 0}
+        if launches != want or routes != want_routes:
+            raise AssertionError(f"SwarmSim {model} {name}: launches "
+                                 f"{launches} != {want}, routes {routes}")
+        s = latency_summary(stats)
+        if len(stats) != EVAL_T or not all(
+                np.isfinite(x.latency) and x.latency > 0
+                for x in stats if x.feasible):
+            raise AssertionError(f"SwarmSim {model} {name}: frames")
+        row = {"model": model, "planner": name, "frames": EVAL_T,
+               "U": EVAL_U, "requests_per_frame": REQUESTS,
+               "failure": [1, 2] if fail else None,
+               "mean_latency_s": s.mean_latency,
+               "feasibility_rate": s.feasibility_rate,
+               "average_power_w": average_power(stats),
+               "replanned": [x.t for x in stats if x.replanned],
+               "launches": {k: v for k, v in launches.items() if v},
+               "first_s": first, "wall_s": wall}
+        log(f"  SwarmSim {model:8s} {name:9s}{' +failure@1' * fail}: mean "
+            f"latency {s.mean_latency:.6f} s, feasible "
+            f"{s.feasibility_rate:.3f}, power "
+            f"{row['average_power_w'] * 1e3:.2f} mW, launches "
+            f"{row['launches']}, wall {wall:.3f} s (first {first:.3f} s)")
+        return stats, s, row
+
+    def llhr_planner():
+        return LLHRPlanner(ch, placement_solver=solve_chain_dp,
+                           position_steps=EVAL_P2_STEPS, device=device)
+
+    rows = []
+    for model, cfg in (("lenet", LENET), ("alexnet", ALEXNET)):
+        _, lat, row = run(model, cfg, "LLHR", llhr_planner())
+        rows.append(row)
+        for name, planner in (("heuristic", HeuristicPlanner(
+                ch, device=device)), ("random", RandomPlanner(
+                    ch, device=device))):
+            _, base, row = run(model, cfg, name, planner)
+            rows.append(row)
+            if not (lat.mean_latency <= base.mean_latency + 1e-9 and
+                    lat.feasibility_rate >= base.feasibility_rate):
+                raise AssertionError(f"SwarmSim {model}: LLHR {lat} does "
+                                     f"not dominate {name} {base}")
+    stats, _, row = run("lenet", LENET, "LLHR", llhr_planner(), fail=True)
+    rows.append(row)
+    if not stats[1].replanned or not all(x.feasible for x in stats):
+        raise AssertionError("SwarmSim failure row: frame 1 not replanned "
+                             "or a frame infeasible")
+    return rows
+
+
+def eval_positions_legacy(np, torch, device):
+    """``solve_positions_legacy`` at U 8, 800 steps on the card: every
+    pair at least 2R apart.  Returns its row."""
+    from repro_torch.core.channel import RadioChannel
+    from repro_torch.core.positions import solve_positions_legacy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solve_positions_legacy(U, RadioChannel(), steps=800, device=device)
+    wall = time.perf_counter() - t0                  # positions on host
+    d = np.sqrt(((sol.positions[:, None] - sol.positions[None]) ** 2)
+                .sum(-1))
+    d[np.eye(U, dtype=bool)] = np.inf
+    if d.min() < 40.0 - 1e-3 or sol.max_violation != 0.0 or \
+            not np.isfinite(sol.objective):
+        raise AssertionError(f"solve_positions_legacy: min distance "
+                             f"{d.min()} m (2R = 40 m), violation "
+                             f"{sol.max_violation}")
+    log(f"  solve_positions_legacy U={U} 800 steps: min distance "
+        f"{d.min():.3f} m, objective {sol.objective:.6f}, wall {wall:.3f} s")
+    return {"U": U, "steps": 800, "min_distance_m": float(d.min()),
+            "objective": sol.objective, "wall_s": wall}
+
+
+def run_eval_path(np, torch, device):
+    """Phase 23: the paper's evaluation path.  Returns the
+    ``swarm_eval`` record."""
+    return {"wrappers": eval_wrappers(np, torch, device),
+            "contingency": eval_contingency(np, torch, device),
+            "swarm_sim": eval_swarm(np, torch, device),
+            "positions_legacy": eval_positions_legacy(np, torch, device)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2448,11 +2713,15 @@ def main() -> int:
     served["xlstm-350m"] = run_lm_path(np, torch, device, "xlstm-350m")
     log("[22] mLSTM chunk kernel times (CUDA events), served shapes")
     rows.append(time_mlstm(torch, device, served))
+    log("[23] the paper's evaluation path: batched chain DP, contingency "
+        "table, SwarmSim against both baselines")
+    swarm_eval = run_eval_path(np, torch, device)
     for row in rows:
         if row["name"] in ("flash_attention", "decode_attention"):
             row["launches_by_path"] = {a: s["launches"][row["name"]]
                                        for a, s in served.items()}
 
+    print(json.dumps({"swarm_eval": swarm_eval}))
     print(json.dumps({"cnn_path": cnn}))
     for arch, lm in served.items():
         print(json.dumps({"lm_serve": lm}))

@@ -443,6 +443,83 @@ def _chain_dp_solve(tables: ChainDPTables, rate: torch.Tensor,
     return assign[:, 0], latency[:, 0]
 
 
+def _dp_inputs(compute, memory, act_bits, input_bits, mem_cap, compute_cap,
+               throughput, rate, active, device_order, device):
+    """Tables, rate and active mask of a host-facing chain-DP call on the
+    resolved ``device`` (``_as_dp_args`` of the reference: float32 rates,
+    every UAV alive when ``active`` is None, index order by default)."""
+    dev = resolve_device(device)
+    rate = np.array(rate, np.float32)              # a writable copy
+    B, U = rate.shape[0], rate.shape[-1]
+    order = tuple(device_order) if device_order is not None else \
+        tuple(range(U))
+    active = np.ones((B, U), dtype=bool) if active is None else \
+        np.array(active, dtype=bool)
+    tables = chain_dp_tables(compute, memory, act_bits, input_bits, mem_cap,
+                             compute_cap, throughput, order, dev)
+    return (tables, torch.as_tensor(rate, device=dev),
+            torch.as_tensor(active, device=dev), dev)
+
+
+def solve_chain_dp_batched(compute: np.ndarray, memory: np.ndarray,
+                           act_bits: np.ndarray, input_bits: float,
+                           mem_cap: np.ndarray, compute_cap: np.ndarray,
+                           throughput: np.ndarray, rate: np.ndarray,
+                           source: np.ndarray,
+                           active: Optional[np.ndarray] = None,
+                           device_order: Optional[Sequence[int]] = None,
+                           device: DeviceLike = None
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """Batched mirror of ``placement.solve_chain_dp``, on ``device``.
+
+    Args: per-layer ``compute``/``memory``/``act_bits`` [L] shared across
+    the batch; device caps/throughput [U]; ``rate`` [B, U, U] (inf
+    diagonal, 0 = infeasible link); ``source`` [B] capturing-UAV index;
+    ``active`` [B, U] (None: every UAV alive).
+
+    Returns ``(assign [B, L] int64, latency [B] float64)`` on the host:
+    device ids, -1 everywhere on infeasible scenarios, whose latency is
+    inf.  On a CUDA device the solve is one fused chain-DP launch.
+    """
+    tables, rate_t, active_t, dev = _dp_inputs(
+        compute, memory, act_bits, input_bits, mem_cap, compute_cap,
+        throughput, rate, active, device_order, device)
+    source_t = torch.as_tensor(np.array(source, np.int64), device=dev)
+    assign, latency = _chain_dp_solve(tables, rate_t, source_t, active_t)
+    return _host_dp(assign, latency)
+
+
+def solve_chain_dp_multisource(compute: np.ndarray, memory: np.ndarray,
+                               act_bits: np.ndarray, input_bits: float,
+                               mem_cap: np.ndarray, compute_cap: np.ndarray,
+                               throughput: np.ndarray, rate: np.ndarray,
+                               sources: np.ndarray,
+                               active: Optional[np.ndarray] = None,
+                               device_order: Optional[Sequence[int]] = None,
+                               device: DeviceLike = None
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-facing multi-source mirror of ``solve_chain_dp_batched``.
+
+    ``sources``: [B, S] capturing-UAV index per request slot.  Returns
+    ``(assign [B, S, L] int64, latency [B, S] float64)``: one chain-DP
+    placement per (scenario, source), every slot in the same solve (one
+    fused launch on CUDA).  Pricing the stream's aggregate load against
+    the shared caps is separate (``placement_compute_load`` /
+    ``shared_cap_feasible``)."""
+    tables, rate_t, active_t, dev = _dp_inputs(
+        compute, memory, act_bits, input_bits, mem_cap, compute_cap,
+        throughput, rate, active, device_order, device)
+    sources_t = torch.as_tensor(np.array(sources, np.int64), device=dev)
+    return _host_dp(*_chain_dp_solve_kernelized(tables, rate_t, sources_t,
+                                                active_t))
+
+
+def _host_dp(assign: torch.Tensor, latency: torch.Tensor
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    return (assign.cpu().numpy().astype(np.int64),
+            latency.cpu().numpy().astype(np.float64))
+
+
 def placement_compute_load(assign: torch.Tensor, weights: torch.Tensor,
                            compute: torch.Tensor, n_uavs: int
                            ) -> torch.Tensor:
@@ -475,4 +552,5 @@ __all__ = [
     "coverage_radius", "chain_links", "links_from_assignment_batched",
     "placement_compute_load", "shared_cap_feasible", "prefix_sums",
     "BatchPositionSolution", "solve_positions_batched",
+    "solve_chain_dp_batched", "solve_chain_dp_multisource",
 ]

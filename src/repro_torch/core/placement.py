@@ -126,8 +126,6 @@ class PlacementSolution:
 INFEASIBLE = PlacementSolution((), float("inf"), "infeasible")
 #: search nodes after which ``solve_bnb`` keeps its best-so-far answer
 BNB_NODE_LIMIT = 2_000_000
-#: uniform draws ``solve_random`` tries before it falls back to greedy
-RANDOM_TRIES = 64
 
 
 # ---------------------------------------------------------------------------
@@ -223,14 +221,19 @@ def solve_brute(p: PlacementProblem) -> PlacementSolution:
 # ---------------------------------------------------------------------------
 
 
-def solve_chain_dp(p: PlacementProblem) -> PlacementSolution:
+def solve_chain_dp(p: PlacementProblem,
+                   device_order: Optional[Sequence[int]] = None
+                   ) -> PlacementSolution:
     """Exact min-latency chain partition into contiguous blocks assigned to
-    devices in index order (each device used at most once).
+    devices in a fixed order (each device used at most once, order given;
+    index order by default).
 
-    dp[j][s] = best cost of placing layers [0..j) using devices [0, s)
-    with layer j-1 on device s-1.  O(L^2 * U).
+    dp[j][s] = best cost of placing layers [0..j) using devices order[<s]
+    with layer j-1 on device order[s-1].  O(L^2 * U).
     """
-    L, S = p.L, p.U
+    L, U = p.L, p.U
+    order = list(device_order) if device_order is not None else list(range(U))
+    S = len(order)
     NEG = float("inf")
     # block_cost[a][b][i]: compute time of layers [a..b) on device i, or inf
     pre_c = np.concatenate([[0.0], np.cumsum(p.compute)])
@@ -247,7 +250,7 @@ def solve_chain_dp(p: PlacementProblem) -> PlacementSolution:
     dp[0, 0] = 0.0
     for b in range(1, L + 1):
         for s in range(1, S + 1):
-            dev = s - 1
+            dev = order[s - 1]
             for a in range(b):
                 if not block_ok(a, b, dev):
                     continue
@@ -259,7 +262,8 @@ def solve_chain_dp(p: PlacementProblem) -> PlacementSolution:
                     if a == 0:
                         tr = p.transfer_time(p.source, dev, p.input_bits)
                     else:
-                        tr = p.transfer_time(s0 - 1, dev, p.act_bits[a - 1])
+                        prev_dev = order[s0 - 1]
+                        tr = p.transfer_time(prev_dev, dev, p.act_bits[a - 1])
                     cost = base + tr + ct
                     if cost < dp[b, s]:
                         dp[b, s] = cost
@@ -273,7 +277,7 @@ def solve_chain_dp(p: PlacementProblem) -> PlacementSolution:
     while b > 0:
         a, s0 = parent[b, s]
         for j in range(a, b):
-            assign[j] = s - 1
+            assign[j] = order[s - 1]
         b, s = int(a), int(s0)
     return PlacementSolution(tuple(assign), float(dp[L, s_best]), "chain_dp")
 
@@ -313,11 +317,12 @@ def solve_greedy(p: PlacementProblem) -> PlacementSolution:
     return PlacementSolution(tuple(assign), total, "greedy")
 
 
-def solve_random(p: PlacementProblem) -> PlacementSolution:
+def solve_random(p: PlacementProblem, seed: int = 0,
+                 tries: int = 64) -> PlacementSolution:
     """Random-selection baseline: first cap-feasible uniform assignment whose
     links are all reliable (finite latency) — 'produces the worst latency'."""
-    rng = np.random.default_rng(0)
-    for _ in range(RANDOM_TRIES):
+    rng = np.random.default_rng(seed)
+    for _ in range(tries):
         assign = tuple(int(x) for x in rng.integers(0, p.U, size=p.L))
         if p.feasible(assign):
             lat = p.latency(assign)
@@ -326,13 +331,12 @@ def solve_random(p: PlacementProblem) -> PlacementSolution:
     return solve_greedy(p)   # random never found feasible: fall back
 
 
-def place_requests(problems: Sequence[PlacementProblem]
-                   ) -> List[PlacementSolution]:
-    """Place a stream of requests with ``solve_bnb``, consuming residual
-    caps (sums over r)."""
+def place_requests(problems: Sequence[PlacementProblem],
+                   solver=solve_bnb) -> List[PlacementSolution]:
+    """Place a stream of requests, consuming residual caps (sums over r)."""
     out: List[PlacementSolution] = []
     for p in problems:
-        sol = solve_bnb(p)
+        sol = solver(p)
         if sol.assign:
             p.commit(sol.assign)
         out.append(sol)

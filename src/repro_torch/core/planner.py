@@ -12,12 +12,15 @@ executed periodically") and failure delegation (a dead UAV's layers are
 re-placed on the survivors).
 
 P2 runs on the planner's ``device`` (the card unless ``device="cpu"``);
-P1 and P3 are host numpy, as in the reference.
+P1 and P3 are host numpy, as in the reference.  ``placement_solver``
+picks P3's solver (exact branch-and-bound by default; the baselines plug
+in the greedy and random ones), and ``optimize_positions=False`` skips P2
+for callers that supply positions.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -66,6 +69,9 @@ class LLHRPlanner:
 
     channel: RadioChannel
     radius: float = 20.0
+    placement_solver: Callable[[PlacementProblem], PlacementSolution] = \
+        solve_bnb
+    optimize_positions: bool = True        # False => caller supplies positions
     position_steps: int = 400
     seed: int = 0
     device: DeviceLike = None              # where P2 runs; None -> cuda
@@ -78,16 +84,21 @@ class LLHRPlanner:
              model: ModelCost,
              devices: Sequence[Device],
              requests: Sequence[int],
-             positions: Optional[np.ndarray] = None
-             ) -> Tuple[Plan, List[PlacementProblem]]:
+             positions: Optional[np.ndarray] = None,
+             t: int = 0) -> Tuple[Plan, List[PlacementProblem]]:
         """Produce a full LLHR plan.
 
         ``requests``: source UAV index per request.  ``positions``: [U, 2]
-        to skip P2 and plan at these positions.
+        to skip P2 and plan at these positions.  ``t``: the simulator's
+        frame index (``SwarmPlanner`` protocol), ignored: the LLHR plan is
+        time-invariant, positions are re-optimized every call.
         """
+        del t
         U = len(devices)
         # --- P2: positions ------------------------------------------------
         if positions is None:
+            if not self.optimize_positions:
+                raise ValueError("positions required when not optimizing")
             pos_sol = solve_positions(U, self.channel, self.radius,
                                       steps=self.position_steps,
                                       seed=self.seed, device=self.device)
@@ -106,7 +117,7 @@ class LLHRPlanner:
         for p in problems:
             p.mem_used = shared_mem
             p.compute_used = shared_cmp
-        placements = place_requests(problems)
+        placements = place_requests(problems, self.placement_solver)
         # --- tighten P1 to links actually used -----------------------------
         used_links = [l for s in placements for l in s.links]
         for p, s in zip(problems, placements):
@@ -115,7 +126,7 @@ class LLHRPlanner:
         pw_used = min_power_for_placement(dist, self.channel, used_links)
         total_lat = float(sum(s.latency for s in placements))
         return (Plan(positions, pw_used, placements, rate, total_lat,
-                     pw_used.total_power, solve_bnb.__name__),
+                     pw_used.total_power, self.placement_solver.__name__),
                 problems)
 
     # ------------------------------------------------------------------
@@ -141,7 +152,7 @@ class LLHRPlanner:
         for p in new_problems:
             p.mem_used = shared_mem
             p.compute_used = shared_cmp
-        placements = place_requests(new_problems)
+        placements = place_requests(new_problems, self.placement_solver)
         positions = plan.positions[survivors]
         dist = np.sqrt(((positions[:, None] - positions[None, :]) ** 2)
                        .sum(-1))

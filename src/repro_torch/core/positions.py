@@ -6,8 +6,11 @@
 
 ``solve_positions`` is the B = 1 slice of the batched projected-gradient
 solver (``core.batch.solve_positions_batched``), started from a
-hexagonal packing; ``chain_oracle`` is the analytic optimum of a chain
-(collinear at exactly 2R).
+hexagonal packing; ``solve_positions_legacy`` is the original
+one-scenario solver (a gradient loop on the device, then a host NumPy
+push-apart repair), kept as the batched path's parity oracle;
+``chain_oracle`` is the analytic optimum of a chain (collinear at
+exactly 2R).
 """
 from __future__ import annotations
 
@@ -16,10 +19,12 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.core.batch import solve_positions_batched
+from repro_torch.core.batch import (chain_links, coverage_radius,
+                                    position_coeff, solve_positions_batched)
 from repro_torch.core.channel import RadioChannel
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 
 
 @dataclass(frozen=True)
@@ -77,6 +82,82 @@ def solve_positions(n_uavs: int,
                             max_violation=float(sol.max_violation[0]))
 
 
+def solve_positions_legacy(n_uavs: int,
+                           channel: RadioChannel,
+                           radius: float = 20.0,
+                           area_center: Tuple[float, float] = (0.0, 0.0),
+                           links: Optional[np.ndarray] = None,
+                           steps: int = 800,
+                           lr: float = 0.5,
+                           seed: int = 0,
+                           device: DeviceLike = None) -> PositionSolution:
+    """The original one-scenario solver: ``steps`` normalized gradient
+    steps on ``device`` (autograd on the chain-link objective plus the
+    eq. 8d hinge x 10 coeff, each step projected onto the coverage
+    circle; the last iterate is kept), then a HOST-SIDE NumPy argmin
+    push-apart repair (50 passes) on the float32 result.  The parity
+    oracle of the batched path; new code calls ``solve_positions``.
+    """
+    dev = resolve_device(device)
+    U = n_uavs
+    if links is None:
+        links = chain_links(U)
+    links = np.asarray(links, dtype=bool)
+    two_r = 2.0 * radius
+    coeff = position_coeff(channel.params)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    links_t = torch.as_tensor(links | links.T, device=dev)
+    eye = torch.eye(U, dtype=torch.bool, device=dev)
+    coeff_t, lr_t, two_r2 = f32(coeff), f32(lr), f32(two_r ** 2)
+    cover_t = f32(coverage_radius(U, radius))
+    center = f32(np.asarray(area_center, np.float32))
+    two, ten, eps9, eps12, one = (f32(v) for v in (2.0, 10.0, 1e-9, 1e-12,
+                                                   1.0))
+
+    def objective(pos):
+        diff = pos[:, None, :] - pos[None, :, :]
+        d2 = (diff * diff).sum(-1)
+        obj = torch.where(links_t, coeff_t * d2, 0.0).sum() / two
+        viol = torch.clamp_min(two_r2 - d2, 0.0)
+        pen = torch.where(eye, 0.0, viol * viol).sum()
+        return obj + ten * coeff_t * pen
+
+    pos = torch.as_tensor(hex_init(U, two_r, area_center, jitter=0.5,
+                                   seed=seed), dtype=torch.float32,
+                          device=dev)
+    for _ in range(steps):
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(objective(p), p)
+        pos = pos - lr_t * g / (torch.sqrt((g * g).sum()) + eps12)
+        rel = pos - center
+        r = torch.sqrt((rel * rel).sum(1, keepdim=True))
+        pos = center + rel * torch.minimum(one,
+                                           cover_t / torch.maximum(r, eps9))
+    pos = pos.cpu().numpy()      # float32, writable
+    # hard repair of residual separation violations (push-apart passes)
+    for _ in range(50):
+        d = np.sqrt(((pos[:, None] - pos[None, :]) ** 2).sum(-1))
+        np.fill_diagonal(d, np.inf)
+        i, k = np.unravel_index(np.argmin(d), d.shape)
+        if d[i, k] >= two_r - 1e-6:
+            break
+        mid = (pos[i] + pos[k]) / 2.0
+        dir_ = pos[i] - pos[k]
+        nrm = np.linalg.norm(dir_) + 1e-9
+        pos[i] = mid + dir_ / nrm * (radius + 1e-3)
+        pos[k] = mid - dir_ / nrm * (radius + 1e-3)
+    d = np.sqrt(((pos[:, None] - pos[None, :]) ** 2).sum(-1))
+    np.fill_diagonal(d, np.inf)
+    viol = max(0.0, two_r - float(d.min()))
+    d2 = np.where(np.isfinite(d), d, 0.0) ** 2
+    obj = float(np.sum(np.where(links | links.T, coeff * d2, 0.0)) / 2.0)
+    return PositionSolution(pos, obj, steps, viol)
+
+
 def chain_oracle(n: int, radius: float,
                  center: Tuple[float, float] = (0.0, 0.0)) -> np.ndarray:
     """Analytic optimum for a chain: collinear, consecutive spacing = 2R."""
@@ -84,4 +165,5 @@ def chain_oracle(n: int, radius: float,
     return np.stack([xs + center[0], np.full(n, center[1])], axis=1)
 
 
-__all__ = ["PositionSolution", "hex_init", "solve_positions", "chain_oracle"]
+__all__ = ["PositionSolution", "hex_init", "solve_positions",
+           "solve_positions_legacy", "chain_oracle"]

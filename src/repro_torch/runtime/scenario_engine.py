@@ -8,6 +8,9 @@ batched call on the card.
   link geometry, P1, eq. (5) rates, the chain-DP placement + backtrack and
   the used-links power tightening) over the whole scenario axis on one
   device.  Construct it with a ``PositionSpec`` to fuse the P2 stage.
+* ``ContingencyTable``  — every single-UAV-failure plan precomputed in one
+  engine call, so a fault-tolerant runner can delegate at once instead of
+  re-solving at failure time.
 * ``PlanFnCache``       — built planning functions shared by every engine
   with the same static problem signature and device.
 """
@@ -15,7 +18,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +106,20 @@ class ScenarioGenerator:
                                for a in active])
         return ScenarioBatch(positions=pos, source=source, active=active,
                              gain_scale=gain_scale)
+
+    def failure_sweep(self, source: int = 0) -> ScenarioBatch:
+        """One scenario per single-UAV failure (plus the no-failure nominal
+        scenario at index U) at the nominal positions — the contingency set.
+
+        ``source`` is the capturing UAV; the scenario that kills it uses the
+        next surviving UAV as source instead."""
+        U = self.base_positions.shape[0]
+        pos = np.broadcast_to(self.base_positions, (U + 1, U, 2)).copy()
+        active = np.ones((U + 1, U), dtype=bool)
+        active[np.arange(U), np.arange(U)] = False
+        src = np.array([(source + 1) % U if k == source else source
+                        for k in range(U)] + [source])
+        return ScenarioBatch(positions=pos, source=src, active=active)
 
 
 # ---------------------------------------------------------------------------
@@ -400,7 +417,101 @@ class ScenarioEngine:
         return self.plan_batch(batch)
 
 
+# ---------------------------------------------------------------------------
+# Precomputed failure contingencies (delegation without a re-solve)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ContingencyPlan:
+    """The delegation plan to apply when ``dead`` has failed.
+
+    ``positions`` are the positions the plan was priced at — with a
+    position-optimizing engine, the P2 solution for that failure scenario
+    (where the survivors should fly), otherwise the nominal positions the
+    table was refreshed with."""
+
+    dead: Optional[str]        # device name, or None for the nominal plan
+    dead_index: int            # index into the ORIGINAL device list (-1)
+    assign: Tuple[int, ...]    # device ids into the ORIGINAL device list
+    latency: float
+    power: np.ndarray          # [U] over the ORIGINAL devices (0 for dead)
+    positions: Optional[np.ndarray] = None   # [U, 2] over ORIGINAL devices
+
+    @property
+    def survivor_assign(self) -> Tuple[int, ...]:
+        """The assignment re-indexed into the survivor device list (ids
+        above the dead device shift down by one)."""
+        if self.dead_index < 0:
+            return self.assign
+        return tuple(i - 1 if i > self.dead_index else i
+                     for i in self.assign)
+
+    def as_survivor_plan(self) -> "ContingencyPlan":
+        """Normalize to survivor index space: assign re-indexed and power/
+        positions sliced to the shrunk device list."""
+        if self.dead_index < 0:
+            return self
+        return ContingencyPlan(
+            dead=self.dead, dead_index=-1, assign=self.survivor_assign,
+            latency=self.latency,
+            power=np.delete(self.power, self.dead_index),
+            positions=None if self.positions is None else
+            np.delete(self.positions, self.dead_index, axis=0))
+
+
+class ContingencyTable:
+    """All single-failure delegation plans, computed in one batched call.
+
+    The paper's delegation ("it will delegate this subtask to another UAV")
+    is a re-solve at failure time; the table instead plans the whole
+    failure sweep (U + 1 scenarios, one ``plan_batch``) up front on the
+    engine's device.
+    """
+
+    def __init__(self, engine: ScenarioEngine, positions: np.ndarray,
+                 source: int = 0):
+        self.engine = engine
+        self.plans: Dict[Optional[str], ContingencyPlan] = {}
+        self.refresh(positions, source=source)
+
+    def refresh(self, positions: np.ndarray, source: int = 0) -> None:
+        """Recompute the failure sweep at new positions, in place (the
+        engine's built plan is reused).  The engine is specialized to a
+        fixed device set: a shrunk swarm needs a new engine and table."""
+        engine = self.engine
+        if positions.shape[0] != len(engine.devices):
+            raise ValueError(
+                f"positions are for {positions.shape[0]} UAVs but the engine "
+                f"plans {len(engine.devices)}; build a new ScenarioEngine "
+                f"(and table) for a changed swarm")
+        sweep = ScenarioGenerator(positions).failure_sweep(source=source)
+        U = positions.shape[0]
+        plan = engine.plan_batch(sweep)
+        names = [d.name for d in engine.devices]
+        self.plans.clear()
+        for k, name in enumerate(names + [None]):
+            self.plans[name] = ContingencyPlan(
+                dead=name, dead_index=k if k < U else -1,
+                assign=tuple(int(x) for x in plan.assign[k]),
+                latency=float(plan.latency[k]), power=plan.power[k],
+                positions=plan.positions[k])
+
+    def lookup(self, dead_names: Sequence[str]
+               ) -> Optional[ContingencyPlan]:
+        """Precomputed plan for a single failure, normalized to the SURVIVOR
+        index space; None for multi-failures, unknown devices or an
+        infeasible contingency."""
+        if len(dead_names) != 1:
+            return None
+        plan = self.plans.get(dead_names[0])
+        if plan is None or not np.isfinite(plan.latency):
+            return None
+        return plan.as_survivor_plan()
+
+
 __all__ = [
     "ScenarioBatch", "ScenarioGenerator", "BatchPlan", "MultiSourcePlan",
-    "ScenarioEngine", "PlanFnCache", "PLAN_FN_CACHE", "PositionSpec",
+    "ScenarioEngine", "ContingencyPlan", "ContingencyTable", "PlanFnCache",
+    "PLAN_FN_CACHE", "PositionSpec",
 ]

@@ -13,6 +13,17 @@
   ``_chain_dp_solve_kernelized``, bitwise: M 1, 4 and 8 source slots,
   LeNet (L 7) and AlexNet (L 11), U 8 and 32, with dead UAVs, tie-heavy
   integer rates and all-infeasible rows (assign -1, latency inf).
+* The host-facing wrappers ``solve_chain_dp_batched`` and
+  ``solve_chain_dp_multisource`` against the reference's, with
+  ``use_kernel`` off (the scan DP) and on (Pallas in interpret mode):
+  LeNet and AlexNet, U 5 and 8, geometry, tie-heavy and infeasible
+  rates, dead UAVs, index and permuted device orders; int64 assignments
+  and float64 latencies bitwise.  With a permuted order each placement
+  equals the port's scalar ``solve_chain_dp(p, device_order=)``.  At
+  U = L = 32, where the prefix sums part from ``jnp.cumsum`` (ROADMAP
+  item 17), each feasible placement is held as the reference's own test
+  holds it: cap-feasible, its latency the scalar ``latency`` within
+  rtol 1e-5.
 * The used-links mask, the aggregate load and the shared-cap check.
 * P2 (``_positions_pgd``): elementwise within 1e-4 m after 3 steps; after
   30 steps + repair the invariants (2R separation, coverage, monotone
@@ -34,6 +45,8 @@ from repro.core.cost_model import cnn_cost  # noqa: E402
 from repro.core.swarm import make_devices  # noqa: E402
 from repro.kernels.link_geometry.ref import link_geometry_ref  # noqa: E402
 from repro_torch.core import batch as tb  # noqa: E402
+from repro_torch.core import placement as tpl  # noqa: E402
+from repro_torch.core.swarm import make_devices as t_make_devices  # noqa: E402
 from repro_torch.kernels.tropical_dp.ref import chain_dp_ref  # noqa: E402
 
 MODELS = {"lenet": LENET, "alexnet": ALEXNET}
@@ -249,6 +262,139 @@ def test_chain_dp_ref_bitwise_against_the_reference(name, U, M, mode):
         assert dead[:2].all()
     else:
         assert np.isfinite(lat.numpy()).any()
+
+
+def wrapper_case(name, U, mode, order, B=4, M=3):
+    """Problem, device order (None or a permutation), rates, flags and
+    [B, M] sources of a wrapper call."""
+    rng = np.random.default_rng(7 * U + len(name))
+    perm = tuple(int(o) for o in rng.permutation(U))
+    sources = rng.integers(0, U, (B, M))
+    rate, active = chain_rates(mode, U, B, U, sources)
+    return (problem(name, U), None if order == "index" else perm, rate,
+            active, sources)
+
+
+def wrapper_args(p, rate):
+    return (p["compute"], p["memory"], p["act_bits"], p["input_bits"],
+            p["mem_cap"], p["compute_cap"], p["throughput"], rate)
+
+
+WRAPPER_CASES = [(name, U) for name in ("lenet", "alexnet") for U in (5, 8)]
+
+
+def assert_bitwise(ref, got):
+    for r, g in zip(ref, got):
+        assert g.dtype == r.dtype
+        np.testing.assert_array_equal(r, g)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("order", ["index", "permuted"])
+@pytest.mark.parametrize("mode", ["geometry", "ties", "infeasible"])
+@pytest.mark.parametrize("name,U", WRAPPER_CASES)
+def test_solve_chain_dp_batched_bitwise(name, U, mode, order, use_kernel):
+    p, dorder, rate, active, sources = wrapper_case(name, U, mode, order)
+    args = wrapper_args(p, rate)
+    ref = jb.solve_chain_dp_batched(*args, sources[:, 0], active, dorder,
+                                    use_kernel=use_kernel)
+    got = tb.solve_chain_dp_batched(*args, sources[:, 0], active, dorder,
+                                    device="cpu")
+    assert_bitwise(ref, got)
+    assert got[0].dtype == np.int64 and got[1].dtype == np.float64
+    dead = ~np.isfinite(got[1])
+    assert (got[0][dead] == -1).all()
+    assert dead[:2].all() if mode == "infeasible" else not dead.all()
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("order", ["index", "permuted"])
+@pytest.mark.parametrize("mode", ["geometry", "ties", "infeasible"])
+@pytest.mark.parametrize("name,U", WRAPPER_CASES)
+def test_solve_chain_dp_multisource_bitwise(name, U, mode, order,
+                                            use_kernel):
+    p, dorder, rate, active, sources = wrapper_case(name, U, mode, order)
+    args = wrapper_args(p, rate)
+    ref = jb.solve_chain_dp_multisource(*args, sources, active, dorder,
+                                        use_kernel=use_kernel)
+    got = tb.solve_chain_dp_multisource(*args, sources, active, dorder,
+                                        device="cpu")
+    assert_bitwise(ref, got)
+    assert got[0].shape == sources.shape + (len(p["compute"]),)
+    # each slot is the single-source solve of its source
+    for m in range(sources.shape[1]):
+        assert_bitwise(tb.solve_chain_dp_batched(
+            *args, sources[:, m], active, dorder, device="cpu"),
+            (got[0][:, m], got[1][:, m]))
+
+
+def t_problem(p, rate, source, devs):
+    return tpl.PlacementProblem(p["compute"], p["memory"], p["act_bits"],
+                                devs, rate, source=int(source),
+                                input_bits=p["input_bits"])
+
+
+@pytest.mark.parametrize("name", ["lenet", "alexnet"])
+def test_batched_equals_the_scalar_solver_in_a_permuted_order(name):
+    """The scalar ``solve_chain_dp(p, device_order=)`` as the oracle of
+    the batched wrapper with the same order and every UAV alive: the same
+    assignment, the latency within float32 rounding."""
+    U, B = 6, 8
+    p = problem(name, U)
+    rate, _ = reference_rate(5, B, U, dead=0.0)
+    order = (4, 1, 5, 0, 3, 2)
+    src = np.random.default_rng(5).integers(0, U, B)
+    assign, lat = tb.solve_chain_dp_batched(*wrapper_args(p, rate), src,
+                                            device_order=order,
+                                            device="cpu")
+    devs = t_make_devices(U)
+    for n in range(B):
+        sol = tpl.solve_chain_dp(t_problem(p, rate[n], src[n], devs),
+                                 device_order=order)
+        assert np.isfinite(lat[n]) == np.isfinite(sol.latency)
+        if np.isfinite(sol.latency):
+            assert tuple(assign[n]) == sol.assign
+            np.testing.assert_allclose(lat[n], sol.latency, rtol=1e-5)
+    assert np.isfinite(lat).any()
+
+
+def test_large_instance_solves_and_prices_consistently():
+    """U = L = 32 (the reference's ``test_large_instance_traces_and_solves``
+    inputs): past L = 17 the prefix sums are not bitwise ``jnp.cumsum``'s,
+    so each feasible placement is held as the reference holds its own:
+    cap-feasible, and its latency the port's scalar
+    ``PlacementProblem.latency`` within rtol 1e-5."""
+    from repro.core.batch import rate_matrix_batched, solve_power_batched
+    from repro.core.channel import RadioParams
+    rng = np.random.default_rng(3)
+    L, U, B = 32, 32, 4
+    compute = np.abs(rng.normal(7e7, 3e7, L)) + 1e6
+    memory = np.abs(rng.normal(2e6, 1e6, L)) + 1e4
+    act = np.abs(rng.normal(6e5, 3e5, L)) + 1e4
+    devs = t_make_devices(U)
+    prng = np.random.default_rng(3)
+    pos = prng.uniform(0, 250.0, (B, U, 2))
+    dist = np.sqrt(((pos[:, :, None] - pos[:, None, :]) ** 2).sum(-1))
+    sol = solve_power_batched(dist, RadioParams())
+    rate = np.asarray(rate_matrix_batched(dist, sol.power, RadioParams(),
+                                          sol.link_feasible))
+    src = rng.integers(0, U, B)
+    p = dict(compute=compute, memory=memory, act_bits=act, input_bits=1e6,
+             mem_cap=np.array([d.mem_cap for d in devs]),
+             compute_cap=np.array([d.compute_cap for d in devs]),
+             throughput=np.array([d.throughput for d in devs]))
+    assign, lat = tb.solve_chain_dp_batched(*wrapper_args(p, rate), src,
+                                            device="cpu")
+    assert assign.shape == (B, L) and lat.shape == (B,)
+    assert np.isfinite(lat).any()
+    for n in range(B):
+        if not np.isfinite(lat[n]):
+            assert (assign[n] == -1).all()
+            continue
+        prob = t_problem(p, rate[n], src[n], devs)
+        assert prob.feasible(assign[n])
+        np.testing.assert_allclose(prob.latency(assign[n]), lat[n],
+                                   rtol=1e-5)
 
 
 def test_links_load_and_cap_match():

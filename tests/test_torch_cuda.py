@@ -5,7 +5,11 @@ LeNet forward against the monolithic one, the attention kernels
 against their plain versions; the kernels with more than one route
 (expert GEMM, prefill attention, RG-LRU scan, mLSTM chunk, chain DP) also
 by the route each launch took.  The fused chain DP is bitwise with its
-plain version at one launch a call.
+plain version at one launch a call.  The paper's evaluation path: the
+batched chain-DP wrappers (one fused launch a call, bitwise the CPU's),
+a contingency-table refresh (one link-geometry and one chain-DP launch,
+the CPU's table), ``SwarmSim``'s LLHR rollout (one of each a frame, the
+baselines none) and ``solve_positions_legacy``'s separation.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -199,6 +203,99 @@ def test_plan_batch_multi_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_allclose(getattr(plans[0], f),
                                    getattr(plans[1], f), rtol=1e-5)
     assert plans[0].n_feasible > 0
+
+
+def wrapper_args(model, U, B, seed):
+    """Host operands of ``solve_chain_dp_batched`` at these shapes: rates
+    from jittered positions, a tenth of the UAVs dead."""
+    from repro_torch.kernels.link_geometry.ref import link_geometry_ref
+    rng = np.random.default_rng(seed)
+    mc, devs = cnn_cost(model), make_devices(U)
+    pos = hex_init(U, 40.0, jitter=0.5)[None] + rng.normal(0, 8.0, (B, U, 2))
+    active = rng.random((B, U)) >= 0.1
+    rate = link_geometry_ref(torch.as_tensor(pos, dtype=torch.float32),
+                             torch.as_tensor(active), None,
+                             params=RadioParams())[2].numpy()
+    return ([x.flops for x in mc.layers], [x.weight_bytes for x in mc.layers],
+            [x.act_bits for x in mc.layers], mc.input_bits,
+            [d.mem_cap for d in devs], [d.compute_cap for d in devs],
+            [d.throughput for d in devs], rate), active, rng
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("model,U,B", [(ALEXNET, 8, 4096), (LENET, 5, 64),
+                                       (ALEXNET, 8, 16)])
+def test_batched_chain_dp_wrappers_on_the_card_equal_the_cpu(cuda, model, U,
+                                                             B, multi):
+    from repro_torch.core.batch import (solve_chain_dp_batched,
+                                        solve_chain_dp_multisource)
+    args, active, rng = wrapper_args(model, U, B, seed=U + B)
+    order = tuple(int(o) for o in rng.permutation(U))
+    fn = solve_chain_dp_multisource if multi else solve_chain_dp_batched
+    src = rng.integers(0, U, (B, 4) if multi else B)
+    kernels.reset_launch_counts()
+    got = fn(*args, src, active, order, device=cuda)
+    assert kernels.launch_counts()["tropical_dp"] == 1
+    assert kernels.route_counts()["tropical_dp"] == {"fused": 1, "step": 0}
+    ref = fn(*args, src, active, order, device="cpu")
+    assert got[0].dtype == np.int64 and got[1].dtype == np.float64
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(a, b)
+    assert np.isfinite(got[1]).any()
+
+
+def test_contingency_refresh_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.runtime.scenario_engine import ContingencyTable
+    ch, devs, mc = RadioChannel(), make_devices(8), cnn_cost(ALEXNET)
+    base = hex_init(8, 40.0, jitter=0.5, seed=1)
+    tables = [ContingencyTable(ScenarioEngine(ch, devs, mc,
+                                              plan_cache=PlanFnCache(),
+                                              device=d), base, source=2)
+              for d in (cuda, "cpu")]
+    moved = base + np.random.default_rng(3).normal(0.0, 4.0, base.shape)
+    kernels.reset_launch_counts()
+    tables[0].refresh(moved, source=2)
+    assert kernels.launch_counts()["link_geometry"] == 1
+    assert kernels.launch_counts()["tropical_dp"] == 1
+    tables[1].refresh(moved, source=2)
+    for name, g in tables[0].plans.items():
+        r = tables[1].plans[name]
+        assert g.assign == r.assign and g.dead_index == r.dead_index
+        np.testing.assert_allclose(g.latency, r.latency, rtol=1e-5)
+        np.testing.assert_allclose(g.power, r.power, rtol=1e-5)
+    assert np.isfinite(tables[0].plans[None].latency)
+
+
+def test_swarm_sim_launches_per_frame(cuda):
+    """LLHR on the rollout: one link-geometry and one fused chain-DP
+    launch a frame; a baseline on the legacy loop: none."""
+    from repro_torch.core.baselines import HeuristicPlanner
+    from repro_torch.core.placement import solve_chain_dp
+    from repro_torch.core.planner import LLHRPlanner
+    from repro_torch.core.swarm import SwarmSim
+    T, ch = 4, RadioChannel()
+    llhr = LLHRPlanner(ch, placement_solver=solve_chain_dp,
+                       position_steps=20, device=cuda)
+    kernels.reset_launch_counts()
+    stats = SwarmSim(cnn_cost(LENET), make_devices(6), llhr,
+                     requests_per_frame=4, failure_frame=1, failure_uav=2,
+                     device=cuda).run(frames=T)
+    counts = kernels.launch_counts()
+    assert counts["link_geometry"] == T and counts["tropical_dp"] == T
+    assert stats[1].replanned and all(s.feasible for s in stats)
+    kernels.reset_launch_counts()
+    SwarmSim(cnn_cost(LENET), make_devices(6), HeuristicPlanner(ch, device=cuda),
+             requests_per_frame=4, device=cuda).run(frames=T)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_solve_positions_legacy_on_the_card_keeps_2r(cuda):
+    from repro_torch.core.positions import solve_positions_legacy
+    sol = solve_positions_legacy(8, RadioChannel(), steps=200, device=cuda)
+    d = np.sqrt(((sol.positions[:, None] - sol.positions[None]) ** 2)
+                .sum(-1))
+    d[np.eye(8, dtype=bool)] = np.inf
+    assert d.min() >= 40.0 - 1e-3 and sol.max_violation == 0.0
 
 
 @pytest.mark.parametrize("relu", [True, False])

@@ -5,8 +5,13 @@ points against the reference on the CPU.
   and P3 (``solve_bnb``, ``solve_greedy``, ``solve_chain_dp``,
   ``solve_brute``, ``solve_random``, ``place_requests``) are numpy copies:
   every array, assignment and latency must be identical.
+* The solver options the baselines and the batched wrappers use:
+  ``solve_chain_dp(device_order=)``, ``solve_random(seed=, tries=)`` and
+  ``place_requests(solver=)``, identical to the reference's.
 * ``LLHRPlanner.plan`` and ``replan_on_failure`` given the SAME positions:
-  every ``Plan`` field identical.  P2 is left out of that comparison: its
+  every ``Plan`` field identical, with the default branch-and-bound and
+  with a ``placement_solver`` (``Plan.solver`` names it); ``t`` is
+  ignored, and ``optimize_positions=False`` without positions raises.  P2 is left out of that comparison: its
   float32 gradient steps compound ulp differences between XLA and
   PyTorch, so a near tie in P3 could flip on positions that differ in the
   last bits.
@@ -16,6 +21,12 @@ points against the reference on the CPU.
   the reference's own 1-ulp spread is 6.9e-4; see ``P2_RTOL``).  Longer
   runs are chaotic in float32 (see the 200-step test), so they keep the
   invariants only.
+* ``solve_positions_legacy`` (a gradient loop on the device, then the
+  reference's host repair): at 20-30 steps the objective within rtol
+  1e-4 at U 4 and 8; at its default 800 steps the invariants, and the
+  objective within ``P2_LEGACY_RTOL``, the width of the band the
+  reference's own last iterates sweep (the legacy solver keeps its last
+  iterate, and a normalized step of lr = 0.5 m never shrinks).
 """
 import numpy as np
 import pytest
@@ -33,6 +44,8 @@ from repro.core.planner import LLHRPlanner as JPlanner  # noqa: E402
 from repro.core.positions import chain_oracle as j_chain_oracle  # noqa: E402
 from repro.core.positions import hex_init  # noqa: E402
 from repro.core.positions import solve_positions as j_solve_pos  # noqa: E402
+from repro.core.positions import \
+    solve_positions_legacy as j_legacy  # noqa: E402
 from repro.core.swarm import make_devices as j_make_devices  # noqa: E402
 from repro_torch.configs.alexnet import ALEXNET as T_ALEXNET  # noqa: E402
 from repro_torch.configs.lenet import LENET as T_LENET  # noqa: E402
@@ -47,6 +60,8 @@ from repro_torch.core.positions import \
     chain_oracle as t_chain_oracle  # noqa: E402
 from repro_torch.core.positions import \
     solve_positions as t_solve_pos  # noqa: E402
+from repro_torch.core.positions import \
+    solve_positions_legacy as t_legacy  # noqa: E402
 from repro_torch.core.swarm import make_devices as t_make_devices  # noqa: E402
 
 MODELS = {"lenet": (LENET, T_LENET), "alexnet": (ALEXNET, T_ALEXNET)}
@@ -124,6 +139,47 @@ def test_p3_solvers_match(solver, model, U, mem_frac, sources):
     assert_solutions_equal(js, ts)
 
 
+@pytest.mark.parametrize("order", [(3, 1, 0, 2), (2, 0, 1, 3)])
+@pytest.mark.parametrize("model,U,mem_frac,sources", CASES, ids=CASE_IDS)
+def test_chain_dp_in_a_device_order_matches(model, U, mem_frac, sources,
+                                            order):
+    """The order is a permutation of the first four UAVs (U >= 4): the
+    other UAVs take no layer."""
+    jp = problems(jpl, model, U, mem_frac, sources)
+    tp = problems(tpl, model, U, mem_frac, sources)
+    js = [jpl.solve_chain_dp(p, device_order=order) for p in jp]
+    ts = [tpl.solve_chain_dp(p, device_order=order) for p in tp]
+    assert_solutions_equal(js, ts)
+    assert all(set(s.assign) <= set(order) for s in ts)
+
+
+@pytest.mark.parametrize("seed,tries", [(0, 64), (3, 1), (11, 8), (7, 200)])
+@pytest.mark.parametrize("model,U,mem_frac,sources", CASES, ids=CASE_IDS)
+def test_solve_random_seed_and_tries_match(model, U, mem_frac, sources,
+                                           seed, tries):
+    jp = problems(jpl, model, U, mem_frac, sources)
+    tp = problems(tpl, model, U, mem_frac, sources)
+    assert_solutions_equal(
+        [jpl.solve_random(p, seed=seed, tries=tries) for p in jp],
+        [tpl.solve_random(p, seed=seed, tries=tries) for p in tp])
+
+
+@pytest.mark.parametrize("solver", ["solve_greedy", "solve_chain_dp",
+                                    "solve_random"])
+@pytest.mark.parametrize("model,U,mem_frac,sources", CASES, ids=CASE_IDS)
+def test_place_requests_with_a_solver_matches(model, U, mem_frac, sources,
+                                              solver):
+    jp = problems(jpl, model, U, mem_frac, sources)
+    tp = problems(tpl, model, U, mem_frac, sources)
+    for plist in (jp, tp):
+        mem, cmp_ = np.zeros(U), np.zeros(U)
+        for p in plist:
+            p.mem_used, p.compute_used = mem, cmp_
+    assert_solutions_equal(jpl.place_requests(jp, getattr(jpl, solver)),
+                           tpl.place_requests(tp, getattr(tpl, solver)))
+    np.testing.assert_array_equal(jp[0].compute_used, tp[0].compute_used)
+
+
 def test_p3_brute_force_matches_on_a_small_instance():
     jp = problems(jpl, "lenet", 3, 1.0, [1])[0]
     tp = problems(tpl, "lenet", 3, 1.0, [1])[0]
@@ -177,6 +233,43 @@ def test_planner_matches_given_positions(model, U, mem_frac, sources):
     jre = jpl_.replan_on_failure(jplan, jprobs, dead)
     tre = tpl_.replan_on_failure(tplan, tprobs, dead)
     assert_plans_equal(*jre, *tre)
+
+
+@pytest.mark.parametrize("solver", ["solve_greedy", "solve_chain_dp",
+                                    "solve_random"])
+@pytest.mark.parametrize("model,U,mem_frac,sources", CASES, ids=CASE_IDS)
+def test_planner_with_a_placement_solver_matches(model, U, mem_frac,
+                                                 sources, solver):
+    """``placement_solver`` and ``optimize_positions=False`` as the
+    baselines set them, at the same positions: every ``Plan`` field of
+    the plan and of the replan identical, ``Plan.solver`` the solver's
+    name, and the frame index ``t`` changes nothing."""
+    pos = hex_init(U, 40.0, jitter=0.5, seed=U + 1)
+    jcfg, tcfg = MODELS[model]
+    jp = JPlanner(JChannel(), placement_solver=getattr(jpl, solver),
+                  optimize_positions=False)
+    tp = TPlanner(TChannel(), placement_solver=getattr(tpl, solver),
+                  optimize_positions=False, device="cpu")
+    jmc, tmc = j_cnn_cost(jcfg), t_cnn_cost(tcfg)
+    jdev, tdev = j_make_devices(U, mem_frac), t_make_devices(U, mem_frac)
+    jplan, jprobs = jp.plan(jmc, jdev, sources, positions=pos, t=3)
+    tplan, tprobs = tp.plan(tmc, tdev, sources, positions=pos, t=3)
+    assert_plans_equal(jplan, jprobs, tplan, tprobs)
+    assert tplan.solver == solver
+    again, _ = tp.plan(tmc, tdev, sources, positions=pos)
+    assert_plans_equal(tplan, tprobs, again, tprobs)
+    dead = tplan.placements[0].assign[0] if tplan.placements[0].assign \
+        else 0
+    jre = jp.replan_on_failure(jplan, jprobs, dead)
+    tre = tp.replan_on_failure(tplan, tprobs, dead)
+    assert_plans_equal(*jre, *tre)
+    assert tre[0].solver == solver + "+replan"
+
+
+def test_planner_without_positions_and_p2_off_raises():
+    planner = TPlanner(TChannel(), optimize_positions=False, device="cpu")
+    with pytest.raises(ValueError, match="positions required"):
+        planner.plan(t_cnn_cost(T_LENET), t_make_devices(4), [0])
 
 
 def test_planner_runs_p2_on_the_cpu_and_plans_alexnet_distributed():
@@ -266,6 +359,51 @@ def test_solve_positions_batched_invariants_and_objective(seed):
     np.testing.assert_allclose(ts.objective, js.objective, rtol=1e-4)
     np.testing.assert_allclose(ts.objective_trace[:, -1],
                                js.objective_trace[:, -1], rtol=1e-4)
+
+
+@pytest.mark.parametrize("steps", [20, 30])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("U", [4, 8])
+def test_solve_positions_legacy_objective(U, seed, steps):
+    js = j_legacy(U, JChannel(), steps=steps, seed=seed)
+    ts = t_legacy(U, TChannel(), steps=steps, seed=seed, device="cpu")
+    assert ts.positions.dtype == js.positions.dtype == np.float32
+    assert ts.positions.shape == (U, 2) and ts.iterations == steps
+    check_p2(ts.positions, (0.0, 0.0), U)
+    assert ts.max_violation == js.max_violation == 0.0
+    np.testing.assert_allclose(ts.objective, js.objective, rtol=1e-4)
+
+
+#: objective rtol at the legacy solver's 800 steps: its last iterate
+#: moves by up to lr = 0.5 m a step forever, and the reference's own
+#: objective sweeps a band 1.1-2.1 % wide over steps 790-810 (U 4 and 8,
+#: seeds 0-2); the test below shows the band at the cases held here
+P2_LEGACY_RTOL = 2e-2
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("U", [4, 8])
+def test_solve_positions_legacy_at_800_steps_keeps_the_invariants(U, seed):
+    js = j_legacy(U, JChannel(), seed=seed)
+    ts = t_legacy(U, TChannel(), seed=seed, device="cpu")
+    assert ts.iterations == 800
+    check_p2(ts.positions, (0.0, 0.0), U)
+    assert ts.max_violation == 0.0
+    np.testing.assert_allclose(ts.objective, js.objective,
+                               rtol=P2_LEGACY_RTOL)
+
+
+@pytest.mark.parametrize("U", [4, 8])
+def test_legacy_800_step_rtol_is_the_reference_own_band(U):
+    """Why ``P2_LEGACY_RTOL`` is 2e-2: the reference's objective over
+    steps 795-805 spans more than 1e-2 of its 800-step value, and the
+    port lies within 2e-2 of it."""
+    objs = [j_legacy(U, JChannel(), steps=n, seed=0).objective
+            for n in range(795, 806)]
+    band = (max(objs) - min(objs)) / objs[5]
+    port = t_legacy(U, TChannel(), seed=0, device="cpu").objective
+    assert 1e-2 < band <= P2_LEGACY_RTOL
+    assert abs(port - objs[5]) / objs[5] <= P2_LEGACY_RTOL
 
 
 @pytest.mark.parametrize("n,radius,center", [(1, 20.0, (0.0, 0.0)),

@@ -1,10 +1,13 @@
 """Guards of the PyTorch port's boundaries.
 
-* No module under ``src/repro_torch`` nor ``chip_smoke.py`` imports
-  ``jax`` or anything of ``repro`` (an AST scan, so a lazy import inside a
-  function is caught too).
+* No module under ``src/repro_torch``, nor ``chip_smoke.py``, nor the
+  port's example ``examples/torch_uav_swarm_sim.py`` imports ``jax`` or
+  anything of ``repro`` (an AST scan, so a lazy import inside a function
+  is caught too).
 * Entry points built without ``device=`` run on CUDA or raise; they never
-  fall back to the CPU.
+  fall back to the CPU (the engine, the rollout, the planner, the
+  baselines, ``SwarmSim``, the batched chain-DP wrappers and
+  ``solve_positions_legacy`` among them).
 * A CPU tensor given to a kernel dispatcher (link geometry, the chain
   DP, conv2d, prefill and decode attention, the expert GEMM,
   the RG-LRU scan, the mLSTM chunk) takes the plain version and leaves
@@ -55,8 +58,11 @@ NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "tropical_dp_step": 0,
                "moe_matmul": 0, "rglru_scan": 0, "mlstm_chunk": 0}
 
 
+EXAMPLE = os.path.join(ROOT, "examples", "torch_uav_swarm_sim.py")
+
+
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), EXAMPLE]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -81,6 +87,7 @@ def _imported_roots(path):
 def test_port_scan_covers_the_package_and_chip_smoke():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
+    assert EXAMPLE in files and os.path.isfile(EXAMPLE)
     assert any(f.endswith(os.path.join("core", "rollout.py")) for f in files)
     assert any(f.endswith(os.path.join("models", "cnn.py")) for f in files)
     assert len(files) >= 20
@@ -168,6 +175,52 @@ def test_planner_without_device_raises(monkeypatch):
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
         LLHRPlanner(RadioChannel())
+
+
+def test_swarm_sim_and_baselines_without_device_raise(monkeypatch):
+    from repro_torch.core.baselines import HeuristicPlanner, RandomPlanner
+    from repro_torch.core.swarm import SwarmSim
+    planner = LLHRPlanner(RadioChannel(), device="cpu")
+    _no_cuda(monkeypatch)
+    ch, devs, mc = _problem()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SwarmSim(mc, devs, planner)
+    for cls in (HeuristicPlanner, RandomPlanner):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(ch)
+    assert SwarmSim(mc, devs, planner, device="cpu").device.type == "cpu"
+
+
+def test_batched_chain_dp_wrappers_without_device_raise(monkeypatch):
+    from repro_torch.core.batch import (solve_chain_dp_batched,
+                                        solve_chain_dp_multisource)
+    _no_cuda(monkeypatch)
+    ch, devs, mc = _problem()
+    U = len(devs)
+    rate = np.full((2, U, U), 1e6)
+    rate[:, np.arange(U), np.arange(U)] = np.inf
+    args = ([x.flops for x in mc.layers], [x.weight_bytes for x in mc.layers],
+            [x.act_bits for x in mc.layers], mc.input_bits,
+            [d.mem_cap for d in devs], [d.compute_cap for d in devs],
+            [d.throughput for d in devs], rate)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_chain_dp_batched(*args, np.zeros(2, int))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_chain_dp_multisource(*args, np.zeros((2, 3), int))
+    kernels.reset_launch_counts()
+    assign, lat = solve_chain_dp_multisource(*args, np.zeros((2, 3), int),
+                                             device="cpu")
+    assert assign.shape == (2, 3, len(mc.layers)) and np.isfinite(lat).all()
+    assert kernels.launch_counts() == NO_LAUNCHES
+
+
+def test_solve_positions_legacy_without_device_raises(monkeypatch):
+    from repro_torch.core.positions import solve_positions_legacy
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_positions_legacy(4, RadioChannel(), steps=2)
+    assert solve_positions_legacy(4, RadioChannel(), steps=2,
+                                  device="cpu").positions.shape == (4, 2)
 
 
 def test_init_cnn_without_device_raises(monkeypatch):
