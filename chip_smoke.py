@@ -11,13 +11,15 @@ Phases, each raising on failure (the script then exits non-zero):
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at B = 4096: link geometry (one thread a link
    up to U 32: U 8 at B 256 and 4096, U 16, 32 and 5, 6 (not powers of
-   two), and U 80 (a warp a row); with and without ``gain_scale``, with
-   dead UAVs; ``dist`` and ``threshold`` bitwise, ``rate`` within rtol
+   two), and U 80 (a warp a row); without ``gain_scale`` and with
+   log-normal shadowing, a 0 dB fade and a -200 dB blackout of one UAV's
+   links (``GAIN_MODES``), with dead UAVs; ``dist`` and ``threshold`` bitwise, ``rate`` within rtol
    1e-6), the tropical-DP step (random, tie-heavy and all-inf inputs;
    bitwise) and the fused chain DP (``assign`` and ``latency`` bitwise
    against ``chain_dp_ref``: AlexNet at the rollout's shape (U 8, 4
    slots, B 256), 8 slots, B 4096, tie-heavy rates, dead UAVs and a
-   scenario with every UAV down, LeNet, U 32 with 32 slots, each one
+   scenario with every UAV down, LeNet, U 32 with 32 slots, a chain of
+   32 random layers (prefix sums in XLA's blocked order), each one
    launch on the ``fused`` route, its shared-memory total the launcher's
    layout's; and U 80 on the ``step`` route, 11 step launches and no
    fused one);
@@ -170,10 +172,36 @@ Phases, each raising on failure (the script then exits non-zero):
     random baselines on the legacy loop, no launch; LLHR's mean latency
     <= both baselines' (+1e-9) and its feasibility >= theirs; the
     failure row (frame 1, UAV 2) replanned and every frame feasible;
-    ``solve_positions_legacy`` at U 8, 800 steps, keeping 2R apart.
+    ``solve_positions_legacy`` at U 8, 800 steps, keeping 2R apart;
+24. the paper's figure scripts and the serving layers, each rollout call
+    counted (the counters read just before and just after it): the four
+    ``benchmarks/torch_fig*.py`` ``--smoke`` grids on the card (their
+    default device), every rollout call exactly T link-geometry and T
+    fused chain-DP launches, nothing launched outside them (Fig. 5's
+    baselines on the legacy loop), rows with the CPU plain path's names
+    and feasibility, the derived column within rtol 1e-3 plus a printed
+    digit (the baselines' exact), and the paper's trends (Fig. 2's
+    latency falls with P_max, Fig. 4's power with bandwidth, Fig. 5's
+    LLHR under both baselines); Fig. 5's full grid (5 LLHR points, 10
+    baseline runs: LLHR feasible and under both everywhere); a
+    ``PeriodicReplanner`` (AlexNet, U 8, B 128, fused P2) with an
+    8-frame ``FleetRollout`` lookahead over 32 trajectories, 10 ticks at
+    period 5: a refresh 9 link-geometry + 9 fused chain-DP launches, a
+    tick between refreshes none, no build after the first; the chaos
+    ladder's two scripts of ``tests/test_chaos.py`` (a single crash
+    answered from the contingency table, a 3-UAV burst by a live
+    replan) with the CPU's modes, rungs, metrics and runner events, and
+    a -200 dB blackout through the rollout (exactly the faded frames
+    infeasible); the gateway soak of ``tests/test_gateway.py`` twice on
+    one plan cache (invariants, a bitwise replay on one built rollout,
+    one retry for the stall, no failed window, 4 + 4 launches a window,
+    the CPU's outcomes); ``examples/torch_quickstart.py`` (4 conv2d
+    launches, sliced == monolithic) and
+    ``examples/torch_scenario_planning.py`` (5 + 5 launches).
 
-The last lines are the evaluation path's walls and summaries, the CNN
-path's and the four LM paths' serving numbers, the per-layer conv2d times, the kernels line, the
+The last lines are the serving layers' record, the evaluation path's
+walls and summaries, the CNN path's and the four LM paths' serving
+numbers, the per-layer conv2d times, the kernels line, the
 ``nvidia-smi`` line and the result object.
 Without CUDA it exits non-zero before printing any result.
 """
@@ -339,6 +367,13 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 
+#: the link-gain factors phase 3 holds link geometry at: none, log-normal
+#: shadowing (3 dB), a neutral 0 dB fade and a -200 dB blackout of one UAV's
+#: links a scenario (a gain of 1e-20 computed in float32, as the chaos
+#: harness's ``rollout_inputs`` computes it)
+GAIN_MODES = (None, "lognormal", "0 dB", "-200 dB")
+
+
 def geometry_inputs(np, torch, seed, B, gain, device, u=U):
     from repro_torch.core.positions import hex_init
     rng = np.random.default_rng(seed)
@@ -346,8 +381,18 @@ def geometry_inputs(np, torch, seed, B, gain, device, u=U):
     pos = (base[None] + rng.normal(0, 15.0, (B, u, 2))).astype(np.float32)
     pos[0, 1 % u] = pos[0, 0] + 0.3               # under the 1 m clamp
     active = rng.random((B, u)) >= 0.15
-    gs = (10.0 ** (rng.normal(0, 3.0, (B, u, u)) / 10.0)).astype(
-        np.float32) if gain else None
+    gs = None
+    if gain == "lognormal":
+        gs = (10.0 ** (rng.normal(0, 3.0, (B, u, u)) / 10.0)).astype(
+            np.float32)
+    elif gain in ("0 dB", "-200 dB"):
+        db = np.zeros((B, u, u), np.float32)
+        if gain == "-200 dB":
+            faded = rng.integers(0, u, B)
+            db[np.arange(B), faded, :] = -200.0
+            db[np.arange(B), :, faded] = -200.0
+            db[np.arange(B), faded, faded] = 0.0
+        gs = 10.0 ** (db / 10.0)
     return [None if x is None else torch.as_tensor(x, device=device)
             for x in (pos, active, gs)]
 
@@ -378,26 +423,46 @@ def dp_inputs(np, torch, seed, B, M, L, S, ties, device):
                             for x in (tr, tr0, ct, ok)]
 
 
-def chain_inputs(np, torch, seed, model, u, M, B, rates, device):
-    """Operands of the chain DP at a planner shape: ``model``'s tables
-    for ``u`` devices in a shuffled order, rates from hex-grid positions
-    through the plain link geometry (``geometry``) or integer multiples of
-    1e6 (``ties``: many equal-latency placements), a sixth of the UAVs
-    dead, scenario 0 with every UAV down (all its slots infeasible)."""
+def chain_costs(np, model):
+    """The layer costs of a chain-DP case: a CNN's (``alexnet``,
+    ``lenet``) or ``random<L>``, L layers drawn as the long-chain tests
+    draw them (a chain past XLA's cumsum block of 16, so the prefix sums
+    take its blocked order), weights large enough that a placement splits
+    over UAVs."""
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.configs.lenet import LENET
+    from repro_torch.core.cost_model import LayerCost, ModelCost, cnn_cost
+    if model in ("alexnet", "lenet"):
+        return cnn_cost({"alexnet": ALEXNET, "lenet": LENET}[model])
+    L = int(model[len("random"):])
+    rng = np.random.default_rng(L)
+    return ModelCost(model, tuple(
+        LayerCost(f"l{j}", float(c), float(m), float(a)) for j, (c, m, a)
+        in enumerate(zip(np.abs(rng.normal(7e7, 3e7, L)) + 1e6,
+                         np.abs(rng.normal(6e7, 3e7, L)) + 1e4,
+                         np.abs(rng.normal(6e5, 3e5, L)) + 1e4))), 1e6)
+
+
+def chain_inputs(np, torch, seed, mc, u, M, B, rates, device):
+    """Operands of the chain DP at a planner shape: the tables of the
+    layer costs ``mc`` for ``u`` devices in a shuffled order, rates from
+    hex-grid positions through the plain link geometry (``geometry``) or
+    integer multiples of 1e6 (``ties``: many equal-latency placements), a
+    sixth of the UAVs dead, scenario 0 with every UAV down (all its slots
+    infeasible)."""
     from repro_torch.core.batch import chain_dp_tables
     from repro_torch.core.channel import RadioParams
-    from repro_torch.core.cost_model import cnn_cost
     from repro_torch.core.swarm import make_devices
     from repro_torch.kernels.link_geometry.ref import link_geometry_ref
     rng = np.random.default_rng(seed)
-    mc, devs = cnn_cost(model), make_devices(u)
+    devs = make_devices(u)
     t = chain_dp_tables(
         [x.flops for x in mc.layers], [x.weight_bytes for x in mc.layers],
         [x.act_bits for x in mc.layers], mc.input_bits,
         [d.mem_cap for d in devs], [d.compute_cap for d in devs],
         [d.throughput for d in devs],
         order=tuple(int(o) for o in rng.permutation(u)), device=device)
-    pos, active, _ = geometry_inputs(np, torch, seed, B, False, device, u)
+    pos, active, _ = geometry_inputs(np, torch, seed, B, None, device, u)
     active[0] = False
     if rates == "ties":
         rate = torch.as_tensor(rng.integers(0, 3, (B, u, u)) * 1e6,
@@ -466,7 +531,9 @@ CHAIN_CASES = (
     # phase 23's SwarmSim shape: S 6 is the runtime-S warp-a-slot body
     ("swarm", "alexnet", 6, REQUESTS, 2, "geometry", "fused"),
     ("swarm lenet", "lenet", 6, REQUESTS, 2, "geometry", "fused"),
-    ("swarm ties", "alexnet", 6, 6, MAIN_B, "ties", "fused"))
+    ("swarm ties", "alexnet", 6, 6, MAIN_B, "ties", "fused"),
+    # 32 random layers: prefix sums in XLA's blocked order
+    ("L 32", "random32", U, REQUESTS, MAIN_B, "geometry", "fused"))
 
 
 def check_chain(np, torch, device, name, model, u, M, B, rates, route):
@@ -475,14 +542,12 @@ def check_chain(np, torch, device, name, model, u, M, B, rates, route):
     one on the ``step`` route.  On the fused route the wrapper's
     shared-memory total is also held against the launcher's layout."""
     from repro_torch import kernels
-    from repro_torch.configs.alexnet import ALEXNET
-    from repro_torch.configs.lenet import LENET
     from repro_torch.kernels.tropical_dp import tropical_dp as tdp
     from repro_torch.kernels.tropical_dp.ops import chain_dp
     from repro_torch.kernels.tropical_dp.ref import chain_dp_ref
-    cfg = {"alexnet": ALEXNET, "lenet": LENET}[model]
-    L = len(cfg.layers)
-    args = chain_inputs(np, torch, 3, cfg, u, M, B, rates, device)
+    mc = chain_costs(np, model)
+    L = len(mc.layers)
+    args = chain_inputs(np, torch, 3, mc, u, M, B, rates, device)
     kernels.reset_launch_counts()
     got = chain_dp(*args)
     launches, routes = kernels.launch_counts(), kernels.route_counts()
@@ -522,9 +587,9 @@ def check_kernels(np, torch, params, device):
     errs = {}
     for B, u in ((MAIN_B, U), (4096, U), (MAIN_B, 16), (MAIN_B, 32),
                  (MAIN_B, 5), (MAIN_B, 6), (64, 80)):
-        for gain in (False, True):
+        for gain in GAIN_MODES:
             err = check_geometry(np, torch, params, device, B, u, gain)
-            if (B, u, gain) == (MAIN_B, U, False):
+            if (B, u, gain) == (MAIN_B, U, None):
                 errs["link_geometry"] = err
     for B in (MAIN_B, 4096):
         for ties in (False, True):
@@ -783,20 +848,19 @@ def chain_work(B, U, M, L, S):
 
 
 def time_kernels(np, torch, params, device, launches, step_launches, errs):
-    from repro_torch.configs.alexnet import ALEXNET
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
     from repro_torch.kernels.link_geometry.ref import link_geometry_ref
     from repro_torch.kernels.tropical_dp.ref import chain_dp_ref, dp_step_ref
     from repro_torch.kernels.tropical_dp.tropical_dp import (
         tropical_dp_chain, tropical_dp_step)
     B, M, L, S = MAIN_B, REQUESTS, L_ALEXNET, U
-    pos, active, _ = geometry_inputs(np, torch, 5, B, False, device)
+    pos, active, _ = geometry_inputs(np, torch, 5, B, None, device)
     act_f = active.float()
     geo_bytes = 4 * (B * U * 2 + B * U + 3 * B * U * U)
     geo_ops = 18 * B * U * U     # per link: dist 6, gain 3, threshold 2,
     #                              row max 2, rate 5
-    chain_args = chain_inputs(np, torch, 6, ALEXNET, U, M, B, "geometry",
-                              device)
+    chain_args = chain_inputs(np, torch, 6, chain_costs(np, "alexnet"), U,
+                              M, B, "geometry", device)
     chain_bytes, chain_ops = chain_work(B, U, M, L, S)
     dp_args = dp_inputs(np, torch, 6, B, M, L, S, False, device)
     dp_bytes = 4 * (B * M * L * (S + 1) + B * L * S * (S + 1) + B * M * S
@@ -2636,6 +2700,512 @@ def run_eval_path(np, torch, device):
             "positions_legacy": eval_positions_legacy(np, torch, device)}
 
 
+#: phase 24: the figure scripts (their smoke grids, and Fig. 5's full grid)
+FIGURES = ("fig2_latency_power", "fig3_latency_memory", "fig4_min_power",
+           "fig5_request_scaling")
+#: the figures' P2 tolerance on the smoke rows' derived column against the
+#: CPU plain path (ROADMAP section 3: rtol 1e-3 at U 4 and 5, latency
+#: within 1e-3 at U 6), plus one unit of the printed last digit
+FIG_RTOL = 1e-3
+#: phase 24's replanner: ticks, period, scenarios a refresh, and its
+#: lookahead's frames and trajectories (AlexNet, U 8, fused P2)
+SERVE_TICKS, SERVE_PERIOD, SERVE_B, SERVE_H, SERVE_TRAJ = 10, 5, 128, 8, 32
+#: the gateway soak (``tests/test_gateway.py``'s): UAVs, window frames,
+#: windows, and the device stall's failed attempts
+SOAK_U, SOAK_T, SOAK_WINDOWS, SOAK_STALLS = 4, 4, 5, 1
+
+
+@contextlib.contextmanager
+def counted_rollouts(torch, calls):
+    """Inside the block, every ``FleetRollout.run`` appends (its frames, the
+    launches it made, its chain-DP launches by route) to ``calls``: the
+    counters read just before and just after the call, the device
+    drained at both reads.  The counters themselves are left running, so
+    a caller that set them to 0 sees every launch of its block."""
+    from repro_torch import kernels
+    from repro_torch.runtime.fleet_rollout import FleetRollout
+    run = FleetRollout.run
+
+    def counts():
+        torch.cuda.synchronize()
+        return kernels.launch_counts(), kernels.route_counts()["tropical_dp"]
+
+    def counted(self, *args, **kw):
+        launches0, routes0 = counts()
+        trace = run(self, *args, **kw)
+        launches1, routes1 = counts()
+        calls.append((trace.n_frames,
+                      {k: v - launches0[k] for k, v in launches1.items()},
+                      {k: v - routes0[k] for k, v in routes1.items()}))
+        return trace
+
+    FleetRollout.run = counted
+    try:
+        yield
+    finally:
+        FleetRollout.run = run
+
+
+def want_rollout_calls(what, calls, n=None):
+    """Each rollout call made exactly ``frames`` link-geometry and
+    ``frames`` fused chain-DP launches and no step launch."""
+    if not calls or (n is not None and len(calls) != n):
+        raise AssertionError(f"{what}: {len(calls)} rollout calls, want "
+                             f"{n or 'some'}")
+    for frames, launches, routes in calls:
+        want = only(launches, link_geometry=frames, tropical_dp=frames)
+        if launches != want or routes != {"fused": frames, "step": 0}:
+            raise AssertionError(f"{what}: a {frames}-frame rollout call "
+                                 f"made {launches}, routes {routes}")
+
+
+def figure_rows(torch, module, argv, calls):
+    """One figure script's CSV rows through its ``main``, its rollout
+    calls counted; raises if anything launched outside them."""
+    import importlib
+    import io
+    from repro_torch import kernels
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with counted_rollouts(torch, calls), contextlib.redirect_stdout(out):
+        importlib.import_module(f"benchmarks.{module}").main(argv)
+    torch.cuda.synchronize()
+    outside = {k: v - sum(c[1][k] for c in calls)
+               for k, v in kernels.launch_counts().items()}
+    if any(outside.values()):
+        raise AssertionError(f"{module}: launches outside the rollout "
+                             f"calls {outside}")
+    return [line.split(",") for line in out.getvalue().splitlines()]
+
+
+def serving_figures(np, torch, device):
+    """The four figure scripts' ``--smoke`` grids on the card (default
+    device), held against the CPU plain path and the paper's trends, then
+    Fig. 5's full grid.  Returns the figures' record."""
+    record = {}
+    derived = {}
+    for fig in FIGURES:
+        calls = []
+        t0 = time.perf_counter()
+        got = figure_rows(torch, f"torch_{fig}", ["--smoke"], calls)
+        wall = time.perf_counter() - t0
+        want_rollout_calls(fig, calls)
+        ref = figure_rows(torch, f"torch_{fig}",
+                          ["--smoke", "--device", "cpu"], [])
+        if [r[0] for r in got] != [r[0] for r in ref]:
+            raise AssertionError(f"{fig}: rows {[r[0] for r in got]}")
+        for r, g in zip(ref, got):
+            if g[3] != r[3]:
+                raise AssertionError(f"{r[0]}: feasibility {g[3]} on the "
+                                     f"card, {r[3]} on the CPU")
+            a, b = float(g[2]), float(r[2])
+            if "/heuristic/" in r[0] or "/random/" in r[0]:
+                tol = 0.0                       # host numpy in both runs
+            else:
+                tol = FIG_RTOL * abs(b) + 10.0 ** -len(r[2].split(".")[1])
+            if abs(a - b) > tol:
+                raise AssertionError(f"{r[0]}: {a} on the card, {b} on the "
+                                     "CPU")
+            derived[g[0]] = a
+        record[fig] = {"rows": [",".join(r) for r in got],
+                       "rollout_calls": len(calls), "wall_s": wall}
+        log(f"  {fig} --smoke: {len(got)} rows, {len(calls)} rollout calls "
+            f"of T link-geometry + T fused chain-DP launches, the CPU's "
+            f"feasibility and derived values; wall {wall:.3f} s")
+    trends = [("fig2/bw=10MHz/uavs=4/pmax=120mW",
+               "fig2/bw=10MHz/uavs=4/pmax=40mW"),
+              ("fig4/lenet/uavs=4/bw=20MHz", "fig4/lenet/uavs=4/bw=10MHz")]
+    trends += [(f"fig5/llhr/requests={rq}", f"fig5/{base}/requests={rq}")
+               for rq in (2, 8) for base in ("heuristic", "random")]
+    for lo, hi in trends:
+        if not derived[lo] < derived[hi]:
+            raise AssertionError(f"trend: {lo} {derived[lo]} is not below "
+                                 f"{hi} {derived[hi]}")
+    log("  the paper's trends hold: " + "; ".join(
+        f"{lo} {derived[lo]} < {hi} {derived[hi]}" for lo, hi in trends))
+    calls = []
+    t0 = time.perf_counter()
+    full = figure_rows(torch, "torch_fig5_request_scaling", [], calls)
+    wall = time.perf_counter() - t0
+    want_rollout_calls("fig5 full grid", calls, 10)     # warm + steady
+    llhr = {r[0].rsplit("=", 1)[1]: r for r in full if "/llhr/" in r[0]}
+    if len(full) != 15 or any(r[3] != "1.000" for r in llhr.values()):
+        raise AssertionError(f"fig5 full grid: rows {full}")
+    for r in full:        # a baseline's infeasible frames read inf / < 1
+        mine = llhr[r[0].rsplit("=", 1)[1]]
+        if r is not mine and not (float(mine[2]) < float(r[2])
+                                  and float(r[3]) <= float(mine[3])):
+            raise AssertionError(f"fig5 full grid: LLHR {mine} does not "
+                                 f"dominate {r}")
+    record["fig5_full"] = {"rows": [",".join(r) for r in full],
+                           "rollout_calls": len(calls), "wall_s": wall}
+    log(f"  fig5 full grid: 5 LLHR points (10 rollout calls) and 10 "
+        f"baseline runs, LLHR feasible and under both baselines at every "
+        f"request count; wall {wall:.3f} s")
+    return record
+
+
+def serving_replanner(np, torch, device):
+    """``PeriodicReplanner`` over an AlexNet U 8 engine with fused P2 and
+    a ``FleetRollout`` lookahead: ``SERVE_TICKS`` ticks at period
+    ``SERVE_PERIOD``.  A refresh is one ``plan_batch`` (1 link-geometry +
+    1 fused chain-DP launch; P2 launches no planner kernel) and one
+    ``SERVE_H``-frame lookahead (``SERVE_H`` + ``SERVE_H``); a tick
+    between refreshes launches nothing.  Returns its record."""
+    from repro_torch import kernels
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.core.channel import RadioChannel
+    from repro_torch.core.cost_model import cnn_cost
+    from repro_torch.core.positions import hex_init
+    from repro_torch.core.rollout import PositionSpec, RolloutSpec
+    from repro_torch.core.swarm import make_devices
+    from repro_torch.runtime.fleet_rollout import FleetRollout
+    from repro_torch.runtime.scenario_engine import (PlanFnCache,
+                                                     ScenarioEngine,
+                                                     ScenarioGenerator)
+    from repro_torch.runtime.serve_loop import PeriodicReplanner
+    cache, ch, mc, devs = PlanFnCache(), RadioChannel(), cnn_cost(ALEXNET), \
+        make_devices(U)
+    p2 = PositionSpec(steps=30)
+    engine = ScenarioEngine(ch, devs, mc, plan_cache=cache, position_spec=p2,
+                            device=device)
+    rollout = FleetRollout(ch, devs, mc, RolloutSpec(
+        frames=SERVE_H, requests_per_frame=REQUESTS, jitter_sigma_m=1.0,
+        failure_prob=0.02, recovery_prob=0.5), plan_cache=cache,
+        position_spec=p2, seed=24, device=device)
+    base = hex_init(U, 40.0, jitter=0.5, seed=24)
+    rp = PeriodicReplanner(
+        engine, ScenarioGenerator(base, pos_sigma_m=2.0, failure_prob=0.05,
+                                  shadow_sigma_db=2.0, seed=24),
+        period=SERVE_PERIOD, n_scenarios=SERVE_B, rollout=rollout,
+        rollout_horizon=SERVE_H, rollout_trajectories=SERVE_TRAJ)
+    per_refresh = only(kernels.launch_counts(), link_geometry=1 + SERVE_H,
+                       tropical_dp=1 + SERVE_H)
+    ticks = []
+    for frame in range(SERVE_TICKS):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hit = rp.tick(frame)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        want = per_refresh if hit else only(launches)
+        routes = kernels.route_counts()["tropical_dp"]
+        if launches != want or routes["step"]:
+            raise AssertionError(f"replanner tick {frame}: launches "
+                                 f"{launches} != {want}, routes {routes}")
+        ticks.append({"frame": frame, "refresh": hit, "wall_s": wall})
+    refreshes = [t["frame"] for t in ticks if t["refresh"]]
+    if refreshes != list(range(0, SERVE_TICKS, SERVE_PERIOD)) or \
+            rp.retraces != 0 or not np.isfinite(rp.nominal_latency) or \
+            not 0.0 < rp.horizon_feasibility <= 1.0:
+        raise AssertionError(f"replanner: refreshes {refreshes}, retraces "
+                             f"{rp.retraces}, nominal {rp.nominal_latency},"
+                             f" horizon {rp.horizon_feasibility}")
+    walls = [t["wall_s"] for t in ticks if t["refresh"]]
+    log(f"  PeriodicReplanner AlexNet U={U} B={SERVE_B} + {SERVE_H}-frame "
+        f"lookahead x {SERVE_TRAJ}: refreshes at {refreshes}, each "
+        f"{1 + SERVE_H} + {1 + SERVE_H} launches; nominal "
+        f"{rp.nominal_latency:.4f} s, p95 {rp.robust_latency(95):.4f} s, "
+        f"horizon feasibility {rp.horizon_feasibility:.3f}; refresh walls "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s")
+    return {"U": U, "scenarios": SERVE_B, "horizon": SERVE_H,
+            "trajectories": SERVE_TRAJ, "p2_steps": p2.steps,
+            "launches_per_refresh": {"link_geometry": 1 + SERVE_H,
+                                     "tropical_dp": 1 + SERVE_H},
+            "refreshes": refreshes, "refresh_walls_s": walls,
+            "first_refresh_s": walls[0],
+            "nominal_latency_s": rp.nominal_latency,
+            "robust_latency_p95_s": rp.robust_latency(95),
+            "horizon_feasibility": rp.horizon_feasibility}
+
+
+def chaos_stack(device, uavs, replan_fn):
+    """``tests/test_chaos.py``'s live stack on ``device``: LeNet split over
+    ``uavs`` UAVs, an engine and its contingency table, a tracker and a
+    runner, a 3-frame lookahead and the SLO controller."""
+    from repro_torch.configs.lenet import LENET
+    from repro_torch.core.channel import RadioChannel
+    from repro_torch.core.cost_model import cnn_cost
+    from repro_torch.core.positions import hex_init
+    from repro_torch.core.rollout import RolloutSpec
+    from repro_torch.core.swarm import make_devices
+    from repro_torch.runtime.fault_tolerance import (FaultTolerantRunner,
+                                                     HealthTracker)
+    from repro_torch.runtime.fleet_rollout import FleetRollout
+    from repro_torch.runtime.scenario_engine import (ContingencyTable,
+                                                     PlanFnCache,
+                                                     ScenarioEngine,
+                                                     ScenarioGenerator)
+    from repro_torch.runtime.serve_loop import (PeriodicReplanner,
+                                                ReplanController,
+                                                ServiceLevelObjective)
+    cache, ch, mc = PlanFnCache(), RadioChannel(), cnn_cost(LENET)
+    devs = make_devices(uavs, mem_frac=2e-4)
+    base = hex_init(uavs, 40.0, jitter=0.5, seed=1)
+    engine = ScenarioEngine(ch, devs, mc, plan_cache=cache, device=device)
+    tracker = HealthTracker([d.name for d in devs], timeout_s=2.5, now=0.0)
+    runner = FaultTolerantRunner(
+        devs, replan_fn, ".", health=tracker,
+        contingency=ContingencyTable(engine, base, source=0))
+    rp = PeriodicReplanner(
+        engine, ScenarioGenerator(base, pos_sigma_m=1.0, seed=0), period=4,
+        n_scenarios=2, rollout=FleetRollout(
+            ch, devs, mc, RolloutSpec(frames=3), plan_cache=cache, seed=0,
+            device=device),
+        rollout_horizon=3, rollout_trajectories=2)
+    ctl = ReplanController(
+        rp, ServiceLevelObjective(min_horizon_feasibility=0.25),
+        runner=runner)
+    return base, tracker, runner, rp, ctl
+
+
+def chaos_ladder(device, uavs, schedule):
+    """One ladder script through ``ChaosHostDriver`` frame by frame."""
+    from repro_torch.runtime.chaos import ChaosHostDriver
+
+    def replan(survivors):
+        return {"devices": [d.name for d in survivors]}
+
+    base, tracker, runner, rp, ctl = chaos_stack(device, uavs, replan)
+    drv = ChaosHostDriver(schedule, tracker, base, frame_s=1.0)
+    modes = [ctl.step(t, now=drv.play_frame(t))
+             for t in range(schedule.frames)]
+    plan = runner.state.plan
+    return {"modes": modes, "events": runner.events,
+            "metrics": ctl.metrics(), "retraces": rp.retraces,
+            "plan": plan if isinstance(plan, dict) else list(plan.assign)}
+
+
+def chaos_rollout(device):
+    """A 4-frame rollout of LeNet split over 4 UAVs on ``device``."""
+    from repro_torch.configs.lenet import LENET
+    from repro_torch.core.channel import RadioChannel
+    from repro_torch.core.cost_model import cnn_cost
+    from repro_torch.core.rollout import RolloutSpec
+    from repro_torch.core.swarm import make_devices
+    from repro_torch.runtime.fleet_rollout import FleetRollout
+    from repro_torch.runtime.scenario_engine import PlanFnCache
+    return FleetRollout(RadioChannel(), make_devices(4, mem_frac=2e-4),
+                        cnn_cost(LENET), RolloutSpec(frames=4),
+                        plan_cache=PlanFnCache(), device=device)
+
+
+def serving_chaos(np, torch, device):
+    """The chaos ladder's two scripts of ``tests/test_chaos.py`` on the
+    card and on the CPU: the same rungs, modes, metrics and runner
+    events, no build after the first refresh; then a -200 dB blackout
+    (``gain_scale`` 1e-20 on the source's links) through the rollout:
+    exactly the faded frames infeasible, as on the CPU.  Returns its
+    record."""
+    from repro_torch.core.positions import hex_init
+    from repro_torch.runtime.chaos import FaultSchedule
+    scripts = {
+        "single_crash": (4, lambda: FaultSchedule(4, 10, seed=0).crash(3, 2),
+                         ["contingency"]),
+        "burst": (5, lambda: FaultSchedule(5, 10, seed=2).burst(
+            3, 3, center=1, persistence=0.95), ["live_replan"])}
+    record = {}
+    for name, (uavs, schedule, rung) in scripts.items():
+        calls = []
+        t0 = time.perf_counter()
+        with counted_rollouts(torch, calls):
+            got = chaos_ladder(device, uavs, schedule())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want_rollout_calls(f"chaos {name}", calls)
+        ref = chaos_ladder("cpu", uavs, schedule())
+        for k in ("modes", "events", "metrics", "plan"):
+            if got[k] != ref[k]:
+                raise AssertionError(f"chaos {name}: {k} {got[k]} on the "
+                                     f"card, {ref[k]} on the CPU")
+        rungs = [r for e in got["metrics"]["events"] for r in e["rungs"]]
+        if rungs[:1] != rung or got["retraces"] or \
+                got["metrics"]["n_unrecovered"]:
+            raise AssertionError(f"chaos {name}: rungs {rungs}, retraces "
+                                 f"{got['retraces']}, metrics "
+                                 f"{got['metrics']}")
+        record[name] = {"rungs": rungs, "events": got["events"],
+                        "rollout_calls": len(calls), "wall_s": wall}
+        log(f"  chaos {name}: rungs {rungs}, runner events "
+            f"{[(e['kind'], e.get('dead')) for e in got['events']]}, the "
+            f"CPU's ladder; {len(calls)} lookaheads; wall {wall:.3f} s")
+    T, B = 4, 2
+    pos = hex_init(4, 40.0, jitter=0.5, seed=1)
+    inputs = FaultSchedule(4, T, seed=0).link_fade(
+        1, db=-200.0, uav=0, frames=2).rollout_inputs(B, pos)
+    traces, calls = [], []
+    for dev in (device, "cpu"):
+        with counted_rollouts(torch, calls if dev == device else []):
+            traces.append(chaos_rollout(dev).run(
+                pos, n_trajectories=B, sources=np.zeros((T, B), np.int64),
+                **inputs))
+    want_rollout_calls("blackout", calls, 1)
+    lat = traces[0].latency
+    if not (np.isfinite(lat[:, [0, 3]]).all() and np.isinf(lat[:, 1:3]).all()
+            and np.array_equal(traces[0].feasible, traces[1].feasible)
+            and np.array_equal(traces[0].assign, traces[1].assign)):
+        raise AssertionError(f"blackout: latency {lat} on the card, "
+                             f"{traces[1].latency} on the CPU")
+    np.testing.assert_allclose(lat[:, [0, 3]], traces[1].latency[:, [0, 3]],
+                               rtol=1e-5)
+    record["blackout"] = {"db": -200.0, "frames": T,
+                          "infeasible_frames": [1, 2]}
+    log("  blackout -200 dB on UAV 0's links, frames 1-2: those frames "
+        "infeasible, the others feasible, as on the CPU")
+    return record
+
+
+def soak(device, cache):
+    """``tests/test_gateway.py``'s soak on ``device``: a flood, a stall, a
+    burst, a crash and a skew over ``SOAK_WINDOWS`` windows."""
+    from repro_torch.configs.lenet import LENET
+    from repro_torch.core.channel import RadioChannel
+    from repro_torch.core.cost_model import cnn_cost
+    from repro_torch.core.positions import hex_init
+    from repro_torch.core.rollout import RolloutSpec
+    from repro_torch.core.swarm import make_devices
+    from repro_torch.runtime.chaos import FaultSchedule
+    from repro_torch.runtime.fleet_rollout import FleetRollout
+    from repro_torch.runtime.gateway import (GatewayConfig, LoadGenerator,
+                                             StreamingGateway)
+    U, T = SOAK_U, SOAK_T
+    ro = FleetRollout(RadioChannel(), make_devices(U, mem_frac=2e-4),
+                      cnn_cost(LENET), RolloutSpec(
+                          frames=T, requests_per_frame=3, recovery_prob=0.5),
+                      plan_cache=cache, seed=0, device=device)
+    sched = (FaultSchedule(U, T * SOAK_WINDOWS, seed=5)
+             .burst(frame=6, size=2, persistence=0.7)
+             .crash(frame=10, uav=0, frames=4)
+             .arrival_flood(8, 3.0, frames=4)
+             .device_stall(4, attempts=SOAK_STALLS)
+             .clock_skew(12, -1.0, frames=4))
+    gw = StreamingGateway(
+        ro, hex_init(U, 40.0, jitter=0.5, seed=1), GatewayConfig(
+            window_frames=T, frame_s=1.0, queue_capacity=24,
+            frame_capacity=3, retry_base_backoff_s=0.001, max_attempts=3),
+        schedule=sched, seed=0)
+    gen = LoadGenerator(U, kind="burst", rate=1.0, deadline_s=9.0, seed=7,
+                        priorities=(0, 1), priority_weights=(0.2, 0.8))
+    t0 = time.perf_counter()
+    try:
+        report = gw.serve(gen, n_windows=SOAK_WINDOWS)
+    finally:
+        gw.close()
+    return gw, report, time.perf_counter() - t0
+
+
+def soak_outcomes(gw):
+    return ([(r.rid, r.outcome, r.frame, r.window) for r in gw.requests],
+            dict(gw.shed_counts), [a.tolist() for a in gw.arrival_tensors])
+
+
+def serving_gateway(np, torch, device):
+    """The gateway soak on the card, twice on one plan cache: the
+    invariants, a bitwise replay on one built rollout, the stall's
+    retries, no failed window, ``SOAK_T`` + ``SOAK_T`` launches a window
+    (counted in the worker's rollout calls, read after ``serve``
+    returns); the outcomes the CPU's soak gives.  Returns its record."""
+    from repro_torch.runtime.gateway import SERVED, SHED_REASONS
+    from repro_torch.runtime.scenario_engine import PlanFnCache
+    cache, passes = PlanFnCache(), []
+    for _ in range(2):
+        calls = []
+        with counted_rollouts(torch, calls):
+            gw, report, wall = soak(device, cache)
+        want_rollout_calls("gateway soak", calls, SOAK_WINDOWS)
+        passes.append((gw, report, wall, dict(cache.builds)))
+    (gw, report, wall, builds), (gw2, report2, wall2, builds2) = passes
+    outcomes = [r.outcome for r in gw.requests]
+    bad = []
+    if not all(o == SERVED or o in SHED_REASONS for o in outcomes) or \
+            report["served"] + report["shed_total"] != report["submitted"]:
+        bad.append("an outcome missing or twice")
+    if report["deadline_hit_rate"] != 1.0 or report["retries"] != \
+            SOAK_STALLS or report["windows_failed"] or \
+            report["device_failures"]:
+        bad.append(f"report {report}")
+    if report2 != report or soak_outcomes(gw2) != soak_outcomes(gw) or \
+            [r.latency_s for r in gw2.requests] != \
+            [r.latency_s for r in gw.requests]:
+        bad.append("the replay differs")
+    rollout_keys = [k for k in builds if k[0] == "rollout"]
+    if len(rollout_keys) != 1 or builds[rollout_keys[0]] != 1 or \
+            builds2 != builds:
+        bad.append(f"builds {builds} then {builds2}")
+    cpu = soak("cpu", PlanFnCache())[0]
+    if soak_outcomes(cpu) != soak_outcomes(gw):
+        bad.append("outcomes differ from the CPU's soak")
+    if bad:
+        raise AssertionError("gateway soak: " + "; ".join(bad))
+    log(f"  gateway soak U={SOAK_U} T={SOAK_T} x {SOAK_WINDOWS} windows: "
+        f"{report['submitted']} submitted, {report['served']} served, shed "
+        f"{report['shed']}, retries {report['retries']}, replayed bitwise "
+        f"on one built rollout, the CPU's outcomes; walls {wall:.3f} / "
+        f"{wall2:.3f} s")
+    return {"windows": SOAK_WINDOWS, "frames_per_window": SOAK_T,
+            "launches_per_window": {"link_geometry": SOAK_T,
+                                    "tropical_dp": SOAK_T},
+            "report": report, "walls_s": [wall, wall2],
+            "window_wall_s": [wall / SOAK_WINDOWS, wall2 / SOAK_WINDOWS]}
+
+
+def serving_examples(np, torch, device):
+    """The two ported examples on the card: the quickstart (LeNet planned,
+    run sliced through conv2d: 2 + 2 launches, sliced == monolithic) and
+    the scenario-planning example (5 planning calls of 1 link-geometry +
+    1 fused chain-DP launch each).  Returns their record."""
+    import importlib.util
+    import io
+    from repro_torch import kernels
+    record = {}
+    for name, want in (("torch_quickstart", {"conv2d": 4}),
+                       ("torch_scenario_planning",
+                        {"link_geometry": 5, "tropical_dp": 5})):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(HERE, "examples", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = mod.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        if launches != only(launches, **want):
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        ok = (out["sliced_equals_monolithic"] and out["replan_feasible"]) \
+            if name == "torch_quickstart" else (
+                out["feasible"] > 0 and out["refreshed_at"] == [0, 5]
+                and out["retraces"] == 0
+                and out["p2_min_separation_m"] >= 40.0 - 1e-3)
+        if not ok:
+            raise AssertionError(f"{name}: {out}")
+        record[name] = dict(out, wall_s=wall, launches=want)
+        log(f"  examples/{name}.py on the card: {out}; launches {want}; "
+            f"wall {wall:.3f} s")
+    return record
+
+
+def run_serving_path(np, torch, device):
+    """Phase 24: the figure scripts and the serving layers.  Returns the
+    ``serving`` record."""
+    record = {}
+    for part, fn in (("figures", serving_figures),
+                     ("replanner", serving_replanner),
+                     ("chaos", serving_chaos),
+                     ("gateway", serving_gateway),
+                     ("examples", serving_examples)):
+        t0 = time.perf_counter()
+        record[part] = fn(np, torch, device)
+        record[part + "_wall_s"] = time.perf_counter() - t0
+    return record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2716,11 +3286,15 @@ def main() -> int:
     log("[23] the paper's evaluation path: batched chain DP, contingency "
         "table, SwarmSim against both baselines")
     swarm_eval = run_eval_path(np, torch, device)
+    log("[24] the figure scripts and the serving layers: replanner, chaos "
+        "ladder, gateway soak, examples")
+    serving = run_serving_path(np, torch, device)
     for row in rows:
         if row["name"] in ("flash_attention", "decode_attention"):
             row["launches_by_path"] = {a: s["launches"][row["name"]]
                                        for a, s in served.items()}
 
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"swarm_eval": swarm_eval}))
     print(json.dumps({"cnn_path": cnn}))
     for arch, lm in served.items():

@@ -345,18 +345,39 @@ def prefix_sums(compute: torch.Tensor, memory: torch.Tensor
     leading 0 — the DP's block-cost tables.  Taken on the CPU, once per
     plan function: the values feed the discrete ``ok`` mask directly.
 
-    Each sum is a sequential float32 one (``np.add.accumulate`` adds in
-    index order), which is what the reference's ``jnp.cumsum`` gives on
-    the CPU up to L = 17; ``torch.cumsum`` adds in another order and
-    differs in the last bit.  From L = 18 XLA's order differs from a
-    sequential one too (ROADMAP item 17)."""
+    Each sum adds in the order of the reference's ``jnp.cumsum`` on the
+    CPU, XLA's blocked scan (``_blocked_cumsum``), so the tables are
+    bitwise the reference's at every L; ``torch.cumsum`` and a sequential
+    sum add in other orders and differ in the last bit."""
     def seq(x: torch.Tensor) -> torch.Tensor:
-        acc = np.add.accumulate(x.detach().cpu().numpy().astype(np.float32),
-                                dtype=np.float32)
+        acc = _blocked_cumsum(x.detach().cpu().numpy().astype(np.float32))
         return torch.from_numpy(np.concatenate(
             [np.zeros(1, np.float32), acc]))
 
     return seq(compute), seq(memory)
+
+
+#: the block of XLA's CPU cumsum: a chain of 32 lowers to a [2, 16] scan
+_CUMSUM_BLOCK = 16
+
+
+def _blocked_cumsum(x: np.ndarray) -> np.ndarray:
+    """Inclusive float32 prefix sum in XLA's CPU order: a sequential sum
+    inside each block of 16 (the input zero-padded to whole blocks), the
+    block totals scanned by the same rule, recursively, and each block's
+    carry (the sum of the totals before it) added to its in-block sums
+    last."""
+    n = x.size
+    if n <= _CUMSUM_BLOCK:
+        return np.add.accumulate(x, dtype=np.float32)
+    nb = -(-n // _CUMSUM_BLOCK)
+    blocks = np.zeros(nb * _CUMSUM_BLOCK, np.float32)
+    blocks[:n] = x
+    inner = np.add.accumulate(blocks.reshape(nb, _CUMSUM_BLOCK), axis=1,
+                              dtype=np.float32)
+    totals = _blocked_cumsum(inner[:, -1])
+    carry = np.concatenate([np.zeros(1, np.float32), totals[:-1]])
+    return (inner + carry[:, None]).reshape(-1)[:n]
 
 
 @dataclass(frozen=True)

@@ -1,2 +1,4 @@
 """Host-facing runtime layers of the port: the scenario engine, the
-fleet rollout and the LM serving loop.  Import the submodules directly."""
+fleet rollout, the serving loop (the LM batcher, the periodic replanner
+and its SLO ladder), the chaos harness, fault tolerance and the
+streaming gateway.  Import the submodules directly."""

@@ -215,6 +215,12 @@ class BatchPlan:
     def n_feasible(self) -> int:
         return int(self.feasible.sum())
 
+    def best(self) -> int:
+        """Index of the lowest-latency feasible scenario."""
+        if not self.feasible.any():
+            raise ValueError("no feasible scenario in this batch")
+        return int(np.argmin(self.latency))
+
     def latency_percentile(self, q: float) -> float:
         """Latency percentile across the WHOLE ensemble, infeasible
         scenarios included as inf."""

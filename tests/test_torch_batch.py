@@ -1,9 +1,10 @@
 """The port's batched planner pieces against the reference on the CPU.
 
 * Prefix sums (``pre_c``/``pre_m``) of the LeNet and AlexNet costs, and
-  of random float32 costs at L 2-17, equal ``jnp.cumsum``'s bit for bit:
-  they feed the DP's discrete ``ok`` mask.  The chain DP on a scaled
-  AlexNet (another 11-layer CNN) is bitwise with the reference's.
+  of random float32 costs at L 2-64 and a few L up to 1,000, equal
+  ``jnp.cumsum``'s bit for bit: they feed the DP's discrete ``ok``
+  mask.  The chain DP on a scaled AlexNet (another 11-layer CNN) is
+  bitwise with the reference's.
 * The chain DP (``_chain_dp_solve_kernelized`` and its single-source
   slice) fed the SAME rate tensor as the reference's
   ``_chain_dp_solve_multi`` / ``_chain_dp_solve``: bitwise assignments and
@@ -20,10 +21,9 @@
   rates, dead UAVs, index and permuted device orders; int64 assignments
   and float64 latencies bitwise.  With a permuted order each placement
   equals the port's scalar ``solve_chain_dp(p, device_order=)``.  At
-  U = L = 32, where the prefix sums part from ``jnp.cumsum`` (ROADMAP
-  item 17), each feasible placement is held as the reference's own test
-  holds it: cap-feasible, its latency the scalar ``latency`` within
-  rtol 1e-5.
+  U = L = 32 both wrappers are bitwise the reference's, and each
+  feasible placement is also held as the reference's own test holds it:
+  cap-feasible, its latency the scalar ``latency`` within rtol 1e-5.
 * The used-links mask, the aggregate load and the shared-cap check.
 * P2 (``_positions_pgd``): elementwise within 1e-4 m after 3 steps; after
   30 steps + repair the invariants (2R separation, coverage, monotone
@@ -97,11 +97,13 @@ def test_prefix_sums_match_jnp_cumsum(name):
         np.testing.assert_array_equal(np.asarray(ref), got.numpy())
 
 
-@pytest.mark.parametrize("L", range(2, 18))
+@pytest.mark.parametrize("L", [*range(2, 65), 100, 255, 256, 257, 511,
+                               1000])
 def test_prefix_sums_match_jnp_cumsum_on_random_costs(L):
-    """Random float32 costs at L 2-17, eight seeds each: bitwise equal to
-    ``jnp.cumsum`` (from L 18 XLA's order departs from a sequential sum:
-    ROADMAP item 17)."""
+    """Random float32 costs at L 2-64 and a few L up to 1,000, eight seeds
+    each: bitwise equal to ``jnp.cumsum``.  From L 18 XLA's blocked scan
+    departs from a sequential sum, so this pins its order for the
+    installed jaxlib."""
     for seed in range(8):
         rng = np.random.default_rng(100 * L + seed)
         c, m = (rng.uniform(0.1, 10.0, L).astype(np.float32)
@@ -395,6 +397,45 @@ def test_large_instance_solves_and_prices_consistently():
         assert prob.feasible(assign[n])
         np.testing.assert_allclose(prob.latency(assign[n]), lat[n],
                                    rtol=1e-5)
+
+
+def large_instance(seed, L, U=32, B=16):
+    """``test_large_instance_solves_and_prices_consistently``'s generator
+    at any seed and chain length: the wrapper arguments and [B, 2]
+    sources."""
+    from repro.core.batch import rate_matrix_batched, solve_power_batched
+    from repro.core.channel import RadioParams
+    rng = np.random.default_rng(seed)
+    p = dict(compute=np.abs(rng.normal(7e7, 3e7, L)) + 1e6,
+             memory=np.abs(rng.normal(2e6, 1e6, L)) + 1e4,
+             act_bits=np.abs(rng.normal(6e5, 3e5, L)) + 1e4, input_bits=1e6)
+    devs = t_make_devices(U)
+    p.update(mem_cap=np.array([d.mem_cap for d in devs]),
+             compute_cap=np.array([d.compute_cap for d in devs]),
+             throughput=np.array([d.throughput for d in devs]))
+    pos = np.random.default_rng(seed).uniform(0, 250.0, (B, U, 2))
+    dist = np.sqrt(((pos[:, :, None] - pos[:, None, :]) ** 2).sum(-1))
+    sol = solve_power_batched(dist, RadioParams())
+    rate = np.asarray(rate_matrix_batched(dist, sol.power, RadioParams(),
+                                          sol.link_feasible))
+    return wrapper_args(p, rate), rng.integers(0, U, (B, 2))
+
+
+@pytest.mark.parametrize("L", [18, 24, 32, 48])
+@pytest.mark.parametrize("wrapper", ["solve_chain_dp_batched",
+                                     "solve_chain_dp_multisource"])
+def test_long_chain_wrappers_bitwise(wrapper, L):
+    """U 32, B 16, seeds 0-9, chains of 18-48 layers: both wrappers'
+    assignments and float64 latencies equal the reference's bit for bit
+    (a sequential float32 prefix sum differs from ``jnp.cumsum`` here and
+    moves the latencies of up to 127 of the 160 rows)."""
+    for seed in range(10):
+        args, src = large_instance(seed, L)
+        src = src[:, 0] if wrapper == "solve_chain_dp_batched" else src
+        ref = getattr(jb, wrapper)(*args, src)
+        got = getattr(tb, wrapper)(*args, src, device="cpu")
+        assert_bitwise(ref, got)
+        assert np.isfinite(got[1]).any()
 
 
 def test_links_load_and_cap_match():

@@ -1,13 +1,15 @@
 """Guards of the PyTorch port's boundaries.
 
 * No module under ``src/repro_torch``, nor ``chip_smoke.py``, nor the
-  port's example ``examples/torch_uav_swarm_sim.py`` imports ``jax`` or
-  anything of ``repro`` (an AST scan, so a lazy import inside a function
-  is caught too).
+  port's scripts ``benchmarks/torch_*.py`` and ``examples/torch_*.py``
+  imports ``jax`` or anything of ``repro`` (an AST scan, so a lazy import
+  inside a function is caught too).
 * Entry points built without ``device=`` run on CUDA or raise; they never
   fall back to the CPU (the engine, the rollout, the planner, the
-  baselines, ``SwarmSim``, the batched chain-DP wrappers and
-  ``solve_positions_legacy`` among them).
+  baselines, ``SwarmSim``, the batched chain-DP wrappers,
+  ``solve_positions_legacy``, the figure scripts, ``PeriodicReplanner``
+  over a default engine and a rollout-backed ``StreamingGateway`` among
+  them).
 * A CPU tensor given to a kernel dispatcher (link geometry, the chain
   DP, conv2d, prefill and decode attention, the expert GEMM,
   the RG-LRU scan, the mLSTM chunk) takes the plain version and leaves
@@ -59,10 +61,16 @@ NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "tropical_dp_step": 0,
 
 
 EXAMPLE = os.path.join(ROOT, "examples", "torch_uav_swarm_sim.py")
+FIGURES = ("torch_fig2_latency_power", "torch_fig3_latency_memory",
+           "torch_fig4_min_power", "torch_fig5_request_scaling")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"), EXAMPLE]
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for sub in ("benchmarks", "examples"):
+        out += [os.path.join(ROOT, sub, f)
+                for f in os.listdir(os.path.join(ROOT, sub))
+                if f.startswith("torch_") and f.endswith(".py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -88,6 +96,10 @@ def test_port_scan_covers_the_package_and_chip_smoke():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
     assert EXAMPLE in files and os.path.isfile(EXAMPLE)
+    for name in FIGURES + ("torch_common",):
+        assert os.path.join(ROOT, "benchmarks", name + ".py") in files
+    for name in ("torch_quickstart", "torch_scenario_planning"):
+        assert os.path.join(ROOT, "examples", name + ".py") in files
     assert any(f.endswith(os.path.join("core", "rollout.py")) for f in files)
     assert any(f.endswith(os.path.join("models", "cnn.py")) for f in files)
     assert len(files) >= 20
@@ -351,3 +363,54 @@ def test_chain_dp_dispatch_raises_on_an_unsupported_device():
     assert kernels.route_counts()["tropical_dp"] == {"fused": 0, "step": 0}
     with pytest.raises(ValueError, match="chain_dp: unsupported device meta"):
         chain_dp(*(a.to("meta") for a in args))
+
+
+@pytest.mark.parametrize("script", FIGURES)
+def test_figure_scripts_default_to_the_card(monkeypatch, script):
+    """A figure script run without ``--device`` raises without CUDA
+    before it prints a row; ``--device cpu`` is the only way to the
+    plain path."""
+    import contextlib
+    import importlib
+    import io
+    _no_cuda(monkeypatch)
+    mod = importlib.import_module(f"benchmarks.{script}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(["--smoke"])
+    assert out.getvalue() == ""
+
+
+def test_serving_layers_without_device_raise(monkeypatch):
+    """``PeriodicReplanner`` over a default engine and a rollout-backed
+    ``StreamingGateway`` cannot be built without CUDA unless their engine
+    and rollout were built for the CPU; built so, they run there."""
+    from repro_torch.core.positions import hex_init
+    from repro_torch.runtime.gateway import GatewayConfig, StreamingGateway
+    from repro_torch.runtime.scenario_engine import (PlanFnCache,
+                                                     ScenarioGenerator)
+    from repro_torch.runtime.serve_loop import PeriodicReplanner
+    _no_cuda(monkeypatch)
+    ch, devs, mc = _problem()
+    base = hex_init(4, 40.0, jitter=0.5, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PeriodicReplanner(ScenarioEngine(ch, devs, mc),
+                          ScenarioGenerator(base))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingGateway(FleetRollout(ch, devs, mc, RolloutSpec(frames=2)),
+                         base)
+    cache = PlanFnCache()
+    rp = PeriodicReplanner(ScenarioEngine(ch, devs, mc, plan_cache=cache,
+                                          device="cpu"),
+                           ScenarioGenerator(base), n_scenarios=2)
+    assert rp.tick(0) and np.isfinite(rp.nominal_latency)
+    gw = StreamingGateway(FleetRollout(ch, devs, mc, RolloutSpec(frames=2),
+                                       plan_cache=cache, device="cpu"),
+                          base, GatewayConfig(window_frames=2))
+    try:
+        gw.submit(0, 10.0)
+        assert gw.serve(None, n_windows=1)["served"] == 1
+    finally:
+        gw.close()
+    assert kernels.launch_counts() == NO_LAUNCHES
