@@ -197,10 +197,44 @@ Phases, each raising on failure (the script then exits non-zero):
     one retry for the stall, no failed window, 4 + 4 launches a window,
     the CPU's outcomes); ``examples/torch_quickstart.py`` (4 conv2d
     launches, sliced == monolithic) and
-    ``examples/torch_scenario_planning.py`` (5 + 5 launches).
+    ``examples/torch_scenario_planning.py`` (5 + 5 launches);
+25. the attention kernels against their plain versions at whisper-tiny's
+    and qwen2-vl-2b's shapes, float32 and bfloat16 (``ATTN_TOL``, bf16
+    also ``ATTN_BF16_ROUNDING``), two launches bitwise equal, each flash
+    launch on its dtype's route: flash non-causal at the encoder's B 4,
+    H 6, S 1,500, D 64, cross-attention Sq 16 and 448 over Sk 1,500, and
+    ragged Sq 1 / 63 / 65 over Sk 1 / 1,000; flash causal at qwen2-vl's
+    prefill (B 4, H 12, KV 2, S 1,280, D 128); decode over the cross
+    cache (B 4, KV 6, G 1, 1,500 slots, pos 1,499 on every row) and at
+    qwen2-vl's decode (B 8, KV 2, G 6, 2,048 slots, D 128, pos at the
+    split edges);
+26. the reduced whisper-tiny (frames of 16 and 37, prompt 40, cache 48)
+    and qwen2-vl-2b (8 patch embeddings, and text only with
+    ``ContinuousBatcher`` as phase 11) in float32, card against the CPU
+    plain path through ``make_prefill_step`` / ``make_decode_step``:
+    prefill and 4 decode steps' logits within 1e-4;
+27. whisper-tiny at full width in bfloat16 served through the step
+    functions: 4 streams of seeded frames [4, 1,500, 384] made on the
+    card, prompts of 4-16 tokens (left-padded), cache 448, 64 greedy
+    tokens; exactly 12 flash launches a prefill call (4 encoder
+    non-causal, 4 decoder causal, 4 cross), every one on the wgmma route,
+    and 8 decode launches a step (4 self, 4 cross); then the kernels
+    against the plain versions inside the model, as phase 12;
+28. qwen2-vl-2b at full width in bfloat16: 8 text-only requests (prompts
+    256-1,024) through ``ContinuousBatcher`` at max_batch 8, max_seq
+    2,048, then B 4 through ``make_prefill_step`` with 256 seeded patch
+    embeddings in front of the prompts and 32 decode steps: exactly 28
+    flash launches a prefill call (wgmma) and 28 decode launches a step;
+    kernels against plain inside the model, text only and with patches;
+29. both attention kernels' times at this slice's shapes in bfloat16
+    (flash non-causal at S 1,500 and cross Sq 448 x Sk 1,500; decode at
+    G 1 x 1,500 slots and G 6 x 2,048), each first held against its
+    plain version there, beside the plain version,
+    ``F.scaled_dot_product_attention`` and the bound (sub-entries of the
+    flash and decode rows).
 
 The last lines are the serving layers' record, the evaluation path's
-walls and summaries, the CNN path's and the four LM paths' serving
+walls and summaries, the CNN path's and the six LM paths' serving
 numbers, the per-layer conv2d times, the kernels line, the
 ``nvidia-smi`` line and the result object.
 Without CUDA it exits non-zero before printing any result.
@@ -230,7 +264,7 @@ CNN_WINDOW_S = 1.5               # least timed serving window of the CNN path
 LM_ARCH = "gemma2-9b"            # the LM serving path's model, full width
 LM_BATCH = 8                     # ServeConfig.max_batch of the served runs
 LM_CHECK_TOKENS = 1024           # prompt of the kernels-vs-plain check
-#: the served runs at full width (phases 12, 16, 17, 21), all at max_batch
+#: the served runs at full width (phases 12, 16, 17, 21, 27, 28), at max_batch
 #: 8: requests, prompt and max_new ranges (inclusive), max_seq, the kernel
 #: launches every prefill call and every decode step must make (16
 #: layers x 3 expert GEMMs for olmoe; recurrentgemma's 38 layers are 26
@@ -254,6 +288,18 @@ SERVED = {
     "xlstm-350m": dict(requests=8, prompt=(256, 1024), max_new=(8, 24),
                        max_seq=2048, prefill={"mlstm_chunk": 12},
                        decode={"mlstm_chunk": 12}, long=None),
+    # 28 layers; then ``streams`` requests with ``patches`` patch
+    # embeddings through the step functions, ``steps`` decode steps
+    "qwen2-vl-2b": dict(requests=8, prompt=(256, 1024), max_new=(8, 24),
+                        max_seq=2048, prefill={"flash_attention": 28},
+                        decode={"decode_attention": 28}, long=None,
+                        streams=4, patches=256, steps=32),
+    # served through the step functions only (the batcher passes no
+    # frames): 4 encoder, 4 decoder and 4 cross flash launches a prefill,
+    # 4 self and 4 cross decode launches a step
+    "whisper-tiny": dict(streams=4, prompt=(4, 16), cache_len=448,
+                         steps=63, prefill={"flash_attention": 12},
+                         decode={"decode_attention": 8}),
 }
 #: the expert GEMM against its plain version: float32 sums in another
 #: order grow with sqrt(D); bfloat16 within one output rounding, beside
@@ -1584,6 +1630,23 @@ class StepTimer:
         return self.batcher.run()
 
 
+def check_call(name, kind, launches, routes, want):
+    """One served call's launches (kernel -> count) must be exactly
+    ``want[kind]`` (every other kernel 0), and its launches of each kernel
+    in ``SERVED_ROUTES[kind]`` (``routes``: kernel -> route -> count) all
+    on the route named there (the served runs are bfloat16)."""
+    if launches != only(launches, **want[kind]):
+        raise AssertionError(f"{name} {kind} call launched {launches}, "
+                             f"want {want[kind]}")
+    for kernel, route in SERVED_ROUTES[kind].items():
+        got = routes[kernel]
+        if got != only(got, **{route: launches[kernel]}):
+            raise AssertionError(
+                f"{name} {kind} call: {kernel} launches by route {got}, "
+                f"want every one of the {launches[kernel]} on the {route} "
+                f"route")
+
+
 def serve_lm(np, torch, model, params, scfg, requests, want):
     """Serve ``requests`` through a fresh ``ContinuousBatcher`` with the
     launch counters reset just before and read just after; every prefill
@@ -1606,16 +1669,7 @@ def serve_lm(np, torch, model, params, scfg, requests, want):
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     for kind, calls in (("prefill", timer.prefill), ("decode", timer.decode)):
         for c in calls:
-            if c["launches"] != only(launches, **want[kind]):
-                raise AssertionError(f"{kind} call launched {c['launches']}"
-                                     f", want {want[kind]}")
-            for name, route in SERVED_ROUTES[kind].items():
-                got = c["routes"][name]
-                if got != only(got, **{route: c["launches"][name]}):
-                    raise AssertionError(
-                        f"{kind} call: {name} launches by route {got}, "
-                        f"want every one of the {c['launches'][name]} on "
-                        f"the {route} route")
+            check_call(model.cfg.name, kind, c["launches"], c["routes"], want)
     total = {k: want["prefill"].get(k, 0) * len(timer.prefill)
              + want["decode"].get(k, 0) * len(timer.decode)
              for k in launches}
@@ -1627,25 +1681,29 @@ def serve_lm(np, torch, model, params, scfg, requests, want):
     return done, timer, launches, peak
 
 
-def lm_sides(torch, model, params, prompts, steps=4):
-    """One prefill and ``steps`` decode steps three ways on the card, same
-    weights: through the kernels, through the plain versions, and
-    through the plain versions with their sums reordered.  Every side
-    decodes from a copy of the plain side's prefill cache and is fed the
-    plain side's greedy tokens, so each step compares like with like.
-    Returns each side's logits over the prefill and the decode steps, and
-    the plain side's."""
+def lm_sides(torch, model, params, prompts, steps=4, extra=None):
+    """One prefill (through ``make_prefill_step``, with ``extra``: the
+    frames or patch embeddings) and ``steps`` decode steps three ways on
+    the card, same weights: through the kernels, through the plain
+    versions, and through the plain versions with their sums reordered.
+    Every side decodes from a copy of the plain side's prefill cache and
+    is fed the plain side's greedy tokens, so each step compares like
+    with like.  Returns each side's logits over the prefill and the
+    decode steps, and the plain side's."""
+    from repro_torch.runtime.serve_loop import (decode_start,
+                                                make_prefill_step)
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=model.device)
-    b, s = toks.shape
-    cache_len = s + steps
+    b = toks.shape[0]
+    s = decode_start(model.cfg, toks, extra)
+    prefill = make_prefill_step(model, model.cfg, s + steps)
     sides = {"kernels": contextlib.nullcontext,
              "reordered": lambda: plain_kernels(True)}
     with plain_kernels():
-        ref, cache = model.prefill(params, toks, cache_len)
+        ref, cache = prefill(params, toks, extra)
     logits = {}
     for name, ctx in sides.items():
         with ctx():
-            logits[name] = [model.prefill(params, toks, cache_len)[0]]
+            logits[name] = [prefill(params, toks, extra)[0]]
     caches = {name: [{k: t.clone() for k, t in c.items()} for c in cache]
               for name in sides}
     refs = [ref]
@@ -1683,9 +1741,10 @@ def logit_gaps(torch, logits, refs):
     return out
 
 
-def check_lm_kernels_vs_plain(torch, model, params, prompts):
-    """The kernels against the plain versions inside the full model, in
-    its bfloat16 and with the same weights in float32.  Each logit's gap
+def check_lm_kernels_vs_plain(torch, model, params, prompts, extra=None):
+    """The kernels against the plain versions inside the full model (with
+    ``extra``, its frames or patch embeddings), in its bfloat16 and with
+    the same weights in float32.  Each logit's gap
     must stay within the larger of ``LM_GAP`` times the largest gap that
     reordering the plain versions' sums alone gives (one rounding of an
     activation, carried through every layer) and, in bfloat16,
@@ -1693,9 +1752,9 @@ def check_lm_kernels_vs_plain(torch, model, params, prompts):
     it.  Returns both, with each side's worst gap in ulps where the bf16
     ulp term sets the limit."""
     import dataclasses
-    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models import build_model
     out = {}
-    logits, refs = lm_sides(torch, model, params, prompts)
+    logits, refs = lm_sides(torch, model, params, prompts, extra=extra)
     bf16 = logit_gaps(torch, logits, refs)
     bf16["limit_abs"] = LM_GAP * bf16["reordered"]
     bf16["limit_ulps"] = LM_BF16_ULPS
@@ -1721,10 +1780,10 @@ def check_lm_kernels_vs_plain(torch, model, params, prompts):
             f"bf16 ulps of the logit); largest gap {bf16['kernels']}, "
             f"largest |logit| {bf16['max_abs_logit']}")
     cfg32 = dataclasses.replace(model.cfg, dtype="float32")
-    model32 = TransformerLM(cfg32, device=model.device)
+    model32 = build_model(cfg32, device=model.device)
 
     params32 = tree_map(lambda t: t.float(), params)
-    logits, refs = lm_sides(torch, model32, params32, prompts)
+    logits, refs = lm_sides(torch, model32, params32, prompts, extra=extra)
     f32 = out["float32"] = logit_gaps(torch, logits, refs)
     f32["limit_abs"] = LM_GAP * f32["reordered"]
     f32["kernels_share_of_limit"] = max(
@@ -1862,8 +1921,19 @@ def run_lm_path(np, torch, device, arch):
             2, cfg.vocab_size, (2, LM_CHECK_TOKENS)).astype(np.int32)
     diffs = check_lm_kernels_vs_plain(torch, model, params, prompts)
     lm["kernels_vs_plain_max_abs_logit_diff"] = diffs
+    log_lm_gaps(diffs, f"B={len(prompts)} x {LM_CHECK_TOKENS}-token prefill")
+    # the batchers' step wrappers hold them in reference cycles
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lm
+
+
+def log_lm_gaps(diffs, what):
+    """Log ``check_lm_kernels_vs_plain``'s gaps, each dtype's limit and the
+    kernels' share of it."""
     for dt, d in diffs.items():
-        log(f"  {dt}: B={len(prompts)} x {LM_CHECK_TOKENS}-token prefill + "
+        log(f"  {dt}: {what} + "
             f"4 decode steps, max abs logit diff from the plain versions: "
             f"kernels {d['kernels']:.4g}, plain with reordered sums "
             f"{d['reordered']:.4g}, largest |logit| "
@@ -1880,11 +1950,6 @@ def run_lm_path(np, torch, device, arch):
                f"ulp term sets it, kernels "
                f"{d['kernels_ulps_where_ulp_limit']:.3g} ulps, reordered "
                f"{d['reordered_ulps_where_ulp_limit']:.3g} ulps"))
-    # the batchers' step wrappers hold them in reference cycles
-    del params, model
-    gc.collect()
-    torch.cuda.empty_cache()
-    return lm
 
 
 def _leaves(tree):
@@ -3206,6 +3271,437 @@ def run_serving_path(np, torch, device):
     return record
 
 
+# ---------------------------------------------------------------------------
+# whisper-tiny (audio) and qwen2-vl-2b (M-RoPE, patch embeddings)
+# ---------------------------------------------------------------------------
+
+#: phase 25's flash cases (B, H, KV, Sq, Sk, D, causal): whisper's
+#: encoder (non-causal at S 1,500 = 23 x 64 + 28), its cross-attention
+#: from the prompt and from a 448-token prefill, ragged cross lengths,
+#: and qwen2-vl's causal prefill at GQA 12 / 2
+SLICE_FLASH = ([(4, 6, 6, 1500, 1500, 64, False),
+                (4, 6, 6, 16, 1500, 64, False),
+                (4, 6, 6, 448, 1500, 64, False)]
+               + [(2, 6, 6, sq, sk, 64, False) for sq in (1, 63, 65)
+                  for sk in (1, 1000)]
+               + [(4, 12, 2, 1280, 1280, 128, True)])
+#: phase 25's decode cases (B, KV, G, S, D, pos): whisper's cross cache
+#: with every slot valid, qwen2-vl's decode with pos at the split edges
+SLICE_DECODE = [(4, 6, 1, 1500, 64, "last"), (8, 2, 6, 2048, 128, "edges")]
+
+
+def flash_cross_case(torch, seed, b, h, kv, sq, sk, d, dtype, device):
+    """q [B, H, Sq, D], k/v [B, KV, Sk, D] as transposed views of
+    [B, S, heads, D] tensors, the way the model passes them."""
+    q, k, v = attn_inputs(torch, seed, [(b, sq, h, d), (b, sk, kv, d),
+                                        (b, sk, kv, d)], dtype, device)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def check_slice_attention(np, torch, device):
+    """Phase 25: ``SLICE_FLASH`` and ``SLICE_DECODE`` against the plain
+    versions in float32 and bfloat16 (``ATTN_TOL``, bf16 also
+    ``ATTN_BF16_ROUNDING``), two launches bitwise equal, each flash
+    launch on its dtype's route.  Returns the bfloat16 max abs errors at
+    the shapes phase 29 times."""
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    errs = {}
+
+    def hold(name, got, again, ref, dtype):
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches differ")
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **ATTN_TOL[str(dtype).split(".")[1]])
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       **ATTN_BF16_ROUNDING)
+        return float((got.double() - ref.double()).abs().max())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (b, h, kv, sq, sk, d, causal) in enumerate(SLICE_FLASH):
+            q, k, v = flash_cross_case(torch, 500 + i, b, h, kv, sq, sk, d,
+                                       dtype, device)
+            got, route = take_route(flash_attention, lambda: flash_attention(
+                q, k, v, causal=causal))
+            want_route("flash_attention", route,
+                       "wgmma" if dtype == torch.bfloat16 else "simt")
+            err = hold(f"flash_attention {b, h, kv, sq, sk, d}", got,
+                       flash_attention(q, k, v, causal=causal),
+                       attention_ref(q, k, v, causal=causal), dtype)
+            if dtype == torch.bfloat16 and sk == 1500 and sq in (1500, 448):
+                errs["encoder" if sq == sk else "cross"] = err
+            log(f"  flash_attention {str(dtype)[6:]} B={b} H={h} KV={kv} "
+                f"Sq={sq} Sk={sk} D={d} causal={causal}: {route} route, "
+                f"max abs err {err:.3g}, two launches bitwise equal")
+        for i, (b, kv, g, s, d, where) in enumerate(SLICE_DECODE):
+            if where == "last":
+                q, k, v, _ = decode_case(torch, 600 + i, b, kv, g, s, d,
+                                         dtype, device)
+                pos = torch.full((b,), s - 1, dtype=torch.int32,
+                                 device=device)
+            else:
+                q, k, v, pos, _ = decode_edge_case(torch, 600 + i, b, kv, g,
+                                                   s, d, dtype, device)
+            err = hold(f"decode_attention {b, kv, g, s, d}",
+                       decode_attention(q, k, v, pos),
+                       decode_attention(q, k, v, pos),
+                       decode_ref(q, k, v, pos), dtype)
+            if dtype == torch.bfloat16:
+                errs["cross_decode" if g == 1 else "vlm_decode"] = err
+            log(f"  decode_attention {str(dtype)[6:]} B={b} KV={kv} G={g} "
+                f"S={s} D={d} pos={pos.tolist()}: max abs err {err:.3g}, "
+                f"two launches bitwise equal")
+    return errs
+
+
+def extra_inputs(np, torch, cfg, b, s, n_extra, seed, device):
+    """Seeded prompt tokens [B, S] and the ``make_prefill_step`` extra of
+    ``cfg``: whisper's frames [B, n_extra, d] or the VLM's patch
+    embeddings [B, n_extra, d] (standard normal, float32), on ``device``."""
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                           dtype=torch.int32, device=device)
+    extra = torch.as_tensor(rng.normal(size=(b, n_extra, cfg.d_model)),
+                            dtype=torch.float32, device=device)
+    return toks, extra
+
+
+def check_reduced_extra(np, torch, device):
+    """Phase 26: the reduced whisper-tiny (frames of 16 and a ragged 37)
+    and qwen2-vl-2b (8 patch embeddings) in float32 on the card against
+    the CPU plain path with the same parameters, through
+    ``make_prefill_step``: a 40-token prompt, the cache 4 slots longer,
+    prefill and 4 decode steps' logits within atol / rtol 1e-4."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import (decode_start,
+                                                make_prefill_step)
+    for arch, n_extra in (("whisper-tiny", 16), ("whisper-tiny", 37),
+                          ("qwen2-vl-2b", 8)):
+        cfg = get_arch(arch).reduced()
+        cpu = build_model(cfg, device="cpu")
+        p_cpu = cpu.init(torch.Generator().manual_seed(0))
+        gpu = build_model(cfg, device=device)
+        p_gpu = tree_map(lambda t: t.to(device), p_cpu)
+        toks, extra = extra_inputs(np, torch, cfg, 2, 40, n_extra, 1, "cpu")
+        first = decode_start(cfg, toks, extra)
+        lc, cc = make_prefill_step(cpu, cfg, first + 4)(p_cpu, toks, extra)
+        lg, cg = make_prefill_step(gpu, cfg, first + 4)(
+            p_gpu, toks.to(device), extra.to(device))
+        worst = 0.0
+        for i in range(5):
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+            if i == 4:
+                break
+            nxt = torch.argmax(lc, -1).to(torch.int32)[:, None]
+            pos = torch.full((2, 1), first + i, dtype=torch.int32)
+            lc, cc = cpu.decode_step(p_cpu, nxt, pos, cc)
+            lg, cg = gpu.decode_step(p_gpu, nxt.to(device), pos.to(device),
+                                     cg)
+        what = "frames" if cfg.family == "audio" else "patch embeddings"
+        log(f"  {cfg.name} ({n_extra} {what}, 40-token prompt, cache "
+            f"{first + 4}): prefill + 4 decode logits, card vs CPU max abs "
+            f"diff {worst:.3g}")
+
+
+def padded_prompts(np, torch, vocab, n, prompt, seed, device):
+    """``n`` seeded prompts of ``prompt`` (inclusive range) tokens,
+    left-padded with token 0 to the longest, as ``ContinuousBatcher``
+    batches them: [n, S] int32 on ``device``, and the prompts' lengths."""
+    rng = np.random.default_rng(seed)
+    lens = [int(rng.integers(prompt[0], prompt[1] + 1)) for _ in range(n)]
+    toks = np.zeros((n, max(lens)), np.int32)
+    for i, m in enumerate(lens):
+        toks[i, -m:] = rng.integers(2, vocab, size=m)
+    return torch.as_tensor(toks, device=device), lens
+
+
+def serve_steps(np, torch, model, params, toks, extra, cache_len, steps,
+                want):
+    """Serve a batch through the reference's step functions
+    (``make_prefill_step`` with ``extra``, then ``steps`` greedy
+    ``make_decode_step`` calls), the launch counters reset just before and
+    read just after: the prefill call must launch exactly
+    ``want["prefill"]`` and each decode step ``want["decode"]``, every
+    launch of a kernel in ``SERVED_ROUTES`` on the route it names.  The
+    prefill gives every stream its first token, so TTFT is the prefill's
+    wall.  Returns the run's numbers."""
+    from repro_torch import kernels
+    from repro_torch.runtime.serve_loop import (decode_start,
+                                                make_decode_step,
+                                                make_prefill_step)
+    cfg = model.cfg
+    prefill = make_prefill_step(model, cfg, cache_len)
+    decode = make_decode_step(model)
+    calls = {"prefill": [], "decode": []}
+
+    def call(kind, fn, *args):
+        before = kernels.launch_counts()
+        routes_before = kernels.route_counts()
+        with torch.profiler.record_function(f"serve.{kind}"):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        check_call(cfg.name, kind, {k: after[k] - before[k] for k in after},
+                   {k: {r: n - routes_before[k][r] for r, n in v.items()}
+                    for k, v in kernels.route_counts().items()}, want)
+        calls[kind].append(wall)
+        return out
+
+    b = toks.shape[0]
+    first = decode_start(cfg, toks, extra)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = call("prefill", prefill, params, toks, extra)
+    if tuple(logits.shape) != (b, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: prefill logits "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    nxt = torch.argmax(logits, -1).to(torch.int32)
+    out = [nxt]
+    for i in range(steps):
+        pos = torch.full((b, 1), first + i, dtype=torch.int32,
+                         device=model.device)
+        nxt, cache = call("decode", decode, params, cache, nxt[:, None], pos,
+                          None)
+        out.append(nxt)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    total = {k: want["prefill"].get(k, 0) + want["decode"].get(k, 0) * steps
+             for k in launches}
+    if launches != total:
+        raise AssertionError(f"{cfg.name}: launches {launches} != {total}")
+    tokens = torch.stack(out, 1)
+    if not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: a token outside the vocabulary")
+    dec = calls["decode"]
+    return {"streams": b, "prompt_tokens": toks.shape[1],
+            "extra_tokens": None if extra is None else extra.shape[1],
+            "cache_len": cache_len, "generated_tokens": b * (steps + 1),
+            "distinct_tokens": len(set(tokens.flatten().tolist())),
+            "prefill_s": calls["prefill"][0], "ttft_s": calls["prefill"][0],
+            "decode_steps": steps,
+            "decode_step_ms_min": min(dec) * 1e3,
+            "decode_step_ms_median": pct(dec, 50) * 1e3,
+            "decode_step_ms_max": max(dec) * 1e3,
+            "decode_tokens_per_s": b * steps / sum(dec), "wall_s": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches}
+
+
+def log_steps(run, what):
+    log(f"  {what}: {run['streams']} streams x {run['prompt_tokens']} "
+        f"tokens (+ {run['extra_tokens']} extra), cache "
+        f"{run['cache_len']}: TTFT (the prefill) {run['ttft_s']:.4f} s; "
+        f"{run['decode_steps']} decode steps min / median / max "
+        f"{run['decode_step_ms_min']:.2f} / "
+        f"{run['decode_step_ms_median']:.2f} / "
+        f"{run['decode_step_ms_max']:.2f} ms, "
+        f"{run['decode_tokens_per_s']:.1f} decode tokens/s; "
+        f"{run['generated_tokens']} tokens ({run['distinct_tokens']} "
+        f"distinct); peak {run['peak_gib']:.2f} GiB; launches "
+        f"{run['launches']}")
+
+
+def init_full(torch, arch, device):
+    """``arch`` at full width on the card, weights from a seeded card
+    generator: (model, params, record of the init)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    model = build_model(get_arch(arch), device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    rec = {"model": arch, "init_s": time.perf_counter() - t0,
+           "params": sum(t.numel() for t in _leaves(params)),
+           "weights_gb": sum(t.numel() * t.element_size()
+                             for t in _leaves(params)) / 1e9}
+    log(f"  {arch}: {rec['params'] / 1e9:.3f} B parameters, "
+        f"{rec['weights_gb']:.2f} GB held, initialised on the card in "
+        f"{rec['init_s']:.2f} s")
+    return model, params, rec
+
+
+def run_whisper_path(np, torch, device):
+    """Phase 27: whisper-tiny at full width in bfloat16 through the step
+    functions (``SERVED["whisper-tiny"]``): seeded frames made on the
+    card, left-padded prompts, greedy decoding, exact launches and routes
+    a call; then the kernels against the plain versions inside the model
+    (2 streams, their frames and prompts)."""
+    arch = "whisper-tiny"
+    spec = SERVED[arch]
+    want = {"prefill": spec["prefill"], "decode": spec["decode"]}
+    model, params, rec = init_full(torch, arch, device)
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(7)
+    frames = torch.randn((spec["streams"], cfg.enc_seq, cfg.d_model),
+                         generator=gen, device=device).to(torch.bfloat16)
+    toks, lens = padded_prompts(np, torch, cfg.vocab_size, spec["streams"],
+                                spec["prompt"], 3, device)
+    # warm-up: cuBLAS handles and the kernels' first launches
+    serve_steps(np, torch, model, params, toks, frames, spec["cache_len"],
+                2, want)
+    run = serve_steps(np, torch, model, params, toks, frames,
+                      spec["cache_len"], spec["steps"], want)
+    rec.update(run, prompt_lengths=lens)
+    log_steps(run, f"{arch} (frames {list(frames.shape)}, prompts {lens})")
+    diffs = check_lm_kernels_vs_plain(torch, model, params,
+                                      toks[:2].cpu().numpy(), frames[:2])
+    rec["kernels_vs_plain_max_abs_logit_diff"] = diffs
+    log_lm_gaps(diffs, f"B=2 x {toks.shape[1]}-token prompt over "
+                f"{cfg.enc_seq} frames")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_vlm_patches(np, torch, device):
+    """Phase 28 (b): qwen2-vl-2b at full width, ``streams`` requests with
+    ``patches`` seeded patch embeddings (made on the card) in front of
+    their prompts through the step functions, ``steps`` greedy decode
+    steps, exact launches and routes a call; then the kernels against the
+    plain versions inside the model with the patch embeddings."""
+    arch = "qwen2-vl-2b"
+    spec = SERVED[arch]
+    want = {"prefill": spec["prefill"], "decode": spec["decode"]}
+    model, params, rec = init_full(torch, arch, device)
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(8)
+    patches = torch.randn((spec["streams"], spec["patches"], cfg.d_model),
+                          generator=gen, device=device).to(torch.bfloat16)
+    toks, lens = padded_prompts(np, torch, cfg.vocab_size, spec["streams"],
+                                spec["prompt"], 4, device)
+    serve_steps(np, torch, model, params, toks[:, -64:], patches,
+                spec["max_seq"], 2, want)
+    run = serve_steps(np, torch, model, params, toks, patches,
+                      spec["max_seq"], spec["steps"], want)
+    rec.update(run, prompt_lengths=lens)
+    log_steps(run, f"{arch} with {spec['patches']} patch embeddings "
+              f"(prompts {lens})")
+    prompts = toks[:2, -256:].cpu().numpy()
+    diffs = check_lm_kernels_vs_plain(torch, model, params, prompts,
+                                      patches[:2])
+    rec["kernels_vs_plain_max_abs_logit_diff"] = diffs
+    log_lm_gaps(diffs, f"B=2 x ({spec['patches']} patch embeddings + "
+                f"{prompts.shape[1]}-token prompt)")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def time_slice_attention(torch, device, served, errs):
+    """Phase 29: the attention kernels at this slice's shapes in bfloat16,
+    each first held against its plain version there (``errs`` from phase
+    25 at the same shapes), beside the plain version,
+    ``F.scaled_dot_product_attention`` and the bound from this run's
+    shapes: flash non-causal at whisper's encoder (B 4, H 6, S 1,500, D
+    64) and cross-attention Sq 448 x Sk 1,500; decode over the cross
+    cache (B 4, KV 6, G 1, 1,500 slots) and at qwen2-vl's decode (B 8, KV
+    2, G 6, 2,048 slots, D 128), every slot valid.  Returns (flash
+    entries, decode entries), keyed by case; ``launches`` is what the
+    counters read over the served run that ``launches_of`` names: every
+    launch of that kernel there, whatever the layer (the counters do not
+    tell the encoder's, the decoder's and the cross calls apart)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    bf = torch.bfloat16
+    wh, vl = served["whisper-tiny"], served["qwen2-vl-2b"]
+    whole = "the whole run: prefill and decode steps"
+    flash, decode = {}, {}
+    for key, (b, h, kv, sq, sk, d) in (("whisper_encoder",
+                                        (4, 6, 6, 1500, 1500, 64)),
+                                       ("whisper_cross",
+                                        (4, 6, 6, 448, 1500, 64))):
+        q, k, v = flash_cross_case(torch, 700, b, h, kv, sq, sk, d, bf,
+                                   device)
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        nops = 4 * b * h * sq * sk * d
+        nbytes = 2 * (2 * b * h * sq * d + 2 * b * kv * sk * d)
+        flash[key] = attention_entry(
+            torch, lambda: flash_attention(q, k, v, causal=False),
+            lambda: attention_ref(q, k, v, causal=False),
+            lambda: F.scaled_dot_product_attention(qc, kc, vc),
+            nbytes, nops, BF16_OPS_PER_S, 5,
+            errs["encoder" if sq == sk else "cross"], [b, h, kv, sq, sk, d],
+            wh["launches"]["flash_attention"])
+        flash[key]["launches_of"] = f"whisper-tiny's served run ({whole})"
+        flash[key]["kernel_route"] = take_route(
+            flash_attention, lambda: flash_attention(q, k, v,
+                                                     causal=False))[1]
+    for key, (b, kv, g, s, d), run, of in (
+            ("whisper_cross_decode", (4, 6, 1, 1500, 64), wh,
+             f"whisper-tiny's served run ({whole})"),
+            ("qwen2vl_decode", (8, 2, 6, 2048, 128), vl,
+             "qwen2-vl-2b's ContinuousBatcher run")):
+        q, k, v, _ = decode_case(torch, 701, b, kv, g, s, d, bf, device)
+        pos = torch.full((b,), s - 1, dtype=torch.int32, device=device)
+        q_h = q.reshape(b, kv * g, 1, d)
+        nbytes = 2 * (2 * b * kv * g * d + 2 * b * kv * s * d) + 4 * b
+        nops = 4 * b * kv * g * d * s
+        decode[key] = attention_entry(
+            torch, lambda: decode_attention(q, k, v, pos),
+            lambda: decode_ref(q, k, v, pos),
+            lambda: F.scaled_dot_product_attention(q_h, k, v,
+                                                   enable_gqa=True),
+            nbytes, nops, FP32_OPS_PER_S, 20,
+            errs["cross_decode" if g == 1 else "vlm_decode"],
+            [b, kv, g, s, d], run["launches"]["decode_attention"])
+        decode[key]["launches_of"] = of
+    for name, entries in (("flash_attention", flash),
+                          ("decode_attention", decode)):
+        for key, e in entries.items():
+            log(f"  {name} {key} {e['shape']} bf16: max abs err "
+                f"{e['max_abs_err']:.3g}; {e['ms']:.4f} ms in a graph "
+                f"({e['tflops']:.2f} TFLOP/s, {e['gb_per_s']:.1f} GB/s), "
+                f"{e['eager_ms']:.4f} eager; plain {e['plain_ms']:.4f} ms; "
+                f"SDPA {e['library_ms']:.4f} ms; bound {e['bound_ms']:.4f} "
+                f"ms ({e['bound_by']})")
+    return flash, decode
+
+
+def attention_entry(torch, kern, plain, lib, nbytes, nops, peak, iters, err,
+                    shape, launches):
+    """One timed attention shape: the kernel's, the plain version's and
+    the library call's times (CUDA graph), the kernel's eager time, and
+    the bound (bytes at the HBM rate or operations at ``peak``)."""
+    kern()
+    torch.testing.assert_close(kern().float(), plain().float(),
+                               **ATTN_BF16_ROUNDING)
+    ms = time_ms(torch, kern, iters, graph=True)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / peak * 1e3
+    return {"shape": shape, "dtype": "bfloat16", "launches": launches,
+            "max_abs_err": err, "ms": ms,
+            "eager_ms": time_ms(torch, kern, iters, graph=False),
+            "plain_ms": time_ms(torch, plain, iters, graph=True),
+            "library_ms": time_ms(torch, lib, iters, graph=True),
+            "library": "F.scaled_dot_product_attention",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": nops,
+            "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3289,7 +3785,27 @@ def main() -> int:
     log("[24] the figure scripts and the serving layers: replanner, chaos "
         "ladder, gateway soak, examples")
     serving = run_serving_path(np, torch, device)
+
+    log("[25] attention kernels at whisper-tiny's and qwen2-vl-2b's shapes "
+        "against their plain versions on the card")
+    slice_errs = check_slice_attention(np, torch, device)
+    log("[26] reduced whisper-tiny and qwen2-vl-2b: card against the CPU "
+        "plain path")
+    check_reduced_extra(np, torch, device)
+    check_reduced_lms(np, torch, device, ("qwen2-vl-2b",))
+    log("[27] whisper-tiny at full width through the step functions")
+    served["whisper-tiny"] = run_whisper_path(np, torch, device)
+    log("[28] qwen2-vl-2b at full width through ContinuousBatcher, then "
+        "with patch embeddings through the step functions")
+    served["qwen2-vl-2b"] = run_lm_path(np, torch, device, "qwen2-vl-2b")
+    served["qwen2-vl-2b"]["patches"] = run_vlm_patches(np, torch, device)
+    log("[29] attention kernel times (CUDA events), whisper-tiny and "
+        "qwen2-vl-2b shapes")
+    flash_x, decode_x = time_slice_attention(torch, device, served,
+                                             slice_errs)
     for row in rows:
+        row.update({"flash_attention": flash_x,
+                    "decode_attention": decode_x}.get(row["name"], {}))
         if row["name"] in ("flash_attention", "decode_attention"):
             row["launches_by_path"] = {a: s["launches"][row["name"]]
                                        for a, s in served.items()}

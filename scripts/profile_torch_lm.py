@@ -2,24 +2,26 @@
 """Where the time of the port's LM serving path goes, on one CUDA card.
 
     PYTHONPATH=src python3 scripts/profile_torch_lm.py \
-        [--arch gemma2-9b|olmoe-1b-7b|recurrentgemma-9b|xlstm-350m] \
+        [--arch gemma2-9b|olmoe-1b-7b|recurrentgemma-9b|xlstm-350m|
+                qwen2-vl-2b|whisper-tiny] \
         [--out build/profile_lm.json]
 
 Builds the model at full width as ``chip_smoke.py`` does (bfloat16
 weights from a seeded card generator), warms up, and traces the smoke's
 serving run of that model under ``torch.profiler``: its requests through
 ``ContinuousBatcher`` at max_batch 8 (``chip_smoke.SERVED``,
-``chip_smoke.serve_lm``).  Each prefill call and decode step runs in the
-profiler range ``serve.prefill`` or ``serve.decode`` and ends in a device
-synchronise (``chip_smoke.StepTimer``); a kernel counts for the range its
-launch call lies in, matched by the tracer's correlation id, so the
-ctypes kernels count as well as PyTorch's own.  For each of the two
-ranges: calls, wall (profiler on), kernel launches, summed device time
-(busy share = device time / wall), device time by kind of kernel (the
-flash- and decode-attention, expert-GEMM, RG-LRU-scan and mLSTM-chunk
-kernels, GEMMs by cuBLAS / CUTLASS names, and the rest: norms, RoPE,
-routing, activations, the sLSTM step's elementwise ops, casts, copies)
-and the kernels that take the most.
+``chip_smoke.serve_lm``), or for whisper-tiny its streams of frames
+through the step functions (``chip_smoke.serve_steps``). Each prefill
+call and decode step runs in the profiler range ``serve.prefill`` or
+``serve.decode`` and ends in a device synchronise; a kernel counts for
+the range its launch call lies in, matched by the tracer's correlation
+id, so the ctypes kernels count as well as PyTorch's own. For each of
+the two ranges: calls, wall (profiler on), kernel launches, summed
+device time (busy share = device time / wall), device time by kind of
+kernel (the flash- and decode-attention, expert-GEMM, RG-LRU-scan and
+mLSTM-chunk kernels, GEMMs by cuBLAS / CUTLASS names, and the rest:
+norms, RoPE, routing, activations, the sLSTM step's elementwise ops,
+casts, copies) and the kernels that take the most.
 
 Writes the numbers as JSON to ``--out`` and prints them.
 """
@@ -132,31 +134,52 @@ def main() -> int:
     cfg = get_arch(args.arch)
     model = build_model(cfg, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    scfg = ServeConfig(max_batch=chip_smoke.LM_BATCH,
-                       max_seq=spec["max_seq"])
 
     def requests(n, prompt, max_new, seed=0):
         return chip_smoke.lm_requests(np, Request, cfg.vocab_size, n, prompt,
                                       max_new, seed)
 
     want = {"prefill": spec["prefill"], "decode": spec["decode"]}
-    chip_smoke.serve_lm(np, torch, model, params, scfg,             # warm-up
-                        requests(2, (64, 64), (3, 3), seed=99), want)
+    if cfg.family == "audio":
+        # the batcher passes no frames: the step functions, as phase 27
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        frames = torch.randn((spec["streams"], cfg.enc_seq, cfg.d_model),
+                             generator=gen, device="cuda").to(torch.bfloat16)
+        toks, _ = chip_smoke.padded_prompts(np, torch, cfg.vocab_size,
+                                            spec["streams"], spec["prompt"],
+                                            3, "cuda")
+
+        def run(warm_up):
+            out = chip_smoke.serve_steps(
+                np, torch, model, params, toks, frames, spec["cache_len"],
+                2 if warm_up else spec["steps"], want)
+            return out["launches"], {
+                "streams": out["streams"], "frames": cfg.enc_seq,
+                "prompt_tokens": out["prompt_tokens"],
+                "cache_len": spec["cache_len"]}
+    else:
+        scfg = ServeConfig(max_batch=chip_smoke.LM_BATCH,
+                           max_seq=spec["max_seq"])
+
+        def run(warm_up):
+            reqs = requests(2, (64, 64), (3, 3), seed=99) if warm_up else \
+                requests(spec["requests"], spec["prompt"], spec["max_new"])
+            done, timer, launches, _ = chip_smoke.serve_lm(
+                np, torch, model, params, scfg, reqs, want)
+            return launches, {
+                "max_batch": scfg.max_batch, "max_seq": scfg.max_seq,
+                "requests": len(done),
+                "prefill_shapes": [[c["batch"], c["tokens"]]
+                                   for c in timer.prefill]}
+    run(warm_up=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        done, timer, launches, _ = chip_smoke.serve_lm(
-            np, torch, model, params, scfg,
-            requests(spec["requests"], spec["prompt"], spec["max_new"]),
-            want)
+        launches, config = run(warm_up=False)
         wall = time.perf_counter() - t0
     result = {"card": smi, "torch": torch.__version__,
-              "config": {"model": cfg.name, "dtype": cfg.dtype,
-                         "max_batch": scfg.max_batch,
-                         "max_seq": scfg.max_seq, "requests": len(done),
-                         "prefill_shapes": [[c["batch"], c["tokens"]]
-                                            for c in timer.prefill]},
+              "config": {"model": cfg.name, "dtype": cfg.dtype, **config},
               "profiled_wall_s": wall, "launch_counts": launches,
               **range_times(torch, prof)}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -71,14 +71,16 @@ class AttentionConfig:
     # 'griffin' (2 recurrent : 1 local-attn)
     pattern: str = "full"
     rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE section split
 
 
 @dataclass(frozen=True)
 class ArchConfig:
     """Architecture of one LM: the reference's fields that the served
-    families read.  The reference's fields of the families still to port
-    (whisper, the VLM), of training and of its dry-run shapes come with
-    those slices, and its parameter count (``n_params``) with the
+    families read, whisper's encoder (``enc_layers``, ``enc_seq``) and
+    the VLM's prepended patch embeddings (``vision_tokens``) included.
+    The reference's fields of training and of its dry-run shapes come
+    with those slices, and its parameter count (``n_params``) with the
     architecture cost model (ROADMAP queue 1 items 2 and 14)."""
 
     name: str
@@ -99,6 +101,11 @@ class ArchConfig:
     # griffin / recurrentgemma: RG-LRU width & conv1d size
     rglru_width: int = 0
     rglru_conv_size: int = 4
+    # whisper: encoder stack (the decoder has n_layers)
+    enc_layers: int = 0
+    enc_seq: int = 1500                # precomputed frame embeddings (stub)
+    # vlm: number of prepended vision patch embeddings (stub frontend)
+    vision_tokens: int = 0
     dtype: str = "bfloat16"            # compute (and weight matrix) dtype
 
     @property
@@ -112,7 +119,9 @@ class ArchConfig:
         """Tiny same-family config for CPU tests (the reference's rule:
         <= 4 heads of width 16, <= 4 layers, d_ff 128, vocab 256, window
         <= 32, float32; MoE at <= 8 experts, top-k <= 2, d_expert 32 and a
-        drop-free capacity factor; RG-LRU width 64)."""
+        drop-free capacity factor; RG-LRU width 64; M-RoPE sections
+        (4, 2, 2); <= 2 encoder layers over 16 frames, 0 frames without
+        an encoder; 8 vision tokens)."""
         a = self.attention
         heads = min(a.n_heads, 4) or 4
         kv = max(1, min(a.n_kv_heads, heads))
@@ -120,7 +129,8 @@ class ArchConfig:
             kv = max(1, heads // 2)     # GQA stays GQA
         red_attn = dataclasses.replace(
             a, n_heads=heads, n_kv_heads=kv, head_dim=16,
-            window=min(a.window, 32) if a.window else 0)
+            window=min(a.window, 32) if a.window else 0,
+            mrope_sections=(4, 2, 2) if a.mrope_sections else ())
         red_moe = self.moe
         if self.moe.enabled:
             ne = min(8, self.moe.n_experts)
@@ -138,6 +148,9 @@ class ArchConfig:
             attention=red_attn,
             moe=red_moe,
             rglru_width=64 if self.rglru_width else 0,
+            enc_layers=min(self.enc_layers, 2),
+            enc_seq=16 if self.enc_layers else 0,
+            vision_tokens=8 if self.vision_tokens else 0,
             dtype="float32",
         )
 

@@ -1,6 +1,6 @@
-"""``get_arch(name)``: the architectures the port serves so far (the dense
-LMs, the MoE LMs, recurrentgemma, xlstm and the paper's CNNs), by
-their reference ids."""
+"""``get_arch(name)``: the architectures the port serves (the dense LMs,
+the MoE LMs, recurrentgemma, xlstm, whisper-tiny, qwen2-vl and the
+paper's CNNs), by their reference ids."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +17,8 @@ _MODULES: Dict[str, str] = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
 }
 _CNNS = {"lenet": "LENET", "alexnet": "ALEXNET"}
 

@@ -11,7 +11,8 @@ and random streams cross as numpy arrays: ``FleetRollout.run`` makes its
 host draws in the reference's order.  ``cnn_params_from_arrays`` carries
 a CNN's parameters (HWIO conv filters, [in, out] FC weights, as numpy
 arrays) into the port's tensors, so both packages run the same network;
-``lm_params_from_arrays`` does the same for an LM's parameter tree.
+``lm_params_from_arrays`` does the same for an LM's parameter tree and
+``whisper_params_from_arrays`` for whisper's.
 """
 from __future__ import annotations
 
@@ -95,10 +96,28 @@ def cnn_params_from_arrays(arrays: Sequence[Mapping],
 
 
 #: leaves the port holds in float32 whatever the compute dtype: norm
-#: scales, the qkv biases and the RG-LRU gate biases (the reference casts
-#: them at use too), and the RG-LRU's ``log_lambda``, whose softplus the
-#: reference takes in float32
-_FLOAT32_LEAVES = ("scale", "bq", "bk", "bv", "b_a", "b_i", "log_lambda")
+#: scales, layer-norm biases, the qkv biases and the RG-LRU gate biases
+#: (the reference casts them at use too), and the RG-LRU's
+#: ``log_lambda``, whose softplus the reference takes in float32
+_FLOAT32_LEAVES = ("scale", "bias", "bq", "bk", "bv", "b_a", "b_i",
+                   "log_lambda")
+
+
+def _tensors(cfg: ArchConfig, device: DeviceLike):
+    """``tree(t)``: a nest of dicts and lists of numpy arrays -> the same
+    nest of tensors on ``device``, each leaf in ``cfg.dtype`` unless its
+    key is in ``_FLOAT32_LEAVES``."""
+    dev = resolve_device(device)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+    def tree(t, name=""):
+        if isinstance(t, Mapping):
+            return {k: tree(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [tree(v, name) for v in t]
+        dt = torch.float32 if name in _FLOAT32_LEAVES else dtype
+        return torch.tensor(np.asarray(t, np.float32), device=dev).to(dt)
+    return tree
 
 
 def lm_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
@@ -117,17 +136,7 @@ def lm_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
     ``wo`` included) keep the reference's shapes and are cast to
     ``cfg.dtype``, where the reference casts them at use; the leaves of
     ``_FLOAT32_LEAVES`` stay float32."""
-    dev = resolve_device(device)
-    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
-
-    def leaf(name, a):
-        dt = torch.float32 if name in _FLOAT32_LEAVES else dtype
-        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
-
-    def tree(t, name=""):
-        if isinstance(t, Mapping):
-            return {k: tree(v, k) for k, v in t.items()}
-        return leaf(name, t)
+    tree = _tensors(cfg, device)
 
     def slice_j(t, j):
         if isinstance(t, Mapping):
@@ -150,5 +159,21 @@ def lm_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
     return out
 
 
+def whisper_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
+                               device: DeviceLike = None) -> dict:
+    """The reference ``WhisperLM.init`` tree as numpy arrays (``embed``,
+    ``enc`` and ``dec`` lists of layers, ``enc_norm``, ``dec_norm``) ->
+    the port's ``WhisperLM`` parameters on ``device``: the same tree,
+    matrices in ``cfg.dtype``, layer-norm scales and biases and the qkv
+    biases in float32."""
+    out = _tensors(cfg, device)(arrays)
+    if (len(out["enc"]), len(out["dec"])) != (cfg.enc_layers, cfg.n_layers):
+        raise ValueError(f"{len(out['enc'])} encoder and {len(out['dec'])} "
+                         f"decoder layers in the tree, config has "
+                         f"{cfg.enc_layers} and {cfg.n_layers}")
+    return out
+
+
 __all__ = ["ARRAY_KEYS", "cnn_params_from_arrays", "engine_arrays",
-           "engine_from_arrays", "fleet_from_arrays", "lm_params_from_arrays"]
+           "engine_from_arrays", "fleet_from_arrays", "lm_params_from_arrays",
+           "whisper_params_from_arrays"]

@@ -2,12 +2,16 @@
 // GQA) for sm_90a.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention/
-// flash_attention.py (`flash_attention`): for each (b, h) and query row q,
-// o[q] = softmax_k(mask(cap(q . k * scale))) @ v over the kv head h / group,
-// with mask = k < S, and q >= k when causal, and q - k < window when a
-// window is set (positions are indices); masked logits are -1e30 and the
-// running sum is clamped at 1e-30, as in the TPU kernel.  float32 math
-// from float32 or bfloat16 inputs; the output has the inputs' dtype.
+// flash_attention.py (`flash_attention`): for each (b, h) and query row q
+// < Sq, o[q] = softmax_k(mask(cap(q . k * scale))) @ v over the keys k < Sk
+// of kv head h / group, with mask = k < Sk, and q >= k when causal, and
+// q - k < window when a window is set (positions are indices); masked
+// logits are -1e30 and the running sum is clamped at 1e-30, as in the TPU
+// kernel.  float32 math from float32 or bfloat16 inputs; the output has
+// the inputs' dtype.  The TPU kernel takes one S; here the keys have a
+// length of their own, Sk, for cross-attention (whisper's decoder over its
+// encoder's frames: Sq the prompt, Sk 1,500), which the wrapper allows
+// only without a causal mask or a window (Sk = Sq otherwise).
 //
 // Bound: operations.  At gemma2-9b's prefill (B 8, H 16, D 256, S in the
 // thousands) a causal launch does 2 B H S^2 D flops (QK^T and PV, half of
@@ -23,7 +27,7 @@
 //   brings Q in once and streams K and V tiles of 64 keys through two
 //   2-stage TMA rings (an mbarrier pair per stage), by 4D tensor maps over
 //   the (b, head, s, d) strides (boxes of min(D, 64) columns, swizzled
-//   32/64/128 B; rows past S read as zeros).  Per kv tile a warpgroup
+//   32/64/128 B; rows past Sq or Sk read as zeros).  Per kv tile a warpgroup
 //   computes S = Q K^T with wgmma m64n64k16 over D (K is K-major), then
 //   scale, softcap, mask and the online-softmax update on the accumulator
 //   fragment in registers (row max and sum over the 4 lanes that share a
@@ -49,8 +53,10 @@
 // window would add exactly zero (after a finite max, exp(-1e30 - m) is 0;
 // before one, alpha = exp(-1e30 - m) zeroes what it added).  Query blocks
 // are issued heaviest first.  Every sum has one fixed order, so a launch
-// is deterministic.  Ragged S is masked: keys past S are masked, rows past
-// S are not stored.
+// is deterministic.  Ragged lengths are masked: keys past Sk are masked in
+// the logits (-1e30, not the zero logit that TMA's zero rows would give:
+// the last kv tile of a non-causal launch at Sk 1,500 = 23 x 64 + 28 holds
+// 36 such rows), rows past Sq are not stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,7 +99,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
-                       int H, int group, int S,
+                       int H, int group, int Sq, int Sk,
                        long long qsb, long long qsh, long long qss,
                        long long ksb, long long ksh, long long kss,
                        long long vsb, long long vsh, long long vss,
@@ -111,16 +117,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest blocks first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
   const int q0 = qt * BQ;
-  const int q_last = min(q0 + BQ, S) - 1;
+  const int q_last = min(q0 + BQ, Sq) - 1;
 
   const T* qb = q + b * qsb + h * qsh;
   const T* kb = k + b * ksb + kvh * ksh;
   const T* vb = v + b * vsb + kvh * vsh;
 
-  load_tile<T, D, BQ>(Qs, D + PAD, qb, qss, q0, S);
+  load_tile<T, D, BQ>(Qs, D + PAD, qb, qss, q0, Sq);
 
   // kv tiles holding an unmasked key for some row of this block
-  const int k_hi = causal ? q_last : S - 1;
+  const int k_hi = causal ? min(q_last, Sk - 1) : Sk - 1;
   const int k_lo = window ? max(0, q0 - window + 1) : 0;
   const int kt_lo = k_lo / BK, kt_hi = k_hi / BK;
 
@@ -138,8 +144,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                         // last tile's readers are done
-    load_tile<T, D, BK>(Ks, D + PAD, kb, kss, k0, S);
-    load_tile<T, D, BK>(Vs, D, vb, vss, k0, S);
+    load_tile<T, D, BK>(Ks, D + PAD, kb, kss, k0, Sk);
+    load_tile<T, D, BK>(Vs, D, vb, vss, k0, Sk);
     __syncthreads();
 
     // s = Q K^T for rows ty*4 + i, keys tx + 16 j
@@ -178,7 +184,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kp = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
         if (cap != 0.f) x = tanhf(x / cap) * cap;
-        bool ok = kp < S;
+        bool ok = kp < Sk;
         if (causal) ok = ok && qp >= kp;
         if (window) ok = ok && qp - kp < window;
         s[i][j] = ok ? x : NEG_INF;
@@ -239,12 +245,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // o = acc / max(l, 1e-30), rows past S not stored
-  T* ob = out + ((long long)b * H + h) * S * D;
+  // o = acc / max(l, 1e-30), rows past Sq not stored
+  T* ob = out + ((long long)b * H + h) * Sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty * 4 + i;
-    if (qp >= S) continue;
+    if (qp >= Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -259,16 +265,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KV, int S, const long long* st, int causal,
+           int H, int KV, int Sq, int Sk, const long long* st, int causal,
            int window, float scale, float cap, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
   auto kern = flash_attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((S + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
+  const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
   kern<<<grid, THREADS, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, H / KV, S, st[0],
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, H / KV, Sq, Sk, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, window,
       scale, cap);
   return (int)cudaGetLastError();
@@ -276,15 +282,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
-               void* out, int B, int H, int KV, int S, const long long* st,
-               int causal, int window, float scale, float cap,
-               cudaStream_t s) {
+               void* out, int B, int H, int KV, int Sq, int Sk,
+               const long long* st, int causal, int window, float scale,
+               float cap, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, B, H, KV, S, st, causal, window, scale, cap, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, KV, S, st, causal, window, scale, cap, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, KV, S, st, causal, window, scale, cap, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, KV, S, st, causal, window, scale, cap, s);
-    case 256: return launch<T, 256>(q, k, v, out, B, H, KV, S, st, causal, window, scale, cap, s);
+    case 16: return launch<T, 16>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 32: return launch<T, 32>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 64: return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 128: return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 256: return launch<T, 256>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -347,7 +353,7 @@ __device__ __forceinline__ float tanh_ex2(float u) {
 // units: z = cap tanh(s scale / cap) log2(e), or s scale log2(e).
 struct Softmax {
   float to_u, cap2, cap;
-  int S, causal, window;
+  int Sk, causal, window;
 
   __device__ __forceinline__ void operator()(
       float (&sc)[32], int r, int k0, bool edge, float (&m)[2],
@@ -363,7 +369,7 @@ struct Softmax {
         if (edge) {
           const int qp = r + 8 * (i >> 1);
           const int kp = k0 + 8 * j + 2 * (lane % 4) + (i & 1);
-          bool ok = kp < S;
+          bool ok = kp < Sk;
           if (causal) ok = ok && qp >= kp;
           if (window) ok = ok && qp - kp < window;
           z = ok ? z : NEG_INF;
@@ -421,8 +427,8 @@ __global__ void __launch_bounds__(Tile<D>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, int H, int group, int S,
-                   int causal, int window, float scale, float cap) {
+                   __nv_bfloat16* __restrict__ out, int H, int group, int Sq,
+                   int Sk, int causal, int window, float scale, float cap) {
   using T = Tile<D>;
   constexpr int SW = T::SW, EC = T::EC, NWG = T::NWG, WQ = T::WQ;
   constexpr int KV_TILE = T::KV_BYTES;
@@ -440,9 +446,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int qt = gridDim.x - 1 - blockIdx.x;       // heaviest blocks first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
   const int q0 = qt * WQ;
-  const int q_last = min(q0 + WQ, S) - 1;
+  const int q_last = min(q0 + WQ, Sq) - 1;
   // kv tiles holding an unmasked key for some row of this block
-  const int k_hi = causal ? q_last : S - 1;
+  const int k_hi = causal ? min(q_last, Sk - 1) : Sk - 1;
   const int k_lo = window ? max(0, q0 - window + 1) : 0;
   const int kt_lo = k_lo / BK, nt = k_hi / BK - kt_lo + 1;
   // warpgroup index, warp-uniform for the compiler
@@ -492,7 +498,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int r = wr0 + 16 * w4 + lane / 4;  // this thread's rows r, r + 8
     const uint8_t* qw = Qs + wgi * WG_ROWS * SW;
     const Softmax softmax{cap != 0.f ? scale / cap : scale * LOG2E,
-                          cap * LOG2E, cap, S, causal, window};
+                          cap * LOG2E, cap, Sk, causal, window};
     // this warpgroup's live tiles [t0, t1]: the others hold no unmasked
     // key for its rows and would add exactly nothing (see the header)
     const int wk_lo = window ? max(0, wr0 - window + 1) : 0;
@@ -502,9 +508,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     auto stage = [](int t) { return t % KV_STAGES; };
     auto parity = [](int t) { return (uint32_t)((t / KV_STAGES) & 1); };
-    // a tile that needs the per-element mask
+    // a tile that needs the per-element mask: one reaching past Sk (TMA
+    // reads those keys as zeros, whose zero logits the mask must remove)
     auto edge = [&](int k0) {
-      return k0 + BK > S || (causal && k0 + BK - 1 > wr0) ||
+      return k0 + BK > Sk || (causal && k0 + BK - 1 > wr0) ||
              (window && wr0 + WG_ROWS - 1 - k0 >= window);
     };
     // S = Q K^T over D in k16 steps: A = Q (K-major), B = K (K-major)
@@ -613,13 +620,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int t = max(t1 + 1, t0); t < nt; ++t) skip(t);
 
     // o / max(l, 1e-30) as one reciprocal a row (a division an element
-    // would be 128 slow-path calls a thread at D 256), rows past S not
+    // would be 128 slow-path calls a thread at D 256), rows past Sq not
     // stored
-    __nv_bfloat16* ob = out + ((long long)b * H + h) * S * D;
+    __nv_bfloat16* ob = out + ((long long)b * H + h) * Sq * D;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int qp = r + 8 * hr;
-      if (qp >= S) continue;
+      if (qp >= Sq) continue;
       const float inv = 1.f / fmaxf(l[hr], 1e-30f);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -634,18 +641,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int H, int KV, int S, const long long* st,
+                 int B, int H, int KV, int Sq, int Sk, const long long* st,
                  int causal, int window, float scale, float cap,
                  cudaStream_t stream) {
   using T = Tile<D>;
   constexpr int WQ = T::WQ;
-  // [B, heads, S, D] over the given strides, innermost first
+  // [B, heads, S, D] over the given strides, innermost first: q spans Sq
+  // rows, k and v Sk (TMA reads rows past either as zeros)
   CUtensorMap maps[3];
   const void* base[3] = {q, k, v};
   const int heads[3] = {H, KV, KV};
+  const int rows[3] = {Sq, Sk, Sk};
   for (int i = 0; i < 3; ++i) {
-    const uint64_t dims[4] = {(uint64_t)D, (uint64_t)S, (uint64_t)heads[i],
-                              (uint64_t)B};
+    const uint64_t dims[4] = {(uint64_t)D, (uint64_t)rows[i],
+                              (uint64_t)heads[i], (uint64_t)B};
     const uint64_t strides[3] = {(uint64_t)st[3 * i + 2] * 2,
                                  (uint64_t)st[3 * i + 1] * 2,
                                  (uint64_t)st[3 * i] * 2};
@@ -659,23 +668,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((S + WQ - 1) / WQ), (unsigned)H, (unsigned)B);
+  const dim3 grid((unsigned)((Sq + WQ - 1) / WQ), (unsigned)H, (unsigned)B);
   kern<<<grid, T::THREADS, bytes, stream>>>(
-      maps[0], maps[1], maps[2], (__nv_bfloat16*)out, H, H / KV, S, causal,
-      window, scale, cap);
+      maps[0], maps[1], maps[2], (__nv_bfloat16*)out, H, H / KV, Sq, Sk,
+      causal, window, scale, cap);
   return (int)cudaGetLastError();
 }
 
 int dispatch_wgmma(int D, const void* q, const void* k, const void* v,
-                   void* out, int B, int H, int KV, int S, const long long* st,
-                   int causal, int window, float scale, float cap,
-                   cudaStream_t s) {
+                   void* out, int B, int H, int KV, int Sq, int Sk,
+                   const long long* st, int causal, int window, float scale,
+                   float cap, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_wgmma<16>(q, k, v, out, B, H, KV, S, st, causal, window, scale, cap, s);
-    case 32: return launch_wgmma<32>(q, k, v, out, B, H, KV, S, st, causal, window, scale, cap, s);
-    case 64: return launch_wgmma<64>(q, k, v, out, B, H, KV, S, st, causal, window, scale, cap, s);
-    case 128: return launch_wgmma<128>(q, k, v, out, B, H, KV, S, st, causal, window, scale, cap, s);
-    case 256: return launch_wgmma<256>(q, k, v, out, B, H, KV, S, st, causal, window, scale, cap, s);
+    case 16: return launch_wgmma<16>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 32: return launch_wgmma<32>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 64: return launch_wgmma<64>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 128: return launch_wgmma<128>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 256: return launch_wgmma<256>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -684,25 +693,26 @@ int dispatch_wgmma(int D, const void* q, const void* k, const void* v,
 
 // dtype 0 = float32 (simt route), 1 = bfloat16 (wgmma route: pointers
 // 16-byte aligned, strides multiples of 8); strides in elements, (b, head,
-// s) for each of q, k, v, the head dimension contiguous; out is
-// [B, H, S, D].  *route is set to the route launched: 1 = wgmma, 0 = simt.
+// s) for each of q (Sq rows), k and v (Sk rows), the head dimension
+// contiguous; out is [B, H, Sq, D].  *route is set to the route launched:
+// 1 = wgmma, 0 = simt.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int H,
-    int KV, int S, int D, int dtype, long long qsb, long long qsh,
+    int KV, int Sq, int Sk, int D, int dtype, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, int causal, int window,
     float scale, float cap, void* stream, int* route) {
-  if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0)
+  if (B <= 0 || H <= 0 || KV <= 0 || Sq <= 0 || Sk <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   cudaStream_t s = (cudaStream_t)stream;
   *route = dtype == 1;
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, out, B, H, KV, S, st, causal,
+    return dispatch_d<float>(D, q, k, v, out, B, H, KV, Sq, Sk, st, causal,
                              window, scale, cap, s);
   if (dtype == 1)
-    return dispatch_wgmma(D, q, k, v, out, B, H, KV, S, st, causal, window,
-                          scale, cap, s);
+    return dispatch_wgmma(D, q, k, v, out, B, H, KV, Sq, Sk, st, causal,
+                          window, scale, cap, s);
   return (int)cudaErrorInvalidValue;
 }
 

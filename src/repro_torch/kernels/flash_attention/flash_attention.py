@@ -5,7 +5,10 @@ flash_attention.py`` (``flash_attention``): online-softmax attention
 with a causal mask, a sliding window and a tanh logit softcap, GQA by
 ``kv head = h // (H / KV)``, masked positions at ``-1e30`` and the
 running sum clamped at ``1e-30``; float32 math from float32 or bfloat16
-inputs, output in ``q.dtype``.  Bound by operations at the serving
+inputs, output in ``q.dtype``.  The keys may be longer or shorter than
+the queries (Sk != Sq: cross-attention, which the TPU kernel's single S
+does not take) when neither the causal mask nor a window is set.  Bound
+by operations at the serving
 shapes (4 B H S^2 D / 2 flops for causal rows, at the H100's 989 bf16
 TFLOP/s).  Two routes, counted in ``flash_attention.launches_by_route``:
 
@@ -29,8 +32,9 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import check_key_length
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
              + [ctypes.c_float] * 2 + [ctypes.c_void_p]
              + [ctypes.POINTER(ctypes.c_int)])
@@ -60,16 +64,18 @@ def check_operand(fn: str, name: str, t: torch.Tensor, ref: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     cap: float = 0.0) -> torch.Tensor:
-    """q [B,H,S,D]; k/v [B,KV,S,D] (KV divides H; D in 16, 32, 64, 128, 256;
+    """q [B,H,Sq,D]; k/v [B,KV,Sk,D] (KV divides H; D in 16, 32, 64, 128,
+    256; Sk >= 1, and Sk = Sq when ``causal`` or ``window`` is set;
     float32 or bfloat16, all one dtype, on one CUDA device; strided views
-    allowed with D contiguous) -> [B,H,S,D] contiguous, in ``q.dtype``,
+    allowed with D contiguous) -> [B,H,Sq,D] contiguous, in ``q.dtype``,
     on the current stream without synchronising."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"flash_attention: want q [B,H,S,D], k/v "
-                         f"[B,KV,S,D]; got {tuple(q.shape)}, "
+        raise ValueError(f"flash_attention: want q [B,H,Sq,D], k/v "
+                         f"[B,KV,Sk,D]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, S, D = q.shape
-    KV = k.shape[1]
+    KV, Sk = k.shape[1], k.shape[2]
+    check_key_length("flash_attention", S, Sk, causal, window)
     if q.dtype not in _DTYPES or D not in HEAD_DIMS or KV < 1 or H % KV:
         raise ValueError(f"flash_attention: dtype {q.dtype} (want float32 "
                          f"or bfloat16), head dim {D} (want {HEAD_DIMS}), "
@@ -83,8 +89,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 f"need 16-byte aligned data and strides (multiples of 8 "
                 f"elements); got data_ptr % 16 = {t.data_ptr() % 16}, "
                 f"strides {t.stride()}")
-    for name, t, shape in (("q", q, (B, H, S, D)), ("k", k, (B, KV, S, D)),
-                           ("v", v, (B, KV, S, D))):
+    for name, t, shape in (("q", q, (B, H, S, D)), ("k", k, (B, KV, Sk, D)),
+                           ("v", v, (B, KV, Sk, D))):
         check_operand("flash_attention", name, t, q, shape, 4)
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -97,7 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, H, KV, S, D, _DTYPES[q.dtype],
+                 B, H, KV, S, Sk, D, _DTYPES[q.dtype],
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(causal), int(window), float(scale), float(cap), stream,
                  ctypes.byref(route))

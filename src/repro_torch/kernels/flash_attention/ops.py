@@ -22,8 +22,9 @@ _BY_DEVICE = {"cuda": flash_attention, "cpu": attention_ref}
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, window: int = 0,
         cap: float = 0.0) -> torch.Tensor:
-    """q [B,S,H,D]; k/v [B,S,KV,D] -> [B,S,H,D] (positions are
-    ``arange(S)``: causal and window masks by index)."""
+    """q [B,Sq,H,D]; k/v [B,Sk,KV,D] -> [B,Sq,H,D] (positions are
+    indices: causal and window masks need Sk = Sq; without them the keys
+    may be of any length, as for cross-attention)."""
     fn = _BY_DEVICE.get(q.device.type)
     if fn is None:
         raise ValueError(f"mha: unsupported device {q.device}")

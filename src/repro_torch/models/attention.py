@@ -1,12 +1,15 @@
 """Attention of the served LMs: GQA with causal / sliding-window masks,
-logit softcap, rotary embeddings, and KV caches (flat, or a rolling
-buffer for a window shorter than the cache).
+logit softcap, rotary embeddings (M-RoPE included), KV caches (flat, or
+a rolling buffer for a window shorter than the cache), non-causal
+self-attention and cross-attention on external K/V (whisper).
 
 Prefill attention runs the flash-attention kernel (``ops.mha``) and one
 decode step the decode-attention kernel (``ops.decode_mha``): a CUDA
 tensor launches the kernel, a CPU tensor takes its plain version.  The
 reference computes both with jnp (``models/attention.py``) and swaps its
-Pallas kernels in on a TPU; here the kernels are the path.
+Pallas kernels in on a TPU; here the kernels are the path, cross-attention
+included: prefill's through the flash kernel with a key length of its
+own, a decode step's through the decode kernel with every slot valid.
 
 Layouts are the reference's: ``wq``/``wk``/``wv`` ``[d, heads, Dh]``,
 ``wo`` ``[H, Dh, d]``, activations ``[B, S, heads, Dh]``, caches
@@ -14,7 +17,7 @@ Layouts are the reference's: ``wq``/``wk``/``wv`` ``[d, heads, Dh]``,
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,30 +50,46 @@ def attn_init(d: int, n_heads: int, n_kv: int, head_dim: int,
     return p
 
 
-def _qkv(p: Params, x: torch.Tensor, pos: torch.Tensor, theta: float
+def proj(p: Params, x: torch.Tensor, w: str, b: str) -> torch.Tensor:
+    """x [B, T, d] -> [B, T, heads, Dh] by ``p[w]``, plus the bias ``p[b]``
+    where the layer has one."""
+    y = head_proj(x, p[w])
+    return y + p[b].to(x.dtype) if b in p else y
+
+
+def _qkv(p: Params, x: torch.Tensor, pos: torch.Tensor, theta: float,
+         mrope: Tuple[int, ...] = ()
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    dt = x.dtype
-    q, k, v = (head_proj(x, p[n]) for n in ("wq", "wk", "wv"))
-    if "bq" in p:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+    q, k, v = (proj(p, x, w, b) for w, b in (("wq", "bq"), ("wk", "bk"),
+                                              ("wv", "bv")))
     if theta:
-        q = apply_rope(q, pos, theta)
-        k = apply_rope(k, pos, theta)
+        q = apply_rope(q, pos, theta, mrope)
+        k = apply_rope(k, pos, theta, mrope)
     return q, k, v
 
 
 def attention(p: Params, x: torch.Tensor, pos: torch.Tensor, *,
-              window: int = 0, cap: float = 0.0, theta: float = 10000.0
+              causal: bool = True, window: int = 0, cap: float = 0.0,
+              theta: float = 10000.0, mrope: Tuple[int, ...] = (),
+              kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Causal full-sequence (prefill) attention: x [B, S, d], pos [B, S]
-    (the rotary positions; the masks take positions ``arange(S)``, which
-    is what prefill passes).  Returns (y [B, S, d], k, v): the rotated k/v
-    ``[B, S, KV, Dh]`` that prefill lays out as the decode cache (the
-    reference recomputes them)."""
-    q, k, v = _qkv(p, x, pos, theta)
-    o = mha(q, k, v, causal=True, window=window, cap=cap)
+    """Full-sequence (prefill) attention: x [B, S, d], pos [B, S] or
+    [B, S, 3] under M-RoPE (the rotary positions; the masks take positions
+    ``arange(S)``, which is what prefill passes), causal or not.  ``kv``:
+    external K/V ``[B, Sk, KV, Dh]``, already projected (and rotated),
+    for cross-attention: only q is projected, and the call takes no mask
+    (``causal=False``, no window) over a key length of its own.  Returns
+    (y [B, S, d], k, v): the rotated k/v ``[B, S, KV, Dh]`` that prefill
+    lays out as the decode cache (the reference recomputes them), or the
+    external ones."""
+    if kv is None:
+        q, k, v = _qkv(p, x, pos, theta, mrope)
+    else:
+        q = proj(p, x, "wq", "bq")
+        if theta:
+            q = apply_rope(q, pos, theta, mrope)
+        k, v = kv
+    o = mha(q, k, v, causal=causal, window=window, cap=cap)
     return head_out(o, p["wo"]), k, v
 
 
@@ -90,12 +109,24 @@ def init_cache(batch: int, max_seq: int, n_kv: int, head_dim: int,
                              device=device)}
 
 
+def flat_cache(t: torch.Tensor, size: int) -> torch.Tensor:
+    """A prompt's K or V [B, S, KV, Dh] laid out as a flat decode cache
+    [B, size, KV, Dh]: zero-padded past S, or cut to ``size``."""
+    s = t.shape[1]
+    if s < size:
+        t = torch.cat([t, t.new_zeros((t.shape[0], size - s) + t.shape[2:])],
+                      dim=1)
+    return t[:, :size].contiguous()
+
+
 def decode_attention(p: Params, x: torch.Tensor, pos: torch.Tensor,
                      cache: Dict[str, torch.Tensor], *, window: int = 0,
-                     cap: float = 0.0, theta: float = 10000.0
+                     cap: float = 0.0, theta: float = 10000.0,
+                     mrope: Tuple[int, ...] = ()
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: x [B, 1, d]; pos [B, 1] int32, the current
-    position.  Returns (y [B, 1, d], cache).
+    position (or [B, 1, 3] under M-RoPE, whose axis 0 places the slot).
+    Returns (y [B, 1, d], cache).
 
     The new k/v are written in place at slot ``pos % size`` (the
     reference selects over the whole cache with ``jnp.where``; the
@@ -104,10 +135,10 @@ def decode_attention(p: Params, x: torch.Tensor, pos: torch.Tensor,
     size)`` in slot s, valid iff >= 0, which is slot ``s <= min(pos,
     size - 1)``: the kernel's mask with that bound.
     """
-    q, k_new, v_new = _qkv(p, x, pos, theta)
+    q, k_new, v_new = _qkv(p, x, pos, theta, mrope)
     k_cache, v_cache = cache["k"], cache["v"]
     b, size = k_cache.shape[:2]
-    cur = pos[:, 0]
+    cur = (pos[..., 0] if pos.dim() == 3 else pos)[:, 0]
     rows = torch.arange(b, device=x.device)
     slot = (cur % size).long()
     k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
@@ -117,4 +148,20 @@ def decode_attention(p: Params, x: torch.Tensor, pos: torch.Tensor,
     return head_out(o, p["wo"]), cache
 
 
-__all__ = ["attention", "attn_init", "decode_attention", "init_cache"]
+def cross_decode_attention(p: Params, x: torch.Tensor,
+                           kv: Tuple[torch.Tensor, torch.Tensor]
+                           ) -> torch.Tensor:
+    """One decode step's cross-attention (no rotation: whisper's theta is
+    0): x [B, 1, d] over external K/V ``[B, Sk, KV, Dh]`` kept from
+    prefill, every slot valid (the decode kernel with ``pos = Sk - 1``
+    for each row).  The reference runs its full-sequence attention on the
+    one query; the result is the same.  Returns y [B, 1, d]."""
+    k, v = kv
+    q = proj(p, x, "wq", "bq")
+    last = torch.full((x.shape[0],), k.shape[1] - 1, dtype=torch.int32,
+                      device=x.device)
+    return head_out(decode_mha(q, k, v, last), p["wo"])
+
+
+__all__ = ["attention", "attn_init", "cross_decode_attention",
+           "decode_attention", "flat_cache", "init_cache", "proj"]

@@ -26,7 +26,7 @@ Params = Dict[str, Any]
 class Ctx(NamedTuple):
     cfg: ArchConfig
     mode: str                   # 'prefill' | 'decode'
-    pos: torch.Tensor           # [B, S] int32
+    pos: torch.Tensor           # [B, S] int32, [B, S, 3] under M-RoPE
     cache_len: int = 0          # decode cache size (flat)
 
 
@@ -72,11 +72,12 @@ def _attn_block_apply(local: bool) -> Callable:
         if ctx.mode == "decode":
             y, new_state = attn_mod.decode_attention(
                 p["attn"], h, ctx.pos, state, window=win,
-                cap=a.logit_softcap, theta=a.rope_theta)
+                cap=a.logit_softcap, theta=a.rope_theta,
+                mrope=a.mrope_sections)
         else:
             y, k, v = attn_mod.attention(
                 p["attn"], h, ctx.pos, window=win, cap=a.logit_softcap,
-                theta=a.rope_theta)
+                theta=a.rope_theta, mrope=a.mrope_sections)
             new_state = _prefill_cache(k, v, ctx, win)
         x = x + _post(p, "ln1p", y, cfg)
         if not (cfg.moe.enabled or cfg.d_ff):
@@ -102,13 +103,10 @@ def _prefill_cache(k: torch.Tensor, v: torch.Tensor, ctx: Ctx,
     out = {}
     for name, t in (("k", k), ("v", v)):
         if win and s >= size:
-            t = torch.roll(t[:, -size:], s % size, dims=1)
-        elif s < size:
-            t = torch.cat([t, t.new_zeros((t.shape[0], size - s)
-                                          + t.shape[2:])], dim=1)
+            out[name] = torch.roll(t[:, -size:], s % size,
+                                   dims=1).contiguous()
         else:
-            t = t[:, :size]
-        out[name] = t.contiguous()
+            out[name] = attn_mod.flat_cache(t, size)
     return out
 
 

@@ -1,7 +1,8 @@
 """Shared LM building blocks on tensors, the serving subset of the
 reference's ``models/layers.py``: initialisers, the per-head projections
-(``head_proj``, ``head_out``), ``rmsnorm``, the (gated) MLP, rotary
-embeddings, ``softcap``, the embedding lookup and the LM head.
+(``head_proj``, ``head_out``), ``rmsnorm``, ``layernorm``, the (gated)
+MLP, rotary embeddings (M-RoPE included), ``softcap``, the embedding
+lookup and the LM head.
 
 Parameters are dicts of tensors in the reference's layouts (``dense``
 weights ``[d_in, d_out]``, the embedding table ``[V, d]``).  Each weight
@@ -11,8 +12,9 @@ cast there.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +68,22 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x * (1.0 + p["scale"])).to(dt)
 
 
+def layernorm_init(d: int, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in float32 (biased variance), scale and bias, cast
+    back."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * p["scale"] + p["bias"]).to(dt)
+
+
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")    # jax.nn.gelu's default
 
@@ -102,12 +120,37 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, pos: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x [B, S, H, D]; pos [B, S].  Rotates the two halves of the head
-    (not interleaved pairs), in float32."""
+@functools.lru_cache(maxsize=None)
+def mrope_bands(half: int, sections: Tuple[int, ...], axes: int,
+                device=None) -> torch.Tensor:
+    """The position axis each of the ``half`` frequencies reads under
+    M-RoPE: frequency i takes the section whose cumulative end is the
+    first above i, clipped to the ``axes`` position axes (t, h, w).
+    Made once per shape and device (a host-to-card copy of
+    ``sections`` would wait for the card on every call) and shared:
+    read-only."""
+    ends = torch.cumsum(torch.tensor(sections, device=device), 0)
+    band = torch.searchsorted(ends, torch.arange(half, device=device),
+                              right=True)
+    return band.clamp(0, axes - 1)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
+               mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """x [B, S, H, D]; pos [B, S], or [B, S, 3] for M-RoPE (qwen2-vl: the
+    frequency bands split across the t / h / w positions by
+    ``mrope_sections``; a 3-axis pos without sections takes axis 0).
+    Rotates the two halves of the head (not interleaved pairs), in
+    float32."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)          # [D/2]
-    angles = pos[..., None].to(torch.float32) * freqs          # [B, S, D/2]
+    if mrope_sections and pos.dim() == 3:
+        band = mrope_bands(freqs.shape[0], mrope_sections, pos.shape[-1],
+                           x.device)
+        angles = pos[..., band].to(torch.float32) * freqs      # [B, S, D/2]
+    else:
+        if pos.dim() == 3:
+            pos = pos[..., 0]
+        angles = pos[..., None].to(torch.float32) * freqs      # [B, S, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -143,5 +186,6 @@ def lm_head(table_or_w: torch.Tensor, x: torch.Tensor,
 
 
 __all__ = ["apply_rope", "dense_init", "embed_init", "embed_lookup",
-           "head_out", "head_proj", "lm_head", "mlp", "mlp_init", "rmsnorm",
-           "rmsnorm_init", "rope_freqs", "softcap", "truncated_normal"]
+           "head_out", "head_proj", "layernorm", "layernorm_init", "lm_head",
+           "mlp", "mlp_init", "mrope_bands", "rmsnorm", "rmsnorm_init",
+           "rope_freqs", "softcap", "truncated_normal"]

@@ -1,9 +1,11 @@
 """Layer-stacked LM for the dense families (minicpm, phi4, qwen1.5,
 gemma2's alternating local/global attention with softcaps), the MoE
 family (granite-moe, olmoe), griffin (recurrentgemma: two RG-LRU blocks
-to one local-attention block) and xLSTM (family ``ssm``, xlstm-350m:
-sLSTM and mLSTM blocks alternating), served through ``prefill`` and
-``decode_step``.
+to one local-attention block), xLSTM (family ``ssm``, xlstm-350m:
+sLSTM and mLSTM blocks alternating) and the VLM (qwen2-vl: M-RoPE, and
+patch embeddings from a stub frontend prepended to the prompt), served
+through ``prefill`` and ``decode_step``.  Family ``audio`` is
+``models.whisper.WhisperLM``.
 
 The kind sequence comes from ``core.cost_model._block_kinds``, as in the
 reference.  Parameters are a dict with ``embed`` (``table [V, d]``),
@@ -13,13 +15,12 @@ period slot instead (``convert.lm_params_from_arrays`` interleaves).
 Weight matrices are held in the compute dtype (``cfg.dtype``), norm
 scales and qkv biases in float32: the reference casts each weight to the
 compute dtype at use, so the results agree and the memory is half.
-Families ``vlm`` and ``audio``, and training, wait for later slices
-(ROADMAP queue 1 item 14).
+Training waits for a later slice (ROADMAP queue 1 item 14.4).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,10 +36,6 @@ Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_FAMILIES_LATER = {
-    "vlm": "ROADMAP queue 1 item 14 (VLM family)",
-    "audio": "ROADMAP queue 1 item 14 (whisper)",
-}
 
 
 class TransformerLM:
@@ -48,9 +45,8 @@ class TransformerLM:
     RG-LRU or xLSTM layer's state is replaced)."""
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
-        if cfg.family in _FAMILIES_LATER:
-            raise NotImplementedError(f"family {cfg.family!r} waits for "
-                                      f"{_FAMILIES_LATER[cfg.family]}")
+        if cfg.family == "audio":
+            raise ValueError("use repro_torch.models.whisper.WhisperLM")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.kinds = block_kinds(cfg)
@@ -84,15 +80,25 @@ class TransformerLM:
         return params
 
     # ------------------------------------------------------------------
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = embed_lookup(params["embed"], tokens, self.dtype)
         if self.embed_scale is not None:
             x = x * self.embed_scale
+        if extra_embeds is not None:       # vlm patch embeddings (stub)
+            x = torch.cat([extra_embeds.to(self.dtype), x], dim=1)
         return x
+
+    def _mrope_axes(self, pos: torch.Tensor) -> torch.Tensor:
+        """[B, S] positions -> [B, S, 3] (t, h, w all the text position)
+        under M-RoPE, else unchanged."""
+        if self.cfg.attention.mrope_sections:
+            return pos[..., None].expand(*pos.shape, 3)
+        return pos
 
     def _positions(self, batch: int, s: int) -> torch.Tensor:
         pos = torch.arange(s, dtype=torch.int32, device=self.device)
-        return pos[None, :].expand(batch, s)
+        return self._mrope_axes(pos[None, :].expand(batch, s))
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -105,12 +111,17 @@ class TransformerLM:
     # public API
     # ------------------------------------------------------------------
     def prefill(self, params: Params, tokens: torch.Tensor,
-                cache_len: int) -> Tuple[torch.Tensor, Cache]:
+                cache_len: int,
+                extra_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
         """tokens [B, S] -> (last-position logits [B, V], decode-ready
         cache: one state per layer, ``{"k", "v"}`` for attention,
         ``{"h", "conv"}`` for an RG-LRU block, ``{"C", "n", "m"}`` for an
-        mLSTM block and ``{"c", "n", "h", "m"}`` for an sLSTM block)."""
-        x = self._embed(params, tokens)
+        mLSTM block and ``{"c", "n", "h", "m"}`` for an sLSTM block).
+        ``extra_embeds`` [B, P, d] (the VLM's patch embeddings) are put in
+        front of the prompt: the sequence is P + S long, and decoding goes
+        on at position P + S."""
+        x = self._embed(params, tokens, extra_embeds)
         b, s = x.shape[:2]
         ctx = Ctx(self.cfg, "prefill", self._positions(b, s),
                   cache_len=cache_len)
@@ -126,7 +137,7 @@ class TransformerLM:
         """One token per sequence.  tokens [B, 1]; pos [B, 1] int32.
         Returns (logits [B, V], the cache, updated in place)."""
         x = self._embed(params, tokens)
-        ctx = Ctx(self.cfg, "decode", pos)
+        ctx = Ctx(self.cfg, "decode", self._mrope_axes(pos))
         for i, (blk, p) in enumerate(zip(self.blocks, params["layers"])):
             x, cache[i] = blk.apply(p, x, cache[i], ctx)
         return self._head(params, x)[:, 0], cache

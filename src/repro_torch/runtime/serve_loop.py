@@ -23,10 +23,29 @@ import torch
 from repro_torch.configs.base import ArchConfig, ServeConfig
 
 
-def make_prefill_step(model, cache_len: int):
-    def prefill_step(params, tokens):
+def make_prefill_step(model, cfg: ArchConfig, cache_len: int):
+    """``prefill_step(params, tokens, extra=None)``: ``extra`` is whisper's
+    frame embeddings (family ``audio``, where they are required) or the
+    VLM's patch embeddings (family ``vlm``, optional)."""
+    def prefill_step(params, tokens, extra=None):
+        if cfg.family == "audio":
+            return model.prefill(params, tokens, extra, cache_len)
+        if cfg.family == "vlm":
+            return model.prefill(params, tokens, cache_len,
+                                 extra_embeds=extra)
         return model.prefill(params, tokens, cache_len)
     return prefill_step
+
+
+def decode_start(cfg: ArchConfig, tokens: torch.Tensor,
+                 extra: Optional[torch.Tensor] = None) -> int:
+    """The position of the first decode step after ``prefill_step(params,
+    tokens, extra)``: the prompt's length, plus the patch embeddings that
+    a VLM prefill puts in front of it (whisper's frames feed the encoder
+    and take no decoder position)."""
+    if cfg.family == "vlm" and extra is not None:
+        return tokens.shape[1] + extra.shape[1]
+    return tokens.shape[1]
 
 
 def make_decode_step(model, temperature: float = 0.0):
@@ -88,7 +107,7 @@ class ContinuousBatcher:
         self.seed = int(seed)
         self.max_pending = max_pending
         self.rejected = 0
-        self.prefill_step = make_prefill_step(model, scfg.max_seq)
+        self.prefill_step = make_prefill_step(model, cfg, scfg.max_seq)
         self.decode_step = make_decode_step(model, scfg.temperature)
         self.pending: List[Request] = []
         self.active: List[Request] = []
@@ -602,4 +621,4 @@ class ReplanController:
 
 __all__ = ["ContinuousBatcher", "PeriodicReplanner", "ReplanController",
            "Request", "ServiceLevelObjective", "SlotState",
-           "make_decode_step", "make_prefill_step"]
+           "decode_start", "make_decode_step", "make_prefill_step"]

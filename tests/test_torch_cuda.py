@@ -1,7 +1,8 @@
 """The port on a CUDA card: each kernel against its plain version, a
 small planning run on the card against the CPU plain path, the sliced
 LeNet forward against the monolithic one, the attention kernels
-(prefill and decode, G up to 16) and the MoE, RG-LRU and mLSTM kernels
+(prefill, also with a key length of its own, and decode, G up to 16;
+whisper's cross cache) and the MoE, RG-LRU and mLSTM kernels
 against their plain versions; the kernels with more than one route
 (expert GEMM, prefill attention, RG-LRU scan, mLSTM chunk, chain DP) also
 by the route each launch took.  The fused chain DP is bitwise with its
@@ -381,6 +382,58 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, causal,
     assert kernels.route_counts()["flash_attention"] == \
         {"simt": 0, "wgmma": 0, route: 2}
     assert got.dtype == dtype and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,sq,sk,d", [
+    (2, 6, 6, 1500, 1500, 64), (2, 6, 6, 16, 1500, 64),
+    (1, 6, 6, 448, 1500, 64), (2, 6, 6, 1, 1, 64), (2, 6, 6, 63, 1000, 64),
+    (2, 6, 6, 65, 1, 64), (1, 4, 2, 100, 37, 128), (1, 4, 4, 129, 300, 256),
+    (1, 2, 1, 7, 200, 16)])
+def test_flash_attention_kernel_with_its_own_key_length(cuda, b, h, kv, sq,
+                                                        sk, d, dtype):
+    """Non-causal attention whose keys have a length of their own (Sk !=
+    Sq: whisper's cross-attention over its 1,500 frames) and at S 1,500
+    (23 kv tiles of 64 and a ragged 28: the mask, not the zero rows TMA
+    reads past Sk, removes the keys past the end), each route against the
+    plain version; two launches bitwise equal."""
+    rng = np.random.default_rng(sq * 7 + sk)
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, s, n, d)),
+                               dtype=torch.float32, device=cuda)
+               .to(dtype).transpose(1, 2)
+               for s, n in ((sq, h), (sk, kv), (sk, kv)))
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=False)
+    again = flash_attention(q, k, v, causal=False)
+    ref = attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert kernels.route_counts()["flash_attention"] == \
+        {"simt": 0, "wgmma": 0, route: 2}
+    assert got.shape == (b, h, sq, d) and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_attention_over_a_cross_cache(cuda, dtype):
+    """Whisper's cross-attention at decode: one query a kv head (G 1, D
+    64) over 1,500 kept slots, every one valid (pos 1,499)."""
+    b, kv, s, d = 4, 6, 1500, 64
+    rng = np.random.default_rng(11)
+    q = torch.as_tensor(rng.normal(size=(b, kv, 1, d)), dtype=torch.float32,
+                        device=cuda).to(dtype)
+    k, v = (torch.as_tensor(rng.normal(size=(b, s, kv, d)),
+                            dtype=torch.float32, device=cuda)
+            .to(dtype).transpose(1, 2) for _ in range(2))
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=cuda)
+    got = decode_attention(q, k, v, pos)
+    again = decode_attention(q, k, v, pos)
+    ref = decode_ref(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
 
 

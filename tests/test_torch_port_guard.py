@@ -14,9 +14,10 @@
   DP, conv2d, prefill and decode attention, the expert GEMM,
   the RG-LRU scan, the mLSTM chunk) takes the plain version and leaves
   the kernel's launch counter alone; a tensor on another device raises.
-* The LM serving path (``TransformerLM``, ``build_model``,
-  ``ContinuousBatcher``) runs on CUDA or raises; families not ported yet
-  raise naming their ROADMAP item, an unknown block kind raises.
+* The LM serving path (``TransformerLM``, ``WhisperLM``, ``build_model``,
+  ``ContinuousBatcher``) runs on CUDA or raises; ``TransformerLM`` on
+  family ``audio`` raises naming ``WhisperLM``, an unknown block kind
+  raises.
 """
 import dataclasses
 import ast
@@ -49,6 +50,7 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.blocks import block_def  # noqa: E402
 from repro_torch.models.cnn import init_cnn  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
+from repro_torch.models.whisper import WhisperLM  # noqa: E402
 from repro_torch.runtime.serve_loop import ContinuousBatcher  # noqa: E402
 from repro_torch.runtime.fleet_rollout import FleetRollout  # noqa: E402
 from repro_torch.runtime.scenario_engine import ScenarioEngine  # noqa: E402
@@ -273,28 +275,33 @@ def test_cpu_attention_takes_the_plain_path_without_counting():
 @pytest.mark.parametrize("arch,reduced", [
     ("gemma2-9b", True), ("olmoe-1b-7b", False),
     ("granite-moe-1b-a400m", False), ("recurrentgemma-9b", False),
-    ("xlstm-350m", False)])
+    ("xlstm-350m", False), ("whisper-tiny", False), ("whisper-tiny", True),
+    ("qwen2-vl-2b", False), ("qwen2-vl-2b", True)])
 def test_lm_entry_points_without_device_raise(monkeypatch, arch, reduced):
-    """Every served family defaults to the card (the full MoE and griffin
-    configs too: the check comes before any parameter exists)."""
+    """Every served family defaults to the card (the full MoE, griffin,
+    whisper and VLM configs too: the check comes before any parameter
+    exists); whisper's model is ``WhisperLM``."""
     _no_cuda(monkeypatch)
     cfg = get_arch(arch).reduced() if reduced else get_arch(arch)
+    lm = WhisperLM if cfg.family == "audio" else TransformerLM
     with pytest.raises(RuntimeError, match="CUDA"):
-        TransformerLM(cfg)
+        lm(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
-        ContinuousBatcher(TransformerLM(cfg), cfg, ServeConfig(), params={})
-    cpu = TransformerLM(cfg, device="cpu")
+        ContinuousBatcher(lm(cfg), cfg, ServeConfig(), params={})
+    cpu = build_model(cfg, device="cpu")
+    assert isinstance(cpu, lm)
     assert ContinuousBatcher(cpu, cfg, ServeConfig(), {}).device == \
         torch.device("cpu")
 
 
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_unported_families_name_their_roadmap_item(family):
-    cfg = dataclasses.replace(get_arch("phi4-mini-3.8b").reduced(),
-                              family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+@pytest.mark.parametrize("arch", ["whisper-tiny", "phi4-mini-3.8b"])
+def test_transformer_lm_refuses_family_audio(arch):
+    """Family ``audio`` is ``WhisperLM``'s: ``TransformerLM`` raises
+    ``ValueError`` naming it, as the reference's does."""
+    cfg = dataclasses.replace(get_arch(arch).reduced(), family="audio")
+    with pytest.raises(ValueError, match="WhisperLM"):
         TransformerLM(cfg, device="cpu")
 
 
