@@ -231,9 +231,33 @@ Phases, each raising on failure (the script then exits non-zero):
     G 1 x 1,500 slots and G 6 x 2,048), each first held against its
     plain version there, beside the plain version,
     ``F.scaled_dot_product_attention`` and the bound (sub-entries of the
-    flash and decode rows).
+    flash and decode rows);
+30. the pipeline-stage planner with the card's constants (``card_chip``:
+    the card's name and memory, the H100 SXM data sheet's dense bf16
+    peak halved; the data sheet's NVLink rate one way, and an assumed
+    2 us hop, 4 x 4 torus and 400 Gb/s cross-host port):
+    ``plan_pipeline`` for every LM config at each supported shape at 2, 4
+    and 8 stages of 8 cards, ``scale_elastic`` (qwen2-vl-2b, train_4k) at
+    8, 7 and 5; each plan's blocks sum to the layers + 2 (+ encoder
+    layers), consecutive stages sit one hop apart, the bottleneck is the
+    largest stage latency, and a rescale uses at most n stages;
+31. the main path's rollout (AlexNet, U 8, B 256, T 32, 4 requests a
+    frame, P2) split over ``fleet_mesh`` meshes: two entries of this
+    card, a ragged B 250 over four, and every visible card when there is
+    more than one; each run bitwise equal on every valid field to the
+    unsharded run with the same generator, with exactly T x shards
+    link-geometry and fused chain-DP launches, no build after the first
+    runs; then the unsharded and two-shard walls in turns;
+32. ``examples/torch_serve_swarm.py``'s three modes on the card: the LM
+    mode's 4 flash launches (SIMT route, float32) a prefill call and 4
+    decode launches a decode step, nothing else, its 2-stage plan;
+    ``--chaos`` and ``--stream``: every rollout call T + T fused
+    launches, the chaos mode's planning calls 1 + 1 each outside them,
+    the stream mode nothing outside them; events, windows and reports
+    the CPU's.
 
-The last lines are the serving layers' record, the evaluation path's
+The last lines are the pipeline planner's, the sharded rollout's and the
+serving example's records, the serving layers' record, the evaluation path's
 walls and summaries, the CNN path's and the six LM paths' serving
 numbers, the per-layer conv2d times, the kernels line, the
 ``nvidia-smi`` line and the result object.
@@ -3702,6 +3726,296 @@ def attention_entry(torch, kern, plain, lib, nbytes, nops, peak, iters, err,
             "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6}
 
 
+# ---------------------------------------------------------------------------
+# the pipeline-stage planner, the sharded rollout, the serving example
+# ---------------------------------------------------------------------------
+
+#: the interconnect figures no data sheet gives, phase 30's assumptions
+#: (the caller's, as ``examples/torch_serve_swarm.py`` takes them):
+#: one NVLink hop with its switch, 16 stage groups on a 4 x 4 torus, one
+#: 400 Gb/s network port a card
+PLAN_HOP_LATENCY_S = 2e-6
+PLAN_TORUS = (4, 4)
+PLAN_DCN_BYTES = 400e9 / 8
+PLAN_STAGES, PLAN_CHIPS_PER_STAGE = (2, 4, 8), 8
+ELASTIC = ("qwen2-vl-2b", "train_4k", (8, 7, 5))
+#: phase 31's ragged split: B trajectories over a mesh of this many entries
+RAGGED_B, RAGGED_SHARDS = 250, 4
+SHARD_WALL_TURNS = 2
+
+
+def run_pipeline_planner(np, torch, device):
+    """Phase 30: ``plan_pipeline`` for every LM config at each supported
+    shape at ``PLAN_STAGES`` stages of ``PLAN_CHIPS_PER_STAGE`` cards, and
+    ``scale_elastic`` at 8, 7 and 5, with the card's constants; the
+    reference test's invariants held on each plan.  Returns its record."""
+    from repro_torch.configs.registry import LM_ARCHS, get_arch, get_shape
+    from repro_torch.core.channel import ICIChannel, ICIParams
+    from repro_torch.core.pipeline_opt import (
+        H100_SXM_NVLINK_BYTES_ONE_WAY, card_chip, pipeline_efficiency,
+        plan_pipeline)
+    from repro_torch.runtime.fault_tolerance import scale_elastic
+    chip = card_chip(device)
+    ici = ICIChannel(ICIParams(H100_SXM_NVLINK_BYTES_ONE_WAY,
+                               PLAN_HOP_LATENCY_S, PLAN_TORUS,
+                               PLAN_DCN_BYTES))
+    plans, t0 = [], time.perf_counter()
+
+    def held(cfg, plan, n, exact):
+        blocks = sum(plan.blocks_per_stage)
+        hops = [ici.hops(a, b) for a, b in zip(plan.stage_coords[:-1],
+                                                 plan.stage_coords[1:])]
+        if blocks != cfg.n_layers + 2 + cfg.enc_layers or \
+                any(h != 1 for h in hops) or \
+                plan.bottleneck_s != max(plan.stage_latency_s) or \
+                (plan.n_stages != n if exact else plan.n_stages > n):
+            raise AssertionError(f"{cfg.name}: plan {plan} at {n} stages "
+                                 f"(blocks {blocks}, hops {hops})")
+
+    for arch in LM_ARCHS:
+        cfg = get_arch(arch)
+        for shape in cfg.supported_shapes:
+            for n in PLAN_STAGES:
+                plan = plan_pipeline(cfg, get_shape(shape), n,
+                                     PLAN_CHIPS_PER_STAGE, chip=chip, ici=ici)
+                held(cfg, plan, n, exact=True)
+                plans.append({
+                    "arch": arch, "shape": shape, "n_stages": n,
+                    "blocks_per_stage": plan.blocks_per_stage,
+                    "stage_coords": plan.stage_coords,
+                    "bottleneck_s": plan.bottleneck_s,
+                    "total_latency_s": plan.total_latency_s,
+                    "efficiency_32mb": pipeline_efficiency(plan, 32)})
+    arch, shape, counts = ELASTIC
+    elastic = []
+    for n in counts:
+        plan = scale_elastic(n, get_arch(arch), get_shape(shape),
+                             PLAN_CHIPS_PER_STAGE, chip=chip, ici=ici)
+        held(get_arch(arch), plan, n, exact=False)
+        elastic.append({"n_devices": n, "n_stages": plan.n_stages,
+                        "blocks_per_stage": plan.blocks_per_stage,
+                        "bottleneck_s": plan.bottleneck_s})
+    wall = time.perf_counter() - t0
+    p = ici.params
+    log(f"  chip {chip.name}: {chip.macs_per_s:.6g} MAC/s (H100 SXM data "
+        f"sheet, dense bf16 989 TFLOP/s halved), {chip.hbm_bytes:.6g} B "
+        f"(the card's total_memory); link {p.link_bw_bytes:.6g} B/s (H100 "
+        f"SXM data sheet, NVLink 900 GB/s both ways, one way); assumed: hop "
+        f"{p.hop_latency_s} s, torus {p.torus}, cross-host "
+        f"{p.dcn_bw_bytes:.6g} B/s")
+    log(f"  {len(plans)} plans ({len(LM_ARCHS)} LM configs x their shapes x "
+        f"{PLAN_STAGES} stages of {PLAN_CHIPS_PER_STAGE} cards) and "
+        f"scale_elastic {arch}/{shape} at {counts} -> "
+        f"{[e['n_stages'] for e in elastic]} stages: blocks, hops and "
+        f"bottlenecks held; {wall:.3f} s on the host")
+    return {"chip": {"name": chip.name, "macs_per_s": chip.macs_per_s,
+                     "hbm_bytes": chip.hbm_bytes,
+                     "source": "MAC/s: H100 SXM data sheet (dense bf16 "
+                               "989 TFLOP/s, halved); bytes: the card"},
+            "ici": {"link_bw_bytes": p.link_bw_bytes,
+                    "hop_latency_s": p.hop_latency_s, "torus": p.torus,
+                    "dcn_bw_bytes": p.dcn_bw_bytes,
+                    "source": "link: H100 SXM data sheet (NVLink 900 GB/s "
+                              "both ways, one way); hop, torus, cross-host: "
+                              "assumed"},
+            "chips_per_stage": PLAN_CHIPS_PER_STAGE, "plans": plans,
+            "elastic": {"arch": arch, "shape": shape, "plans": elastic},
+            "wall_s": wall}
+
+
+def same_trace(np, ref, got):
+    """``got``'s valid rows equal ``ref``'s rows bitwise, field by field;
+    the names of the fields that differ."""
+    sel = np.flatnonzero(got._valid())
+    if len(sel) != ref.latency.shape[0]:
+        return ["n_trajectories"]
+    return [f for f in ("latency", "total_power", "feasible", "cap_feasible",
+                        "source_latency", "assign", "positions", "active",
+                        "charge", "n_requests", "energy_tx", "energy_cmp")
+            if not np.array_equal(getattr(got, f)[sel], getattr(ref, f))]
+
+
+def run_sharded_rollout(np, torch, device):
+    """Phase 31: the main path's rollout (AlexNet, U 8, B 256, T 32, 4
+    requests a frame, P2) split over ``fleet_mesh`` meshes on the card:
+    two entries of this card, a ragged ``RAGGED_B`` over four, and every
+    visible card when there is more than one.  Each run's counters are
+    set to 0 just before and read just after it; each is bitwise equal on
+    every valid field to the unsharded run with the same generator, with
+    exactly T x shards link-geometry and fused chain-DP launches; each
+    rollout entry is built once, by its first run.  Then the unsharded
+    and two-shard walls in turns, which build nothing.  Returns its
+    record."""
+    from repro_torch import kernels
+    from repro_torch.core.positions import hex_init
+    from repro_torch.parallel.sharding import fleet_mesh
+    fleet = alexnet_fleet(torch, device, p2=True, seed=0, frames=MAIN_T)
+    base = hex_init(U, 40.0, jitter=0.5, seed=0)
+    meshes = [("2 x this card", fleet_mesh([device] * 2), MAIN_B),
+              (f"{RAGGED_SHARDS} x this card, ragged",
+               fleet_mesh([device] * RAGGED_SHARDS), RAGGED_B)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("every visible card", fleet_mesh(), MAIN_B))
+
+    def run(B, seed, mesh=None):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trace = fleet.run(base, n_trajectories=B, mesh=mesh,
+                          rng=np.random.default_rng(seed))
+        torch.cuda.synchronize()
+        return trace, time.perf_counter() - t0, kernels.launch_counts(), \
+            kernels.route_counts()["tropical_dp"]
+
+    record = {"meshes": []}
+    for k, (name, mesh, B) in enumerate(meshes):
+        seed = 31 + k
+        ref = run(B, seed)[0]
+        trace, wall, launches, routes = run(B, seed, mesh)
+        n = len(mesh)
+        want = only(launches, link_geometry=MAIN_T * n,
+                    tropical_dp=MAIN_T * n)
+        if launches != want or routes != {"fused": MAIN_T * n, "step": 0}:
+            raise AssertionError(f"sharded rollout ({name}): launches "
+                                 f"{launches} != {want}, routes {routes}")
+        diff = same_trace(np, ref, trace)
+        if diff:
+            raise AssertionError(f"sharded rollout ({name}): {diff} differ "
+                                 f"from the unsharded run")
+        padded = trace.latency.shape[0]
+        if (padded != B) != (trace.valid is not None) or \
+                trace.n_trajectories != B or not trace.feasibility_rate > 0:
+            raise AssertionError(f"sharded rollout ({name}): {padded} rows, "
+                                 f"valid {trace.valid}")
+        record["meshes"].append({
+            "mesh": name, "shards": n, "B": B, "padded_B": padded,
+            "launches": {"link_geometry": MAIN_T * n,
+                         "tropical_dp": MAIN_T * n},
+            "feasibility": trace.feasibility_rate,
+            "latency_p50_s": trace.latency_percentile(50),
+            "first_wall_s": wall})
+        log(f"  {name}: B {B} -> {padded} rows over {n} shards, launches "
+            f"{MAIN_T * n} + {MAIN_T * n} (fused), every field bitwise the "
+            f"unsharded run's; feasibility {trace.feasibility_rate:.6f}; "
+            f"first run {wall:.3f} s")
+    # every entry is built once, by the first run that needs it
+    builds = dict(fleet.plan_cache.builds)
+    keys = [key for key in fleet._cache_keys_used if key[0] == "rollout"]
+    if len(keys) != 1 + len(meshes) or any(builds[key] != 1 for key in keys):
+        raise AssertionError(f"sharded rollout: builds "
+                             f"{[builds.get(key) for key in keys]}")
+    walls = {"unsharded": [], "2 shards": []}
+    for turn in range(SHARD_WALL_TURNS):
+        for label, mesh in (("unsharded", None), ("2 shards",
+                                                  meshes[0][1])):
+            walls[label].append(run(MAIN_B, 90 + turn, mesh)[1])
+    if dict(fleet.plan_cache.builds) != builds:
+        raise AssertionError("sharded rollout: a run after the first built")
+    log(f"  walls in turns, B {MAIN_B} T {MAIN_T}: unsharded "
+        f"{', '.join(f'{w:.3f}' for w in walls['unsharded'])} s; 2 shards "
+        f"of this card {', '.join(f'{w:.3f}' for w in walls['2 shards'])} s"
+        f"; no build after the first runs")
+    record.update({"U": U, "T": MAIN_T, "requests": REQUESTS,
+                   "p2_steps": 30, "walls_in_turns_s": walls})
+    return record
+
+
+def load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_serve_swarm(np, torch, device):
+    """Phase 32: ``examples/torch_serve_swarm.py``'s three modes on the
+    card (its default device), each with the counters set to 0 just
+    before and read just after it.  LM mode: 4 flash launches (the SIMT
+    route: float32) a prefill call and 4 decode launches a decode step,
+    nothing else; its 2-stage plan of 6 blocks.  ``--chaos`` and
+    ``--stream``: every rollout call T + T launches (fused), the chaos
+    mode's planning calls 1 + 1 each outside them, the stream mode
+    nothing outside them; their events, windows and reports the CPU's.
+    Returns its record."""
+    import io
+    from repro_torch import kernels
+    mod = load_example("torch_serve_swarm")
+    record = {}
+    for mode, argv in (("lm", []), ("chaos", ["--chaos"]),
+                       ("stream", ["--stream"])):
+        calls = []
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counted_rollouts(torch, calls), \
+                contextlib.redirect_stdout(io.StringIO()):
+            out = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        routes = kernels.route_counts()
+        if mode == "lm":
+            layers = out["n_layers"]
+            want = only(launches,
+                        flash_attention=layers * out["prefill_calls"],
+                        decode_attention=layers * out["decode_steps"])
+            flash = routes["flash_attention"]
+            plan = out["plan"]
+            if launches != want or calls or flash != only(
+                    flash, simt=want["flash_attention"]) or \
+                    plan.n_stages != 2 or \
+                    sum(plan.blocks_per_stage) != layers + 2 or \
+                    out["completed"] != 8:
+                raise AssertionError(f"serve_swarm lm: launches {launches}, "
+                                     f"want {want}, flash routes {flash}, "
+                                     f"plan {plan}")
+            record[mode] = {
+                "launches": {k: v for k, v in want.items() if v},
+                "flash_route": "simt", "prefill_calls": out["prefill_calls"],
+                "decode_steps": out["decode_steps"], "tokens": out["tokens"],
+                "serve_wall_s": out["wall_s"],
+                "plan": {"blocks_per_stage": plan.blocks_per_stage,
+                         "stage_coords": plan.stage_coords,
+                         "bottleneck_s": plan.bottleneck_s},
+                "chip": out["chip"].name, "wall_s": wall}
+            log(f"  lm: {out['prefill_calls']} prefill calls x {layers} "
+                f"flash (simt) + {out['decode_steps']} decode steps x "
+                f"{layers} decode; {out['tokens']} tokens in "
+                f"{out['wall_s']:.3f} s; plan {plan.blocks_per_stage} "
+                f"blocks at {plan.stage_coords}, period "
+                f"{plan.bottleneck_s * 1e6:.3f} us")
+            continue
+        want_rollout_calls(f"serve_swarm {mode}", calls)
+        outside = {k: v - sum(c[1][k] for c in calls)
+                   for k, v in launches.items()}
+        planning = outside["link_geometry"]
+        if outside != only(outside, link_geometry=planning,
+                           tropical_dp=planning) or \
+                (planning == 0) != (mode == "stream") or \
+                routes["tropical_dp"]["step"]:
+            raise AssertionError(f"serve_swarm {mode}: launches outside the "
+                                 f"rollout calls {outside}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = mod.main(argv + ["--device", "cpu"])
+        keys = ("events", "mode", "metrics", "retraces") if mode == "chaos" \
+            else ("windows",)
+        if any(out[k] != cpu[k] for k in keys) or (
+                mode == "stream" and {k: v for k, v in out["report"].items()
+                                      if "latency" not in k}
+                != {k: v for k, v in cpu["report"].items()
+                    if "latency" not in k}):
+            raise AssertionError(f"serve_swarm {mode}: {out} on the card, "
+                                 f"{cpu} on the CPU")
+        record[mode] = {"rollout_calls": len(calls),
+                        "planning_calls": planning, "wall_s": wall}
+        log(f"  {mode}: {len(calls)} rollout calls of T + T launches, "
+            f"{planning} planning calls of 1 + 1 outside them; the CPU's "
+            f"{', '.join(keys)}; wall {wall:.3f} s")
+    return record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3803,13 +4117,37 @@ def main() -> int:
         "qwen2-vl-2b shapes")
     flash_x, decode_x = time_slice_attention(torch, device, served,
                                              slice_errs)
+
+    slice_records = []
+    for phase, title, fn in (
+            (30, "the pipeline-stage planner with the card's constants",
+             run_pipeline_planner),
+            (31, "the main path's rollout split over meshes of the card",
+             run_sharded_rollout),
+            (32, "examples/torch_serve_swarm.py's three modes on the card",
+             run_serve_swarm)):
+        log(f"[{phase}] {title}")
+        t0 = time.perf_counter()
+        slice_records.append(fn(np, torch, device))
+        slice_records[-1]["phase_wall_s"] = time.perf_counter() - t0
+        log(f"  phase {phase}: {slice_records[-1]['phase_wall_s']:.3f} s")
+    pipeline, sharded, serve_swarm = slice_records
     for row in rows:
         row.update({"flash_attention": flash_x,
                     "decode_attention": decode_x}.get(row["name"], {}))
         if row["name"] in ("flash_attention", "decode_attention"):
             row["launches_by_path"] = {a: s["launches"][row["name"]]
                                        for a, s in served.items()}
+            row["launches_by_path"]["serve-lm"] = \
+                serve_swarm["lm"]["launches"][row["name"]]
+        if row["name"] in ("link_geometry", "tropical_dp"):
+            row["launches_by_path"] = {"rollout": row["launches"], **{
+                f"rollout over {m['mesh']}": m["launches"][row["name"]]
+                for m in sharded["meshes"]}}
 
+    print(json.dumps({"pipeline": pipeline}))
+    print(json.dumps({"sharded_rollout": sharded}))
+    print(json.dumps({"serve_swarm": serve_swarm}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"swarm_eval": swarm_eval}))
     print(json.dumps({"cnn_path": cnn}))

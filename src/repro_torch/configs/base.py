@@ -1,5 +1,6 @@
 """Config dataclasses: the paper's CNNs (eq. (1)-(3) layer
-parameterization), the served LM architectures and the serving loop."""
+parameterization), the LM architectures and the input shapes the
+pipeline planner plans them at, and the serving loop."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,8 +38,31 @@ class CNNConfig:
 
 
 # ---------------------------------------------------------------------------
-# LM architecture config
+# LM shapes and architecture config
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape an architecture is planned at."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+# The four LM shapes.
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
 
 
 @dataclass(frozen=True)
@@ -78,10 +102,12 @@ class AttentionConfig:
 class ArchConfig:
     """Architecture of one LM: the reference's fields that the served
     families read, whisper's encoder (``enc_layers``, ``enc_seq``) and
-    the VLM's prepended patch embeddings (``vision_tokens``) included.
-    The reference's fields of training and of its dry-run shapes come
-    with those slices, and its parameter count (``n_params``) with the
-    architecture cost model (ROADMAP queue 1 items 2 and 14)."""
+    the VLM's prepended patch embeddings (``vision_tokens``) included,
+    and those the pipeline planner reads: the weights' dtype
+    (``param_dtype``), the shapes the architecture is planned at
+    (``supported_shapes``) and its analytic parameter count
+    (``n_params``).  The training fields come with that slice (ROADMAP
+    queue 1 item 14.4)."""
 
     name: str
     family: str                 # dense | ssm | hybrid | audio | vlm | moe
@@ -107,6 +133,10 @@ class ArchConfig:
     # vlm: number of prepended vision patch embeddings (stub frontend)
     vision_tokens: int = 0
     dtype: str = "bfloat16"            # compute (and weight matrix) dtype
+    param_dtype: str = "float32"       # the planner's weight bytes
+    # which shape names this arch supports (long_500k gated by attention kind)
+    supported_shapes: Tuple[str, ...] = (
+        "train_4k", "prefill_32k", "decode_32k")
 
     @property
     def head_dim(self) -> int:
@@ -114,6 +144,15 @@ class ArchConfig:
         if a.head_dim:
             return a.head_dim
         return self.d_model // max(a.n_heads, 1)
+
+    @property
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + blocks + head)."""
+        from repro_torch.core.cost_model import arch_param_count
+        return arch_param_count(self)
+
+    def supports(self, shape: ShapeConfig) -> bool:
+        return shape.name in self.supported_shapes
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's rule:
@@ -163,5 +202,7 @@ class ServeConfig:
     temperature: float = 0.0
 
 
-__all__ = ["ArchConfig", "AttentionConfig", "CNNConfig", "ConvLayerSpec",
-           "MoEConfig", "ServeConfig"]
+__all__ = ["ALL_SHAPES", "ArchConfig", "AttentionConfig", "CNNConfig",
+           "ConvLayerSpec", "DECODE_32K", "LONG_500K", "MoEConfig",
+           "PREFILL_32K", "SHAPES_BY_NAME", "ServeConfig", "ShapeConfig",
+           "TRAIN_4K"]

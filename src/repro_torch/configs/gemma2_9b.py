@@ -16,4 +16,6 @@ CONFIG = ArchConfig(
     final_logit_softcap=30.0,
     act="gelu", glu=True,         # GeGLU
     tie_embeddings=True,
+    # local layers keep the 4096 window: long_500k is planned
+    supported_shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
 )

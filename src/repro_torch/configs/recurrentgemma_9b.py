@@ -16,4 +16,6 @@ CONFIG = ArchConfig(
     rglru_conv_size=4,
     act="gelu", glu=True,
     tie_embeddings=True,
+    # recurrent state + windowed local attention: long_500k is planned
+    supported_shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
 )

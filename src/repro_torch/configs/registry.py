@@ -1,12 +1,14 @@
 """``get_arch(name)``: the architectures the port serves (the dense LMs,
 the MoE LMs, recurrentgemma, xlstm, whisper-tiny, qwen2-vl and the
-paper's CNNs), by their reference ids."""
+paper's CNNs), by their reference ids; ``get_shape(name)``: the LM
+shapes the pipeline planner plans them at."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict, Union
 
-from repro_torch.configs.base import ArchConfig, CNNConfig
+from repro_torch.configs.base import (SHAPES_BY_NAME, ArchConfig, CNNConfig,
+                                      ShapeConfig)
 
 _MODULES: Dict[str, str] = {
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
@@ -21,6 +23,7 @@ _MODULES: Dict[str, str] = {
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
 }
 _CNNS = {"lenet": "LENET", "alexnet": "ALEXNET"}
+LM_ARCHS = tuple(_MODULES)
 
 
 def get_arch(name: str) -> Union[ArchConfig, CNNConfig]:
@@ -33,4 +36,8 @@ def get_arch(name: str) -> Union[ArchConfig, CNNConfig]:
     return importlib.import_module(_MODULES[name]).CONFIG
 
 
-__all__ = ["get_arch"]
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES_BY_NAME[name]
+
+
+__all__ = ["LM_ARCHS", "get_arch", "get_shape"]

@@ -17,4 +17,6 @@ CONFIG = ArchConfig(
     xlstm_mlstm_every=2,        # alternate sLSTM / mLSTM 1:1
     act="gelu", glu=False,
     tie_embeddings=True,
+    # O(1) decode state: long_500k is planned
+    supported_shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
 )

@@ -1,4 +1,6 @@
-"""The paper's LoS radio link (eq. 4, 5, 7).
+"""The paper's LoS radio link (eq. 4, 5, 7), and the hop-count
+interconnect of a pipeline's chips that the pipeline planner places
+stages on (``ICIParams`` / ``ICIChannel``).
 
 Unit note: the paper sets the thermal noise to -170 dBm and the packet
 transmission duration to tau = 1e-4 s.  Taken as an *absolute* noise power,
@@ -81,4 +83,48 @@ class RadioChannel:
         return np.asarray(bits, dtype=np.float64) / np.maximum(r, 1e-9)
 
 
-__all__ = ["DBM", "dbm_to_watts", "RadioParams", "RadioChannel"]
+@dataclass(frozen=True)
+class ICIParams:
+    """The chips' interconnect.  Every field is the caller's: the link
+    rate and the cross-host rate from the hardware's data sheet, the hop
+    latency and the topology from the deployment.  There is no default
+    interconnect."""
+
+    link_bw_bytes: float             # bytes/s of one chip-to-chip link
+    hop_latency_s: float             # per-hop latency
+    torus: tuple                     # physical topology, (x, y)
+    dcn_bw_bytes: float              # cross-host bandwidth, bytes/s
+
+
+class ICIChannel:
+    """Hop-count channel on the chips' torus: the P2 'positions' analogue.
+
+    Distance = Manhattan hop count on the (wrapped) torus; rate degrades with
+    the number of hops a transfer serializes over, which is what makes stage
+    placement on the physical torus (pipeline_opt) a real optimization.
+    """
+
+    def __init__(self, params: ICIParams):
+        self.params = params
+
+    def hops(self, a: tuple, b: tuple) -> int:
+        d = 0
+        for x, y, n in zip(a, b, self.params.torus):
+            dx = abs(x - y)
+            d += min(dx, n - dx)     # torus wrap
+        return max(d, 0)
+
+    def rate(self, hops: int) -> float:
+        """Effective byte/s for a transfer serialized over ``hops`` links."""
+        if hops <= 0:
+            return float("inf")
+        return self.params.link_bw_bytes / hops
+
+    def transfer_time(self, bytes_: float, hops: int) -> float:
+        if hops <= 0:
+            return 0.0
+        return bytes_ / self.rate(hops) + hops * self.params.hop_latency_s
+
+
+__all__ = ["DBM", "dbm_to_watts", "RadioParams", "RadioChannel",
+           "ICIParams", "ICIChannel"]

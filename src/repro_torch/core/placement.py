@@ -13,7 +13,9 @@ Three solvers, strongest first:
                        U<=12) needs.
 * ``solve_chain_dp`` — exact under the contiguous-blocks restriction
                        (device changes only move forward through a device
-                       order); O(L^2 * U).
+                       order); O(L^2 * U).  ``solve_chain_dp_minmax`` is
+                       its bottleneck variant over exactly S stages, the
+                       pipeline planner's objective.
 * ``solve_greedy``   — the paper's delegation semantics: place each layer on
                        the current device until a cap is hit, then delegate
                        to the best next device.  Baseline + B&B warm start.
@@ -282,6 +284,62 @@ def solve_chain_dp(p: PlacementProblem,
     return PlacementSolution(tuple(assign), float(dp[L, s_best]), "chain_dp")
 
 
+def solve_chain_dp_minmax(p: PlacementProblem, n_stages: int,
+                          device_order: Optional[Sequence[int]] = None
+                          ) -> PlacementSolution:
+    """Bottleneck variant: partition the chain into EXACTLY ``n_stages``
+    contiguous non-empty blocks minimizing the max per-stage latency
+    (compute + incoming transfer) — the pipeline-throughput objective the
+    pipeline planner uses on top of the paper's sum-latency DP.
+
+    dp[b][s] = best achievable bottleneck placing layers [0..b) on stages
+    [0..s).  O(L^2 * S).  Latency reported = bottleneck (pipeline period).
+    """
+    L = p.L
+    order = list(device_order) if device_order is not None else \
+        list(range(min(n_stages, p.U)))
+    S = min(n_stages, len(order), L)
+    pre_c = np.concatenate([[0.0], np.cumsum(p.compute)])
+    pre_m = np.concatenate([[0.0], np.cumsum(p.memory)])
+    INF = float("inf")
+    dp = np.full((L + 1, S + 1), INF)
+    parent = np.full((L + 1, S + 1), -1, dtype=np.int64)
+    dp[0, 0] = 0.0
+    for s in range(1, S + 1):
+        dev = order[s - 1]
+        d = p.devices[dev]
+        for b in range(s, L + 1):
+            for a in range(s - 1, b):
+                if not np.isfinite(dp[a, s - 1]):
+                    continue
+                if pre_m[b] - pre_m[a] + p.mem_used[dev] > d.mem_cap + 1e-9:
+                    continue
+                if (pre_c[b] - pre_c[a] + p.compute_used[dev]
+                        > d.compute_cap + 1e-9):
+                    continue
+                ct = (pre_c[b] - pre_c[a]) / d.throughput
+                if a == 0:
+                    tr = p.transfer_time(p.source, dev, p.input_bits)
+                else:
+                    tr = p.transfer_time(order[s - 2], dev,
+                                         p.act_bits[a - 1])
+                stage_cost = ct + tr
+                cand = max(dp[a, s - 1], stage_cost)
+                if cand < dp[b, s]:
+                    dp[b, s] = cand
+                    parent[b, s] = a
+    if not np.isfinite(dp[L, S]):
+        return INFEASIBLE
+    assign = [0] * L
+    b = L
+    for s in range(S, 0, -1):
+        a = int(parent[b, s])
+        for j in range(a, b):
+            assign[j] = order[s - 1]
+        b = a
+    return PlacementSolution(tuple(assign), float(dp[L, S]), "chain_minmax")
+
+
 # ---------------------------------------------------------------------------
 # Greedy delegation (the paper's fallback semantics + heuristic baseline)
 # ---------------------------------------------------------------------------
@@ -344,5 +402,5 @@ def place_requests(problems: Sequence[PlacementProblem],
 
 
 __all__ = ["Device", "PlacementProblem", "PlacementSolution", "INFEASIBLE",
-           "solve_bnb", "solve_brute", "solve_chain_dp", "solve_greedy",
-           "solve_random", "place_requests"]
+           "solve_bnb", "solve_brute", "solve_chain_dp", "solve_chain_dp_minmax",
+           "solve_greedy", "solve_random", "place_requests"]

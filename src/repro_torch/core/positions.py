@@ -10,20 +10,21 @@ hexagonal packing; ``solve_positions_legacy`` is the original
 one-scenario solver (a gradient loop on the device, then a host NumPy
 push-apart repair), kept as the batched path's parity oracle;
 ``chain_oracle`` is the analytic optimum of a chain (collinear at
-exactly 2R).
+exactly 2R); ``assign_stages_to_torus`` is P2's discrete analogue for the
+pipeline planner: stage groups placed on the chips' torus.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.batch import (chain_links, coverage_radius,
                                     position_coeff, solve_positions_batched)
-from repro_torch.core.channel import RadioChannel
+from repro_torch.core.channel import ICIChannel, RadioChannel
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -165,5 +166,113 @@ def chain_oracle(n: int, radius: float,
     return np.stack([xs + center[0], np.full(n, center[1])], axis=1)
 
 
+# ---------------------------------------------------------------------------
+# Discrete torus placement (the pipeline planner's P2)
+# ---------------------------------------------------------------------------
+
+
+def assign_stages_to_torus(n_stages: int, traffic: np.ndarray,
+                           channel: ICIChannel,
+                           sweeps: int = 4,
+                           exact_cutoff: int = 8,
+                           node_budget: int = 200_000
+                           ) -> List[Tuple[int, int]]:
+    """Place ``n_stages`` stage groups on the chips' torus minimizing
+    hop-weighted traffic (quadratic assignment).
+
+    ``traffic[i, k]`` = bytes/step stage i sends to stage k.
+
+    A greedy snake walk + pairwise 2-opt builds the incumbent; for
+    ``n_stages <= exact_cutoff`` it is then refined by depth-first
+    branch-and-bound over stage -> coordinate permutations.  Transfer costs
+    are nonnegative, so a prefix's accumulated cost is an admissible lower
+    bound — any prefix already at the incumbent cost is pruned, which is
+    what keeps the O(n!) permutation space from being enumerated.  Stage 0
+    is pinned to the seed's coordinate (torus translations preserve hop
+    counts, so this loses no generality), and the search is hard-capped at
+    ``node_budget`` candidate evaluations: a large call returns the best
+    placement found so far, never worse than the seed.  The visiting
+    order is the reference's, so ties resolve the same way.
+    """
+    tx, ty = channel.params.torus
+    coords = [(x, y) for x in range(tx) for y in range(ty)]
+    assert n_stages <= len(coords)
+    # greedy: walk stages in chain order along a snake path (hop=1 neighbours)
+    snake: List[Tuple[int, int]] = []
+    for x in range(tx):
+        col = [(x, y) for y in range(ty)]
+        snake.extend(col if x % 2 == 0 else col[::-1])
+    placement = snake[:n_stages]
+
+    def cost(pl: Sequence[Tuple[int, int]]) -> float:
+        c = 0.0
+        for i in range(n_stages):
+            for k in range(n_stages):
+                if traffic[i, k] > 0:
+                    c += channel.transfer_time(traffic[i, k],
+                                               channel.hops(pl[i], pl[k]))
+        return c
+
+    best = cost(placement)
+    for _ in range(sweeps):                      # 2-opt improvement
+        improved = False
+        for i in range(n_stages):
+            for k in range(i + 1, n_stages):
+                pl = list(placement)
+                pl[i], pl[k] = pl[k], pl[i]
+                c = cost(pl)
+                if c < best - 1e-12:
+                    placement, best = pl, c
+                    improved = True
+        if not improved:
+            break
+    if n_stages > exact_cutoff or n_stages < 2:
+        return list(placement)
+
+    # --- branch-and-bound refinement (prefix cost prunes permutations) ----
+    pair_cache: dict = {}
+
+    def pair_cost(i: int, j: int, ci: Tuple[int, int],
+                  cj: Tuple[int, int]) -> float:
+        key = (i, j, ci, cj)
+        c = pair_cache.get(key)
+        if c is None:
+            c = 0.0
+            if traffic[i, j] > 0:
+                c += channel.transfer_time(traffic[i, j],
+                                           channel.hops(ci, cj))
+            if traffic[j, i] > 0:
+                c += channel.transfer_time(traffic[j, i],
+                                           channel.hops(cj, ci))
+            pair_cache[key] = c
+        return c
+
+    budget = node_budget
+    root = placement[0]
+    stack: List[Tuple[List[Tuple[int, int]], float]] = [([root], 0.0)]
+    while stack and budget > 0:
+        prefix, pc = stack.pop()
+        j = len(prefix)
+        if j == n_stages:
+            if pc < best - 1e-12:
+                best, placement = pc, list(prefix)
+            continue
+        used = set(prefix)
+        cands = []
+        for c in coords:
+            if c in used:
+                continue
+            budget -= 1
+            inc = sum(pair_cost(i, j, prefix[i], c) for i in range(j))
+            if pc + inc < best - 1e-12:
+                cands.append((inc, c))
+            if budget <= 0:
+                break
+        cands.sort(reverse=True)                 # pop cheapest child first
+        for inc, c in cands:
+            stack.append((prefix + [c], pc + inc))
+    return list(placement)
+
+
 __all__ = ["PositionSolution", "hex_init", "solve_positions",
-           "solve_positions_legacy", "chain_oracle"]
+           "solve_positions_legacy", "chain_oracle", "assign_stages_to_torus"]

@@ -7,16 +7,18 @@ The detector is fed by missed heartbeats, drained batteries and step
 times; the *re-planning* path is the paper's mechanism: placement is
 re-solved with the dead device removed, exactly like a UAV delegating
 its subtask, or answered from a precomputed ``ContingencyTable``.
-``scale_elastic`` waits for the pipeline planner (ROADMAP queue 1).
+``scale_elastic`` re-plans a pipeline for whatever stage count survives.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch.core.channel import ICIChannel
+from repro_torch.core.pipeline_opt import ChipParams, StagePlan, plan_pipeline
 from repro_torch.core.placement import Device
 from repro_torch.runtime import checkpoint as ckpt
 
@@ -94,10 +96,10 @@ class HealthTracker:
 class ElasticPlanState:
     """Current placement + the device set it assumes.  ``plan`` is
     whatever the runner's ``replan_fn`` or contingency table returns (a
-    plan dict, a ``ContingencyPlan``, ...)."""
+    ``StagePlan``, a ``ContingencyPlan``, a plan dict, ...)."""
 
     devices: List[Device]
-    plan: Optional[Any] = None
+    plan: Optional[Union[StagePlan, Any]] = None
     generation: int = 0
 
 
@@ -255,6 +257,12 @@ class FaultTolerantRunner:
         return None
 
 
+def scale_elastic(n_devices: int, cfg, shape, chips_per_stage: int = 1, *,
+                  chip: ChipParams, ici: ICIChannel) -> StagePlan:
+    """Elastic rescale helper: plan for whatever device count survives."""
+    return plan_pipeline(cfg, shape, n_stages=max(1, n_devices),
+                         chips_per_stage=chips_per_stage, chip=chip, ici=ici)
+
 
 __all__ = ["DeviceHealth", "HealthTracker", "ElasticPlanState",
-           "FaultTolerantRunner"]
+           "FaultTolerantRunner", "scale_elastic"]

@@ -202,6 +202,9 @@ class PeriodicReplanner:
     more device call.  The scenario batch prices the plan's robustness NOW;
     the horizon prices where the fleet is heading (``horizon_feasibility``,
     ``horizon_latency``), which is what decides proactive re-positioning.
+    ``rollout_mesh`` / ``rollout_devices`` split the lookahead's
+    trajectories over a device mesh (``FleetRollout.run(mesh=,
+    devices=)``).
 
     ``engine``/``generator`` come from
     ``repro_torch.runtime.scenario_engine``; the engine's device is where
@@ -212,7 +215,8 @@ class PeriodicReplanner:
                  n_scenarios: int = 128, source: int = 0,
                  adopt_positions: bool = True,
                  rollout=None, rollout_horizon: int = 0,
-                 rollout_trajectories: int = 32):
+                 rollout_trajectories: int = 32,
+                 rollout_mesh=None, rollout_devices=None):
         self.engine = engine
         self.generator = generator
         self.period = max(1, period)
@@ -222,6 +226,11 @@ class PeriodicReplanner:
         self.rollout = rollout
         self.rollout_horizon = rollout_horizon
         self.rollout_trajectories = rollout_trajectories
+        # shard the lookahead's trajectory axis over a device mesh: a
+        # horizon priced over many Monte-Carlo futures is exactly the
+        # embarrassingly-parallel axis
+        self.rollout_mesh = rollout_mesh
+        self.rollout_devices = rollout_devices
         self.horizon = None        # RolloutTrace of the last lookahead
         self.plan = None           # BatchPlan of the last refresh
         self.refreshes = 0
@@ -288,7 +297,8 @@ class PeriodicReplanner:
             self.horizon = self.rollout.run(
                 self.generator.base_positions,
                 n_trajectories=self.rollout_trajectories,
-                frames=self.rollout_horizon)
+                frames=self.rollout_horizon,
+                mesh=self.rollout_mesh, devices=self.rollout_devices)
         self.last_refresh_s = time.perf_counter() - t0
         if self.refreshes > 0:
             # only builds paid DURING this refresh count: another engine

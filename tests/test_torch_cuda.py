@@ -10,7 +10,10 @@ plain version at one launch a call.  The paper's evaluation path: the
 batched chain-DP wrappers (one fused launch a call, bitwise the CPU's),
 a contingency-table refresh (one link-geometry and one chain-DP launch,
 the CPU's table), ``SwarmSim``'s LLHR rollout (one of each a frame, the
-baselines none) and ``solve_positions_legacy``'s separation.
+baselines none) and ``solve_positions_legacy``'s separation.  The
+trajectory-sharded rollout over meshes of this card (two entries, and a
+ragged B over four): bitwise the unsharded run on every valid row, T
+link-geometry and T fused chain-DP launches a shard.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -626,3 +629,52 @@ def test_mlstm_chunk_kernel_matches_plain(cuda, b, h, s, d, dtype):
     torch.testing.assert_close(got[0].float(), ref[0].float(), **tol)
     for a, r in zip(got[1:], ref[1:]):
         torch.testing.assert_close(a, r, atol=5e-4, rtol=1e-3)
+
+
+def _sharded_pair(cuda, B, n, seed):
+    """The same LeNet rollout on the card unsharded and over a mesh of
+    ``n`` entries of this card, with one generator seed; the sharded
+    run's launch counts."""
+    from repro_torch.core.rollout import RolloutSpec
+    from repro_torch.parallel.sharding import fleet_mesh
+    from repro_torch.runtime.fleet_rollout import FleetRollout
+    T, U = 4, 5
+    ro = FleetRollout(RadioChannel(), make_devices(U), cnn_cost(LENET),
+                      RolloutSpec(frames=T, requests_per_frame=2,
+                                  jitter_sigma_m=2.0, failure_prob=0.15,
+                                  recovery_prob=0.25, battery_j=5e3),
+                      plan_cache=PlanFnCache(), device=cuda)
+    base = hex_init(U, 40.0, jitter=0.5, seed=1)
+    ref = ro.run(base, n_trajectories=B, rng=np.random.default_rng(seed))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = ro.run(base, n_trajectories=B, mesh=fleet_mesh([cuda] * n),
+                 rng=np.random.default_rng(seed))
+    torch.cuda.synchronize()
+    return ref, got, kernels.launch_counts(), T
+
+
+def _assert_valid_rows_bitwise(ref, got):
+    sel = np.flatnonzero(got._valid())
+    assert len(sel) == ref.latency.shape[0] == got.n_trajectories
+    for f in ("latency", "total_power", "feasible", "cap_feasible",
+              "source_latency", "assign", "positions", "active", "charge",
+              "n_requests", "energy_tx", "energy_cmp"):
+        np.testing.assert_array_equal(getattr(got, f)[sel], getattr(ref, f),
+                                      err_msg=f)
+
+
+def test_sharded_rollout_over_two_entries_of_the_card(cuda):
+    ref, got, counts, T = _sharded_pair(cuda, 16, 2, 5)
+    assert got.valid is None
+    _assert_valid_rows_bitwise(ref, got)
+    assert counts["link_geometry"] == 2 * T and counts["tropical_dp"] == 2 * T
+
+
+def test_sharded_rollout_ragged_on_the_card(cuda):
+    ref, got, counts, T = _sharded_pair(cuda, 7, 4, 6)
+    assert got.latency.shape[0] == 8 and got.valid.tolist() == \
+        [True] * 7 + [False]
+    _assert_valid_rows_bitwise(ref, got)
+    assert got.feasibility_rate == ref.feasibility_rate
+    assert counts["link_geometry"] == 4 * T and counts["tropical_dp"] == 4 * T

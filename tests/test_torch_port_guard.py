@@ -18,6 +18,9 @@
   ``ContinuousBatcher``) runs on CUDA or raises; ``TransformerLM`` on
   family ``audio`` raises naming ``WhisperLM``, an unknown block kind
   raises.
+* ``examples/torch_serve_swarm.py`` defaults to the card in all three
+  modes, and a fleet mesh of CUDA devices raises without CUDA: neither
+  falls back to the CPU.
 """
 import dataclasses
 import ast
@@ -100,9 +103,13 @@ def test_port_scan_covers_the_package_and_chip_smoke():
     assert EXAMPLE in files and os.path.isfile(EXAMPLE)
     for name in FIGURES + ("torch_common",):
         assert os.path.join(ROOT, "benchmarks", name + ".py") in files
-    for name in ("torch_quickstart", "torch_scenario_planning"):
+    for name in ("torch_quickstart", "torch_scenario_planning",
+                 "torch_serve_swarm"):
         assert os.path.join(ROOT, "examples", name + ".py") in files
     assert any(f.endswith(os.path.join("core", "rollout.py")) for f in files)
+    for sub in (("parallel", "__init__.py"), ("parallel", "sharding.py"),
+                ("core", "pipeline_opt.py")):
+        assert os.path.join(ROOT, "src", "repro_torch", *sub) in files
     assert any(f.endswith(os.path.join("models", "cnn.py")) for f in files)
     assert len(files) >= 20
 
@@ -421,3 +428,38 @@ def test_serving_layers_without_device_raise(monkeypatch):
     finally:
         gw.close()
     assert kernels.launch_counts() == NO_LAUNCHES
+
+
+@pytest.mark.parametrize("mode", [[], ["--chaos"], ["--stream"]])
+def test_serve_swarm_example_defaults_to_the_card(monkeypatch, mode):
+    """``examples/torch_serve_swarm.py`` without ``--device`` raises
+    without CUDA before it prints a line, in every mode."""
+    import contextlib
+    import importlib.util
+    import io
+    _no_cuda(monkeypatch)
+    path = os.path.join(ROOT, "examples", "torch_serve_swarm.py")
+    spec = importlib.util.spec_from_file_location("torch_serve_swarm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(mode)
+    assert out.getvalue() == ""
+
+
+def test_cuda_mesh_without_cuda_raises(monkeypatch):
+    """A rollout sharded over CUDA devices cannot be built without CUDA,
+    even on a CPU engine: the mesh never falls back."""
+    from repro_torch.parallel.sharding import fleet_mesh
+    _no_cuda(monkeypatch)
+    ch, devs, mc = _problem()
+    with pytest.raises(ValueError, match="CUDA device"):
+        FleetRollout(ch, devs, mc, RolloutSpec(frames=2), device="cpu",
+                     mesh_devices=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetRollout(ch, devs, mc, RolloutSpec(frames=2), device="cpu",
+                     mesh_devices=[torch.device("cuda", 0)] * 2)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fleet_mesh()
