@@ -254,13 +254,48 @@ Phases, each raising on failure (the script then exits non-zero):
     ``--chaos`` and ``--stream``: every rollout call T + T fused
     launches, the chaos mode's planning calls 1 + 1 each outside them,
     the stream mode nothing outside them; events, windows and reports
-    the CPU's.
+    the CPU's;
+33. the flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
+    against its plain version ``attention_bwd_ref`` on the same o and lse,
+    float32 and bfloat16 (``ATTN_TOL``, bf16 also ``ATTN_BF16_ROUNDING``):
+    minicpm-2b's training call (B 1, H 36, S 4,096, D 64, causal),
+    gemma2-9b's (H 16, KV 8, S 2,048, D 256, cap 50, window 1,024 and
+    none), qwen2-vl-2b's (H 12, KV 2, D 128), whisper-tiny's non-causal
+    S 1,500 and cross Sq 448 x Sk 1,500, ragged Sq / Sk of 1, 65 and
+    1,000; two backward launches bitwise equal, each on ``simt``; the
+    forward with ``with_lse`` on its dtype's route, its output bitwise
+    the serving launch's, its lse the plain version's;
+34. the backward kernel's time at minicpm-2b's and gemma2-9b's shapes in
+    bfloat16 (graph and eager) beside its plain version, the backward of
+    ``F.scaled_dot_product_attention`` (no softcap) and its bound (five
+    products, 2 D flops a kept (query, key) pair and head, at the bf16
+    peak, against the bytes of q, k, v, o, dO, dq, dk, dv and lse);
+35. the reduced minicpm-2b, gemma2-9b, qwen2-vl-2b (8 patch embeddings)
+    and whisper-tiny in float32, card against the CPU plain path: the
+    loss and every gradient leaf (``TRAIN_TOL``), one flash and one
+    backward launch a flash call; 3 ``make_train_step`` steps at 2
+    microbatches with ``grad_compress`` off and on: the same losses and
+    parameters (``held_after_steps``);
+36. minicpm-2b at full width and depth trained on the card (bf16 compute
+    on float32 masters, ``remat="full"``, S 4,096, 2 microbatches of one
+    sequence, WSD, 3 steps; ``FULL_TRAIN``): exactly 2 x 40 flash
+    launches a microbatch, all on wgmma, and 40 backward launches; loss
+    and grad norm finite, the loss falling; step walls, tokens/s, peak
+    memory, model FLOP/s; the wrappers without a backward refuse grad;
+    then the gradients at S 1,024 through the kernels against the plain
+    versions, each leaf's gap relative to its largest gradient within the
+    larger of ``LM_GAP`` x the reordered plain side's largest and
+    ``GRAD_FLOOR_ULPS`` bf16 ulps;
+37. ``examples/torch_train_lm.py`` on the card, the default run and
+    ``--simulate-failure`` (restore the latest committed checkpoint,
+    resume): its own assert that the loss fell, exactly 2 x 6 flash and
+    backward launches a step run, the forward on SIMT.
 
-The last lines are the pipeline planner's, the sharded rollout's and the
-serving example's records, the serving layers' record, the evaluation path's
-walls and summaries, the CNN path's and the six LM paths' serving
-numbers, the per-layer conv2d times, the kernels line, the
-``nvidia-smi`` line and the result object.
+The last lines are the training record, the pipeline planner's, the
+sharded rollout's and the serving example's records, the serving layers'
+record, the evaluation path's walls and summaries, the CNN path's and the
+six LM paths' serving numbers, the per-layer conv2d times, the kernels
+line, the ``nvidia-smi`` line and the result object.
 Without CUDA it exits non-zero before printing any result.
 """
 from __future__ import annotations
@@ -1464,13 +1499,16 @@ def check_attention_kernels(np, torch, device):
 class plain_kernels:
     """Inside this block a CUDA tensor takes the LM kernels' plain
     versions (the dispatch tables' ``cuda`` entries swapped: flash and
-    decode attention, the expert GEMM, the RG-LRU scan, the mLSTM
-    chunk): the model run through it is a comparison's other side.
+    decode attention, the flash forward-with-lse and backward pair of
+    training, the expert GEMM, the RG-LRU scan, the mLSTM chunk): the
+    model run through it is a comparison's other side.
     ``reorder`` sums the plain versions in another order: q and k with
     their head dimension reversed, the expert GEMM with its contraction
     reversed, the RG-LRU recurrence as a log-depth scan, the mLSTM in
     chunks of 64 (not flipped q and k: every side decodes from the plain
-    side's prefill state ``C``, which a flipped k would not match).  That
+    side's prefill state ``C``, which a flipped k would not match), the
+    attention backward with q, k, v, o and dO reversed alike (its
+    recomputed q k^T, dO v^T and delta summed in another order).  That
     measures how far such rounding alone moves the model's output."""
 
     def __init__(self, reorder: bool = False):
@@ -1480,7 +1518,8 @@ class plain_kernels:
         from repro_torch.kernels.decode_attention import ops as dops
         from repro_torch.kernels.decode_attention.ref import decode_ref
         from repro_torch.kernels.flash_attention import ops as fops
-        from repro_torch.kernels.flash_attention.ref import attention_ref
+        from repro_torch.kernels.flash_attention.ref import (
+            attention_bwd_ref, attention_fwd_ref, attention_ref)
         from repro_torch.kernels.mlstm_chunk import ops as lops
         from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
         from repro_torch.kernels.moe_matmul import ops as mops
@@ -1488,7 +1527,7 @@ class plain_kernels:
         from repro_torch.kernels.rglru_scan import ops as rops
         from repro_torch.kernels.rglru_scan.ref import rglru_ref
         tables = (fops._BY_DEVICE, dops._BY_DEVICE, mops._BY_DEVICE,
-                  rops._BY_DEVICE, lops._BY_DEVICE)
+                  rops._BY_DEVICE, lops._BY_DEVICE, fops._TRAIN_BY_DEVICE)
         self.saved = [(t, t["cuda"]) for t in tables]
         if self.reorder:
             def flip(x):
@@ -1496,6 +1535,14 @@ class plain_kernels:
 
             fops._BY_DEVICE["cuda"] = lambda q, k, v, **kw: attention_ref(
                 flip(q), flip(k), v, **kw)
+
+            def bwd(q, k, v, o, lse, do, **kw):
+                dq, dk, dv = attention_bwd_ref(flip(q), flip(k), flip(v),
+                                               flip(o), lse, flip(do), **kw)
+                return flip(dq), flip(dk), flip(dv)
+            fops._TRAIN_BY_DEVICE["cuda"] = (
+                lambda q, k, v, **kw: attention_fwd_ref(flip(q), flip(k), v,
+                                                        **kw), bwd)
             dops._BY_DEVICE["cuda"] = lambda q, k, v, pos, **kw: decode_ref(
                 flip(q), flip(k), v, pos, **kw)
             mops._BY_DEVICE["cuda"] = lambda x, w: moe_matmul_ref(
@@ -1505,6 +1552,8 @@ class plain_kernels:
                 *a, chunk=MLSTM_REORDER_CHUNK)
         else:
             fops._BY_DEVICE["cuda"] = attention_ref
+            fops._TRAIN_BY_DEVICE["cuda"] = (attention_fwd_ref,
+                                             attention_bwd_ref)
             dops._BY_DEVICE["cuda"] = decode_ref
             mops._BY_DEVICE["cuda"] = moe_matmul_ref
             rops._BY_DEVICE["cuda"] = rglru_ref
@@ -4016,6 +4065,635 @@ def run_serve_swarm(np, torch, device):
     return record
 
 
+# ---------------------------------------------------------------------------
+# training: the flash-attention backward, reduced and full-width training,
+# the training example
+# ---------------------------------------------------------------------------
+
+#: phase 33's backward cases (B, H, KV, Sq, Sk, D, causal, window, cap):
+#: minicpm-2b's training call, gemma2-9b's global and local layers,
+#: qwen2-vl-2b's GQA at D 128, whisper-tiny's encoder and cross calls,
+#: ragged Sq / Sk of 1, 65 and 1,000
+BWD_CASES = [
+    (1, 36, 36, 4096, 4096, 64, True, 0, 0.0),
+    (1, 16, 8, 2048, 2048, 256, True, 0, 50.0),
+    (1, 16, 8, 2048, 2048, 256, True, 1024, 50.0),
+    (2, 12, 2, 1280, 1280, 128, True, 0, 0.0),
+    (4, 6, 6, 1500, 1500, 64, False, 0, 0.0),
+    (4, 6, 6, 448, 1500, 64, False, 0, 0.0),
+    (1, 4, 2, 1, 1, 64, True, 0, 0.0),
+    (1, 4, 2, 65, 65, 64, True, 0, 0.0),
+    (1, 4, 2, 1000, 1000, 128, True, 0, 0.0),
+    (2, 6, 6, 65, 1000, 64, False, 0, 0.0),
+    (2, 6, 6, 1000, 65, 64, False, 0, 0.0),
+    (1, 4, 4, 1, 1000, 64, False, 0, 0.0),
+]
+#: phase 34's timed shapes, bfloat16: the row's and its sub-entry's
+BWD_TIMED = {"minicpm-2b": BWD_CASES[0], "gemma2-9b": BWD_CASES[1]}
+#: phase 35: the reduced models trained card against CPU in float32, the
+#: tolerance of loss and gradients (the attention kernels' float32 one)
+TRAIN_ARCHS = ("minicpm-2b", "gemma2-9b", "qwen2-vl-2b", "whisper-tiny")
+TRAIN_TOL = dict(atol=2e-5, rtol=2e-4)
+#: parameters after 3 AdamW steps card against CPU: atol 0.05 lr a step
+#: (an update is ~lr; where a gradient sits near zero float32 reordering
+#: moves m / sqrt(v)); with grad_compress at most FLIP_SHARE of a leaf
+#: (or FLIP_COUNT elements, for small leaves) may take an int8 payload
+#: rounding the other way, within lr a step (error feedback carries a
+#: flip into the later steps: 0.32 % of a leaf, and 2 of a 64-element
+#: leaf, in the first card runs; ROADMAP section 3)
+STEP_ATOL_PER_LR = 0.05
+FLIP_SHARE = 1e-2
+FLIP_COUNT = 4
+#: phase 36: minicpm-2b at full width and depth, TRAIN_4K's sequence, its
+#: global batch of 256 cut to 2 sequences (2 microbatches of 1), 3 steps
+FULL_TRAIN = dict(arch="minicpm-2b", seq=4096, batch=2, microbatches=2,
+                  steps=3, lr=1e-3, check_seq=1024)
+#: in-model gradient gate, as phase 12 gates logits: each leaf's gap
+#: (kernels against plain), as a share of the leaf's largest plain
+#: gradient, within LM_GAP x the largest such share the reordered plain
+#: side shows over all leaves, or within this many bf16 ulps of the leaf's
+#: largest gradient, whichever is larger (each gradient element sums
+#: 1,024 tokens' products of bf16-rounded activations; ROADMAP section 3)
+GRAD_FLOOR_ULPS = 8
+
+
+def bwd_case(torch, seed, case, dtype, device):
+    """q, k, v, dO of a backward case as transposed views of [B, S, heads,
+    D] tensors (dO as autograd hands it)."""
+    b, h, kv, sq, sk, d = case[:6]
+    ts = attn_inputs(torch, seed, [(b, sq, h, d), (b, sk, kv, d),
+                                   (b, sk, kv, d), (b, sq, h, d)], dtype,
+                     device)
+    return [t.transpose(1, 2) for t in ts]
+
+
+def kept_pairs(sq, sk, causal, window):
+    """The (query, key) pairs the masks keep."""
+    total = 0
+    for q in range(sq):
+        lo = max(0, q - window + 1) if window else 0
+        hi = min(q, sk - 1) if causal else sk - 1
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def bwd_work(case, elt):
+    """Bytes (q, k, v, o, dO read, dq, dk, dv written, in the dtype; lse
+    in float32) and operations (five products of 2 D flops a kept pair
+    and head) of one backward call."""
+    b, h, kv, sq, sk, d, causal, window, _ = case
+    nbytes = elt * (4 * b * h * sq * d + 4 * b * kv * sk * d) + 4 * b * h * sq
+    nops = 5 * 2 * b * h * d * kept_pairs(sq, sk, causal, window)
+    return nbytes, nops
+
+
+def check_flash_bwd(np, torch, device):
+    """Phase 33: the forward with ``with_lse`` (the output bitwise the
+    serving launch's, lse within the float32 tolerance of the plain
+    version's) and the backward kernel against ``attention_bwd_ref`` on
+    the same o and lse at ``BWD_CASES``, float32 and bfloat16
+    (``ATTN_TOL``, bf16 also ``ATTN_BF16_ROUNDING``); two backward launches
+    bitwise equal; each forward launch on its dtype's route, each
+    backward launch on ``simt``.  Returns the bf16 max abs errors at the
+    timed shapes."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_fwd_ref)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for i, case in enumerate(BWD_CASES):
+            b, h, kv, sq, sk, d, causal, window, cap = case
+            kw = dict(causal=causal, window=window, cap=cap)
+            q, k, v, do = bwd_case(torch, 400 + i, case, dtype, device)
+            plain_o = flash_attention(q, k, v, **kw)
+            (o, lse), route = take_route(flash_attention, lambda: (
+                flash_attention(q, k, v, with_lse=True, **kw)))
+            want_route("flash_attention (with lse)", route,
+                       "wgmma" if dtype == torch.bfloat16 else "simt")
+            got, broute = take_route(flash_attention_bwd, lambda: (
+                flash_attention_bwd(q, k, v, o, lse, do, **kw)))
+            want_route("flash_attention_bwd", broute, "simt")
+            again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            _, ref_lse = attention_fwd_ref(q, k, v, **kw)
+            ref = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(o, plain_o):
+                raise AssertionError(f"flash_attention {case}: the output "
+                                     f"moved when lse was asked for")
+            torch.testing.assert_close(lse, ref_lse, **ATTN_TOL["float32"])
+            err = 0.0
+            for name, g, a, r in zip("qkv", got, again, ref):
+                if not torch.equal(g, a):
+                    raise AssertionError(f"flash_attention_bwd {case} "
+                                         f"{dname}: two launches differ "
+                                         f"in d{name}")
+                torch.testing.assert_close(g.float(), r.float(),
+                                           **ATTN_TOL[dname])
+                if dtype == torch.bfloat16:
+                    torch.testing.assert_close(g.float(), r.float(),
+                                               **ATTN_BF16_ROUNDING)
+                err = max(err, float((g.double() - r.double()).abs().max()))
+            for arch, timed in BWD_TIMED.items():
+                if timed == case and dtype == torch.bfloat16:
+                    errs[arch] = err
+            log(f"  flash_attention_bwd {dname} B={b} H={h} KV={kv} Sq={sq} "
+                f"Sk={sk} D={d} causal={causal} window={window} cap={cap}: "
+                f"max abs err {err:.3g}, lse err "
+                f"{float((lse - ref_lse).abs().max()):.3g}, forward on "
+                f"{route}, two backward launches bitwise equal")
+            del q, k, v, do, o, lse, got, again, ref, plain_o
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_flash_bwd(torch, device, errs):
+    """Phase 34: the backward kernel at minicpm-2b's and gemma2-9b's
+    training shapes in bfloat16 (CUDA events; in a graph and eager)
+    beside its plain version, ``F.scaled_dot_product_attention``'s
+    backward (``torch.autograd.grad`` of its output; no softcap) and the
+    bound.  Returns the ``kernels`` row (minicpm-2b's shape) with
+    gemma2-9b's as a sub-entry; ``launches`` is filled from phase 36."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    entries = {}
+    for arch, case in BWD_TIMED.items():
+        b, h, kv, sq, sk, d, causal, window, cap = case
+        kw = dict(causal=causal, window=window, cap=cap)
+        q, k, v, do = bwd_case(torch, 500, case, torch.bfloat16, device)
+        o, lse = flash_attention(q, k, v, with_lse=True, **kw)
+        qc, kc, vc = (t.detach().contiguous().requires_grad_()
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=causal, enable_gqa=kv < h)
+        doc = do.contiguous()
+        kern = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa
+        plain = lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw)  # noqa
+        lib = lambda: torch.autograd.grad(lib_out, (qc, kc, vc), doc,  # noqa
+                                          retain_graph=True)
+        nbytes, nops = bwd_work(case, 2)
+        ms = time_ms(torch, kern, 5, graph=True)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / BF16_OPS_PER_S * 1e3
+        entries[arch] = {
+            "shape": [b, h, kv, sq, sk, d], "causal": causal,
+            "window": window, "cap": cap, "dtype": "bfloat16", "ms": ms,
+            "eager_ms": time_ms(torch, kern, 5, graph=False),
+            "plain_ms": time_ms(torch, plain, 2, graph=False),
+            "library_ms": time_ms(torch, lib, 5, graph=False),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": nops, "max_abs_err": errs[arch],
+            "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6}
+        e = entries[arch]
+        log(f"  flash_attention_bwd {arch} {e['shape']} bf16 (simt): "
+            f"{ms:.4f} ms in a graph, {e['eager_ms']:.4f} ms eager "
+            f"({e['tflops']:.2f} TFLOP/s); plain {e['plain_ms']:.4f} ms "
+            f"(eager); SDPA backward (cap 0) {e['library_ms']:.4f} ms "
+            f"(eager); bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+        del q, k, v, do, o, lse, qc, kc, vc, lib_out, doc
+        torch.cuda.empty_cache()
+    row = dict(entries.pop("minicpm-2b"))
+    row.update({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:109",
+        "replaces_note": "no Pallas kernel has a backward: XLA's gradient "
+                         "of the reference's attention",
+        "launches": None, "kernel_route": "simt",
+        "plain_timing": "eager", "library_timing": "eager",
+        "library": "F.scaled_dot_product_attention backward "
+                   "(torch.autograd.grad; enable_gqa, no softcap)",
+        "gemma2-9b": entries["gemma2-9b"]})
+    return row
+
+
+def train_batch(np, cfg, b, s, seed):
+    """A training batch of ``cfg`` as numpy: the reference's synthetic
+    tokens, and seeded patch embeddings or frames."""
+    from repro_torch.data.pipeline import lm_data
+    batch = next(lm_data(cfg, b, s, seed=seed, prefetch=0))
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.normal(
+            size=(b, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.normal(
+            size=(b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def attention_calls(cfg):
+    """Flash calls a forward pass of ``cfg`` makes (each layer's self
+    attention; whisper's encoder layers and its decoder's self and cross
+    attention)."""
+    return cfg.enc_layers + 2 * cfg.n_layers if cfg.family == "audio" \
+        else cfg.n_layers
+
+
+def flash_counts(what, launches, routes, fwd, bwd, route):
+    """Raise unless ``launches`` are ``fwd`` flash and ``bwd`` backward
+    launches and nothing else, the forward ones on ``route``."""
+    want = only(launches, flash_attention=fwd, flash_attention_bwd=bwd)
+    if launches != want or routes["flash_attention"][route] != fwd or \
+            routes["flash_attention_bwd"]["simt"] != bwd:
+        raise AssertionError(f"{what}: launches {launches}, routes "
+                             f"{routes}, want {want} with the forward on "
+                             f"{route}")
+
+
+def held_after_steps(np, what, got, want, lr, steps, compress):
+    """Parameters after ``steps`` AdamW steps: within ``STEP_ATOL_PER_LR``
+    lr a step (rtol 1e-5); with ``compress`` at most ``FLIP_SHARE`` of a
+    leaf (or ``FLIP_COUNT`` elements) outside that, within lr a step."""
+    from repro_torch.tree import leaves_with_paths
+    worst = 0.0
+    for key in got:
+        tight = dict(atol=STEP_ATOL_PER_LR * lr * steps, rtol=1e-5)
+        loose = dict(atol=lr * steps, rtol=1e-3)
+        for (path, g), (_, w) in zip(leaves_with_paths(got[key]),
+                                     leaves_with_paths(want[key])):
+            g = g.detach().float().cpu().numpy()
+            w = w.detach().float().cpu().numpy()
+            off = ~np.isclose(g, w, **tight)
+            tol = tight
+            if compress and (off.mean() <= FLIP_SHARE
+                             or off.sum() <= FLIP_COUNT):
+                tol = loose
+            np.testing.assert_allclose(g, w, **tol,
+                                       err_msg=f"{what} {key}{path}")
+            worst = max(worst, float(np.abs(g - w).max()))
+    return worst
+
+
+def run_reduced_training(np, torch, device):
+    """Phase 35: the reduced ``TRAIN_ARCHS`` in float32, the same
+    parameters on the card and the CPU: the loss and every gradient leaf
+    (``TRAIN_TOL``), exactly one flash and one backward launch a flash
+    call (SIMT); then 3 ``make_train_step`` steps at 2 microbatches with
+    ``grad_compress`` off and on: losses within ``TRAIN_TOL``, the
+    parameters ``held_after_steps``, launches 3 x 2 x the calls.  Returns
+    the record."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.optim.grad_compress import init_error
+    from repro_torch.runtime.train_loop import (batch_to, loss_fn,
+                                                make_train_step)
+    from repro_torch.tree import leaves, leaves_with_paths
+    record = {}
+    for arch in TRAIN_ARCHS:
+        cfg = get_arch(arch).reduced()
+        calls = attention_calls(cfg)
+        models = {"cpu": build_model(cfg, "cpu"),
+                  "cuda": build_model(cfg, device)}
+        p_cpu = models["cpu"].init(torch.Generator().manual_seed(0))
+
+        def params_on(dev):
+            return tree_map(
+                lambda t: t.detach().to(dev, copy=True).requires_grad_(),
+                p_cpu)
+
+        batch = train_batch(np, cfg, 2, 24, 1)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = params_on(device if dev == "cuda" else "cpu")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            loss = loss_fn(models[dev], cfg, p, batch_to(
+                batch, device if dev == "cuda" else "cpu"))
+            loss.backward()
+            torch.cuda.synchronize()
+            out[dev] = (loss.detach().cpu(), p)
+            if dev == "cuda":
+                flash_counts(f"{arch} train_loss", kernels.launch_counts(),
+                             kernels.route_counts(), calls, calls, "simt")
+        torch.testing.assert_close(out["cuda"][0], out["cpu"][0], **TRAIN_TOL)
+        worst = 0.0
+        for (path, g), c in zip(leaves_with_paths(out["cuda"][1]),
+                                leaves(out["cpu"][1])):
+            torch.testing.assert_close(g.grad.cpu(), c.grad, **TRAIN_TOL,
+                                       msg=lambda m: f"{arch} d{path}: {m}")
+            worst = max(worst, float((g.grad.cpu() - c.grad).abs().max()))
+        rec = {"loss": float(out["cpu"][0]), "grad_max_abs_diff": worst,
+               "flash_calls": calls}
+        log(f"  {cfg.name}: loss {rec['loss']:.6f}, every gradient card vs "
+            f"CPU within {TRAIN_TOL} (max abs diff {worst:.3g}); {calls} "
+            f"flash + {calls} backward launches (simt)")
+        for compress in (False, True):
+            tc = TrainConfig(steps=3, lr=1e-3, warmup_steps=1,
+                             microbatches=2, grad_compress=compress)
+            states, losses = {}, {}
+            for dev in ("cpu", "cuda"):
+                p = params_on(device if dev == "cuda" else "cpu")
+                st = {"params": p, "opt": init_opt_state(p)}
+                if compress:
+                    st["err"] = init_error(p)
+                step = make_train_step(models[dev], cfg, tc)
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                losses[dev] = []
+                for i in range(3):
+                    st, m = step(st, train_batch(np, cfg, 4, 16, 10 + i))
+                    losses[dev].append(float(m["loss"]))
+                torch.cuda.synchronize()
+                if dev == "cuda":
+                    flash_counts(f"{arch} 3 steps", kernels.launch_counts(),
+                                 kernels.route_counts(), 3 * 2 * calls,
+                                 3 * 2 * calls, "simt")
+                states[dev] = {"params": st["params"]}
+            np.testing.assert_allclose(losses["cuda"], losses["cpu"],
+                                       **TRAIN_TOL)
+            gap = held_after_steps(np, f"{arch} compress={compress}",
+                                   states["cuda"], states["cpu"], tc.lr, 3,
+                                   compress)
+            rec[f"steps_compress_{compress}"] = {"losses": losses["cuda"],
+                                                 "max_abs_diff": gap}
+            log(f"  {cfg.name}: 3 steps, 2 microbatches, grad_compress "
+                f"{compress}: losses {[round(x, 5) for x in losses['cuda']]}"
+                f" (CPU {[round(x, 5) for x in losses['cpu']]}), state card "
+                f"vs CPU max abs diff {gap:.3g}; {3 * 2 * calls} + "
+                f"{3 * 2 * calls} launches")
+        record[arch] = rec
+    return record
+
+
+def refuse_grad_on_the_card(torch, device):
+    """The wrappers whose kernels have no backward raise under grad on a
+    CUDA tensor that requires grad, before launching."""
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
+    from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    x = torch.zeros((1, 2, 8, 64), device=device, requires_grad=True)
+    s = torch.zeros((1, 8, 2), device=device)
+    z = torch.zeros((1, 2), device=device)
+    calls = {
+        "flash_attention": lambda: flash_attention(x, x, x),
+        "decode_attention": lambda: decode_attention(x, x, x, z[0].int()),
+        "moe_matmul": lambda: moe_matmul(x[0], x[0].transpose(1, 2)),
+        "rglru_scan": lambda: rglru_scan(x[0], x[0], x[0, :, 0]),
+        "mlstm_chunk": lambda: mlstm_chunk(x, x, x, s, s, x, x[..., 0], z,
+                                           0.125)}
+    kernels.reset_launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "ROADMAP queue 1 item 14" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: ran under grad")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"a refused wrapper launched: "
+                             f"{kernels.launch_counts()}")
+    return sorted(calls)
+
+
+def grad_gaps(torch, model, params, toks, labels):
+    """Phase 36's in-model check: the gradients through the kernels, the
+    plain versions and the plain versions with their q . k sums reordered;
+    per leaf the kernels' and the reordered side's largest gap from the
+    plain side, and the plain side's largest |gradient|."""
+    from repro_torch.tree import leaves
+    plist = leaves(params)
+
+    def grads(ctx):
+        with ctx:
+            loss = model.train_loss(params, toks, labels)
+            loss.backward()
+        out = [p.grad for p in plist]
+        for p in plist:
+            p.grad = None
+        torch.cuda.synchronize()
+        return loss.item(), out
+
+    plain_loss, plain = grads(plain_kernels())
+    gaps = {"plain_loss": plain_loss,
+            "top": [float(g.abs().max()) for g in plain]}
+    for side, ctx in (("kernels", contextlib.nullcontext()),
+                      ("reordered", plain_kernels(True))):
+        loss, got = grads(ctx)
+        gaps[f"{side}_loss"] = loss
+        gaps[side] = [float((a - b).abs().max()) for a, b in zip(got, plain)]
+        del got
+        torch.cuda.empty_cache()
+    del plain
+    return gaps
+
+
+def run_full_training(np, torch, device):
+    """Phase 36: minicpm-2b at full width and depth trained on the card
+    (``FULL_TRAIN``): bf16 compute on float32 masters, ``remat="full"``,
+    WSD, 3 steps of 2 microbatches of one 4,096-token sequence, the
+    counters set to 0 just before and read just after: exactly 2 x 40
+    flash launches a microbatch (the recompute doubles them), every one on
+    wgmma, and 40 backward launches a microbatch; loss and grad norm
+    finite every step and the loss falls; step walls, tokens/s, peak
+    memory, model FLOP/s.  The wrappers without a backward refuse grad.
+    Then the gradients at S 1,024 through the kernels against the plain
+    versions: each leaf's gap, as a share of its largest plain gradient,
+    within the larger of ``LM_GAP`` x the reordered plain side's largest
+    share over the leaves and ``GRAD_FLOOR_ULPS`` bf16 ulps of that
+    gradient.  Returns the record."""
+    import math
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import lm_data
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train_loop import init_state, make_train_step
+    from repro_torch.tree import leaves, leaves_with_paths
+    f = FULL_TRAIN
+    cfg = get_arch(f["arch"])
+    if cfg.remat != "full" or cfg.dtype != "bfloat16" or \
+            cfg.param_dtype != "float32":
+        raise AssertionError(f"{cfg.name}: want remat full, bf16 compute, "
+                             f"float32 masters")
+    refused = refuse_grad_on_the_card(torch, device)
+    log(f"  under grad on the card {', '.join(refused)} refuse to launch "
+        f"(RuntimeError naming the ROADMAP item)")
+    model = build_model(cfg, device)
+    tcfg = TrainConfig(steps=f["steps"], lr=f["lr"], warmup_steps=0,
+                       microbatches=f["microbatches"], schedule="wsd")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_state(model, torch.Generator(device=device).manual_seed(0),
+                       tcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    step = make_train_step(model, cfg, tcfg)
+    data = lm_data(cfg, f["batch"], f["seq"], seed=0, prefetch=0)
+    batches = [next(data) for _ in range(f["steps"])]
+    tokens = f["batch"] * f["seq"]
+    a = cfg.attention
+    # 6 N a token for the matrices, 6 L H D S / 2 a token for causal q k^T
+    # and P V (the recompute not counted)
+    model_flops = tokens * (6 * n_params + 6 * cfg.n_layers * a.n_heads
+                            * cfg.head_dim * f["seq"] / 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, metrics = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches, routes = kernels.launch_counts(), kernels.route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_mb = cfg.n_layers
+    flash_counts(f"{cfg.name} training", launches, routes,
+                 f["steps"] * f["microbatches"] * 2 * per_mb,
+                 f["steps"] * f["microbatches"] * per_mb, "wgmma")
+    losses = [m["loss"] for m in metrics]
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name} training: metrics {metrics}")
+    rec = {"model": cfg.name, "params": n_params, "init_s": init_s,
+           "seq": f["seq"], "global_batch": f["batch"],
+           "microbatches": f["microbatches"], "remat": cfg.remat,
+           "steps": metrics, "step_walls_s": walls,
+           "tokens_per_s": [tokens / w for w in walls],
+           "model_flops_per_step": model_flops,
+           "model_tflops_per_s": [model_flops / w / 1e12 for w in walls],
+           "peak_memory_gb": peak / 1e9,
+           "launches": {k: v for k, v in launches.items() if v},
+           "flash_route": "wgmma", "refused_under_grad": refused}
+    log(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters (float32 masters"
+        f" + AdamW moments), initialised in {init_s:.2f} s; {f['steps']} "
+        f"steps of {f['microbatches']} x {f['batch'] // f['microbatches']} "
+        f"x {f['seq']} tokens: losses {[round(x, 4) for x in losses]}, "
+        f"grad norms {[round(m['grad_norm'], 4) for m in metrics]}, lr "
+        f"{[m['lr'] for m in metrics]}")
+    log(f"  step walls {[round(w, 3) for w in walls]} s, "
+        f"{[round(x, 1) for x in rec['tokens_per_s']]} tokens/s, model "
+        f"{[round(x, 1) for x in rec['model_tflops_per_s']]} TFLOP/s, peak "
+        f"memory {peak / 1e9:.2f} GB; launches {rec['launches']} "
+        f"(flash all wgmma, backward simt)")
+
+    # kernels against plain versions inside the model at S 1,024
+    del state["opt"], step
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = state["params"]
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, f["check_seq"] + 1)),
+                           device=device)
+    gaps = grad_gaps(torch, model, params, toks[:, :-1], toks[:, 1:])
+    rows = []
+    paths = [p for p, _ in leaves_with_paths(params)]
+
+    def rel(gap, top):
+        return gap / top if top else (0.0 if gap == 0 else math.inf)
+    reordered = max(rel(r, t) for r, t in zip(gaps["reordered"],
+                                              gaps["top"]))
+    for path, k, r, top in zip(paths, gaps["kernels"], gaps["reordered"],
+                               gaps["top"]):
+        floor = rel(GRAD_FLOOR_ULPS * float(bf16_ulp(torch,
+                                                     torch.tensor(top))),
+                    top)
+        limit = max(LM_GAP * reordered, floor)
+        rows.append((rel(k, top) / limit, path, k, r, top,
+                     floor > LM_GAP * reordered))
+    rows.sort(reverse=True)
+    worst_leaves = [dict(zip(("share", "leaf", "kernels_gap",
+                              "reordered_gap", "top", "at_floor"), w))
+                    for w in rows[:5]]
+    for w in worst_leaves:
+        log(f"    d{w['leaf']}: kernels gap {w['kernels_gap']:.3g}, "
+            f"reordered {w['reordered_gap']:.3g}, largest |g| "
+            f"{w['top']:.3g}: {w['share']:.3g} of the limit"
+            f"{' (the floor)' if w['at_floor'] else ''}")
+    worst, by_floor = rows[0][0], sum(r[-1] for r in rows)
+    over = [w for w in rows if not w[0] <= 1.0]
+    if over:
+        raise AssertionError(
+            f"{cfg.name} at S {f['check_seq']}: {len(over)} gradient "
+            f"leaves over the larger of {LM_GAP} x the reordered plain's "
+            f"largest relative gap {reordered:.3g} and {GRAD_FLOOR_ULPS} "
+            f"bf16 ulps of the leaf's largest gradient: {worst_leaves}")
+    rec["grad_check"] = {
+        "seq": f["check_seq"], "leaves": len(paths),
+        "reordered_largest_relative_gap": reordered,
+        "kernels_share_of_limit": worst, "leaves_at_floor": by_floor,
+        "worst_leaves": worst_leaves,
+        "losses": {s: gaps[f"{s}_loss"] for s in ("plain", "kernels",
+                                                  "reordered")},
+        "largest_gap": {s: max(gaps[s]) for s in ("kernels", "reordered")}}
+    log(f"  gradients at S {f['check_seq']}, kernels vs plain inside the "
+        f"model: every one of {len(paths)} leaves within its limit (worst "
+        f"{worst:.3g} of it; the reordered side's largest gap "
+        f"{reordered:.3g} of a leaf's largest gradient; {by_floor} leaves "
+        f"at the floor); largest gap "
+        f"{max(gaps['kernels']):.3g} (reordered plain "
+        f"{max(gaps['reordered']):.3g}); losses "
+        f"{rec['grad_check']['losses']}")
+    del params, state, model, gaps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_train_example(np, torch, device):
+    """Phase 37: ``examples/torch_train_lm.py`` on the card (its default
+    device), the default run and ``--simulate-failure`` (restore from the
+    latest committed checkpoint, resume), each with the counters set to 0
+    just before and read just after: exactly 2 microbatches x 6 flash and
+    6 backward launches a step run, the forward on the SIMT route
+    (float32); the example's own assert that the loss fell.  Returns the
+    record."""
+    import io
+    import shutil
+    from repro_torch import kernels
+    mod = load_example("torch_train_lm")
+    record = {}
+    for name, argv in (("default", []),
+                       ("simulate-failure", ["--simulate-failure"])):
+        ckpt_dir = os.path.join(HERE, "build", "torch_train_lm", name)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            out = mod.main(argv + ["--ckpt-dir", ckpt_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_step = out["microbatches"] * out["n_layers"]
+        flash_counts(f"torch_train_lm {name}", kernels.launch_counts(),
+                     kernels.route_counts(), per_step * out["steps"],
+                     per_step * out["steps"], "simt")
+        if (out["restored_step"] is None) == (name == "simulate-failure") \
+                or out["plan"] is None:
+            raise AssertionError(f"torch_train_lm {name}: {out}")
+        record[name] = {"first_loss": out["first"], "last_loss": out["last"],
+                        "steps_run": out["steps"],
+                        "restored_step": out["restored_step"],
+                        "launches": per_step * out["steps"], "wall_s": wall,
+                        "plan_blocks_per_stage":
+                            out["plan"].blocks_per_stage}
+        log(f"  {name}: loss {out['first']:.4f} -> {out['last']:.4f} over "
+            f"{out['steps']} steps run (restored at "
+            f"{out['restored_step']}), {per_step * out['steps']} flash + "
+            f"{per_step * out['steps']} backward launches (simt), wall "
+            f"{wall:.2f} s; plan {out['plan'].blocks_per_stage}")
+        log("  " + printed.getvalue().strip().splitlines()[-1])
+    return record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4132,6 +4810,33 @@ def main() -> int:
         slice_records[-1]["phase_wall_s"] = time.perf_counter() - t0
         log(f"  phase {phase}: {slice_records[-1]['phase_wall_s']:.3f} s")
     pipeline, sharded, serve_swarm = slice_records
+
+    log("[33] flash-attention backward kernel against its plain version on "
+        "the card")
+    bwd_errs = check_flash_bwd(np, torch, device)
+    log("[34] flash-attention backward kernel times (CUDA events), "
+        "minicpm-2b and gemma2-9b shapes")
+    bwd_row = time_flash_bwd(torch, device, bwd_errs)
+    train = {}
+    for phase, key, title, fn in (
+            (35, "reduced", "reduced training, card against the CPU plain "
+             "path", run_reduced_training),
+            (36, "minicpm-2b", "minicpm-2b trained at full width and depth",
+             run_full_training),
+            (37, "example", "examples/torch_train_lm.py on the card",
+             run_train_example)):
+        log(f"[{phase}] {title}")
+        t0 = time.perf_counter()
+        train[key] = fn(np, torch, device)
+        train[key]["phase_wall_s"] = time.perf_counter() - t0
+        log(f"  phase {phase}: {train[key]['phase_wall_s']:.3f} s")
+    bwd_row["launches"] = train["minicpm-2b"]["launches"][
+        "flash_attention_bwd"]
+    bwd_row["launches_by_path"] = {
+        "minicpm-2b training": bwd_row["launches"],
+        "torch_train_lm": {k: train["example"][k]["launches"]
+                           for k in ("default", "simulate-failure")}}
+    rows.append(bwd_row)
     for row in rows:
         row.update({"flash_attention": flash_x,
                     "decode_attention": decode_x}.get(row["name"], {}))
@@ -4140,11 +4845,15 @@ def main() -> int:
                                        for a, s in served.items()}
             row["launches_by_path"]["serve-lm"] = \
                 serve_swarm["lm"]["launches"][row["name"]]
+            if row["name"] == "flash_attention":
+                row["launches_by_path"]["minicpm-2b training"] = \
+                    train["minicpm-2b"]["launches"]["flash_attention"]
         if row["name"] in ("link_geometry", "tropical_dp"):
             row["launches_by_path"] = {"rollout": row["launches"], **{
                 f"rollout over {m['mesh']}": m["launches"][row["name"]]
                 for m in sharded["meshes"]}}
 
+    print(json.dumps({"train": train}, default=str))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"sharded_rollout": sharded}))
     print(json.dumps({"serve_swarm": serve_swarm}))

@@ -1,6 +1,7 @@
 """Config dataclasses: the paper's CNNs (eq. (1)-(3) layer
 parameterization), the LM architectures and the input shapes the
-pipeline planner plans them at, and the serving loop."""
+pipeline planner plans them at, the serving loop, and training (the
+optimiser and checkpoint settings, the mesh and the run)."""
 from __future__ import annotations
 
 import dataclasses
@@ -104,10 +105,12 @@ class ArchConfig:
     families read, whisper's encoder (``enc_layers``, ``enc_seq``) and
     the VLM's prepended patch embeddings (``vision_tokens``) included,
     and those the pipeline planner reads: the weights' dtype
-    (``param_dtype``), the shapes the architecture is planned at
-    (``supported_shapes``) and its analytic parameter count
-    (``n_params``).  The training fields come with that slice (ROADMAP
-    queue 1 item 14.4)."""
+    (``param_dtype``, also the training master weights' dtype), the
+    shapes the architecture is planned at (``supported_shapes``) and its
+    analytic parameter count (``n_params``); ``remat`` is training's
+    recomputation of each layer's activations in the backward pass
+    (``none`` | ``full`` | ``dots``: the port checkpoints whole layers for
+    both of the latter)."""
 
     name: str
     family: str                 # dense | ssm | hybrid | audio | vlm | moe
@@ -132,6 +135,8 @@ class ArchConfig:
     enc_seq: int = 1500                # precomputed frame embeddings (stub)
     # vlm: number of prepended vision patch embeddings (stub frontend)
     vision_tokens: int = 0
+    # training: recompute each layer's activations in the backward
+    remat: str = "full"                # 'none' | 'full' | 'dots'
     dtype: str = "bfloat16"            # compute (and weight matrix) dtype
     param_dtype: str = "float32"       # the planner's weight bytes
     # which shape names this arch supports (long_500k gated by attention kind)
@@ -157,7 +162,7 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's rule:
         <= 4 heads of width 16, <= 4 layers, d_ff 128, vocab 256, window
-        <= 32, float32; MoE at <= 8 experts, top-k <= 2, d_expert 32 and a
+        <= 32, float32, no remat; MoE at <= 8 experts, top-k <= 2, d_expert 32 and a
         drop-free capacity factor; RG-LRU width 64; M-RoPE sections
         (4, 2, 2); <= 2 encoder layers over 16 frames, 0 frames without
         an encoder; 8 vision tokens)."""
@@ -190,6 +195,7 @@ class ArchConfig:
             enc_layers=min(self.enc_layers, 2),
             enc_seq=16 if self.enc_layers else 0,
             vision_tokens=8 if self.vision_tokens else 0,
+            remat="none",
             dtype="float32",
         )
 
@@ -202,7 +208,66 @@ class ServeConfig:
     temperature: float = 0.0
 
 
+# ---------------------------------------------------------------------------
+# Mesh / run configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's shape and axis names (the reference's pod meshes;
+    the port trains on one card and keeps them as the run's record)."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+
+SINGLE_POD_MESH = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD_MESH = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    lr: float = 3e-4
+    warmup_steps: int = 10
+    decay_frac: float = 0.1          # WSD: final decay fraction of steps
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1            # gradient accumulation
+    grad_compress: bool = False      # int8 error-feedback compression
+    seed: int = 0
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
+    schedule: str = "wsd"            # 'wsd' | 'cosine' | 'constant'
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    arch: str = "minicpm-2b"
+    shape: str = "train_4k"
+    mesh: MeshConfig = field(default_factory=lambda: SINGLE_POD_MESH)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+
+
 __all__ = ["ALL_SHAPES", "ArchConfig", "AttentionConfig", "CNNConfig",
-           "ConvLayerSpec", "DECODE_32K", "LONG_500K", "MoEConfig",
-           "PREFILL_32K", "SHAPES_BY_NAME", "ServeConfig", "ShapeConfig",
-           "TRAIN_4K"]
+           "ConvLayerSpec", "DECODE_32K", "LONG_500K", "MULTI_POD_MESH",
+           "MeshConfig", "MoEConfig", "PREFILL_32K", "RunConfig",
+           "SHAPES_BY_NAME", "SINGLE_POD_MESH", "ServeConfig",
+           "ShapeConfig", "TRAIN_4K", "TrainConfig"]

@@ -1,26 +1,27 @@
 """``get_arch(name)``: the architectures the port serves (the dense LMs,
 the MoE LMs, recurrentgemma, xlstm, whisper-tiny, qwen2-vl and the
 paper's CNNs), by their reference ids; ``get_shape(name)``: the LM
-shapes the pipeline planner plans them at."""
+shapes the pipeline planner plans them at; ``iter_cells``: every
+(arch, shape, supported) pair."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict, Union
 
-from repro_torch.configs.base import (SHAPES_BY_NAME, ArchConfig, CNNConfig,
-                                      ShapeConfig)
+from repro_torch.configs.base import (ALL_SHAPES, SHAPES_BY_NAME,
+                                      ArchConfig, CNNConfig, ShapeConfig)
 
-_MODULES: Dict[str, str] = {
+_MODULES: Dict[str, str] = {      # the reference registry's order
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
-    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
-    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
-    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
 }
 _CNNS = {"lenet": "LENET", "alexnet": "ALEXNET"}
 LM_ARCHS = tuple(_MODULES)
@@ -40,4 +41,13 @@ def get_shape(name: str) -> ShapeConfig:
     return SHAPES_BY_NAME[name]
 
 
-__all__ = ["LM_ARCHS", "get_arch", "get_shape"]
+def iter_cells(include_skipped: bool = True):
+    """Yield every (arch config, shape, supported) cell of the LM archs
+    and the four shapes, in the reference's order (40 in all)."""
+    for arch_name in LM_ARCHS:
+        cfg = get_arch(arch_name)
+        for shape in ALL_SHAPES:
+            yield cfg, shape, cfg.supports(shape)
+
+
+__all__ = ["LM_ARCHS", "get_arch", "get_shape", "iter_cells"]

@@ -12,7 +12,9 @@ host draws in the reference's order.  ``cnn_params_from_arrays`` carries
 a CNN's parameters (HWIO conv filters, [in, out] FC weights, as numpy
 arrays) into the port's tensors, so both packages run the same network;
 ``lm_params_from_arrays`` does the same for an LM's parameter tree and
-``whisper_params_from_arrays`` for whisper's.
+``whisper_params_from_arrays`` for whisper's; ``train_state_from_arrays``
+carries a whole training state (parameters, AdamW moments and step, the
+compression error) in float32.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.core.rollout import PositionSpec, RolloutSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.runtime.fleet_rollout import FleetRollout
 from repro_torch.runtime.scenario_engine import PlanFnCache, ScenarioEngine
+from repro_torch.tree import leaves
 
 ARRAY_KEYS = ("compute", "memory", "act_bits", "mem_cap", "compute_cap",
               "throughput")
@@ -103,12 +106,14 @@ _FLOAT32_LEAVES = ("scale", "bias", "bq", "bk", "bv", "b_a", "b_i",
                    "log_lambda")
 
 
-def _tensors(cfg: ArchConfig, device: DeviceLike):
+def _tensors(cfg: ArchConfig, device: DeviceLike,
+             dtype: Optional[torch.dtype] = None):
     """``tree(t)``: a nest of dicts and lists of numpy arrays -> the same
-    nest of tensors on ``device``, each leaf in ``cfg.dtype`` unless its
-    key is in ``_FLOAT32_LEAVES``."""
+    nest of tensors on ``device``, each leaf in ``dtype`` (default
+    ``cfg.dtype``) unless its key is in ``_FLOAT32_LEAVES``."""
     dev = resolve_device(device)
-    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+    dtype = dtype or {"float32": torch.float32,
+                      "bfloat16": torch.bfloat16}[cfg.dtype]
 
     def tree(t, name=""):
         if isinstance(t, Mapping):
@@ -121,7 +126,8 @@ def _tensors(cfg: ArchConfig, device: DeviceLike):
 
 
 def lm_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
-                          device: DeviceLike = None) -> dict:
+                          device: DeviceLike = None,
+                          dtype: Optional[torch.dtype] = None) -> dict:
     """A reference ``TransformerLM`` parameter tree as numpy arrays
     (``embed``, ``final_norm``, ``blocks`` stacked per period slot
     ``b0``, ``b1``, ..., optional ``rem`` and ``head``) -> the port's
@@ -134,9 +140,9 @@ def lm_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
     ``rem`` layers.  Matrices (MoE experts and router, RG-LRU weights,
     the xLSTM cells' ``w_if``, ``b_if``, ``w_in``, ``r``, ``b`` and
     ``wo`` included) keep the reference's shapes and are cast to
-    ``cfg.dtype``, where the reference casts them at use; the leaves of
-    ``_FLOAT32_LEAVES`` stay float32."""
-    tree = _tensors(cfg, device)
+    ``dtype`` (default ``cfg.dtype``), where the reference casts them at
+    use; the leaves of ``_FLOAT32_LEAVES`` stay float32."""
+    tree = _tensors(cfg, device, dtype)
 
     def slice_j(t, j):
         if isinstance(t, Mapping):
@@ -160,13 +166,14 @@ def lm_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
 
 
 def whisper_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
-                               device: DeviceLike = None) -> dict:
+                               device: DeviceLike = None,
+                               dtype: Optional[torch.dtype] = None) -> dict:
     """The reference ``WhisperLM.init`` tree as numpy arrays (``embed``,
     ``enc`` and ``dec`` lists of layers, ``enc_norm``, ``dec_norm``) ->
     the port's ``WhisperLM`` parameters on ``device``: the same tree,
-    matrices in ``cfg.dtype``, layer-norm scales and biases and the qkv
-    biases in float32."""
-    out = _tensors(cfg, device)(arrays)
+    matrices in ``dtype`` (default ``cfg.dtype``), layer-norm scales and
+    biases and the qkv biases in float32."""
+    out = _tensors(cfg, device, dtype)(arrays)
     if (len(out["enc"]), len(out["dec"])) != (cfg.enc_layers, cfg.n_layers):
         raise ValueError(f"{len(out['enc'])} encoder and {len(out['dec'])} "
                          f"decoder layers in the tree, config has "
@@ -174,6 +181,31 @@ def whisper_params_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
     return out
 
 
+def train_state_from_arrays(cfg: ArchConfig, arrays: Mapping[str, Any],
+                            device: DeviceLike = None) -> dict:
+    """A reference train state as numpy arrays (``params``; ``opt`` with
+    the moments ``m`` and ``v``, trees shaped like ``params``, and
+    ``step``; optional ``err``) -> the port's state on ``device``, every
+    tree in float32 and laid out as the port's parameters (an LM's
+    stacked layers interleaved as ``lm_params_from_arrays`` does,
+    whisper's tree leaf for leaf), the parameters requiring grad and the
+    step an int32 scalar."""
+    f32 = torch.float32
+    conv = whisper_params_from_arrays if cfg.family == "audio" \
+        else lm_params_from_arrays
+    state = {"params": conv(cfg, arrays["params"], device, f32),
+             "opt": {"m": conv(cfg, arrays["opt"]["m"], device, f32),
+                     "v": conv(cfg, arrays["opt"]["v"], device, f32),
+                     "step": torch.tensor(int(np.asarray(
+                         arrays["opt"]["step"])), dtype=torch.int32,
+                         device=resolve_device(device))}}
+    if arrays.get("err") is not None:
+        state["err"] = conv(cfg, arrays["err"], device, f32)
+    for leaf in leaves(state["params"]):
+        leaf.requires_grad_(True)
+    return state
+
+
 __all__ = ["ARRAY_KEYS", "cnn_params_from_arrays", "engine_arrays",
            "engine_from_arrays", "fleet_from_arrays", "lm_params_from_arrays",
-           "whisper_params_from_arrays"]
+           "train_state_from_arrays", "whisper_params_from_arrays"]

@@ -57,6 +57,13 @@
 // the logits (-1e30, not the zero logit that TMA's zero rows would give:
 // the last kv tile of a non-causal launch at Sk 1,500 = 23 x 64 + 28 holds
 // 36 such rows), rows past Sq are not stored.
+//
+// Training: given an `lse` pointer (float32 [B, H, Sq]), both routes also
+// store each row's log-sum-exp of its masked logits in natural-log units,
+// lse = m + log(max(l, 1e-30)) (the wgmma route's running max is in log2
+// units and is converted), which the backward pass (flash_attention_bwd.cu)
+// reads to recompute P = exp(logit - lse).  Serving passes a null pointer
+// and stores nothing more.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,7 +106,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
-                       int H, int group, int Sq, int Sk,
+                       float* __restrict__ lse, int H, int group, int Sq,
+                       int Sk,
                        long long qsb, long long qsh, long long qss,
                        long long ksb, long long ksh, long long kss,
                        long long vsb, long long vsh, long long vss,
@@ -245,13 +253,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // o = acc / max(l, 1e-30), rows past Sq not stored
+  // o = acc / max(l, 1e-30), rows past Sq not stored; the row's lse
+  // from one lane of the 16 that hold it
   T* ob = out + ((long long)b * H + h) * Sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty * 4 + i;
     if (qp >= Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * Sq + qp] = m[i] + logf(lc);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int g = tx + 16 * j;
@@ -264,9 +275,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KV, int Sq, int Sk, const long long* st, int causal,
-           int window, float scale, float cap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int H, int KV, int Sq, int Sk,
+           const long long* st, int causal, int window, float scale,
+           float cap, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
   auto kern = flash_attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -274,7 +286,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
   kern<<<grid, THREADS, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, H / KV, Sq, Sk, st[0],
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, H, H / KV, Sq, Sk,
+      st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, window,
       scale, cap);
   return (int)cudaGetLastError();
@@ -282,15 +295,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
-               void* out, int B, int H, int KV, int Sq, int Sk,
+               void* out, float* lse, int B, int H, int KV, int Sq, int Sk,
                const long long* st, int causal, int window, float scale,
                float cap, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 256: return launch<T, 256>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 16: return launch<T, 16>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 32: return launch<T, 32>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 64: return launch<T, 64>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 128: return launch<T, 128>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 256: return launch<T, 256>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -302,6 +315,7 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 constexpr int WG_ROWS = 64;
 constexpr int KV_STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Per head dim: NWG consumer warpgroups of 64 query rows (WQ rows a
 // block) and a producer warpgroup.  Up to D 128 two consumers, which
@@ -427,8 +441,9 @@ __global__ void __launch_bounds__(Tile<D>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, int H, int group, int Sq,
-                   int Sk, int causal, int window, float scale, float cap) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int H, int group, int Sq, int Sk, int causal, int window,
+                   float scale, float cap) {
   using T = Tile<D>;
   constexpr int SW = T::SW, EC = T::EC, NWG = T::NWG, WQ = T::WQ;
   constexpr int KV_TILE = T::KV_BYTES;
@@ -621,13 +636,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     // o / max(l, 1e-30) as one reciprocal a row (a division an element
     // would be 128 slow-path calls a thread at D 256), rows past Sq not
-    // stored
+    // stored; the row's lse (m in log2 units) from one of its 4 lanes
     __nv_bfloat16* ob = out + ((long long)b * H + h) * Sq * D;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int qp = r + 8 * hr;
       if (qp >= Sq) continue;
       const float inv = 1.f / fmaxf(l[hr], 1e-30f);
+      if (lse != nullptr && lane % 4 == 0)
+        lse[((long long)b * H + h) * Sq + qp] =
+            m[hr] * LN2 + logf(fmaxf(l[hr], 1e-30f));
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int col = 8 * j + 2 * (lane % 4);
@@ -641,7 +659,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int H, int KV, int Sq, int Sk, const long long* st,
+                 float* lse, int B, int H, int KV, int Sq, int Sk,
+                 const long long* st,
                  int causal, int window, float scale, float cap,
                  cudaStream_t stream) {
   using T = Tile<D>;
@@ -670,21 +689,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + WQ - 1) / WQ), (unsigned)H, (unsigned)B);
   kern<<<grid, T::THREADS, bytes, stream>>>(
-      maps[0], maps[1], maps[2], (__nv_bfloat16*)out, H, H / KV, Sq, Sk,
+      maps[0], maps[1], maps[2], (__nv_bfloat16*)out, lse, H, H / KV, Sq, Sk,
       causal, window, scale, cap);
   return (int)cudaGetLastError();
 }
 
 int dispatch_wgmma(int D, const void* q, const void* k, const void* v,
-                   void* out, int B, int H, int KV, int Sq, int Sk,
+                   void* out, float* lse, int B, int H, int KV, int Sq,
+                   int Sk,
                    const long long* st, int causal, int window, float scale,
                    float cap, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_wgmma<16>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 32: return launch_wgmma<32>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 64: return launch_wgmma<64>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 128: return launch_wgmma<128>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 256: return launch_wgmma<256>(q, k, v, out, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 16: return launch_wgmma<16>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 32: return launch_wgmma<32>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 64: return launch_wgmma<64>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 128: return launch_wgmma<128>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 256: return launch_wgmma<256>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -694,10 +714,11 @@ int dispatch_wgmma(int D, const void* q, const void* k, const void* v,
 // dtype 0 = float32 (simt route), 1 = bfloat16 (wgmma route: pointers
 // 16-byte aligned, strides multiples of 8); strides in elements, (b, head,
 // s) for each of q (Sq rows), k and v (Sk rows), the head dimension
-// contiguous; out is [B, H, Sq, D].  *route is set to the route launched:
-// 1 = wgmma, 0 = simt.
+// contiguous; out is [B, H, Sq, D]; lse is null or float32 [B, H, Sq].
+// *route is set to the route launched: 1 = wgmma, 0 = simt.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* out, int B, int H,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int B, int H,
     int KV, int Sq, int Sk, int D, int dtype, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, int causal, int window,
@@ -708,11 +729,11 @@ extern "C" int repro_flash_attention(
   cudaStream_t s = (cudaStream_t)stream;
   *route = dtype == 1;
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, out, B, H, KV, Sq, Sk, st, causal,
-                             window, scale, cap, s);
+    return dispatch_d<float>(D, q, k, v, out, (float*)lse, B, H, KV, Sq, Sk,
+                             st, causal, window, scale, cap, s);
   if (dtype == 1)
-    return dispatch_wgmma(D, q, k, v, out, B, H, KV, Sq, Sk, st, causal,
-                          window, scale, cap, s);
+    return dispatch_wgmma(D, q, k, v, out, (float*)lse, B, H, KV, Sq, Sk,
+                          st, causal, window, scale, cap, s);
   return (int)cudaErrorInvalidValue;
 }
 

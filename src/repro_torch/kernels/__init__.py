@@ -6,19 +6,35 @@ Each ``<name>/`` holds ``<name>.py`` (the ctypes wrapper of
 ``ref.py`` (the plain PyTorch version) and ``ops.py`` (the dispatcher:
 CUDA tensors launch the kernel or raise, CPU tensors take the plain
 version).  ``_build``
-compiles the sources with ``nvcc`` at first use.
+compiles the sources with ``nvcc`` at first use.  A wrapper whose kernel
+has no backward refuses to run under grad (``refuse_grad``): its output,
+filled through ``ctypes``, would carry no gradient.
 """
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
+
+
+def refuse_grad(fn: str, item: str, *tensors: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and one of ``tensors``
+    requires grad: the kernel's output would silently carry no gradient.
+    ``item`` names the ROADMAP item that brings the backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{fn}: the CUDA kernel has no autograd backward here, and its "
+            f"output would carry no gradient (ROADMAP queue 1 item {item}); "
+            f"run it under torch.no_grad() or on inputs that do not "
+            f"require grad")
 
 
 def _wrappers():
     from repro_torch.kernels.conv2d.conv2d import matmul_bias_act
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_bwd)
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
@@ -28,6 +44,7 @@ def _wrappers():
     return {"link_geometry": link_geometry, "tropical_dp": tropical_dp_chain,
             "tropical_dp_step": tropical_dp_step, "conv2d": matmul_bias_act,
             "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention, "moe_matmul": moe_matmul,
             "rglru_scan": rglru_scan, "mlstm_chunk": mlstm_chunk}
 
@@ -58,4 +75,5 @@ def reset_launch_counts() -> None:
             fn.launches_by_route[route] = 0
 
 
-__all__ = ["launch_counts", "reset_launch_counts", "route_counts"]
+__all__ = ["launch_counts", "refuse_grad", "reset_launch_counts",
+           "route_counts"]

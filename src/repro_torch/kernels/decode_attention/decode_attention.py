@@ -25,7 +25,7 @@ import math
 import torch
 
 from repro_torch.device import sm_count
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_attention.flash_attention import (
     HEAD_DIMS, check_operand)
 
@@ -70,7 +70,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B,KV,G,D] contiguous (G <= 16; D in 16, 32, 64, 128, 256); k/v
     [B,KV,S,D] (strided views allowed with D contiguous); pos [B] int32;
     float32 or bfloat16, all on one CUDA device -> [B,KV,G,D] in
-    ``q.dtype``, on the current stream without synchronising."""
+    ``q.dtype``, on the current stream without synchronising.  Raises
+    under grad: training never decodes, and no backward is planned
+    (ROADMAP queue 1 item 14.4)."""
+    refuse_grad("decode_attention", "14.4 (training runs prefill "
+                "attention only)", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or pos.dim() != 1:
         raise ValueError(f"decode_attention: want q [B,KV,G,D], k/v "
                          f"[B,KV,S,D], pos [B]; got {tuple(q.shape)}, "

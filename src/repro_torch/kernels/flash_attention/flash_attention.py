@@ -23,6 +23,11 @@ TFLOP/s).  Two routes, counted in ``flash_attention.launches_by_route``:
 
 Both skip kv tiles wholly above the diagonal or outside the window
 (exact: they carry zero weight) and are deterministic launch to launch.
+With ``with_lse`` the launch also stores each row's log-sum-exp, which
+the backward ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``)
+reads; ``ops.mha`` calls both through an autograd Function when a
+gradient is wanted, and the bare wrapper refuses to run under grad
+(its output would carry no gradient).
 """
 from __future__ import annotations
 
@@ -31,10 +36,10 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_attention.ref import check_key_length
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
              + [ctypes.c_float] * 2 + [ctypes.c_void_p]
              + [ctypes.POINTER(ctypes.c_int)])
@@ -42,6 +47,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: launcher route codes
 ROUTES = ("simt", "wgmma")
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                 + [ctypes.POINTER(ctypes.c_longlong)]
+                 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                 + [ctypes.c_void_p])
+#: the backward's routes (one so far: SIMT fp32 products in both dtypes)
+BWD_ROUTES = ("simt",)
 
 
 def check_operand(fn: str, name: str, t: torch.Tensor, ref: torch.Tensor,
@@ -61,25 +72,36 @@ def check_operand(fn: str, name: str, t: torch.Tensor, ref: torch.Tensor,
             f"{tuple(t.shape)} strides {t.stride()}")
 
 
+def _check_shapes(fn: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, causal: bool, window: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{fn}: want q [B,H,Sq,D], k/v [B,KV,Sk,D]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    H, D = q.shape[1], q.shape[3]
+    KV = k.shape[1]
+    check_key_length(fn, q.shape[2], k.shape[2], causal, window)
+    if q.dtype not in _DTYPES or D not in HEAD_DIMS or KV < 1 or H % KV:
+        raise ValueError(f"{fn}: dtype {q.dtype} (want float32 or "
+                         f"bfloat16), head dim {D} (want {HEAD_DIMS}), "
+                         f"{H} heads over {KV} kv heads")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    cap: float = 0.0) -> torch.Tensor:
+                    cap: float = 0.0, with_lse: bool = False):
     """q [B,H,Sq,D]; k/v [B,KV,Sk,D] (KV divides H; D in 16, 32, 64, 128,
     256; Sk >= 1, and Sk = Sq when ``causal`` or ``window`` is set;
     float32 or bfloat16, all one dtype, on one CUDA device; strided views
     allowed with D contiguous) -> [B,H,Sq,D] contiguous, in ``q.dtype``,
-    on the current stream without synchronising."""
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"flash_attention: want q [B,H,Sq,D], k/v "
-                         f"[B,KV,Sk,D]; got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    on the current stream without synchronising; with ``with_lse`` the
+    pair (out, lse float32 [B,H,Sq]).  Raises under grad (see
+    ``ops.mha``)."""
+    refuse_grad("flash_attention", "14.4: call ops.mha, whose autograd "
+                "Function launches flash_attention_bwd", q, k, v)
+    _check_shapes("flash_attention", q, k, v, causal, window)
     B, H, S, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    check_key_length("flash_attention", S, Sk, causal, window)
-    if q.dtype not in _DTYPES or D not in HEAD_DIMS or KV < 1 or H % KV:
-        raise ValueError(f"flash_attention: dtype {q.dtype} (want float32 "
-                         f"or bfloat16), head dim {D} (want {HEAD_DIMS}), "
-                         f"{H} heads over {KV} kv heads")
     # the bf16 route reads by TMA: 16-byte aligned rows and strides
     for t in (q, k, v):
         if t.dtype == torch.bfloat16 and (
@@ -93,8 +115,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            ("v", v, (B, KV, Sk, D))):
         check_operand("flash_attention", name, t, q, shape, 4)
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     scale = 1.0 / math.sqrt(D)
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention
@@ -103,6 +127,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if with_lse else None,
                  B, H, KV, S, Sk, D, _DTYPES[q.dtype],
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  int(causal), int(window), float(scale), float(cap), stream,
@@ -110,8 +135,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check_launch(lib, "flash_attention", err)
     flash_attention.launches += 1
     flash_attention.launches_by_route[ROUTES[route.value]] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, cap: float = 0.0):
+    """The gradient of ``flash_attention``: q [B,H,Sq,D], k/v [B,KV,Sk,D],
+    the forward's output o and the output's gradient do [B,H,Sq,D] (one
+    dtype, strided views allowed with D contiguous and rows aligned to 4
+    elements), the forward's lse float32 [B,H,Sq] -> (dq [B,H,Sq,D], dk,
+    dv [B,KV,Sk,D]) contiguous in ``q.dtype``, with float32 math; three
+    kernels (delta, dK/dV, dQ) on the current stream, counted as one
+    launch."""
+    _check_shapes("flash_attention_bwd", q, k, v, causal, window)
+    B, H, S, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    for name, t, shape in (("q", q, (B, H, S, D)), ("k", k, (B, KV, Sk, D)),
+                           ("v", v, (B, KV, Sk, D)), ("o", o, (B, H, S, D)),
+                           ("do", do, (B, H, S, D))):
+        check_operand("flash_attention_bwd", name, t, q, shape, 4)
+    if lse.device != q.device or lse.dtype != torch.float32 or \
+            tuple(lse.shape) != (B, H, S) or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"float32 tensor of shape {(B, H, S)} on "
+                         f"{q.device}; got {lse.device} {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    dq = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq, torch.zeros_like(k, memory_format=torch.contiguous_format),\
+            torch.zeros_like(v, memory_format=torch.contiguous_format)
+    dk = torch.empty((B, KV, Sk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, KV, Sk, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*(st for t in (q, k, v, o, do)
+                                         for st in t.stride()[:3]))
+    fn = _build.launcher("flash_attention_bwd", "repro_flash_attention_bwd",
+                         _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KV, S, Sk,
+                 D, _DTYPES[q.dtype], strides, int(causal), int(window),
+                 float(1.0 / math.sqrt(D)), float(cap), stream)
+    _build.check_launch(_build.load("flash_attention_bwd"),
+                        "flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route["simt"] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)

@@ -2,21 +2,66 @@
 layout in and out, the kernel's ``[B, H, S, D]`` inside.
 
 The head-major operands are transposed views of the model's tensors (no
-copy): the CUDA kernel reads any strides over (B, heads, S) with the
+copy): the CUDA kernels read any strides over (B, heads, S) with the
 head dimension contiguous.  The call runs in the profiler range
 ``attention.flash``.
+
+When grad mode is on and an input requires grad, ``mha`` goes through
+``FlashAttention``, an autograd Function: its forward launches the flash
+kernel with ``with_lse`` and its backward the backward kernel
+(``flash_attention_bwd``) on a CUDA tensor, and takes the plain versions
+(``attention_fwd_ref``, ``attention_bwd_ref``) on a CPU tensor, so the CPU
+tests run the Function the card runs.  Otherwise the call is the serving
+one, one forward launch without the log-sum-exp.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.flash_attention import \
-    flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention, flash_attention_bwd)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_fwd_ref,
+                                                     attention_ref)
+
+
+def _flash_fwd(q, k, v, **kw):
+    return flash_attention(q, k, v, with_lse=True, **kw)
+
 
 #: tensor device type -> implementation: CUDA launches the kernel (or
 #: raises), the CPU takes the plain version; nothing falls back
 _BY_DEVICE = {"cuda": flash_attention, "cpu": attention_ref}
+#: the same for the training path: (forward with lse, backward)
+_TRAIN_BY_DEVICE = {"cuda": (_flash_fwd, flash_attention_bwd),
+                    "cpu": (attention_fwd_ref, attention_bwd_ref)}
+
+
+def _train_fns(t: torch.Tensor):
+    fns = _TRAIN_BY_DEVICE.get(t.device.type)
+    if fns is None:
+        raise ValueError(f"mha: unsupported device {t.device}")
+    return fns
+
+
+class FlashAttention(torch.autograd.Function):
+    """Head-major attention with its gradient: saves q, k, v, the output
+    and the log-sum-exp, and hands the backward the output's gradient as
+    it comes (a strided view; the kernel reads its strides)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap):
+        o, lse = _train_fns(q)[0](q, k, v, causal=causal, window=window,
+                                  cap=cap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window, cap=cap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _train_fns(do)[1](q, k, v, o, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -28,10 +73,14 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = _BY_DEVICE.get(q.device.type)
     if fn is None:
         raise ValueError(f"mha: unsupported device {q.device}")
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     with torch.profiler.record_function("attention.flash"):
-        out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 causal=causal, window=window, cap=cap)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            out = FlashAttention.apply(qh, kh, vh, causal, window, cap)
+        else:
+            out = fn(qh, kh, vh, causal=causal, window=window, cap=cap)
     return out.transpose(1, 2)
 
 
-__all__ = ["mha"]
+__all__ = ["FlashAttention", "mha"]

@@ -31,7 +31,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + \
     [ctypes.c_float, ctypes.c_void_p]
@@ -63,7 +63,9 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, D, D], n0 [B, H, D], m0 [B, H] contiguous float32, all CUDA
     tensors on one device; D in ``HEAD_DIMS``, S >= 1 -> (h [B, S, H, D]
     in q's dtype, C1, n1, m1), on the current stream without
-    synchronising."""
+    synchronising.  Raises under grad."""
+    refuse_grad("mlstm_chunk", "14.8 (xLSTM training)", q, k, v, i_pre,
+                f_pre, C0, n0, m0)
     if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) or \
             tuple(v.shape) != tuple(q.shape):
         raise ValueError(f"mlstm_chunk: want q, k, v [B, S, H, D] of one "

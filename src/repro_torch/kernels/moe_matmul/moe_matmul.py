@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
              + [ctypes.POINTER(ctypes.c_int)])
@@ -38,7 +38,9 @@ ROUTES = ("simt", "wgmma")
 def moe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [E, C, D], w [E, D, F]: contiguous CUDA tensors of one dtype
     (float32 or bfloat16) on one device -> y [E, C, F] in ``x.dtype``, on
-    the current stream without synchronising."""
+    the current stream without synchronising.  Raises under grad."""
+    refuse_grad("moe_matmul", "14.6 (MoE training: the backward as grouped "
+                "GEMMs on transposed operands)", x, w)
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or \
             x.shape[2] != w.shape[1]:
         raise ValueError(f"moe_matmul: want x [E, C, D] and w [E, D, F]; "

@@ -24,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,7 +45,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     """a, b [B, T, W] contiguous, of one dtype; h0 [B, W] contiguous;
     float32 or bfloat16 CUDA tensors on one device -> (h [B, T, W] in
     ``a.dtype``, hT [B, W] in ``h0.dtype``), on the current stream
-    without synchronising."""
+    without synchronising.  Raises under grad."""
+    refuse_grad("rglru_scan", "14.7 (griffin training: the backward as a "
+                "reverse scan)", a, b, h0)
     if a.dim() != 3 or tuple(b.shape) != tuple(a.shape) or h0.dim() != 2 \
             or tuple(h0.shape) != (a.shape[0], a.shape[2]):
         raise ValueError(f"rglru_scan: want a, b [B, T, W] and h0 [B, W]; "

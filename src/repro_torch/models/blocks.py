@@ -3,7 +3,8 @@ strings (``core.cost_model._block_kinds``), so the planner's units and the
 model's blocks agree.
 
 ``apply(params, x, state, ctx) -> (x, new_state)``; ``ctx.mode`` is
-``prefill`` or ``decode``.  The attention blocks (``attn_full``,
+``prefill``, ``decode`` or ``train`` (the attention blocks only: the full
+sequence as in prefill, no cache built, ``new_state`` None).  The attention blocks (``attn_full``,
 ``attn_local``) with a dense or MoE MLP, the RG-LRU block (``rglru``) and
 the xLSTM blocks (``slstm``, ``mlstm``) are ported.  The MoE
 load-balancing loss is a training term: serving drops it, as the
@@ -25,7 +26,7 @@ Params = Dict[str, Any]
 
 class Ctx(NamedTuple):
     cfg: ArchConfig
-    mode: str                   # 'prefill' | 'decode'
+    mode: str                   # 'prefill' | 'decode' | 'train'
     pos: torch.Tensor           # [B, S] int32, [B, S, 3] under M-RoPE
     cache_len: int = 0          # decode cache size (flat)
 
@@ -78,7 +79,8 @@ def _attn_block_apply(local: bool) -> Callable:
             y, k, v = attn_mod.attention(
                 p["attn"], h, ctx.pos, window=win, cap=a.logit_softcap,
                 theta=a.rope_theta, mrope=a.mrope_sections)
-            new_state = _prefill_cache(k, v, ctx, win)
+            new_state = _prefill_cache(k, v, ctx, win) \
+                if ctx.mode == "prefill" else None
         x = x + _post(p, "ln1p", y, cfg)
         if not (cfg.moe.enabled or cfg.d_ff):
             return x, new_state

@@ -1,8 +1,8 @@
-"""Shared LM building blocks on tensors, the serving subset of the
-reference's ``models/layers.py``: initialisers, the per-head projections
+"""Shared LM building blocks on tensors, the reference's
+``models/layers.py``: initialisers, the per-head projections
 (``head_proj``, ``head_out``), ``rmsnorm``, ``layernorm``, the (gated)
 MLP, rotary embeddings (M-RoPE included), ``softcap``, the embedding
-lookup and the LM head.
+lookup, the LM head and the training loss (``cross_entropy``).
 
 Parameters are dicts of tensors in the reference's layouts (``dense``
 weights ``[d_in, d_out]``, the embedding table ``[V, d]``).  Each weight
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -185,7 +185,23 @@ def lm_head(table_or_w: torch.Tensor, x: torch.Tensor,
     return softcap(x @ table_or_w.to(x.dtype).T, final_cap)
 
 
-__all__ = ["apply_rope", "dense_init", "embed_init", "embed_lookup",
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean next-token cross-entropy in float32: logits [..., V],
+    labels [...] int; with ``mask`` [...] the mean over its weight (at
+    least 1)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+__all__ = ["apply_rope", "cross_entropy", "dense_init", "embed_init",
+           "embed_lookup",
            "head_out", "head_proj", "layernorm", "layernorm_init", "lm_head",
            "mlp", "mlp_init", "mrope_bands", "rmsnorm", "rmsnorm_init",
            "rope_freqs", "softcap", "truncated_normal"]

@@ -4,7 +4,9 @@ family (granite-moe, olmoe), griffin (recurrentgemma: two RG-LRU blocks
 to one local-attention block), xLSTM (family ``ssm``, xlstm-350m:
 sLSTM and mLSTM blocks alternating) and the VLM (qwen2-vl: M-RoPE, and
 patch embeddings from a stub frontend prepended to the prompt), served
-through ``prefill`` and ``decode_step``.  Family ``audio`` is
+through ``prefill`` and ``decode_step``, and trained through
+``train_loss`` (the dense families and the VLM; MoE, griffin and xLSTM
+training raise until their kernels have a backward).  Family ``audio`` is
 ``models.whisper.WhisperLM``.
 
 The kind sequence comes from ``core.cost_model._block_kinds``, as in the
@@ -12,10 +14,12 @@ reference.  Parameters are a dict with ``embed`` (``table [V, d]``),
 ``final_norm``, ``head`` (untied only) and ``layers``, a list of one
 block's params per layer in layer order; the reference stacks layers per
 period slot instead (``convert.lm_params_from_arrays`` interleaves).
-Weight matrices are held in the compute dtype (``cfg.dtype``), norm
+Serving holds weight matrices in the compute dtype (``cfg.dtype``), norm
 scales and qkv biases in float32: the reference casts each weight to the
 compute dtype at use, so the results agree and the memory is half.
-Training waits for a later slice (ROADMAP queue 1 item 14.4).
+Training holds float32 master weights (``init(dtype=torch.float32)``);
+the layers cast each to the compute dtype at use, as the reference's
+``_cast_compute`` does once a step.
 """
 from __future__ import annotations
 
@@ -23,19 +27,29 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cost_model import _block_kinds as block_kinds
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.blocks import Ctx, block_def
-from repro_torch.models.layers import (embed_init, embed_lookup, lm_head,
-                                       rmsnorm, rmsnorm_init,
-                                       truncated_normal)
+from repro_torch.models.layers import (cross_entropy, embed_init,
+                                       embed_lookup, lm_head, rmsnorm,
+                                       rmsnorm_init, truncated_normal)
+from repro_torch.tree import leaves_with_paths
 
 Params = Dict[str, Any]
 Cache = List[Dict[str, torch.Tensor]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: layers a period of the reference's scanned stack, by attention pattern
+#: (xLSTM's period is 2)
+_PERIOD = {"full": 1, "local": 1, "alternating": 2, "griffin": 3}
+#: families whose training waits for a kernel's backward: the ROADMAP
+#: queue 1 item that brings it
+TRAIN_LATER = {"moe": "14.6 (the moe_matmul backward, the aux loss)",
+               "hybrid": "14.7 (the rglru_scan backward)",
+               "ssm": "14.8 (the mlstm_chunk backward)"}
 
 
 class TransformerLM:
@@ -58,26 +72,48 @@ class TransformerLM:
             if cfg.name.startswith(("gemma", "recurrentgemma")) else None
 
     # ------------------------------------------------------------------
-    def init(self, generator: torch.Generator) -> Params:
+    def init(self, generator: torch.Generator,
+             dtype: Optional[torch.dtype] = None) -> Params:
         """Random parameters drawn tensor by tensor on the generator's
         device (which must be the model's), each in float32 and then cast
-        to its held dtype."""
+        to its held dtype: the weight matrices' is ``dtype`` (default the
+        compute dtype; training passes float32 for master weights)."""
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
         cfg = self.cfg
+        dtype = dtype or self.dtype
         params: Params = {
             "embed": embed_init(cfg.vocab_size, cfg.d_model, generator,
-                                self.dtype),
+                                dtype),
             "final_norm": rmsnorm_init(cfg.d_model, self.device),
-            "layers": [blk.init(cfg, generator, self.dtype)
+            "layers": [blk.init(cfg, generator, dtype)
                        for blk in self.blocks],
         }
         if not cfg.tie_embeddings:
             params["head"] = {"w": truncated_normal(
                 (cfg.vocab_size, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
-                generator, self.dtype)}
+                generator, dtype)}
         return params
+
+    def stacked_groups(self, params: Params) -> List[List[int]]:
+        """Leaf indices of ``params`` (in ``tree.leaves`` order) that the
+        reference holds as one stacked leaf: the same leaf of the layers
+        ``j * period + i`` for each period slot i (its ``rem`` layers and
+        everything outside ``layers`` alone).  ``grad_compress`` scales a
+        group as the reference scales its stacked tensor."""
+        cfg = self.cfg
+        period = 2 if cfg.family == "ssm" else _PERIOD[cfg.attention.pattern]
+        n_scan = cfg.n_layers // period * period
+        groups: Dict[Any, List[int]] = {}
+        for i, (path, _) in enumerate(leaves_with_paths(params)):
+            key: Any = path
+            if path.startswith("['layers']["):
+                j, rest = path[len("['layers']["):].split("]", 1)
+                j = int(j)
+                key = ("slot", j % period, rest) if j < n_scan else path
+            groups.setdefault(key, []).append(i)
+        return list(groups.values())
 
     # ------------------------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor,
@@ -107,9 +143,47 @@ class TransformerLM:
             else params["head"]["w"]
         return lm_head(table, x, cfg.final_logit_softcap)
 
+    def _run_stack_train(self, params: Params, x: torch.Tensor,
+                         ctx: Ctx) -> torch.Tensor:
+        """The train path: every layer, no cache in or out; with
+        ``cfg.remat`` other than ``none`` each layer is a
+        ``torch.utils.checkpoint`` region, its activations recomputed in
+        the backward (the reference wraps its scanned layer body in
+        ``jax.checkpoint``)."""
+        remat = self.cfg.remat != "none"
+        for blk, p in zip(self.blocks, params["layers"]):
+            if remat:
+                x, _ = checkpoint(blk.apply, p, x, None, ctx,
+                                  use_reentrant=False)
+            else:
+                x, _ = blk.apply(p, x, None, ctx)
+        return x
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+    def train_loss(self, params: Params, tokens: torch.Tensor,
+                   labels: torch.Tensor,
+                   extra_embeds: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Next-token cross-entropy (float32 scalar): tokens / labels
+        [B, S_text]; ``extra_embeds`` [B, P, d] (the VLM's patches) go in
+        front and the loss is taken on the text positions only.  Raises
+        ``NotImplementedError`` for the MoE, griffin and xLSTM families,
+        whose kernels have no backward yet."""
+        if self.cfg.family in TRAIN_LATER:
+            raise NotImplementedError(
+                f"train_loss: {self.cfg.name} (family "
+                f"{self.cfg.family!r}) trains once ROADMAP queue 1 item "
+                f"{TRAIN_LATER[self.cfg.family]} lands")
+        x = self._embed(params, tokens, extra_embeds)
+        b, s = x.shape[:2]
+        ctx = Ctx(self.cfg, "train", self._positions(b, s))
+        x = self._run_stack_train(params, x, ctx)
+        if extra_embeds is not None:       # loss only on the text positions
+            x = x[:, extra_embeds.shape[1]:]
+        return cross_entropy(self._head(params, x), labels, mask)
+
     def prefill(self, params: Params, tokens: torch.Tensor,
                 cache_len: int,
                 extra_embeds: Optional[torch.Tensor] = None
@@ -148,4 +222,4 @@ class TransformerLM:
                                self.device) for blk in self.blocks]
 
 
-__all__ = ["TransformerLM"]
+__all__ = ["TRAIN_LATER", "TransformerLM"]

@@ -1,5 +1,6 @@
 """whisper-tiny's encoder-decoder transformer (the reference's
-``models/whisper.py``), served through ``prefill`` and ``decode_step``.
+``models/whisper.py``), served through ``prefill`` and ``decode_step``
+and trained through ``train_loss``.
 
 The conv/mel frontend is a stub, as in the reference: the caller passes
 precomputed frame embeddings [B, enc_seq, d], and sinusoidal positions
@@ -14,9 +15,9 @@ cross K/V are computed once, in prefill, and kept in the cache.
 Parameters follow the reference's tree: ``embed`` (the tied table),
 ``enc`` and ``dec`` (lists of layers with ``ln1``, ``attn``, ``ln2``,
 ``mlp``, and on decoder layers ``ln_x`` and ``xattn``), ``enc_norm`` and
-``dec_norm``.  Weight matrices are held in the compute dtype, layer-norm
-scales and biases and the qkv biases in float32, as ``TransformerLM``
-holds them.  The decode cache is one dict a decoder layer: the self
+``dec_norm``.  Weight matrices are held in the compute dtype (float32
+masters for training), layer-norm scales and biases and the qkv biases
+in float32, as ``TransformerLM`` holds them.  The decode cache is one dict a decoder layer: the self
 cache ``k`` / ``v`` [B, cache_len, KV, Dh] and ``cross_k`` / ``cross_v``
 [B, enc_seq, KV, Dh] (the reference nests the self cache under
 ``self``).
@@ -24,14 +25,15 @@ cache ``k`` / ``v`` [B, cache_len, KV, Dh] and ``cross_k`` / ``cross_v``
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (embed_init, embed_lookup, layernorm,
+from repro_torch.models.layers import (cross_entropy, embed_init,
+                                       embed_lookup, layernorm,
                                        layernorm_init, lm_head, mlp,
                                        mlp_init)
 
@@ -65,37 +67,40 @@ class WhisperLM:
         self.dtype = _DTYPES[cfg.dtype]
 
     # ------------------------------------------------------------------
-    def _layer_init(self, generator: torch.Generator, cross: bool) -> Params:
+    def _layer_init(self, generator: torch.Generator, cross: bool,
+                    dtype: torch.dtype) -> Params:
         cfg, a, dev = self.cfg, self.cfg.attention, generator.device
 
         def attn():
             return attn_mod.attn_init(cfg.d_model, a.n_heads, a.n_kv_heads,
-                                      cfg.head_dim, True, generator,
-                                      self.dtype)
+                                      cfg.head_dim, True, generator, dtype)
 
         p = {"ln1": layernorm_init(cfg.d_model, dev),
              "ln2": layernorm_init(cfg.d_model, dev),
              "attn": attn(),
              "mlp": mlp_init(cfg.d_model, cfg.d_ff, cfg.glu, generator,
-                             self.dtype)}
+                             dtype)}
         if cross:
             p["ln_x"] = layernorm_init(cfg.d_model, dev)
             p["xattn"] = attn()
         return p
 
-    def init(self, generator: torch.Generator) -> Params:
+    def init(self, generator: torch.Generator,
+             dtype: Optional[torch.dtype] = None) -> Params:
         """Random parameters drawn tensor by tensor on the generator's
-        device (which must be the model's)."""
+        device (which must be the model's), matrices in ``dtype``
+        (default the compute dtype)."""
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
         cfg = self.cfg
+        dtype = dtype or self.dtype
         return {
             "embed": embed_init(cfg.vocab_size, cfg.d_model, generator,
-                                self.dtype),
-            "enc": [self._layer_init(generator, cross=False)
+                                dtype),
+            "enc": [self._layer_init(generator, False, dtype)
                     for _ in range(cfg.enc_layers)],
-            "dec": [self._layer_init(generator, cross=True)
+            "dec": [self._layer_init(generator, True, dtype)
                     for _ in range(cfg.n_layers)],
             "enc_norm": layernorm_init(cfg.d_model, self.device),
             "dec_norm": layernorm_init(cfg.d_model, self.device),
@@ -134,6 +139,29 @@ class WhisperLM:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+    def train_loss(self, params: Params, tokens: torch.Tensor,
+                   labels: torch.Tensor, frames: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Encode ``frames``, then next-token cross-entropy over the
+        decoder's prompt ``tokens`` / ``labels`` [B, S] (float32 scalar).
+        The encoder's and the cross-attention's flash calls are
+        non-causal, the cross one over the frames' own length."""
+        enc_out = self.encode(params, frames)
+        x = embed_lookup(params["embed"], tokens, self.dtype)
+        pos = self._positions(*x.shape[:2])
+        x = self._with_positions(x, pos)
+        for p in params["dec"]:
+            h = layernorm(p["ln1"], x)
+            x = x + attn_mod.attention(p["attn"], h, pos, causal=True,
+                                       theta=0.0)[0]
+            xk = attn_mod.proj(p["xattn"], enc_out, "wk", "bk")
+            xv = attn_mod.proj(p["xattn"], enc_out, "wv", "bv")
+            x = x + attn_mod.attention(p["xattn"], layernorm(p["ln_x"], x),
+                                       pos, causal=False, theta=0.0,
+                                       kv=(xk, xv))[0]
+            x = self._mlp(p, x)
+        return cross_entropy(self._logits(params, x), labels, mask)
+
     def prefill(self, params: Params, tokens: torch.Tensor,
                 frames: torch.Tensor,
                 cache_len: int) -> Tuple[torch.Tensor, Cache]:

@@ -27,11 +27,12 @@ from repro_torch.kernels.tropical_dp.tropical_dp import \
 def test_sources_are_the_ported_kernels():
     """The planner's two kernels, the CNN path's conv GEMM, the LM
     serving path's two attention kernels, the MoE expert GEMM, the
-    RG-LRU scan and the mLSTM chunk."""
+    RG-LRU scan, the mLSTM chunk and training's flash-attention
+    backward."""
     assert _build.sources() == ("conv2d", "decode_attention",
-                                "flash_attention", "link_geometry",
-                                "mlstm_chunk", "moe_matmul", "rglru_scan",
-                                "tropical_dp")
+                                "flash_attention", "flash_attention_bwd",
+                                "link_geometry", "mlstm_chunk", "moe_matmul",
+                                "rglru_scan", "tropical_dp")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -201,22 +202,25 @@ def test_moe_matmul_rejects_bf16_tma_misalignment(operand, monkeypatch):
 
 
 def test_route_counts_reset_with_the_launch_counts():
-    """The expert GEMM, prefill attention, the conv GEMM, the RG-LRU scan,
-    the mLSTM chunk and the chain DP count launches by route beside their
-    totals; one reset clears both."""
+    """The expert GEMM, prefill attention and its backward, the conv GEMM,
+    the RG-LRU scan, the mLSTM chunk and the chain DP count launches by
+    route beside their totals; one reset clears both."""
     from repro_torch import kernels
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_bwd)
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
     saved = [(f, f.launches, dict(f.launches_by_route))
-             for f in (flash_attention, moe_matmul, matmul_bias_act,
-                       rglru_scan, mlstm_chunk, tdp.tropical_dp_chain)]
+             for f in (flash_attention, flash_attention_bwd, moe_matmul,
+                       matmul_bias_act, rglru_scan, mlstm_chunk,
+                       tdp.tropical_dp_chain)]
     try:
         moe_matmul.launches = 3
         moe_matmul.launches_by_route.update(wgmma=2, simt=1)
         flash_attention.launches_by_route["wgmma"] = 5
+        flash_attention_bwd.launches = 7
+        flash_attention_bwd.launches_by_route["simt"] = 7
         matmul_bias_act.launches = 4
         matmul_bias_act.launches_by_route.update(wgmma=3, simt=1)
         rglru_scan.launches = 27
@@ -227,6 +231,7 @@ def test_route_counts_reset_with_the_launch_counts():
         tdp.tropical_dp_chain.launches_by_route.update(fused=32, step=11)
         counts = kernels.route_counts()
         assert counts == {"flash_attention": {"simt": 0, "wgmma": 5},
+                          "flash_attention_bwd": {"simt": 7},
                           "moe_matmul": {"simt": 1, "wgmma": 2},
                           "conv2d": {"simt": 1, "wgmma": 3},
                           "rglru_scan": {"simt": 1, "tma": 26},
@@ -236,12 +241,14 @@ def test_route_counts_reset_with_the_launch_counts():
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
             "flash_attention": {"simt": 0, "wgmma": 0},
+            "flash_attention_bwd": {"simt": 0},
             "moe_matmul": {"simt": 0, "wgmma": 0},
             "conv2d": {"simt": 0, "wgmma": 0},
             "rglru_scan": {"simt": 0, "tma": 0},
             "mlstm_chunk": {"simt": 0, "wgmma": 0, "decode": 0},
             "tropical_dp": {"fused": 0, "step": 0}}
         assert kernels.launch_counts()["moe_matmul"] == 0
+        assert kernels.launch_counts()["flash_attention_bwd"] == 0
         assert kernels.launch_counts()["conv2d"] == 0
         assert kernels.launch_counts()["rglru_scan"] == 0
         assert kernels.launch_counts()["mlstm_chunk"] == 0

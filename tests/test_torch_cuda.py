@@ -13,7 +13,12 @@ the CPU's table), ``SwarmSim``'s LLHR rollout (one of each a frame, the
 baselines none) and ``solve_positions_legacy``'s separation.  The
 trajectory-sharded rollout over meshes of this card (two entries, and a
 ragged B over four): bitwise the unsharded run on every valid row, T
-link-geometry and T fused chain-DP launches a shard.
+link-geometry and T fused chain-DP launches a shard.  Training: the
+flash forward with its log-sum-exp and the backward kernel against their
+plain versions (causal, window, softcap, GQA, Sk != Sq, ragged S; two
+launches bitwise), ``mha`` under grad through both kernels against the
+CPU, the wrappers without a backward refusing grad, and the reduced
+minicpm-2b's loss and gradients on the card against the CPU.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -678,3 +683,138 @@ def test_sharded_rollout_ragged_on_the_card(cuda):
     _assert_valid_rows_bitwise(ref, got)
     assert got.feasibility_rate == ref.feasibility_rate
     assert counts["link_geometry"] == 4 * T and counts["tropical_dp"] == 4 * T
+
+
+# ---------------------------------------------------------------------------
+# training: the flash-attention backward kernel, the autograd Function
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal,window,cap", [
+    (1, 4, 4, 256, 256, 64, True, 0, 0.0), (1, 4, 2, 65, 65, 16, True, 0,
+                                            0.0),
+    (2, 4, 2, 100, 100, 32, True, 16, 5.0),
+    (1, 4, 2, 300, 300, 256, True, 64, 50.0),
+    (1, 2, 1, 1000, 1000, 128, True, 0, 0.0),
+    (2, 6, 6, 37, 150, 64, False, 0, 0.0), (1, 2, 2, 1, 1, 64, True, 0, 0.0),
+    (1, 4, 4, 1, 65, 64, False, 0, 0.0)])
+def test_flash_attention_backward_matches_plain(cuda, b, h, kv, sq, sk, d,
+                                                causal, window, cap, dtype):
+    """The forward with ``with_lse`` (the same output, the plain
+    version's log-sum-exp) and the backward kernel against
+    ``attention_bwd_ref`` on the same o and lse, dO a transposed view as
+    autograd hands it; two backward launches bitwise equal, each counted
+    once on its route."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_fwd_ref)
+    rng = np.random.default_rng(sq * 3 + sk + d)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=(b, s, n, d)),
+                                   dtype=torch.float32, device=cuda)
+                   .to(dtype).transpose(1, 2)
+                   for s, n in ((sq, h), (sk, kv), (sk, kv), (sq, h)))
+    kw = dict(causal=causal, window=window, cap=cap)
+    kernels.reset_launch_counts()
+    plain_o = flash_attention(q, k, v, **kw)
+    o, lse = flash_attention(q, k, v, with_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    _, ref_lse = attention_fwd_ref(q, k, v, **kw)
+    ref = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, plain_o)
+    torch.testing.assert_close(lse, ref_lse, **ATTN_TOL[torch.float32])
+    assert kernels.launch_counts()["flash_attention_bwd"] == 2
+    assert kernels.route_counts()["flash_attention_bwd"] == {"simt": 2}
+    for name, g, a, r, shape in zip("qkv", got, again, ref,
+                                    ((b, h, sq, d), (b, kv, sk, d),
+                                     (b, kv, sk, d))):
+        assert g.shape == shape and g.dtype == dtype, name
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(g.float(), r.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mha_under_grad_runs_both_kernels(cuda, dtype):
+    """``mha`` under grad on the card: one forward launch with the
+    log-sum-exp, one backward launch; the gradients the CPU plain path's
+    (float32 inputs, then cast)."""
+    from repro_torch.kernels.flash_attention.ops import mha
+    rng = np.random.default_rng(5)
+    base = [rng.normal(size=(2, 96, n, 64)).astype(np.float32)
+            for n in (8, 4, 4)]
+    do = rng.normal(size=(2, 96, 8, 64)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (torch.as_tensor(x, device=dev).to(dtype).requires_grad_()
+                   for x in base)
+        kernels.reset_launch_counts()
+        out = mha(q, k, v, causal=True, window=40, cap=30.0)
+        grads[str(dev)] = torch.autograd.grad(
+            out, (q, k, v), torch.as_tensor(do, device=dev).to(dtype))
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert kernels.launch_counts()["flash_attention_bwd"] == 1
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert kernels.route_counts()["flash_attention"][route] == 1
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g.float().cpu(), r.float(),
+                                   **ATTN_TOL[dtype])
+
+
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
+    """On a CUDA tensor that requires grad each wrapper without a
+    backward raises before launching (no silent gradient-free output)."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention as bare_flash
+    x = torch.zeros((1, 2, 8, 64), device=cuda, requires_grad=True)
+    s = torch.zeros((1, 8, 2), device=cuda)
+    calls = [
+        lambda: bare_flash(x, x, x),
+        lambda: decode_attention(x, x, x, torch.zeros(
+            1, dtype=torch.int32, device=cuda)),
+        lambda: moe_matmul(x[0], x[0].transpose(1, 2)),
+        lambda: rglru_scan(x[0], x[0], x[0, :, 0]),
+        lambda: mlstm_chunk(x.transpose(1, 2), x.transpose(1, 2),
+                            x.transpose(1, 2), s, s,
+                            torch.zeros((1, 2, 64, 64), device=cuda),
+                            torch.zeros((1, 2, 64), device=cuda),
+                            torch.zeros((1, 2), device=cuda), 0.125)]
+    kernels.reset_launch_counts()
+    for call in calls:
+        with pytest.raises(RuntimeError, match="ROADMAP queue 1 item 14"):
+            call()
+    assert not any(kernels.launch_counts().values())
+
+
+def test_reduced_training_card_against_cpu(cuda):
+    """The reduced minicpm-2b in float32: loss and every gradient on the
+    card (flash forward and backward kernels, 4 + 4 launches) against
+    the CPU plain path."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_arch("minicpm-2b").reduced()
+    cpu_model = build_model(cfg, "cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 65)))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(dataclasses.replace(cfg), dev)
+        p = tree_map(lambda t: t.detach().to(dev, copy=True)
+                     .requires_grad_(), params)
+        kernels.reset_launch_counts()
+        loss = model.train_loss(p, toks[:, :-1].to(dev), toks[:, 1:].to(dev))
+        loss.backward()
+        out[str(dev)] = (loss.item(), [t.grad.cpu() for t in leaves(p)],
+                         kernels.launch_counts())
+    assert out["cuda"][2]["flash_attention"] == cfg.n_layers
+    assert out["cuda"][2]["flash_attention_bwd"] == cfg.n_layers
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for g, r in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-4)

@@ -61,8 +61,9 @@ from repro_torch.runtime.scenario_engine import ScenarioEngine  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "tropical_dp_step": 0,
-               "conv2d": 0, "flash_attention": 0, "decode_attention": 0,
-               "moe_matmul": 0, "rglru_scan": 0, "mlstm_chunk": 0}
+               "conv2d": 0, "flash_attention": 0, "flash_attention_bwd": 0,
+               "decode_attention": 0, "moe_matmul": 0, "rglru_scan": 0,
+               "mlstm_chunk": 0}
 
 
 EXAMPLE = os.path.join(ROOT, "examples", "torch_uav_swarm_sim.py")
@@ -104,11 +105,14 @@ def test_port_scan_covers_the_package_and_chip_smoke():
     for name in FIGURES + ("torch_common",):
         assert os.path.join(ROOT, "benchmarks", name + ".py") in files
     for name in ("torch_quickstart", "torch_scenario_planning",
-                 "torch_serve_swarm"):
+                 "torch_serve_swarm", "torch_train_lm"):
         assert os.path.join(ROOT, "examples", name + ".py") in files
     assert any(f.endswith(os.path.join("core", "rollout.py")) for f in files)
     for sub in (("parallel", "__init__.py"), ("parallel", "sharding.py"),
-                ("core", "pipeline_opt.py")):
+                ("core", "pipeline_opt.py"), ("tree.py",),
+                ("data", "pipeline.py"), ("optim", "adamw.py"),
+                ("optim", "schedules.py"), ("optim", "grad_compress.py"),
+                ("runtime", "train_loop.py"), ("runtime", "checkpoint.py")):
         assert os.path.join(ROOT, "src", "repro_torch", *sub) in files
     assert any(f.endswith(os.path.join("models", "cnn.py")) for f in files)
     assert len(files) >= 20
@@ -428,6 +432,39 @@ def test_serving_layers_without_device_raise(monkeypatch):
     finally:
         gw.close()
     assert kernels.launch_counts() == NO_LAUNCHES
+
+
+def test_cpu_training_takes_the_plain_path_without_counting():
+    """A loss and its gradient on CPU tensors go through the flash
+    Function's plain versions: no kernel counter moves."""
+    cfg = get_arch("minicpm-2b").reduced()
+    lm = build_model(cfg, device="cpu")
+    params = lm.init(torch.Generator().manual_seed(0))
+    for t in (params["embed"]["table"], params["layers"][0]["attn"]["wq"]):
+        t.requires_grad_(True)
+    toks = torch.zeros((1, 6), dtype=torch.long)
+    kernels.reset_launch_counts()
+    lm.train_loss(params, toks, toks).backward()
+    assert params["layers"][0]["attn"]["wq"].grad is not None
+    assert kernels.launch_counts() == NO_LAUNCHES
+
+
+def test_train_example_defaults_to_the_card(monkeypatch):
+    """``examples/torch_train_lm.py`` without ``--device`` raises without
+    CUDA before it prints a line."""
+    import contextlib
+    import importlib.util
+    import io
+    _no_cuda(monkeypatch)
+    path = os.path.join(ROOT, "examples", "torch_train_lm.py")
+    spec = importlib.util.spec_from_file_location("torch_train_lm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(["--steps", "1"])
+    assert out.getvalue() == ""
 
 
 @pytest.mark.parametrize("mode", [[], ["--chaos"], ["--stream"]])
