@@ -304,6 +304,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -4073,7 +4074,8 @@ def run_serve_swarm(np, torch, device):
 #: phase 33's backward cases (B, H, KV, Sq, Sk, D, causal, window, cap):
 #: minicpm-2b's training call, gemma2-9b's global and local layers,
 #: qwen2-vl-2b's GQA at D 128, whisper-tiny's encoder and cross calls,
-#: ragged Sq / Sk of 1, 65 and 1,000
+#: ragged Sq / Sk of 1, 65 and 1,000; D 16 and 32 (one with a window and a
+#: cap), and GQA with a window at D 128
 BWD_CASES = [
     (1, 36, 36, 4096, 4096, 64, True, 0, 0.0),
     (1, 16, 8, 2048, 2048, 256, True, 0, 50.0),
@@ -4087,6 +4089,9 @@ BWD_CASES = [
     (2, 6, 6, 65, 1000, 64, False, 0, 0.0),
     (2, 6, 6, 1000, 65, 64, False, 0, 0.0),
     (1, 4, 4, 1, 1000, 64, False, 0, 0.0),
+    (2, 4, 2, 333, 333, 16, True, 0, 0.0),
+    (1, 6, 2, 500, 500, 32, True, 100, 30.0),
+    (1, 8, 2, 1500, 1500, 128, True, 512, 0.0),
 ]
 #: phase 34's timed shapes, bfloat16: the row's and its sub-entry's
 BWD_TIMED = {"minicpm-2b": BWD_CASES[0], "gemma2-9b": BWD_CASES[1]}
@@ -4153,11 +4158,11 @@ def check_flash_bwd(np, torch, device):
     version's) and the backward kernel against ``attention_bwd_ref`` on
     the same o and lse at ``BWD_CASES``, float32 and bfloat16
     (``ATTN_TOL``, bf16 also ``ATTN_BF16_ROUNDING``); two backward launches
-    bitwise equal; each forward launch on its dtype's route, each
-    backward launch on ``simt``.  Returns the bf16 max abs errors at the
-    timed shapes."""
+    bitwise equal; each forward and each backward launch on its dtype's
+    route (bfloat16 ``wgmma``, float32 ``simt``).  Returns the bf16 max
+    abs errors at the timed shapes."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention, flash_attention_bwd)
+        bwd_route, flash_attention, flash_attention_bwd)
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_fwd_ref)
     errs = {}
@@ -4174,7 +4179,7 @@ def check_flash_bwd(np, torch, device):
                        "wgmma" if dtype == torch.bfloat16 else "simt")
             got, broute = take_route(flash_attention_bwd, lambda: (
                 flash_attention_bwd(q, k, v, o, lse, do, **kw)))
-            want_route("flash_attention_bwd", broute, "simt")
+            want_route("flash_attention_bwd", broute, bwd_route(dtype))
             again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
             _, ref_lse = attention_fwd_ref(q, k, v, **kw)
             ref = attention_bwd_ref(q, k, v, o, lse, do, **kw)
@@ -4202,18 +4207,40 @@ def check_flash_bwd(np, torch, device):
                 f"Sk={sk} D={d} causal={causal} window={window} cap={cap}: "
                 f"max abs err {err:.3g}, lse err "
                 f"{float((lse - ref_lse).abs().max()):.3g}, forward on "
-                f"{route}, two backward launches bitwise equal")
+                f"{route}, backward on {broute}, two backward launches "
+                f"bitwise equal")
             del q, k, v, do, o, lse, got, again, ref, plain_o
     torch.cuda.empty_cache()
     return errs
 
 
+def kernel_device_ms(torch, fn, iters):
+    """Device time per call of each CUDA kernel ``fn`` launches, from
+    ``torch.profiler`` over ``iters`` calls: {kernel name: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"(\w+_kernel)(<[^>(]*>)?", e.key)
+        if e.device_time_total > 0:
+            name = m.group(1) + (m.group(2) or "") if m else e.key[:60]
+            out[name] = e.device_time_total / iters / 1e3
+    return out
+
+
 def time_flash_bwd(torch, device, errs):
     """Phase 34: the backward kernel at minicpm-2b's and gemma2-9b's
-    training shapes in bfloat16 (CUDA events; in a graph and eager)
-    beside its plain version, ``F.scaled_dot_product_attention``'s
-    backward (``torch.autograd.grad`` of its output; no softcap) and the
-    bound.  Returns the ``kernels`` row (minicpm-2b's shape) with
+    training shapes in bfloat16 (CUDA events; in a graph and eager) on the
+    route it takes, beside its plain version,
+    ``F.scaled_dot_product_attention``'s backward (``torch.autograd.grad``
+    of its output; no softcap) and the bound; the device time of its three
+    kernels (``torch.profiler``); the forward with ``with_lse`` at the
+    same shape.  Returns the ``kernels`` row (minicpm-2b's shape) with
     gemma2-9b's as a sub-entry; ``launches`` is filled from phase 36."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.flash_attention import (
@@ -4235,6 +4262,8 @@ def time_flash_bwd(torch, device, errs):
         lib = lambda: torch.autograd.grad(lib_out, (qc, kc, vc), doc,  # noqa
                                           retain_graph=True)
         nbytes, nops = bwd_work(case, 2)
+        _, route = take_route(flash_attention_bwd, kern)
+        fwd = lambda: flash_attention(q, k, v, with_lse=True, **kw)  # noqa
         ms = time_ms(torch, kern, 5, graph=True)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / BF16_OPS_PER_S * 1e3
@@ -4247,13 +4276,22 @@ def time_flash_bwd(torch, device, errs):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "operations": nops, "max_abs_err": errs[arch],
-            "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6}
+            "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6,
+            "kernel_route": route,
+            "device_ms_by_kernel": kernel_device_ms(torch, kern, 3),
+            "forward_with_lse_ms": time_ms(torch, fwd, 5, graph=True),
+            "forward_with_lse_eager_ms": time_ms(torch, fwd, 5, graph=False)}
         e = entries[arch]
-        log(f"  flash_attention_bwd {arch} {e['shape']} bf16 (simt): "
+        by_kernel = {n: round(t, 4)
+                     for n, t in e["device_ms_by_kernel"].items()}
+        log(f"  flash_attention_bwd {arch} {e['shape']} bf16 ({route}): "
             f"{ms:.4f} ms in a graph, {e['eager_ms']:.4f} ms eager "
             f"({e['tflops']:.2f} TFLOP/s); plain {e['plain_ms']:.4f} ms "
             f"(eager); SDPA backward (cap 0) {e['library_ms']:.4f} ms "
-            f"(eager); bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+            f"(eager); bound {e['bound_ms']:.4f} ms ({e['bound_by']}); "
+            f"device ms by kernel {by_kernel}; the forward with lse "
+            f"{e['forward_with_lse_ms']:.4f} ms in a "
+            f"graph, {e['forward_with_lse_eager_ms']:.4f} ms eager")
         del q, k, v, do, o, lse, qc, kc, vc, lib_out, doc
         torch.cuda.empty_cache()
     row = dict(entries.pop("minicpm-2b"))
@@ -4263,7 +4301,7 @@ def time_flash_bwd(torch, device, errs):
         "replaces": "src/repro/models/attention.py:109",
         "replaces_note": "no Pallas kernel has a backward: XLA's gradient "
                          "of the reference's attention",
-        "launches": None, "kernel_route": "simt",
+        "launches": None,
         "plain_timing": "eager", "library_timing": "eager",
         "library": "F.scaled_dot_product_attention backward "
                    "(torch.autograd.grad; enable_gqa, no softcap)",
@@ -4296,13 +4334,14 @@ def attention_calls(cfg):
 
 def flash_counts(what, launches, routes, fwd, bwd, route):
     """Raise unless ``launches`` are ``fwd`` flash and ``bwd`` backward
-    launches and nothing else, the forward ones on ``route``."""
+    launches and nothing else, both kernels' on ``route`` (their dtype's:
+    bfloat16 ``wgmma``, float32 ``simt``)."""
     want = only(launches, flash_attention=fwd, flash_attention_bwd=bwd)
     if launches != want or routes["flash_attention"][route] != fwd or \
-            routes["flash_attention_bwd"]["simt"] != bwd:
+            routes["flash_attention_bwd"][route] != bwd:
         raise AssertionError(f"{what}: launches {launches}, routes "
-                             f"{routes}, want {want} with the forward on "
-                             f"{route}")
+                             f"{routes}, want {want} with the forward and "
+                             f"the backward on {route}")
 
 
 def held_after_steps(np, what, got, want, lr, steps, compress):
@@ -4496,8 +4535,8 @@ def run_full_training(np, torch, device):
     (``FULL_TRAIN``): bf16 compute on float32 masters, ``remat="full"``,
     WSD, 3 steps of 2 microbatches of one 4,096-token sequence, the
     counters set to 0 just before and read just after: exactly 2 x 40
-    flash launches a microbatch (the recompute doubles them), every one on
-    wgmma, and 40 backward launches a microbatch; loss and grad norm
+    flash launches a microbatch (the recompute doubles them) and 40
+    backward launches a microbatch, every one on wgmma; loss and grad norm
     finite every step and the loss falls; step walls, tokens/s, peak
     memory, model FLOP/s.  The wrappers without a backward refuse grad.
     Then the gradients at S 1,024 through the kernels against the plain
@@ -4571,7 +4610,8 @@ def run_full_training(np, torch, device):
            "model_tflops_per_s": [model_flops / w / 1e12 for w in walls],
            "peak_memory_gb": peak / 1e9,
            "launches": {k: v for k, v in launches.items() if v},
-           "flash_route": "wgmma", "refused_under_grad": refused}
+           "flash_route": "wgmma", "backward_route": "wgmma",
+           "refused_under_grad": refused}
     log(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters (float32 masters"
         f" + AdamW moments), initialised in {init_s:.2f} s; {f['steps']} "
         f"steps of {f['microbatches']} x {f['batch'] // f['microbatches']} "
@@ -4582,7 +4622,7 @@ def run_full_training(np, torch, device):
         f"{[round(x, 1) for x in rec['tokens_per_s']]} tokens/s, model "
         f"{[round(x, 1) for x in rec['model_tflops_per_s']]} TFLOP/s, peak "
         f"memory {peak / 1e9:.2f} GB; launches {rec['launches']} "
-        f"(flash all wgmma, backward simt)")
+        f"(flash and backward all wgmma)")
 
     # kernels against plain versions inside the model at S 1,024
     del state["opt"], step
@@ -4653,8 +4693,8 @@ def run_train_example(np, torch, device):
     device), the default run and ``--simulate-failure`` (restore from the
     latest committed checkpoint, resume), each with the counters set to 0
     just before and read just after: exactly 2 microbatches x 6 flash and
-    6 backward launches a step run, the forward on the SIMT route
-    (float32); the example's own assert that the loss fell.  Returns the
+    6 backward launches a step run, both on the SIMT route (float32); the
+    example's own assert that the loss fell.  Returns the
     record."""
     import io
     import shutil

@@ -340,26 +340,6 @@ struct Tile {
                               (4 * KV_STAGES + 1) * 8;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x (MUFU, relative error ~2^-22; 2^-1e30 = +0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// tanh(u) = 1 - 2 / (1 + e^2u), absolute error ~3e-7 (+-1 at +-inf)
-__device__ __forceinline__ float tanh_ex2(float u) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r)
-      : "f"(1.f + ex2(u * (2.f * LOG2E))));
-  return fmaf(-2.f, r, 1.f);
-}
-
 // Scale, softcap and mask one 64 x 64 logit tile in registers (sc[4j + i]
 // is row r + 8 (i / 2), key k0 + 8 j + 2 (lane % 4) + i % 2), then the
 // online-softmax update of the rows' max m and sum l: sc becomes P (fp32).
@@ -379,7 +359,7 @@ struct Softmax {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float z = sc[4 * j + i] * to_u;
-        if (cap != 0.f) z = cap2 * tanh_ex2(z);
+        if (cap != 0.f) z = cap2 * hopper::tanh_ex2(z);
         if (edge) {
           const int qp = r + 8 * (i >> 1);
           const int kp = k0 + 8 * j + 2 * (lane % 4) + (i & 1);
@@ -398,14 +378,14 @@ struct Softmax {
       mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
       mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
       const float m_new = fmaxf(m[hr], mx[hr]);
-      alpha[hr] = ex2(m[hr] - m_new);
+      alpha[hr] = hopper::ex2(m[hr] - m_new);
       m[hr] = m_new;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float p = ex2(sc[4 * j + i] - m[i >> 1]);
+        const float p = hopper::ex2(sc[4 * j + i] - m[i >> 1]);
         sc[4 * j + i] = p;
         sum[i >> 1] += p;
       }
@@ -417,24 +397,6 @@ struct Softmax {
     }
   }
 };
-
-// P (fp32, in the logit tile's layout) as the bf16 A operands of 4 k16
-// steps over the keys, a high part and the remainder: keys 16 kc ..
-// 16 kc + 15 are p[8 kc .. 8 kc + 7]
-__device__ __forceinline__ void split_p(const float (&p)[32],
-                                        uint32_t (&phi)[4][4],
-                                        uint32_t (&plo)[4][4]) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float p0 = p[8 * kc + 2 * u], p1 = p[8 * kc + 2 * u + 1];
-      phi[kc][u] = pack_bf16(p0, p1);
-      const __nv_bfloat162 hi =
-          *reinterpret_cast<const __nv_bfloat162*>(&phi[kc][u]);
-      plo[kc][u] = pack_bf16(p0 - __low2float(hi), p1 - __high2float(hi));
-    }
-}
 
 template <int D>
 __global__ void __launch_bounds__(Tile<D>::THREADS, 1)
@@ -602,7 +564,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       pin(sc, phi, plo);
       release(kempty, t0);
       softmax(sc, r, (kt_lo + t0) * BK, edge((kt_lo + t0) * BK), m, l, alpha);
-      split_p(sc, phi, plo);
+      hopper::split_hi_lo(sc, phi, plo);
       for (int t = t0 + 1; t <= t1; ++t) {
         const int k0 = (kt_lo + t) * BK;
         hopper::mbar_wait(&kfull[stage(t)], parity(t));
@@ -622,7 +584,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int j = 0; j < D / 8; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) o[4 * j + i] *= alpha[i >> 1];
-        split_p(sc, phi, plo);
+        hopper::split_hi_lo(sc, phi, plo);
       }
       hopper::mbar_wait(&vfull[stage(t1)], parity(t1));
       pin(sc, phi, plo);

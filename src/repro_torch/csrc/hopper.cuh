@@ -24,6 +24,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -249,6 +250,47 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// two floats as a bf16x2 register (lo in the low half), rounded to nearest
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x (MUFU, relative error ~2^-22; 2^-1e30 = +0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(u) = 1 - 2 / (1 + e^2u), absolute error ~3e-7 (+-1 at +-inf)
+__device__ __forceinline__ float tanh_ex2(float u) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r)
+      : "f"(1.f + ex2(u * (2.f * 1.4426950408889634f))));
+  return fmaf(-2.f, r, 1.f);
+}
+
+// A 64 x 64 float32 tile in a wgmma accumulator's layout (p[4j + i]: row
+// r + 8 (i / 2), column 8 j + 2 (lane % 4) + i % 2) as the bf16 A operands
+// of 4 k16 steps over its columns, a high part and the remainder (p -
+// hi): columns 16 kc .. 16 kc + 15 are p[8 kc .. 8 kc + 7].  The two
+// products hi B + lo B carry p to ~2^-16 relative.
+__device__ __forceinline__ void split_hi_lo(const float (&p)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float p0 = p[8 * kc + 2 * u], p1 = p[8 * kc + 2 * u + 1];
+      hi[kc][u] = pack_bf16(p0, p1);
+      const __nv_bfloat162 h =
+          *reinterpret_cast<const __nv_bfloat162*>(&hi[kc][u]);
+      lo[kc][u] = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+    }
 }
 
 // Register rebalancing between warpgroups (every warp of a warpgroup

@@ -27,7 +27,12 @@ With ``with_lse`` the launch also stores each row's log-sum-exp, which
 the backward ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``)
 reads; ``ops.mha`` calls both through an autograd Function when a
 gradient is wanted, and the bare wrapper refuses to run under grad
-(its output would carry no gradient).
+(its output would carry no gradient).  The backward has two routes by
+dtype as well, counted in ``flash_attention_bwd.launches_by_route``:
+``wgmma`` (bfloat16: a dK/dV kernel of two warpgroups over a TMA ring
+of Q and dO tiles, dK and dV in registers, and a dQ kernel shaped as the
+forward, P and dS as bf16 high + low register operands) and ``simt``
+(float32: SIMT fp32 products).
 """
 from __future__ import annotations
 
@@ -50,9 +55,13 @@ ROUTES = ("simt", "wgmma")
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                  + [ctypes.POINTER(ctypes.c_longlong)]
                  + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
-                 + [ctypes.c_void_p])
-#: the backward's routes (one so far: SIMT fp32 products in both dtypes)
-BWD_ROUTES = ("simt",)
+                 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+#: the backward's launcher route codes: SIMT fp32 products (float32),
+#: bf16 ``wgmma`` + TMA (bfloat16)
+BWD_ROUTES = ("simt", "wgmma")
+#: the backward's scratch rows (delta, the padded lse) are padded to a
+#: multiple of this many queries (``ROW_PAD`` in the source)
+BWD_ROW_PAD = 128
 
 
 def check_operand(fn: str, name: str, t: torch.Tensor, ref: torch.Tensor,
@@ -87,6 +96,20 @@ def _check_shapes(fn: str, q: torch.Tensor, k: torch.Tensor,
                          f"{H} heads over {KV} kv heads")
 
 
+def check_tma(fn: str, *named) -> None:
+    """Raise ``ValueError`` unless each ``(name, tensor)`` can be read by
+    TMA: data 16-byte aligned, and the strides above the last dim nonzero
+    multiples of 8 elements (a broadcast view has no tensor map)."""
+    for name, t in named:
+        if t.data_ptr() % 16 or any(st % 8 or st == 0
+                                    for st in t.stride()[:-1]):
+            raise ValueError(
+                f"{fn}: bfloat16 {name} is read by TMA and needs 16-byte "
+                f"aligned data and nonzero strides that are multiples of 8 "
+                f"elements; got data_ptr % 16 = {t.data_ptr() % 16}, "
+                f"strides {t.stride()}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     cap: float = 0.0, with_lse: bool = False):
@@ -102,15 +125,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_shapes("flash_attention", q, k, v, causal, window)
     B, H, S, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    # the bf16 route reads by TMA: 16-byte aligned rows and strides
-    for t in (q, k, v):
-        if t.dtype == torch.bfloat16 and (
-                t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1])):
-            raise ValueError(
-                f"flash_attention: bfloat16 operands are read by TMA and "
-                f"need 16-byte aligned data and strides (multiples of 8 "
-                f"elements); got data_ptr % 16 = {t.data_ptr() % 16}, "
-                f"strides {t.stride()}")
+    if q.dtype == torch.bfloat16:      # the wgmma route reads by TMA
+        check_tma("flash_attention", ("q", q), ("k", k), ("v", v))
     for name, t, shape in (("q", q, (B, H, S, D)), ("k", k, (B, KV, Sk, D)),
                            ("v", v, (B, KV, Sk, D))):
         check_operand("flash_attention", name, t, q, shape, 4)
@@ -142,6 +158,12 @@ flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
+def bwd_route(dtype: torch.dtype) -> str:
+    """The backward launcher's route for ``dtype``: ``wgmma`` for
+    bfloat16 (every head dim), ``simt`` for float32."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
@@ -152,10 +174,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elements), the forward's lse float32 [B,H,Sq] -> (dq [B,H,Sq,D], dk,
     dv [B,KV,Sk,D]) contiguous in ``q.dtype``, with float32 math; three
     kernels (delta, dK/dV, dQ) on the current stream, counted as one
-    launch."""
+    launch on its route (``bwd_route``).  The bfloat16 route reads q, k, v
+    and do by TMA and refuses, before building, operands it cannot read
+    (``check_tma``)."""
     _check_shapes("flash_attention_bwd", q, k, v, causal, window)
     B, H, S, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
+    if bwd_route(q.dtype) == "wgmma":
+        check_tma("flash_attention_bwd", ("q", q), ("k", k), ("v", v),
+                  ("do", do))
     for name, t, shape in (("q", q, (B, H, S, D)), ("k", k, (B, KV, Sk, D)),
                            ("v", v, (B, KV, Sk, D)), ("o", o, (B, H, S, D)),
                            ("do", do, (B, H, S, D))):
@@ -172,22 +199,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.zeros_like(v, memory_format=torch.contiguous_format)
     dk = torch.empty((B, KV, Sk, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, KV, Sk, D), dtype=q.dtype, device=q.device)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # delta and the wgmma route's padded lse, [B, H, S padded] each
+    pad = -(-S // BWD_ROW_PAD) * BWD_ROW_PAD
+    scratch = torch.empty(2 * B * H * pad, dtype=torch.float32,
+                          device=q.device)
     strides = (ctypes.c_longlong * 15)(*(st for t in (q, k, v, o, do)
                                          for st in t.stride()[:3]))
     fn = _build.launcher("flash_attention_bwd", "repro_flash_attention_bwd",
                          _BWD_ARGTYPES)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KV, S, Sk,
                  D, _DTYPES[q.dtype], strides, int(causal), int(window),
-                 float(1.0 / math.sqrt(D)), float(cap), stream)
+                 float(1.0 / math.sqrt(D)), float(cap), stream,
+                 ctypes.byref(route))
     _build.check_launch(_build.load("flash_attention_bwd"),
                         "flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.launches_by_route["simt"] += 1
+    flash_attention_bwd.launches_by_route[BWD_ROUTES[route.value]] += 1
     return dq, dk, dv
 
 

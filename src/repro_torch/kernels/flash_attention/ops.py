@@ -47,7 +47,10 @@ def _train_fns(t: torch.Tensor):
 class FlashAttention(torch.autograd.Function):
     """Head-major attention with its gradient: saves q, k, v, the output
     and the log-sum-exp, and hands the backward the output's gradient as
-    it comes (a strided view; the kernel reads its strides)."""
+    it comes when it is a strided view (the kernel reads its strides, as
+    the transpose a cross-entropy loss hands it), but copies it
+    contiguous first when a stride is 0: a loss such as ``out.sum()``
+    hands a broadcast view, which the bfloat16 route's TMA cannot read."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, cap):
@@ -60,6 +63,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        if 0 in do.stride():
+            do = do.contiguous()
         dq, dk, dv = _train_fns(do)[1](q, k, v, o, lse, do, **ctx.opts)
         return dq, dk, dv, None, None, None
 

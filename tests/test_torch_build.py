@@ -180,6 +180,59 @@ def test_flash_attention_rejects_bf16_tma_misalignment(case, monkeypatch):
             flash_attention.launches_by_route) == before
 
 
+@pytest.mark.parametrize("case", ["pointer", "stride", "broadcast"])
+@pytest.mark.parametrize("operand", ["q", "k", "v", "do"])
+def test_flash_attention_bwd_rejects_bf16_tma_misalignment(operand, case,
+                                                           monkeypatch):
+    """The bfloat16 backward (``wgmma`` route) reads q, k, v and dO by
+    TMA: a data pointer off 16 bytes, a (b, head, s) stride off 8
+    elements or a stride of 0 (a broadcast view, as ``out.sum()``'s
+    gradient) is refused before a build, and nothing is counted."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        bwd_route, flash_attention_bwd)
+    monkeypatch.setattr(_build, "load",
+                        lambda name: pytest.fail("built before rejecting"))
+    q, k, v = _attn(dtype=torch.bfloat16)
+    ops_ = {"q": q, "k": k, "v": v, "do": torch.zeros_like(q)}
+    t = ops_[operand]
+    if case == "pointer":
+        t = torch.zeros(t.numel() + 4, dtype=torch.bfloat16)[4:].view(
+            t.shape)
+    elif case == "stride":
+        t = torch.zeros(t.shape[:-1] + (t.shape[-1] + 4,),
+                        dtype=torch.bfloat16)[..., :t.shape[-1]]
+    else:
+        t = torch.zeros((), dtype=torch.bfloat16).expand(t.shape)
+    ops_[operand] = t
+    assert bwd_route(torch.bfloat16) == "wgmma"
+    before = (flash_attention_bwd.launches,
+              dict(flash_attention_bwd.launches_by_route))
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_bwd(ops_["q"], ops_["k"], ops_["v"],
+                            torch.zeros_like(q),
+                            torch.zeros(q.shape[:3]), ops_["do"])
+    assert (flash_attention_bwd.launches,
+            flash_attention_bwd.launches_by_route) == before
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+def test_flash_attention_bwd_route_follows_dtype(dtype, route):
+    """The backward takes ``wgmma`` for bfloat16 and the SIMT kernel for
+    float32 (``wgmma`` has no float32 input).  Only the ``wgmma`` route
+    reads by TMA: a q 4 elements off its allocation (8 bytes in bf16, 16
+    in float32) is refused as TMA-unreadable in bf16, and reaches the
+    device check (a CPU tensor) in float32."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        BWD_ROUTES, bwd_route, flash_attention_bwd)
+    assert bwd_route(dtype) == route and route in BWD_ROUTES
+    q, k, v = _attn(dtype=dtype)
+    off = torch.zeros(q.numel() + 4, dtype=dtype)[4:].view(q.shape)
+    with pytest.raises(ValueError, match="TMA" if route == "wgmma"
+                       else "must be a CUDA"):
+        flash_attention_bwd(off, k, v, q, torch.zeros(q.shape[:3]), q)
+
+
 @pytest.mark.parametrize("operand", ["x", "w"])
 def test_moe_matmul_rejects_bf16_tma_misalignment(operand, monkeypatch):
     """With D and F multiples of 8 the bfloat16 expert GEMM reads x and w
@@ -219,8 +272,8 @@ def test_route_counts_reset_with_the_launch_counts():
         moe_matmul.launches = 3
         moe_matmul.launches_by_route.update(wgmma=2, simt=1)
         flash_attention.launches_by_route["wgmma"] = 5
-        flash_attention_bwd.launches = 7
-        flash_attention_bwd.launches_by_route["simt"] = 7
+        flash_attention_bwd.launches = 9
+        flash_attention_bwd.launches_by_route.update(simt=7, wgmma=2)
         matmul_bias_act.launches = 4
         matmul_bias_act.launches_by_route.update(wgmma=3, simt=1)
         rglru_scan.launches = 27
@@ -231,7 +284,7 @@ def test_route_counts_reset_with_the_launch_counts():
         tdp.tropical_dp_chain.launches_by_route.update(fused=32, step=11)
         counts = kernels.route_counts()
         assert counts == {"flash_attention": {"simt": 0, "wgmma": 5},
-                          "flash_attention_bwd": {"simt": 7},
+                          "flash_attention_bwd": {"simt": 7, "wgmma": 2},
                           "moe_matmul": {"simt": 1, "wgmma": 2},
                           "conv2d": {"simt": 1, "wgmma": 3},
                           "rglru_scan": {"simt": 1, "tma": 26},
@@ -241,7 +294,7 @@ def test_route_counts_reset_with_the_launch_counts():
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
             "flash_attention": {"simt": 0, "wgmma": 0},
-            "flash_attention_bwd": {"simt": 0},
+            "flash_attention_bwd": {"simt": 0, "wgmma": 0},
             "moe_matmul": {"simt": 0, "wgmma": 0},
             "conv2d": {"simt": 0, "wgmma": 0},
             "rglru_scan": {"simt": 0, "tma": 0},

@@ -699,16 +699,20 @@ def test_sharded_rollout_ragged_on_the_card(cuda):
     (1, 4, 2, 300, 300, 256, True, 64, 50.0),
     (1, 2, 1, 1000, 1000, 128, True, 0, 0.0),
     (2, 6, 6, 37, 150, 64, False, 0, 0.0), (1, 2, 2, 1, 1, 64, True, 0, 0.0),
-    (1, 4, 4, 1, 65, 64, False, 0, 0.0)])
+    (1, 4, 4, 1, 65, 64, False, 0, 0.0),
+    (1, 8, 2, 513, 513, 128, True, 200, 0.0),
+    (2, 4, 4, 129, 129, 16, False, 0, 0.0),
+    (1, 4, 2, 257, 257, 64, True, 0, 50.0)])
 def test_flash_attention_backward_matches_plain(cuda, b, h, kv, sq, sk, d,
                                                 causal, window, cap, dtype):
     """The forward with ``with_lse`` (the same output, the plain
     version's log-sum-exp) and the backward kernel against
     ``attention_bwd_ref`` on the same o and lse, dO a transposed view as
     autograd hands it; two backward launches bitwise equal, each counted
-    once on its route."""
-    from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention_bwd
+    once on its dtype's route (bfloat16 ``wgmma``, float32 ``simt``), and
+    the bfloat16 ones also within one output rounding of plain."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        bwd_route, flash_attention_bwd)
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_fwd_ref)
     rng = np.random.default_rng(sq * 3 + sk + d)
@@ -728,13 +732,37 @@ def test_flash_attention_backward_matches_plain(cuda, b, h, kv, sq, sk, d,
     assert torch.equal(o, plain_o)
     torch.testing.assert_close(lse, ref_lse, **ATTN_TOL[torch.float32])
     assert kernels.launch_counts()["flash_attention_bwd"] == 2
-    assert kernels.route_counts()["flash_attention_bwd"] == {"simt": 2}
+    route = bwd_route(dtype)
+    assert kernels.route_counts()["flash_attention_bwd"] == dict(
+        {"simt": 0, "wgmma": 0}, **{route: 2})
     for name, g, a, r, shape in zip("qkv", got, again, ref,
                                     ((b, h, sq, d), (b, kv, sk, d),
                                      (b, kv, sk, d))):
         assert g.shape == shape and g.dtype == dtype, name
         assert torch.equal(g, a), name
         torch.testing.assert_close(g.float(), r.float(), **ATTN_TOL[dtype])
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(g.float(), r.float(),
+                                       atol=1e-3, rtol=1e-2)
+
+
+def test_flash_attention_backward_refuses_misaligned_bf16(cuda):
+    """On the card the bfloat16 backward refuses, before launching, a q 8
+    bytes off 16 (TMA reads it) and a broadcast dO (stride 0)."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_bwd
+    q, k, v, do = (torch.zeros((1, 4, 64, 64), dtype=torch.bfloat16,
+                               device=cuda) for _ in range(4))
+    lse = torch.zeros((1, 4, 64), device=cuda)
+    off = torch.zeros(q.numel() + 4, dtype=torch.bfloat16,
+                      device=cuda)[4:].view(q.shape)
+    kernels.reset_launch_counts()
+    for args in ((off, k, v, q, lse, do),
+                 (q, k, v, q, lse, torch.zeros(
+                     (), dtype=torch.bfloat16, device=cuda).expand(q.shape))):
+        with pytest.raises(ValueError, match="TMA"):
+            flash_attention_bwd(*args)
+    assert kernels.launch_counts()["flash_attention_bwd"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -760,9 +788,29 @@ def test_mha_under_grad_runs_both_kernels(cuda, dtype):
     assert kernels.launch_counts()["flash_attention_bwd"] == 1
     route = "wgmma" if dtype == torch.bfloat16 else "simt"
     assert kernels.route_counts()["flash_attention"][route] == 1
+    assert kernels.route_counts()["flash_attention_bwd"][route] == 1
     for g, r in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(g.float().cpu(), r.float(),
                                    **ATTN_TOL[dtype])
+
+
+def test_mha_takes_a_broadcast_output_gradient(cuda):
+    """``out.sum()`` hands the backward a dO with every stride 0: the
+    Function copies it contiguous, the bfloat16 backward runs on
+    ``wgmma``, and the gradients equal a dO of ones with strides."""
+    from repro_torch.kernels.flash_attention.ops import mha
+    rng = np.random.default_rng(6)
+    base = [rng.normal(size=(1, 130, n, 64)).astype(np.float32)
+            for n in (8, 2, 2)]
+    grads = []
+    for loss in (lambda o: o.sum(), lambda o: (o * torch.ones_like(o)).sum()):
+        q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16)
+                   .requires_grad_() for x in base)
+        kernels.reset_launch_counts()
+        grads.append(torch.autograd.grad(loss(mha(q, k, v)), (q, k, v)))
+        assert kernels.route_counts()["flash_attention_bwd"]["wgmma"] == 1
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 def test_kernel_wrappers_refuse_grad_on_the_card(cuda):

@@ -181,6 +181,37 @@ def test_no_grad_makes_the_serving_call(monkeypatch):
     assert calls == ["serve", "serve"]
 
 
+@pytest.mark.parametrize("case", [CASES[1], CASES[6]],
+                         ids=["gqa-ragged", "cross"])
+def test_broadcast_output_gradient_is_copied_contiguous(case, monkeypatch):
+    """``out.sum()`` hands ``FlashAttention.backward`` a dO whose strides
+    are all 0 (a broadcast view, which no TMA tensor map describes): the
+    Function copies it contiguous before the backward runs, and the
+    gradients equal those from a dO of ones with strides of their own."""
+    causal, window, cap = case[6:]
+    q, k, v, _ = _inputs(case, 4)
+    strides = []
+    fwd, bwd = ops._TRAIN_BY_DEVICE["cpu"]
+
+    def record(*a, **kw):
+        strides.append(a[5].stride())
+        return bwd(*a, **kw)
+    monkeypatch.setitem(ops._TRAIN_BY_DEVICE, "cpu", (fwd, record))
+
+    def grads(loss):
+        tq, tk, tv = (torch.from_numpy(x).transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        out = ops.mha(tq, tk, tv, causal=causal, window=window, cap=cap)
+        return torch.autograd.grad(loss(out), (tq, tk, tv))
+    by_sum = grads(lambda out: out.sum())
+    by_ones = grads(lambda out: (out * torch.ones_like(out)).sum())
+    b, h, _, s, _, d = case[:6]
+    assert len(strides) == 2 and strides[0] == (h * s * d, s * d, d, 1), \
+        strides
+    for name, a, b in zip("qkv", by_sum, by_ones):
+        torch.testing.assert_close(a, b, **TOL, msg=lambda m: f"d{name} {m}")
+
+
 def _wrapper_calls():
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
