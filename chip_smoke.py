@@ -262,7 +262,9 @@ Phases, each raising on failure (the script then exits non-zero):
     gemma2-9b's (H 16, KV 8, S 2,048, D 256, cap 50, window 1,024 and
     none), qwen2-vl-2b's (H 12, KV 2, D 128), whisper-tiny's non-causal
     S 1,500 and cross Sq 448 x Sk 1,500, ragged Sq / Sk of 1, 65 and
-    1,000; two backward launches bitwise equal, each on ``simt``; the
+    1,000, recurrentgemma-9b's (H 16 over KV 1, S 4,096, D 256, window
+    2,048); two backward launches bitwise equal, each on its dtype's
+    route (bfloat16 ``wgmma``, float32 ``simt``); the
     forward with ``with_lse`` on its dtype's route, its output bitwise
     the serving launch's, its lse the plain version's;
 34. the backward kernel's time at minicpm-2b's and gemma2-9b's shapes in
@@ -281,15 +283,42 @@ Phases, each raising on failure (the script then exits non-zero):
     sequence, WSD, 3 steps; ``FULL_TRAIN``): exactly 2 x 40 flash
     launches a microbatch, all on wgmma, and 40 backward launches; loss
     and grad norm finite, the loss falling; step walls, tokens/s, peak
-    memory, model FLOP/s; the wrappers without a backward refuse grad;
-    then the gradients at S 1,024 through the kernels against the plain
-    versions, each leaf's gap relative to its largest gradient within the
-    larger of ``LM_GAP`` x the reordered plain side's largest and
-    ``GRAD_FLOOR_ULPS`` bf16 ulps;
+    memory, model FLOP/s; the bare forward wrappers refuse grad, and
+    ``expert_gemm`` and ``linear_recurrence`` under grad launch their
+    forward and backward kernels; then the gradients at S 1,024 through
+    the kernels against the plain versions, each leaf's gap relative to
+    its largest gradient within the larger of ``LM_GAP`` x the reordered
+    plain side's largest and ``GRAD_FLOOR_ULPS`` bf16 ulps;
 37. ``examples/torch_train_lm.py`` on the card, the default run and
     ``--simulate-failure`` (restore the latest committed checkpoint,
     resume): its own assert that the loss fell, exactly 2 x 6 flash and
-    backward launches a step run, the forward on SIMT.
+    backward launches a step run, the forward on SIMT;
+38. the expert GEMM's backward kernels (``csrc/moe_matmul_bwd.cu``: dX =
+    dy w^T, dW = x^T dy) against their plain versions, float32 and
+    bfloat16, at granite-moe's training shapes (E 32, C 1,280, D 1,024,
+    F 512 and D 512, F 1,024), olmoe's (E 64, C 640, D 2,048, F 1,024),
+    a ragged C 97, D and F of 100 and 36, and C 0 (dW zeros), within
+    phase 14's tolerances with each product's contraction; the RG-LRU
+    reverse scan (``csrc/rglru_scan_bwd.cu``) bitwise against
+    ``rglru_bwd_ref`` at B 1 x T 4,096 x W 4,096, B 8 x T 1,345, a
+    ragged W 100, T 1, h0 nonzero, with and without dhT; two launches
+    bitwise equal, each on ``simt``;
+39. their times at granite-moe's dX and dW (bf16) and recurrentgemma's
+    reverse scan (B 1, T 4,096, W 4,096, float32), graph and eager,
+    beside their plain versions, ``torch.bmm`` on the transposed operands
+    and their bounds;
+40. the reduced granite-moe, olmoe and recurrentgemma trained card
+    against CPU as phase 35 (the loss with the MoE aux term; exactly 3
+    expert GEMMs, 3 dX and 3 dW a MoE layer, a scan and a reverse scan
+    an RG-LRU layer, each on its float32 route);
+41. granite-moe-1b-a400m at full width and depth and recurrentgemma-9b
+    at full width, 9 layers (three Griffin periods), trained as phase 36
+    (``FULL_TRAIN_SLICE``): exactly 2 x 72 expert GEMMs (``wgmma``), 72
+    dX and 72 dW, 2 x 24 flash and 24 backward launches a granite
+    microbatch; 2 x 6 RG-LRU scans (float32 under grad: ``tma``), 6
+    reverse scans, 2 x 3 flash and 3 backward launches a recurrentgemma
+    microbatch; model FLOP/s over the active parameters (a MoE layer's
+    top-k experts); the in-model gradient gate at S 1,024.
 
 The last lines are the training record, the pipeline planner's, the
 sharded rollout's and the serving example's records, the serving layers'
@@ -1500,12 +1529,14 @@ def check_attention_kernels(np, torch, device):
 class plain_kernels:
     """Inside this block a CUDA tensor takes the LM kernels' plain
     versions (the dispatch tables' ``cuda`` entries swapped: flash and
-    decode attention, the flash forward-with-lse and backward pair of
-    training, the expert GEMM, the RG-LRU scan, the mLSTM chunk): the
-    model run through it is a comparison's other side.
+    decode attention, the expert GEMM, the RG-LRU scan, the mLSTM chunk,
+    and training's triples and pairs: flash forward-with-lse and
+    backward, the expert GEMM and its dX and dW, the RG-LRU scan and its
+    reverse scan): the model run through it is a comparison's other side.
     ``reorder`` sums the plain versions in another order: q and k with
     their head dimension reversed, the expert GEMM with its contraction
-    reversed, the RG-LRU recurrence as a log-depth scan, the mLSTM in
+    reversed (dX's over F too, dW's over C in two halves), the RG-LRU
+    recurrence and its reverse scan as log-depth scans, the mLSTM in
     chunks of 64 (not flipped q and k: every side decodes from the plain
     side's prefill state ``C``, which a flipped k would not match), the
     attention backward with q, k, v, o and dO reversed alike (its
@@ -1524,11 +1555,15 @@ class plain_kernels:
         from repro_torch.kernels.mlstm_chunk import ops as lops
         from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
         from repro_torch.kernels.moe_matmul import ops as mops
-        from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref
+        from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
+                                                        moe_matmul_dx_ref,
+                                                        moe_matmul_ref)
         from repro_torch.kernels.rglru_scan import ops as rops
-        from repro_torch.kernels.rglru_scan.ref import rglru_ref
+        from repro_torch.kernels.rglru_scan.ref import (rglru_bwd_ref,
+                                                        rglru_ref)
         tables = (fops._BY_DEVICE, dops._BY_DEVICE, mops._BY_DEVICE,
-                  rops._BY_DEVICE, lops._BY_DEVICE, fops._TRAIN_BY_DEVICE)
+                  rops._BY_DEVICE, lops._BY_DEVICE, fops._TRAIN_BY_DEVICE,
+                  mops._TRAIN_BY_DEVICE, rops._TRAIN_BY_DEVICE)
         self.saved = [(t, t["cuda"]) for t in tables]
         if self.reorder:
             def flip(x):
@@ -1548,7 +1583,13 @@ class plain_kernels:
                 flip(q), flip(k), v, pos, **kw)
             mops._BY_DEVICE["cuda"] = lambda x, w: moe_matmul_ref(
                 flip(x), w.flip(1))
+            mops._TRAIN_BY_DEVICE["cuda"] = (
+                mops._BY_DEVICE["cuda"],
+                lambda dy, w: moe_matmul_dx_ref(flip(dy), flip(w)),
+                moe_dw_halves)
             rops._BY_DEVICE["cuda"] = rglru_log_depth
+            rops._TRAIN_BY_DEVICE["cuda"] = (rglru_log_depth,
+                                             rglru_bwd_log_depth)
             lops._BY_DEVICE["cuda"] = lambda *a: mlstm_chunk_ref(
                 *a, chunk=MLSTM_REORDER_CHUNK)
         else:
@@ -1557,7 +1598,11 @@ class plain_kernels:
                                              attention_bwd_ref)
             dops._BY_DEVICE["cuda"] = decode_ref
             mops._BY_DEVICE["cuda"] = moe_matmul_ref
+            mops._TRAIN_BY_DEVICE["cuda"] = (moe_matmul_ref,
+                                             moe_matmul_dx_ref,
+                                             moe_matmul_dw_ref)
             rops._BY_DEVICE["cuda"] = rglru_ref
+            rops._TRAIN_BY_DEVICE["cuda"] = (rglru_ref, rglru_bwd_ref)
             lops._BY_DEVICE["cuda"] = mlstm_chunk_ref
         return self
 
@@ -1582,6 +1627,34 @@ def rglru_log_depth(a, b, h0):
         A = torch.cat([A[:, :off], A[:, off:] * A[:, :-off]], 1)
         off *= 2
     return H.to(a.dtype), H[:, -1].to(h0.dtype)
+
+
+def rglru_bwd_log_depth(a, h, h0, dh, dhT=None):
+    """The RG-LRU's reverse scan in another order: lambda_t = a[t+1]
+    lambda_{t+1} + dh[t] from lambda_{T-1} = dh[T-1] + dhT is the forward
+    recurrence on the time-reversed sequence (coefficients a[t+1], the
+    first 1, the state dhT), taken as ``rglru_log_depth`` in float32;
+    then da, db and dh0 as ``rglru_bwd_ref`` forms them."""
+    import torch
+    f32 = torch.float32
+    last = torch.zeros(h0.shape, dtype=f32, device=h0.device) \
+        if dhT is None else dhT.to(f32)
+    a32 = a.to(f32)
+    coef = torch.cat([torch.ones_like(a32[:, :1]), a32[:, 1:].flip(1)], 1)
+    lam = rglru_log_depth(coef, dh.to(f32).flip(1), last)[0].flip(1)
+    prev = torch.cat([h0.to(f32)[:, None], h.to(f32)[:, :-1]], 1)
+    return ((lam * prev).to(a.dtype), lam.to(a.dtype),
+            (a32[:, 0] * lam[:, 0]).to(h0.dtype))
+
+
+def moe_dw_halves(x, dy):
+    """The expert GEMM's dW with its sum over C in two halves, each in
+    float32, added, then cast: ``moe_matmul_dw_ref`` in another order."""
+    import torch
+    half = x.shape[1] // 2
+    xt, g = x.float().transpose(1, 2), dy.float()
+    return (torch.matmul(xt[..., :half], g[:, :half])
+            + torch.matmul(xt[..., half:], g[:, half:])).to(x.dtype)
 
 
 def lm_requests(np, cls, vocab, n, prompt, max_new, seed=0):
@@ -4075,7 +4148,8 @@ def run_serve_swarm(np, torch, device):
 #: minicpm-2b's training call, gemma2-9b's global and local layers,
 #: qwen2-vl-2b's GQA at D 128, whisper-tiny's encoder and cross calls,
 #: ragged Sq / Sk of 1, 65 and 1,000; D 16 and 32 (one with a window and a
-#: cap), and GQA with a window at D 128
+#: cap), GQA with a window at D 128, and recurrentgemma-9b's training call
+#: (KV 1 under 16 heads, D 256, window 2,048)
 BWD_CASES = [
     (1, 36, 36, 4096, 4096, 64, True, 0, 0.0),
     (1, 16, 8, 2048, 2048, 256, True, 0, 50.0),
@@ -4092,12 +4166,15 @@ BWD_CASES = [
     (2, 4, 2, 333, 333, 16, True, 0, 0.0),
     (1, 6, 2, 500, 500, 32, True, 100, 30.0),
     (1, 8, 2, 1500, 1500, 128, True, 512, 0.0),
+    (1, 16, 1, 4096, 4096, 256, True, 2048, 0.0),
 ]
 #: phase 34's timed shapes, bfloat16: the row's and its sub-entry's
 BWD_TIMED = {"minicpm-2b": BWD_CASES[0], "gemma2-9b": BWD_CASES[1]}
-#: phase 35: the reduced models trained card against CPU in float32, the
-#: tolerance of loss and gradients (the attention kernels' float32 one)
-TRAIN_ARCHS = ("minicpm-2b", "gemma2-9b", "qwen2-vl-2b", "whisper-tiny")
+#: phases 35 (the first four) and 40 (the MoE and griffin models): the
+#: reduced models trained card against CPU in float32, the tolerance of
+#: loss and gradients (the attention kernels' float32 one)
+TRAIN_ARCHS = ("minicpm-2b", "gemma2-9b", "qwen2-vl-2b", "whisper-tiny",
+               "granite-moe-1b-a400m", "olmoe-1b-7b", "recurrentgemma-9b")
 TRAIN_TOL = dict(atol=2e-5, rtol=2e-4)
 #: parameters after 3 AdamW steps card against CPU: atol 0.05 lr a step
 #: (an update is ~lr; where a gradient sits near zero float32 reordering
@@ -4113,6 +4190,23 @@ FLIP_COUNT = 4
 #: global batch of 256 cut to 2 sequences (2 microbatches of 1), 3 steps
 FULL_TRAIN = dict(arch="minicpm-2b", seq=4096, batch=2, microbatches=2,
                   steps=3, lr=1e-3, check_seq=1024)
+#: phase 41, as phase 36: granite-moe-1b-a400m at full width and depth
+#: (21.4 GB of float32 masters, gradients and moments), and
+#: recurrentgemma-9b at full width cut to 9 layers, three whole Griffin
+#: periods of two RG-LRU and one local-attention layer (46.7 GB; its 38
+#: layers' 143.4 GB do not fit one card)
+FULL_TRAIN_SLICE = (dict(FULL_TRAIN, arch="granite-moe-1b-a400m"),
+                    dict(FULL_TRAIN, arch="recurrentgemma-9b", n_layers=9))
+#: phase 38: the expert GEMM's backward products (E, C, D, F): granite-moe's
+#: training shapes (the w_in / w_gate product, then w_out's D 512, F
+#: 1,024), olmoe-1b-7b's, a ragged C 97, D and F not multiples of 8, C 0
+MOE_BWD_CASES = [(32, 1280, 1024, 512), (32, 1280, 512, 1024),
+                 (64, 640, 2048, 1024), (8, 97, 200, 72), (3, 40, 100, 36),
+                 (4, 0, 64, 32)]
+#: phase 38: the RG-LRU reverse scan (B, T, W, with a dhT): recurrentgemma's
+#: training call, its served prefill's B x T, a ragged W, T 1
+RGLRU_BWD_CASES = [(1, 4096, 4096, False), (8, 1345, 4096, True),
+                   (2, 37, 100, True), (3, 1, 64, True), (2, 64, 256, False)]
 #: in-model gradient gate, as phase 12 gates logits: each leaf's gap
 #: (kernels against plain), as a share of the leaf's largest plain
 #: gradient, within LM_GAP x the largest such share the reordered plain
@@ -4325,23 +4419,60 @@ def train_batch(np, cfg, b, s, seed):
 
 
 def attention_calls(cfg):
-    """Flash calls a forward pass of ``cfg`` makes (each layer's self
-    attention; whisper's encoder layers and its decoder's self and cross
-    attention)."""
-    return cfg.enc_layers + 2 * cfg.n_layers if cfg.family == "audio" \
-        else cfg.n_layers
+    """Flash calls a forward pass of ``cfg`` makes (each attention layer's
+    self attention; whisper's encoder layers and its decoder's self and
+    cross attention)."""
+    if cfg.family == "audio":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    from repro_torch.core.cost_model import _block_kinds
+    return sum(k.startswith("attn") for k in _block_kinds(cfg))
 
 
-def flash_counts(what, launches, routes, fwd, bwd, route):
-    """Raise unless ``launches`` are ``fwd`` flash and ``bwd`` backward
-    launches and nothing else, both kernels' on ``route`` (their dtype's:
-    bfloat16 ``wgmma``, float32 ``simt``)."""
-    want = only(launches, flash_attention=fwd, flash_attention_bwd=bwd)
-    if launches != want or routes["flash_attention"][route] != fwd or \
-            routes["flash_attention_bwd"][route] != bwd:
-        raise AssertionError(f"{what}: launches {launches}, routes "
-                             f"{routes}, want {want} with the forward and "
-                             f"the backward on {route}")
+def train_launches(cfg, passes):
+    """The kernel launches of one ``train_loss`` and its backward, each
+    layer's forward run ``passes`` times (2 under remat: the recompute):
+    a flash forward and a backward an attention call; 3 expert GEMMs a
+    MoE layer (2 without a gate) and as many dX and dW launches; a scan
+    and a reverse scan an RG-LRU layer."""
+    from repro_torch.core.cost_model import _block_kinds
+    attn = attention_calls(cfg)
+    moe = (3 if cfg.glu else 2) * cfg.n_layers if cfg.moe.enabled else 0
+    rec = sum(k == "rglru" for k in _block_kinds(cfg))
+    want = {"flash_attention": passes * attn, "flash_attention_bwd": attn,
+            "moe_matmul": passes * moe, "moe_matmul_dx": moe,
+            "moe_matmul_dw": moe, "rglru_scan": passes * rec,
+            "rglru_scan_bwd": rec}
+    return {k: n for k, n in want.items() if n}
+
+
+def train_routes(torch, cfg, dtype):
+    """The route every training launch of ``cfg`` in compute ``dtype``
+    takes: flash and its backward ``wgmma`` in bfloat16, ``simt`` in
+    float32; the expert GEMM ``wgmma`` in bfloat16 where TMA reads D and
+    F, else ``simt``, its dX and dW ``simt``; the RG-LRU scan the route of
+    its float32 operands (under grad the recurrence runs in float32), its
+    reverse scan ``simt``."""
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_route
+    bf16 = dtype == "bfloat16"
+    tma = cfg.d_model % 8 == 0 and cfg.moe.d_expert % 8 == 0
+    return {"flash_attention": "wgmma" if bf16 else "simt",
+            "flash_attention_bwd": "wgmma" if bf16 else "simt",
+            "moe_matmul": "wgmma" if bf16 and tma else "simt",
+            "moe_matmul_dx": "simt", "moe_matmul_dw": "simt",
+            "rglru_scan": rglru_route(torch.float32, 1,
+                                      cfg.rglru_width or cfg.d_model),
+            "rglru_scan_bwd": "simt"}
+
+
+def want_launches(what, launches, routes, want, route):
+    """Raise unless ``launches`` are exactly ``want`` (every other kernel
+    0) and every launch of a kernel in ``want`` took ``route[kernel]``."""
+    full = only(launches, **want)
+    off = {k: routes[k] for k, n in want.items()
+           if routes[k][route[k]] != n}
+    if launches != full or off:
+        raise AssertionError(f"{what}: launches {launches}, want {full}; "
+                             f"routes off {route}: {off}")
 
 
 def held_after_steps(np, what, got, want, lr, steps, compress):
@@ -4368,14 +4499,14 @@ def held_after_steps(np, what, got, want, lr, steps, compress):
     return worst
 
 
-def run_reduced_training(np, torch, device):
-    """Phase 35: the reduced ``TRAIN_ARCHS`` in float32, the same
-    parameters on the card and the CPU: the loss and every gradient leaf
-    (``TRAIN_TOL``), exactly one flash and one backward launch a flash
-    call (SIMT); then 3 ``make_train_step`` steps at 2 microbatches with
-    ``grad_compress`` off and on: losses within ``TRAIN_TOL``, the
-    parameters ``held_after_steps``, launches 3 x 2 x the calls.  Returns
-    the record."""
+def run_reduced_training(np, torch, device, archs):
+    """Phases 35 and 40: the reduced ``archs`` in float32, the same
+    parameters on the card and the CPU: the loss (with the MoE aux term)
+    and every gradient leaf (``TRAIN_TOL``), exactly ``train_launches``
+    a call (every one on its float32 route); then 3 ``make_train_step``
+    steps at 2 microbatches with ``grad_compress`` off and on: losses
+    within ``TRAIN_TOL``, the parameters ``held_after_steps``, launches 3
+    x 2 x a call's.  Returns the record."""
     from repro_torch import kernels
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_arch
@@ -4386,9 +4517,10 @@ def run_reduced_training(np, torch, device):
                                                 make_train_step)
     from repro_torch.tree import leaves, leaves_with_paths
     record = {}
-    for arch in TRAIN_ARCHS:
+    for arch in archs:
         cfg = get_arch(arch).reduced()
-        calls = attention_calls(cfg)
+        want = train_launches(cfg, 1)
+        route = train_routes(torch, cfg, "float32")
         models = {"cpu": build_model(cfg, "cpu"),
                   "cuda": build_model(cfg, device)}
         p_cpu = models["cpu"].init(torch.Generator().manual_seed(0))
@@ -4410,8 +4542,8 @@ def run_reduced_training(np, torch, device):
             torch.cuda.synchronize()
             out[dev] = (loss.detach().cpu(), p)
             if dev == "cuda":
-                flash_counts(f"{arch} train_loss", kernels.launch_counts(),
-                             kernels.route_counts(), calls, calls, "simt")
+                want_launches(f"{arch} train_loss", kernels.launch_counts(),
+                              kernels.route_counts(), want, route)
         torch.testing.assert_close(out["cuda"][0], out["cpu"][0], **TRAIN_TOL)
         worst = 0.0
         for (path, g), c in zip(leaves_with_paths(out["cuda"][1]),
@@ -4420,10 +4552,10 @@ def run_reduced_training(np, torch, device):
                                        msg=lambda m: f"{arch} d{path}: {m}")
             worst = max(worst, float((g.grad.cpu() - c.grad).abs().max()))
         rec = {"loss": float(out["cpu"][0]), "grad_max_abs_diff": worst,
-               "flash_calls": calls}
+               "launches": want}
         log(f"  {cfg.name}: loss {rec['loss']:.6f}, every gradient card vs "
-            f"CPU within {TRAIN_TOL} (max abs diff {worst:.3g}); {calls} "
-            f"flash + {calls} backward launches (simt)")
+            f"CPU within {TRAIN_TOL} (max abs diff {worst:.3g}); launches "
+            f"{want}, each on its float32 route")
         for compress in (False, True):
             tc = TrainConfig(steps=3, lr=1e-3, warmup_steps=1,
                              microbatches=2, grad_compress=compress)
@@ -4442,9 +4574,10 @@ def run_reduced_training(np, torch, device):
                     losses[dev].append(float(m["loss"]))
                 torch.cuda.synchronize()
                 if dev == "cuda":
-                    flash_counts(f"{arch} 3 steps", kernels.launch_counts(),
-                                 kernels.route_counts(), 3 * 2 * calls,
-                                 3 * 2 * calls, "simt")
+                    want_launches(f"{arch} 3 steps", kernels.launch_counts(),
+                                  kernels.route_counts(),
+                                  {k: 3 * 2 * n for k, n in want.items()},
+                                  route)
                 states[dev] = {"params": st["params"]}
             np.testing.assert_allclose(losses["cuda"], losses["cpu"],
                                        **TRAIN_TOL)
@@ -4456,15 +4589,18 @@ def run_reduced_training(np, torch, device):
             log(f"  {cfg.name}: 3 steps, 2 microbatches, grad_compress "
                 f"{compress}: losses {[round(x, 5) for x in losses['cuda']]}"
                 f" (CPU {[round(x, 5) for x in losses['cpu']]}), state card "
-                f"vs CPU max abs diff {gap:.3g}; {3 * 2 * calls} + "
-                f"{3 * 2 * calls} launches")
+                f"vs CPU max abs diff {gap:.3g}; 3 x 2 x a call's launches")
         record[arch] = rec
     return record
 
 
 def refuse_grad_on_the_card(torch, device):
-    """The wrappers whose kernels have no backward raise under grad on a
-    CUDA tensor that requires grad, before launching."""
+    """The bare forward wrappers raise under grad on a CUDA tensor that
+    requires grad, before launching, naming the ROADMAP item (for the
+    kernels with a backward, the op whose autograd Function launches
+    it); through those ops the expert GEMM and the RG-LRU scan launch
+    their forward and, on ``backward``, their backward kernels, one
+    each.  Returns the refused wrappers."""
     from repro_torch import kernels
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
@@ -4472,6 +4608,8 @@ def refuse_grad_on_the_card(torch, device):
         flash_attention
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
+    from repro_torch.kernels.moe_matmul.ops import expert_gemm
+    from repro_torch.kernels.rglru_scan.ops import linear_recurrence
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
     x = torch.zeros((1, 2, 8, 64), device=device, requires_grad=True)
     s = torch.zeros((1, 8, 2), device=device)
@@ -4495,6 +4633,17 @@ def refuse_grad_on_the_card(torch, device):
     if any(kernels.launch_counts().values()):
         raise AssertionError(f"a refused wrapper launched: "
                              f"{kernels.launch_counts()}")
+    w = torch.zeros((2, 64, 8), device=device, requires_grad=True)
+    expert_gemm(x[0], w).sum().backward()
+    a = torch.zeros((1, 8, 64), device=device, requires_grad=True)
+    h, h_last = linear_recurrence(a, a, a[:, 0].detach())
+    (h.sum() + h_last.sum()).backward()
+    launches = kernels.launch_counts()
+    want = only(launches, moe_matmul=1, moe_matmul_dx=1, moe_matmul_dw=1,
+                rglru_scan=1, rglru_scan_bwd=1)
+    if launches != want:
+        raise AssertionError(f"expert_gemm and linear_recurrence under "
+                             f"grad: launches {launches}, want {want}")
     return sorted(calls)
 
 
@@ -4531,19 +4680,36 @@ def grad_gaps(torch, model, params, toks, labels):
 
 
 def run_full_training(np, torch, device):
-    """Phase 36: minicpm-2b at full width and depth trained on the card
-    (``FULL_TRAIN``): bf16 compute on float32 masters, ``remat="full"``,
-    WSD, 3 steps of 2 microbatches of one 4,096-token sequence, the
-    counters set to 0 just before and read just after: exactly 2 x 40
-    flash launches a microbatch (the recompute doubles them) and 40
-    backward launches a microbatch, every one on wgmma; loss and grad norm
+    """Phase 36: the bare forward wrappers refuse grad on the card
+    (``refuse_grad_on_the_card``), then minicpm-2b at full width and depth
+    trained on the card (``FULL_TRAIN``, ``train_at_full_width``): exactly
+    2 x 40 flash launches a microbatch (the recompute doubles them) and 40
+    backward launches, every one on wgmma.  Returns the record."""
+    refused = refuse_grad_on_the_card(torch, device)
+    log(f"  under grad on the card {', '.join(refused)} refuse to launch "
+        f"(RuntimeError naming the ROADMAP item); expert_gemm and "
+        f"linear_recurrence launch their forward and backward kernels")
+    rec = train_at_full_width(np, torch, device, FULL_TRAIN)
+    rec["refused_under_grad"] = refused
+    return rec
+
+
+def train_at_full_width(np, torch, device, f):
+    """A model trained on the card at full width (``f``: the arch, its
+    depth if cut, S, the batch, microbatches, steps, lr, the check's S):
+    bf16 compute on float32 masters, ``remat="full"``, WSD, the counters
+    set to 0 just before and read just after: exactly ``train_launches``
+    at 2 passes a microbatch, each on its bf16 route; loss and grad norm
     finite every step and the loss falls; step walls, tokens/s, peak
-    memory, model FLOP/s.  The wrappers without a backward refuse grad.
-    Then the gradients at S 1,024 through the kernels against the plain
+    memory, model FLOP/s (6 N a token over the active parameters, a MoE
+    layer's top-k experts of its E, plus 6 H D a kept causal (query, key)
+    pair an attention layer; the recompute not counted).  Then the
+    gradients at the check's S through the kernels against the plain
     versions: each leaf's gap, as a share of its largest plain gradient,
     within the larger of ``LM_GAP`` x the reordered plain side's largest
     share over the leaves and ``GRAD_FLOOR_ULPS`` bf16 ulps of that
     gradient.  Returns the record."""
+    import dataclasses
     import math
     from repro_torch import kernels
     from repro_torch.configs.base import TrainConfig
@@ -4552,15 +4718,13 @@ def run_full_training(np, torch, device):
     from repro_torch.models import build_model
     from repro_torch.runtime.train_loop import init_state, make_train_step
     from repro_torch.tree import leaves, leaves_with_paths
-    f = FULL_TRAIN
     cfg = get_arch(f["arch"])
+    if "n_layers" in f:
+        cfg = dataclasses.replace(cfg, n_layers=f["n_layers"])
     if cfg.remat != "full" or cfg.dtype != "bfloat16" or \
             cfg.param_dtype != "float32":
         raise AssertionError(f"{cfg.name}: want remat full, bf16 compute, "
                              f"float32 masters")
-    refused = refuse_grad_on_the_card(torch, device)
-    log(f"  under grad on the card {', '.join(refused)} refuse to launch "
-        f"(RuntimeError naming the ROADMAP item)")
     model = build_model(cfg, device)
     tcfg = TrainConfig(steps=f["steps"], lr=f["lr"], warmup_steps=0,
                        microbatches=f["microbatches"], schedule="wsd")
@@ -4575,11 +4739,19 @@ def run_full_training(np, torch, device):
     data = lm_data(cfg, f["batch"], f["seq"], seed=0, prefetch=0)
     batches = [next(data) for _ in range(f["steps"])]
     tokens = f["batch"] * f["seq"]
-    a = cfg.attention
-    # 6 N a token for the matrices, 6 L H D S / 2 a token for causal q k^T
-    # and P V (the recompute not counted)
-    model_flops = tokens * (6 * n_params + 6 * cfg.n_layers * a.n_heads
-                            * cfg.head_dim * f["seq"] / 2)
+    a, m = cfg.attention, cfg.moe
+    # the experts a token does not visit: (E - k) of each MoE layer's
+    inactive = cfg.n_layers * (m.n_experts - m.top_k) * \
+        (3 if cfg.glu else 2) * cfg.d_model * m.d_expert \
+        if m.enabled else 0
+    active = n_params - inactive
+    # 6 N_active a token for the matrices, 6 H D a kept causal (query,
+    # key) pair of each attention layer (its window's) for q k^T and P V
+    pairs = sum(kept_pairs(f["seq"], f["seq"], True,
+                           a.window if k == "attn_local" else 0)
+                for k in model.kinds if k.startswith("attn"))
+    model_flops = tokens * 6 * active + \
+        f["batch"] * 6 * a.n_heads * cfg.head_dim * pairs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -4593,15 +4765,19 @@ def run_full_training(np, torch, device):
         metrics.append({k: float(v) for k, v in m.items()})
     launches, routes = kernels.launch_counts(), kernels.route_counts()
     peak = torch.cuda.max_memory_allocated()
-    per_mb = cfg.n_layers
-    flash_counts(f"{cfg.name} training", launches, routes,
-                 f["steps"] * f["microbatches"] * 2 * per_mb,
-                 f["steps"] * f["microbatches"] * per_mb, "wgmma")
+    per_mb = train_launches(cfg, 2)
+    want_launches(f"{cfg.name} training", launches, routes,
+                  {k: f["steps"] * f["microbatches"] * n
+                   for k, n in per_mb.items()},
+                  train_routes(torch, cfg, "bfloat16"))
     losses = [m["loss"] for m in metrics]
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in metrics) or not losses[-1] < losses[0]:
         raise AssertionError(f"{cfg.name} training: metrics {metrics}")
     rec = {"model": cfg.name, "params": n_params, "init_s": init_s,
+           "n_layers": cfg.n_layers, "active_params": active,
+           "model_flops_formula": "6 N_active a token + 6 H D a kept "
+                                  "causal pair an attention layer",
            "seq": f["seq"], "global_batch": f["batch"],
            "microbatches": f["microbatches"], "remat": cfg.remat,
            "steps": metrics, "step_walls_s": walls,
@@ -4610,9 +4786,11 @@ def run_full_training(np, torch, device):
            "model_tflops_per_s": [model_flops / w / 1e12 for w in walls],
            "peak_memory_gb": peak / 1e9,
            "launches": {k: v for k, v in launches.items() if v},
-           "flash_route": "wgmma", "backward_route": "wgmma",
-           "refused_under_grad": refused}
-    log(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters (float32 masters"
+           "launches_per_microbatch": per_mb,
+           "routes": {k: train_routes(torch, cfg, "bfloat16")[k]
+                      for k in per_mb}}
+    log(f"  {cfg.name} ({cfg.n_layers} layers): {n_params / 1e9:.3f} B "
+        f"parameters ({active / 1e9:.3f} B active; float32 masters"
         f" + AdamW moments), initialised in {init_s:.2f} s; {f['steps']} "
         f"steps of {f['microbatches']} x {f['batch'] // f['microbatches']} "
         f"x {f['seq']} tokens: losses {[round(x, 4) for x in losses]}, "
@@ -4622,7 +4800,7 @@ def run_full_training(np, torch, device):
         f"{[round(x, 1) for x in rec['tokens_per_s']]} tokens/s, model "
         f"{[round(x, 1) for x in rec['model_tflops_per_s']]} TFLOP/s, peak "
         f"memory {peak / 1e9:.2f} GB; launches {rec['launches']} "
-        f"(flash and backward all wgmma)")
+        f"(routes {rec['routes']})")
 
     # kernels against plain versions inside the model at S 1,024
     del state["opt"], step
@@ -4688,6 +4866,203 @@ def run_full_training(np, torch, device):
     return rec
 
 
+def moe_bwd_operands(torch, seed, e, c, d, f, dtype, device):
+    """x ~ N(0, 1) [E, C, D], w ~ N(0, 1/D) [E, D, F] and dy ~ N(0, 1)
+    [E, C, F], drawn on the card in float32, then cast to ``dtype``."""
+    x, w = moe_operands(torch, seed, e, c, d, f, dtype, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = torch.randn((e, c, f), generator=gen, device=device)
+    return x, w, dy.to(dtype)
+
+
+def rglru_bwd_operands(torch, seed, b, t, w, last, dtype, device):
+    """a, b, h0 of ``rglru_operands``, h from the plain forward, dh ~
+    N(0, 1) and, with ``last``, dhT ~ N(0, 1), in ``dtype``."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+    a, bb, h0 = rglru_operands(torch, seed, b, t, w, dtype, device)
+    h, _ = rglru_ref(a, bb, h0)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dh = torch.randn((b, t, w), generator=gen, device=device).to(dtype)
+    dhT = torch.randn((b, w), generator=gen, device=device).to(dtype) \
+        if last else None
+    return a, h, h0, dh, dhT
+
+
+def check_train_kernels(np, torch, device):
+    """Phase 38: the expert GEMM's backward kernels (``moe_matmul_dx``:
+    dy w^T, ``moe_matmul_dw``: x^T dy) against their plain versions at
+    ``MOE_BWD_CASES``, float32 and bfloat16, within ``MOE_TOL`` and the
+    reference's TOL with the contraction of each product (F for dX, C for
+    dW), as phase 14 holds the forward; the RG-LRU reverse scan
+    (``rglru_scan_bwd``) bitwise against ``rglru_bwd_ref`` at
+    ``RGLRU_BWD_CASES`` (h0 nonzero, with and without dhT, T 1, a ragged
+    W); each kernel's two launches bitwise equal, each launch on
+    ``simt``.  Returns the bf16 max abs errors at phase 39's shapes."""
+    from repro_torch.kernels.moe_matmul.moe_matmul import (moe_matmul_dw,
+                                                           moe_matmul_dx)
+    from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
+                                                    moe_matmul_dx_ref)
+    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan_bwd
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for i, (e, c, d, f) in enumerate(MOE_BWD_CASES):
+            x, w, dy = moe_bwd_operands(torch, 800 + i, e, c, d, f, dtype,
+                                        device)
+            for name, fn, ref, args, k in (
+                    ("moe_matmul_dx", moe_matmul_dx, moe_matmul_dx_ref,
+                     (dy, w), f),
+                    ("moe_matmul_dw", moe_matmul_dw, moe_matmul_dw_ref,
+                     (x, dy), c)):
+                if name == "moe_matmul_dx" and c == 0:
+                    got = fn(*args)         # nothing to launch: C 0 rows
+                    if got.shape != (e, 0, d):
+                        raise AssertionError(f"{name} C 0: {got.shape}")
+                    continue
+                got, route = take_route(fn, lambda: fn(*args))
+                want_route(name, route, "simt")
+                again = fn(*args)
+                want = ref(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} {e, c, d, f} {dname}: "
+                                         f"two launches differ")
+                for tol in (MOE_TOL[dname](max(k, 1)),
+                            MOE_REF_TOL[dname](max(k, 1))):
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               **tol)
+                if c == 0 and got.any():
+                    raise AssertionError(f"{name} at C 0: not zeros")
+                err = float((got.double() - want.double()).abs().max())
+                if (e, c, d, f) == MOE_BWD_CASES[0] and dname == "bfloat16":
+                    errs[name] = err
+                log(f"  {name} {dname} E={e} C={c} D={d} F={f}: simt, max "
+                    f"abs err {err:.3g}, two launches bitwise equal")
+            del x, w, dy
+        for i, (b, t, w, last) in enumerate(RGLRU_BWD_CASES):
+            args = rglru_bwd_operands(torch, 850 + i, b, t, w, last, dtype,
+                                      device)
+            got, route = take_route(rglru_scan_bwd,
+                                    lambda: rglru_scan_bwd(*args))
+            want_route("rglru_scan_bwd", route, "simt")
+            again = rglru_scan_bwd(*args)
+            want = rglru_bwd_ref(*args)
+            torch.cuda.synchronize()
+            for n, g, a2, r in zip(("da", "db", "dh0"), got, again, want):
+                if not torch.equal(g, a2):
+                    raise AssertionError(f"rglru_scan_bwd {b, t, w}: two "
+                                         f"launches differ in {n}")
+                if not torch.equal(g, r):
+                    raise AssertionError(
+                        f"rglru_scan_bwd {dname} {b, t, w}: {n} differs "
+                        f"from the plain version in "
+                        f"{int((g != r).sum())} elements")
+            if (b, t, w) == RGLRU_BWD_CASES[0][:3] and dname == "float32":
+                errs["rglru_scan_bwd"] = 0.0
+            log(f"  rglru_scan_bwd {dname} B={b} T={t} W={w} dhT="
+                f"{'given' if last else 'none'}: bitwise equal to the "
+                f"plain reverse scan, two launches bitwise equal")
+            del args, got, again, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_train_kernels(torch, device, errs):
+    """Phase 39: the expert GEMM's dX and dW at granite-moe's training
+    shape (E 32, C 1,280, D 1,024, F 512, bfloat16) and the RG-LRU reverse
+    scan at recurrentgemma's (B 1, T 4,096, W 4,096, float32, dhT given),
+    CUDA events in a graph and eager, beside their plain versions,
+    ``torch.bmm`` on the transposed operands (the expert GEMM; no single
+    PyTorch call computes the reverse scan) and their bounds from this
+    run's shapes.  Returns the three ``kernels`` rows; ``launches`` is
+    filled from phase 41."""
+    from repro_torch.kernels.moe_matmul.moe_matmul import (moe_matmul_dw,
+                                                           moe_matmul_dx)
+    from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
+                                                    moe_matmul_dx_ref)
+    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan_bwd
+    e, c, d, f = MOE_BWD_CASES[0]
+    x, w, dy = moe_bwd_operands(torch, 800, e, c, d, f, torch.bfloat16,
+                                device)
+    b, t, width, _ = RGLRU_BWD_CASES[0]
+    rargs = rglru_bwd_operands(torch, 900, b, t, width, True,
+                               torch.float32, device)
+    cases = [
+        ("moe_matmul_dx", "moe_matmul_bwd", lambda: moe_matmul_dx(dy, w),
+         lambda: moe_matmul_dx_ref(dy, w),
+         lambda: torch.bmm(dy, w.transpose(1, 2)),
+         2 * (e * c * f + e * d * f + e * c * d), 2 * e * c * d * f,
+         BF16_OPS_PER_S, [e, c, d, f], "bfloat16", True),
+        ("moe_matmul_dw", "moe_matmul_bwd", lambda: moe_matmul_dw(x, dy),
+         lambda: moe_matmul_dw_ref(x, dy),
+         lambda: torch.bmm(x.transpose(1, 2), dy),
+         2 * (e * c * d + e * c * f + e * d * f), 2 * e * c * d * f,
+         BF16_OPS_PER_S, [e, c, d, f], "bfloat16", True),
+        ("rglru_scan_bwd", "rglru_scan_bwd",
+         lambda: rglru_scan_bwd(*rargs), lambda: rglru_bwd_ref(*rargs),
+         None, 4 * (5 * b * t * width + 3 * b * width), 3 * b * t * width,
+         FP32_OPS_PER_S, [b, t, width], "float32", False),
+    ]
+    rows = []
+    for (name, src, kern, plain, lib, nbytes, nops, peak, shape, dname,
+         plain_graph) in cases:
+        iters = 5 if plain_graph else 20
+        ms = time_ms(torch, kern, iters, graph=True)
+        eager_ms = time_ms(torch, kern, iters, graph=False)
+        plain_ms = time_ms(torch, plain, iters if plain_graph else 1,
+                           graph=plain_graph)
+        lib_ms = time_ms(torch, lib, iters, graph=True) if lib else None
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / peak * 1e3
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/csrc/{src}.cu",
+               "replaces": "src/repro/models/moe.py:82" if src ==
+               "moe_matmul_bwd" else "src/repro/models/recurrent.py:76",
+               "replaces_note": "no Pallas kernel has a backward: XLA's "
+                                "gradient of the reference's "
+               + ("einsum" if src == "moe_matmul_bwd"
+                  else "associative scan"),
+               "launches": None, "max_abs_err": errs[name], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": lib_ms,
+               "library": "torch.bmm (transposed operands)" if lib else None,
+               "eager_ms": eager_ms,
+               "plain_timing": "graph" if plain_graph else "eager",
+               "kernel_route": "simt", "shape": shape, "dtype": dname,
+               "bytes": nbytes, "operations": nops,
+               "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6}
+        rows.append(row)
+        log(f"  {name} {shape} {dname} (simt): {ms:.4f} ms in a graph, "
+            f"{eager_ms:.4f} ms eager ({row['tflops']:.2f} TFLOP/s, "
+            f"{row['gb_per_s']:.1f} GB/s); plain {plain_ms:.4f} ms "
+            f"({row['plain_timing']})"
+            + (f"; torch.bmm {lib_ms:.4f} ms" if lib else "")
+            + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del x, w, dy, rargs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_full_training_slice(np, torch, device):
+    """Phase 41: ``FULL_TRAIN_SLICE`` through ``train_at_full_width``:
+    granite-moe-1b-a400m at full width and depth (exactly 2 x 72 expert
+    GEMMs, 72 dX and 72 dW, 2 x 24 flash and 24 backward launches a
+    microbatch) and recurrentgemma-9b at full width, 9 layers (2 x 6 RG-LRU
+    scans and 6 reverse scans, 2 x 3 flash and 3 backward launches a
+    microbatch).  Returns the records by arch."""
+    out = {}
+    for f in FULL_TRAIN_SLICE:
+        t0 = time.perf_counter()
+        out[f["arch"]] = train_at_full_width(np, torch, device, f)
+        out[f["arch"]]["wall_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_train_example(np, torch, device):
     """Phase 37: ``examples/torch_train_lm.py`` on the card (its default
     device), the default run and ``--simulate-failure`` (restore from the
@@ -4713,9 +5088,12 @@ def run_train_example(np, torch, device):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         per_step = out["microbatches"] * out["n_layers"]
-        flash_counts(f"torch_train_lm {name}", kernels.launch_counts(),
-                     kernels.route_counts(), per_step * out["steps"],
-                     per_step * out["steps"], "simt")
+        want_launches(f"torch_train_lm {name}", kernels.launch_counts(),
+                      kernels.route_counts(),
+                      {"flash_attention": per_step * out["steps"],
+                       "flash_attention_bwd": per_step * out["steps"]},
+                      {"flash_attention": "simt",
+                       "flash_attention_bwd": "simt"})
         if (out["restored_step"] is None) == (name == "simulate-failure") \
                 or out["plan"] is None:
             raise AssertionError(f"torch_train_lm {name}: {out}")
@@ -4860,23 +5238,49 @@ def main() -> int:
     train = {}
     for phase, key, title, fn in (
             (35, "reduced", "reduced training, card against the CPU plain "
-             "path", run_reduced_training),
+             "path", lambda *a: run_reduced_training(*a, TRAIN_ARCHS[:4])),
             (36, "minicpm-2b", "minicpm-2b trained at full width and depth",
              run_full_training),
             (37, "example", "examples/torch_train_lm.py on the card",
-             run_train_example)):
+             run_train_example),
+            (38, "kernel_errs", "expert-GEMM and RG-LRU backward kernels "
+             "against their plain versions on the card",
+             check_train_kernels),
+            (39, "kernel_rows", "expert-GEMM and RG-LRU backward kernel "
+             "times (CUDA events), granite-moe and recurrentgemma training "
+             "shapes", lambda np_, torch_, dev: {"rows": time_train_kernels(
+                 torch_, dev, train["kernel_errs"])}),
+            (40, "reduced_moe_griffin", "reduced MoE and griffin training, "
+             "card against the CPU plain path",
+             lambda *a: run_reduced_training(*a, TRAIN_ARCHS[4:])),
+            (41, "slice", "granite-moe-1b-a400m (full width and depth) and "
+             "recurrentgemma-9b (full width, 9 layers) trained on the card",
+             run_full_training_slice)):
         log(f"[{phase}] {title}")
         t0 = time.perf_counter()
         train[key] = fn(np, torch, device)
         train[key]["phase_wall_s"] = time.perf_counter() - t0
         log(f"  phase {phase}: {train[key]['phase_wall_s']:.3f} s")
+    del train["kernel_errs"]
+    train_rows = train.pop("kernel_rows")["rows"]
+    slice_runs = {a: train["slice"][a] for a in (f["arch"]
+                                                 for f in FULL_TRAIN_SLICE)}
     bwd_row["launches"] = train["minicpm-2b"]["launches"][
         "flash_attention_bwd"]
+    slice_archs = list(slice_runs)
     bwd_row["launches_by_path"] = {
         "minicpm-2b training": bwd_row["launches"],
+        **{f"{a} training": r["launches"]["flash_attention_bwd"]
+           for a, r in slice_runs.items()},
         "torch_train_lm": {k: train["example"][k]["launches"]
                            for k in ("default", "simulate-failure")}}
     rows.append(bwd_row)
+    for row in train_rows:
+        arch = slice_archs[0] if row["name"].startswith("moe") \
+            else slice_archs[1]
+        row["launches"] = slice_runs[arch]["launches"][row["name"]]
+        row["launches_by_path"] = {f"{arch} training": row["launches"]}
+        rows.append(row)
     for row in rows:
         row.update({"flash_attention": flash_x,
                     "decode_attention": decode_x}.get(row["name"], {}))
@@ -4886,8 +5290,15 @@ def main() -> int:
             row["launches_by_path"]["serve-lm"] = \
                 serve_swarm["lm"]["launches"][row["name"]]
             if row["name"] == "flash_attention":
-                row["launches_by_path"]["minicpm-2b training"] = \
-                    train["minicpm-2b"]["launches"]["flash_attention"]
+                for a, r in [("minicpm-2b", train["minicpm-2b"]),
+                             *slice_runs.items()]:
+                    row["launches_by_path"][f"{a} training"] = \
+                        r["launches"]["flash_attention"]
+        if row["name"] in ("moe_matmul", "rglru_scan"):
+            a = slice_archs[0 if row["name"] == "moe_matmul" else 1]
+            row["launches_by_path"] = {
+                "served": row["launches"],
+                f"{a} training": slice_runs[a]["launches"][row["name"]]}
         if row["name"] in ("link_geometry", "tropical_dp"):
             row["launches_by_path"] = {"rollout": row["launches"], **{
                 f"rollout over {m['mesh']}": m["launches"][row["name"]]

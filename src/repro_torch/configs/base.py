@@ -73,6 +73,8 @@ class MoEConfig:
     n_experts: int = 0
     top_k: int = 0
     d_expert: int = 0          # per-expert hidden size
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
     # expert capacity = ceil(S * top_k / n_experts * capacity_factor);
     # E/top_k makes dispatch drop-free (used by reduced smoke configs).
     capacity_factor: float = 1.25

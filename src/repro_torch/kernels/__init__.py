@@ -6,9 +6,11 @@ Each ``<name>/`` holds ``<name>.py`` (the ctypes wrapper of
 ``ref.py`` (the plain PyTorch version) and ``ops.py`` (the dispatcher:
 CUDA tensors launch the kernel or raise, CPU tensors take the plain
 version).  ``_build``
-compiles the sources with ``nvcc`` at first use.  A wrapper whose kernel
-has no backward refuses to run under grad (``refuse_grad``): its output,
-filled through ``ctypes``, would carry no gradient.
+compiles the sources with ``nvcc`` at first use.  A forward wrapper
+refuses to run under grad (``refuse_grad``): its output, filled through
+``ctypes``, would carry no gradient.  Where the kernel has a backward
+(flash attention, the expert GEMM, the RG-LRU scan), ``ops.py`` holds an
+autograd Function that launches both.
 """
 from __future__ import annotations
 
@@ -37,8 +39,10 @@ def _wrappers():
         flash_attention, flash_attention_bwd)
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
-    from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
-    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    from repro_torch.kernels.moe_matmul.moe_matmul import (
+        moe_matmul, moe_matmul_dw, moe_matmul_dx)
+    from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
+                                                           rglru_scan_bwd)
     from repro_torch.kernels.tropical_dp.tropical_dp import (
         tropical_dp_chain, tropical_dp_step)
     return {"link_geometry": link_geometry, "tropical_dp": tropical_dp_chain,
@@ -46,7 +50,9 @@ def _wrappers():
             "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention, "moe_matmul": moe_matmul,
-            "rglru_scan": rglru_scan, "mlstm_chunk": mlstm_chunk}
+            "moe_matmul_dx": moe_matmul_dx, "moe_matmul_dw": moe_matmul_dw,
+            "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd,
+            "mlstm_chunk": mlstm_chunk}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -59,7 +65,7 @@ def launch_counts() -> Dict[str, int]:
 
 def route_counts() -> Dict[str, Dict[str, int]]:
     """Launches by route since the last ``reset_launch_counts``, for the
-    kernels that have more than one route (``wgmma`` / ``simt``, the
+    kernels that count them (``wgmma`` / ``simt``, the
     RG-LRU scan's ``tma`` / ``simt``, the mLSTM's ``decode`` besides, the
     chain DP's ``fused`` / ``step``, where ``step`` counts the step-kernel
     launches of the solves on that route)."""

@@ -1,24 +1,68 @@
 """Public entry for the MoE layer's expert GEMMs, in the profiler range
-``moe.expert_gemm``."""
+``moe.expert_gemm``.
+
+When grad mode is on and an input requires grad, ``expert_gemm`` goes
+through ``ExpertGemm``, an autograd Function: its forward launches the
+expert-GEMM kernel and its backward the two backward kernels
+(``moe_matmul_dx``, ``moe_matmul_dw``) on a CUDA tensor, and takes the
+plain versions on a CPU tensor, so the CPU tests run the Function the
+card runs.  Otherwise the call is the serving one.
+"""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
-from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref
+from repro_torch.kernels.moe_matmul.moe_matmul import (moe_matmul,
+                                                       moe_matmul_dw,
+                                                       moe_matmul_dx)
+from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
+                                                moe_matmul_dx_ref,
+                                                moe_matmul_ref)
 
 #: tensor device type -> implementation: CUDA launches the kernel (or
 #: raises), the CPU takes the plain version; nothing falls back
 _BY_DEVICE = {"cuda": moe_matmul, "cpu": moe_matmul_ref}
+#: the same for the training path: (forward, dX, dW)
+_TRAIN_BY_DEVICE = {"cuda": (moe_matmul, moe_matmul_dx, moe_matmul_dw),
+                    "cpu": (moe_matmul_ref, moe_matmul_dx_ref,
+                            moe_matmul_dw_ref)}
+
+
+def _fns(table, t: torch.Tensor):
+    fns = table.get(t.device.type)
+    if fns is None:
+        raise ValueError(f"expert_gemm: unsupported device {t.device}")
+    return fns
+
+
+class ExpertGemm(torch.autograd.Function):
+    """[E,C,D] @ [E,D,F] with its gradient: saves x and w; the backward
+    launches dX only when x needs a gradient and dW only when w does, on
+    the output's gradient made contiguous first (the kernels read it
+    dense: a loss such as ``y.sum()`` hands a broadcast view)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _fns(_TRAIN_BY_DEVICE, x)[0](x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        _, fdx, fdw = _fns(_TRAIN_BY_DEVICE, dy)
+        dx = fdx(dy, w) if ctx.needs_input_grad[0] else None
+        dw = fdw(x, dy) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped GEMM over the dispatched buffer: [E,C,D] @ [E,D,F]."""
-    fn = _BY_DEVICE.get(x.device.type)
-    if fn is None:
-        raise ValueError(f"expert_gemm: unsupported device {x.device}")
+    fn = _fns(_BY_DEVICE, x)
     with torch.profiler.record_function("moe.expert_gemm"):
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return ExpertGemm.apply(x, w)
         return fn(x, w)
 
 
-__all__ = ["expert_gemm"]
+__all__ = ["ExpertGemm", "expert_gemm"]

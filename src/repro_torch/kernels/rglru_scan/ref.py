@@ -5,10 +5,16 @@ multiply-add rounded once.  That is what the Pallas kernel computes
 shows it bitwise) and what the CUDA kernel's ``__fmaf_rn`` computes, so
 all three agree bitwise.  The reference's ``rglru_ref`` takes an
 associative scan instead: the same recurrence summed in another order.
+
+``rglru_bwd_ref`` is the plain version of the backward kernel: the
+adjoint recurrence run backwards in time, each step one FMA rounded once
+(``fma_f32``), in the CUDA kernel's order, so the two agree bitwise.
+The forward's float64 steps are not differentiable, so the CPU training
+path takes this backward too, not autograd of ``rglru_ref``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,4 +50,29 @@ def rglru_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     return out, h.to(h0.dtype)
 
 
-__all__ = ["fma_f32", "rglru_ref"]
+def rglru_bwd_ref(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                  dh: torch.Tensor, dhT: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``h_t = a_t h_{t-1} + b_t``: a, h (the forward's
+    output), dh [B, T, W]; h0, dhT (None: zeros) [B, W] -> (da, db in
+    ``a.dtype``, dh0 in ``h0.dtype``).  In float32, for t = T-1 .. 0:
+    lambda_{T-1} = dh[T-1] + dhT, lambda_t = fma(a[t+1], lambda_{t+1},
+    dh[t]); db[t] = lambda_t, da[t] = lambda_t h[t-1] (h[-1] = h0);
+    dh0 = a[0] lambda_0 (dhT when T = 0)."""
+    a32, h32, dh32 = (t.to(torch.float32) for t in (a, h, dh))
+    lam = torch.zeros(h0.shape, dtype=torch.float32, device=h0.device) \
+        if dhT is None else dhT.to(torch.float32)
+    da = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    db = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    steps = a.shape[1]
+    for t in range(steps - 1, -1, -1):
+        lam = dh32[:, t] + lam if t == steps - 1 else \
+            fma_f32(a32[:, t + 1], lam, dh32[:, t])
+        db[:, t] = lam.to(a.dtype)
+        prev = h32[:, t - 1] if t > 0 else h0.to(torch.float32)
+        da[:, t] = (lam * prev).to(a.dtype)
+    dh0 = a32[:, 0] * lam if steps else lam
+    return da, db, dh0.to(h0.dtype)
+
+
+__all__ = ["fma_f32", "rglru_bwd_ref", "rglru_ref"]

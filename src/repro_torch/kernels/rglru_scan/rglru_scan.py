@@ -16,11 +16,19 @@ counted in ``rglru_scan.launches_by_route``:
   stored with 16-byte stores.  a and b off 16 bytes are refused;
 * ``simt`` (any other shape): one thread per (b, w) channel, a chunk of
   steps' loads issued ahead of their dependent chain.
+
+The backward ``rglru_scan_bwd`` (``csrc/rglru_scan_bwd.cu``; no Pallas
+kernel has one: the reference leaves its associative scan's gradient to
+XLA) runs the adjoint recurrence backwards in time, one FMA rounded once
+a step in the plain version's order, so it equals ``rglru_bwd_ref``
+bitwise; one ``simt`` route for now.  ``ops.linear_recurrence`` calls
+both through an autograd Function when a gradient is wanted; the bare
+forward refuses to run under grad (its output would carry no gradient).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,6 +39,24 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 65535          # the grid's y extent
 #: launcher route codes
 ROUTES = ("simt", "tma")
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+#: the backward launcher's route codes
+BWD_ROUTES = ("simt",)
+
+
+def _check_operands(fn: str, device: torch.device, note: str,
+                    *named: tuple) -> None:
+    """Raise unless every ``(name, tensor, dtype)`` is a contiguous CUDA
+    float32 or bfloat16 tensor of that dtype on ``device``."""
+    for name, t, dt in named:
+        if t.device != device or t.device.type != "cuda" or \
+                t.dtype not in _DTYPES or t.dtype != dt or \
+                not t.is_contiguous():
+            raise ValueError(
+                f"{fn}: {name} must be a contiguous CUDA float32 or "
+                f"bfloat16 tensor on {device} ({note}); got {t.device} "
+                f"{t.dtype}")
 
 
 def rglru_route(dtype: torch.dtype, t: int, w: int) -> str:
@@ -45,9 +71,10 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     """a, b [B, T, W] contiguous, of one dtype; h0 [B, W] contiguous;
     float32 or bfloat16 CUDA tensors on one device -> (h [B, T, W] in
     ``a.dtype``, hT [B, W] in ``h0.dtype``), on the current stream
-    without synchronising.  Raises under grad."""
-    refuse_grad("rglru_scan", "14.7 (griffin training: the backward as a "
-                "reverse scan)", a, b, h0)
+    without synchronising.  Raises under grad: the training path goes
+    through ``ops.linear_recurrence``."""
+    refuse_grad("rglru_scan", "14.7: call ops.linear_recurrence, whose "
+                "autograd Function launches rglru_scan_bwd", a, b, h0)
     if a.dim() != 3 or tuple(b.shape) != tuple(a.shape) or h0.dim() != 2 \
             or tuple(h0.shape) != (a.shape[0], a.shape[2]):
         raise ValueError(f"rglru_scan: want a, b [B, T, W] and h0 [B, W]; "
@@ -62,15 +89,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
             f"rglru_scan: a and b are read by TMA at W {W} and need "
             f"16-byte aligned data; got data_ptr % 16 = "
             f"{a.data_ptr() % 16}, {b.data_ptr() % 16}")
-    for name, t, dt in (("a", a, a.dtype), ("b", b, a.dtype),
-                        ("h0", h0, h0.dtype)):
-        if t.device != a.device or t.device.type != "cuda" or \
-                t.dtype not in _DTYPES or t.dtype != dt or \
-                not t.is_contiguous():
-            raise ValueError(
-                f"rglru_scan: {name} must be a contiguous CUDA float32 or "
-                f"bfloat16 tensor on {a.device} (b of a's dtype); got "
-                f"{t.device} {t.dtype}")
+    _check_operands("rglru_scan", a.device, "b of a's dtype",
+                    ("a", a, a.dtype), ("b", b, a.dtype),
+                    ("h0", h0, h0.dtype))
     h = torch.empty_like(a)
     hT = torch.empty_like(h0)
     if hT.numel() == 0:
@@ -91,3 +112,52 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
 
 rglru_scan.launches = 0
 rglru_scan.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                   dh: torch.Tensor, dhT: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recurrence's gradient: a, h (the forward's output) and dh
+    [B, T, W] contiguous, of one dtype; h0 and dhT (None: zeros) [B, W]
+    contiguous, of one dtype; float32 or bfloat16 CUDA tensors on one
+    device -> (da, db [B, T, W] in ``a.dtype``, dh0 [B, W] in
+    ``h0.dtype``), on the current stream without synchronising."""
+    if a.dim() != 3 or h0.dim() != 2 or \
+            tuple(h0.shape) != (a.shape[0], a.shape[2]) or \
+            any(tuple(t.shape) != tuple(a.shape) for t in (h, dh)) or \
+            (dhT is not None and tuple(dhT.shape) != tuple(h0.shape)):
+        raise ValueError(
+            f"rglru_scan_bwd: want a, h, dh [B, T, W] and h0, dhT [B, W]; "
+            f"got {tuple(a.shape)}, {tuple(h.shape)}, {tuple(h0.shape)}, "
+            f"{tuple(dh.shape)}, "
+            f"{None if dhT is None else tuple(dhT.shape)}")
+    B, T, W = a.shape
+    if B > MAX_BATCH:
+        raise ValueError(f"rglru_scan_bwd: batch {B}, at most {MAX_BATCH}")
+    named = [("a", a, a.dtype), ("h", h, a.dtype), ("dh", dh, a.dtype),
+             ("h0", h0, h0.dtype)]
+    if dhT is not None:
+        named.append(("dhT", dhT, h0.dtype))
+    _check_operands("rglru_scan_bwd", a.device,
+                    "h and dh of a's dtype, dhT of h0's", *named)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty_like(h0)
+    if dh0.numel() == 0:
+        return da, db, dh0
+    fn = _build.launcher("rglru_scan_bwd", "repro_rglru_scan_bwd",
+                         _BWD_ARGTYPES)
+    route = ctypes.c_int(-1)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(),
+                 None if dhT is None else dhT.data_ptr(), da.data_ptr(),
+                 db.data_ptr(), dh0.data_ptr(), B, T, W, _DTYPES[a.dtype],
+                 _DTYPES[h0.dtype], stream, ctypes.byref(route))
+    _build.check_launch(_build.load("rglru_scan_bwd"), "rglru_scan_bwd", err)
+    rglru_scan_bwd.launches += 1
+    rglru_scan_bwd.launches_by_route[BWD_ROUTES[route.value]] += 1
+    return da, db, dh0
+
+
+rglru_scan_bwd.launches = 0
+rglru_scan_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)

@@ -3,11 +3,13 @@ strings (``core.cost_model._block_kinds``), so the planner's units and the
 model's blocks agree.
 
 ``apply(params, x, state, ctx) -> (x, new_state)``; ``ctx.mode`` is
-``prefill``, ``decode`` or ``train`` (the attention blocks only: the full
-sequence as in prefill, no cache built, ``new_state`` None).  The attention blocks (``attn_full``,
-``attn_local``) with a dense or MoE MLP, the RG-LRU block (``rglru``) and
-the xLSTM blocks (``slstm``, ``mlstm``) are ported.  The MoE
-load-balancing loss is a training term: serving drops it, as the
+``prefill``, ``decode`` or ``train`` (the full sequence as in prefill, no
+cache built: the second output is then the block's auxiliary loss, a
+float32 scalar, the MoE load-balancing loss of an attention block with a
+MoE MLP and zero for every other block).  The attention blocks
+(``attn_full``, ``attn_local``) with a dense or MoE MLP, the RG-LRU block
+(``rglru``) and the xLSTM blocks (``slstm``, ``mlstm``) are ported.  The
+MoE load-balancing loss is a training term: serving drops it, as the
 reference's prefill and decode do.
 """
 from __future__ import annotations
@@ -42,6 +44,15 @@ def _norms_init(cfg: ArchConfig, post: bool, device) -> Params:
 
 def _post(p: Params, name: str, x: torch.Tensor, cfg: ArchConfig):
     return rmsnorm(p[name], x, cfg.norm_eps) if name in p else x
+
+
+def _outputs(ctx: Ctx, x: torch.Tensor, new_state, aux=None):
+    """A block's outputs: the new state when serving, the auxiliary loss
+    (zero unless given) in ``train`` mode."""
+    if ctx.mode != "train":
+        return x, new_state
+    return x, aux if aux is not None else x.new_zeros((),
+                                                      dtype=torch.float32)
 
 
 def _attn_block_init(cfg: ArchConfig, generator: torch.Generator,
@@ -83,15 +94,16 @@ def _attn_block_apply(local: bool) -> Callable:
                 if ctx.mode == "prefill" else None
         x = x + _post(p, "ln1p", y, cfg)
         if not (cfg.moe.enabled or cfg.d_ff):
-            return x, new_state
+            return _outputs(ctx, x, new_state)
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        aux = None
         if cfg.moe.enabled:
-            y2, _ = moe_apply(p["moe"], h2, top_k=cfg.moe.top_k,
-                              act=cfg.act, glu=cfg.glu,
-                              capacity_factor=cfg.moe.capacity_factor)
+            y2, aux = moe_apply(p["moe"], h2, top_k=cfg.moe.top_k,
+                                act=cfg.act, glu=cfg.glu,
+                                capacity_factor=cfg.moe.capacity_factor)
         else:
             y2 = mlp(p["mlp"], h2, cfg.act, cfg.glu)
-        return x + _post(p, "ln2p", y2, cfg), new_state
+        return _outputs(ctx, x + _post(p, "ln2p", y2, cfg), new_state, aux)
     return apply
 
 
@@ -147,7 +159,7 @@ def _rglru_block_apply(p: Params, x: torch.Tensor, state, ctx: Ctx):
     if cfg.d_ff:
         x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act,
                     cfg.glu)
-    return x, new_state
+    return _outputs(ctx, x, new_state)
 
 
 def _rglru_state_init(cfg: ArchConfig, batch: int, dtype, cache_len: int,
@@ -194,7 +206,7 @@ def _xlstm_block_apply(flavor: str) -> Callable:
         if cfg.d_ff:
             x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps),
                         cfg.act, cfg.glu)
-        return x, new_state
+        return _outputs(ctx, x, new_state)
     return apply
 
 

@@ -79,8 +79,19 @@ def _rglru_gates(p: Params, x: torch.Tensor
 def rglru_seq(p: Params, x: torch.Tensor, h0: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence RG-LRU.  x: [B, S, w]; h0: [B, w] -> (h [B, S, w],
-    h_S [B, w]), both in ``x.dtype``."""
+    h_S [B, w]), both in ``x.dtype``.  Under grad the recurrence runs on
+    float32 a, b and h0 and h is cast back, as the reference's ``a32,
+    b32`` scan: the backward's ``da_t = lambda_t h_{t-1}`` takes the
+    float32 h.  The values equal the serving call's bitwise (the kernel
+    computes in float32 either way and rounds h once)."""
     a, b = _rglru_gates(p, x)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or
+                                    h0.requires_grad):
+        f32 = torch.float32
+        h, h_last = linear_recurrence(a.to(f32).contiguous(),
+                                      b.to(f32).contiguous(),
+                                      h0.to(f32).contiguous())
+        return h.to(x.dtype), h_last.to(x.dtype)
     h, h_last = linear_recurrence(a.contiguous(), b.contiguous(),
                                   h0.to(x.dtype).contiguous())
     return h, h_last

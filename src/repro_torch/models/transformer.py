@@ -5,8 +5,9 @@ to one local-attention block), xLSTM (family ``ssm``, xlstm-350m:
 sLSTM and mLSTM blocks alternating) and the VLM (qwen2-vl: M-RoPE, and
 patch embeddings from a stub frontend prepended to the prompt), served
 through ``prefill`` and ``decode_step``, and trained through
-``train_loss`` (the dense families and the VLM; MoE, griffin and xLSTM
-training raise until their kernels have a backward).  Family ``audio`` is
+``train_loss`` (the dense, MoE, griffin and VLM families, the MoE loss
+with its load-balancing term; xLSTM training raises until the mLSTM
+kernel has a backward).  Family ``audio`` is
 ``models.whisper.WhisperLM``.
 
 The kind sequence comes from ``core.cost_model._block_kinds``, as in the
@@ -47,9 +48,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _PERIOD = {"full": 1, "local": 1, "alternating": 2, "griffin": 3}
 #: families whose training waits for a kernel's backward: the ROADMAP
 #: queue 1 item that brings it
-TRAIN_LATER = {"moe": "14.6 (the moe_matmul backward, the aux loss)",
-               "hybrid": "14.7 (the rglru_scan backward)",
-               "ssm": "14.8 (the mlstm_chunk backward)"}
+TRAIN_LATER = {"ssm": "14.8 (the mlstm_chunk backward)"}
 
 
 class TransformerLM:
@@ -144,20 +143,24 @@ class TransformerLM:
         return lm_head(table, x, cfg.final_logit_softcap)
 
     def _run_stack_train(self, params: Params, x: torch.Tensor,
-                         ctx: Ctx) -> torch.Tensor:
-        """The train path: every layer, no cache in or out; with
-        ``cfg.remat`` other than ``none`` each layer is a
-        ``torch.utils.checkpoint`` region, its activations recomputed in
-        the backward (the reference wraps its scanned layer body in
-        ``jax.checkpoint``)."""
+                         ctx: Ctx) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The train path: every layer, no cache in or out; returns the
+        output and the layers' auxiliary losses summed in layer order (a
+        float32 scalar).  With ``cfg.remat`` other than ``none`` each layer
+        is a ``torch.utils.checkpoint`` region, its activations recomputed
+        in the backward (the reference wraps its scanned layer body in
+        ``jax.checkpoint``); the aux loss leaves the region as one of its
+        outputs, so its gradient flows back through the recompute."""
         remat = self.cfg.remat != "none"
+        aux = x.new_zeros((), dtype=torch.float32)
         for blk, p in zip(self.blocks, params["layers"]):
             if remat:
-                x, _ = checkpoint(blk.apply, p, x, None, ctx,
+                x, a = checkpoint(blk.apply, p, x, None, ctx,
                                   use_reentrant=False)
             else:
-                x, _ = blk.apply(p, x, None, ctx)
-        return x
+                x, a = blk.apply(p, x, None, ctx)
+            aux = aux + a
+        return x, aux
 
     # ------------------------------------------------------------------
     # public API
@@ -168,9 +171,11 @@ class TransformerLM:
                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Next-token cross-entropy (float32 scalar): tokens / labels
         [B, S_text]; ``extra_embeds`` [B, P, d] (the VLM's patches) go in
-        front and the loss is taken on the text positions only.  Raises
-        ``NotImplementedError`` for the MoE, griffin and xLSTM families,
-        whose kernels have no backward yet."""
+        front and the loss is taken on the text positions only.  With MoE
+        layers the loss adds ``aux_loss_weight`` times the layers' mean
+        load-balancing loss, as the reference does.  Raises
+        ``NotImplementedError`` for the xLSTM family, whose mLSTM kernel
+        has no backward yet."""
         if self.cfg.family in TRAIN_LATER:
             raise NotImplementedError(
                 f"train_loss: {self.cfg.name} (family "
@@ -179,10 +184,14 @@ class TransformerLM:
         x = self._embed(params, tokens, extra_embeds)
         b, s = x.shape[:2]
         ctx = Ctx(self.cfg, "train", self._positions(b, s))
-        x = self._run_stack_train(params, x, ctx)
+        x, aux = self._run_stack_train(params, x, ctx)
         if extra_embeds is not None:       # loss only on the text positions
             x = x[:, extra_embeds.shape[1]:]
-        return cross_entropy(self._head(params, x), labels, mask)
+        loss = cross_entropy(self._head(params, x), labels, mask)
+        if self.cfg.moe.enabled:
+            loss = loss + self.cfg.moe.aux_loss_weight * \
+                aux / max(self.cfg.n_layers, 1)
+        return loss
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 cache_len: int,

@@ -97,8 +97,17 @@ def make_train_step(model, cfg: ArchConfig, tcfg: TrainConfig
         for p in plist:
             p.grad = None
         if mb > 1:
-            # gradient accumulation over leading-batch microslices
-            b = next(iter(batch.values())).shape[0]
+            # gradient accumulation over leading-batch microslices; the
+            # reference reshapes to (mb, b // mb, ...), so a batch that
+            # does not split into mb equal slices is refused, not cut
+            sizes = {k: v.shape[0] for k, v in batch.items()}
+            b = next(iter(sizes.values()))
+            if len(set(sizes.values())) != 1:
+                raise ValueError(
+                    f"batch leaves disagree on their leading size: {sizes}")
+            if b % mb:
+                raise ValueError(f"microbatches={mb} does not divide the "
+                                 f"batch of {b}")
             loss = torch.zeros((), dtype=torch.float32, device=plist[0].device)
             for i in range(mb):
                 micro = {k: v[i * (b // mb):(i + 1) * (b // mb)]

@@ -27,12 +27,13 @@ from repro_torch.kernels.tropical_dp.tropical_dp import \
 def test_sources_are_the_ported_kernels():
     """The planner's two kernels, the CNN path's conv GEMM, the LM
     serving path's two attention kernels, the MoE expert GEMM, the
-    RG-LRU scan, the mLSTM chunk and training's flash-attention
-    backward."""
+    RG-LRU scan, the mLSTM chunk and training's backward kernels: flash
+    attention's, the expert GEMM's and the RG-LRU scan's."""
     assert _build.sources() == ("conv2d", "decode_attention",
                                 "flash_attention", "flash_attention_bwd",
                                 "link_geometry", "mlstm_chunk", "moe_matmul",
-                                "rglru_scan", "tropical_dp")
+                                "moe_matmul_bwd", "rglru_scan",
+                                "rglru_scan_bwd", "tropical_dp")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -254,21 +255,118 @@ def test_moe_matmul_rejects_bf16_tma_misalignment(operand, monkeypatch):
     assert (moe_matmul.launches, moe_matmul.launches_by_route) == before
 
 
+def _no_build(monkeypatch):
+    for name in ("load", "launcher"):
+        monkeypatch.setattr(_build, name, lambda *a: pytest.fail(
+            "built before rejecting"))
+
+
+_BF = torch.bfloat16
+
+
+def _moe_bwd_args(which, case):
+    """The two operands of a bad ``moe_matmul_dx(dy [E, C, F], w [E, D,
+    F])`` or ``moe_matmul_dw(x [E, C, D], dy [E, C, F])`` call (D 16,
+    F 8), and the message it raises with."""
+    shapes = {"dx": [(2, 3, 8), (2, 16, 8)], "dw": [(2, 3, 16), (2, 3, 8)]}
+    dtypes = [torch.float32, torch.float32]
+    match = "contiguous CUDA"
+    if case == "shape":
+        shapes[which][1] = (2, 16, 9) if which == "dx" else (2, 4, 8)
+        match = "want"
+    elif case == "experts":
+        shapes[which] = [(65536, 1, 1), (65536, 1, 1)]
+        match = "at most 65535"
+    elif case == "float64":
+        dtypes = [torch.float64, torch.float64]
+    elif case in ("mixed", "tma"):
+        dtypes = [torch.float32, _BF] if case == "mixed" else [_BF, _BF]
+        match = "contiguous CUDA" if case == "mixed" else "TMA"
+    first, second = (torch.zeros(s, dtype=d)
+                     for s, d in zip(shapes[which], dtypes))
+    if case == "strided":
+        first = torch.zeros(first.shape[::-1]).permute(2, 1, 0)
+    elif case == "tma":
+        first = torch.zeros(first.numel() + 1, dtype=_BF)[1:].view(
+            first.shape)
+    return first, second, match
+
+
+@pytest.mark.parametrize("case", ["shape", "experts", "cpu", "float64",
+                                  "mixed", "strided", "tma"])
+@pytest.mark.parametrize("which", ["dx", "dw"])
+def test_moe_matmul_bwd_wrappers_reject_before_building(which, case,
+                                                        monkeypatch):
+    """``moe_matmul_dx(dy, w)`` and ``moe_matmul_dw(x, dy)`` take the
+    forward's checks: shapes, at most 65,535 experts, contiguous CUDA
+    float32 or bfloat16 of one dtype, and bfloat16 data on 16 bytes where
+    D and F are multiples of 8; each refusal comes before a build and
+    counts nothing."""
+    from repro_torch.kernels.moe_matmul import moe_matmul as mm
+    _no_build(monkeypatch)
+    first, second, match = _moe_bwd_args(which, case)
+    fn = mm.moe_matmul_dx if which == "dx" else mm.moe_matmul_dw
+    before = (fn.launches, dict(fn.launches_by_route))
+    with pytest.raises(ValueError, match=match):
+        fn(first, second)
+    assert (fn.launches, fn.launches_by_route) == before
+
+
+@pytest.mark.parametrize("case", ["shape", "dhT", "batch", "cpu", "dtype",
+                                  "strided"])
+def test_rglru_scan_bwd_rejects_before_building(case, monkeypatch):
+    """``rglru_scan_bwd(a, h, h0, dh, dhT)``: a, h, dh [B, T, W] of one
+    dtype and h0, dhT [B, W] of one dtype, contiguous CUDA float32 or
+    bfloat16, B at most 65,535; each refusal comes before a build and
+    counts nothing."""
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan_bwd
+    _no_build(monkeypatch)
+    a, h0 = torch.zeros((2, 5, 8)), torch.zeros((2, 8))
+    args = {"a": a, "h": a, "h0": h0, "dh": a, "dhT": h0}
+    match = "contiguous CUDA"
+    if case == "shape":
+        args["dh"], match = torch.zeros((2, 4, 8)), "want"
+    elif case == "dhT":
+        args["dhT"], match = torch.zeros((2, 7)), "want"
+    elif case == "batch":
+        a = torch.zeros((65536, 1, 1))
+        args = dict(a=a, h=a, h0=torch.zeros((65536, 1)), dh=a, dhT=None)
+        match = "at most 65535"
+    elif case == "dtype":
+        args["h"] = a.to(_BF)
+    elif case == "strided":
+        args["dh"] = torch.zeros((2, 8, 5)).transpose(1, 2)
+    before = (rglru_scan_bwd.launches,
+              dict(rglru_scan_bwd.launches_by_route))
+    with pytest.raises(ValueError, match=match):
+        rglru_scan_bwd(**args)
+    assert (rglru_scan_bwd.launches,
+            rglru_scan_bwd.launches_by_route) == before
+
+
 def test_route_counts_reset_with_the_launch_counts():
     """The expert GEMM, prefill attention and its backward, the conv GEMM,
-    the RG-LRU scan, the mLSTM chunk and the chain DP count launches by
-    route beside their totals; one reset clears both."""
+    the RG-LRU scan, the mLSTM chunk, the chain DP and the expert GEMM's
+    and RG-LRU scan's backward kernels count launches by route beside
+    their totals; one reset clears both."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_bwd)
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
-    from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
-    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan
+    from repro_torch.kernels.moe_matmul.moe_matmul import (
+        moe_matmul, moe_matmul_dw, moe_matmul_dx)
+    from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
+                                                           rglru_scan_bwd)
     saved = [(f, f.launches, dict(f.launches_by_route))
              for f in (flash_attention, flash_attention_bwd, moe_matmul,
                        matmul_bias_act, rglru_scan, mlstm_chunk,
-                       tdp.tropical_dp_chain)]
+                       tdp.tropical_dp_chain, moe_matmul_dx, moe_matmul_dw,
+                       rglru_scan_bwd)]
     try:
+        moe_matmul_dx.launches = moe_matmul_dx.launches_by_route["simt"] = 72
+        moe_matmul_dw.launches = moe_matmul_dw.launches_by_route["simt"] = 71
+        rglru_scan_bwd.launches = 6
+        rglru_scan_bwd.launches_by_route["simt"] = 6
         moe_matmul.launches = 3
         moe_matmul.launches_by_route.update(wgmma=2, simt=1)
         flash_attention.launches_by_route["wgmma"] = 5
@@ -290,7 +388,10 @@ def test_route_counts_reset_with_the_launch_counts():
                           "rglru_scan": {"simt": 1, "tma": 26},
                           "mlstm_chunk": {"simt": 1, "wgmma": 12,
                                           "decode": 12},
-                          "tropical_dp": {"fused": 32, "step": 11}}
+                          "tropical_dp": {"fused": 32, "step": 11},
+                          "moe_matmul_dx": {"simt": 72},
+                          "moe_matmul_dw": {"simt": 71},
+                          "rglru_scan_bwd": {"simt": 6}}
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
             "flash_attention": {"simt": 0, "wgmma": 0},
@@ -299,8 +400,13 @@ def test_route_counts_reset_with_the_launch_counts():
             "conv2d": {"simt": 0, "wgmma": 0},
             "rglru_scan": {"simt": 0, "tma": 0},
             "mlstm_chunk": {"simt": 0, "wgmma": 0, "decode": 0},
-            "tropical_dp": {"fused": 0, "step": 0}}
+            "tropical_dp": {"fused": 0, "step": 0},
+            "moe_matmul_dx": {"simt": 0}, "moe_matmul_dw": {"simt": 0},
+            "rglru_scan_bwd": {"simt": 0}}
         assert kernels.launch_counts()["moe_matmul"] == 0
+        assert kernels.launch_counts()["moe_matmul_dx"] == 0
+        assert kernels.launch_counts()["moe_matmul_dw"] == 0
+        assert kernels.launch_counts()["rglru_scan_bwd"] == 0
         assert kernels.launch_counts()["flash_attention_bwd"] == 0
         assert kernels.launch_counts()["conv2d"] == 0
         assert kernels.launch_counts()["rglru_scan"] == 0

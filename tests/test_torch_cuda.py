@@ -17,8 +17,12 @@ link-geometry and T fused chain-DP launches a shard.  Training: the
 flash forward with its log-sum-exp and the backward kernel against their
 plain versions (causal, window, softcap, GQA, Sk != Sq, ragged S; two
 launches bitwise), ``mha`` under grad through both kernels against the
-CPU, the wrappers without a backward refusing grad, and the reduced
-minicpm-2b's loss and gradients on the card against the CPU.
+CPU, the bare forward wrappers refusing grad, and the reduced
+minicpm-2b's loss and gradients on the card against the CPU; the expert
+GEMM's backward kernels (dX, dW) against their plain versions and the
+RG-LRU reverse scan bitwise against its, both Functions' gradients card
+against CPU, and the reduced granite-moe's and recurrentgemma's loss and
+gradients on the card against the CPU with exact launch counts.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -863,6 +867,150 @@ def test_reduced_training_card_against_cpu(cuda):
                          kernels.launch_counts())
     assert out["cuda"][2]["flash_attention"] == cfg.n_layers
     assert out["cuda"][2]["flash_attention_bwd"] == cfg.n_layers
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for g, r in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", [(4, 64, 96, 160), (32, 320, 256, 128),
+                                     (8, 97, 200, 72), (3, 40, 100, 36),
+                                     (2, 1, 16, 8), (4, 0, 64, 32)])
+def test_moe_matmul_backward_kernels_match_plain(cuda, e, c, d, f, dtype):
+    """``moe_matmul_dx`` (dy w^T) and ``moe_matmul_dw`` (x^T dy) against
+    their plain versions: the reference's grid, a granite-like shape,
+    ragged C 97, D and F not multiples of 8, C 1 and C 0 (dX empty, no
+    launch; dW zeros, one launch).  One ``simt`` launch each; two launches
+    bitwise equal; float32 within atol 1e-5 sqrt(K), bfloat16 within one
+    output rounding (atol 1e-3 + rtol 1e-2 of the value's scale)."""
+    from repro_torch.kernels.moe_matmul.moe_matmul import (moe_matmul_dw,
+                                                           moe_matmul_dx)
+    from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
+                                                    moe_matmul_dx_ref)
+    rng = np.random.default_rng(e * c + d)
+    x = torch.as_tensor(rng.normal(size=(e, c, d)), dtype=torch.float32,
+                        device=cuda).to(dtype)
+    w = torch.as_tensor(rng.normal(size=(e, d, f)) / np.sqrt(d),
+                        dtype=torch.float32, device=cuda).to(dtype)
+    dy = torch.as_tensor(rng.normal(size=(e, c, f)), dtype=torch.float32,
+                         device=cuda).to(dtype)
+    kernels.reset_launch_counts()
+    dx, dw = moe_matmul_dx(dy, w), moe_matmul_dw(x, dy)
+    routes = kernels.route_counts()
+    assert routes["moe_matmul_dx"] == {"simt": int(c > 0)}
+    assert routes["moe_matmul_dw"] == {"simt": 1}
+    assert torch.equal(dx, moe_matmul_dx(dy, w))
+    assert torch.equal(dw, moe_matmul_dw(x, dy))
+    for got, want, k in ((dx, moe_matmul_dx_ref(dy, w), f),
+                         (dw, moe_matmul_dw_ref(x, dy), c)):
+        assert got.dtype == dtype
+        tol = dict(atol=1e-5 * max(k, 1) ** 0.5, rtol=1e-4) \
+            if dtype == torch.float32 else \
+            dict(atol=1e-3 * max(k, 1) ** 0.5, rtol=1e-2)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    if c == 0:
+        assert dx.numel() == 0 and not dw.any()
+
+
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,w", [(2, 64, 256), (1, 1345, 4096),
+                                   (3, 37, 100), (2, 1, 8), (1, 0, 32)])
+def test_rglru_scan_bwd_kernel_is_bitwise_the_plain_version(cuda, b, t, w,
+                                                            dtype, last):
+    """The reverse scan against ``rglru_bwd_ref`` bitwise (one FMA rounded
+    once a step, in its order), with and without dhT, h0 nonzero, at T 1
+    and T 0 (dh0 = dhT), a ragged W; one ``simt`` launch; two launches
+    bitwise equal."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan_bwd
+    rng = np.random.default_rng(b * t + w)
+
+    def draw(*shape, f=lambda v: v):
+        return torch.as_tensor(f(rng.normal(size=shape)),
+                               dtype=torch.float32, device=cuda).to(dtype)
+    a = draw(b, t, w, f=lambda v: 1.0 / (1.0 + np.exp(-v)))
+    h, dh, h0 = draw(b, t, w), draw(b, t, w), draw(b, w)
+    dhT = draw(b, w) if last else None
+    kernels.reset_launch_counts()
+    got = rglru_scan_bwd(a, h, h0, dh, dhT)
+    assert kernels.route_counts()["rglru_scan_bwd"] == {"simt": 1}
+    again = rglru_scan_bwd(a, h, h0, dh, dhT)
+    want = rglru_bwd_ref(a, h, h0, dh, dhT)
+    for g, r, s in zip(got, again, want):
+        assert g.dtype == dtype
+        assert torch.equal(g, r) and torch.equal(g, s)
+
+
+def test_expert_gemm_and_linear_recurrence_functions_on_the_card(cuda):
+    """Under grad ``expert_gemm`` and ``linear_recurrence`` launch their
+    forward and backward kernels (one each, and dX only where x needs a
+    gradient); the gradients match the same Functions on the CPU."""
+    from repro_torch.kernels.moe_matmul.ops import expert_gemm
+    from repro_torch.kernels.rglru_scan.ops import linear_recurrence
+    rng = np.random.default_rng(4)
+    x, w, dy = (rng.normal(size=s).astype(np.float32)
+                for s in ((4, 33, 48), (4, 48, 40), (4, 33, 40)))
+    a = (1.0 / (1.0 + np.exp(-rng.normal(size=(2, 50, 64))))).astype(
+        np.float32)
+    b, h0, dh = (rng.normal(size=s).astype(np.float32)
+                 for s in ((2, 50, 64), (2, 64), (2, 50, 64)))
+    grads = {}
+    for dev in ("cpu", cuda):
+        tx = torch.as_tensor(x, device=dev).requires_grad_()
+        tw = torch.as_tensor(w, device=dev).requires_grad_()
+        ta, tb, th0 = (torch.as_tensor(v, device=dev).requires_grad_()
+                       for v in (a, b, h0))
+        kernels.reset_launch_counts()
+        expert_gemm(tx, tw).backward(torch.as_tensor(dy, device=dev))
+        h, hT = linear_recurrence(ta, tb, th0)
+        ((h * torch.as_tensor(dh, device=dev)).sum() + hT.sum()).backward()
+        grads[str(dev)] = [t.grad.cpu() for t in (tx, tw, ta, tb, th0)]
+        counts = kernels.launch_counts()
+        n = int(dev == cuda)
+        assert (counts["moe_matmul"], counts["moe_matmul_dx"],
+                counts["moe_matmul_dw"], counts["rglru_scan"],
+                counts["rglru_scan_bwd"]) == (n,) * 5
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "recurrentgemma-9b"])
+def test_reduced_moe_and_griffin_training_card_against_cpu(cuda, arch):
+    """The reduced granite-moe (3 expert GEMMs a layer, forward and
+    backward, the aux loss) and recurrentgemma (RG-LRU scan and its
+    backward, local attention) in float32: loss and every gradient on the
+    card against the CPU plain path, with exact launch counts."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_arch(arch).reduced()
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 33)))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, dev)
+        p = tree_map(lambda t: t.detach().to(dev, copy=True)
+                     .requires_grad_(), params)
+        kernels.reset_launch_counts()
+        loss = model.train_loss(p, toks[:, :-1].to(dev), toks[:, 1:].to(dev))
+        loss.backward()
+        out[str(dev)] = (loss.item(), [t.grad.cpu() for t in leaves(p)],
+                         kernels.launch_counts())
+    counts = out["cuda"][2]
+    if cfg.family == "moe":
+        want = dict(moe_matmul=3 * cfg.n_layers, moe_matmul_dx=3 *
+                    cfg.n_layers, moe_matmul_dw=3 * cfg.n_layers,
+                    flash_attention=cfg.n_layers,
+                    flash_attention_bwd=cfg.n_layers)
+    else:
+        n_rec = sum(k == "rglru" for k in model.kinds)
+        want = dict(rglru_scan=n_rec, rglru_scan_bwd=n_rec,
+                    flash_attention=cfg.n_layers - n_rec,
+                    flash_attention_bwd=cfg.n_layers - n_rec)
+    assert counts == dict(dict.fromkeys(counts, 0), **want)
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     for g, r in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-4)

@@ -62,7 +62,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "tropical_dp_step": 0,
                "conv2d": 0, "flash_attention": 0, "flash_attention_bwd": 0,
-               "decode_attention": 0, "moe_matmul": 0, "rglru_scan": 0,
+               "decode_attention": 0, "moe_matmul": 0, "moe_matmul_dx": 0,
+               "moe_matmul_dw": 0, "rglru_scan": 0, "rglru_scan_bwd": 0,
                "mlstm_chunk": 0}
 
 

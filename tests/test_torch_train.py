@@ -5,9 +5,13 @@ flash-attention Function's plain versions), in float32.
   reference's ``_loss_fn``, the trees carried across with
   ``train_state_from_arrays``) for the reduced minicpm-2b, gemma2-9b
   (softcaps, the window), phi4-mini, qwen1.5-4b (qkv bias), qwen2-vl-2b
-  with 8 patch embeddings in front (loss on the text positions), and
+  with 8 patch embeddings in front (loss on the text positions),
   whisper-tiny (the encoder's and the cross-attention's non-causal
-  calls), within atol 1e-5 + rtol 1e-4; a masked loss too;
+  calls), granite-moe and olmoe (the expert GEMM's Function, the aux
+  loss at the reference's weight; also at capacity factors 1.0 and 0.5,
+  where picks drop) and recurrentgemma (the RG-LRU's Function), within
+  atol 1e-5 + rtol 1e-4; a masked loss too; ``MoEConfig`` field by
+  field;
 * 3 ``make_train_step`` steps from the same state and batches
   (microbatches 1 and 2, ``grad_compress`` off and on, ``wsd`` and
   ``cosine``): each step's loss, grad norm and lr, then every parameter
@@ -15,8 +19,10 @@ flash-attention Function's plain versions), in float32.
   (``STEP_TOL``), the step counter exact;
 * ``remat="full"`` gives the loss and gradients of ``remat="none"``
   bitwise (the same operations, recomputed);
-* ``train_loss`` raises ``NotImplementedError`` for the MoE, griffin and
-  xLSTM families;
+* ``train_loss`` raises ``NotImplementedError`` for the xLSTM family;
+* ``make_train_step`` refuses microbatches that do not divide the batch
+  (the reference raises too) and batch leaves of other leading sizes,
+  and agrees with the reference where mb divides B;
 * ``train_loop`` over ``lm_data`` lowers the loss; its history holds
   Python floats;
 * checkpoints: a round trip bitwise, a torn write (no ``COMMIT``) never
@@ -47,6 +53,7 @@ from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.convert import train_state_from_arrays  # noqa: E402
 from repro_torch.data.pipeline import lm_data  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.runtime import checkpoint as ckpt  # noqa: E402
 from repro_torch.runtime.train_loop import (batch_to,  # noqa: E402
                                             loss_fn, make_train_step,
@@ -73,9 +80,10 @@ FLIP_COUNT = 4
 def flip_tol(key, lr):
     return dict(atol=lr * 3 if key == "params" else 1e-2, rtol=1e-3)
 ARCHS = ["minicpm-2b", "gemma2-9b", "phi4-mini-3.8b", "qwen1.5-4b",
-         "qwen2-vl-2b", "whisper-tiny"]
+         "qwen2-vl-2b", "whisper-tiny", "granite-moe-1b-a400m",
+         "olmoe-1b-7b", "recurrentgemma-9b"]
 #: leaves the reference initialises to zero: drawn so each counts
-_ZERO_LEAVES = ("scale", "bias", "bq", "bk", "bv")
+_ZERO_LEAVES = ("scale", "bias", "bq", "bk", "bv", "b_a", "b_i")
 
 
 def _cfgs(arch, **overrides):
@@ -115,7 +123,7 @@ def _setup(arch, seed=0, **overrides):
     """(port cfg, ref cfg, ref model, port model, ref state arrays)."""
     tcfg, jcfg = _cfgs(arch, **overrides)
     jm = j_build_model(jcfg)
-    params = _perturbed(jm.init(jax.random.PRNGKey(seed)), seed)
+    params = _perturbed(jax.jit(jm.init)(jax.random.PRNGKey(seed)), seed)
     zeros = jax.tree.map(np.zeros_like, params)
     arrays = {"params": params, "opt": {"m": zeros, "v": zeros,
                                         "step": np.int32(0)}}
@@ -129,10 +137,9 @@ def _port_grads(tcfg, tm, state, batch):
 
 
 def _ref_grads(jcfg, jm, params, batch):
-    loss, g = jax.value_and_grad(
-        lambda p: j_train._loss_fn(jm, jcfg, p, jax.tree.map(jnp.asarray,
-                                                            batch)))(
-        jax.tree.map(jnp.asarray, params))
+    loss, g = jax.jit(jax.value_and_grad(
+        lambda p, b: j_train._loss_fn(jm, jcfg, p, b)))(
+        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, batch))
     return float(loss), jax.tree.map(np.asarray, g)
 
 
@@ -151,6 +158,83 @@ def test_loss_and_every_gradient_match_reference(arch):
     for path, g, w in zip(paths, tg, leaves(want)):
         np.testing.assert_allclose(g.numpy(), w.detach().numpy(), **TOL,
                                    err_msg=path)
+
+
+@pytest.mark.parametrize("arch,cf", [("granite-moe-1b-a400m", 1.0),
+                                     ("granite-moe-1b-a400m", 0.5),
+                                     ("olmoe-1b-7b", 0.5)])
+def test_moe_gradients_match_reference_when_picks_drop(arch, cf,
+                                                      monkeypatch):
+    """At capacity factors under the reduced configs' drop-free E / k some
+    picks pass their expert's capacity: the combine reads a clamped slot
+    with weight 0 and empty slots read the appended zero row; the loss
+    (with the aux term) and every gradient still match the reference's."""
+    tcfg, jcfg = _cfgs(arch)
+    tcfg, jcfg = (dataclasses.replace(c, moe=dataclasses.replace(
+        c.moe, capacity_factor=cf)) for c in (tcfg, jcfg))
+    jm = j_build_model(jcfg)
+    params = _perturbed(jax.jit(jm.init)(jax.random.PRNGKey(7)), 7)
+    zeros = jax.tree.map(np.zeros_like, params)
+    arrays = {"params": params, "opt": {"m": zeros, "v": zeros,
+                                        "step": np.int32(0)}}
+    batch = _batch(tcfg, 2, 12, 8)
+    jl, jg = _ref_grads(jcfg, jm, params, batch)
+    state = train_state_from_arrays(tcfg, arrays, "cpu")
+    kept = []
+    route = moe_mod.moe_route
+
+    def recorded(*a, **kw):
+        r = route(*a, **kw)
+        kept.append(r["keep"])
+        return r
+    monkeypatch.setattr(moe_mod, "moe_route", recorded)
+    tl, tg = _port_grads(tcfg, build_model(tcfg, "cpu"), state, batch)
+    assert len(kept) == tcfg.n_layers and not all(k.all() for k in kept)
+    np.testing.assert_allclose(tl, jl, **TOL)
+    want = train_state_from_arrays(
+        tcfg, {"params": jg, "opt": arrays["opt"]}, "cpu")["params"]
+    for (path, w), g in zip(leaves_with_paths(want), tg):
+        np.testing.assert_allclose(g.numpy(), w.detach().numpy(), **TOL,
+                                   err_msg=path)
+
+
+def test_moe_loss_adds_the_weighted_aux_term():
+    """The MoE loss is the cross-entropy plus ``aux_loss_weight`` times the
+    layers' mean load-balancing loss: the reference's, at its weight and
+    at 0 (the cross-entropy alone), and the two differ."""
+    got, want = [], []
+    for weight in (0.01, 0.0):
+        tcfg, jcfg = (dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, aux_loss_weight=weight))
+            for c in _cfgs("granite-moe-1b-a400m"))
+        jm = j_build_model(jcfg)
+        params = _perturbed(jax.jit(jm.init)(jax.random.PRNGKey(2)), 2)
+        batch = _batch(tcfg, 2, 12, 3)
+        want.append(float(jm.train_loss(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(batch["tokens"]),
+            jnp.asarray(batch["labels"]))))
+        zeros = jax.tree.map(np.zeros_like, params)
+        state = train_state_from_arrays(
+            tcfg, {"params": params, "opt": {"m": zeros, "v": zeros,
+                                             "step": np.int32(0)}}, "cpu")
+        got.append(build_model(tcfg, "cpu").train_loss(
+            state["params"], torch.from_numpy(batch["tokens"]).long(),
+            torch.from_numpy(batch["labels"]).long()).item())
+    np.testing.assert_allclose(got, want, **TOL)
+    assert got[0] > got[1]
+
+
+def test_moe_config_fields_match_reference():
+    """``MoEConfig``'s fields and defaults, ``router_jitter`` and
+    ``aux_loss_weight`` among them, equal the reference's; every MoE
+    config's values too."""
+    from repro.configs.base import MoEConfig as JMoEConfig
+    from repro_torch.configs.base import MoEConfig
+    assert [(f.name, f.default) for f in dataclasses.fields(MoEConfig)] \
+        == [(f.name, f.default) for f in dataclasses.fields(JMoEConfig)]
+    for arch in ("granite-moe-1b-a400m", "olmoe-1b-7b"):
+        assert dataclasses.asdict(get_arch(arch).moe) == \
+            dataclasses.asdict(j_get_arch(arch).moe)
 
 
 def test_masked_loss_matches_reference():
@@ -177,6 +261,8 @@ STEP_CASES = [
     ("gemma2-9b", 1, True, "cosine"),
     ("qwen2-vl-2b", 2, False, "wsd"),
     ("whisper-tiny", 2, True, "wsd"),
+    ("granite-moe-1b-a400m", 2, True, "wsd"),
+    ("recurrentgemma-9b", 2, True, "cosine"),
 ]
 
 
@@ -225,7 +311,9 @@ def test_three_train_steps_match_reference(arch, mb, compress, schedule):
             np.testing.assert_allclose(g, w, **tol, err_msg=f"{key}{path}")
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma2-9b",
+                                  "granite-moe-1b-a400m",
+                                  "recurrentgemma-9b"])
 def test_remat_equals_no_remat(arch):
     tcfg, jcfg, jm, tm, arrays = _setup(arch, 4)
     batch = _batch(tcfg, 2, 12, 6)
@@ -239,10 +327,7 @@ def test_remat_equals_no_remat(arch):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch,item", [("granite-moe-1b-a400m", "14.6"),
-                                       ("olmoe-1b-7b", "14.6"),
-                                       ("recurrentgemma-9b", "14.7"),
-                                       ("xlstm-350m", "14.8")])
+@pytest.mark.parametrize("arch,item", [("xlstm-350m", "14.8")])
 def test_train_loss_raises_for_families_without_a_backward(arch, item):
     cfg = get_arch(arch).reduced()
     tm = build_model(cfg, "cpu")
@@ -250,6 +335,71 @@ def test_train_loss_raises_for_families_without_a_backward(arch, item):
     toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tm.train_loss(params, toks, toks)
+
+
+@pytest.mark.parametrize("b,mb", [(3, 2), (5, 2), (4, 3)])
+def test_microbatches_that_do_not_divide_the_batch_are_refused(b, mb):
+    """The reference reshapes the batch to (mb, b // mb, ...) and so raises
+    when mb does not divide it; the port raises ``ValueError`` rather than
+    train on the first mb * (b // mb) rows."""
+    tcfg, jcfg, jm, tm, arrays = _setup("minicpm-2b", 2)
+    kw = dict(steps=1, lr=1e-3, warmup_steps=1, microbatches=mb)
+    batch = _batch(tcfg, b, 6, 1)
+    jstate = j_train.init_state(
+        type("M", (), {"init": lambda self, k: jax.tree.map(
+            jnp.asarray, arrays["params"])})(), None, JTrainConfig(**kw))
+    with pytest.raises(TypeError, match="cannot reshape"):
+        j_train.make_train_step(jm, jcfg, JTrainConfig(**kw))(
+            jstate, jax.tree.map(jnp.asarray, batch))
+    state = train_state_from_arrays(tcfg, arrays, "cpu")
+    before = [p.detach().clone() for p in leaves(state["params"])]
+    with pytest.raises(ValueError, match=f"microbatches={mb} does not "
+                                         f"divide the batch of {b}"):
+        make_train_step(tm, tcfg, TrainConfig(**kw))(state, batch)
+    assert all(torch.equal(p, q) for p, q in
+               zip(leaves(state["params"]), before))
+
+
+def test_microbatch_leaves_of_other_lengths_are_refused():
+    """Batch leaves that disagree on their leading size cannot be split
+    into the same microbatches: ``ValueError`` naming the sizes."""
+    tcfg, _, _, tm, arrays = _setup("minicpm-2b", 2)
+    batch = _batch(tcfg, 4, 6, 1)
+    batch["labels"] = batch["labels"][:2]
+    state = train_state_from_arrays(tcfg, arrays, "cpu")
+    step = make_train_step(tm, tcfg, TrainConfig(steps=1, microbatches=2))
+    with pytest.raises(ValueError, match="disagree on their leading size"):
+        step(state, batch)
+
+
+def test_dividing_microbatches_agree_with_the_reference():
+    """Where mb divides B (B 6 at mb 2 and 3), one step's loss, grad norm
+    and parameters match the reference's, as at B 4."""
+    tcfg, jcfg, jm, tm, arrays = _setup("minicpm-2b", 2)
+    for mb in (2, 3):
+        kw = dict(steps=1, lr=1e-3, warmup_steps=1, microbatches=mb)
+        batch = _batch(tcfg, 6, 6, 3)
+        jstate = j_train.init_state(
+            type("M", (), {"init": lambda self, k: jax.tree.map(
+                jnp.asarray, arrays["params"])})(), None, JTrainConfig(**kw))
+        jstate, jmet = jax.jit(j_train.make_train_step(
+            jm, jcfg, JTrainConfig(**kw)))(jstate,
+                                          jax.tree.map(jnp.asarray, batch))
+        state = train_state_from_arrays(tcfg, arrays, "cpu")
+        state, tmet = make_train_step(tm, tcfg, TrainConfig(**kw))(state,
+                                                                   batch)
+        np.testing.assert_allclose(tmet["loss"].item(), float(jmet["loss"]),
+                                   **TOL)
+        np.testing.assert_allclose(tmet["grad_norm"].item(),
+                                   float(jmet["grad_norm"]), rtol=1e-4)
+        want = train_state_from_arrays(
+            tcfg, {"params": jax.tree.map(np.asarray, jstate["params"]),
+                   "opt": arrays["opt"]}, "cpu")["params"]
+        for (path, g), w in zip(leaves_with_paths(state["params"]),
+                                leaves(want)):
+            np.testing.assert_allclose(g.detach().numpy(),
+                                       w.detach().numpy(),
+                                       **STEP_TOL(kw["lr"]), err_msg=path)
 
 
 def test_train_loop_lowers_the_loss():
