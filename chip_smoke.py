@@ -4199,10 +4199,12 @@ FULL_TRAIN_SLICE = (dict(FULL_TRAIN, arch="granite-moe-1b-a400m"),
                     dict(FULL_TRAIN, arch="recurrentgemma-9b", n_layers=9))
 #: phase 38: the expert GEMM's backward products (E, C, D, F): granite-moe's
 #: training shapes (the w_in / w_gate product, then w_out's D 512, F
-#: 1,024), olmoe-1b-7b's, a ragged C 97, D and F not multiples of 8, C 0
+#: 1,024), olmoe-1b-7b's, a ragged C 97, D and F not multiples of 8 (bf16
+#: on ``simt``), C 0, C 1 at D 16, F 8 (a box mostly out of bounds), D != F
+#: with a ragged C on ``wgmma``
 MOE_BWD_CASES = [(32, 1280, 1024, 512), (32, 1280, 512, 1024),
                  (64, 640, 2048, 1024), (8, 97, 200, 72), (3, 40, 100, 36),
-                 (4, 0, 64, 32)]
+                 (4, 0, 64, 32), (2, 1, 16, 8), (5, 333, 136, 264)]
 #: phase 38: the RG-LRU reverse scan (B, T, W, with a dhT): recurrentgemma's
 #: training call, its served prefill's B x T, a ragged W, T 1
 RGLRU_BWD_CASES = [(1, 4096, 4096, False), (8, 1345, 4096, True),
@@ -4448,17 +4450,21 @@ def train_launches(cfg, passes):
 def train_routes(torch, cfg, dtype):
     """The route every training launch of ``cfg`` in compute ``dtype``
     takes: flash and its backward ``wgmma`` in bfloat16, ``simt`` in
-    float32; the expert GEMM ``wgmma`` in bfloat16 where TMA reads D and
-    F, else ``simt``, its dX and dW ``simt``; the RG-LRU scan the route of
-    its float32 operands (under grad the recurrence runs in float32), its
-    reverse scan ``simt``."""
+    float32; the expert GEMM and its dX and dW ``wgmma`` in bfloat16 where
+    TMA reads D and F, else ``simt`` (``bwd_route``: the rule is the same
+    for D -> F and F -> D); the RG-LRU scan the route of its float32
+    operands (under grad the recurrence runs in float32), its reverse scan
+    ``simt``."""
+    from repro_torch.kernels.moe_matmul.moe_matmul import bwd_route
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_route
     bf16 = dtype == "bfloat16"
     tma = cfg.d_model % 8 == 0 and cfg.moe.d_expert % 8 == 0
+    moe_bwd = bwd_route(torch.bfloat16 if bf16 else torch.float32,
+                        cfg.d_model, cfg.moe.d_expert)
     return {"flash_attention": "wgmma" if bf16 else "simt",
             "flash_attention_bwd": "wgmma" if bf16 else "simt",
             "moe_matmul": "wgmma" if bf16 and tma else "simt",
-            "moe_matmul_dx": "simt", "moe_matmul_dw": "simt",
+            "moe_matmul_dx": moe_bwd, "moe_matmul_dw": moe_bwd,
             "rglru_scan": rglru_route(torch.float32, 1,
                                       cfg.rglru_width or cfg.d_model),
             "rglru_scan_bwd": "simt"}
@@ -4896,9 +4902,12 @@ def check_train_kernels(np, torch, device):
     dW), as phase 14 holds the forward; the RG-LRU reverse scan
     (``rglru_scan_bwd``) bitwise against ``rglru_bwd_ref`` at
     ``RGLRU_BWD_CASES`` (h0 nonzero, with and without dhT, T 1, a ragged
-    W); each kernel's two launches bitwise equal, each launch on
-    ``simt``.  Returns the bf16 max abs errors at phase 39's shapes."""
-    from repro_torch.kernels.moe_matmul.moe_matmul import (moe_matmul_dw,
+    W); each kernel's two launches bitwise equal; dX and dW on
+    ``bwd_route``'s route (``wgmma`` for bfloat16 with D and F multiples
+    of 8), the reverse scan on ``simt``.  Returns the bf16 max abs errors
+    at phase 39's shapes (the second granite shape's under ``name/down``)."""
+    from repro_torch.kernels.moe_matmul.moe_matmul import (bwd_route,
+                                                           moe_matmul_dw,
                                                            moe_matmul_dx)
     from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
                                                     moe_matmul_dx_ref)
@@ -4921,7 +4930,7 @@ def check_train_kernels(np, torch, device):
                         raise AssertionError(f"{name} C 0: {got.shape}")
                     continue
                 got, route = take_route(fn, lambda: fn(*args))
-                want_route(name, route, "simt")
+                want_route(name, route, bwd_route(dtype, d, f))
                 again = fn(*args)
                 want = ref(*args)
                 torch.cuda.synchronize()
@@ -4935,10 +4944,10 @@ def check_train_kernels(np, torch, device):
                 if c == 0 and got.any():
                     raise AssertionError(f"{name} at C 0: not zeros")
                 err = float((got.double() - want.double()).abs().max())
-                if (e, c, d, f) == MOE_BWD_CASES[0] and dname == "bfloat16":
-                    errs[name] = err
-                log(f"  {name} {dname} E={e} C={c} D={d} F={f}: simt, max "
-                    f"abs err {err:.3g}, two launches bitwise equal")
+                if i < 2 and dname == "bfloat16":
+                    errs[name if i == 0 else f"{name}/down"] = err
+                log(f"  {name} {dname} E={e} C={c} D={d} F={f}: {route}, "
+                    f"max abs err {err:.3g}, two launches bitwise equal")
             del x, w, dy
         for i, (b, t, w, last) in enumerate(RGLRU_BWD_CASES):
             args = rglru_bwd_operands(torch, 850 + i, b, t, w, last, dtype,
@@ -4969,45 +4978,26 @@ def check_train_kernels(np, torch, device):
 
 
 def time_train_kernels(torch, device, errs):
-    """Phase 39: the expert GEMM's dX and dW at granite-moe's training
-    shape (E 32, C 1,280, D 1,024, F 512, bfloat16) and the RG-LRU reverse
-    scan at recurrentgemma's (B 1, T 4,096, W 4,096, float32, dhT given),
-    CUDA events in a graph and eager, beside their plain versions,
-    ``torch.bmm`` on the transposed operands (the expert GEMM; no single
-    PyTorch call computes the reverse scan) and their bounds from this
-    run's shapes.  Returns the three ``kernels`` rows; ``launches`` is
-    filled from phase 41."""
+    """Phase 39: the expert GEMM's dX and dW at granite-moe's two training
+    shapes (E 32, C 1,280, bfloat16; D 1,024 -> F 512, the gate and up
+    products, in the row, and D 512 -> F 1,024, the down product, under
+    the row's ``down``) and the RG-LRU reverse scan at recurrentgemma's
+    (B 1, T 4,096, W 4,096, float32, dhT given), CUDA events in a graph
+    and eager, beside their plain versions, ``torch.bmm`` on the
+    transposed operands (the expert GEMM; no single PyTorch call computes
+    the reverse scan) and their bounds from this run's shapes; each row's
+    ``kernel_route`` is the route its timed launch took.  Returns the
+    three ``kernels`` rows; ``launches`` is filled from phase 41."""
     from repro_torch.kernels.moe_matmul.moe_matmul import (moe_matmul_dw,
                                                            moe_matmul_dx)
     from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
                                                     moe_matmul_dx_ref)
     from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan_bwd
-    e, c, d, f = MOE_BWD_CASES[0]
-    x, w, dy = moe_bwd_operands(torch, 800, e, c, d, f, torch.bfloat16,
-                                device)
-    b, t, width, _ = RGLRU_BWD_CASES[0]
-    rargs = rglru_bwd_operands(torch, 900, b, t, width, True,
-                               torch.float32, device)
-    cases = [
-        ("moe_matmul_dx", "moe_matmul_bwd", lambda: moe_matmul_dx(dy, w),
-         lambda: moe_matmul_dx_ref(dy, w),
-         lambda: torch.bmm(dy, w.transpose(1, 2)),
-         2 * (e * c * f + e * d * f + e * c * d), 2 * e * c * d * f,
-         BF16_OPS_PER_S, [e, c, d, f], "bfloat16", True),
-        ("moe_matmul_dw", "moe_matmul_bwd", lambda: moe_matmul_dw(x, dy),
-         lambda: moe_matmul_dw_ref(x, dy),
-         lambda: torch.bmm(x.transpose(1, 2), dy),
-         2 * (e * c * d + e * c * f + e * d * f), 2 * e * c * d * f,
-         BF16_OPS_PER_S, [e, c, d, f], "bfloat16", True),
-        ("rglru_scan_bwd", "rglru_scan_bwd",
-         lambda: rglru_scan_bwd(*rargs), lambda: rglru_bwd_ref(*rargs),
-         None, 4 * (5 * b * t * width + 3 * b * width), 3 * b * t * width,
-         FP32_OPS_PER_S, [b, t, width], "float32", False),
-    ]
-    rows = []
-    for (name, src, kern, plain, lib, nbytes, nops, peak, shape, dname,
-         plain_graph) in cases:
+
+    def timed(name, fn, kern, plain, lib, nbytes, nops, peak, shape, dname,
+              plain_graph):
+        _, route = take_route(fn, kern)
         iters = 5 if plain_graph else 20
         ms = time_ms(torch, kern, iters, graph=True)
         eager_ms = time_ms(torch, kern, iters, graph=False)
@@ -5016,32 +5006,75 @@ def time_train_kernels(torch, device, errs):
         lib_ms = time_ms(torch, lib, iters, graph=True) if lib else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / peak * 1e3
-        row = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/csrc/{src}.cu",
-               "replaces": "src/repro/models/moe.py:82" if src ==
-               "moe_matmul_bwd" else "src/repro/models/recurrent.py:76",
-               "replaces_note": "no Pallas kernel has a backward: XLA's "
-                                "gradient of the reference's "
-               + ("einsum" if src == "moe_matmul_bwd"
-                  else "associative scan"),
-               "launches": None, "max_abs_err": errs[name], "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        out = {"ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": lib_ms,
-               "library": "torch.bmm (transposed operands)" if lib else None,
-               "eager_ms": eager_ms,
+               "library_ms": lib_ms, "eager_ms": eager_ms,
                "plain_timing": "graph" if plain_graph else "eager",
-               "kernel_route": "simt", "shape": shape, "dtype": dname,
+               "kernel_route": route, "shape": shape, "dtype": dname,
                "bytes": nbytes, "operations": nops,
                "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6}
-        rows.append(row)
-        log(f"  {name} {shape} {dname} (simt): {ms:.4f} ms in a graph, "
-            f"{eager_ms:.4f} ms eager ({row['tflops']:.2f} TFLOP/s, "
-            f"{row['gb_per_s']:.1f} GB/s); plain {plain_ms:.4f} ms "
-            f"({row['plain_timing']})"
+        log(f"  {name} {shape} {dname} ({route}): {ms:.4f} ms in a graph, "
+            f"{eager_ms:.4f} ms eager ({out['tflops']:.2f} TFLOP/s, "
+            f"{out['gb_per_s']:.1f} GB/s); plain {plain_ms:.4f} ms "
+            f"({out['plain_timing']})"
             + (f"; torch.bmm {lib_ms:.4f} ms" if lib else "")
-            + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-    del x, w, dy, rargs
+            + f"; bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+        return out
+
+    def moe_bwd(i):
+        """dX's and dW's timings at ``MOE_BWD_CASES[i]``."""
+        e, c, d, f = MOE_BWD_CASES[i]
+        x, w, dy = moe_bwd_operands(torch, 800 + i, e, c, d, f,
+                                    torch.bfloat16, device)
+        nbytes = 2 * (e * c * f + e * d * f + e * c * d)
+        out = {
+            "moe_matmul_dx": timed(
+                "moe_matmul_dx", moe_matmul_dx, lambda: moe_matmul_dx(dy, w),
+                lambda: moe_matmul_dx_ref(dy, w),
+                lambda: torch.bmm(dy, w.transpose(1, 2)), nbytes,
+                2 * e * c * d * f, BF16_OPS_PER_S, [e, c, d, f], "bfloat16",
+                True),
+            "moe_matmul_dw": timed(
+                "moe_matmul_dw", moe_matmul_dw, lambda: moe_matmul_dw(x, dy),
+                lambda: moe_matmul_dw_ref(x, dy),
+                lambda: torch.bmm(x.transpose(1, 2), dy), nbytes,
+                2 * e * c * d * f, BF16_OPS_PER_S, [e, c, d, f], "bfloat16",
+                True)}
+        del x, w, dy
+        torch.cuda.empty_cache()
+        return out
+
+    rows = []
+    gate_up, down = moe_bwd(0), moe_bwd(1)
+    for name in ("moe_matmul_dx", "moe_matmul_dw"):
+        rows.append(dict(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/moe_matmul_bwd.cu",
+             "replaces": "src/repro/models/moe.py:82",
+             "replaces_note": "no Pallas kernel has a backward: XLA's "
+                              "gradient of the reference's einsum",
+             "launches": None, "max_abs_err": errs[name],
+             "library": "torch.bmm (transposed operands)"},
+            **gate_up[name],
+            down=dict(down[name], max_abs_err=errs[f"{name}/down"])))
+    b, t, width, _ = RGLRU_BWD_CASES[0]
+    rargs = rglru_bwd_operands(torch, 900, b, t, width, True,
+                               torch.float32, device)
+    rows.append(dict(
+        {"name": "rglru_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
+         "replaces": "src/repro/models/recurrent.py:76",
+         "replaces_note": "no Pallas kernel has a backward: XLA's gradient "
+                          "of the reference's associative scan",
+         "launches": None, "max_abs_err": errs["rglru_scan_bwd"],
+         "library": None},
+        **timed("rglru_scan_bwd", rglru_scan_bwd,
+                lambda: rglru_scan_bwd(*rargs),
+                lambda: rglru_bwd_ref(*rargs), None,
+                4 * (5 * b * t * width + 3 * b * width), 3 * b * t * width,
+                FP32_OPS_PER_S, [b, t, width], "float32", False)))
+    del rargs
     torch.cuda.empty_cache()
     return rows
 

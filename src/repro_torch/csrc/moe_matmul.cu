@@ -26,10 +26,12 @@
 //   stage's wait, and store bf16 outputs masked at C and F.  The D
 //   reduction has one fixed order and no split-K, so two launches are
 //   bitwise equal.  Two tile shapes, chosen from C:
-//     - C > 16 (prefill): a 128 x 128 output tile of one expert per block,
-//       two consumer warpgroups of 64 rows each, K steps of 64 through a
-//       5-stage ring (x box [1, 128, 64] K-major, w box [1, 64, 64] twice,
-//       MN-major: F is w's contiguous axis and wgmma transposes bf16 B);
+//     - C > 16 (prefill): csrc/moe_gemm.cuh's Narrow tile (the template
+//       the backward instantiates too): a 128 x 128 output tile of one
+//       expert per block, two consumer warpgroups of 64 rows each, K steps
+//       of 64 through a 5-stage ring (x box [1, 128, 64] K-major, w box
+//       [1, 64, 64] twice, MN-major: F is w's contiguous axis and wgmma
+//       transposes bf16 B);
 //     - C <= 16 (decode): y[e]^T = w[e]^T x[e]^T, so F is wgmma's M (64 a
 //       block) and C its N (8 or 16): every MMA row is real and the
 //       weights stream through an 8-stage ring, 2 blocks an SM, ~160 KB
@@ -45,6 +47,7 @@
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "moe_gemm.cuh"
 
 namespace {
 
@@ -156,100 +159,9 @@ int dispatch_c(const void* x, const void* w, void* y, int E, int C, int D,
 // ---------------------------------------------------------------------------
 
 using hopper::desc;
-
-constexpr int KSTEP = 64;                   // bf16 elements: one 128 B row
-constexpr int ROW_BYTES = KSTEP * 2;
-constexpr int BOX_BYTES = 64 * ROW_BYTES;   // a 64 x 64 bf16 box
-
-// prefill tile: 128 x 128 outputs, two consumer warpgroups, one producer
-// warp
-constexpr int WM = 128, WN = 128, W_STAGES = 5;
-constexpr int W_THREADS = 2 * 128 + 32;
-constexpr int WA_BYTES = WM * ROW_BYTES;             // x box [128, 64]
-constexpr int WB_BYTES = (WN / 64) * BOX_BYTES;      // w boxes [64, 64]
-constexpr int W_SMEM = 1024 + W_STAGES * (WA_BYTES + WB_BYTES) +
-                       2 * W_STAGES * 8;
-
-__global__ void __launch_bounds__(W_THREADS, 1)
-moe_wide_kernel(const __grid_constant__ CUtensorMap tx,
-                const __grid_constant__ CUtensorMap tw,
-                __nv_bfloat16* __restrict__ y, int C, int D, int F) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* As = hopper::align1024(smem_raw);
-  uint8_t* Bs = As + W_STAGES * WA_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + W_STAGES * WB_BYTES);
-  uint64_t* empty = full + W_STAGES;
-
-  const int m0 = blockIdx.x * WM, n0 = blockIdx.y * WN, e = blockIdx.z;
-  const int nk = (D + KSTEP - 1) / KSTEP;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < W_STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 2);       // one arrival per warpgroup
-    }
-    hopper::fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (warp == 8) {                           // producer
-    if (lane == 0) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % W_STAGES;
-        hopper::mbar_wait(&empty[s], ((kt / W_STAGES) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&full[s], WA_BYTES + WB_BYTES);
-        hopper::tma_load_3d(As + s * WA_BYTES, &tx, &full[s], kt * KSTEP,
-                            m0, e);
-#pragma unroll
-        for (int j = 0; j < WN / 64; ++j)
-          hopper::tma_load_3d(Bs + s * WB_BYTES + j * BOX_BYTES, &tw,
-                              &full[s], n0 + 64 * j, kt * KSTEP, e);
-      }
-    }
-    return;
-  }
-
-  const int wg = warp / 4;                   // rows 64 wg .. 64 wg + 63
-  float acc[WN / 2];
-#pragma unroll
-  for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % W_STAGES;
-    hopper::mbar_wait(&full[s], (kt / W_STAGES) & 1);
-    const uint8_t* a = As + s * WA_BYTES + wg * 64 * ROW_BYTES;
-    const uint8_t* b = Bs + s * WB_BYTES;
-    hopper::fence_regs(acc);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KSTEP / 16; ++kk)
-      hopper::wgmma_ss<0, 1>(acc, desc<128>(a + kk * 32, 16, 1024),
-                             desc<128>(b + kk * 16 * ROW_BYTES, BOX_BYTES,
-                                       1024), 1);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<1>();                 // step kt - 1 has finished
-    hopper::fence_regs(acc);
-    if (kt > 0 && threadIdx.x % 128 == 0)
-      hopper::mbar_arrive(&empty[(kt - 1) % W_STAGES]);
-  }
-  hopper::wgmma_wait<0>();
-  hopper::fence_regs(acc);
-
-  const int w4 = warp % 4;
-  const int r = m0 + wg * 64 + 16 * w4 + lane / 4;
-  __nv_bfloat16* ye = y + (long long)e * C * F;
-#pragma unroll
-  for (int j = 0; j < WN / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * (lane % 4);
-    if (col >= F) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r + 8 * h;
-      if (row < C)
-        *reinterpret_cast<__nv_bfloat162*>(ye + (long long)row * F + col) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  }
-}
+using moe_gemm::BOX_BYTES;
+using moe_gemm::KSTEP;
+using moe_gemm::ROW_BYTES;
 
 // decode tile: y[e]^T [64 f, CN c] = w[e]^T x[e]^T, one consumer
 // warpgroup, one producer warp
@@ -336,35 +248,25 @@ moe_decode_kernel(const __grid_constant__ CUtensorMap tx,
     }
 }
 
-// the wgmma route takes bf16 with D, F multiples of 8 (TMA strides); the
-// wrapper refuses such operands off 16 bytes (TMA base addresses)
-bool wgmma_takes(int D, int F) { return D > 0 && D % 8 == 0 && F % 8 == 0; }
-
 int launch_wgmma(const void* x, const void* w, void* y, int E, int C, int D,
                  int F, cudaStream_t stream) {
+  __nv_bfloat16* out = (__nv_bfloat16*)y;
+  // prefill: the shared tile, y = x w with x K-major and w MN-major
+  if (C > SKINNY_MAX_C)
+    return moe_gemm::launch<0, 1, moe_gemm::Narrow>(x, w, out, E, C, F, D,
+                                                    stream);
   const int CN = C <= 8 ? 8 : 16;
-  const bool wide = C > SKINNY_MAX_C;
   // x [E, C, D] and w [E, D, F], innermost first
   const uint64_t xd[3] = {(uint64_t)D, (uint64_t)C, (uint64_t)E};
   const uint64_t xs[2] = {(uint64_t)D * 2, (uint64_t)C * D * 2};
   const uint64_t wd[3] = {(uint64_t)F, (uint64_t)D, (uint64_t)E};
   const uint64_t ws[2] = {(uint64_t)F * 2, (uint64_t)D * F * 2};
-  const uint32_t xbox[3] = {KSTEP, (uint32_t)(wide ? WM : CN), 1};
+  const uint32_t xbox[3] = {KSTEP, (uint32_t)CN, 1};
   const uint32_t wbox[3] = {64, KSTEP, 1};
   CUtensorMap tx, tw;
   int err = hopper::encode_bf16(&tx, 3, x, xd, xs, xbox, 128);
   if (!err) err = hopper::encode_bf16(&tw, 3, w, wd, ws, wbox, 128);
   if (err) return err;
-  __nv_bfloat16* out = (__nv_bfloat16*)y;
-  if (wide) {
-    cudaError_t e = cudaFuncSetAttribute(
-        moe_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((unsigned)((C + WM - 1) / WM), (unsigned)((F + WN - 1) / WN),
-                    (unsigned)E);
-    moe_wide_kernel<<<grid, W_THREADS, W_SMEM, stream>>>(tx, tw, out, C, D, F);
-    return (int)cudaGetLastError();
-  }
   auto kern = CN == 8 ? moe_decode_kernel<8> : moe_decode_kernel<16>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, D_SMEM);
@@ -388,7 +290,7 @@ extern "C" int repro_moe_matmul(const void* x, const void* w, void* y, int E,
   *route = 0;
   if (dtype == 0) return dispatch_c<float>(x, w, y, E, C, D, F, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (!wgmma_takes(D, F))
+  if (!moe_gemm::wgmma_takes(D, F))
     return dispatch_c<__nv_bfloat16>(x, w, y, E, C, D, F, s);
   *route = 1;
   return launch_wgmma(x, w, y, E, C, D, F, s);

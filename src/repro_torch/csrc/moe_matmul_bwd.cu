@@ -17,26 +17,45 @@
 // float32 or bfloat16 operands, float32 accumulation, the output in the
 // operands' dtype (the reference's f32 einsum cast back).
 //
-// Bound: operations.  At granite-moe's training shape (E 32, C 1,280,
-// D 1,024, F 512, bf16) either product is 2 E C D F = 42.9 GFLOP on
-// ~0.2 GB, 43.4 us at 989 TFLOP/s.
+// Bound: bytes.  At granite-moe's training shape (E 32, C 1,280, D 1,024,
+// F 512, bf16) either product reads two operands and writes one, 159.4 MB
+// at 3.35 TB/s: 47.6 us, against 2 E C D F = 42.9 GFLOP, 43.4 us at 989
+// TFLOP/s.
 //
-// Design: the forward's SIMT route (a shared-memory tiled GEMM, one
-// block a 64 x 64 output tile of one expert, the grid's z axis over the
-// experts, fp32 fmaf products) with the operands' majorness a template
-// parameter, so each tile is read from the layout the forward left it
-// in.  A tile of A (m, k) comes from a [M, K] array (dY for dX: k runs
-// along a row) or a [K, M] array (X for dW: m runs along a row); a tile
-// of B (k, n) from a [K, N] array (dY for dW) or a [N, K] array (W for
-// dX).  Neighbouring threads read neighbouring elements of a row either
-// way, and a tile that comes in transposed lands in a padded shared array.
-// Ragged edges are masked; every output element sums its K products in
-// one fixed order in one thread: no atomics and no split-K, so every
-// launch is bitwise the last, and K = 0 (C 0 for dW) writes zeros.  The
-// Hopper redesign (the forward's wgmma + TMA machinery with other operand
-// majorness) comes once these times are on record.
+// Routes, chosen by the launcher and reported to the wrapper, by the
+// forward's rule (moe_gemm::wgmma_takes):
+//
+// * wgmma (bfloat16 with D and F multiples of 8: TMA's strides must be
+//   multiples of 16 bytes; the wrapper refuses such operands whose data
+//   is not 16-byte aligned).  The forward's tile (csrc/moe_gemm.cuh: an
+//   output tile of one expert a block, a producer warp feeding a TMA
+//   ring, two consumer warpgroups on wgmma, fp32 accumulators, bf16
+//   stores masked at M and N) with other operand majorness, so each
+//   operand is read by TMA in the layout the forward left it in: dX =
+//   dY W^T is tile_kernel<0, 0> (dY [C, F] and W [D, F] both K-major: F
+//   contiguous), dW = X^T dY is tile_kernel<1, 1> (X [C, D] and dY
+//   [C, F] both MN-major: C is the reduction axis, each read in [64 c,
+//   64] boxes).  Out-of-bounds rows and columns read as zeros: ragged C,
+//   D and F need no padded copy.  Both take the header's Wide tile: 128
+//   x 256 outputs through a 4-stage ring of 48 KB, stored by TMA from
+//   the freed ring.
+// * simt (float32, and bfloat16 with D or F not a multiple of 8).  The
+//   forward's SIMT route (a shared-memory tiled GEMM, one block a 64 x 64
+//   output tile of one expert, the grid's z axis over the experts, fp32
+//   fmaf products) with the operands' majorness a template parameter.  A
+//   tile of A (m, k) comes from a [M, K] array (dY for dX: k runs along a
+//   row) or a [K, M] array (X for dW: m runs along a row); a tile of B
+//   (k, n) from a [K, N] array (dY for dW) or a [N, K] array (W for dX).
+//   Neighbouring threads read neighbouring elements of a row either way,
+//   and a tile that comes in transposed lands in a padded shared array.
+//
+// Both routes: every output element sums its K products in one fixed
+// order, with no atomics and no split-K, so every launch is bitwise the
+// last, and K = 0 (C 0 for dW) writes zeros.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "moe_gemm.cuh"
 
 namespace {
 
@@ -159,7 +178,7 @@ bool bad_shape(int E, int C, int D, int F, int dtype) {
 
 // dx [E, C, D] = dy [E, C, F] @ w [E, D, F]^T.  dtype 0 = float32,
 // 1 = bfloat16; every array contiguous and of that dtype.  *route is set
-// to the route launched: 0 = simt.
+// to the route launched: 1 = wgmma, 0 = simt.
 extern "C" int repro_moe_matmul_dx(const void* dy, const void* w, void* dx,
                                    int E, int C, int D, int F, int dtype,
                                    void* stream, int* route) {
@@ -169,7 +188,11 @@ extern "C" int repro_moe_matmul_dx(const void* dy, const void* w, void* dx,
   *route = 0;
   // M = C, N = D, K = F: dy is [M, K], w is [N, K]
   if (dtype == 0) return launch<float, true, true>(dy, w, dx, E, C, D, F, s);
-  return launch<__nv_bfloat16, true, true>(dy, w, dx, E, C, D, F, s);
+  if (!moe_gemm::wgmma_takes(D, F))
+    return launch<__nv_bfloat16, true, true>(dy, w, dx, E, C, D, F, s);
+  *route = 1;
+  return moe_gemm::launch<0, 0, moe_gemm::Wide>(
+      dy, w, (__nv_bfloat16*)dx, E, C, D, F, s);
 }
 
 // dw [E, D, F] = x [E, C, D]^T @ dy [E, C, F]; C may be 0 (zeros).
@@ -182,7 +205,11 @@ extern "C" int repro_moe_matmul_dw(const void* x, const void* dy, void* dw,
   *route = 0;
   // M = D, N = F, K = C: x is [K, M], dy is [K, N]
   if (dtype == 0) return launch<float, false, false>(x, dy, dw, E, D, F, C, s);
-  return launch<__nv_bfloat16, false, false>(x, dy, dw, E, D, F, C, s);
+  if (!moe_gemm::wgmma_takes(D, F))
+    return launch<__nv_bfloat16, false, false>(x, dy, dw, E, D, F, C, s);
+  *route = 1;
+  return moe_gemm::launch<1, 1, moe_gemm::Wide>(
+      x, dy, (__nv_bfloat16*)dw, E, D, F, C, s);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -22,11 +22,19 @@ Masked ragged edges, no split-K, deterministic launch to launch.
 The backward (``csrc/moe_matmul_bwd.cu``; no Pallas kernel has one: the
 reference leaves its einsum's gradient to XLA) is two more grouped
 GEMMs over the same layouts, ``moe_matmul_dx`` (``dx = dy w^T``) and
-``moe_matmul_dw`` (``dw = x^T dy``), each on one ``simt`` route for now
-(the forward's SIMT tiles with the operands' majorness as a template
-parameter).  ``ops.expert_gemm`` calls the three through an autograd
-Function when a gradient is wanted; the bare forward refuses to run
-under grad (its output would carry no gradient).
+``moe_matmul_dw`` (``dw = x^T dy``), on the forward's two routes by the
+forward's rule (``bwd_route``), counted in ``launches_by_route``:
+
+* ``wgmma``: the forward's 128 x 128 TMA + ``wgmma`` tile
+  (``csrc/moe_gemm.cuh``) with other operand majorness, each operand read
+  by TMA in place (dX: dy and w both with F contiguous; dW: x and dy
+  both with the reduced C as their rows);
+* ``simt``: the forward's SIMT tiles with the operands' majorness as a
+  template parameter.
+
+``ops.expert_gemm`` calls the three through an autograd Function when a
+gradient is wanted; the bare forward refuses to run under grad (its
+output would carry no gradient).
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ MAX_EXPERTS = 65535        # the grid's z extent
 #: launcher route codes
 ROUTES = ("simt", "wgmma")
 #: the backward launchers' route codes
-BWD_ROUTES = ("simt",)
+BWD_ROUTES = ("simt", "wgmma")
 
 
 def check_operands(fn: str, *named: tuple) -> None:
@@ -63,7 +71,8 @@ def check_operands(fn: str, *named: tuple) -> None:
 def check_launchable(fn: str, d: int, f: int, *named: tuple) -> None:
     """Refuse more experts than the grid's z extent (``MAX_EXPERTS``), and
     bfloat16 operands with D and F multiples of 8 (read by TMA on the
-    forward's wgmma route) whose data is off 16 bytes, before building."""
+    ``wgmma`` route, forward and backward alike) whose data is off 16
+    bytes, before building."""
     e = named[0][1].shape[0]
     if e > MAX_EXPERTS:
         raise ValueError(f"{fn}: {e} experts, at most {MAX_EXPERTS}")
@@ -109,6 +118,15 @@ def moe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 moe_matmul.launches = 0
 moe_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def bwd_route(dtype: torch.dtype, d: int, f: int) -> str:
+    """The route ``moe_matmul_dx`` and ``moe_matmul_dw`` take for operands
+    of ``dtype`` at widths D and F: ``wgmma`` for bfloat16 with D and F
+    multiples of 8 (TMA's strides; ``wgmma`` has no float32 input), else
+    ``simt`` (the forward's rule)."""
+    return "wgmma" if dtype == torch.bfloat16 and d > 0 and d % 8 == 0 \
+        and f % 8 == 0 else "simt"
 
 
 def _launch_bwd(wrapper, symbol: str, a: torch.Tensor, b: torch.Tensor,

@@ -94,18 +94,17 @@ def moe_apply(p: Params, x: torch.Tensor, *, top_k: int, act: str,
     rows = b * cap                                  # slots of one expert
     n_slots = e * rows
 
-    # --- dispatch: slot -> source token (dropped picks go to a trash
-    # slot; empty slots read an appended zero row) -----------------------
+    # --- dispatch: each pick's copy of its token put in its slot, as the
+    # reference's scatter (a kept slot takes one pick; dropped picks go
+    # to a trash row cut off after).  The gradient is then a gather at the
+    # slots and a sum over the k copies: deterministic, where a gather of
+    # the tokens would take an atomic bf16 index_add ----------------------
     seq = torch.arange(b, device=x.device)[:, None]
     slot = idx_flat * rows + seq * cap + torch.clamp(r["pos"], max=cap - 1)
     dest = torch.where(keep, slot, torch.full_like(slot, n_slots))
-    tok = (seq * s + torch.arange(s * top_k, device=x.device)[None, :]
-           // top_k)
-    src = torch.full((n_slots + 1,), b * s, dtype=torch.long,
-                     device=x.device)
-    src.index_copy_(0, dest.reshape(-1), tok.reshape(-1))
-    x_ext = torch.cat([x.reshape(b * s, d), x.new_zeros((1, d))])
-    buf = x_ext.index_select(0, src[:n_slots]).view(e, rows, d)
+    x_rep = x[:, :, None].expand(b, s, top_k, d).reshape(b * s * top_k, d)
+    buf = x.new_zeros((n_slots + 1, d)).index_copy(
+        0, dest.reshape(-1), x_rep)[:n_slots].view(e, rows, d)
 
     # --- expert GEMMs --------------------------------------------------
     h = expert_gemm(buf, p["w_in"].to(dt))

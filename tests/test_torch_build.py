@@ -312,6 +312,32 @@ def test_moe_matmul_bwd_wrappers_reject_before_building(which, case,
     assert (fn.launches, fn.launches_by_route) == before
 
 
+@pytest.mark.parametrize("dtype,d,f,route", [
+    (_BF, 1024, 512, "wgmma"), (_BF, 512, 1024, "wgmma"),
+    (_BF, 16, 8, "wgmma"), (_BF, 200, 72, "wgmma"), (_BF, 100, 36, "simt"),
+    (_BF, 16, 36, "simt"), (_BF, 36, 16, "simt"),
+    (torch.float32, 1024, 512, "simt"), (torch.float32, 16, 8, "simt")])
+@pytest.mark.parametrize("which", ["dx", "dw"])
+def test_moe_matmul_bwd_route_follows_dtype_and_widths(which, dtype, d, f,
+                                                       route, monkeypatch):
+    """dX and dW take ``wgmma`` for bfloat16 with D and F multiples of 8
+    and the SIMT kernel for float32 or D or F off 8, the forward's rule.
+    Only the ``wgmma`` route reads by TMA: a first operand one element
+    off its allocation is refused as TMA-unreadable there, and reaches
+    the device check (a CPU tensor) on ``simt``."""
+    from repro_torch.kernels.moe_matmul import moe_matmul as mm
+    assert mm.bwd_route(dtype, d, f) == route and route in mm.BWD_ROUTES
+    _no_build(monkeypatch)
+    first = (2, 3, f) if which == "dx" else (2, 3, d)
+    second = (2, d, f) if which == "dx" else (2, 3, f)
+    n = torch.Size(first).numel()
+    off = torch.zeros(n + 1, dtype=dtype)[1:].view(first)
+    fn = mm.moe_matmul_dx if which == "dx" else mm.moe_matmul_dw
+    with pytest.raises(ValueError, match="TMA" if route == "wgmma"
+                       else "contiguous CUDA"):
+        fn(off, torch.zeros(second, dtype=dtype))
+
+
 @pytest.mark.parametrize("case", ["shape", "dhT", "batch", "cpu", "dtype",
                                   "strided"])
 def test_rglru_scan_bwd_rejects_before_building(case, monkeypatch):
@@ -363,8 +389,10 @@ def test_route_counts_reset_with_the_launch_counts():
                        tdp.tropical_dp_chain, moe_matmul_dx, moe_matmul_dw,
                        rglru_scan_bwd)]
     try:
-        moe_matmul_dx.launches = moe_matmul_dx.launches_by_route["simt"] = 72
-        moe_matmul_dw.launches = moe_matmul_dw.launches_by_route["simt"] = 71
+        moe_matmul_dx.launches = 73
+        moe_matmul_dx.launches_by_route.update(wgmma=72, simt=1)
+        moe_matmul_dw.launches = 71
+        moe_matmul_dw.launches_by_route.update(wgmma=70, simt=1)
         rglru_scan_bwd.launches = 6
         rglru_scan_bwd.launches_by_route["simt"] = 6
         moe_matmul.launches = 3
@@ -389,8 +417,8 @@ def test_route_counts_reset_with_the_launch_counts():
                           "mlstm_chunk": {"simt": 1, "wgmma": 12,
                                           "decode": 12},
                           "tropical_dp": {"fused": 32, "step": 11},
-                          "moe_matmul_dx": {"simt": 72},
-                          "moe_matmul_dw": {"simt": 71},
+                          "moe_matmul_dx": {"simt": 1, "wgmma": 72},
+                          "moe_matmul_dw": {"simt": 1, "wgmma": 70},
                           "rglru_scan_bwd": {"simt": 6}}
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
@@ -401,7 +429,8 @@ def test_route_counts_reset_with_the_launch_counts():
             "rglru_scan": {"simt": 0, "tma": 0},
             "mlstm_chunk": {"simt": 0, "wgmma": 0, "decode": 0},
             "tropical_dp": {"fused": 0, "step": 0},
-            "moe_matmul_dx": {"simt": 0}, "moe_matmul_dw": {"simt": 0},
+            "moe_matmul_dx": {"simt": 0, "wgmma": 0},
+            "moe_matmul_dw": {"simt": 0, "wgmma": 0},
             "rglru_scan_bwd": {"simt": 0}}
         assert kernels.launch_counts()["moe_matmul"] == 0
         assert kernels.launch_counts()["moe_matmul_dx"] == 0

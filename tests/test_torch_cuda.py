@@ -875,15 +875,19 @@ def test_reduced_training_card_against_cpu(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("e,c,d,f", [(4, 64, 96, 160), (32, 320, 256, 128),
                                      (8, 97, 200, 72), (3, 40, 100, 36),
-                                     (2, 1, 16, 8), (4, 0, 64, 32)])
+                                     (2, 1, 16, 8), (4, 0, 64, 32),
+                                     (5, 333, 136, 264)])
 def test_moe_matmul_backward_kernels_match_plain(cuda, e, c, d, f, dtype):
     """``moe_matmul_dx`` (dy w^T) and ``moe_matmul_dw`` (x^T dy) against
     their plain versions: the reference's grid, a granite-like shape,
     ragged C 97, D and F not multiples of 8, C 1 and C 0 (dX empty, no
-    launch; dW zeros, one launch).  One ``simt`` launch each; two launches
+    launch; dW zeros, one launch), D != F and ragged C on both routes.
+    One launch each, on ``bwd_route``'s route (``wgmma`` for bfloat16
+    with D and F multiples of 8, ``simt`` otherwise); two launches
     bitwise equal; float32 within atol 1e-5 sqrt(K), bfloat16 within one
     output rounding (atol 1e-3 + rtol 1e-2 of the value's scale)."""
-    from repro_torch.kernels.moe_matmul.moe_matmul import (moe_matmul_dw,
+    from repro_torch.kernels.moe_matmul.moe_matmul import (bwd_route,
+                                                           moe_matmul_dw,
                                                            moe_matmul_dx)
     from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
                                                     moe_matmul_dx_ref)
@@ -897,8 +901,11 @@ def test_moe_matmul_backward_kernels_match_plain(cuda, e, c, d, f, dtype):
     kernels.reset_launch_counts()
     dx, dw = moe_matmul_dx(dy, w), moe_matmul_dw(x, dy)
     routes = kernels.route_counts()
-    assert routes["moe_matmul_dx"] == {"simt": int(c > 0)}
-    assert routes["moe_matmul_dw"] == {"simt": 1}
+    route = bwd_route(dtype, d, f)
+    assert routes["moe_matmul_dx"] == dict({"simt": 0, "wgmma": 0},
+                                           **{route: int(c > 0)})
+    assert routes["moe_matmul_dw"] == dict({"simt": 0, "wgmma": 0},
+                                           **{route: 1})
     assert torch.equal(dx, moe_matmul_dx(dy, w))
     assert torch.equal(dw, moe_matmul_dw(x, dy))
     for got, want, k in ((dx, moe_matmul_dx_ref(dy, w), f),
@@ -1014,3 +1021,30 @@ def test_reduced_moe_and_griffin_training_card_against_cpu(cuda, arch):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     for g, r in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-4)
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_apply_gradients_are_bitwise_launch_to_launch(cuda, cf):
+    """A bfloat16 MoE layer at granite-moe's expert width (E 32, top 8,
+    d 1,024, d_expert 512, S 1,024): two backward passes on the same
+    inputs give bitwise the same gradients, with and without capacity
+    drops.  The dispatch's gradient is a gather at the slots and a sum
+    over a token's k copies (no atomic bf16 index_add, whose order moved
+    a trained model's gradients from run to run)."""
+    from repro_torch.models.moe import moe_apply, moe_init
+    gen = torch.Generator().manual_seed(5)
+    p = {k: v.to(cuda).requires_grad_() for k, v in
+         moe_init(1024, 32, 512, True, gen, torch.float32).items()}
+    x = torch.randn((1, 1024, 1024), generator=gen).to(cuda, torch.bfloat16)
+    x.requires_grad_()
+    dy = torch.randn((1, 1024, 1024), generator=gen).to(cuda, torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        pb = {k: v.to(torch.bfloat16) for k, v in p.items()}
+        y, aux = moe_apply(pb, x, top_k=8, act="silu", glu=True,
+                           capacity_factor=cf)
+        gs = torch.autograd.grad((y.float() * dy.float()).sum() + aux,
+                                 [x, *p.values()])
+        grads.append(gs)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
