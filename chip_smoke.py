@@ -301,12 +301,16 @@ Phases, each raising on failure (the script then exits non-zero):
     phase 14's tolerances with each product's contraction; the RG-LRU
     reverse scan (``csrc/rglru_scan_bwd.cu``) bitwise against
     ``rglru_bwd_ref`` at B 1 x T 4,096 x W 4,096, B 8 x T 1,345, a
-    ragged W 100, T 1, h0 nonzero, with and without dhT; two launches
-    bitwise equal, each on ``simt``;
+    ragged W 100, T 1, T 5 at W 4,100 (a partial strip), h0 nonzero,
+    with and without dhT; two launches bitwise equal, each on the
+    forward's route rule (``tma`` where rows are a multiple of 16 B and
+    T > 0, else ``simt``);
 39. their times at granite-moe's dX and dW (bf16) and recurrentgemma's
-    reverse scan (B 1, T 4,096, W 4,096, float32), graph and eager,
-    beside their plain versions, ``torch.bmm`` on the transposed operands
-    and their bounds;
+    reverse scan (B 1, T 4,096, W 4,096, float32; ``tma``, and the
+    ``simt`` kernel at the same inputs through its launcher), graph and
+    eager, beside their plain versions, ``torch.bmm`` on the transposed
+    operands and their bounds; the forward scan at the same training
+    shape (the ``rglru_scan`` row's ``train``);
 40. the reduced granite-moe, olmoe and recurrentgemma trained card
     against CPU as phase 35 (the loss with the MoE aux term; exactly 3
     expert GEMMs, 3 dX and 3 dW a MoE layer, a scan and a reverse scan
@@ -316,7 +320,7 @@ Phases, each raising on failure (the script then exits non-zero):
     (``FULL_TRAIN_SLICE``): exactly 2 x 72 expert GEMMs (``wgmma``), 72
     dX and 72 dW, 2 x 24 flash and 24 backward launches a granite
     microbatch; 2 x 6 RG-LRU scans (float32 under grad: ``tma``), 6
-    reverse scans, 2 x 3 flash and 3 backward launches a recurrentgemma
+    reverse scans (``tma``), 2 x 3 flash and 3 backward launches a recurrentgemma
     microbatch; model FLOP/s over the active parameters (a MoE layer's
     top-k experts); the in-model gradient gate at S 1,024.
 
@@ -4206,9 +4210,12 @@ MOE_BWD_CASES = [(32, 1280, 1024, 512), (32, 1280, 512, 1024),
                  (64, 640, 2048, 1024), (8, 97, 200, 72), (3, 40, 100, 36),
                  (4, 0, 64, 32), (2, 1, 16, 8), (5, 333, 136, 264)]
 #: phase 38: the RG-LRU reverse scan (B, T, W, with a dhT): recurrentgemma's
-#: training call, its served prefill's B x T, a ragged W, T 1
+#: training call, its served prefill's B x T, a ragged W (float32: a partial
+#: strip on ``tma``; bfloat16: ``simt``), T 1, T below one box at a W that
+#: leaves a partial strip at full size
 RGLRU_BWD_CASES = [(1, 4096, 4096, False), (8, 1345, 4096, True),
-                   (2, 37, 100, True), (3, 1, 64, True), (2, 64, 256, False)]
+                   (2, 37, 100, True), (3, 1, 64, True), (2, 64, 256, False),
+                   (1, 5, 4100, True)]
 #: in-model gradient gate, as phase 12 gates logits: each leaf's gap
 #: (kernels against plain), as a share of the leaf's largest plain
 #: gradient, within LM_GAP x the largest such share the reordered plain
@@ -4453,8 +4460,8 @@ def train_routes(torch, cfg, dtype):
     float32; the expert GEMM and its dX and dW ``wgmma`` in bfloat16 where
     TMA reads D and F, else ``simt`` (``bwd_route``: the rule is the same
     for D -> F and F -> D); the RG-LRU scan the route of its float32
-    operands (under grad the recurrence runs in float32), its reverse scan
-    ``simt``."""
+    operands (under grad the recurrence runs in float32), and so its
+    reverse scan."""
     from repro_torch.kernels.moe_matmul.moe_matmul import bwd_route
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_route
     bf16 = dtype == "bfloat16"
@@ -4467,7 +4474,8 @@ def train_routes(torch, cfg, dtype):
             "moe_matmul_dx": moe_bwd, "moe_matmul_dw": moe_bwd,
             "rglru_scan": rglru_route(torch.float32, 1,
                                       cfg.rglru_width or cfg.d_model),
-            "rglru_scan_bwd": "simt"}
+            "rglru_scan_bwd": rglru_route(torch.float32, 1,
+                                          cfg.rglru_width or cfg.d_model)}
 
 
 def want_launches(what, launches, routes, want, route):
@@ -4894,6 +4902,30 @@ def rglru_bwd_operands(torch, seed, b, t, w, last, dtype, device):
     return a, h, h0, dh, dhT
 
 
+def rglru_bwd_simt(torch, a, h, h0, dh, dhT):
+    """The reverse scan's ``simt`` kernel at any shape, through its
+    launcher (route 0; not the wrapper, so uncounted), to time it beside
+    the ``tma`` route on the same inputs.  Returns (a call that
+    launches it, its outputs (da, db, dh0))."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru_scan import rglru_scan as rs
+    fn = _build.launcher("rglru_scan_bwd", "repro_rglru_scan_bwd",
+                         rs._BWD_ARGTYPES)
+    da, db, dh0 = torch.empty_like(a), torch.empty_like(a), \
+        torch.empty_like(h0)
+
+    def call():
+        err = fn(a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(),
+                 None if dhT is None else dhT.data_ptr(), da.data_ptr(),
+                 db.data_ptr(), dh0.data_ptr(), *a.shape,
+                 rs._DTYPES[a.dtype], rs._DTYPES[h0.dtype],
+                 rs.BWD_ROUTES.index("simt"),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"rglru_scan_bwd simt: error {err}")
+    return call, (da, db, dh0)
+
+
 def check_train_kernels(np, torch, device):
     """Phase 38: the expert GEMM's backward kernels (``moe_matmul_dx``:
     dy w^T, ``moe_matmul_dw``: x^T dy) against their plain versions at
@@ -4904,15 +4936,17 @@ def check_train_kernels(np, torch, device):
     ``RGLRU_BWD_CASES`` (h0 nonzero, with and without dhT, T 1, a ragged
     W); each kernel's two launches bitwise equal; dX and dW on
     ``bwd_route``'s route (``wgmma`` for bfloat16 with D and F multiples
-    of 8), the reverse scan on ``simt``.  Returns the bf16 max abs errors
-    at phase 39's shapes (the second granite shape's under ``name/down``)."""
+    of 8), the reverse scan on ``rglru_route``'s.  Returns the bf16 max
+    abs errors at phase 39's shapes (the second granite shape's under
+    ``name/down``)."""
     from repro_torch.kernels.moe_matmul.moe_matmul import (bwd_route,
                                                            moe_matmul_dw,
                                                            moe_matmul_dx)
     from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
                                                     moe_matmul_dx_ref)
     from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
-    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan_bwd
+    from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_route,
+                                                          rglru_scan_bwd)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
@@ -4954,7 +4988,7 @@ def check_train_kernels(np, torch, device):
                                       device)
             got, route = take_route(rglru_scan_bwd,
                                     lambda: rglru_scan_bwd(*args))
-            want_route("rglru_scan_bwd", route, "simt")
+            want_route("rglru_scan_bwd", route, rglru_route(dtype, t, w))
             again = rglru_scan_bwd(*args)
             want = rglru_bwd_ref(*args)
             torch.cuda.synchronize()
@@ -4970,8 +5004,8 @@ def check_train_kernels(np, torch, device):
             if (b, t, w) == RGLRU_BWD_CASES[0][:3] and dname == "float32":
                 errs["rglru_scan_bwd"] = 0.0
             log(f"  rglru_scan_bwd {dname} B={b} T={t} W={w} dhT="
-                f"{'given' if last else 'none'}: bitwise equal to the "
-                f"plain reverse scan, two launches bitwise equal")
+                f"{'given' if last else 'none'} ({route}): bitwise equal to "
+                f"the plain reverse scan, two launches bitwise equal")
             del args, got, again, want
     torch.cuda.empty_cache()
     return errs
@@ -4986,14 +5020,20 @@ def time_train_kernels(torch, device, errs):
     and eager, beside their plain versions, ``torch.bmm`` on the
     transposed operands (the expert GEMM; no single PyTorch call computes
     the reverse scan) and their bounds from this run's shapes; each row's
-    ``kernel_route`` is the route its timed launch took.  Returns the
-    three ``kernels`` rows; ``launches`` is filled from phase 41."""
+    ``kernel_route`` is the route its timed launch took.  The reverse
+    scan's row also times the ``simt`` kernel on the same inputs (under
+    ``simt``; its outputs bitwise the ``tma`` launch's).  Then the forward
+    scan at the same shape (float32, bitwise against ``rglru_ref``), for
+    the ``rglru_scan`` row's ``train``.  Returns {"rows": the three
+    ``kernels`` rows, "rglru_scan_train": the forward's timing};
+    ``launches`` is filled from phase 41."""
     from repro_torch.kernels.moe_matmul.moe_matmul import (moe_matmul_dw,
                                                            moe_matmul_dx)
     from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
                                                     moe_matmul_dx_ref)
-    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
-    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan_bwd
+    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
+    from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
+                                                          rglru_scan_bwd)
 
     def timed(name, fn, kern, plain, lib, nbytes, nops, peak, shape, dname,
               plain_graph):
@@ -5061,7 +5101,8 @@ def time_train_kernels(torch, device, errs):
     b, t, width, _ = RGLRU_BWD_CASES[0]
     rargs = rglru_bwd_operands(torch, 900, b, t, width, True,
                                torch.float32, device)
-    rows.append(dict(
+    nbytes = 4 * (5 * b * t * width + 3 * b * width)
+    row = dict(
         {"name": "rglru_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
          "replaces": "src/repro/models/recurrent.py:76",
@@ -5071,12 +5112,39 @@ def time_train_kernels(torch, device, errs):
          "library": None},
         **timed("rglru_scan_bwd", rglru_scan_bwd,
                 lambda: rglru_scan_bwd(*rargs),
-                lambda: rglru_bwd_ref(*rargs), None,
-                4 * (5 * b * t * width + 3 * b * width), 3 * b * t * width,
-                FP32_OPS_PER_S, [b, t, width], "float32", False)))
-    del rargs
+                lambda: rglru_bwd_ref(*rargs), None, nbytes,
+                3 * b * t * width, FP32_OPS_PER_S, [b, t, width], "float32",
+                False))
+    simt, simt_out = rglru_bwd_simt(torch, *rargs)
+    simt()
+    got = rglru_scan_bwd(*rargs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, o) for g, o in zip(got, simt_out)):
+        raise AssertionError("rglru_scan_bwd: the simt and tma kernels "
+                             "differ at the timed shape")
+    s_ms = time_ms(torch, simt, 20, graph=True)
+    row["simt"] = {"ms": s_ms, "eager_ms": time_ms(torch, simt, 20,
+                                                   graph=False),
+                   "gb_per_s": nbytes / s_ms / 1e6, "bitwise_vs_tma": True}
+    log(f"  rglru_scan_bwd simt kernel at the same inputs: {s_ms:.4f} ms in "
+        f"a graph, {row['simt']['eager_ms']:.4f} ms eager "
+        f"({row['simt']['gb_per_s']:.1f} GB/s), bitwise the tma launch")
+    rows.append(row)
+    del rargs, got, simt, simt_out
+    a, bb, h0 = rglru_operands(torch, 910, b, t, width, torch.float32, device)
+    got, want = rglru_scan(a, bb, h0), rglru_ref(a, bb, h0)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, r) for g, r in zip(got, want)):
+        raise AssertionError("rglru_scan at the training shape differs from "
+                             "the plain version")
+    fwd = dict(timed("rglru_scan", rglru_scan, lambda: rglru_scan(a, bb, h0),
+                     lambda: rglru_ref(a, bb, h0), None,
+                     4 * (3 * b * t * width + 2 * b * width),
+                     2 * b * t * width, FP32_OPS_PER_S, [b, t, width],
+                     "float32", False), max_abs_err=0.0)
+    del a, bb, h0, got, want
     torch.cuda.empty_cache()
-    return rows
+    return {"rows": rows, "rglru_scan_train": fwd}
 
 
 def run_full_training_slice(np, torch, device):
@@ -5281,8 +5349,8 @@ def main() -> int:
              check_train_kernels),
             (39, "kernel_rows", "expert-GEMM and RG-LRU backward kernel "
              "times (CUDA events), granite-moe and recurrentgemma training "
-             "shapes", lambda np_, torch_, dev: {"rows": time_train_kernels(
-                 torch_, dev, train["kernel_errs"])}),
+             "shapes", lambda np_, torch_, dev: time_train_kernels(
+                 torch_, dev, train["kernel_errs"])),
             (40, "reduced_moe_griffin", "reduced MoE and griffin training, "
              "card against the CPU plain path",
              lambda *a: run_reduced_training(*a, TRAIN_ARCHS[4:])),
@@ -5295,7 +5363,10 @@ def main() -> int:
         train[key]["phase_wall_s"] = time.perf_counter() - t0
         log(f"  phase {phase}: {train[key]['phase_wall_s']:.3f} s")
     del train["kernel_errs"]
-    train_rows = train.pop("kernel_rows")["rows"]
+    kernel_rows = train.pop("kernel_rows")
+    train_rows = kernel_rows["rows"]
+    next(r for r in rows if r["name"] == "rglru_scan")["train"] = \
+        kernel_rows["rglru_scan_train"]
     slice_runs = {a: train["slice"][a] for a in (f["arch"]
                                                  for f in FULL_TRAIN_SLICE)}
     bwd_row["launches"] = train["minicpm-2b"]["launches"][

@@ -34,11 +34,19 @@ def _fns(table, t: torch.Tensor):
     return fns
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with its data on a 16-byte boundary, as the reverse
+    scan's TMA route reads it: a copy where a contiguous view starts off
+    one (a slice of a larger gradient)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 class LinearRecurrence(torch.autograd.Function):
     """h_t = a_t h_{t-1} + b_t with its gradient: saves a, h and h0; the
-    backward takes h's gradient contiguous (zeros when h is unused) and
-    hT's as it comes (None when hT is unused: the kernel reads no
-    zeros)."""
+    backward takes h's gradient contiguous and 16-byte aligned (zeros
+    when h is unused) and hT's as it comes (None when hT is unused: the
+    kernel reads no zeros)."""
 
     @staticmethod
     def forward(ctx, a, b, h0):
@@ -50,7 +58,7 @@ class LinearRecurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh, dhT):
         a, h, h0 = ctx.saved_tensors
-        dh = torch.zeros_like(h) if dh is None else dh.contiguous()
+        dh = torch.zeros_like(h) if dh is None else _aligned(dh)
         if dhT is not None:
             dhT = dhT.contiguous()
         da, db, dh0 = _fns(_TRAIN_BY_DEVICE, a)[1](a, h, h0, dh, dhT)

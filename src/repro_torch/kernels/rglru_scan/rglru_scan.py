@@ -21,7 +21,18 @@ The backward ``rglru_scan_bwd`` (``csrc/rglru_scan_bwd.cu``; no Pallas
 kernel has one: the reference leaves its associative scan's gradient to
 XLA) runs the adjoint recurrence backwards in time, one FMA rounded once
 a step in the plain version's order, so it equals ``rglru_bwd_ref``
-bitwise; one ``simt`` route for now.  ``ops.linear_recurrence`` calls
+bitwise.  Its routes follow the forward's rule (``rglru_route``) and are
+counted in ``rglru_scan_bwd.launches_by_route``:
+
+* ``tma``: the forward's ring run backwards in time, a block per (b,
+  32-channel strip); a producer warp loads boxes of a[t+1], h[t-1] and
+  dh[t] from the last box to the first while one thread a channel runs
+  the chain through them; da and db are staged in shared memory and
+  stored by TMA.  a, h and dh off 16 bytes are refused;
+* ``simt``: one thread per (b, w) channel, a chunk of steps' loads
+  issued ahead of their dependent chain.
+
+``ops.linear_recurrence`` calls
 both through an autograd Function when a gradient is wanted; the bare
 forward refuses to run under grad (its output would carry no gradient).
 """
@@ -39,10 +50,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BATCH = 65535          # the grid's y extent
 #: launcher route codes
 ROUTES = ("simt", "tma")
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
-#: the backward launcher's route codes
-BWD_ROUTES = ("simt",)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+#: the backward launcher's route codes: the forward's
+BWD_ROUTES = ROUTES
 
 
 def _check_operands(fn: str, device: torch.device, note: str,
@@ -66,6 +76,18 @@ def rglru_route(dtype: torch.dtype, t: int, w: int) -> str:
     return "tma" if t > 0 and (w * item) % 16 == 0 else "simt"
 
 
+def _refuse_misaligned(fn: str, route: str, w: int, *named) -> None:
+    """On the ``tma`` route, raise unless every ``(name, tensor)``'s data
+    is 16-byte aligned, as TMA reads it."""
+    off = [t.data_ptr() % 16 for _, t in named]
+    if route == "tma" and any(off):
+        names = ", ".join(n for n, _ in named)
+        raise ValueError(
+            f"{fn}: {names} are read by TMA at W {w} and need 16-byte "
+            f"aligned data; got data_ptr % 16 = "
+            f"{', '.join(map(str, off))}")
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a, b [B, T, W] contiguous, of one dtype; h0 [B, W] contiguous;
@@ -84,11 +106,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
     if B > MAX_BATCH:
         raise ValueError(f"rglru_scan: batch {B}, at most {MAX_BATCH}")
     route = rglru_route(a.dtype, T, W)
-    if route == "tma" and (a.data_ptr() % 16 or b.data_ptr() % 16):
-        raise ValueError(
-            f"rglru_scan: a and b are read by TMA at W {W} and need "
-            f"16-byte aligned data; got data_ptr % 16 = "
-            f"{a.data_ptr() % 16}, {b.data_ptr() % 16}")
+    _refuse_misaligned("rglru_scan", route, W, ("a", a), ("b", b))
     _check_operands("rglru_scan", a.device, "b of a's dtype",
                     ("a", a, a.dtype), ("b", b, a.dtype),
                     ("h0", h0, h0.dtype))
@@ -121,7 +139,9 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
     [B, T, W] contiguous, of one dtype; h0 and dhT (None: zeros) [B, W]
     contiguous, of one dtype; float32 or bfloat16 CUDA tensors on one
     device -> (da, db [B, T, W] in ``a.dtype``, dh0 [B, W] in
-    ``h0.dtype``), on the current stream without synchronising."""
+    ``h0.dtype``), on the current stream without synchronising.  The
+    route is ``rglru_route``'s; on ``tma`` a, h and dh must be 16-byte
+    aligned."""
     if a.dim() != 3 or h0.dim() != 2 or \
             tuple(h0.shape) != (a.shape[0], a.shape[2]) or \
             any(tuple(t.shape) != tuple(a.shape) for t in (h, dh)) or \
@@ -134,6 +154,9 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
     B, T, W = a.shape
     if B > MAX_BATCH:
         raise ValueError(f"rglru_scan_bwd: batch {B}, at most {MAX_BATCH}")
+    route = rglru_route(a.dtype, T, W)
+    _refuse_misaligned("rglru_scan_bwd", route, W, ("a", a), ("h", h),
+                       ("dh", dh))
     named = [("a", a, a.dtype), ("h", h, a.dtype), ("dh", dh, a.dtype),
              ("h0", h0, h0.dtype)]
     if dhT is not None:
@@ -146,16 +169,15 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
         return da, db, dh0
     fn = _build.launcher("rglru_scan_bwd", "repro_rglru_scan_bwd",
                          _BWD_ARGTYPES)
-    route = ctypes.c_int(-1)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), h.data_ptr(), h0.data_ptr(), dh.data_ptr(),
                  None if dhT is None else dhT.data_ptr(), da.data_ptr(),
                  db.data_ptr(), dh0.data_ptr(), B, T, W, _DTYPES[a.dtype],
-                 _DTYPES[h0.dtype], stream, ctypes.byref(route))
+                 _DTYPES[h0.dtype], BWD_ROUTES.index(route), stream)
     _build.check_launch(_build.load("rglru_scan_bwd"), "rglru_scan_bwd", err)
     rglru_scan_bwd.launches += 1
-    rglru_scan_bwd.launches_by_route[BWD_ROUTES[route.value]] += 1
+    rglru_scan_bwd.launches_by_route[route] += 1
     return da, db, dh0
 
 

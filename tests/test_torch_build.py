@@ -394,7 +394,7 @@ def test_route_counts_reset_with_the_launch_counts():
         moe_matmul_dw.launches = 71
         moe_matmul_dw.launches_by_route.update(wgmma=70, simt=1)
         rglru_scan_bwd.launches = 6
-        rglru_scan_bwd.launches_by_route["simt"] = 6
+        rglru_scan_bwd.launches_by_route.update(tma=5, simt=1)
         moe_matmul.launches = 3
         moe_matmul.launches_by_route.update(wgmma=2, simt=1)
         flash_attention.launches_by_route["wgmma"] = 5
@@ -419,7 +419,7 @@ def test_route_counts_reset_with_the_launch_counts():
                           "tropical_dp": {"fused": 32, "step": 11},
                           "moe_matmul_dx": {"simt": 1, "wgmma": 72},
                           "moe_matmul_dw": {"simt": 1, "wgmma": 70},
-                          "rglru_scan_bwd": {"simt": 6}}
+                          "rglru_scan_bwd": {"simt": 1, "tma": 5}}
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
             "flash_attention": {"simt": 0, "wgmma": 0},
@@ -431,7 +431,7 @@ def test_route_counts_reset_with_the_launch_counts():
             "tropical_dp": {"fused": 0, "step": 0},
             "moe_matmul_dx": {"simt": 0, "wgmma": 0},
             "moe_matmul_dw": {"simt": 0, "wgmma": 0},
-            "rglru_scan_bwd": {"simt": 0}}
+            "rglru_scan_bwd": {"simt": 0, "tma": 0}}
         assert kernels.launch_counts()["moe_matmul"] == 0
         assert kernels.launch_counts()["moe_matmul_dx"] == 0
         assert kernels.launch_counts()["moe_matmul_dw"] == 0
@@ -701,6 +701,97 @@ def test_rglru_scan_simt_route_takes_any_alignment(monkeypatch):
     with pytest.raises(ValueError, match="contiguous CUDA"):
         rglru_scan(a, torch.zeros((2, 5, 100), dtype=torch.bfloat16),
                    torch.zeros((2, 100), dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("w", [100, 256, 4096])
+@pytest.mark.parametrize("t", [0, 1, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_bwd_route_follows_dtype_t_and_w(dtype, t, w,
+                                                    monkeypatch):
+    """The reverse scan takes the forward's route: ``tma`` where a row of
+    W elements is a multiple of 16 bytes and T > 0, else ``simt`` (W 100
+    in bfloat16: 200-byte rows; T 0: dh0 = dhT).  Only ``tma`` reads by
+    TMA: an ``a`` one element off its allocation is refused as
+    TMA-unreadable there, and reaches the device check (a CPU tensor) on
+    ``simt``; nothing is built."""
+    from repro_torch.kernels.rglru_scan import rglru_scan as rs
+    want = "simt" if t == 0 or (dtype, w) == (_BF, 100) else "tma"
+    assert rs.rglru_route(dtype, t, w) == want and want in rs.BWD_ROUTES
+    _no_build(monkeypatch)
+    a = torch.empty(t * w + 1, dtype=dtype)[1:].view(1, t, w)
+    other = torch.zeros((), dtype=dtype).expand(1, t, w)
+    h0 = torch.zeros((1, w), dtype=dtype)
+    with pytest.raises(ValueError, match="TMA" if want == "tma"
+                       else "contiguous CUDA"):
+        rs.rglru_scan_bwd(a, other, h0, other, None)
+
+
+@pytest.mark.parametrize("operand", ["a", "h", "dh"])
+def test_rglru_scan_bwd_rejects_tma_misalignment(operand, monkeypatch):
+    """On the ``tma`` route (W 8 in bfloat16: 16-byte rows) a, h or dh
+    whose data is off 16 bytes is refused with a ValueError before a
+    build, and counts no launch."""
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan_bwd
+    _no_build(monkeypatch)
+    ops = {n: torch.zeros((2, 5, 8), dtype=_BF) for n in ("a", "h", "dh")}
+    ops[operand] = torch.zeros(81, dtype=_BF)[1:].view(2, 5, 8)
+    before = (rglru_scan_bwd.launches,
+              dict(rglru_scan_bwd.launches_by_route))
+    with pytest.raises(ValueError, match="TMA"):
+        rglru_scan_bwd(ops["a"], ops["h"], torch.zeros((2, 8), dtype=_BF),
+                       ops["dh"], torch.zeros((2, 8), dtype=_BF))
+    assert (rglru_scan_bwd.launches,
+            rglru_scan_bwd.launches_by_route) == before
+
+
+def test_rglru_scan_bwd_simt_route_takes_any_alignment(monkeypatch):
+    """W 100 in bfloat16 takes the ``simt`` route, which reads with plain
+    loads: a, h and dh off 16 bytes are not refused for alignment (here
+    only for lying on the CPU), and nothing is built."""
+    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan_bwd
+    _no_build(monkeypatch)
+    off = torch.zeros(1001, dtype=_BF)[1:].view(2, 5, 100)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        rglru_scan_bwd(off, off, torch.zeros((2, 100), dtype=_BF), off)
+
+
+def test_linear_recurrence_hands_the_reverse_scan_an_aligned_dh(
+        monkeypatch):
+    """A gradient of h that arrives as a contiguous view off 16 bytes (a
+    slice of a larger gradient) reaches the reverse scan as an aligned
+    copy, as the ``tma`` route reads it; the gradients are the reverse
+    scan's of the same values."""
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
+    arrived, handed = [], []
+    aligned, (fwd, bwd) = ops._aligned, ops._TRAIN_BY_DEVICE["cpu"]
+
+    def spy_aligned(t):
+        arrived.append(t.data_ptr() % 16)
+        return aligned(t)
+
+    def spy_bwd(a, h, h0, dh, dhT):
+        handed.append((dh.data_ptr() % 16, dh.is_contiguous()))
+        return bwd(a, h, h0, dh, dhT)
+    monkeypatch.setattr(ops, "_aligned", spy_aligned)
+    monkeypatch.setitem(ops._TRAIN_BY_DEVICE, "cpu", (fwd, spy_bwd))
+    gen = torch.Generator().manual_seed(0)
+    a = torch.rand((2, 5, 8), generator=gen).requires_grad_()
+    b = torch.randn((2, 5, 8), generator=gen).requires_grad_()
+    h0 = torch.randn((2, 8), generator=gen)
+    weight = torch.randn(81, generator=gen)
+    for shift in (1, 0):
+        h, _ = ops.linear_recurrence(a, b, h0)
+        # h's gradient is a view of the concatenation's at `shift`
+        flat = torch.cat([torch.zeros(shift), h.reshape(-1),
+                          torch.zeros(1 - shift)])
+        (flat * weight).sum().backward()
+        dh = weight[shift:shift + 80].reshape(2, 5, 8)
+        da, db, _ = rglru_bwd_ref(a.detach(), h.detach(), h0, dh)
+        assert torch.equal(a.grad, da) and torch.equal(b.grad, db)
+        a.grad, b.grad = None, None
+    assert arrived == [4, 0]
+    assert handed == [(0, True), (0, True)]
 
 
 def _chain_operands(B=2, U=4, M=3, L=5, device="cpu"):

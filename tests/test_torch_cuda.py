@@ -922,15 +922,20 @@ def test_moe_matmul_backward_kernels_match_plain(cuda, e, c, d, f, dtype):
 @pytest.mark.parametrize("last", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,w", [(2, 64, 256), (1, 1345, 4096),
-                                   (3, 37, 100), (2, 1, 8), (1, 0, 32)])
+                                   (3, 37, 100), (2, 1, 8), (1, 0, 32),
+                                   (2, 5, 256), (8, 100, 512),
+                                   (1, 130, 4100)])
 def test_rglru_scan_bwd_kernel_is_bitwise_the_plain_version(cuda, b, t, w,
                                                             dtype, last):
     """The reverse scan against ``rglru_bwd_ref`` bitwise (one FMA rounded
     once a step, in its order), with and without dhT, h0 nonzero, at T 1
-    and T 0 (dh0 = dhT), a ragged W; one ``simt`` launch; two launches
-    bitwise equal."""
+    and T 0 (dh0 = dhT), a ragged W; one launch on ``rglru_route``'s
+    route; two launches bitwise equal.  On ``tma`` the ring's edges: a
+    partial strip (W 100 and 4,100 in float32), T below one box (T 5),
+    T not a multiple of the box (1,345, 130), B 8."""
     from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
-    from repro_torch.kernels.rglru_scan.rglru_scan import rglru_scan_bwd
+    from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_route,
+                                                          rglru_scan_bwd)
     rng = np.random.default_rng(b * t + w)
 
     def draw(*shape, f=lambda v: v):
@@ -941,12 +946,38 @@ def test_rglru_scan_bwd_kernel_is_bitwise_the_plain_version(cuda, b, t, w,
     dhT = draw(b, w) if last else None
     kernels.reset_launch_counts()
     got = rglru_scan_bwd(a, h, h0, dh, dhT)
-    assert kernels.route_counts()["rglru_scan_bwd"] == {"simt": 1}
+    route = rglru_route(dtype, t, w)
+    assert kernels.route_counts()["rglru_scan_bwd"] == dict(
+        {"simt": 0, "tma": 0}, **{route: 1})
     again = rglru_scan_bwd(a, h, h0, dh, dhT)
     want = rglru_bwd_ref(a, h, h0, dh, dhT)
     for g, r, s in zip(got, again, want):
         assert g.dtype == dtype
         assert torch.equal(g, r) and torch.equal(g, s)
+
+
+def test_linear_recurrence_with_a_gradient_off_16_bytes_on_the_card(cuda):
+    """h's gradient as a view 4 bytes into a larger gradient: the Function
+    hands the reverse scan an aligned copy, which takes ``tma`` and gives
+    the plain reverse scan's gradients bitwise."""
+    from repro_torch.kernels.rglru_scan.ops import linear_recurrence
+    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(1.0 / (1.0 + np.exp(-rng.normal(size=(2, 70, 64)))),
+                        dtype=torch.float32, device=cuda).requires_grad_()
+    b, h0 = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32,
+                             device=cuda) for s in ((2, 70, 64), (2, 64)))
+    b.requires_grad_()
+    weight = torch.as_tensor(rng.normal(size=2 * 70 * 64 + 1),
+                             dtype=torch.float32, device=cuda)
+    kernels.reset_launch_counts()
+    h, _ = linear_recurrence(a, b, h0)
+    flat = torch.cat([torch.zeros(1, device=cuda), h.reshape(-1)])
+    (flat * weight).sum().backward()
+    assert kernels.route_counts()["rglru_scan_bwd"] == {"simt": 0, "tma": 1}
+    da, db, _ = rglru_bwd_ref(a.detach(), h.detach(), h0,
+                              weight[1:].reshape(2, 70, 64))
+    assert torch.equal(a.grad, da) and torch.equal(b.grad, db)
 
 
 def test_expert_gemm_and_linear_recurrence_functions_on_the_card(cuda):
