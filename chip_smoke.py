@@ -322,7 +322,31 @@ Phases, each raising on failure (the script then exits non-zero):
     microbatch; 2 x 6 RG-LRU scans (float32 under grad: ``tma``), 6
     reverse scans (``tma``), 2 x 3 flash and 3 backward launches a recurrentgemma
     microbatch; model FLOP/s over the active parameters (a MoE layer's
-    top-k experts); the in-model gradient gate at S 1,024.
+    top-k experts); the in-model gradient gate at S 1,024;
+42. the mLSTM chunk backward kernel against ``mlstm_chunk_bwd_ref`` at
+    its chunks of 64 (``MLSTM_BWD_CASES``: xlstm-350m's training call B 1
+    x S 4,096 x H 4 x D 256, its served prefill B 8 at S 1,024 and 1,000,
+    S 1, 37 and 100, D 16 to 128, zero and random initial states, the
+    final state's gradients given or not, each drawn on its own, one
+    case on each of the normaliser's branches, and one whose m0 holds
+    every chunk's max), float32 and bfloat16, each gradient within
+    1e-4 of its largest magnitude (``MLSTM_BWD_SHARE``), two launches
+    bitwise equal, every launch on ``simt``;
+43. its time at the training call in bfloat16 (graph and eager) beside
+    its plain version, its bound (bytes at the tensor-core peak; the fp32
+    SIMT bound beside it) and its five kernels' device times; no library
+    call computes it; then the forward at the same shape (``wgmma``, 16
+    blocks at B 1), the ``mlstm_chunk`` row's ``train``;
+44. the reduced xlstm-350m trained card against CPU as phase 35 (a chunk
+    forward and a chunk backward an mLSTM layer, on ``simt``);
+45. xlstm-350m at full width and depth (24 layers, d 1,024, tied) trained
+    as phase 36 with S cut to 1,024 (``FULL_TRAIN_XLSTM``: the sLSTM is a
+    step loop of eager launches): exactly 2 x 12 mLSTM forward launches
+    (``wgmma``) and 12 backward launches (``simt``) a microbatch and no
+    other kernel; the in-model gradient gate at S 256 on the initial
+    parameters in float32 compute, the plain side's mLSTM at the kernels'
+    chunks (32 forward, 64 backward), the reordered side's at 64 (in bf16,
+    and after the steps, the gradients are chaotic).
 
 The last lines are the training record, the pipeline planner's, the
 sharded rollout's and the serving example's records, the serving layers'
@@ -1536,13 +1560,16 @@ class plain_kernels:
     decode attention, the expert GEMM, the RG-LRU scan, the mLSTM chunk,
     and training's triples and pairs: flash forward-with-lse and
     backward, the expert GEMM and its dX and dW, the RG-LRU scan and its
-    reverse scan): the model run through it is a comparison's other side.
+    reverse scan, the mLSTM chunk and its backward, the last pair at the
+    kernels' own chunks: the forward's route's, ``BWD_CHUNK``): the model
+    run through it is a comparison's other side.
     ``reorder`` sums the plain versions in another order: q and k with
     their head dimension reversed, the expert GEMM with its contraction
     reversed (dX's over F too, dW's over C in two halves), the RG-LRU
-    recurrence and its reverse scan as log-depth scans, the mLSTM in
-    chunks of 64 (not flipped q and k: every side decodes from the plain
-    side's prefill state ``C``, which a flipped k would not match), the
+    recurrence and its reverse scan as log-depth scans, the mLSTM and its
+    backward in chunks of 64 (not flipped q and k: every side decodes
+    from the plain side's prefill state ``C``, which a flipped k would
+    not match), the
     attention backward with q, k, v, o and dO reversed alike (its
     recomputed q k^T, dO v^T and delta summed in another order).  That
     measures how far such rounding alone moves the model's output."""
@@ -1557,7 +1584,10 @@ class plain_kernels:
         from repro_torch.kernels.flash_attention.ref import (
             attention_bwd_ref, attention_fwd_ref, attention_ref)
         from repro_torch.kernels.mlstm_chunk import ops as lops
-        from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+        from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
+            BWD_CHUNK, CHUNK, mlstm_route)
+        from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_bwd_ref,
+                                                         mlstm_chunk_ref)
         from repro_torch.kernels.moe_matmul import ops as mops
         from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
                                                         moe_matmul_dx_ref,
@@ -1567,7 +1597,8 @@ class plain_kernels:
                                                         rglru_ref)
         tables = (fops._BY_DEVICE, dops._BY_DEVICE, mops._BY_DEVICE,
                   rops._BY_DEVICE, lops._BY_DEVICE, fops._TRAIN_BY_DEVICE,
-                  mops._TRAIN_BY_DEVICE, rops._TRAIN_BY_DEVICE)
+                  mops._TRAIN_BY_DEVICE, rops._TRAIN_BY_DEVICE,
+                  lops._TRAIN_BY_DEVICE)
         self.saved = [(t, t["cuda"]) for t in tables]
         if self.reorder:
             def flip(x):
@@ -1596,6 +1627,9 @@ class plain_kernels:
                                              rglru_bwd_log_depth)
             lops._BY_DEVICE["cuda"] = lambda *a: mlstm_chunk_ref(
                 *a, chunk=MLSTM_REORDER_CHUNK)
+            lops._TRAIN_BY_DEVICE["cuda"] = (
+                lops._BY_DEVICE["cuda"],
+                lambda *a: mlstm_chunk_bwd_ref(*a, chunk=MLSTM_REORDER_CHUNK))
         else:
             fops._BY_DEVICE["cuda"] = attention_ref
             fops._TRAIN_BY_DEVICE["cuda"] = (attention_fwd_ref,
@@ -1608,6 +1642,10 @@ class plain_kernels:
             rops._BY_DEVICE["cuda"] = rglru_ref
             rops._TRAIN_BY_DEVICE["cuda"] = (rglru_ref, rglru_bwd_ref)
             lops._BY_DEVICE["cuda"] = mlstm_chunk_ref
+            lops._TRAIN_BY_DEVICE["cuda"] = (
+                lambda q, *a: mlstm_chunk_ref(q, *a, chunk=CHUNK[mlstm_route(
+                    q.dtype, q.shape[1])]),
+                lambda *a: mlstm_chunk_bwd_ref(*a, chunk=BWD_CHUNK))
         return self
 
     def __exit__(self, *exc):
@@ -1880,6 +1918,13 @@ def bf16_ulp(torch, x):
     that of the smallest normal below it."""
     x = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
     return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+
+
+def float32_ulp(torch, x):
+    """The spacing of float32 values (24 significant bits) at each |x|,
+    that of the smallest normal below it."""
+    x = x.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 24)
 
 
 def logit_gaps(torch, logits, refs):
@@ -4442,15 +4487,18 @@ def train_launches(cfg, passes):
     layer's forward run ``passes`` times (2 under remat: the recompute):
     a flash forward and a backward an attention call; 3 expert GEMMs a
     MoE layer (2 without a gate) and as many dX and dW launches; a scan
-    and a reverse scan an RG-LRU layer."""
+    and a reverse scan an RG-LRU layer; a chunk forward and a chunk
+    backward an mLSTM layer (the sLSTM launches none)."""
     from repro_torch.core.cost_model import _block_kinds
     attn = attention_calls(cfg)
     moe = (3 if cfg.glu else 2) * cfg.n_layers if cfg.moe.enabled else 0
     rec = sum(k == "rglru" for k in _block_kinds(cfg))
+    mls = sum(k == "mlstm" for k in _block_kinds(cfg))
     want = {"flash_attention": passes * attn, "flash_attention_bwd": attn,
             "moe_matmul": passes * moe, "moe_matmul_dx": moe,
             "moe_matmul_dw": moe, "rglru_scan": passes * rec,
-            "rglru_scan_bwd": rec}
+            "rglru_scan_bwd": rec, "mlstm_chunk": passes * mls,
+            "mlstm_chunk_bwd": mls}
     return {k: n for k, n in want.items() if n}
 
 
@@ -4461,7 +4509,9 @@ def train_routes(torch, cfg, dtype):
     TMA reads D and F, else ``simt`` (``bwd_route``: the rule is the same
     for D -> F and F -> D); the RG-LRU scan the route of its float32
     operands (under grad the recurrence runs in float32), and so its
-    reverse scan."""
+    reverse scan; the mLSTM chunk its dtype's route for S > 1 (``wgmma``
+    in bfloat16, ``simt`` in float32), its backward ``simt``."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_route
     from repro_torch.kernels.moe_matmul.moe_matmul import bwd_route
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_route
     bf16 = dtype == "bfloat16"
@@ -4475,7 +4525,10 @@ def train_routes(torch, cfg, dtype):
             "rglru_scan": rglru_route(torch.float32, 1,
                                       cfg.rglru_width or cfg.d_model),
             "rglru_scan_bwd": rglru_route(torch.float32, 1,
-                                          cfg.rglru_width or cfg.d_model)}
+                                          cfg.rglru_width or cfg.d_model),
+            "mlstm_chunk": mlstm_route(torch.bfloat16 if bf16
+                                       else torch.float32, 2),
+            "mlstm_chunk_bwd": "simt"}
 
 
 def want_launches(what, launches, routes, want, route):
@@ -4514,7 +4567,7 @@ def held_after_steps(np, what, got, want, lr, steps, compress):
 
 
 def run_reduced_training(np, torch, device, archs):
-    """Phases 35 and 40: the reduced ``archs`` in float32, the same
+    """Phases 35, 40 and 44: the reduced ``archs`` in float32, the same
     parameters on the card and the CPU: the loss (with the MoE aux term)
     and every gradient leaf (``TRAIN_TOL``), exactly ``train_launches``
     a call (every one on its float32 route); then 3 ``make_train_step``
@@ -4612,15 +4665,16 @@ def refuse_grad_on_the_card(torch, device):
     """The bare forward wrappers raise under grad on a CUDA tensor that
     requires grad, before launching, naming the ROADMAP item (for the
     kernels with a backward, the op whose autograd Function launches
-    it); through those ops the expert GEMM and the RG-LRU scan launch
-    their forward and, on ``backward``, their backward kernels, one
-    each.  Returns the refused wrappers."""
+    it); through those ops the expert GEMM, the RG-LRU scan and the mLSTM
+    chunk launch their forward and, on ``backward``, their backward
+    kernels, one each.  Returns the refused wrappers."""
     from repro_torch import kernels
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm
     from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
     from repro_torch.kernels.moe_matmul.ops import expert_gemm
     from repro_torch.kernels.rglru_scan.ops import linear_recurrence
@@ -4652,20 +4706,27 @@ def refuse_grad_on_the_card(torch, device):
     a = torch.zeros((1, 8, 64), device=device, requires_grad=True)
     h, h_last = linear_recurrence(a, a, a[:, 0].detach())
     (h.sum() + h_last.sum()).backward()
+    g = torch.zeros((1, 2, 8), device=device)
+    hm, *_ = mlstm(x, x, x, g, g, torch.zeros((1, 8, 64, 64), device=device),
+                   torch.zeros((1, 8, 64), device=device),
+                   torch.full((1, 8), -1e30, device=device), 0.125)
+    hm.sum().backward()
     launches = kernels.launch_counts()
     want = only(launches, moe_matmul=1, moe_matmul_dx=1, moe_matmul_dw=1,
-                rglru_scan=1, rglru_scan_bwd=1)
+                rglru_scan=1, rglru_scan_bwd=1, mlstm_chunk=1,
+                mlstm_chunk_bwd=1)
     if launches != want:
-        raise AssertionError(f"expert_gemm and linear_recurrence under "
-                             f"grad: launches {launches}, want {want}")
+        raise AssertionError(f"expert_gemm, linear_recurrence and mlstm "
+                             f"under grad: launches {launches}, want {want}")
     return sorted(calls)
 
 
 def grad_gaps(torch, model, params, toks, labels):
     """Phase 36's in-model check: the gradients through the kernels, the
-    plain versions and the plain versions with their q . k sums reordered;
-    per leaf the kernels' and the reordered side's largest gap from the
-    plain side, and the plain side's largest |gradient|."""
+    plain versions and the plain versions with their q . k sums reordered
+    (``plain_kernels``); per leaf the kernels' and the reordered side's
+    largest gap from the plain side, and the plain side's largest
+    |gradient|."""
     from repro_torch.tree import leaves
     plist = leaves(params)
 
@@ -4673,7 +4734,10 @@ def grad_gaps(torch, model, params, toks, labels):
         with ctx:
             loss = model.train_loss(params, toks, labels)
             loss.backward()
-        out = [p.grad for p in plist]
+        # a leaf the loss does not reach (xLSTM's ln2 without an MLP) has
+        # no gradient: zeros, as make_train_step and the reference take it
+        out = [torch.zeros_like(p) if p.grad is None else p.grad
+               for p in plist]
         for p in plist:
             p.grad = None
         torch.cuda.synchronize()
@@ -4701,8 +4765,9 @@ def run_full_training(np, torch, device):
     backward launches, every one on wgmma.  Returns the record."""
     refused = refuse_grad_on_the_card(torch, device)
     log(f"  under grad on the card {', '.join(refused)} refuse to launch "
-        f"(RuntimeError naming the ROADMAP item); expert_gemm and "
-        f"linear_recurrence launch their forward and backward kernels")
+        f"(RuntimeError naming the ROADMAP item); expert_gemm, "
+        f"linear_recurrence and mlstm launch their forward and backward "
+        f"kernels")
     rec = train_at_full_width(np, torch, device, FULL_TRAIN)
     rec["refused_under_grad"] = refused
     return rec
@@ -4721,8 +4786,10 @@ def train_at_full_width(np, torch, device, f):
     gradients at the check's S through the kernels against the plain
     versions: each leaf's gap, as a share of its largest plain gradient,
     within the larger of ``LM_GAP`` x the reordered plain side's largest
-    share over the leaves and ``GRAD_FLOOR_ULPS`` bf16 ulps of that
-    gradient.  Returns the record."""
+    share over the leaves and ``GRAD_FLOOR_ULPS`` ulps of that gradient
+    in the check's dtype; with ``f["check_dtype"]`` the check's model
+    computes in that dtype, with ``f["check_at_init"]`` on the initial
+    parameters (else the trained ones).  Returns the record."""
     import dataclasses
     import math
     from repro_torch import kernels
@@ -4748,6 +4815,11 @@ def train_at_full_width(np, torch, device, f):
                        tcfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    initial = None
+    if f.get("check_at_init"):
+        # kept on the host, out of the training's peak memory
+        initial = tree_map(lambda t: t.detach().to("cpu", copy=True),
+                           state["params"])
     n_params = sum(p.numel() for p in leaves(state["params"]))
     step = make_train_step(model, cfg, tcfg)
     data = lm_data(cfg, f["batch"], f["seq"], seed=0, prefetch=0)
@@ -4816,18 +4888,23 @@ def train_at_full_width(np, torch, device, f):
         f"memory {peak / 1e9:.2f} GB; launches {rec['launches']} "
         f"(routes {rec['routes']})")
 
-    # kernels against plain versions inside the model at S 1,024
+    # kernels against plain versions inside the model at the check's S
     del state["opt"], step
     gc.collect()
     torch.cuda.empty_cache()
-    params = state["params"]
+    params = state["params"] if initial is None else tree_map(
+        lambda t: t.to(device).requires_grad_(), initial)
     rng = np.random.default_rng(3)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                         (1, f["check_seq"] + 1)),
                            device=device)
-    gaps = grad_gaps(torch, model, params, toks[:, :-1], toks[:, 1:])
+    check_model = model if "check_dtype" not in f else build_model(
+        dataclasses.replace(cfg, dtype=f["check_dtype"]), device)
+    gaps = grad_gaps(torch, check_model, params, toks[:, :-1], toks[:, 1:])
     rows = []
     paths = [p for p, _ in leaves_with_paths(params)]
+    check_dtype = f.get("check_dtype", cfg.dtype)
+    ulp = bf16_ulp if check_dtype == "bfloat16" else float32_ulp
 
     def rel(gap, top):
         return gap / top if top else (0.0 if gap == 0 else math.inf)
@@ -4835,8 +4912,7 @@ def train_at_full_width(np, torch, device, f):
                                               gaps["top"]))
     for path, k, r, top in zip(paths, gaps["kernels"], gaps["reordered"],
                                gaps["top"]):
-        floor = rel(GRAD_FLOOR_ULPS * float(bf16_ulp(torch,
-                                                     torch.tensor(top))),
+        floor = rel(GRAD_FLOOR_ULPS * float(ulp(torch, torch.tensor(top))),
                     top)
         limit = max(LM_GAP * reordered, floor)
         rows.append((rel(k, top) / limit, path, k, r, top,
@@ -4857,24 +4933,31 @@ def train_at_full_width(np, torch, device, f):
             f"{cfg.name} at S {f['check_seq']}: {len(over)} gradient "
             f"leaves over the larger of {LM_GAP} x the reordered plain's "
             f"largest relative gap {reordered:.3g} and {GRAD_FLOOR_ULPS} "
-            f"bf16 ulps of the leaf's largest gradient: {worst_leaves}")
+            f"{check_dtype} ulps of the leaf's largest gradient: "
+            f"{worst_leaves}")
+    kernels_rel = max(rel(k, t) for k, t in zip(gaps["kernels"],
+                                               gaps["top"]))
     rec["grad_check"] = {
-        "seq": f["check_seq"], "leaves": len(paths),
+        "seq": f["check_seq"], "leaves": len(paths), "dtype": check_dtype,
+        "at_init": initial is not None,
         "reordered_largest_relative_gap": reordered,
+        "kernels_largest_relative_gap": kernels_rel,
         "kernels_share_of_limit": worst, "leaves_at_floor": by_floor,
         "worst_leaves": worst_leaves,
         "losses": {s: gaps[f"{s}_loss"] for s in ("plain", "kernels",
                                                   "reordered")},
         "largest_gap": {s: max(gaps[s]) for s in ("kernels", "reordered")}}
-    log(f"  gradients at S {f['check_seq']}, kernels vs plain inside the "
-        f"model: every one of {len(paths)} leaves within its limit (worst "
-        f"{worst:.3g} of it; the reordered side's largest gap "
-        f"{reordered:.3g} of a leaf's largest gradient; {by_floor} leaves "
-        f"at the floor); largest gap "
+    log(f"  gradients at S {f['check_seq']} ({check_dtype}"
+        f"{', initial parameters' if initial is not None else ''}), kernels "
+        f"vs plain inside the model: every one of {len(paths)} leaves "
+        f"within its limit (worst {worst:.3g} of it; the kernels' largest "
+        f"gap {kernels_rel:.3g} of a leaf's largest gradient, the "
+        f"reordered side's {reordered:.3g}; {by_floor} leaves at the "
+        f"floor); largest gap "
         f"{max(gaps['kernels']):.3g} (reordered plain "
         f"{max(gaps['reordered']):.3g}); losses "
         f"{rec['grad_check']['losses']}")
-    del params, state, model, gaps
+    del params, state, model, gaps, initial
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -5213,6 +5296,273 @@ def run_train_example(np, torch, device):
     return record
 
 
+# ---------------------------------------------------------------------------
+# xLSTM training: the mLSTM chunk backward kernel
+# ---------------------------------------------------------------------------
+
+#: phase 42's backward cases (B, S, H, D, initial state, the final state's
+#: gradients given, input-gate offset): xlstm-350m's training call (zero
+#: state, none: training's), its served prefill (B 8 at S 1,024 and the
+#: ragged 1,000), S 1, 37 and 100 at D 256, D 16, 32, 64 and 128, two
+#: cases built for the normaliser's branches: input gates 3 below (the
+#: exp(-m_t) branch wins at most steps) and 4 above (|den_raw| wins), and
+#: a ``held`` state (m0 12 up, input gates 3 down) whose m0 holds the max
+#: over a_s in every chunk: the residual of mx_L's gradient reaches dm0
+MLSTM_BWD_CASES = [
+    (1, 4096, 4, 256, "zero", False, 0.0),
+    (8, 1024, 4, 256, "random", True, 0.0),
+    (8, 1000, 4, 256, "zero", True, 0.0),
+    (2, 1, 4, 256, "random", True, 0.0),
+    (2, 37, 4, 256, "random", False, 0.0),
+    (2, 100, 4, 256, "zero", False, 0.0),
+    (2, 200, 2, 16, "random", True, 0.0),
+    (2, 200, 2, 32, "zero", True, 0.0),
+    (2, 130, 2, 64, "random", False, 0.0),
+    (2, 130, 2, 128, "random", True, 0.0),
+    (2, 300, 4, 256, "random", True, -3.0),
+    (2, 300, 4, 256, "random", True, 4.0),
+    (2, 100, 4, 256, "held", True, 0.0),
+]
+#: the backward against its plain version at the kernel's chunks: each
+#: gradient within this share of its largest magnitude (float32 sums in
+#: another order), rtol 1e-4; a bfloat16 dq, dk, dv one output rounding
+#: more (rtol 1e-2)
+MLSTM_BWD_SHARE = 1e-4
+#: phase 45: xlstm-350m at full width and depth, as phase 36, the
+#: sequence cut to 1,024 and the gradient check at a quarter of it, as
+#: phase 36's: each token of a layer's sLSTM is a step of eager launches
+#: under autograd (ROADMAP item 21; PERF.md section 5 has the step walls
+#: at S 1,024 and 4,096).  The check computes in float32 on the initial
+#: parameters: in bf16 the model's gradients are chaotic at random init,
+#: and in float32 after the three steps, the plain side moving by 1.9-4.8
+#: and by 0.07-0.3 of a leaf's largest gradient when only its mLSTM
+#: chunks change, against 0.007 in float32 at init (ROADMAP section 3,
+#: ``scripts/probe_xlstm_grad_gate.py``).  Its plain side runs the mLSTM
+#: at the kernels' chunks, its reordered side at 64 (``plain_kernels``)
+FULL_TRAIN_XLSTM = dict(FULL_TRAIN, arch="xlstm-350m", seq=1024,
+                        check_seq=256, check_dtype="float32",
+                        check_at_init=True)
+
+
+def mlstm_bwd_operands(torch, seed, case, dtype, device):
+    """``mlstm_operands`` for the forward's arguments (a zero state: m
+    -1e30; a ``held`` one: m 12 up, input gates 3 down), input gates
+    offset by the case's, dh ~ N(0, 1) in ``dtype`` and, where the case
+    gives them, the final state's gradients dC1, dn1, dm1 ~ N(0, 1), each
+    drawn on its own (so mx_L's residual dm1 - <dC1, C1> - <dn1, n1> is
+    not 0).  Returns (the forward's arguments, scale, dh, (dC1, dn1,
+    dm1))."""
+    b, s, h, d, state, final, ibias = case
+    args = list(mlstm_operands(torch, seed, b, s, h, d, dtype, device))
+    args[3] = args[3] + ibias
+    if state == "zero":
+        args[5:] = [torch.zeros_like(args[5]), torch.zeros_like(args[6]),
+                    torch.full_like(args[7], -1e30)]
+    elif state == "held":
+        args[3], args[7] = args[3] - 3.0, args[7] + 12.0
+    scale = 1.0 / d ** 0.5
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dh = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
+    seeds = (None, None, None)
+    if final:
+        seeds = (torch.randn((b, h, d, d), generator=gen, device=device),
+                 torch.randn((b, h, d), generator=gen, device=device),
+                 torch.randn((b, h), generator=gen, device=device))
+    return args, scale, dh, seeds
+
+
+def raw_branch_share(torch, args, scale):
+    """The share of steps whose normaliser is |den_raw| rather than
+    exp(-m_t), in the plain version's chunks of ``BWD_CHUNK``."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import BWD_CHUNK
+    from repro_torch.kernels.mlstm_chunk.ref import raw_normaliser
+    return float(raw_normaliser(*args, scale, chunk=BWD_CHUNK).float()
+                 .mean())
+
+
+def held_mlstm_bwd(torch, got, want, what):
+    """Each gradient of ``got`` against ``want`` within
+    ``MLSTM_BWD_SHARE`` of its largest magnitude (rtol 1e-4; 1e-2 for a
+    bfloat16 one).  Returns {gradient: its max abs error as a share of its
+    largest magnitude} and the bf16 dq, dk, dv max abs error."""
+    shares, err = {}, 0.0
+    for name, g, w in zip(("dq", "dk", "dv", "di", "df", "dC0", "dn0",
+                           "dm0"), got, want):
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(
+            g.float(), w.float(), atol=MLSTM_BWD_SHARE * top,
+            rtol=1e-2 if g.dtype == torch.bfloat16 else 1e-4,
+            msg=lambda m: f"mlstm_chunk_bwd {what} {name}: {m}")
+        gap = float((g.double() - w.double()).abs().max())
+        shares[name] = gap / top if top else gap
+        err = max(err, gap)
+    return shares, err
+
+
+def check_mlstm_bwd(np, torch, device):
+    """Phase 42: the mLSTM chunk backward kernel against
+    ``mlstm_chunk_bwd_ref`` at its chunks (``BWD_CHUNK``) on the card at
+    ``MLSTM_BWD_CASES``, float32 and bfloat16 (``held_mlstm_bwd``); two
+    launches bitwise equal; each launch on ``simt``; the two branch cases
+    each with most steps on their branch, the ``held`` case with m0
+    holding the max in every chunk.  Returns the bf16 max abs error at
+    the training call."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
+                                                            mlstm_chunk_bwd)
+    from repro_torch.kernels.mlstm_chunk.ref import (m0_holds_max,
+                                                     mlstm_chunk_bwd_ref)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for i, case in enumerate(MLSTM_BWD_CASES):
+            args, scale, dh, seeds = mlstm_bwd_operands(torch, 1000 + i,
+                                                        case, dtype, device)
+            got, route = take_route(mlstm_chunk_bwd, lambda: mlstm_chunk_bwd(
+                *args, scale, dh, *seeds))
+            want_route("mlstm_chunk_bwd", route, "simt")
+            again = mlstm_chunk_bwd(*args, scale, dh, *seeds)
+            want = mlstm_chunk_bwd_ref(*args, scale, dh, *seeds,
+                                       chunk=BWD_CHUNK)
+            torch.cuda.synchronize()
+            for name, a, a2 in zip(("dq", "dk", "dv", "di", "df", "dC0",
+                                    "dn0", "dm0"), got, again):
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"mlstm_chunk_bwd {case} {dname}: "
+                                         f"two launches differ in {name}")
+            shares, err = held_mlstm_bwd(torch, got, want, f"{case} {dname}")
+            branch = ""
+            if case[-1]:
+                share = raw_branch_share(torch, args, scale)
+                if (share > 0.2) if case[-1] < 0 else (share < 0.8):
+                    raise AssertionError(f"mlstm_chunk_bwd {case}: |den_raw|"
+                                         f" wins at {share:.3f} of steps")
+                branch = f", |den_raw| the normaliser at {share:.3f} of steps"
+            if case[4] == "held":
+                if not bool(m0_holds_max(*args, scale, chunk=BWD_CHUNK)
+                            .all()):
+                    raise AssertionError(f"mlstm_chunk_bwd {case}: m0 does "
+                                         f"not hold every chunk's max")
+                branch = ", m0 holding every chunk's max"
+            if i == 0 and dtype == torch.bfloat16:
+                errs["train"] = err
+            worst = max(shares, key=shares.get)
+            log(f"  mlstm_chunk_bwd {dname} B={case[0]} S={case[1]} "
+                f"H={case[2]} D={case[3]} state {case[4]}, final-state "
+                f"gradients {'given' if case[5] else 'none'}{branch}: "
+                f"{route}, max abs err {err:.3g} (worst {worst} "
+                f"{shares[worst]:.3g} of its largest), two launches bitwise "
+                f"equal")
+            del args, dh, seeds, got, again, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def mlstm_bwd_work(b, s, h, d, elt):
+    """Bytes (q, k, v, dh read and dq, dk, dv written in the dtype; the
+    gates read and their gradients written, and the initial state read
+    and its gradient written, in float32) and operations (per chunk of
+    l steps and head 6 l^2 D + 6 l D^2 multiply-adds: q k^T, sw V,
+    dnum V^T, dS K, dS^T Q and sw^T dnum; q C, C dnum, the dC update,
+    dC v, dC^T k and the C recompute; 2 operations each) of one backward
+    call in ``BWD_CHUNK`` chunks."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import BWD_CHUNK
+    nbytes = 7 * b * s * h * d * elt + 4 * b * s * h * 4 \
+        + 2 * b * h * (d * d + d + 1) * 4
+    fmas = sum(6 * l * l * d + 6 * l * d * d
+               for l in (min(BWD_CHUNK, s - c0)
+                         for c0 in range(0, s, BWD_CHUNK)))
+    return nbytes, 2 * b * h * fmas
+
+
+def time_mlstm_bwd(torch, device, errs):
+    """Phase 43: the backward kernel at xlstm-350m's training call (B 1,
+    S 4,096, H 4, D 256, bfloat16, the zero state, no final-state
+    gradients), CUDA events in a graph and eager, beside its plain
+    version (eager) and its bound from this run's shape (bytes against
+    the bf16 tensor-core peak; the fp32 SIMT bound beside it), the device
+    time of its five kernels (``torch.profiler``); no PyTorch call
+    computes it.  Then the forward kernel at the same shape (the
+    training call's: ``wgmma``, 16 blocks at B 1), checked against its
+    plain version.  Returns the ``kernels`` row and the forward's
+    timing."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (mlstm_chunk,
+                                                            mlstm_chunk_bwd)
+    from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_bwd_ref,
+                                                     mlstm_chunk_ref)
+    case = MLSTM_BWD_CASES[0]
+    b, s, h, d = case[:4]
+    args, scale, dh, _ = mlstm_bwd_operands(torch, 1100, case,
+                                            torch.bfloat16, device)
+    kern = lambda: mlstm_chunk_bwd(*args, scale, dh)             # noqa
+    plain = lambda: mlstm_chunk_bwd_ref(*args, scale, dh)        # noqa
+    _, route = take_route(mlstm_chunk_bwd, kern)
+    nbytes, nops = mlstm_bwd_work(b, s, h, d, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_tc = max(t_bytes, nops / BF16_OPS_PER_S * 1e3)
+    t_simt = max(t_bytes, nops / FP32_OPS_PER_S * 1e3)
+    ms = time_ms(torch, kern, 5, graph=True)
+    row = {"name": "mlstm_chunk_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/mlstm_chunk_bwd.cu",
+           "replaces": "src/repro/models/recurrent.py:216",
+           "replaces_note": "no Pallas kernel has a backward: XLA's "
+                            "gradient of the reference's mlstm_chunk_math "
+                            "under mlstm_seq",
+           "launches": None, "max_abs_err": errs["train"],
+           "ms": ms, "eager_ms": time_ms(torch, kern, 5, graph=False),
+           "plain_ms": time_ms(torch, plain, 1, graph=False),
+           "plain_timing": "eager", "bound_ms": t_tc,
+           "bound_by": "bytes" if t_tc <= t_bytes else "operations",
+           "bound_fp32_simt_ms": t_simt, "library_ms": None,
+           "library": None, "kernel_route": route,
+           "shape": [b, s, h, d], "dtype": "bfloat16", "bytes": nbytes,
+           "operations": nops, "tflops": nops / ms / 1e9,
+           "gb_per_s": nbytes / ms / 1e6,
+           "device_ms_by_kernel": kernel_device_ms(torch, kern, 3)}
+    by_kernel = {n: round(t, 4) for n, t in
+                 row["device_ms_by_kernel"].items()}
+    log(f"  mlstm_chunk_bwd {row['shape']} bf16 ({route}): {ms:.4f} ms in a "
+        f"graph, {row['eager_ms']:.4f} ms eager ({row['tflops']:.2f} "
+        f"TFLOP/s, {row['gb_per_s']:.1f} GB/s); plain {row['plain_ms']:.4f} "
+        f"ms (eager); no library call; bound {t_tc:.4f} ms "
+        f"({row['bound_by']}; {t_simt:.4f} ms at the fp32 SIMT peak); "
+        f"device ms by kernel {by_kernel}")
+    fwd = lambda: mlstm_chunk(*args, scale)                      # noqa
+    got, froute = take_route(mlstm_chunk, fwd)
+    err = held_mlstm(torch, got, mlstm_chunk_ref(*args, scale),
+                     torch.bfloat16)
+    fbytes, fops = mlstm_work(b, s, h, d, 2, froute)
+    f_ms = time_ms(torch, fwd, 5, graph=True)
+    forward = {"shape": [b, s, h, d], "dtype": "bfloat16",
+               "kernel_route": froute, "max_abs_err": err, "ms": f_ms,
+               "eager_ms": time_ms(torch, fwd, 5, graph=False),
+               "blocks": b * h * (d // 64),
+               "bound_ms": max(fbytes / HBM_BYTES_PER_S,
+                               fops / BF16_OPS_PER_S) * 1e3,
+               "tflops": fops / f_ms / 1e9}
+    log(f"  mlstm_chunk forward at the same shape ({froute}, "
+        f"{forward['blocks']} blocks): max abs err {err:.3g}; {f_ms:.4f} ms "
+        f"in a graph, {forward['eager_ms']:.4f} ms eager; bound "
+        f"{forward['bound_ms']:.4f} ms")
+    del args, dh, got
+    torch.cuda.empty_cache()
+    return {"row": row, "forward_train": forward}
+
+
+def run_xlstm_training(np, torch, device):
+    """Phase 45: ``FULL_TRAIN_XLSTM`` through ``train_at_full_width``:
+    xlstm-350m at full width and depth, exactly 2 x 12 mLSTM forward
+    launches (``wgmma``) and 12 backward launches (``simt``) a
+    microbatch and no other kernel (the sLSTM is torch's autograd of its
+    step loop); the in-model gradient gate at S 256 on the initial
+    parameters in float32 compute (``FULL_TRAIN_XLSTM``: the mLSTM
+    forward on ``simt``), the plain side's mLSTM at the kernels' chunks.
+    Returns the record."""
+    t0 = time.perf_counter()
+    rec = train_at_full_width(np, torch, device, FULL_TRAIN_XLSTM)
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5356,13 +5706,30 @@ def main() -> int:
              lambda *a: run_reduced_training(*a, TRAIN_ARCHS[4:])),
             (41, "slice", "granite-moe-1b-a400m (full width and depth) and "
              "recurrentgemma-9b (full width, 9 layers) trained on the card",
-             run_full_training_slice)):
+             run_full_training_slice),
+            (42, "mlstm_bwd_errs", "mLSTM chunk backward kernel against its "
+             "plain version on the card", check_mlstm_bwd),
+            (43, "mlstm_bwd_timing", "mLSTM chunk backward kernel times "
+             "(CUDA events), xlstm-350m's training call",
+             lambda np_, torch_, dev: time_mlstm_bwd(
+                 torch_, dev, train["mlstm_bwd_errs"])),
+            (44, "reduced_xlstm", "reduced xLSTM training, card against the "
+             "CPU plain path",
+             lambda *a: run_reduced_training(*a, ("xlstm-350m",))),
+            (45, "xlstm-350m", "xlstm-350m trained at full width and depth "
+             "(S cut to 1,024)", run_xlstm_training)):
         log(f"[{phase}] {title}")
         t0 = time.perf_counter()
         train[key] = fn(np, torch, device)
         train[key]["phase_wall_s"] = time.perf_counter() - t0
         log(f"  phase {phase}: {train[key]['phase_wall_s']:.3f} s")
-    del train["kernel_errs"]
+    del train["kernel_errs"], train["mlstm_bwd_errs"]
+    mlstm_timing = train.pop("mlstm_bwd_timing")
+    xlstm_launches = train["xlstm-350m"]["launches"]
+    mlstm_bwd_row = dict(mlstm_timing["row"],
+                         launches=xlstm_launches["mlstm_chunk_bwd"],
+                         launches_by_path={"xlstm-350m training":
+                                           xlstm_launches["mlstm_chunk_bwd"]})
     kernel_rows = train.pop("kernel_rows")
     train_rows = kernel_rows["rows"]
     next(r for r in rows if r["name"] == "rglru_scan")["train"] = \
@@ -5398,6 +5765,11 @@ def main() -> int:
                              *slice_runs.items()]:
                     row["launches_by_path"][f"{a} training"] = \
                         r["launches"]["flash_attention"]
+        if row["name"] == "mlstm_chunk":
+            row["train"] = mlstm_timing["forward_train"]
+            row["launches_by_path"] = {
+                "served": row["launches"],
+                "xlstm-350m training": xlstm_launches["mlstm_chunk"]}
         if row["name"] in ("moe_matmul", "rglru_scan"):
             a = slice_archs[0 if row["name"] == "moe_matmul" else 1]
             row["launches_by_path"] = {
@@ -5407,6 +5779,8 @@ def main() -> int:
             row["launches_by_path"] = {"rollout": row["launches"], **{
                 f"rollout over {m['mesh']}": m["launches"][row["name"]]
                 for m in sharded["meshes"]}}
+
+    rows.append(mlstm_bwd_row)
 
     print(json.dumps({"train": train}, default=str))
     print(json.dumps({"pipeline": pipeline}))

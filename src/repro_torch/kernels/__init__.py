@@ -9,8 +9,8 @@ version).  ``_build``
 compiles the sources with ``nvcc`` at first use.  A forward wrapper
 refuses to run under grad (``refuse_grad``): its output, filled through
 ``ctypes``, would carry no gradient.  Where the kernel has a backward
-(flash attention, the expert GEMM, the RG-LRU scan), ``ops.py`` holds an
-autograd Function that launches both.
+(flash attention, the expert GEMM, the RG-LRU scan, the mLSTM chunk),
+``ops.py`` holds an autograd Function that launches both.
 """
 from __future__ import annotations
 
@@ -38,7 +38,8 @@ def _wrappers():
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_bwd)
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (mlstm_chunk,
+                                                             mlstm_chunk_bwd)
     from repro_torch.kernels.moe_matmul.moe_matmul import (
         moe_matmul, moe_matmul_dw, moe_matmul_dx)
     from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
@@ -52,7 +53,7 @@ def _wrappers():
             "decode_attention": decode_attention, "moe_matmul": moe_matmul,
             "moe_matmul_dx": moe_matmul_dx, "moe_matmul_dw": moe_matmul_dw,
             "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd,
-            "mlstm_chunk": mlstm_chunk}
+            "mlstm_chunk": mlstm_chunk, "mlstm_chunk_bwd": mlstm_chunk_bwd}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -23,11 +23,21 @@ dtype and ``S`` alone and counted in ``mlstm_chunk.launches_by_route``:
   (b, head, value tile) holding its tile of ``C`` in shared memory.
 
 Every route is deterministic launch to launch.
+
+The backward ``mlstm_chunk_bwd`` (``csrc/mlstm_chunk_bwd.cu``; no Pallas
+kernel has one: the reference leaves ``mlstm_chunk_math``'s gradient to
+XLA) recomputes the chunk-start states, carries the state's gradient
+backwards over the chunks and then forms dq, dk, dv and the gates'
+gradients chunk by chunk, in float32 SIMT, in chunks of ``BWD_CHUNK``;
+one route, ``simt``, counted in ``mlstm_chunk_bwd.launches_by_route``.
+It is deterministic launch to launch (no atomics).  ``ops.mlstm`` calls
+both through an autograd Function when a gradient is wanted; the bare
+forward refuses to run under grad (its output would carry no gradient).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,6 +52,12 @@ ROUTES = ("simt", "wgmma", "decode")
 #: each route's chunk length
 CHUNK = {"simt": 32, "wgmma": 64, "decode": 1}
 MAX_ROWS = 2 ** 31 - 1           # B x H, the grid's x extent
+_BWD_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_longlong] + \
+    [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+#: the backward's routes, its chunk length and its grid's y extent (B x H)
+BWD_ROUTES = ("simt",)
+BWD_CHUNK = 64
+BWD_MAX_ROWS = 65535
 
 
 def mlstm_route(dtype: torch.dtype, s: int) -> str:
@@ -63,9 +79,11 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, D, D], n0 [B, H, D], m0 [B, H] contiguous float32, all CUDA
     tensors on one device; D in ``HEAD_DIMS``, S >= 1 -> (h [B, S, H, D]
     in q's dtype, C1, n1, m1), on the current stream without
-    synchronising.  Raises under grad."""
-    refuse_grad("mlstm_chunk", "14.8 (xLSTM training)", q, k, v, i_pre,
-                f_pre, C0, n0, m0)
+    synchronising.  Raises under grad: the training path goes through
+    ``ops.mlstm``."""
+    refuse_grad("mlstm_chunk", "14.8: call ops.mlstm, whose autograd "
+                "Function launches mlstm_chunk_bwd", q, k, v, i_pre, f_pre,
+                C0, n0, m0)
     if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) or \
             tuple(v.shape) != tuple(q.shape):
         raise ValueError(f"mlstm_chunk: want q, k, v [B, S, H, D] of one "
@@ -121,3 +139,82 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 mlstm_chunk.launches = 0
 mlstm_chunk.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    i_pre: torch.Tensor, f_pre: torch.Tensor,
+                    C0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor,
+                    scale: float, dh: torch.Tensor,
+                    dC1: Optional[torch.Tensor] = None,
+                    dn1: Optional[torch.Tensor] = None,
+                    dm1: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, ...]:
+    """The chunk kernel's gradient: the forward's operands as
+    ``mlstm_chunk`` takes them, dh [B, S, H, D] contiguous in q's dtype
+    and the final state's dC1, dn1, dm1 (None: zeros) contiguous float32,
+    all CUDA tensors on one device -> (dq, dk, dv in q's dtype; di, df
+    [B, S, H], dC0, dn0, dm0 float32), on the current stream without
+    synchronising.  Its float32 workspace is allocated here and freed
+    with the call's tensors."""
+    if q.dim() != 4 or any(tuple(t.shape) != tuple(q.shape)
+                           for t in (k, v, dh)):
+        raise ValueError(f"mlstm_chunk_bwd: want q, k, v, dh [B, S, H, D] "
+                         f"of one shape; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(dh.shape)}")
+    B, S, H, D = q.shape
+    want = {"i_pre": (B, S, H), "f_pre": (B, S, H), "C0": (B, H, D, D),
+            "n0": (B, H, D), "m0": (B, H), "dC1": (B, H, D, D),
+            "dn1": (B, H, D), "dm1": (B, H)}
+    got = {"i_pre": i_pre, "f_pre": f_pre, "C0": C0, "n0": n0, "m0": m0,
+           "dC1": dC1, "dn1": dn1, "dm1": dm1}
+    got = {name: t for name, t in got.items() if t is not None}
+    for name, t in got.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"mlstm_chunk_bwd: {name} must be "
+                             f"{want[name]}; got {tuple(t.shape)}")
+    if D not in HEAD_DIMS or S < 1 or B * H > BWD_MAX_ROWS:
+        raise ValueError(f"mlstm_chunk_bwd: head dim {D} (want one of "
+                         f"{HEAD_DIMS}), S {S} (want >= 1), B x H {B * H} "
+                         f"(at most {BWD_MAX_ROWS})")
+    for name, t in (("q", q), ("k", k), ("v", v), ("dh", dh)):
+        if t.device.type != "cuda" or t.dtype not in _DTYPES or \
+                t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"mlstm_chunk_bwd: {name} must be a "
+                             f"contiguous CUDA float32 or bfloat16 tensor "
+                             f"of q's dtype; got {t.device} {t.dtype}")
+    for name, t in got.items():
+        if t.device != q.device or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"mlstm_chunk_bwd: {name} must be a contiguous "
+                             f"CUDA float32 tensor on {q.device}; got "
+                             f"{t.device} {t.dtype}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    di, df = torch.empty_like(i_pre), torch.empty_like(f_pre)
+    dC0, dn0, dm0 = (torch.empty_like(t) for t in (C0, n0, m0))
+    size = _build.launcher("mlstm_chunk_bwd",
+                           "repro_mlstm_chunk_bwd_workspace",
+                           [ctypes.c_int] * 4, ctypes.c_longlong)
+    nbytes = size(B, S, H, D)
+    work = torch.empty((nbytes + 3) // 4, dtype=torch.float32,
+                       device=q.device)
+    fn = _build.launcher("mlstm_chunk_bwd", "repro_mlstm_chunk_bwd",
+                         _BWD_ARGTYPES)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(ptr(t) for t in (q, k, v, i_pre, f_pre, C0, n0, m0, dh,
+                                    dC1, dn1, dm1, dq, dk, dv, di, df, dC0,
+                                    dn0, dm0, work)),
+                 nbytes, B, S, H, D, _DTYPES[q.dtype], float(scale), stream)
+    _build.check_launch(_build.load("mlstm_chunk_bwd"), "mlstm_chunk_bwd",
+                        err)
+    mlstm_chunk_bwd.launches += 1
+    mlstm_chunk_bwd.launches_by_route["simt"] += 1
+    return dq, dk, dv, di, df, dC0, dn0, dm0
+
+
+mlstm_chunk_bwd.launches = 0
+mlstm_chunk_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)

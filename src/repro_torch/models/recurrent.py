@@ -11,9 +11,12 @@ compute dtype, as the reference's ``rglru_step`` does.
 The mLSTM cell runs its recurrence, prefill and decode alike, through
 the chunkwise mLSTM kernel (``ops.mlstm``, from the carried state
 ``C [B, H, D, D]``, ``n [B, H, D]``, ``m [B, H]``, float32), where the
-reference model computes ``mlstm_chunk_math`` in jnp.  The sLSTM cell is
-a step loop in plain torch, as the reference's ``lax.scan``; its state is
-``c, n, m`` in float32 and ``h`` in the compute dtype.
+reference model computes ``mlstm_chunk_math`` in jnp; under grad the
+same call goes through ``ops.mlstm``'s autograd Function, whose backward
+is the mLSTM chunk backward kernel.  The sLSTM cell is a step loop in
+plain torch, as the reference's ``lax.scan``, trained through torch's
+autograd of that loop; its state is ``c, n, m`` in float32 and ``h`` in
+the compute dtype.
 """
 from __future__ import annotations
 
@@ -194,7 +197,10 @@ def _mlstm_qkvg(p: Params, x: torch.Tensor):
 def mlstm_seq(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """mLSTM over x [B, S, d] from ``state`` (``C, n, m``); S = 1 is a
-    decode step.  Returns (y [B, S, d], the final state)."""
+    decode step.  Returns (y [B, S, d], the final state).  Under grad
+    (an input or a weight requiring it) ``ops.mlstm`` takes its autograd
+    Function: the chunk kernel forward, the chunk backward kernel on
+    ``backward``; the values are the serving call's."""
     q, k, v, i_pre, f_pre = _mlstm_qkvg(p, x)
     scale = 1.0 / math.sqrt(q.shape[-1])
     h, C, n, m = mlstm(q, k, v, i_pre, f_pre, state["C"], state["n"],

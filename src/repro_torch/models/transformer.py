@@ -5,9 +5,8 @@ to one local-attention block), xLSTM (family ``ssm``, xlstm-350m:
 sLSTM and mLSTM blocks alternating) and the VLM (qwen2-vl: M-RoPE, and
 patch embeddings from a stub frontend prepended to the prompt), served
 through ``prefill`` and ``decode_step``, and trained through
-``train_loss`` (the dense, MoE, griffin and VLM families, the MoE loss
-with its load-balancing term; xLSTM training raises until the mLSTM
-kernel has a backward).  Family ``audio`` is
+``train_loss`` (every family here, the MoE loss with its
+load-balancing term).  Family ``audio`` is
 ``models.whisper.WhisperLM``.
 
 The kind sequence comes from ``core.cost_model._block_kinds``, as in the
@@ -46,9 +45,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: layers a period of the reference's scanned stack, by attention pattern
 #: (xLSTM's period is 2)
 _PERIOD = {"full": 1, "local": 1, "alternating": 2, "griffin": 3}
-#: families whose training waits for a kernel's backward: the ROADMAP
-#: queue 1 item that brings it
-TRAIN_LATER = {"ssm": "14.8 (the mlstm_chunk backward)"}
 
 
 class TransformerLM:
@@ -173,14 +169,7 @@ class TransformerLM:
         [B, S_text]; ``extra_embeds`` [B, P, d] (the VLM's patches) go in
         front and the loss is taken on the text positions only.  With MoE
         layers the loss adds ``aux_loss_weight`` times the layers' mean
-        load-balancing loss, as the reference does.  Raises
-        ``NotImplementedError`` for the xLSTM family, whose mLSTM kernel
-        has no backward yet."""
-        if self.cfg.family in TRAIN_LATER:
-            raise NotImplementedError(
-                f"train_loss: {self.cfg.name} (family "
-                f"{self.cfg.family!r}) trains once ROADMAP queue 1 item "
-                f"{TRAIN_LATER[self.cfg.family]} lands")
+        load-balancing loss, as the reference does."""
         x = self._embed(params, tokens, extra_embeds)
         b, s = x.shape[:2]
         ctx = Ctx(self.cfg, "train", self._positions(b, s))
@@ -231,4 +220,4 @@ class TransformerLM:
                                self.device) for blk in self.blocks]
 
 
-__all__ = ["TRAIN_LATER", "TransformerLM"]
+__all__ = ["TransformerLM"]

@@ -28,10 +28,12 @@ def test_sources_are_the_ported_kernels():
     """The planner's two kernels, the CNN path's conv GEMM, the LM
     serving path's two attention kernels, the MoE expert GEMM, the
     RG-LRU scan, the mLSTM chunk and training's backward kernels: flash
-    attention's, the expert GEMM's and the RG-LRU scan's."""
+    attention's, the expert GEMM's, the RG-LRU scan's and the mLSTM
+    chunk's."""
     assert _build.sources() == ("conv2d", "decode_attention",
                                 "flash_attention", "flash_attention_bwd",
-                                "link_geometry", "mlstm_chunk", "moe_matmul",
+                                "link_geometry", "mlstm_chunk",
+                                "mlstm_chunk_bwd", "moe_matmul",
                                 "moe_matmul_bwd", "rglru_scan",
                                 "rglru_scan_bwd", "tropical_dp")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -372,13 +374,14 @@ def test_rglru_scan_bwd_rejects_before_building(case, monkeypatch):
 
 def test_route_counts_reset_with_the_launch_counts():
     """The expert GEMM, prefill attention and its backward, the conv GEMM,
-    the RG-LRU scan, the mLSTM chunk, the chain DP and the expert GEMM's
-    and RG-LRU scan's backward kernels count launches by route beside
-    their totals; one reset clears both."""
+    the RG-LRU scan, the mLSTM chunk, the chain DP and the expert GEMM's,
+    RG-LRU scan's and mLSTM chunk's backward kernels count launches by
+    route beside their totals; one reset clears both."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_bwd)
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (mlstm_chunk,
+                                                            mlstm_chunk_bwd)
     from repro_torch.kernels.moe_matmul.moe_matmul import (
         moe_matmul, moe_matmul_dw, moe_matmul_dx)
     from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
@@ -387,8 +390,10 @@ def test_route_counts_reset_with_the_launch_counts():
              for f in (flash_attention, flash_attention_bwd, moe_matmul,
                        matmul_bias_act, rglru_scan, mlstm_chunk,
                        tdp.tropical_dp_chain, moe_matmul_dx, moe_matmul_dw,
-                       rglru_scan_bwd)]
+                       rglru_scan_bwd, mlstm_chunk_bwd)]
     try:
+        mlstm_chunk_bwd.launches = 12
+        mlstm_chunk_bwd.launches_by_route.update(simt=12)
         moe_matmul_dx.launches = 73
         moe_matmul_dx.launches_by_route.update(wgmma=72, simt=1)
         moe_matmul_dw.launches = 71
@@ -419,7 +424,8 @@ def test_route_counts_reset_with_the_launch_counts():
                           "tropical_dp": {"fused": 32, "step": 11},
                           "moe_matmul_dx": {"simt": 1, "wgmma": 72},
                           "moe_matmul_dw": {"simt": 1, "wgmma": 70},
-                          "rglru_scan_bwd": {"simt": 1, "tma": 5}}
+                          "rglru_scan_bwd": {"simt": 1, "tma": 5},
+                          "mlstm_chunk_bwd": {"simt": 12}}
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
             "flash_attention": {"simt": 0, "wgmma": 0},
@@ -431,7 +437,8 @@ def test_route_counts_reset_with_the_launch_counts():
             "tropical_dp": {"fused": 0, "step": 0},
             "moe_matmul_dx": {"simt": 0, "wgmma": 0},
             "moe_matmul_dw": {"simt": 0, "wgmma": 0},
-            "rglru_scan_bwd": {"simt": 0, "tma": 0}}
+            "rglru_scan_bwd": {"simt": 0, "tma": 0},
+            "mlstm_chunk_bwd": {"simt": 0}}
         assert kernels.launch_counts()["moe_matmul"] == 0
         assert kernels.launch_counts()["moe_matmul_dx"] == 0
         assert kernels.launch_counts()["moe_matmul_dw"] == 0
@@ -440,6 +447,7 @@ def test_route_counts_reset_with_the_launch_counts():
         assert kernels.launch_counts()["conv2d"] == 0
         assert kernels.launch_counts()["rglru_scan"] == 0
         assert kernels.launch_counts()["mlstm_chunk"] == 0
+        assert kernels.launch_counts()["mlstm_chunk_bwd"] == 0
         assert kernels.launch_counts()["tropical_dp"] == 0
     finally:
         for f, n, routes in saved:
@@ -603,6 +611,47 @@ def test_mlstm_chunk_rejects_before_building(case, monkeypatch):
         mlstm_chunk(q, k, q, gates, gates, C0, torch.zeros((b, h, d)),
                     torch.zeros((b, h)), 0.25)
     assert mlstm_chunk.launches == before
+
+
+@pytest.mark.parametrize("case", ["cpu", "shape", "dh", "state", "dC1",
+                                  "head_dim", "dtype", "dh_dtype", "empty",
+                                  "rows"])
+def test_mlstm_chunk_bwd_rejects_before_building(case, monkeypatch):
+    """The backward wrapper checks shapes (the final state's gradients'
+    too), dtypes, the head dim, S >= 1, B x H within its grid and the
+    device before it builds, sizes its workspace or counts a launch."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk_bwd
+    _no_build(monkeypatch)
+    b, s, h, d = 2, 5, 2, 16
+    if case == "head_dim":
+        d = 24
+    elif case == "empty":
+        s = 0
+    elif case == "rows":
+        b, h = 16385, 4
+    dt = torch.float16 if case == "dtype" else torch.float32
+    q = torch.zeros((b, s, h, d), dtype=dt)
+    k = torch.zeros((b, s + 1, h, d)) if case == "shape" else q
+    dh = {"dh": torch.zeros((b, s, h, d + 1)),
+          "dh_dtype": torch.zeros((b, s, h, d), dtype=torch.bfloat16)}.get(
+        case, q)
+    gates = torch.zeros((b, s, h))
+    C0 = torch.zeros((b, h, d, d + (case == "state")))
+    dC1 = torch.zeros((b, h, d + 1, d)) if case == "dC1" else None
+    before = (mlstm_chunk_bwd.launches,
+              dict(mlstm_chunk_bwd.launches_by_route))
+    with pytest.raises(ValueError, match="mlstm_chunk_bwd"):
+        mlstm_chunk_bwd(q, k, q, gates, gates, C0, torch.zeros((b, h, d)),
+                        torch.zeros((b, h)), 0.25, dh, dC1)
+    assert (mlstm_chunk_bwd.launches,
+            mlstm_chunk_bwd.launches_by_route) == before
+
+
+def test_mlstm_backward_routes_and_chunk():
+    """The backward has one route, ``simt``, and its own chunk length."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
+                                                            BWD_ROUTES)
+    assert BWD_ROUTES == ("simt",) and BWD_CHUNK == 64
 
 
 @pytest.mark.parametrize("dtype,s,route", [

@@ -22,7 +22,11 @@ minicpm-2b's loss and gradients on the card against the CPU; the expert
 GEMM's backward kernels (dX, dW) against their plain versions and the
 RG-LRU reverse scan bitwise against its, both Functions' gradients card
 against CPU, and the reduced granite-moe's and recurrentgemma's loss and
-gradients on the card against the CPU with exact launch counts.
+gradients on the card against the CPU with exact launch counts; the
+mLSTM chunk backward kernel against its plain version (zero and random
+states, the final state's gradients or none, both normaliser branches,
+S 1 to 1,000; two launches bitwise), the mLSTM Function card against
+CPU, and the reduced xlstm-350m's loss and gradients.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -1079,3 +1083,174 @@ def test_moe_apply_gradients_are_bitwise_launch_to_launch(cuda, cf):
         grads.append(gs)
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+def _mlstm_bwd_operands(cuda, b, s, h, d, dtype, state, final, seed,
+                        ibias=0.0, mbias=0.0):
+    """q, k, v ~ 0.5 N(0, 1), i ~ N(ibias, 1), f ~ N(3, 1), a zero or
+    random state (m0 ~ N(mbias, 1)), dh ~ N(0, 1) and, with ``final``,
+    the final state's gradients dC1, dn1, dm1 ~ N(0, 1), each drawn on
+    its own (so mx_L's residual dm1 - <dC1, C1> - <dn1, n1> is not 0)."""
+    rng = np.random.default_rng(seed)
+
+    def t(x, dt=torch.float32):
+        return torch.as_tensor(np.asarray(x, np.float32), device=cuda).to(dt)
+
+    q, k, v = (t(rng.normal(0, 0.5, (b, s, h, d)), dtype) for _ in range(3))
+    ip = t(rng.normal(size=(b, s, h)) + ibias)
+    fp = t(rng.normal(size=(b, s, h)) + 3.0)
+    if state == "zero":
+        st = (t(np.zeros((b, h, d, d))), t(np.zeros((b, h, d))),
+              t(np.full((b, h), -1e30)))
+    else:
+        st = (t(rng.normal(0, 0.1, (b, h, d, d))),
+              t(rng.normal(0, 0.1, (b, h, d))),
+              t(rng.normal(size=(b, h)) + mbias))
+    scale = 1.0 / d ** 0.5
+    dh = t(rng.normal(size=(b, s, h, d)), dtype)
+    seeds = (None, None, None)
+    if final:
+        seeds = (t(rng.normal(size=(b, h, d, d))),
+                 t(rng.normal(size=(b, h, d))), t(rng.normal(size=(b, h))))
+    return (q, k, v, ip, fp, *st), scale, dh, seeds
+
+
+def _held_scaled(got, want, dtype, what):
+    """Each gradient within 1e-4 of its largest magnitude (float32 sums
+    in another order); rtol 1e-4, or one bf16 rounding (1e-2) for a
+    bfloat16 dq, dk, dv."""
+    for name, g, w in zip(("dq", "dk", "dv", "di", "df", "dC0", "dn0",
+                           "dm0"), got, want):
+        rtol = 1e-2 if g.dtype == torch.bfloat16 else 1e-4
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), atol=1e-4 * top,
+                                   rtol=rtol, msg=lambda m: f"{what} {name}: "
+                                   f"{m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,d,state,final", [
+    (2, 37, 2, 16, "zero", False), (1, 100, 2, 32, "random", True),
+    (2, 64, 1, 64, "random", True), (1, 130, 2, 128, "random", False),
+    (1, 1, 4, 256, "random", True), (2, 300, 4, 256, "zero", True),
+    (1, 1000, 4, 256, "random", False)])
+def test_mlstm_chunk_bwd_kernel_matches_plain(cuda, b, s, h, d, state, final,
+                                              dtype):
+    """The backward kernel against ``mlstm_chunk_bwd_ref`` at its chunk
+    length (``BWD_CHUNK``), zero and random initial states, with and
+    without the final state's gradients, S 1 and ragged; two launches
+    bitwise equal, both on ``simt``."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
+                                                            mlstm_chunk_bwd)
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_bwd_ref
+    fwd, scale, dh, seeds = _mlstm_bwd_operands(cuda, b, s, h, d, dtype,
+                                                state, final, b * s + d)
+    kernels.reset_launch_counts()
+    got = mlstm_chunk_bwd(*fwd, scale, dh, *seeds)
+    again = mlstm_chunk_bwd(*fwd, scale, dh, *seeds)
+    want = mlstm_chunk_bwd_ref(*fwd, scale, dh, *seeds, chunk=BWD_CHUNK)
+    torch.cuda.synchronize()
+    assert kernels.route_counts()["mlstm_chunk_bwd"] == {"simt": 2}
+    assert [g.dtype for g in got[:3]] == [dtype] * 3
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+    _held_scaled(got, want, dtype, f"{b, s, h, d}")
+
+
+@pytest.mark.parametrize("ibias", [-3.0, 4.0], ids=["exp_branch",
+                                                    "raw_branch"])
+def test_mlstm_chunk_bwd_kernel_on_each_normaliser_branch(cuda, ibias):
+    """Input gates drawn low (exp(-m_t) is the normaliser for most t) and
+    high (|n^T q| is): the kernel against the plain version on each."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
+                                                            mlstm_chunk_bwd)
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_bwd_ref
+    fwd, scale, dh, seeds = _mlstm_bwd_operands(
+        cuda, 2, 200, 2, 64, torch.float32, "random", True, 9, ibias)
+    got = mlstm_chunk_bwd(*fwd, scale, dh, *seeds)
+    want = mlstm_chunk_bwd_ref(*fwd, scale, dh, *seeds, chunk=BWD_CHUNK)
+    torch.cuda.synchronize()
+    _held_scaled(got, want, torch.float32, f"i + {ibias}")
+
+
+@pytest.mark.parametrize("mbias", [12.0, 6.0], ids=["all_held",
+                                                    "some_held"])
+def test_mlstm_chunk_bwd_kernel_routes_the_stabiliser_gradient(cuda, mbias):
+    """Free final-state seeds, input gates 3 low and m0 raised: m0 holds
+    the max over a_s in every chunk of 64 (S 130: the residual of mx_L's
+    gradient reaches dm0) or in some (S 200: it stops at a chunk's da).
+    The kernel against its plain version."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
+                                                            mlstm_chunk_bwd)
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_bwd_ref
+    from repro_torch.kernels.mlstm_chunk.ref import m0_holds_max
+    fwd, scale, dh, seeds = _mlstm_bwd_operands(
+        cuda, 2, 130 if mbias > 8 else 200, 2, 64, torch.float32, "random",
+        True, 21, -3.0, mbias)
+    held = m0_holds_max(*fwd, scale, chunk=BWD_CHUNK)
+    assert bool(held.all()) if mbias > 8 else bool(held[-1].any() and
+                                                   not held.all())
+    got = mlstm_chunk_bwd(*fwd, scale, dh, *seeds)
+    want = mlstm_chunk_bwd_ref(*fwd, scale, dh, *seeds, chunk=BWD_CHUNK)
+    torch.cuda.synchronize()
+    _held_scaled(got, want, torch.float32, f"m0 + {mbias}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_mlstm_function_on_the_card(cuda, dtype):
+    """Under grad ``ops.mlstm`` launches the forward kernel once and, on
+    ``backward``, the backward kernel once; the gradients of q, k, v, the
+    gates and the state (h and the final state C1, n1, m1 in the loss,
+    each with a seed of its own) match the same Function on the CPU (its
+    plain versions, at other chunks) within 1e-4 of each leaf's largest
+    value (bf16 q, k, v's gradients one bf16 rounding more)."""
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm
+    fwd, scale, dh, seeds = _mlstm_bwd_operands(cuda, 2, 150, 2, 64, dtype,
+                                                "random", True, 5)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in fwd]
+        kernels.reset_launch_counts()
+        h, *final = mlstm(*leaves, scale)
+        loss = (h.float() * dh.to(dev).float()).sum()
+        for x, g in zip(final, seeds):
+            loss = loss + (x * g.to(dev)).sum()
+        loss.backward()
+        counts = kernels.launch_counts()
+        n = int(dev == cuda)
+        assert (counts["mlstm_chunk"], counts["mlstm_chunk_bwd"]) == (n, n)
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    _held_scaled(grads["cuda"], grads["cpu"], dtype, "mlstm Function")
+
+
+def test_reduced_xlstm_training_card_against_cpu(cuda):
+    """The reduced xlstm-350m in float32: loss and every gradient on the
+    card against the CPU plain path, a forward and a backward mLSTM launch
+    a mLSTM layer (the sLSTM through torch's autograd of its loop)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_arch("xlstm-350m").reduced()
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 33)))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, dev)
+        p = tree_map(lambda t: t.detach().to(dev, copy=True)
+                     .requires_grad_(), params)
+        kernels.reset_launch_counts()
+        loss = model.train_loss(p, toks[:, :-1].to(dev), toks[:, 1:].to(dev))
+        loss.backward()
+        out[str(dev)] = (loss.item(), [t.grad.cpu() for t in leaves(p)],
+                         kernels.launch_counts())
+    n = sum(k == "mlstm" for k in model.kinds)
+    counts = out["cuda"][2]
+    assert counts == dict(dict.fromkeys(counts, 0), mlstm_chunk=n,
+                          mlstm_chunk_bwd=n)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for g, r in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(g, r, atol=1e-4 * float(r.abs().max()),
+                                   rtol=2e-4)

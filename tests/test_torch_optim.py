@@ -216,14 +216,16 @@ def test_image_batches_are_the_reference_stream():
 
 @pytest.mark.parametrize("arch,n_layers", [("gemma2-9b", 4),
                                            ("gemma2-9b", 5),
-                                           ("minicpm-2b", 3)])
+                                           ("minicpm-2b", 3),
+                                           ("xlstm-350m", 4),
+                                           ("xlstm-350m", 5)])
 def test_grouped_compression_is_the_reference_on_stacked_leaves(arch,
                                                                 n_layers):
     """The reference compresses a stacked leaf (every layer of a period
     slot) with one scale; ``compress_tree`` with
     ``TransformerLM.stacked_groups`` gives the same payloads and
-    residuals on the port's per-layer leaves (gemma2's period of 2, with
-    and without a ``rem`` layer)."""
+    residuals on the port's per-layer leaves (gemma2's and xLSTM's
+    period of 2, with and without a ``rem`` layer)."""
     import dataclasses
     from repro.models.transformer import TransformerLM as JLM
     from repro_torch.convert import lm_params_from_arrays

@@ -64,7 +64,7 @@ NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "tropical_dp_step": 0,
                "conv2d": 0, "flash_attention": 0, "flash_attention_bwd": 0,
                "decode_attention": 0, "moe_matmul": 0, "moe_matmul_dx": 0,
                "moe_matmul_dw": 0, "rglru_scan": 0, "rglru_scan_bwd": 0,
-               "mlstm_chunk": 0}
+               "mlstm_chunk": 0, "mlstm_chunk_bwd": 0}
 
 
 EXAMPLE = os.path.join(ROOT, "examples", "torch_uav_swarm_sim.py")
@@ -447,6 +447,24 @@ def test_cpu_training_takes_the_plain_path_without_counting():
     kernels.reset_launch_counts()
     lm.train_loss(params, toks, toks).backward()
     assert params["layers"][0]["attn"]["wq"].grad is not None
+    assert kernels.launch_counts() == NO_LAUNCHES
+
+
+def test_cpu_xlstm_training_takes_the_plain_path_without_counting():
+    """xLSTM's loss and gradient on CPU tensors go through the mLSTM
+    Function's plain versions (and the sLSTM's torch loop): every mLSTM
+    weight gets a gradient, no kernel counter moves."""
+    cfg = get_arch("xlstm-350m").reduced()
+    lm = build_model(cfg, device="cpu")
+    params = lm.init(torch.Generator().manual_seed(0))
+    cells = [p["cell"] for p, k in zip(params["layers"], lm.kinds)
+             if k == "mlstm"]
+    for c in cells:
+        c["wq"].requires_grad_(True)
+    toks = torch.zeros((1, 6), dtype=torch.long)
+    kernels.reset_launch_counts()
+    lm.train_loss(params, toks, toks).backward()
+    assert cells and all(c["wq"].grad is not None for c in cells)
     assert kernels.launch_counts() == NO_LAUNCHES
 
 

@@ -9,9 +9,12 @@ flash-attention Function's plain versions), in float32.
   whisper-tiny (the encoder's and the cross-attention's non-causal
   calls), granite-moe and olmoe (the expert GEMM's Function, the aux
   loss at the reference's weight; also at capacity factors 1.0 and 0.5,
-  where picks drop) and recurrentgemma (the RG-LRU's Function), within
-  atol 1e-5 + rtol 1e-4; a masked loss too; ``MoEConfig`` field by
-  field;
+  where picks drop), recurrentgemma (the RG-LRU's Function) and
+  xlstm-350m (the mLSTM chunk's Function, the sLSTM through torch's
+  autograd of its loop), within atol 1e-5 + rtol 1e-4 (xLSTM's gradient
+  leaves within 1e-4 of their largest value: the reference's own
+  chunkwise-vs-sequential spread passes the elementwise limit); a
+  masked loss too; ``MoEConfig`` field by field;
 * 3 ``make_train_step`` steps from the same state and batches
   (microbatches 1 and 2, ``grad_compress`` off and on, ``wsd`` and
   ``cosine``): each step's loss, grad norm and lr, then every parameter
@@ -19,7 +22,6 @@ flash-attention Function's plain versions), in float32.
   (``STEP_TOL``), the step counter exact;
 * ``remat="full"`` gives the loss and gradients of ``remat="none"``
   bitwise (the same operations, recomputed);
-* ``train_loss`` raises ``NotImplementedError`` for the xLSTM family;
 * ``make_train_step`` refuses microbatches that do not divide the batch
   (the reference raises too) and batch leaves of other leading sizes,
   and agrees with the reference where mb divides B;
@@ -75,13 +77,21 @@ MOMENT_TOL = dict(atol=1e-6, rtol=1e-3)
 #: within ``flip_tol`` (ROADMAP section 3)
 FLIP_SHARE = 1e-2
 FLIP_COUNT = 4
+#: xLSTM's gradients carry float32 rounding far above the other families'
+#: (h = num / den, den often exp(-m_t)): the reference's own chunkwise
+#: ``mlstm_seq`` against its sequential ``mlstm_seq_ref`` moves leaves
+#: past ``TOL``'s elementwise limit on this test's setup
+#: (``test_xlstm_reference_own_gradient_spread_needs_the_leaf_scale``).
+#: Such a leaf is held within this share of its largest value (rtol
+#: ``TOL``'s); the loss keeps ``TOL`` (ROADMAP section 3)
+LEAF_SCALED = {"xlstm-350m": 1e-4}
 
 
 def flip_tol(key, lr):
     return dict(atol=lr * 3 if key == "params" else 1e-2, rtol=1e-3)
 ARCHS = ["minicpm-2b", "gemma2-9b", "phi4-mini-3.8b", "qwen1.5-4b",
          "qwen2-vl-2b", "whisper-tiny", "granite-moe-1b-a400m",
-         "olmoe-1b-7b", "recurrentgemma-9b"]
+         "olmoe-1b-7b", "recurrentgemma-9b", "xlstm-350m"]
 #: leaves the reference initialises to zero: drawn so each counts
 _ZERO_LEAVES = ("scale", "bias", "bq", "bk", "bv", "b_a", "b_i")
 
@@ -156,8 +166,34 @@ def test_loss_and_every_gradient_match_reference(arch):
     paths = [p for p, _ in leaves_with_paths(want)]
     assert len(tg) == len(paths)
     for path, g, w in zip(paths, tg, leaves(want)):
-        np.testing.assert_allclose(g.numpy(), w.detach().numpy(), **TOL,
-                                   err_msg=path)
+        w = w.detach().numpy()
+        tol = dict(TOL, atol=LEAF_SCALED[arch] * np.abs(w).max()) \
+            if arch in LEAF_SCALED else TOL
+        np.testing.assert_allclose(g.numpy(), w, **tol, err_msg=path)
+
+
+def test_xlstm_reference_own_gradient_spread_needs_the_leaf_scale():
+    """The witness behind ``LEAF_SCALED``: the reference's xlstm-350m
+    gradients with its chunkwise ``mlstm_seq`` and with its sequential
+    ``mlstm_seq_ref`` (the same function) differ past ``TOL``'s
+    elementwise limit at seed 1, and within the leaf-scaled one."""
+    from repro.models import recurrent as j_rec
+    tcfg, jcfg, jm, tm, arrays = _setup("xlstm-350m", 1)
+    batch = _batch(tcfg, 2, 12, 2)
+    _, chunked = _ref_grads(jcfg, jm, arrays["params"], batch)
+    orig = j_rec.mlstm_seq
+    j_rec.mlstm_seq = j_rec.mlstm_seq_ref
+    try:
+        _, seq = _ref_grads(jcfg, jm, arrays["params"], batch)
+    finally:
+        j_rec.mlstm_seq = orig
+    over = 0.0
+    for a, b in zip(jax.tree.leaves(chunked), jax.tree.leaves(seq)):
+        gap = np.abs(a - b)
+        over = max(over, float((gap / (TOL["atol"] + TOL["rtol"] *
+                                       np.abs(a))).max()))
+        assert gap.max() <= LEAF_SCALED["xlstm-350m"] * np.abs(a).max()
+    assert over > 1.0
 
 
 @pytest.mark.parametrize("arch,cf", [("granite-moe-1b-a400m", 1.0),
@@ -263,6 +299,7 @@ STEP_CASES = [
     ("whisper-tiny", 2, True, "wsd"),
     ("granite-moe-1b-a400m", 2, True, "wsd"),
     ("recurrentgemma-9b", 2, True, "cosine"),
+    ("xlstm-350m", 2, False, "wsd"),
 ]
 
 
@@ -313,7 +350,7 @@ def test_three_train_steps_match_reference(arch, mb, compress, schedule):
 
 @pytest.mark.parametrize("arch", ["minicpm-2b", "gemma2-9b",
                                   "granite-moe-1b-a400m",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "xlstm-350m"])
 def test_remat_equals_no_remat(arch):
     tcfg, jcfg, jm, tm, arrays = _setup(arch, 4)
     batch = _batch(tcfg, 2, 12, 6)
@@ -325,16 +362,6 @@ def test_remat_equals_no_remat(arch):
     assert got[0][0] == got[1][0]
     for a, b in zip(got[0][1], got[1][1]):
         assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("arch,item", [("xlstm-350m", "14.8")])
-def test_train_loss_raises_for_families_without_a_backward(arch, item):
-    cfg = get_arch(arch).reduced()
-    tm = build_model(cfg, "cpu")
-    params = tm.init(torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tm.train_loss(params, toks, toks)
 
 
 @pytest.mark.parametrize("b,mb", [(3, 2), (5, 2), (4, 3)])
