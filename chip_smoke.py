@@ -331,22 +331,28 @@ Phases, each raising on failure (the script then exits non-zero):
     case on each of the normaliser's branches, and one whose m0 holds
     every chunk's max), float32 and bfloat16, each gradient within
     1e-4 of its largest magnitude (``MLSTM_BWD_SHARE``), two launches
-    bitwise equal, every launch on ``simt``;
-43. its time at the training call in bfloat16 (graph and eager) beside
-    its plain version, its bound (bytes at the tensor-core peak; the fp32
-    SIMT bound beside it) and its five kernels' device times; no library
-    call computes it; then the forward at the same shape (``wgmma``, 16
-    blocks at B 1), the ``mlstm_chunk`` row's ``train``;
+    bitwise equal, every launch on ``mlstm_bwd_route``'s route (bfloat16
+    ``wgmma``, float32 ``simt``);
+43. its time at the training call in bfloat16 (graph and eager) on
+    ``wgmma`` beside its plain version, its bound (bytes at the
+    tensor-core peak; the fp32 SIMT bound beside it), the route's
+    workspace floor (``mlstm_bwd_floor``) and its kernels' device times;
+    the ``simt`` kernel on the same inputs (through its launcher, held
+    against the ``wgmma`` outputs); no library call computes it; then the
+    forward at the same shape (``wgmma``, 16 blocks at B 1), the
+    ``mlstm_chunk`` row's ``train``;
 44. the reduced xlstm-350m trained card against CPU as phase 35 (a chunk
-    forward and a chunk backward an mLSTM layer, on ``simt``);
+    forward and a chunk backward an mLSTM layer, float32: on ``simt``);
 45. xlstm-350m at full width and depth (24 layers, d 1,024, tied) trained
     as phase 36 with S cut to 1,024 (``FULL_TRAIN_XLSTM``: the sLSTM is a
     step loop of eager launches): exactly 2 x 12 mLSTM forward launches
-    (``wgmma``) and 12 backward launches (``simt``) a microbatch and no
+    (``wgmma``) and 12 backward launches (``wgmma``) a microbatch and no
     other kernel; the in-model gradient gate at S 256 on the initial
-    parameters in float32 compute, the plain side's mLSTM at the kernels'
-    chunks (32 forward, 64 backward), the reordered side's at 64 (in bf16,
-    and after the steps, the gradients are chaotic).
+    parameters in float32 compute (on ``simt``), the plain side's mLSTM at
+    the kernels' chunks (32 forward, 64 backward), the reordered side's at
+    64 (in bf16, and after the steps, the gradients are chaotic); the
+    first bf16 backward's operands of the training (the model's own dh)
+    through ``wgmma`` again, held against the plain backward.
 
 The last lines are the training record, the pipeline planner's, the
 sharded rollout's and the serving example's records, the serving layers'
@@ -358,6 +364,7 @@ Without CUDA it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import json
 import os
@@ -4510,8 +4517,10 @@ def train_routes(torch, cfg, dtype):
     for D -> F and F -> D); the RG-LRU scan the route of its float32
     operands (under grad the recurrence runs in float32), and so its
     reverse scan; the mLSTM chunk its dtype's route for S > 1 (``wgmma``
-    in bfloat16, ``simt`` in float32), its backward ``simt``."""
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_route
+    in bfloat16, ``simt`` in float32), and so its backward
+    (``mlstm_bwd_route``)."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (mlstm_bwd_route,
+                                                            mlstm_route)
     from repro_torch.kernels.moe_matmul.moe_matmul import bwd_route
     from repro_torch.kernels.rglru_scan.rglru_scan import rglru_route
     bf16 = dtype == "bfloat16"
@@ -4528,7 +4537,8 @@ def train_routes(torch, cfg, dtype):
                                           cfg.rglru_width or cfg.d_model),
             "mlstm_chunk": mlstm_route(torch.bfloat16 if bf16
                                        else torch.float32, 2),
-            "mlstm_chunk_bwd": "simt"}
+            "mlstm_chunk_bwd": mlstm_bwd_route(
+                torch.bfloat16 if bf16 else torch.float32, 2, cfg.head_dim)}
 
 
 def want_launches(what, launches, routes, want, route):
@@ -5403,12 +5413,13 @@ def check_mlstm_bwd(np, torch, device):
     """Phase 42: the mLSTM chunk backward kernel against
     ``mlstm_chunk_bwd_ref`` at its chunks (``BWD_CHUNK``) on the card at
     ``MLSTM_BWD_CASES``, float32 and bfloat16 (``held_mlstm_bwd``); two
-    launches bitwise equal; each launch on ``simt``; the two branch cases
+    launches bitwise equal; each launch on ``mlstm_bwd_route``'s route
+    (``wgmma`` in bfloat16, ``simt`` in float32); the two branch cases
     each with most steps on their branch, the ``held`` case with m0
     holding the max in every chunk.  Returns the bf16 max abs error at
     the training call."""
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
-                                                            mlstm_chunk_bwd)
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
+        BWD_CHUNK, mlstm_bwd_route, mlstm_chunk_bwd)
     from repro_torch.kernels.mlstm_chunk.ref import (m0_holds_max,
                                                      mlstm_chunk_bwd_ref)
     errs = {}
@@ -5419,7 +5430,8 @@ def check_mlstm_bwd(np, torch, device):
                                                         case, dtype, device)
             got, route = take_route(mlstm_chunk_bwd, lambda: mlstm_chunk_bwd(
                 *args, scale, dh, *seeds))
-            want_route("mlstm_chunk_bwd", route, "simt")
+            want_route("mlstm_chunk_bwd", route,
+                       mlstm_bwd_route(dtype, case[1], case[3]))
             again = mlstm_chunk_bwd(*args, scale, dh, *seeds)
             want = mlstm_chunk_bwd_ref(*args, scale, dh, *seeds,
                                        chunk=BWD_CHUNK)
@@ -5474,14 +5486,62 @@ def mlstm_bwd_work(b, s, h, d, elt):
     return nbytes, 2 * b * h * fmas
 
 
+def mlstm_bwd_floor(b, s, h, d):
+    """The ``wgmma`` route's own least traffic: ``mlstm_bwd_work``'s bytes
+    plus its workspace's state planes (C_c and dC_{c+1}, bf16 hi + lo:
+    4 bytes an element of each chunk's D x D, D padded to 64) as it moves
+    them: C_c written once and read twice (the gradient walk's <dC, C>,
+    the gradient pass), dC_{c+1} written once and read once.  Returns
+    bytes."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import BWD_CHUNK
+    dp = -(-d // 64) * 64
+    planes = b * h * -(-s // BWD_CHUNK) * dp * dp * 4
+    return mlstm_bwd_work(b, s, h, d, 2)[0] + 5 * planes
+
+
+def mlstm_bwd_simt(torch, args, scale, dh):
+    """The backward's ``simt`` kernel on bfloat16 inputs, through its
+    launcher (route 0; not the wrapper, so uncounted), to time it beside
+    the ``wgmma`` route on the same inputs.  Returns (a call that
+    launches it, its outputs (dq, dk, dv, di, df, dC0, dn0, dm0))."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk as mc
+    q = args[0]
+    b, s, h, d = q.shape
+    code = mc.BWD_ROUTES.index("simt")
+    size = _build.launcher("mlstm_chunk_bwd",
+                           "repro_mlstm_chunk_bwd_workspace",
+                           [ctypes.c_int] * 5, ctypes.c_longlong)
+    nbytes = size(b, s, h, d, code)
+    work = torch.empty((nbytes + 3) // 4, dtype=torch.float32,
+                       device=q.device)
+    fn = _build.launcher("mlstm_chunk_bwd", "repro_mlstm_chunk_bwd",
+                         mc._BWD_ARGTYPES)
+    outs = [torch.empty_like(q) for _ in range(3)] + \
+        [torch.empty_like(args[3]) for _ in range(2)] + \
+        [torch.empty_like(t) for t in args[5:8]]
+
+    def call():
+        err = fn(*(t.data_ptr() for t in (*args, dh)), None, None, None,
+                 *(t.data_ptr() for t in (*outs, work)), nbytes, b, s, h, d,
+                 mc._DTYPES[q.dtype], code, float(scale),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"mlstm_chunk_bwd simt: error {err}")
+    return call, outs
+
+
 def time_mlstm_bwd(torch, device, errs):
     """Phase 43: the backward kernel at xlstm-350m's training call (B 1,
     S 4,096, H 4, D 256, bfloat16, the zero state, no final-state
-    gradients), CUDA events in a graph and eager, beside its plain
-    version (eager) and its bound from this run's shape (bytes against
-    the bf16 tensor-core peak; the fp32 SIMT bound beside it), the device
-    time of its five kernels (``torch.profiler``); no PyTorch call
-    computes it.  Then the forward kernel at the same shape (the
+    gradients) on its route (``wgmma``), CUDA events in a graph and eager,
+    beside its plain version (eager), its bound from this run's shape
+    (bytes against the bf16 tensor-core peak; the fp32 SIMT bound beside
+    it), the route's workspace floor (``mlstm_bwd_floor``) and the device
+    time of its kernels (``torch.profiler``); no PyTorch call computes it.
+    The ``simt`` kernel on the same inputs beside it (through its
+    launcher, held against the ``wgmma`` outputs within
+    ``MLSTM_BWD_SHARE``).  Then the forward kernel at the same shape (the
     training call's: ``wgmma``, 16 blocks at B 1), checked against its
     plain version.  Returns the ``kernels`` row and the forward's
     timing."""
@@ -5495,11 +5555,13 @@ def time_mlstm_bwd(torch, device, errs):
                                             torch.bfloat16, device)
     kern = lambda: mlstm_chunk_bwd(*args, scale, dh)             # noqa
     plain = lambda: mlstm_chunk_bwd_ref(*args, scale, dh)        # noqa
-    _, route = take_route(mlstm_chunk_bwd, kern)
+    got, route = take_route(mlstm_chunk_bwd, kern)
+    want_route("mlstm_chunk_bwd", route, "wgmma")
     nbytes, nops = mlstm_bwd_work(b, s, h, d, 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_tc = max(t_bytes, nops / BF16_OPS_PER_S * 1e3)
     t_simt = max(t_bytes, nops / FP32_OPS_PER_S * 1e3)
+    floor = mlstm_bwd_floor(b, s, h, d)
     ms = time_ms(torch, kern, 5, graph=True)
     row = {"name": "mlstm_chunk_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/mlstm_chunk_bwd.cu",
@@ -5514,6 +5576,8 @@ def time_mlstm_bwd(torch, device, errs):
            "bound_by": "bytes" if t_tc <= t_bytes else "operations",
            "bound_fp32_simt_ms": t_simt, "library_ms": None,
            "library": None, "kernel_route": route,
+           "workspace_floor_bytes": floor,
+           "workspace_floor_ms": floor / HBM_BYTES_PER_S * 1e3,
            "shape": [b, s, h, d], "dtype": "bfloat16", "bytes": nbytes,
            "operations": nops, "tflops": nops / ms / 1e9,
            "gb_per_s": nbytes / ms / 1e6,
@@ -5524,8 +5588,25 @@ def time_mlstm_bwd(torch, device, errs):
         f"graph, {row['eager_ms']:.4f} ms eager ({row['tflops']:.2f} "
         f"TFLOP/s, {row['gb_per_s']:.1f} GB/s); plain {row['plain_ms']:.4f} "
         f"ms (eager); no library call; bound {t_tc:.4f} ms "
-        f"({row['bound_by']}; {t_simt:.4f} ms at the fp32 SIMT peak); "
-        f"device ms by kernel {by_kernel}")
+        f"({row['bound_by']}; {t_simt:.4f} ms at the fp32 SIMT peak); the "
+        f"route's workspace floor {row['workspace_floor_ms']:.4f} ms "
+        f"({floor / 1e6:.1f} MB); device ms by kernel {by_kernel}")
+    simt, simt_out = mlstm_bwd_simt(torch, args, scale, dh)
+    simt()
+    torch.cuda.synchronize()
+    held_mlstm_bwd(torch, simt_out, got, "simt against wgmma")
+    s_ms = time_ms(torch, simt, 5, graph=True)
+    row["simt"] = {"ms": s_ms, "eager_ms": time_ms(torch, simt, 5,
+                                                   graph=False),
+                   "tflops": nops / s_ms / 1e9,
+                   "device_ms_by_kernel": kernel_device_ms(torch, simt, 3)}
+    by_kernel = {n: round(t, 4) for n, t in
+                 row["simt"]["device_ms_by_kernel"].items()}
+    log(f"  mlstm_chunk_bwd simt kernel at the same inputs: {s_ms:.4f} ms "
+        f"in a graph, {row['simt']['eager_ms']:.4f} ms eager, within "
+        f"MLSTM_BWD_SHARE of the wgmma outputs; device ms by kernel "
+        f"{by_kernel}")
+    del simt, simt_out, got
     fwd = lambda: mlstm_chunk(*args, scale)                      # noqa
     got, froute = take_route(mlstm_chunk, fwd)
     err = held_mlstm(torch, got, mlstm_chunk_ref(*args, scale),
@@ -5548,18 +5629,68 @@ def time_mlstm_bwd(torch, device, errs):
     return {"row": row, "forward_train": forward}
 
 
+def record_mlstm_bwd(torch):
+    """A wrapper set on ``ops._TRAIN_BY_DEVICE["cuda"]`` whose backward
+    copies the operands of the first call it serves, launches the real
+    kernel and puts the real table entry back.  Returns (the list that
+    receives the operands, a call that restores the entry)."""
+    from repro_torch.kernels.mlstm_chunk import ops
+    fwd, bwd = entry = ops._TRAIN_BY_DEVICE["cuda"]
+    seen = []
+
+    def restore():
+        ops._TRAIN_BY_DEVICE["cuda"] = entry
+
+    def record(*args):
+        if not seen:
+            seen.append(tuple(a.detach().clone() if torch.is_tensor(a)
+                              else a for a in args))
+            restore()
+        return bwd(*args)
+    ops._TRAIN_BY_DEVICE["cuda"] = (fwd, record)
+    return seen, restore
+
+
 def run_xlstm_training(np, torch, device):
     """Phase 45: ``FULL_TRAIN_XLSTM`` through ``train_at_full_width``:
     xlstm-350m at full width and depth, exactly 2 x 12 mLSTM forward
-    launches (``wgmma``) and 12 backward launches (``simt``) a
+    launches (``wgmma``) and 12 backward launches (``wgmma``) a
     microbatch and no other kernel (the sLSTM is torch's autograd of its
     step loop); the in-model gradient gate at S 256 on the initial
     parameters in float32 compute (``FULL_TRAIN_XLSTM``: the mLSTM
-    forward on ``simt``), the plain side's mLSTM at the kernels' chunks.
-    Returns the record."""
+    forward and backward on ``simt``), the plain side's mLSTM at the
+    kernels' chunks.  The operands of the first bf16 backward of the
+    training (``record_mlstm_bwd``: the model's own dh) through the
+    ``wgmma`` route again, held against ``mlstm_chunk_bwd_ref`` at
+    ``BWD_CHUNK`` (``held_mlstm_bwd``).  Returns the record."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
+                                                            mlstm_chunk_bwd)
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_bwd_ref
     t0 = time.perf_counter()
-    rec = train_at_full_width(np, torch, device, FULL_TRAIN_XLSTM)
+    seen, restore = record_mlstm_bwd(torch)
+    try:
+        rec = train_at_full_width(np, torch, device, FULL_TRAIN_XLSTM)
+    finally:
+        restore()
     rec["wall_s"] = time.perf_counter() - t0
+    args = seen[0]
+    got, route = take_route(mlstm_chunk_bwd, lambda: mlstm_chunk_bwd(*args))
+    want_route("mlstm_chunk_bwd", route, "wgmma")
+    want = mlstm_chunk_bwd_ref(*args, chunk=BWD_CHUNK)
+    torch.cuda.synchronize()
+    shares, err = held_mlstm_bwd(torch, got, want, "in-model operands")
+    worst = max(shares, key=shares.get)
+    rec["in_model_bwd"] = {"shape": list(args[0].shape),
+                           "dtype": str(args[0].dtype).split(".")[1],
+                           "route": route, "max_abs_err": err,
+                           "shares": shares}
+    log(f"  the first mLSTM backward's operands of the bf16 step "
+        f"{rec['in_model_bwd']['shape']} through {route} again: every "
+        f"gradient within MLSTM_BWD_SHARE of the plain backward (worst "
+        f"{worst} {shares[worst]:.3g} of its largest, max abs err "
+        f"{err:.3g})")
+    del seen, args, got, want
+    torch.cuda.empty_cache()
     return rec
 
 

@@ -28,11 +28,22 @@ The backward ``mlstm_chunk_bwd`` (``csrc/mlstm_chunk_bwd.cu``; no Pallas
 kernel has one: the reference leaves ``mlstm_chunk_math``'s gradient to
 XLA) recomputes the chunk-start states, carries the state's gradient
 backwards over the chunks and then forms dq, dk, dv and the gates'
-gradients chunk by chunk, in float32 SIMT, in chunks of ``BWD_CHUNK``;
-one route, ``simt``, counted in ``mlstm_chunk_bwd.launches_by_route``.
-It is deterministic launch to launch (no atomics).  ``ops.mlstm`` calls
-both through an autograd Function when a gradient is wanted; the bare
-forward refuses to run under grad (its output would carry no gradient).
+gradients chunk by chunk, in chunks of ``BWD_CHUNK``.  Two routes, chosen
+by ``mlstm_bwd_route`` from the dtype alone and counted in
+``mlstm_chunk_bwd.launches_by_route``:
+
+* ``wgmma`` (bfloat16, any S and head dim): every product on the bf16
+  tensor cores, the float32 operands (the states C_c and dC_{c+1}, the
+  decayed keys, the scaled q, ds and sw / den) as bf16 high + low pairs;
+  the two chunk chains walk 64 x 64 tiles of C and dC held in ``wgmma``
+  accumulators, their operands fed by TMA rings, and hand the states on
+  as bf16 planes that the per-chunk gradient pass reads by TMA;
+* ``simt`` (float32): float32 SIMT products over 32 x 32 tiles.
+
+Both are deterministic launch to launch (no atomics).  ``ops.mlstm``
+calls both kernels through an autograd Function when a gradient is
+wanted; the bare forward refuses to run under grad (its output would
+carry no gradient).
 """
 from __future__ import annotations
 
@@ -53,9 +64,10 @@ ROUTES = ("simt", "wgmma", "decode")
 CHUNK = {"simt": 32, "wgmma": 64, "decode": 1}
 MAX_ROWS = 2 ** 31 - 1           # B x H, the grid's x extent
 _BWD_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_longlong] + \
-    [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-#: the backward's routes, its chunk length and its grid's y extent (B x H)
-BWD_ROUTES = ("simt",)
+    [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+#: the backward's launcher route codes, its chunk length and its grid's y
+#: extent (B x H)
+BWD_ROUTES = ("simt", "wgmma")
 BWD_CHUNK = 64
 BWD_MAX_ROWS = 65535
 
@@ -66,6 +78,15 @@ def mlstm_route(dtype: torch.dtype, s: int) -> str:
     float32."""
     if s == 1:
         return "decode"
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def mlstm_bwd_route(dtype: torch.dtype, s: int, d: int) -> str:
+    """The route the backward over ``s`` steps of head dim ``d`` in
+    ``dtype`` takes: ``wgmma`` for bfloat16 (every S >= 1 and every head
+    dim in ``HEAD_DIMS``: TMA zero-pads a short chunk and a head dim
+    under 64), ``simt`` for float32 (``wgmma`` has no float32 input)."""
+    del s, d                      # the rule reads the dtype alone
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
@@ -154,8 +175,9 @@ def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and the final state's dC1, dn1, dm1 (None: zeros) contiguous float32,
     all CUDA tensors on one device -> (dq, dk, dv in q's dtype; di, df
     [B, S, H], dC0, dn0, dm0 float32), on the current stream without
-    synchronising.  Its float32 workspace is allocated here and freed
-    with the call's tensors."""
+    synchronising, on ``mlstm_bwd_route``'s route (``wgmma``: q, k, v,
+    dh 16-byte aligned).  Its workspace is allocated here and freed with
+    the call's tensors."""
     if q.dim() != 4 or any(tuple(t.shape) != tuple(q.shape)
                            for t in (k, v, dh)):
         raise ValueError(f"mlstm_chunk_bwd: want q, k, v, dh [B, S, H, D] "
@@ -177,6 +199,13 @@ def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"mlstm_chunk_bwd: head dim {D} (want one of "
                          f"{HEAD_DIMS}), S {S} (want >= 1), B x H {B * H} "
                          f"(at most {BWD_MAX_ROWS})")
+    route = mlstm_bwd_route(q.dtype, S, D)
+    # the wgmma route reads q, k, v and dh by TMA: 16-byte aligned data
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, dh)):
+        raise ValueError(
+            f"mlstm_chunk_bwd: bfloat16 q, k, v, dh are read by TMA and need "
+            f"16-byte aligned data; got data_ptr % 16 = "
+            f"{[t.data_ptr() % 16 for t in (q, k, v, dh)]}")
     for name, t in (("q", q), ("k", k), ("v", v), ("dh", dh)):
         if t.device.type != "cuda" or t.dtype not in _DTYPES or \
                 t.dtype != q.dtype or not t.is_contiguous():
@@ -194,8 +223,9 @@ def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dC0, dn0, dm0 = (torch.empty_like(t) for t in (C0, n0, m0))
     size = _build.launcher("mlstm_chunk_bwd",
                            "repro_mlstm_chunk_bwd_workspace",
-                           [ctypes.c_int] * 4, ctypes.c_longlong)
-    nbytes = size(B, S, H, D)
+                           [ctypes.c_int] * 5, ctypes.c_longlong)
+    code = BWD_ROUTES.index(route)
+    nbytes = size(B, S, H, D, code)
     work = torch.empty((nbytes + 3) // 4, dtype=torch.float32,
                        device=q.device)
     fn = _build.launcher("mlstm_chunk_bwd", "repro_mlstm_chunk_bwd",
@@ -208,11 +238,12 @@ def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(*(ptr(t) for t in (q, k, v, i_pre, f_pre, C0, n0, m0, dh,
                                     dC1, dn1, dm1, dq, dk, dv, di, df, dC0,
                                     dn0, dm0, work)),
-                 nbytes, B, S, H, D, _DTYPES[q.dtype], float(scale), stream)
+                 nbytes, B, S, H, D, _DTYPES[q.dtype], code, float(scale),
+                 stream)
     _build.check_launch(_build.load("mlstm_chunk_bwd"), "mlstm_chunk_bwd",
                         err)
     mlstm_chunk_bwd.launches += 1
-    mlstm_chunk_bwd.launches_by_route["simt"] += 1
+    mlstm_chunk_bwd.launches_by_route[route] += 1
     return dq, dk, dv, di, df, dC0, dn0, dm0
 
 

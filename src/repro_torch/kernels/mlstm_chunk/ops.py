@@ -34,13 +34,20 @@ def _fns(table, t: torch.Tensor):
     return fns
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with its data on 16 bytes, a copy where it is not:
+    the backward's ``wgmma`` route reads dh by TMA."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class MlstmChunk(torch.autograd.Function):
     """The chunkwise mLSTM with its gradient: saves the inputs (q, k, v,
     the gates and the initial state), not h; the backward takes h's
-    gradient contiguous (zeros when h is unused) and the final state's
-    as they come (None when unused: the kernel reads no zeros).  dq, dk,
-    dv come back in q's dtype, the gates' and the state's in float32.
-    The backward holds the stabiliser mx constant but for the final
+    gradient contiguous and 16-byte aligned (zeros when h is unused) and
+    the final state's as they come (None when unused: the kernel reads no
+    zeros).  dq, dk, dv come back in q's dtype, the gates' and the
+    state's in float32.  The backward holds the stabiliser mx constant but for the final
     state's residual dm1 - <dC1, C1> - <dn1, n1>, which it routes to the
     max that sets mx (``ref.py``): the gradient is exact for any seeds of
     the final state, and the same at any chunk length."""
@@ -58,7 +65,7 @@ class MlstmChunk(torch.autograd.Function):
     def backward(ctx, dh, dC1, dn1, dm1):
         saved = ctx.saved_tensors
         q = saved[0]
-        dh = torch.zeros_like(q) if dh is None else dh.contiguous()
+        dh = torch.zeros_like(q) if dh is None else _aligned(dh)
         dstate = tuple(None if g is None else g.contiguous()
                        for g in (dC1, dn1, dm1))
         grads = _fns(_TRAIN_BY_DEVICE, q)[1](*saved, ctx.scale, dh, *dstate)

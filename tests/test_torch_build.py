@@ -392,8 +392,8 @@ def test_route_counts_reset_with_the_launch_counts():
                        tdp.tropical_dp_chain, moe_matmul_dx, moe_matmul_dw,
                        rglru_scan_bwd, mlstm_chunk_bwd)]
     try:
-        mlstm_chunk_bwd.launches = 12
-        mlstm_chunk_bwd.launches_by_route.update(simt=12)
+        mlstm_chunk_bwd.launches = 13
+        mlstm_chunk_bwd.launches_by_route.update(wgmma=12, simt=1)
         moe_matmul_dx.launches = 73
         moe_matmul_dx.launches_by_route.update(wgmma=72, simt=1)
         moe_matmul_dw.launches = 71
@@ -425,7 +425,7 @@ def test_route_counts_reset_with_the_launch_counts():
                           "moe_matmul_dx": {"simt": 1, "wgmma": 72},
                           "moe_matmul_dw": {"simt": 1, "wgmma": 70},
                           "rglru_scan_bwd": {"simt": 1, "tma": 5},
-                          "mlstm_chunk_bwd": {"simt": 12}}
+                          "mlstm_chunk_bwd": {"simt": 1, "wgmma": 12}}
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
             "flash_attention": {"simt": 0, "wgmma": 0},
@@ -438,7 +438,7 @@ def test_route_counts_reset_with_the_launch_counts():
             "moe_matmul_dx": {"simt": 0, "wgmma": 0},
             "moe_matmul_dw": {"simt": 0, "wgmma": 0},
             "rglru_scan_bwd": {"simt": 0, "tma": 0},
-            "mlstm_chunk_bwd": {"simt": 0}}
+            "mlstm_chunk_bwd": {"simt": 0, "wgmma": 0}}
         assert kernels.launch_counts()["moe_matmul"] == 0
         assert kernels.launch_counts()["moe_matmul_dx"] == 0
         assert kernels.launch_counts()["moe_matmul_dw"] == 0
@@ -648,10 +648,66 @@ def test_mlstm_chunk_bwd_rejects_before_building(case, monkeypatch):
 
 
 def test_mlstm_backward_routes_and_chunk():
-    """The backward has one route, ``simt``, and its own chunk length."""
+    """The backward has two routes, ``simt`` and ``wgmma`` (the launcher's
+    codes 0 and 1), and its own chunk length."""
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
                                                             BWD_ROUTES)
-    assert BWD_ROUTES == ("simt",) and BWD_CHUNK == 64
+    assert BWD_ROUTES == ("simt", "wgmma") and BWD_CHUNK == 64
+
+
+@pytest.mark.parametrize("d", [16, 256])
+@pytest.mark.parametrize("s", [1, 37, 4096])
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"),
+                                         (torch.bfloat16, "wgmma")])
+def test_mlstm_bwd_route_follows_dtype_and_shape(dtype, route, s, d):
+    """The backward takes the tensor-core route for bfloat16 at every S
+    (one step and a ragged chunk included: TMA zero-pads them) and every
+    head dim (under 64 too), the SIMT route for float32: from the dtype
+    and shape alone."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_bwd_route
+    assert mlstm_bwd_route(dtype, s, d) == route
+
+
+def _mlstm_bwd_call(dtype, off=None):
+    """A small backward call's arguments (B 1, S 5, H 2, D 16, CPU
+    tensors), the operand named ``off`` viewed one element past its
+    allocation's start: off 16 bytes."""
+    b, s, h, d = 1, 5, 2, 16
+    ops = {}
+    for name in ("q", "k", "v", "dh"):
+        t = torch.zeros(b * s * h * d + 1, dtype=dtype)
+        ops[name] = t[1:].view(b, s, h, d) if name == off else \
+            t[:-1].view(b, s, h, d)
+    gates = torch.zeros((b, s, h))
+    return (ops["q"], ops["k"], ops["v"], gates, gates,
+            torch.zeros((b, h, d, d)), torch.zeros((b, h, d)),
+            torch.zeros((b, h)), 0.25, ops["dh"])
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v", "dh"])
+def test_mlstm_chunk_bwd_rejects_tma_misalignment(operand, monkeypatch):
+    """bfloat16 takes the wgmma route, which reads q, k, v and dh by TMA:
+    any of them off 16 bytes is refused before a build and counts no
+    launch."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk_bwd
+    _no_build(monkeypatch)
+    before = (mlstm_chunk_bwd.launches,
+              dict(mlstm_chunk_bwd.launches_by_route))
+    with pytest.raises(ValueError, match="TMA"):
+        mlstm_chunk_bwd(*_mlstm_bwd_call(torch.bfloat16, operand))
+    assert (mlstm_chunk_bwd.launches,
+            mlstm_chunk_bwd.launches_by_route) == before
+
+
+@pytest.mark.parametrize("operand", ["q", "dh"])
+def test_mlstm_chunk_bwd_simt_takes_any_alignment(operand, monkeypatch):
+    """The simt route (float32) reads q, k, v, dh with plain loads: data
+    off 16 bytes is not refused for alignment (here only for lying on the
+    CPU), and nothing is built."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_chunk_bwd
+    _no_build(monkeypatch)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        mlstm_chunk_bwd(*_mlstm_bwd_call(torch.float32, operand))
 
 
 @pytest.mark.parametrize("dtype,s,route", [

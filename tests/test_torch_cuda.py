@@ -1140,9 +1140,10 @@ def test_mlstm_chunk_bwd_kernel_matches_plain(cuda, b, s, h, d, state, final,
     """The backward kernel against ``mlstm_chunk_bwd_ref`` at its chunk
     length (``BWD_CHUNK``), zero and random initial states, with and
     without the final state's gradients, S 1 and ragged; two launches
-    bitwise equal, both on ``simt``."""
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
-                                                            mlstm_chunk_bwd)
+    bitwise equal, both on the rule's route (``wgmma`` in bfloat16,
+    ``simt`` in float32)."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
+        BWD_CHUNK, mlstm_bwd_route, mlstm_chunk_bwd)
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_bwd_ref
     fwd, scale, dh, seeds = _mlstm_bwd_operands(cuda, b, s, h, d, dtype,
                                                 state, final, b * s + d)
@@ -1151,50 +1152,100 @@ def test_mlstm_chunk_bwd_kernel_matches_plain(cuda, b, s, h, d, state, final,
     again = mlstm_chunk_bwd(*fwd, scale, dh, *seeds)
     want = mlstm_chunk_bwd_ref(*fwd, scale, dh, *seeds, chunk=BWD_CHUNK)
     torch.cuda.synchronize()
-    assert kernels.route_counts()["mlstm_chunk_bwd"] == {"simt": 2}
+    assert kernels.route_counts()["mlstm_chunk_bwd"] == dict(
+        {"simt": 0, "wgmma": 0}, **{mlstm_bwd_route(dtype, s, d): 2})
     assert [g.dtype for g in got[:3]] == [dtype] * 3
     for a, a2 in zip(got, again):
         assert torch.equal(a, a2)
     _held_scaled(got, want, dtype, f"{b, s, h, d}")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("ibias", [-3.0, 4.0], ids=["exp_branch",
                                                     "raw_branch"])
-def test_mlstm_chunk_bwd_kernel_on_each_normaliser_branch(cuda, ibias):
+def test_mlstm_chunk_bwd_kernel_on_each_normaliser_branch(cuda, ibias,
+                                                          dtype):
     """Input gates drawn low (exp(-m_t) is the normaliser for most t) and
-    high (|n^T q| is): the kernel against the plain version on each."""
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
-                                                            mlstm_chunk_bwd)
+    high (|n^T q| is): the kernel against the plain version on each, on
+    the rule's route."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
+        BWD_CHUNK, mlstm_bwd_route, mlstm_chunk_bwd)
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_bwd_ref
     fwd, scale, dh, seeds = _mlstm_bwd_operands(
-        cuda, 2, 200, 2, 64, torch.float32, "random", True, 9, ibias)
+        cuda, 2, 200, 2, 64, dtype, "random", True, 9, ibias)
+    kernels.reset_launch_counts()
     got = mlstm_chunk_bwd(*fwd, scale, dh, *seeds)
     want = mlstm_chunk_bwd_ref(*fwd, scale, dh, *seeds, chunk=BWD_CHUNK)
     torch.cuda.synchronize()
-    _held_scaled(got, want, torch.float32, f"i + {ibias}")
+    assert kernels.route_counts()["mlstm_chunk_bwd"][
+        mlstm_bwd_route(dtype, 200, 64)] == 1
+    _held_scaled(got, want, dtype, f"i + {ibias}")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("mbias", [12.0, 6.0], ids=["all_held",
                                                     "some_held"])
-def test_mlstm_chunk_bwd_kernel_routes_the_stabiliser_gradient(cuda, mbias):
+def test_mlstm_chunk_bwd_kernel_routes_the_stabiliser_gradient(cuda, mbias,
+                                                              dtype):
     """Free final-state seeds, input gates 3 low and m0 raised: m0 holds
     the max over a_s in every chunk of 64 (S 130: the residual of mx_L's
     gradient reaches dm0) or in some (S 200: it stops at a chunk's da).
-    The kernel against its plain version."""
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (BWD_CHUNK,
-                                                            mlstm_chunk_bwd)
+    The kernel against its plain version, on the rule's route."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
+        BWD_CHUNK, mlstm_bwd_route, mlstm_chunk_bwd)
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_bwd_ref
     from repro_torch.kernels.mlstm_chunk.ref import m0_holds_max
+    s = 130 if mbias > 8 else 200
     fwd, scale, dh, seeds = _mlstm_bwd_operands(
-        cuda, 2, 130 if mbias > 8 else 200, 2, 64, torch.float32, "random",
-        True, 21, -3.0, mbias)
+        cuda, 2, s, 2, 64, dtype, "random", True, 21, -3.0, mbias)
     held = m0_holds_max(*fwd, scale, chunk=BWD_CHUNK)
     assert bool(held.all()) if mbias > 8 else bool(held[-1].any() and
                                                    not held.all())
+    kernels.reset_launch_counts()
     got = mlstm_chunk_bwd(*fwd, scale, dh, *seeds)
     want = mlstm_chunk_bwd_ref(*fwd, scale, dh, *seeds, chunk=BWD_CHUNK)
     torch.cuda.synchronize()
-    _held_scaled(got, want, torch.float32, f"m0 + {mbias}")
+    assert kernels.route_counts()["mlstm_chunk_bwd"][
+        mlstm_bwd_route(dtype, s, 64)] == 1
+    _held_scaled(got, want, dtype, f"m0 + {mbias}")
+
+
+def test_mlstm_chunk_bwd_wgmma_matches_the_simt_kernel(cuda):
+    """At xlstm-350m's training call (B 1, S 4,096, H 4, D 256, bfloat16,
+    the zero state, no final-state gradients) the ``wgmma`` route against
+    the ``simt`` kernel on the same inputs (through its launcher), each
+    gradient within 1e-4 of its largest magnitude (bf16 dq, dk, dv one
+    rounding more); two ``wgmma`` launches bitwise equal."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk as mc
+    fwd, scale, dh, _ = _mlstm_bwd_operands(cuda, 1, 4096, 4, 256,
+                                            torch.bfloat16, "zero", False, 8)
+    kernels.reset_launch_counts()
+    got = mc.mlstm_chunk_bwd(*fwd, scale, dh)
+    again = mc.mlstm_chunk_bwd(*fwd, scale, dh)
+    assert kernels.route_counts()["mlstm_chunk_bwd"] == {"simt": 0,
+                                                         "wgmma": 2}
+    code = mc.BWD_ROUTES.index("simt")
+    size = _build.launcher("mlstm_chunk_bwd",
+                           "repro_mlstm_chunk_bwd_workspace",
+                           [ctypes.c_int] * 5, ctypes.c_longlong)
+    nbytes = size(1, 4096, 4, 256, code)
+    work = torch.empty((nbytes + 3) // 4, device=cuda)
+    simt = [torch.empty_like(t) for t in got]
+    fn = _build.launcher("mlstm_chunk_bwd", "repro_mlstm_chunk_bwd",
+                         mc._BWD_ARGTYPES)
+    err = fn(*(t.data_ptr() for t in (*fwd, dh)), None, None, None,
+             *(t.data_ptr() for t in (*simt, work)), nbytes, 1, 4096, 4, 256,
+             mc._DTYPES[torch.bfloat16], code, float(scale),
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+    _held_scaled(got, simt, torch.bfloat16, "wgmma against simt")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
