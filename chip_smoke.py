@@ -352,9 +352,35 @@ Phases, each raising on failure (the script then exits non-zero):
     the kernels' chunks (32 forward, 64 backward), the reordered side's at
     64 (in bf16, and after the steps, the gradients are chaotic); the
     first bf16 backward's operands of the training (the model's own dh)
-    through ``wgmma`` again, held against the plain backward.
+    through ``wgmma`` again, held against the plain backward;
+46. expert-parallel serving: olmoe-1b-7b at full width and depth in
+    bfloat16 (seeded card weights) under ``use_mesh_rules`` of two
+    meshes of entries of the card, (data 1, model 8) and (data 2, model
+    4): one prefill of B 8 x S 1,024 and 4 decode steps, each call
+    exactly 3 x |data| x |model| x 16 expert-GEMM launches (every one on
+    ``wgmma``) and 16 flash or decode launches; the same calls without a
+    mesh beside them; each shard's capacity; the expert GEMM against its
+    plain version at every shard shape those calls launched (E / |model|
+    x cap x D x F, prefill and decode, both ways, ``MOE_TOL``); the
+    kernels against the plain versions inside the model under each mesh
+    (phase 12's logit rule); the reduced olmoe in float32 under a (2, 4)
+    mesh of the card against the same mesh of the CPU, prefill and 4
+    decode steps' logits within 1e-4;
+47. the LLHR-planned pipelined forward: minicpm-2b at full width and
+    depth in bfloat16, B 8 x S 2,048, ``plan_pipeline``'s 4-stage plan
+    (as phase 30 makes it, at ``prefill_32k``) mapped from ``arch_cost``'s
+    units (embedding first, head last) onto the 40 blocks, a ``stage``
+    mesh of 4 entries of the card at 4 and 8 microbatches: exactly 40 x
+    n_micro flash launches (``wgmma``), the output bitwise equal to the
+    blocks run microbatch by microbatch with no pipeline, the largest gap
+    to the whole-batch forward, the walls of all three;
+48. the int8 all-reduce: ``psum_compressed`` over a data axis of 4
+    entries of the card on the float32 gradients of the reduced
+    granite-moe on four seeded batches (its ``stacked_groups``), two
+    steps of error feedback, bitwise equal to the same call on the CPU.
 
-The last lines are the training record, the pipeline planner's, the
+The last lines are the sharded-model record (phases 46-48), the training
+record, the pipeline planner's, the
 sharded rollout's and the serving example's records, the serving layers'
 record, the evaluation path's walls and summaries, the CNN path's and the
 six LM paths' serving numbers, the per-layer conv2d times, the kernels
@@ -2327,6 +2353,34 @@ def rglru_operands(torch, seed, b, t, w, dtype, device):
     return a.to(dtype), bb.to(dtype), h0.to(dtype)
 
 
+def hold_moe_matmul(torch, seed, shape, dtype, device):
+    """The expert GEMM at ``shape`` (E, C, D, F) on seeded operands
+    against its plain version within ``MOE_TOL`` and the reference's TOL,
+    on the wgmma route in bfloat16 where TMA takes D and F (multiples of
+    8), else on simt, two launches bitwise equal.  Returns the max abs
+    error."""
+    from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
+    from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref
+    e, c, d, f = shape
+    dname = str(dtype).split(".")[1]
+    x, w = moe_operands(torch, seed, e, c, d, f, dtype, device)
+    got, route = take_route(moe_matmul, lambda: moe_matmul(x, w))
+    want_route("moe_matmul", route,
+               "wgmma" if dtype == torch.bfloat16 and d % 8 == 0
+               and f % 8 == 0 else "simt")
+    again = moe_matmul(x, w)
+    ref = moe_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"moe_matmul {e, c, d, f}: two launches differ")
+    for tol in (MOE_TOL[dname](d), MOE_REF_TOL[dname](d)):
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+    err = float((got.double() - ref.double()).abs().max())
+    log(f"  moe_matmul {dname} E={e} C={c} D={d} F={f}: {route} route, max "
+        f"abs err {err:.3g}, two launches bitwise equal")
+    return err
+
+
 def check_moe_rglru_kernels(np, torch, device):
     """The expert GEMM, the RG-LRU scan and decode attention at G = 16
     against their plain versions on the card, float32 and bfloat16, two
@@ -2348,8 +2402,6 @@ def check_moe_rglru_kernels(np, torch, device):
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_ref
-    from repro_torch.kernels.moe_matmul.moe_matmul import moe_matmul
-    from repro_torch.kernels.moe_matmul.ref import moe_matmul_ref
     from repro_torch.kernels.rglru_scan.ref import rglru_ref
     from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_route,
                                                           rglru_scan)
@@ -2361,24 +2413,8 @@ def check_moe_rglru_kernels(np, torch, device):
              (2, 37, 102)]
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for i, (e, c, d, f) in enumerate(moe):
-            x, w = moe_operands(torch, 400 + i, e, c, d, f, dtype, device)
-            got, route = take_route(moe_matmul, lambda: moe_matmul(x, w))
-            want_route("moe_matmul", route,
-                       "wgmma" if dtype == torch.bfloat16 and d % 8 == 0
-                       and f % 8 == 0 else "simt")
-            again = moe_matmul(x, w)
-            ref = moe_matmul_ref(x, w)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError(f"moe_matmul {e, c, d, f}: two "
-                                     f"launches differ")
-            for tol in (MOE_TOL[dname](d), MOE_REF_TOL[dname](d)):
-                torch.testing.assert_close(got.float(), ref.float(), **tol)
-            err = float((got.double() - ref.double()).abs().max())
-            log(f"  moe_matmul {dname} E={e} C={c} D={d} F={f}: {route} "
-                f"route, max abs err {err:.3g}, two launches bitwise equal")
-            del x, w, got, again, ref
+        for i, shape in enumerate(moe):
+            hold_moe_matmul(torch, 400 + i, shape, dtype, device)
         for i, (b, t, w) in enumerate(scans):
             a, bb, h0 = rglru_operands(torch, 450 + i, b, t, w, dtype, device)
             (h, hT), route = take_route(rglru_scan,
@@ -4543,10 +4579,12 @@ def train_routes(torch, cfg, dtype):
 
 def want_launches(what, launches, routes, want, route):
     """Raise unless ``launches`` are exactly ``want`` (every other kernel
-    0) and every launch of a kernel in ``want`` took ``route[kernel]``."""
+    0) and every launch of each kernel that ``route`` names took
+    ``route[kernel]`` (a ``KeyError`` where that kernel counts no
+    routes)."""
     full = only(launches, **want)
-    off = {k: routes[k] for k, n in want.items()
-           if routes[k][route[k]] != n}
+    off = {k: routes[k] for k in route
+           if routes[k][route[k]] != want.get(k, 0)}
     if launches != full or off:
         raise AssertionError(f"{what}: launches {launches}, want {full}; "
                              f"routes off {route}: {off}")
@@ -5694,6 +5732,392 @@ def run_xlstm_training(np, torch, device):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 46-48: the sharded-model pieces over entries of the card
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "olmoe-1b-7b"
+#: phase 46's (data, model) meshes of entries of the card
+EP_MESHES = ((1, 8), (2, 4))
+EP_BATCH, EP_SEQ, EP_STEPS = 8, 1024, 4
+#: phase 47: the model, the shape ``plan_pipeline`` plans it at (as phase
+#: 30 does), the stages, the batch and the microbatch counts
+PIPE_ARCH, PIPE_SHAPE, PIPE_STAGES = "minicpm-2b", "prefill_32k", 4
+PIPE_BATCH, PIPE_SEQ, PIPE_MICRO = 8, 2048, (4, 8)
+#: phase 48: the reduced model whose gradients are all-reduced, the data
+#: axis's entries, each shard's batch (sequences, tokens)
+ALLREDUCE_ARCH, ALLREDUCE_SHARDS, ALLREDUCE_BATCH = \
+    "granite-moe-1b-a400m", 4, (2, 24)
+
+
+def counted(torch, fn, span="smoke.call"):
+    """``fn()`` in the profiler range ``span``, with the launch counters
+    reset just before: (its result, its wall in s ending in a
+    synchronise, launches, launches by route)."""
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.profiler.record_function(span):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, kernels.launch_counts(), kernels.route_counts()
+
+
+def ep_tokens(np, torch, cfg, device):
+    """Phase 46's prompt batch, ``EP_BATCH`` x ``EP_SEQ`` seeded ids."""
+    return torch.as_tensor(np.random.default_rng(46).integers(
+        2, cfg.vocab_size, (EP_BATCH, EP_SEQ)), dtype=torch.int32,
+        device=device)
+
+
+def ep_serve(torch, model, params, toks, mesh, want=None):
+    """One prefill of ``toks`` and ``EP_STEPS`` greedy decode steps under
+    ``use_mesh_rules(mesh)`` (None: no mesh); with ``want`` (call kind ->
+    kernel -> launches) every call held to it, each expert-GEMM and
+    flash launch on ``wgmma``.  Each call runs in the profiler range
+    ``serve.prefill`` or ``serve.decode``.  Returns each call's (kind,
+    wall s, launches) and the last logits."""
+    from repro_torch.parallel.sharding import use_mesh_rules
+    b, s = toks.shape
+    calls = []
+    with use_mesh_rules(mesh), torch.no_grad():
+        (logits, cache), wall, launches, routes = counted(
+            torch, lambda: model.prefill(params, toks, s + EP_STEPS),
+            "serve.prefill")
+        calls.append(("prefill", wall, launches, routes))
+        for i in range(EP_STEPS):
+            nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            pos = torch.full((b, 1), s + i, dtype=torch.int32,
+                             device=toks.device)
+            (logits, cache), wall, launches, routes = counted(
+                torch, lambda: model.decode_step(params, nxt, pos, cache),
+                "serve.decode")
+            calls.append(("decode", wall, launches, routes))
+    if want is not None:
+        for kind, wall, launches, routes in calls:
+            want_launches(f"{model.cfg.name} {kind} under {mesh}",
+                          launches, routes, want[kind],
+                          {k: "wgmma" for k in ("moe_matmul",
+                                                "flash_attention")
+                           if k in want[kind]})
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{model.cfg.name} under {mesh}: logits not "
+                             f"finite")
+    return [(k, w, n) for k, w, n, _ in calls], logits
+
+
+def ep_reduced(np, torch, device):
+    """The reduced olmoe in float32 under a (2, 4) mesh of the card
+    against the same mesh of the CPU: prefill (40 tokens, cache 48) and 4
+    decode steps' logits within 1e-4; each card call's expert-GEMM
+    launches 3 x 8 a MoE layer, on ``simt`` (float32)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.parallel.sharding import make_mesh, use_mesh_rules
+    cfg = get_arch(EP_ARCH).reduced()
+    cpu = TransformerLM(cfg, device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    gpu = TransformerLM(cfg, device=device)
+    p_gpu = tree_map(lambda t: t.to(device), p_cpu)
+    shape = EP_MESHES[-1]
+    n = shape[0] * shape[1]
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40)), dtype=torch.int32)
+    want = {"moe_matmul": 3 * n * cfg.n_layers}
+    worst = 0.0
+    with torch.no_grad():
+        with use_mesh_rules(make_mesh(shape, ("data", "model"),
+                                      ["cpu"] * n)):
+            lc, cc = cpu.prefill(p_cpu, toks, 48)
+            cpu_logits = [lc]
+            for i in range(4):
+                nxt = torch.argmax(lc, -1).to(torch.int32)[:, None]
+                pos = torch.full((2, 1), 40 + i, dtype=torch.int32)
+                lc, cc = cpu.decode_step(p_cpu, nxt, pos, cc)
+                cpu_logits.append(lc)
+        with use_mesh_rules(make_mesh(shape, ("data", "model"),
+                                      [device] * n)):
+            (lg, cg), _, launches, routes = counted(
+                torch, lambda: gpu.prefill(p_gpu, toks.to(device), 48))
+            want_launches(f"{cfg.name} prefill", launches, routes,
+                          dict(want, flash_attention=cfg.n_layers),
+                          {"moe_matmul": "simt", "flash_attention": "simt"})
+            for i in range(5):
+                torch.testing.assert_close(lg.cpu(), cpu_logits[i],
+                                           atol=1e-4, rtol=1e-4)
+                worst = max(worst, float((lg.cpu() - cpu_logits[i])
+                                         .abs().max()))
+                if i == 4:
+                    break
+                nxt = torch.argmax(cpu_logits[i], -1).to(torch.int32)
+                pos = torch.full((2, 1), 40 + i, dtype=torch.int32)
+                (lg, cg), _, launches, routes = counted(
+                    torch, lambda: gpu.decode_step(
+                        p_gpu, nxt[:, None].to(device), pos.to(device), cg))
+                want_launches(f"{cfg.name} decode", launches, routes,
+                              dict(want, decode_attention=cfg.n_layers),
+                              {"moe_matmul": "simt"})
+    log(f"  {cfg.name} float32 under a {shape} mesh: prefill + 4 decode "
+        f"logits card vs CPU (same mesh of CPU entries) max abs diff "
+        f"{worst:.3g}; {want['moe_matmul']} expert-GEMM launches a call")
+    return {"mesh": list(shape), "max_abs_diff": worst,
+            "moe_launches_per_call": want["moe_matmul"]}
+
+
+def run_expert_parallel(np, torch, device, served):
+    """Phase 46: olmoe-1b-7b at full width under ``use_mesh_rules`` of
+    ``EP_MESHES``: one prefill of B 8 x S 1,024 and 4 decode steps, exact
+    launches a call by route, beside the same calls without a mesh and
+    phase 16's served walls; the expert GEMM against its plain version
+    at every shard shape those calls launched (``hold_moe_matmul``); the
+    kernels against the plain versions inside the model under each mesh;
+    the reduced model card against CPU.  Returns its record."""
+    from repro_torch.models.moe import capacity
+    from repro_torch.parallel.sharding import make_mesh, use_mesh_rules
+    model, params, rec = init_full(torch, EP_ARCH, device)
+    cfg = model.cfg
+    moe = cfg.moe
+    toks = ep_tokens(np, torch, cfg, device)
+    runs = {}
+    for shape in (None,) + EP_MESHES:
+        n = 1 if shape is None else shape[0] * shape[1]
+        mesh = None if shape is None else \
+            make_mesh(shape, ("data", "model"), [device] * n)
+        want = {"prefill": {"moe_matmul": 3 * n * cfg.n_layers,
+                            "flash_attention": cfg.n_layers},
+                "decode": {"moe_matmul": 3 * n * cfg.n_layers,
+                           "decode_attention": cfg.n_layers}}
+        ep_serve(torch, model, params, toks, mesh)            # warm-up
+        calls, logits = ep_serve(torch, model, params, toks, mesh, want)
+        b_loc = EP_BATCH // (1 if shape is None else shape[0])
+        seqs = 1 if shape is None else b_loc   # moe_apply counts a sequence
+        caps = {kind: capacity((EP_SEQ if kind == "prefill" else 1)
+                               * seqs, moe.top_k, moe.n_experts,
+                               moe.capacity_factor)
+                for kind in ("prefill", "decode")}
+        name = "none" if shape is None else f"{shape[0]}x{shape[1]}"
+        runs[name] = {
+            "mesh": None if shape is None else list(shape),
+            "prefill_s": calls[0][1],
+            "decode_step_ms": [c[1] * 1e3 for c in calls[1:]],
+            "launches_per_call": want, "cap": caps,
+            # moe_apply's [E, B cap, d]; a shard's [E / |model|, cap, d]
+            "buffer_prefill": [moe.n_experts // (1 if shape is None
+                                                 else shape[1]),
+                               caps["prefill"] * (EP_BATCH if shape is None
+                                                  else 1), cfg.d_model]}
+        log(f"  mesh {name}: prefill B {EP_BATCH} x S {EP_SEQ} "
+            f"{calls[0][1] * 1e3:.2f} ms, decode steps "
+            f"{[round(c[1] * 1e3, 2) for c in calls[1:]]} ms; "
+            f"{want['prefill']['moe_matmul']} expert-GEMM launches a call, "
+            f"all wgmma; each shard's cap {caps} (buffer "
+            f"{runs[name]['buffer_prefill']} in prefill)")
+    p16 = served.get(EP_ARCH, {})
+    log(f"  phase 16 served without a mesh (other shapes): prefill median "
+        f"{p16.get('prefill_s_median')} s, decode step median "
+        f"{p16.get('decode_step_ms_median')} ms")
+    # every shard GEMM shape the meshes' timed calls launched, both ways
+    held = {}
+    for shape in EP_MESHES:
+        caps = runs[f"{shape[0]}x{shape[1]}"]["cap"]
+        for kind, cap in caps.items():
+            for d, f in ((cfg.d_model, moe.d_expert),
+                         (moe.d_expert, cfg.d_model)):
+                gemm = (moe.n_experts // shape[1], cap, d, f)
+                held[str(list(gemm))] = hold_moe_matmul(
+                    torch, 460 + len(held), gemm, torch.bfloat16, device)
+    gates = {}
+    for shape in EP_MESHES:
+        with use_mesh_rules(make_mesh(shape, ("data", "model"),
+                                      [device] * (shape[0] * shape[1]))):
+            diffs = check_lm_kernels_vs_plain(
+                torch, model, params, toks[:2].cpu().numpy())
+        log_lm_gaps(diffs, f"under a {shape} mesh, B=2 x {EP_SEQ}-token "
+                    f"prefill")
+        gates[f"{shape[0]}x{shape[1]}"] = diffs
+    out = {"model": rec, "runs": runs,
+           "phase16_prefill_s_median": p16.get("prefill_s_median"),
+           "phase16_decode_step_ms_median": p16.get("decode_step_ms_median"),
+           "moe_matmul_at_shard_shapes_max_abs_err": held,
+           "kernels_vs_plain_under_mesh": gates,
+           "reduced": ep_reduced(np, torch, device)}
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_llhr_pipeline(np, torch, device):
+    """Phase 47: minicpm-2b at full width through ``pipelined_forward``
+    over ``plan_pipeline``'s 4-stage plan on a ``stage`` mesh of entries
+    of the card, at ``PIPE_MICRO`` microbatches: exact flash launches,
+    bitwise the unpipelined run microbatch by microbatch, the gap to the
+    whole-batch forward.  Returns its record."""
+    from repro_torch.configs.registry import get_shape
+    from repro_torch.core.channel import ICIChannel, ICIParams
+    from repro_torch.core.pipeline_opt import (
+        H100_SXM_NVLINK_BYTES_ONE_WAY, card_chip, plan_pipeline)
+    from repro_torch.models.blocks import Ctx
+    from repro_torch.parallel.pipeline import pipelined_forward, stage_params
+    from repro_torch.parallel.sharding import make_mesh
+    model, params, rec = init_full(torch, PIPE_ARCH, device)
+    cfg = model.cfg
+    if set(model.kinds) != {"attn_full"}:
+        raise AssertionError(f"{cfg.name}: block kinds {set(model.kinds)}")
+    ici = ICIChannel(ICIParams(H100_SXM_NVLINK_BYTES_ONE_WAY,
+                               PLAN_HOP_LATENCY_S, PLAN_TORUS,
+                               PLAN_DCN_BYTES))
+    plan = plan_pipeline(cfg, get_shape(PIPE_SHAPE), PIPE_STAGES,
+                         PLAN_CHIPS_PER_STAGE, chip=card_chip(device),
+                         ici=ici)
+    # arch_cost's units: the embedding, the blocks, the head
+    bounds = [min(max(b - 1, 0), cfg.n_layers) for b in plan.boundaries]
+    if len(bounds) != PIPE_STAGES + 1 or bounds[0] != 0 or \
+            bounds[-1] != cfg.n_layers:
+        raise AssertionError(f"plan {plan.boundaries} -> blocks {bounds}")
+    blk = model.blocks[0]
+    positions = {}
+
+    def block_fn(p, h):
+        if h.shape[0] not in positions:
+            positions[h.shape[0]] = model._positions(h.shape[0], h.shape[1])
+        return blk.apply(p, h, None, Ctx(cfg, "train",
+                                         positions[h.shape[0]]))[0]
+
+    def unpipelined(x):
+        for p in params["layers"]:
+            x = block_fn(p, x)
+        return x
+
+    toks = torch.as_tensor(np.random.default_rng(47).integers(
+        2, cfg.vocab_size, (PIPE_BATCH, PIPE_SEQ)), dtype=torch.int32,
+        device=device)
+    mesh = make_mesh((PIPE_STAGES,), ("stage",), [device] * PIPE_STAGES)
+    per_stage = stage_params(params["layers"], bounds)
+    runs = []
+    with torch.no_grad():
+        x = model._embed(params, toks)
+        unpipelined(x)                                         # warm-up
+        whole, whole_s, _, _ = counted(torch, lambda: unpipelined(x))
+        for n_micro in PIPE_MICRO:
+            pipelined_forward(block_fn, per_stage, x, mesh,
+                              n_micro=n_micro)                 # warm-up
+            y, pipe_s, launches, routes = counted(
+                torch, lambda: pipelined_forward(block_fn, per_stage, x,
+                                                 mesh, n_micro=n_micro))
+            want_launches(f"pipelined forward at {n_micro} microbatches",
+                          launches, routes,
+                          {"flash_attention": cfg.n_layers * n_micro},
+                          {"flash_attention": "wgmma"})
+            ref, seq_s, _, _ = counted(torch, lambda: torch.cat(
+                [unpipelined(m) for m in x.chunk(n_micro)]))
+            if not torch.equal(y, ref):
+                raise AssertionError(
+                    f"pipelined forward at {n_micro} microbatches differs "
+                    f"from the microbatch-by-microbatch run by "
+                    f"{float((y.float() - ref.float()).abs().max())}")
+            gap = float((y.float() - whole.float()).abs().max())
+            logits = model._head(params, y[:, -1:])[:, 0]
+            if tuple(logits.shape) != (PIPE_BATCH, cfg.vocab_size) or \
+                    not bool(torch.isfinite(logits.float()).all()):
+                raise AssertionError("pipelined logits not finite")
+            runs.append({"n_micro": n_micro, "pipelined_s": pipe_s,
+                         "unpipelined_micro_s": seq_s,
+                         "flash_launches": launches["flash_attention"],
+                         "max_abs_gap_to_whole_batch": gap,
+                         "max_abs_hidden": float(whole.float().abs().max())})
+            log(f"  {n_micro} microbatches: pipelined {pipe_s * 1e3:.2f} ms "
+                f"({launches['flash_attention']} flash launches, wgmma), "
+                f"bitwise the unpipelined run microbatch by microbatch "
+                f"({seq_s * 1e3:.2f} ms); whole batch {whole_s * 1e3:.2f} "
+                f"ms, largest gap to it {gap:.4g} (largest |hidden| "
+                f"{runs[-1]['max_abs_hidden']:.4g})")
+    out = {"model": rec, "plan_boundaries": list(plan.boundaries),
+           "block_boundaries": bounds, "shape": PIPE_SHAPE,
+           "batch": [PIPE_BATCH, PIPE_SEQ], "whole_batch_s": whole_s,
+           "runs": runs}
+    log(f"  plan at {PIPE_SHAPE}: units {list(plan.boundaries)} -> blocks "
+        f"{bounds} ({[b - a for a, b in zip(bounds, bounds[1:])]} a stage)")
+    del params, model, per_stage
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_int8_allreduce(np, torch, device):
+    """Phase 48: ``psum_compressed`` over a data axis of
+    ``ALLREDUCE_SHARDS`` entries of the card on the reduced granite-moe's
+    float32 gradients (a seeded batch a shard, its ``stacked_groups``),
+    two steps of error feedback, bitwise equal to the same call on the
+    CPU.  Returns its record."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.optim.grad_compress import init_error, psum_compressed
+    from repro_torch.parallel.sharding import make_mesh
+    from repro_torch.runtime.train_loop import batch_to, loss_fn
+    from repro_torch.tree import leaves, unflatten_like
+    cfg = get_arch(ALLREDUCE_ARCH).reduced()
+    model = build_model(cfg, device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    groups = model.stacked_groups(params)
+    mesh = make_mesh((ALLREDUCE_SHARDS,), ("data",),
+                     [device] * ALLREDUCE_SHARDS)
+    devs = list(mesh.devices.flat)
+
+    def grads_of(seed):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = loss_fn(model, cfg, p, batch_to(train_batch(
+            np, cfg, *ALLREDUCE_BATCH, seed), device))
+        gs = torch.autograd.grad(loss, leaves(p), allow_unused=True)
+        return unflatten_like(params, [torch.zeros_like(t) if g is None
+                                       else g for g, t in zip(
+                                           gs, leaves(params))])
+
+    errs = {"card": [tree_map(lambda t: t.to(d), init_error(params))
+                     for d in devs],
+            "cpu": [tree_map(lambda t: t.cpu(), init_error(params))
+                    for _ in devs]}
+    steps = []
+    for step in range(2):
+        grads = [grads_of(ALLREDUCE_SHARDS * step + i)
+                 for i in range(ALLREDUCE_SHARDS)]
+        (deq, new_e), wall, _, _ = counted(torch, lambda: psum_compressed(
+            [tree_map(lambda t: t.to(d), g) for g, d in zip(grads, devs)],
+            errs["card"], groups))
+        c_deq, c_new = psum_compressed(
+            [tree_map(lambda t: t.cpu(), g) for g in grads], errs["cpu"],
+            groups)
+        for k in range(ALLREDUCE_SHARDS):
+            for what, a, b in (("sum", deq[k], c_deq[k]),
+                               ("error", new_e[k], c_new[k])):
+                for x, y in zip(leaves(a), leaves(b)):
+                    if not torch.equal(x.cpu(), y):
+                        raise AssertionError(
+                            f"psum_compressed step {step} shard {k} {what}: "
+                            f"card differs from the CPU by "
+                            f"{float((x.cpu() - y).abs().max())}")
+        errs = {"card": new_e, "cpu": c_new}
+        n = sum(t.numel() for t in leaves(deq[0]))
+        steps.append({"wall_s": wall, "leaves": len(leaves(deq[0])),
+                      "values": n,
+                      "max_abs_sum": max(float(t.abs().max())
+                                         for t in leaves(deq[0])),
+                      "max_abs_error": max(float(t.abs().max())
+                                           for e in new_e
+                                           for t in leaves(e))})
+        log(f"  step {step}: {steps[-1]['leaves']} leaves ({n} values, "
+            f"{len(groups)} scale groups) over {ALLREDUCE_SHARDS} shards: "
+            f"sums and new errors bitwise the CPU's; card call "
+            f"{wall * 1e3:.2f} ms; largest |sum| "
+            f"{steps[-1]['max_abs_sum']:.4g}, |error| "
+            f"{steps[-1]['max_abs_error']:.4g}")
+    return {"model": cfg.name, "shards": ALLREDUCE_SHARDS,
+            "batch": list(ALLREDUCE_BATCH), "groups": len(groups),
+            "steps": steps}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5854,6 +6278,23 @@ def main() -> int:
         train[key] = fn(np, torch, device)
         train[key]["phase_wall_s"] = time.perf_counter() - t0
         log(f"  phase {phase}: {train[key]['phase_wall_s']:.3f} s")
+    sharded_model = {}
+    for phase, key, title, fn in (
+            (46, "expert_parallel", f"expert-parallel serving: {EP_ARCH} "
+             f"at full width under meshes {EP_MESHES} of the card",
+             lambda *a: run_expert_parallel(*a, served)),
+            (47, "pipeline", f"the LLHR-planned pipelined forward: "
+             f"{PIPE_ARCH} at full width over {PIPE_STAGES} stages of the "
+             f"card", run_llhr_pipeline),
+            (48, "int8_allreduce", f"the int8 all-reduce over "
+             f"{ALLREDUCE_SHARDS} entries of the card against the CPU",
+             run_int8_allreduce)):
+        log(f"[{phase}] {title}")
+        t0 = time.perf_counter()
+        sharded_model[key] = fn(np, torch, device)
+        sharded_model[key]["phase_wall_s"] = time.perf_counter() - t0
+        log(f"  phase {phase}: {sharded_model[key]['phase_wall_s']:.3f} s "
+            f"({smi})")
     del train["kernel_errs"], train["mlstm_bwd_errs"]
     mlstm_timing = train.pop("mlstm_bwd_timing")
     xlstm_launches = train["xlstm-350m"]["launches"]
@@ -5913,6 +6354,7 @@ def main() -> int:
 
     rows.append(mlstm_bwd_row)
 
+    print(json.dumps({"sharded_model": sharded_model}, default=str))
     print(json.dumps({"train": train}, default=str))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"sharded_rollout": sharded}))

@@ -10,7 +10,10 @@ MoE MLP and zero for every other block).  The attention blocks
 (``attn_full``, ``attn_local``) with a dense or MoE MLP, the RG-LRU block
 (``rglru``) and the xLSTM blocks (``slstm``, ``mlstm``) are ported.  The
 MoE load-balancing loss is a training term: serving drops it, as the
-reference's prefill and decode do.
+reference's prefill and decode do.  Under ``use_mesh_rules(mesh)`` with
+a ``model`` axis that divides the experts, the MoE MLP takes the
+expert-parallel path (``moe_apply_expert_parallel``), as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.layers import mlp, mlp_init, rmsnorm, rmsnorm_init
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import (moe_apply, moe_apply_expert_parallel,
+                                   moe_init)
+from repro_torch.parallel.sharding import current_mesh
 
 Params = Dict[str, Any]
 
@@ -98,9 +103,15 @@ def _attn_block_apply(local: bool) -> Callable:
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
         aux = None
         if cfg.moe.enabled:
-            y2, aux = moe_apply(p["moe"], h2, top_k=cfg.moe.top_k,
-                                act=cfg.act, glu=cfg.glu,
-                                capacity_factor=cfg.moe.capacity_factor)
+            kw = dict(top_k=cfg.moe.top_k, act=cfg.act, glu=cfg.glu,
+                      capacity_factor=cfg.moe.capacity_factor)
+            mesh = current_mesh()
+            if mesh is not None and "model" in mesh.axis_names and \
+                    cfg.moe.n_experts % mesh.shape["model"] == 0:
+                y2, aux = moe_apply_expert_parallel(p["moe"], h2, mesh=mesh,
+                                                    **kw)
+            else:
+                y2, aux = moe_apply(p["moe"], h2, **kw)
         else:
             y2 = mlp(p["mlp"], h2, cfg.act, cfg.glu)
         return _outputs(ctx, x + _post(p, "ln2p", y2, cfg), new_state, aux)

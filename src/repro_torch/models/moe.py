@@ -12,9 +12,13 @@ adds nothing and gets zero combine weight).  The reference's buffer is
 the grouped GEMM kernel (``ops.expert_gemm``) with no transposed copy.
 The products are the same.  Routing, scatter and combine are plain
 PyTorch, as they are outside the Pallas kernel in the reference.
+``moe_apply_expert_parallel`` is the reference's expert-parallel path
+over a ``Mesh`` with a ``model`` axis: each shard dispatches its data
+shard's picks of its own experts into an ``[E_loc, cap, d]`` buffer.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -23,6 +27,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.moe_matmul.ops import expert_gemm
 from repro_torch.models.layers import _ACT, dense_init, truncated_normal
+from repro_torch.parallel.sharding import (P, assemble, batch_spec,
+                                           collective, field, pmean, psum,
+                                           run_shards)
 
 Params = Dict[str, torch.Tensor]
 
@@ -121,4 +128,104 @@ def moe_apply(p: Params, x: torch.Tensor, *, top_k: int, act: str,
     return y, r["aux"]
 
 
-__all__ = ["capacity", "moe_apply", "moe_init", "moe_route"]
+# ---------------------------------------------------------------------------
+# expert-parallel path
+# ---------------------------------------------------------------------------
+#
+# Activations are model-replicated outside the MLP, so every expert shard
+# already holds all of its data shard's tokens: each shard routes them to
+# its own E / |model| experts, and one psum over "model" combines the
+# shards' outputs.  Capacity counts the data shard's flattened tokens,
+# not each sequence's as ``moe_apply`` does, so where the capacity binds
+# the two paths drop different picks.
+
+
+def _expert_shard(index: Dict[str, int], router: torch.Tensor,
+                  w_in: torch.Tensor, w_gate: torch.Tensor,
+                  w_out: torch.Tensor, xs: torch.Tensor, *, top_k: int,
+                  act: str, glu: bool, e: int, e_loc: int,
+                  capacity_factor: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One mesh position's share (the reference's ``local_fn``): xs
+    [B_loc, S, d] routed over all ``e`` experts; the picks of this
+    shard's experts [lo, lo + e_loc) (``w_*`` hold their weights;
+    ``w_gate`` is unread without GLU) dispatched, run and combined.
+    Returns (the shard's partial y [B_loc, S, d], the data shard's aux
+    loss)."""
+    dt = xs.dtype
+    b, s, d = xs.shape
+    t = b * s
+    xt = xs.reshape(t, d)
+    logits = xt @ router.to(dt)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[:, :top_k], idx[:, :top_k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(idx, e).to(torch.float32).mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce)
+
+    lo = index["model"] * e_loc
+    idx_f, gate_f = idx.reshape(t * top_k), gate.reshape(t * top_k)
+    mine = (idx_f >= lo) & (idx_f < lo + e_loc)
+    loc_e = torch.where(mine, idx_f - lo, torch.full_like(idx_f, e_loc))
+    # a pick's position in its local expert: the running count of the
+    # picks of that expert, scanned along the last dimension of
+    # [e_loc + 1, T k] (a scan along the first of [T k, e_loc + 1] runs a
+    # thread a column down T k rows on the card)
+    hits = (loc_e[None, :] == torch.arange(
+        e_loc + 1, device=loc_e.device)[:, None]).to(torch.int32)
+    pos = torch.gather(torch.cumsum(hits, dim=1, dtype=torch.int32), 0,
+                       loc_e[None, :])[0] - 1
+    cap = capacity(t, top_k, e, capacity_factor)
+    keep = mine & (pos < cap)
+    n_slots = e_loc * cap
+    slot = torch.where(keep, loc_e * cap + torch.clamp(pos, max=cap - 1),
+                       torch.full_like(loc_e, n_slots))   # trash slot
+    # each kept slot takes one pick; the rest go to the trash row, cut off
+    x_rep = xt[:, None].expand(t, top_k, d).reshape(t * top_k, d)
+    buf = xt.new_zeros((n_slots + 1, d)).index_copy(
+        0, slot, x_rep)[:n_slots].view(e_loc, cap, d)
+    h = expert_gemm(buf, w_in.to(dt))
+    if glu:
+        h = _ACT[act](expert_gemm(buf, w_gate.to(dt))) * h
+    else:
+        h = _ACT[act](h)
+    y_buf = expert_gemm(h, w_out.to(dt)).view(n_slots, d)
+    y_tok = y_buf.index_select(0, torch.clamp(slot, max=n_slots - 1))
+    w = (gate_f * keep.to(torch.float32)).to(dt)
+    y = (y_tok * w[:, None]).view(t, top_k, d).sum(dim=1)
+    return y.view(b, s, d), aux
+
+
+def moe_apply_expert_parallel(p: Params, x: torch.Tensor, *, top_k: int,
+                              act: str, glu: bool, mesh,
+                              capacity_factor: float = 1.25
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (y [B, S, d] on x's device, aux loss): the
+    reference's expert-parallel MoE over ``mesh`` (a ``Mesh`` with a
+    ``model`` axis dividing the experts; B split over its batch axes).
+    A position's shard gets its data shard's tokens and its experts'
+    weights on its device, launches the expert GEMM three times (two
+    without GLU) over its [E_loc, cap, d] buffer, ``cap`` counted over
+    the data shard's B_loc S tokens; the partial outputs are summed over
+    ``model`` in shard order, the aux loss averaged over every shard."""
+    e = p["w_in"].shape[0]
+    e_loc = e // mesh.shape["model"]
+    bb = batch_spec(mesh)[0]          # the batch's axes, or None
+    experts = P("model", None, None)
+    outs = run_shards(
+        functools.partial(_expert_shard, top_k=top_k, act=act, glu=glu, e=e,
+                          e_loc=e_loc, capacity_factor=capacity_factor),
+        mesh, (P(None, None), experts, experts if glu else P(None), experts,
+               P(bb, None, None)),
+        p["router"], p["w_in"], p.get("w_gate", x.new_zeros(1)), p["w_out"],
+        x)
+    ys = collective(field(outs, 0), mesh, "model", psum)
+    auxes = collective(field(outs, 1), mesh, mesh.axis_names, pmean)
+    y = assemble(ys, mesh, P(bb, None, None), device=x.device)
+    return y, auxes.flat[0].to(x.device)
+
+
+__all__ = ["capacity", "moe_apply", "moe_apply_expert_parallel", "moe_init",
+           "moe_route"]

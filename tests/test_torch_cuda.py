@@ -26,7 +26,11 @@ gradients on the card against the CPU with exact launch counts; the
 mLSTM chunk backward kernel against its plain version (zero and random
 states, the final state's gradients or none, both normaliser branches,
 S 1 to 1,000; two launches bitwise), the mLSTM Function card against
-CPU, and the reduced xlstm-350m's loss and gradients.
+CPU, and the reduced xlstm-350m's loss and gradients.  The expert-parallel
+MoE over meshes of entries of this card: three expert-GEMM launches a
+mesh position on the route the dtype gives, the CPU's result, and the
+same output bit for bit from call to call; the int8 all-reduce over
+entries of this card bitwise the CPU's.
 
 Imports no JAX (the card's machine has none).  Without a CUDA device
 every test skips, decided by a fixture when the test runs; on the card:
@@ -1305,3 +1309,91 @@ def test_reduced_xlstm_training_card_against_cpu(cuda):
     for g, r in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(g, r, atol=1e-4 * float(r.abs().max()),
                                    rtol=2e-4)
+
+
+def _ep_inputs(dtype, dev, glu=True):
+    """An expert-parallel MoE layer's weights and tokens (E 8, d 128, F 64,
+    multiples of 8 so bfloat16 takes the ``wgmma`` route) from a seed."""
+    rng = np.random.default_rng(17)
+    shapes = {"router": (128, 8), "w_in": (8, 128, 64), "w_out": (8, 64, 128)}
+    if glu:
+        shapes["w_gate"] = (8, 128, 64)
+    p = {n: torch.as_tensor(rng.normal(size=s) / np.sqrt(s[-2]),
+                            dtype=torch.float32).to(dev, dtype)
+         for n, s in shapes.items()}
+    x = torch.as_tensor(rng.normal(size=(4, 32, 128)),
+                        dtype=torch.float32).to(dev, dtype)
+    return p, x
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_expert_parallel_moe_launches_by_route(cuda, dtype, route, shape):
+    """The expert-parallel MoE over a mesh of entries of this card: three
+    expert-GEMM launches a mesh position, every one on the route the
+    dtype gives, and (float32) the CPU's result over a CPU mesh."""
+    from repro_torch.models.moe import moe_apply_expert_parallel
+    from repro_torch.parallel.sharding import make_mesh
+    n = shape[0] * shape[1]
+    out = {}
+    for dev in ("cpu", cuda):
+        p, x = _ep_inputs(dtype, dev)
+        mesh = make_mesh(shape, ("data", "model"), [dev] * n)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            y, aux = moe_apply_expert_parallel(p, x, top_k=2, act="silu",
+                                               glu=True, mesh=mesh,
+                                               capacity_factor=1.0)
+        torch.cuda.synchronize()
+        out[str(dev)] = (y.float().cpu(), aux.item())
+        counts, routes = kernels.launch_counts(), kernels.route_counts()
+    assert counts == dict(dict.fromkeys(counts, 0), moe_matmul=3 * n)
+    assert routes["moe_matmul"] == dict(
+        dict.fromkeys(routes["moe_matmul"], 0), **{route: 3 * n})
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 \
+        else dict(atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(out[str(cuda)][0], out["cpu"][0], **tol)
+    np.testing.assert_allclose(out[str(cuda)][1], out["cpu"][1], rtol=1e-5)
+
+
+def test_expert_parallel_moe_is_bitwise_repeatable(cuda):
+    """Two calls of the expert-parallel MoE in bfloat16 over a (2, 2) mesh
+    of this card give the same y and aux bit for bit (the dispatch is a
+    scatter of one pick a slot, the shards summed in a fixed order)."""
+    from repro_torch.models.moe import moe_apply_expert_parallel
+    from repro_torch.parallel.sharding import make_mesh
+    p, x = _ep_inputs(torch.bfloat16, cuda)
+    mesh = make_mesh((2, 2), ("data", "model"), [cuda] * 4)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            runs.append(moe_apply_expert_parallel(
+                p, x, top_k=2, act="silu", glu=True, mesh=mesh,
+                capacity_factor=0.5))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_psum_compressed_on_the_card_is_bitwise_the_cpu(cuda):
+    """The int8 all-reduce over 4 entries of this card, two steps of
+    error feedback, equals the CPU's bit for bit: every operation is
+    exact or correctly rounded (the scale's division by 127 too)."""
+    from repro_torch.optim.grad_compress import psum_compressed
+    rng = np.random.default_rng(48)
+    shapes = [(3, 5, 6), (7,), (64, 64)]
+    errs = {d: [[torch.zeros(s, device=d) for s in shapes]
+                for _ in range(4)] for d in ("cpu", cuda)}
+    for step in range(2):
+        grads = [[torch.as_tensor(rng.normal(size=s) * 10 ** (k - 2),
+                                  dtype=torch.float32) for s in shapes]
+                 for k in range(4)]
+        out = {}
+        for d in ("cpu", cuda):
+            out[d] = psum_compressed([[g.to(d) for g in gs] for gs in grads],
+                                     errs[d], [[0, 1], [2]])
+            errs[d] = out[d][1]
+        for got, want in zip(out[cuda], out["cpu"]):
+            for a, b in zip(got, want):
+                assert all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
