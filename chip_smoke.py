@@ -377,9 +377,28 @@ Phases, each raising on failure (the script then exits non-zero):
 48. the int8 all-reduce: ``psum_compressed`` over a data axis of 4
     entries of the card on the float32 gradients of the reduced
     granite-moe on four seeded batches (its ``stacked_groups``), two
-    steps of error feedback, bitwise equal to the same call on the CPU.
+    steps of error feedback, bitwise equal to the same call on the CPU;
+49. the dry run beside the card (``DRY_CALLS``): phase 36's minicpm-2b
+    training step, phase 46's unsharded olmoe-1b-7b prefill (B 8 x S
+    1,024) and one gemma2-9b decode step at B 8 on phase 12's cache, each
+    (a) run on ``meta`` under the op profiler (``launch.op_analysis``),
+    (b) on the card under it: the aten products, traffic, kernel calls by
+    name and route with their work, and launches by route equal the dry
+    run's exactly, (c) on the card without it after a warm-up (CUDA
+    events): the dry run's bytes a device within ``DRY_MEMORY_TOL`` of
+    ``max_memory_allocated`` above what the card held before, (d) the
+    roofline's terms (``launch.roofline``) beside the wall;
+50. the sanitizer on the main path: the AlexNet U 8, B 256 rollout
+    (``SANITIZE_T`` frames) inside ``sanitized(PLAN_FN_CACHE)`` after its
+    one build: no NaN and no build; fed one position at +inf it raises
+    ``FloatingPointError`` naming the op on the card that made the NaN.
 
-The last lines are the sharded-model record (phases 46-48), the training
+Every phase's bound column reads the kernel's work from
+``kernels.work.KERNEL_WORK`` and the card's rates from ``launch.roofline``
+(``kernel_bound``).
+
+The last lines are the dry-run and sanitizer record (phases 49-50), the
+sharded-model record (phases 46-48), the training
 record, the pipeline planner's, the
 sharded rollout's and the serving example's records, the serving layers'
 record, the evaluation path's walls and summaries, the CNN path's and the
@@ -402,10 +421,15 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
-BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
-TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor cores
+# each kernel's work (``KERNEL_WORK``) and the H100 SXM's rates have one
+# source each in the port: ``kernels.work`` and ``launch.roofline``
+from repro_torch.kernels.work import KERNEL_WORK, kept_pairs  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_FLOPS as BF16_OPS_PER_S, FP32_FLOPS as FP32_OPS_PER_S,
+    HBM_BW as HBM_BYTES_PER_S, POD_BW as POD_BYTES_PER_S,
+    TF32_FLOPS as TF32_OPS_PER_S, kernel_bound)
+
+
 U, L_ALEXNET = 8, 11
 MAIN_B, MAIN_T, REQUESTS = 256, 32, 4
 MAIN_N_IMG = 32                  # images per request on the CNN path
@@ -495,6 +519,12 @@ SERVED_ROUTES = {
     "prefill": {"moe_matmul": "wgmma", "flash_attention": "wgmma",
                 "rglru_scan": "tma", "mlstm_chunk": "wgmma"},
     "decode": {"moe_matmul": "wgmma", "mlstm_chunk": "decode"}}
+
+
+def bound_keys(work):
+    """A kernel line's ``bound_ms`` and ``bound_by`` from its work."""
+    bound = kernel_bound(work)
+    return {"bound_ms": bound.bound_s * 1e3, "bound_by": bound.bound_by}
 
 
 def log(*args):
@@ -811,7 +841,7 @@ def check_kernels(np, torch, params, device):
     return errs
 
 
-def alexnet_fleet(torch, device, p2, seed, frames):
+def alexnet_fleet(torch, device, p2, seed, frames, cache=None):
     from repro_torch.configs.alexnet import ALEXNET
     from repro_torch.core.channel import RadioChannel
     from repro_torch.core.cost_model import cnn_cost
@@ -823,7 +853,8 @@ def alexnet_fleet(torch, device, p2, seed, frames):
                        jitter_sigma_m=2.0, failure_prob=0.05,
                        recovery_prob=0.3, battery_j=5e3)
     return FleetRollout(RadioChannel(), make_devices(U), cnn_cost(ALEXNET),
-                        spec, plan_cache=PlanFnCache(),
+                        spec, plan_cache=PlanFnCache() if cache is None
+                        else cache,
                         position_spec=PositionSpec(steps=30, repair_iters=25)
                         if p2 else None, seed=seed, device=device)
 
@@ -1026,23 +1057,6 @@ def time_ms(torch, fn, iters, graph):
     return start.elapsed_time(end) / iters
 
 
-def chain_work(B, U, M, L, S):
-    """Bytes (each input read once, each output written once) and
-    operations of one chain-DP solve at these shapes, as the fused kernel
-    does them: per output, each block start's min over s0 once (S + 1
-    adds and S compares for each of the L - 1 rows a >= 1), and at step j
-    an add, the mask and a compare for each of the j block starts that
-    ``ok`` leaves; per scenario the transfer tensor's divisions, per
-    output the source row's; per slot the backtrack's argmin and L
-    steps."""
-    nbytes = (4 * B * U * U + 8 * B * M + B * U + 8 * (2 * S + 1) + 4 * L
-              + 4 + 2 * 4 * L * L * S + 4 * B * M * L + 4 * B * M)
-    per_out = (L - 1) * (2 * S + 1) + 3 * L * (L + 1) // 2 + 1
-    nops = (B * M * S * per_out + B * (L - 1) * S * (S + 1) + B * M * S
-            + B * M * (S + 4 * L))
-    return nbytes, nops
-
-
 def time_kernels(np, torch, params, device, launches, step_launches, errs):
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
     from repro_torch.kernels.link_geometry.ref import link_geometry_ref
@@ -1052,17 +1066,9 @@ def time_kernels(np, torch, params, device, launches, step_launches, errs):
     B, M, L, S = MAIN_B, REQUESTS, L_ALEXNET, U
     pos, active, _ = geometry_inputs(np, torch, 5, B, None, device)
     act_f = active.float()
-    geo_bytes = 4 * (B * U * 2 + B * U + 3 * B * U * U)
-    geo_ops = 18 * B * U * U     # per link: dist 6, gain 3, threshold 2,
-    #                              row max 2, rate 5
     chain_args = chain_inputs(np, torch, 6, chain_costs(np, "alexnet"), U,
                               M, B, "geometry", device)
-    chain_bytes, chain_ops = chain_work(B, U, M, L, S)
     dp_args = dp_inputs(np, torch, 6, B, M, L, S, False, device)
-    dp_bytes = 4 * (B * M * L * (S + 1) + B * L * S * (S + 1) + B * M * S
-                    + 2 * L * S + 3 * B * M * S)
-    dp_ops = B * M * S * (L * (S + 1) * 2 + 3 * L)   # add+compare per s0,
-    #                                                   add, mask, compare per a
     one = torch.zeros(1, device=device)
     floor_ms = time_ms(torch, one.zero_, 200, graph=True)
     floor_eager_ms = time_ms(torch, one.zero_, 200, graph=False)
@@ -1076,34 +1082,35 @@ def time_kernels(np, torch, params, device, launches, step_launches, errs):
          "src/repro/kernels/link_geometry/link_geometry.py:119",
          lambda: link_geometry(pos, act_f, None, params=params),
          lambda: link_geometry_ref(pos, active, None, params=params),
-         geo_bytes, geo_ops, launches["link_geometry"], {}),
+         KERNEL_WORK["link_geometry"](pos, act_f, None),
+         launches["link_geometry"], {}),
         ("tropical_dp", "src/repro_torch/csrc/tropical_dp.cu",
          "src/repro/kernels/tropical_dp/tropical_dp.py:86",
          lambda: tropical_dp_chain(*chain_args),
-         lambda: chain_dp_ref(*chain_args), chain_bytes, chain_ops,
+         lambda: chain_dp_ref(*chain_args),
+         KERNEL_WORK["tropical_dp"](*chain_args),
          launches["tropical_dp"], {"kernel_route": chain_route}),
         ("tropical_dp_step", "src/repro_torch/csrc/tropical_dp.cu",
          "src/repro/kernels/tropical_dp/tropical_dp.py:86",
          lambda: tropical_dp_step(*dp_args),
-         lambda: dp_step_ref(*dp_args), dp_bytes, dp_ops,
+         lambda: dp_step_ref(*dp_args),
+         KERNEL_WORK["tropical_dp_step"](*dp_args),
          step_launches["tropical_dp_step"],
          {"launches_path": f"plan_batch_multi at U {STEP_U} (chain DP on "
                            f"its step route)"}),
     ]
-    for (name, source, replaces, kern, plain, nbytes, nops, n_launch,
+    for (name, source, replaces, kern, plain, work, n_launch,
          extra) in cases:
         ms = time_ms(torch, kern, 200, graph=True)
         plain_ms = time_ms(torch, plain, 50, graph=True)
         eager_ms = time_ms(torch, kern, 200, graph=False)
         plain_eager_ms = time_ms(torch, plain, 50, graph=False)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / FP32_OPS_PER_S * 1e3
+        nbytes, nops = work.bytes, work.flops
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launch,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **bound_keys(work),
             "library_ms": None, "eager_ms": eager_ms,
             "plain_eager_ms": plain_eager_ms, "bytes": nbytes,
             "operations": nops, "launch_floor_ms": floor_ms,
@@ -1111,7 +1118,8 @@ def time_kernels(np, torch, params, device, launches, step_launches, errs):
         log(f"  {name}: {ms * 1e3:.2f} us/launch in a graph, "
             f"{eager_ms * 1e3:.2f} us eager; plain {plain_ms * 1e3:.2f} us "
             f"(graph), {plain_eager_ms * 1e3:.2f} us eager; bound "
-            f"{max(t_bytes, t_ops) * 1e3:.4f} us ({nbytes} B, {nops} ops); "
+            f"{kernel_bound(work).bound_s * 1e6:.4f} us ({nbytes} B, "
+            f"{nops} ops); "
             f"launch floor {floor_ms * 1e3:.2f} us")
     return rows
 
@@ -1387,9 +1395,9 @@ def time_conv2d(np, torch, device, launches, conv2_err):
         want_route("matmul_bias_act", route, gemm_route(k))
         torch.testing.assert_close(got, matmul_ref(x, w, b), atol=5e-4,
                                    rtol=1e-3)
-        nbytes = 4 * (m * k + k * n + n + m * n)
-        nops = 2 * m * n * k
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        work = KERNEL_WORK["conv2d"](x, w, b)
+        nbytes, nops = work.bytes, 2 * m * n * k
+        t_bytes = kernel_bound(work).memory_s * 1e3
         t_simt = max(t_bytes, nops / FP32_OPS_PER_S * 1e3)
         t_tc = max(t_bytes, 3 * nops / TF32_OPS_PER_S * 1e3)
         row = {"layer": name, "M": m, "K": k, "N": n, "route": route,
@@ -2212,14 +2220,11 @@ def time_attention(torch, device, lm_launches, attn_errs):
     B, H, KV, S, D, cap = 8, 16, 8, 2048, 256, 50.0
     q, k, v = flash_case(torch, 300, B, H, KV, S, D, bf, device)
     qc, kc, vc = (x.contiguous() for x in (q, k, v))
-    pairs = S * (S + 1) // 2                       # causal (q, k) pairs
-    f_ops = 4 * B * H * D * pairs
-    f_bytes = 2 * (2 * B * H * S * D + 2 * B * KV * S * D)
+    f_work = KERNEL_WORK["flash_attention"](q, k, v, causal=True, cap=cap)
     G, SC = H // KV, 4096
     dq, dk, dv, _ = decode_case(torch, 301, B, KV, G, SC, D, bf, device)
     pos = torch.full((B,), SC - 1, dtype=torch.int32, device=device)
-    d_ops = 4 * B * KV * G * D * SC
-    d_bytes = 2 * (2 * B * KV * G * D + 2 * B * KV * SC * D) + 4 * B
+    d_work = KERNEL_WORK["decode_attention"](dq, dk, dv, pos, cap=cap)
     dq_h = dq.reshape(B, H, 1, D)
     cases = [
         ("flash_attention", "src/repro/kernels/flash_attention/"
@@ -2228,18 +2233,17 @@ def time_attention(torch, device, lm_launches, attn_errs):
          lambda: attention_ref(q, k, v, causal=True, cap=cap),
          lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
                                                 enable_gqa=True),
-         f_bytes, f_ops, 3, [B, H, KV, S, D]),
+         f_work, 3, [B, H, KV, S, D]),
         ("decode_attention", "src/repro/kernels/decode_attention/"
          "decode_attention.py:68",
          lambda: decode_attention(dq, dk, dv, pos, cap=cap),
          lambda: decode_ref(dq, dk, dv, pos, cap=cap),
          lambda: F.scaled_dot_product_attention(dq_h, dk, dv,
                                                 enable_gqa=True),
-         d_bytes, d_ops, 20, [B, KV, G, SC, D]),
+         d_work, 20, [B, KV, G, SC, D]),
     ]
     rows = []
-    for name, replaces, kern, plain, lib, nbytes, nops, iters, shape in \
-            cases:
+    for name, replaces, kern, plain, lib, work, iters, shape in cases:
         kernel_route = (take_route(flash_attention, kern)[1]
                         if name == "flash_attention" else None)
         ms = time_ms(torch, kern, iters, graph=True)
@@ -2247,15 +2251,13 @@ def time_attention(torch, device, lm_launches, attn_errs):
         plain_ms = time_ms(torch, plain, iters, graph=True)
         plain_eager_ms = time_ms(torch, plain, iters, graph=False)
         lib_ms = time_ms(torch, lib, iters, graph=True)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / BF16_OPS_PER_S * 1e3
+        nbytes, nops = work.bytes, work.flops
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": lm_launches[name],
             "max_abs_err": attn_errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **bound_keys(work),
             "library_ms": lib_ms, "library": "F.scaled_dot_product_attention"
             " (enable_gqa, no softcap)", "eager_ms": eager_ms,
             "plain_eager_ms": plain_eager_ms, "shape": shape,
@@ -2272,8 +2274,7 @@ def time_attention(torch, device, lm_launches, attn_errs):
             f" ms eager ({nops / ms / 1e9:.2f} TFLOP/s, "
             f"{nbytes / ms / 1e6:.1f} GB/s); plain {plain_ms:.4f} ms "
             f"({plain_eager_ms:.4f} eager); SDPA (cap 0) {lib_ms:.4f} ms; "
-            f"bound {max(t_bytes, t_ops):.4f} ms "
-            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+            f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
     return rows
 
 
@@ -2298,8 +2299,8 @@ def time_decode_g16(torch, device, served):
     torch.testing.assert_close(got.float(), want.float(),
                                **ATTN_BF16_ROUNDING)
     q_h = q.reshape(B, KV * G, 1, D)
-    nbytes = 2 * (2 * B * KV * G * D + 2 * B * KV * S * D) + 4 * B
-    nops = 4 * B * KV * G * D * S
+    work = KERNEL_WORK["decode_attention"](q, k, v, pos)
+    nbytes, nops = work.bytes, work.flops
     kern = lambda: decode_attention(q, k, v, pos)            # noqa: E731
     plain = lambda: decode_ref(q, k, v, pos)                 # noqa: E731
     entry = {
@@ -2313,10 +2314,7 @@ def time_decode_g16(torch, device, served):
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             q_h, k, v, enable_gqa=True), 20, graph=True),
         "library": "F.scaled_dot_product_attention (enable_gqa)",
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                        nops / FP32_OPS_PER_S) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >=
-        nops / FP32_OPS_PER_S else "operations",
+        **bound_keys(work),
         "splits": list(decode_splits(B, KV, S, sm_count(device))),
         "bytes": nbytes, "operations": nops}
     entry["gb_per_s"] = nbytes / entry["ms"] / 1e6
@@ -2503,8 +2501,7 @@ def time_moe_rglru(torch, device, served):
     def moe_case(c):
         x, w = moe_operands(torch, 600 + c, E, c, D, F, bf, device)
         return (lambda: moe_matmul(x, w), lambda: moe_matmul_ref(x, w),
-                lambda: torch.bmm(x, w), 2 * (E * c * D + E * D * F + E * c * F),
-                2 * E * c * D * F, BF16_OPS_PER_S)
+                lambda: torch.bmm(x, w), KERNEL_WORK["moe_matmul"](x, w))
 
     gm = served["recurrentgemma-9b"]
     gb, gt = max(gm["prefill_shapes"], key=lambda bs: bs[0] * bs[1])
@@ -2519,15 +2516,15 @@ def time_moe_rglru(torch, device, served):
     ]
     for name, replaces, shape, launches in cases:
         if name == "moe_matmul":
-            kern, plain, lib, nbytes, nops, peak = moe_case(shape[1])
+            kern, plain, lib, work = moe_case(shape[1])
             iters, plain_graph = 5, True
         else:
             kern = lambda: rglru_scan(a, b, h0)              # noqa: E731
             plain = lambda: rglru_ref(a, b, h0)              # noqa: E731
             lib = None
-            nbytes = 2 * (3 * gb * gt * W + 2 * gb * W)
-            nops, peak = 2 * gb * gt * W, FP32_OPS_PER_S
+            work = KERNEL_WORK["rglru_scan"](a, b, h0)
             iters, plain_graph = 20, False    # plain: T steps of launches
+        nbytes, nops = work.bytes, work.flops
         got, kernel_route = take_route(
             moe_matmul if name == "moe_matmul" else rglru_scan, kern)
         err = held_at_timed_shape(torch, name, got, plain(), D)
@@ -2538,14 +2535,11 @@ def time_moe_rglru(torch, device, served):
         plain_eager_ms = time_ms(torch, plain, iters if plain_graph else 1,
                                  graph=False)
         lib_ms = time_ms(torch, lib, iters, graph=True) if lib else None
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / peak * 1e3
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/csrc/{name}.cu",
                "replaces": replaces, "launches": launches,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               **bound_keys(work),
                "library_ms": lib_ms,
                "library": "torch.bmm" if lib else None,
                "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
@@ -2555,7 +2549,7 @@ def time_moe_rglru(torch, device, served):
                "gb_per_s": nbytes / ms / 1e6}
         row["kernel_route"] = kernel_route
         if name == "moe_matmul":
-            dk, dp, dl, db, do, _ = moe_case(LM_BATCH)
+            dk, dp, dl, dwork = moe_case(LM_BATCH)
             got, d_route = take_route(moe_matmul, dk)
             d_err = held_at_timed_shape(torch, name, got, dp(), D)
             d_ms = time_ms(torch, dk, 20, graph=True)
@@ -2565,8 +2559,9 @@ def time_moe_rglru(torch, device, served):
                 "eager_ms": time_ms(torch, dk, 20, graph=False),
                 "plain_ms": time_ms(torch, dp, 20, graph=True),
                 "library_ms": time_ms(torch, dl, 20, graph=True),
-                "bound_ms": max(db / HBM_BYTES_PER_S, do / BF16_OPS_PER_S)
-                * 1e3, "gb_per_s": db / d_ms / 1e6, "kernel_route": d_route}
+                "bound_ms": kernel_bound(dwork).bound_s * 1e3,
+                "gb_per_s": dwork.bytes / d_ms / 1e6,
+                "kernel_route": d_route}
             log(f"  moe_matmul decode {row['decode']['shape']} bf16 "
                 f"({d_route} route): "
                 f"max abs err {d_err:.3g}; {d_ms:.4f} ms in a graph ({row['decode']['gb_per_s']:.1f} "
@@ -2583,7 +2578,7 @@ def time_moe_rglru(torch, device, served):
             f"{nbytes / ms / 1e6:.1f} GB/s); plain {plain_ms:.4f} ms "
             f"({row['plain_timing']}; {plain_eager_ms:.4f} eager)"
             + (f"; torch.bmm {lib_ms:.4f} ms" if lib else "")
-            + f"; bound {max(t_bytes, t_ops):.4f} ms ({row['bound_by']})")
+            + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
 
 
@@ -2660,31 +2655,6 @@ def check_mlstm_kernel(np, torch, device):
             del args, got, again, ref
 
 
-def mlstm_work(b, s, h, d, elt, route):
-    """(bytes, operations) of the mLSTM over [B, S, H, D] from a state on
-    ``route``, in that route's chunks (``CHUNK[route]``): q, k, v and the
-    gates read once, h written once, the state read and written once;
-    per chunk of l steps the two D x D products a step (q C and the
-    rank-one update of C), the causal half of q k^T and of sw v (l (l +
-    1) / 2 pairs of D), and q n and the update of n; 2 operations a
-    multiply-add.  On the ``wgmma`` route the products with a float32
-    operand (q C, the C update, sw v) are issued twice, as a bf16 high
-    and low part, and counted twice; q n and the update of n run on fp32
-    lanes beside them and are left out of its tensor-core count."""
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import CHUNK
-    nbytes = 4 * b * s * h * d * elt + 2 * b * s * h * 4 \
-        + 2 * b * h * (d * d + d + 1) * 4
-    chunk, fmas = CHUNK[route], 0
-    for c0 in range(0, s, chunk):
-        l = min(chunk, s - c0)
-        pairs = l * (l + 1) // 2
-        if route == "wgmma":
-            fmas += 2 * (2 * l * d * d) + pairs * d + 2 * pairs * d
-        else:
-            fmas += 2 * l * d * d + 2 * pairs * d + 2 * l * d
-    return nbytes, 2 * b * h * fmas
-
-
 def time_mlstm(torch, device, served):
     """The mLSTM kernel at xlstm-350m's largest served prefill (B x S, H 4,
     D 256) and at a decode step (B 8, S 1) in bfloat16, beside its plain
@@ -2713,9 +2683,12 @@ def time_mlstm(torch, device, served):
         plain = lambda: mlstm_chunk_ref(*args, scale)       # noqa: E731
         got, route = take_route(mlstm_chunk, kern)
         err = held_mlstm(torch, got, plain(), bf)
-        nbytes, nops = mlstm_work(b, s, h, D, 2, route)
-        _, simt_ops = mlstm_work(b, s, h, D, 2, "simt")
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        work = KERNEL_WORK["mlstm_chunk"](*args, scale)
+        nbytes, nops = work.bytes, work.flops
+        # the simt route's count: the same call in float32
+        simt_ops = KERNEL_WORK["mlstm_chunk"](
+            *(t.to("meta", torch.float32) for t in args), scale).flops
+        t_bytes = kernel_bound(work).memory_s * 1e3
         t_simt = max(t_bytes, simt_ops / FP32_OPS_PER_S * 1e3)
         t_tc = max(t_bytes, nops / BF16_OPS_PER_S * 1e3) \
             if route == "wgmma" else None
@@ -3874,13 +3847,11 @@ def time_slice_attention(torch, device, served, errs):
         q, k, v = flash_cross_case(torch, 700, b, h, kv, sq, sk, d, bf,
                                    device)
         qc, kc, vc = (x.contiguous() for x in (q, k, v))
-        nops = 4 * b * h * sq * sk * d
-        nbytes = 2 * (2 * b * h * sq * d + 2 * b * kv * sk * d)
         flash[key] = attention_entry(
             torch, lambda: flash_attention(q, k, v, causal=False),
             lambda: attention_ref(q, k, v, causal=False),
             lambda: F.scaled_dot_product_attention(qc, kc, vc),
-            nbytes, nops, BF16_OPS_PER_S, 5,
+            KERNEL_WORK["flash_attention"](q, k, v, causal=False), 5,
             errs["encoder" if sq == sk else "cross"], [b, h, kv, sq, sk, d],
             wh["launches"]["flash_attention"])
         flash[key]["launches_of"] = f"whisper-tiny's served run ({whole})"
@@ -3895,14 +3866,12 @@ def time_slice_attention(torch, device, served, errs):
         q, k, v, _ = decode_case(torch, 701, b, kv, g, s, d, bf, device)
         pos = torch.full((b,), s - 1, dtype=torch.int32, device=device)
         q_h = q.reshape(b, kv * g, 1, d)
-        nbytes = 2 * (2 * b * kv * g * d + 2 * b * kv * s * d) + 4 * b
-        nops = 4 * b * kv * g * d * s
         decode[key] = attention_entry(
             torch, lambda: decode_attention(q, k, v, pos),
             lambda: decode_ref(q, k, v, pos),
             lambda: F.scaled_dot_product_attention(q_h, k, v,
                                                    enable_gqa=True),
-            nbytes, nops, FP32_OPS_PER_S, 20,
+            KERNEL_WORK["decode_attention"](q, k, v, pos), 20,
             errs["cross_decode" if g == 1 else "vlm_decode"],
             [b, kv, g, s, d], run["launches"]["decode_attention"])
         decode[key]["launches_of"] = of
@@ -3918,25 +3887,23 @@ def time_slice_attention(torch, device, served, errs):
     return flash, decode
 
 
-def attention_entry(torch, kern, plain, lib, nbytes, nops, peak, iters, err,
-                    shape, launches):
+def attention_entry(torch, kern, plain, lib, work, iters, err, shape,
+                    launches):
     """One timed attention shape: the kernel's, the plain version's and
     the library call's times (CUDA graph), the kernel's eager time, and
-    the bound (bytes at the HBM rate or operations at ``peak``)."""
+    the bound from its ``KERNEL_WORK``."""
     kern()
     torch.testing.assert_close(kern().float(), plain().float(),
                                **ATTN_BF16_ROUNDING)
     ms = time_ms(torch, kern, iters, graph=True)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / peak * 1e3
+    nbytes, nops = work.bytes, work.flops
     return {"shape": shape, "dtype": "bfloat16", "launches": launches,
             "max_abs_err": err, "ms": ms,
             "eager_ms": time_ms(torch, kern, iters, graph=False),
             "plain_ms": time_ms(torch, plain, iters, graph=True),
             "library_ms": time_ms(torch, lib, iters, graph=True),
             "library": "F.scaled_dot_product_attention",
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **bound_keys(work),
             "bytes": nbytes, "operations": nops,
             "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6}
 
@@ -3951,7 +3918,7 @@ def attention_entry(torch, kern, plain, lib, nbytes, nops, peak, iters, err,
 #: 400 Gb/s network port a card
 PLAN_HOP_LATENCY_S = 2e-6
 PLAN_TORUS = (4, 4)
-PLAN_DCN_BYTES = 400e9 / 8
+PLAN_DCN_BYTES = POD_BYTES_PER_S
 PLAN_STAGES, PLAN_CHIPS_PER_STAGE = (2, 4, 8), 8
 ELASTIC = ("qwen2-vl-2b", "train_4k", (8, 7, 5))
 #: phase 31's ragged split: B trajectories over a mesh of this many entries
@@ -4323,26 +4290,6 @@ def bwd_case(torch, seed, case, dtype, device):
     return [t.transpose(1, 2) for t in ts]
 
 
-def kept_pairs(sq, sk, causal, window):
-    """The (query, key) pairs the masks keep."""
-    total = 0
-    for q in range(sq):
-        lo = max(0, q - window + 1) if window else 0
-        hi = min(q, sk - 1) if causal else sk - 1
-        total += max(0, hi - lo + 1)
-    return total
-
-
-def bwd_work(case, elt):
-    """Bytes (q, k, v, o, dO read, dq, dk, dv written, in the dtype; lse
-    in float32) and operations (five products of 2 D flops a kept pair
-    and head) of one backward call."""
-    b, h, kv, sq, sk, d, causal, window, _ = case
-    nbytes = elt * (4 * b * h * sq * d + 4 * b * kv * sk * d) + 4 * b * h * sq
-    nops = 5 * 2 * b * h * d * kept_pairs(sq, sk, causal, window)
-    return nbytes, nops
-
-
 def check_flash_bwd(np, torch, device):
     """Phase 33: the forward with ``with_lse`` (the output bitwise the
     serving launch's, lse within the float32 tolerance of the plain
@@ -4452,20 +4399,18 @@ def time_flash_bwd(torch, device, errs):
         plain = lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw)  # noqa
         lib = lambda: torch.autograd.grad(lib_out, (qc, kc, vc), doc,  # noqa
                                           retain_graph=True)
-        nbytes, nops = bwd_work(case, 2)
+        work = KERNEL_WORK["flash_attention_bwd"](q, k, v, o, lse, do, **kw)
+        nbytes, nops = work.bytes, work.flops
         _, route = take_route(flash_attention_bwd, kern)
         fwd = lambda: flash_attention(q, k, v, with_lse=True, **kw)  # noqa
         ms = time_ms(torch, kern, 5, graph=True)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / BF16_OPS_PER_S * 1e3
         entries[arch] = {
             "shape": [b, h, kv, sq, sk, d], "causal": causal,
             "window": window, "cap": cap, "dtype": "bfloat16", "ms": ms,
             "eager_ms": time_ms(torch, kern, 5, graph=False),
             "plain_ms": time_ms(torch, plain, 2, graph=False),
             "library_ms": time_ms(torch, lib, 5, graph=False),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **bound_keys(work),
             "bytes": nbytes, "operations": nops, "max_abs_err": errs[arch],
             "tflops": nops / ms / 1e9, "gb_per_s": nbytes / ms / 1e6,
             "kernel_route": route,
@@ -5166,8 +5111,7 @@ def time_train_kernels(torch, device, errs):
     from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
                                                           rglru_scan_bwd)
 
-    def timed(name, fn, kern, plain, lib, nbytes, nops, peak, shape, dname,
-              plain_graph):
+    def timed(name, fn, kern, plain, lib, work, shape, dname, plain_graph):
         _, route = take_route(fn, kern)
         iters = 5 if plain_graph else 20
         ms = time_ms(torch, kern, iters, graph=True)
@@ -5175,11 +5119,9 @@ def time_train_kernels(torch, device, errs):
         plain_ms = time_ms(torch, plain, iters if plain_graph else 1,
                            graph=plain_graph)
         lib_ms = time_ms(torch, lib, iters, graph=True) if lib else None
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / peak * 1e3
+        nbytes, nops = work.bytes, work.flops
         out = {"ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               **bound_keys(work),
                "library_ms": lib_ms, "eager_ms": eager_ms,
                "plain_timing": "graph" if plain_graph else "eager",
                "kernel_route": route, "shape": shape, "dtype": dname,
@@ -5198,20 +5140,19 @@ def time_train_kernels(torch, device, errs):
         e, c, d, f = MOE_BWD_CASES[i]
         x, w, dy = moe_bwd_operands(torch, 800 + i, e, c, d, f,
                                     torch.bfloat16, device)
-        nbytes = 2 * (e * c * f + e * d * f + e * c * d)
         out = {
             "moe_matmul_dx": timed(
                 "moe_matmul_dx", moe_matmul_dx, lambda: moe_matmul_dx(dy, w),
                 lambda: moe_matmul_dx_ref(dy, w),
-                lambda: torch.bmm(dy, w.transpose(1, 2)), nbytes,
-                2 * e * c * d * f, BF16_OPS_PER_S, [e, c, d, f], "bfloat16",
-                True),
+                lambda: torch.bmm(dy, w.transpose(1, 2)),
+                KERNEL_WORK["moe_matmul_dx"](dy, w), [e, c, d, f],
+                "bfloat16", True),
             "moe_matmul_dw": timed(
                 "moe_matmul_dw", moe_matmul_dw, lambda: moe_matmul_dw(x, dy),
                 lambda: moe_matmul_dw_ref(x, dy),
-                lambda: torch.bmm(x.transpose(1, 2), dy), nbytes,
-                2 * e * c * d * f, BF16_OPS_PER_S, [e, c, d, f], "bfloat16",
-                True)}
+                lambda: torch.bmm(x.transpose(1, 2), dy),
+                KERNEL_WORK["moe_matmul_dw"](x, dy), [e, c, d, f],
+                "bfloat16", True)}
         del x, w, dy
         torch.cuda.empty_cache()
         return out
@@ -5232,7 +5173,7 @@ def time_train_kernels(torch, device, errs):
     b, t, width, _ = RGLRU_BWD_CASES[0]
     rargs = rglru_bwd_operands(torch, 900, b, t, width, True,
                                torch.float32, device)
-    nbytes = 4 * (5 * b * t * width + 3 * b * width)
+    nbytes = KERNEL_WORK["rglru_scan_bwd"](*rargs).bytes
     row = dict(
         {"name": "rglru_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
@@ -5243,9 +5184,9 @@ def time_train_kernels(torch, device, errs):
          "library": None},
         **timed("rglru_scan_bwd", rglru_scan_bwd,
                 lambda: rglru_scan_bwd(*rargs),
-                lambda: rglru_bwd_ref(*rargs), None, nbytes,
-                3 * b * t * width, FP32_OPS_PER_S, [b, t, width], "float32",
-                False))
+                lambda: rglru_bwd_ref(*rargs), None,
+                KERNEL_WORK["rglru_scan_bwd"](*rargs), [b, t, width],
+                "float32", False))
     simt, simt_out = rglru_bwd_simt(torch, *rargs)
     simt()
     got = rglru_scan_bwd(*rargs)
@@ -5270,8 +5211,7 @@ def time_train_kernels(torch, device, errs):
                              "the plain version")
     fwd = dict(timed("rglru_scan", rglru_scan, lambda: rglru_scan(a, bb, h0),
                      lambda: rglru_ref(a, bb, h0), None,
-                     4 * (3 * b * t * width + 2 * b * width),
-                     2 * b * t * width, FP32_OPS_PER_S, [b, t, width],
+                     KERNEL_WORK["rglru_scan"](a, bb, h0), [b, t, width],
                      "float32", False), max_abs_err=0.0)
     del a, bb, h0, got, want
     torch.cuda.empty_cache()
@@ -5454,12 +5394,30 @@ def check_mlstm_bwd(np, torch, device):
     launches bitwise equal; each launch on ``mlstm_bwd_route``'s route
     (``wgmma`` in bfloat16, ``simt`` in float32); the two branch cases
     each with most steps on their branch, the ``held`` case with m0
-    holding the max in every chunk.  Returns the bf16 max abs error at
-    the training call."""
+    holding the max in every chunk; first the wrapper's workspace size
+    (``bwd_workspace_bytes``) against the launcher's own layout at every
+    case on both routes.  Returns the bf16 max abs error at the training
+    call."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
-        BWD_CHUNK, mlstm_bwd_route, mlstm_chunk_bwd)
+        BWD_CHUNK, BWD_ROUTES, bwd_workspace_bytes, mlstm_bwd_route,
+        mlstm_chunk_bwd)
     from repro_torch.kernels.mlstm_chunk.ref import (m0_holds_max,
                                                      mlstm_chunk_bwd_ref)
+    size = _build.launcher("mlstm_chunk_bwd",
+                           "repro_mlstm_chunk_bwd_workspace",
+                           [ctypes.c_int] * 5, ctypes.c_longlong)
+    for case in MLSTM_BWD_CASES:
+        for code, route in enumerate(BWD_ROUTES):
+            mine, theirs = bwd_workspace_bytes(*case[:4], route), \
+                size(*case[:4], code)
+            if mine != theirs:
+                raise AssertionError(f"mlstm_chunk_bwd {case[:4]} {route}: "
+                                     f"workspace {mine} B, launcher's "
+                                     f"layout {theirs} B")
+    log(f"  mlstm_chunk_bwd workspace: bwd_workspace_bytes equals the "
+        f"launcher's layout at all {len(MLSTM_BWD_CASES)} cases on "
+        f"{' and '.join(BWD_ROUTES)}")
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
@@ -5507,34 +5465,17 @@ def check_mlstm_bwd(np, torch, device):
     return errs
 
 
-def mlstm_bwd_work(b, s, h, d, elt):
-    """Bytes (q, k, v, dh read and dq, dk, dv written in the dtype; the
-    gates read and their gradients written, and the initial state read
-    and its gradient written, in float32) and operations (per chunk of
-    l steps and head 6 l^2 D + 6 l D^2 multiply-adds: q k^T, sw V,
-    dnum V^T, dS K, dS^T Q and sw^T dnum; q C, C dnum, the dC update,
-    dC v, dC^T k and the C recompute; 2 operations each) of one backward
-    call in ``BWD_CHUNK`` chunks."""
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import BWD_CHUNK
-    nbytes = 7 * b * s * h * d * elt + 4 * b * s * h * 4 \
-        + 2 * b * h * (d * d + d + 1) * 4
-    fmas = sum(6 * l * l * d + 6 * l * d * d
-               for l in (min(BWD_CHUNK, s - c0)
-                         for c0 in range(0, s, BWD_CHUNK)))
-    return nbytes, 2 * b * h * fmas
-
-
-def mlstm_bwd_floor(b, s, h, d):
-    """The ``wgmma`` route's own least traffic: ``mlstm_bwd_work``'s bytes
-    plus its workspace's state planes (C_c and dC_{c+1}, bf16 hi + lo:
-    4 bytes an element of each chunk's D x D, D padded to 64) as it moves
-    them: C_c written once and read twice (the gradient walk's <dC, C>,
-    the gradient pass), dC_{c+1} written once and read once.  Returns
-    bytes."""
+def mlstm_bwd_floor(work, b, s, h, d):
+    """The ``wgmma`` route's own least traffic: the call's bytes (``work``,
+    its ``KERNEL_WORK``) plus its workspace's state planes (C_c and
+    dC_{c+1}, bf16 hi + lo: 4 bytes an element of each chunk's D x D, D
+    padded to 64) as it moves them: C_c written once and read twice (the
+    gradient walk's <dC, C>, the gradient pass), dC_{c+1} written once
+    and read once.  Returns bytes."""
     from repro_torch.kernels.mlstm_chunk.mlstm_chunk import BWD_CHUNK
     dp = -(-d // 64) * 64
     planes = b * h * -(-s // BWD_CHUNK) * dp * dp * 4
-    return mlstm_bwd_work(b, s, h, d, 2)[0] + 5 * planes
+    return work.bytes + 5 * planes
 
 
 def mlstm_bwd_simt(torch, args, scale, dh):
@@ -5595,11 +5536,12 @@ def time_mlstm_bwd(torch, device, errs):
     plain = lambda: mlstm_chunk_bwd_ref(*args, scale, dh)        # noqa
     got, route = take_route(mlstm_chunk_bwd, kern)
     want_route("mlstm_chunk_bwd", route, "wgmma")
-    nbytes, nops = mlstm_bwd_work(b, s, h, d, 2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    work = KERNEL_WORK["mlstm_chunk_bwd"](*args, scale, dh)
+    nbytes, nops = work.bytes, work.flops
+    t_bytes = kernel_bound(work).memory_s * 1e3
     t_tc = max(t_bytes, nops / BF16_OPS_PER_S * 1e3)
     t_simt = max(t_bytes, nops / FP32_OPS_PER_S * 1e3)
-    floor = mlstm_bwd_floor(b, s, h, d)
+    floor = mlstm_bwd_floor(work, b, s, h, d)
     ms = time_ms(torch, kern, 5, graph=True)
     row = {"name": "mlstm_chunk_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/mlstm_chunk_bwd.cu",
@@ -5649,14 +5591,14 @@ def time_mlstm_bwd(torch, device, errs):
     got, froute = take_route(mlstm_chunk, fwd)
     err = held_mlstm(torch, got, mlstm_chunk_ref(*args, scale),
                      torch.bfloat16)
-    fbytes, fops = mlstm_work(b, s, h, d, 2, froute)
+    fwork = KERNEL_WORK["mlstm_chunk"](*args, scale)
+    fops = fwork.flops
     f_ms = time_ms(torch, fwd, 5, graph=True)
     forward = {"shape": [b, s, h, d], "dtype": "bfloat16",
                "kernel_route": froute, "max_abs_err": err, "ms": f_ms,
                "eager_ms": time_ms(torch, fwd, 5, graph=False),
                "blocks": b * h * (d // 64),
-               "bound_ms": max(fbytes / HBM_BYTES_PER_S,
-                               fops / BF16_OPS_PER_S) * 1e3,
+               "bound_ms": kernel_bound(fwork).bound_s * 1e3,
                "tflops": fops / f_ms / 1e9}
     log(f"  mlstm_chunk forward at the same shape ({froute}, "
         f"{forward['blocks']} blocks): max abs err {err:.3g}; {f_ms:.4f} ms "
@@ -6117,6 +6059,275 @@ def run_int8_allreduce(np, torch, device):
             "batch": list(ALLREDUCE_BATCH), "groups": len(groups),
             "steps": steps}
 
+# ---------------------------------------------------------------------------
+# the dry run beside the card, and the sanitizer on the main path
+# ---------------------------------------------------------------------------
+
+#: phase 49: calls the card already runs, each dry-run on ``meta`` and held
+#: to its card run: phase 36's minicpm-2b training step, phase 46's
+#: unsharded olmoe-1b-7b prefill and one gemma2-9b decode step at B 8 on
+#: phase 12's served cache
+DRY_CALLS = ("train", "prefill", "decode")
+#: the dry run's bytes a device within this share of the card's peak
+DRY_MEMORY_TOL = 0.10
+#: phase 50: the sanitized rollout's frames (AlexNet, U 8, B 256)
+SANITIZE_T = 4
+
+
+def dry_call(np, torch, kind, device):
+    """One of phase 49's calls built on ``device`` (the card or ``meta``):
+    (program, its inputs, model FLOPs, what it is).  Weights and state
+    from a seeded generator (``MetaGenerator`` on ``meta``: shapes only);
+    the training batch the same host arrays on both."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.cost_model import model_flops
+    from repro_torch.device import MetaGenerator
+    from repro_torch.models import build_model
+    gen = MetaGenerator() if device.type == "meta" else \
+        torch.Generator(device=device).manual_seed(0)
+    if kind == "train":
+        from repro_torch.data.pipeline import lm_data
+        from repro_torch.runtime.train_loop import (init_state,
+                                                    make_train_step)
+        f = FULL_TRAIN
+        cfg = get_arch(f["arch"])
+        model = build_model(cfg, device)
+        tcfg = TrainConfig(steps=f["steps"], lr=f["lr"], warmup_steps=0,
+                           microbatches=f["microbatches"], schedule="wsd")
+        state = init_state(model, gen, tcfg)
+        step = make_train_step(model, cfg, tcfg)
+        batch = next(lm_data(cfg, f["batch"], f["seq"], seed=0, prefetch=0))
+        shape = ShapeConfig("phase49", f["seq"], f["batch"], "train")
+        return (lambda: step(state, batch)[1]), state, \
+            model_flops(cfg, shape), \
+            f"{cfg.name} training step ({f['batch']} x {f['seq']}, " \
+            f"{f['microbatches']} microbatches)"
+    if kind == "prefill":
+        cfg = get_arch(EP_ARCH)
+        model = build_model(cfg, device)
+        params = model.init(gen)
+        toks = ep_tokens(np, torch, cfg, device)
+
+        def prefill():
+            with torch.no_grad():
+                return model.prefill(params, toks, EP_SEQ + EP_STEPS)
+        shape = ShapeConfig("phase49", EP_SEQ, EP_BATCH, "prefill")
+        return prefill, {"params": params, "tokens": toks}, \
+            model_flops(cfg, shape), \
+            f"{cfg.name} prefill ({EP_BATCH} x {EP_SEQ})"
+    cfg = get_arch(LM_ARCH)
+    model = build_model(cfg, device)
+    params = model.init(gen)
+    max_seq = SERVED[LM_ARCH]["max_seq"]
+    cache = model.init_cache(LM_BATCH, max_seq)
+    toks = torch.full((LM_BATCH, 1), 2, dtype=torch.int32, device=device)
+    pos = torch.full((LM_BATCH, 1), max_seq - 1, dtype=torch.int32,
+                     device=device)
+
+    def decode():
+        with torch.no_grad():
+            return model.decode_step(params, toks, pos, cache)[0]
+    shape = ShapeConfig("phase49", max_seq, LM_BATCH, "decode")
+    return decode, {"params": params, "cache": cache, "tokens": toks,
+                    "pos": pos}, model_flops(cfg, shape), \
+        f"{cfg.name} decode step (B {LM_BATCH}, cache {max_seq})"
+
+
+def profile_launches(profile):
+    """The launches a profile's kernel calls make on the card, by kernel
+    and by route, in the shape of the nonzero entries of
+    ``kernels.launch_counts()`` and ``route_counts()``: one a call (the
+    chain DP, whose ``step`` route launches L step kernels a call, runs
+    in none of phase 49's calls)."""
+    calls = profile.kernel_calls()
+    launches = {k: sum(r["calls"] for r in v.values())
+                for k, v in calls.items()}
+    routes = {k: {r: c["calls"] for r, c in v.items()}
+              for k, v in calls.items() if "None" not in v}
+    return launches, routes
+
+
+def card_launches():
+    """The nonzero entries of ``kernels.launch_counts()`` and
+    ``route_counts()``."""
+    from repro_torch import kernels
+    return ({k: v for k, v in kernels.launch_counts().items() if v},
+            {k: {r: c for r, c in v.items() if c}
+             for k, v in kernels.route_counts().items()
+             if any(v.values())})
+
+
+def op_differences(meta, card):
+    """The aten ops whose (calls, bytes, FLOPs) differ between two
+    profiles, and the kernel calls that differ."""
+    ops = {k: (tuple(meta.by_op.get(k, ())), tuple(card.by_op.get(k, ())))
+           for k in set(meta.by_op) | set(card.by_op)
+           if list(meta.by_op.get(k, ())) != list(card.by_op.get(k, ()))}
+    kern = {k: (meta.kernel_calls().get(k), card.kernel_calls().get(k))
+            for k in set(meta.kernels) | set(card.kernels)
+            if meta.kernel_calls().get(k) != card.kernel_calls().get(k)}
+    return ops, kern
+
+
+def run_dry_run(np, torch, device, smi):
+    """Phase 49: each of ``DRY_CALLS`` (a) dry-run on ``meta`` (the op
+    profiler's counts, its bytes a device, its roofline); (b) run on the
+    card under the op profiler, whose counts (the aten products and
+    traffic, the kernel calls by name and route with their work) must
+    equal meta's exactly, and the card's launch counters (the kernels
+    it launched, by route) must equal the launches meta's kernel calls
+    make; (c) run again on the
+    card without it, after a warm-up, timed by CUDA events, the peak
+    memory from ``reset_peak_memory_stats``: meta's bytes within
+    ``DRY_MEMORY_TOL`` of ``max_memory_allocated`` above what the card
+    held before the call's inputs were made; (d) the roofline's terms
+    beside the measured wall.  Returns the record."""
+    from repro_torch import kernels
+    from repro_torch.launch.dryrun import run_program, storage_bytes
+    from repro_torch.launch.roofline import PEAK_FLOPS, build_roofline
+    meta = torch.device("meta")
+    rec = {"card": smi, "calls": {}}
+    for kind in DRY_CALLS:
+        program, inputs, mflops, what = dry_call(np, torch, kind, meta)
+        t0 = time.perf_counter()
+        mprof, mem = run_program(program, inputs)
+        mlaunch, mroutes = profile_launches(mprof.profile)
+        trace_s = time.perf_counter() - t0
+        predicted = storage_bytes(inputs) + mem["output_size_in_bytes"] + \
+            mem["temp_size_in_bytes"] - mem["alias_size_in_bytes"]
+        roof = build_roofline(mprof.profile, mflops, 1)
+        del program, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        program, inputs, _, _ = dry_call(np, torch, kind, device)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        cprof, _ = run_program(program, inputs)
+        torch.cuda.synchronize()
+        claunch, croutes = card_launches()
+        same = mprof.profile.counts() == cprof.profile.counts() and \
+            mlaunch == claunch and mroutes == croutes
+        if not same:
+            ops, kern = op_differences(mprof.profile, cprof.profile)
+            for k, (m, c) in sorted(ops.items()):
+                log(f"  {kind}: {k}: meta (calls, bytes, flops) {m}, card "
+                    f"{c}")
+            raise AssertionError(
+                f"phase 49 {what}: the card's counts differ from the dry "
+                f"run's: dot_flops {cprof.profile.dot_flops} vs "
+                f"{mprof.profile.dot_flops}, traffic "
+                f"{cprof.profile.traffic_bytes} vs "
+                f"{mprof.profile.traffic_bytes}; kernels {kern}; launches "
+                f"{claunch} vs {mlaunch}, routes {croutes} vs {mroutes}")
+        del cprof
+        program()                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        program()
+        end.record()
+        torch.cuda.synchronize()
+        wall_s = start.elapsed_time(end) / 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        share = abs(predicted - peak) / peak
+        r = roof.to_dict()
+        rec["calls"][kind] = {
+            "what": what, "trace_s": trace_s,
+            "counts": mprof.profile.counts(),
+            "launches": claunch, "routes": croutes,
+            "predicted_bytes": predicted, "memory": mem,
+            "max_memory_allocated_above_base": peak,
+            "memory_base": base, "memory_share_off": share,
+            "roofline": r, "wall_s": wall_s,
+            "step_s_over_wall": r["step_s"] / wall_s,
+            "model_flops_fraction": mflops / PEAK_FLOPS / wall_s}
+        log(f"  {what}: counts on the card == the dry run's "
+            f"(dot {mprof.profile.dot_flops:.4g} FLOP, traffic "
+            f"{mprof.profile.traffic_bytes:.4g} B, kernels "
+            f"{sorted(mprof.profile.kernels)}; traced on meta in "
+            f"{trace_s:.2f} s)")
+        log(f"  {what}: predicted {predicted / 1e9:.3f} GB, card peak "
+            f"{peak / 1e9:.3f} GB above {base / 1e9:.3f} GB held before "
+            f"({share * 100:.2f} % off)")
+        log(f"  {what}: roofline compute {r['compute_s'] * 1e3:.3f} ms, "
+            f"memory {r['memory_s'] * 1e3:.3f} ms, bottleneck "
+            f"{r['bottleneck']}, step_s {r['step_s'] * 1e3:.3f} ms; wall "
+            f"{wall_s * 1e3:.3f} ms (CUDA events); step_s / wall "
+            f"{r['step_s'] / wall_s:.4f}; model FLOPs / bf16 peak / wall "
+            f"{mflops / PEAK_FLOPS / wall_s:.4f} ({smi})")
+        if share > DRY_MEMORY_TOL:
+            raise AssertionError(
+                f"phase 49 {what}: the dry run's {predicted} B a device is "
+                f"{share * 100:.2f} % off the card's peak {peak} B")
+        del program, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def run_sanitized_rollout(np, torch, device):
+    """Phase 50: the main path's rollout (AlexNet, U 8, B 256,
+    ``SANITIZE_T`` frames, fused P2) on ``PLAN_FN_CACHE``: one warm-up run
+    (its build), then a run inside ``sanitized(PLAN_FN_CACHE)`` (every
+    aten op's floating output checked for NaN, the re-build audit):
+    neither a NaN nor a build; then a run fed one position at +inf must
+    raise ``FloatingPointError`` naming the op on the card that made the
+    first NaN: the host hands the inf over as it is (the sanitizer
+    checks NaN only), and the card's ``inf - inf`` makes the NaN.
+    Returns the walls."""
+    from repro_torch.core.positions import hex_init
+    from repro_torch.debug import sanitized
+    from repro_torch.runtime.scenario_engine import PLAN_FN_CACHE
+    fleet = alexnet_fleet(torch, device, p2=True, seed=0, frames=SANITIZE_T,
+                          cache=PLAN_FN_CACHE)
+    base = hex_init(U, 40.0, jitter=0.5, seed=0)
+    fleet.run(base, n_trajectories=MAIN_B)            # the one build
+    torch.cuda.synchronize()
+    builds = dict(PLAN_FN_CACHE.builds)
+    t0 = time.perf_counter()
+    fleet.run(base, n_trajectories=MAIN_B)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with sanitized(PLAN_FN_CACHE):
+        trace = fleet.run(base, n_trajectories=MAIN_B)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    if PLAN_FN_CACHE.builds != builds:
+        raise AssertionError(f"phase 50: builds {PLAN_FN_CACHE.builds} != "
+                             f"{builds}")
+    if not (trace.feasibility_rate > 0 and
+            np.isfinite(trace.total_power).all()):
+        raise AssertionError("phase 50: the sanitized rollout's trace")
+    bad = base.copy()
+    bad[0, 0] = np.inf
+    t0 = time.perf_counter()
+    try:
+        with sanitized(PLAN_FN_CACHE):
+            fleet.run(bad, n_trajectories=MAIN_B)
+    except FloatingPointError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("phase 50: an infinite position raised "
+                             "nothing inside sanitized()")
+    nan_s = time.perf_counter() - t0
+    if "aten." not in msg or f"{device.type}:" not in msg:
+        raise AssertionError(f"phase 50: the error names no op on "
+                             f"{device}: {msg}")
+    log(f"  AlexNet U={U} B={MAIN_B} T={SANITIZE_T}: unsanitized "
+        f"{plain_s:.3f} s; sanitized {clean_s:.3f} s, no NaN, no build "
+        f"({sum(builds.values())} built before)")
+    log(f"  one position at +inf: FloatingPointError after {nan_s:.3f} s "
+        f"at the first op on the card that made a NaN: {msg}")
+    return {"unsanitized_s": plain_s, "sanitized_s": clean_s,
+            "nan_raise_s": nan_s, "nan_error": msg,
+            "builds": sum(builds.values())}
+
 
 def main() -> int:
     import torch
@@ -6295,6 +6506,19 @@ def main() -> int:
         sharded_model[key]["phase_wall_s"] = time.perf_counter() - t0
         log(f"  phase {phase}: {sharded_model[key]['phase_wall_s']:.3f} s "
             f"({smi})")
+    launch_debug = {}
+    for phase, key, title, fn in (
+            (49, "dry_run", "the dry run beside the card: "
+             f"{', '.join(DRY_CALLS)} on meta and on the card",
+             lambda np_, torch_, dev: run_dry_run(np_, torch_, dev, smi)),
+            (50, "sanitized", "the main path's rollout inside "
+             "sanitized(PLAN_FN_CACHE)", run_sanitized_rollout)):
+        log(f"[{phase}] {title}")
+        t0 = time.perf_counter()
+        launch_debug[key] = fn(np, torch, device)
+        launch_debug[key]["phase_wall_s"] = time.perf_counter() - t0
+        log(f"  phase {phase}: {launch_debug[key]['phase_wall_s']:.3f} s "
+            f"({smi})")
     del train["kernel_errs"], train["mlstm_bwd_errs"]
     mlstm_timing = train.pop("mlstm_bwd_timing")
     xlstm_launches = train["xlstm-350m"]["launches"]
@@ -6354,6 +6578,7 @@ def main() -> int:
 
     rows.append(mlstm_bwd_row)
 
+    print(json.dumps({"launch_debug": launch_debug}, default=str))
     print(json.dumps({"sharded_model": sharded_model}, default=str))
     print(json.dumps({"train": train}, default=str))
     print(json.dumps({"pipeline": pipeline}))

@@ -26,12 +26,13 @@ from repro_torch.core.cost_model import arch_cost
 from repro_torch.core.placement import (Device, PlacementProblem,
                                         solve_chain_dp, solve_chain_dp_minmax)
 from repro_torch.core.positions import assign_stages_to_torus
+from repro_torch.launch.roofline import BF16_FLOPS, NVLINK_BW
 
-#: NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, FLOP/s
-H100_SXM_BF16_FLOPS = 989e12
-#: NVIDIA H100 SXM data sheet: NVLink 900 GB/s counts both directions; a
-#: stage hand-off uses one
-H100_SXM_NVLINK_BYTES_ONE_WAY = 900e9 / 2
+#: NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, FLOP/s, and
+#: NVLink 900 GB/s counts both directions (a stage hand-off uses one); the
+#: roofline module holds the card's constants
+H100_SXM_BF16_FLOPS = BF16_FLOPS
+H100_SXM_NVLINK_BYTES_ONE_WAY = NVLINK_BW
 
 
 @dataclass(frozen=True)

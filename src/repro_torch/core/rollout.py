@@ -191,8 +191,10 @@ def make_plan_fn(*, params: RadioParams, compute, memory, act_bits,
         requested = slot_cnt > 0
         served = requested & torch.isfinite(lat_s)
         # arrival-weighted per-request latency; a requested source the DP
-        # could not place makes the whole frame infeasible (inf)
-        weighted = torch.where(requested, slot_cnt * lat_s, 0.0).sum(-1)
+        # could not place makes the whole frame infeasible (inf).  The mask
+        # comes before the product: an unrequested slot's 0 x inf would be
+        # a NaN (masked, but a NaN an op-level check stops at)
+        weighted = (slot_cnt * torch.where(requested, lat_s, 0.0)).sum(-1)
         latency = weighted / torch.clamp_min(n_req.sum(-1), 1.0)
         load = placement_compute_load(
             assign_s, torch.where(requested, slot_cnt, 0.0), compute_t, U)

@@ -61,8 +61,9 @@
 // Two routes (the wrapper's `mlstm_bwd_route`: bfloat16 wgmma, float32
 // simt), five kernels on the stream each, counted as one launch; every sum
 // in one fixed order, no atomics, so a launch is bitwise equal to the next.
-// A workspace the wrapper allocates (repro_mlstm_chunk_bwd_workspace
-// bytes) carries what they hand on.
+// A workspace the wrapper allocates carries what they hand on: the wrapper
+// sizes it by its own copy of `carve`'s layout (`bwd_workspace_bytes`),
+// and a launch refuses a workspace of any other size.
 //
 // Both routes start with the gates: a block per (b, h), warps over the
 // chunks in parallel (pair scans of log f's cumsum and a's cummax), then
@@ -1998,7 +1999,7 @@ extern "C" int repro_mlstm_chunk_bwd(
     return (int)cudaErrorInvalidValue;
   const Dims d = dims_of(B, S, H, D, route);
   Work w;
-  if ((long long)carve((float*)work, d, &w) > work_bytes)
+  if ((long long)carve((float*)work, d, &w) != work_bytes)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_ARGS(T)                                                        \

@@ -11,12 +11,72 @@ refuses to run under grad (``refuse_grad``): its output, filled through
 ``ctypes``, would carry no gradient.  Where the kernel has a backward
 (flash attention, the expert GEMM, the RG-LRU scan, the mLSTM chunk),
 ``ops.py`` holds an autograd Function that launches both.
+
+Every dispatch table has a third entry, ``meta``, beside ``cuda`` and
+``cpu``: it makes outputs of the kernel's shapes and dtypes (and the
+workspaces the card's wrapper allocates through torch) without
+arithmetic.  It launches nothing and counts no launch: the launch
+counters count the card's launches only.  The dry run
+(``launch.dryrun``) runs the port's entry points on it.
+
+An active op profiler (``launch.op_analysis.OpProfiler``) sees a kernel
+call as one unit on every device: each public entry of ``ops.py`` and
+its autograd Function's passes run inside ``charged_unit``, where the
+profiler counts none of the ops (each route's own copies and padding),
+and ``charge`` records the call by name, with its work and the route the
+card takes for it (``kernels.work.KERNEL_WORK``).  The host collectives
+of ``parallel.sharding`` are charged units too (``charge_collective``).
 """
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, List
 
 import torch
+
+#: the active op profilers (``launch.op_analysis.OpProfiler``), in the
+#: order they were entered
+PROFILERS: List = []
+
+
+def charged_unit(fn):
+    """Decorator of a unit the active op profilers charge as a whole (a
+    kernel's public entry, its autograd Function's ``forward`` and
+    ``backward``, a collective of ``parallel.sharding``): while it runs
+    they count none of the ops inside it, only what it ``charge``s."""
+    @functools.wraps(fn)
+    def unit(*args, **kwargs):
+        if not PROFILERS:
+            return fn(*args, **kwargs)
+        active = list(PROFILERS)
+        for prof in active:
+            prof.quiet += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            for prof in active:
+                prof.quiet -= 1
+    return unit
+
+
+def charge(name: str, *args, **kwargs) -> None:
+    """Record one call of kernel ``name`` in the active op profilers,
+    with its work (and the card's route) from the operands the wrapper
+    takes; nothing when no profiler is active."""
+    if not PROFILERS:
+        return
+    from repro_torch.kernels.work import KERNEL_WORK
+    work = KERNEL_WORK[name](*args, **kwargs)
+    for prof in list(PROFILERS):
+        prof.record_kernel(name, work)
+
+
+def charge_collective(kind: str, nbytes: float, group: int) -> None:
+    """Record one collective of ``kind`` over ``group`` shards in the
+    active op profilers: ``nbytes`` moved by each shard (the reference's
+    accounting: an all-reduce 2x its result's bytes, the others 1x)."""
+    for prof in list(PROFILERS):
+        prof.record_collective(kind, nbytes, group)
 
 
 def refuse_grad(fn: str, item: str, *tensors: torch.Tensor) -> None:
@@ -82,5 +142,6 @@ def reset_launch_counts() -> None:
             fn.launches_by_route[route] = 0
 
 
-__all__ = ["launch_counts", "refuse_grad", "reset_launch_counts",
+__all__ = ["PROFILERS", "charge", "charge_collective", "charged_unit",
+           "launch_counts", "refuse_grad", "reset_launch_counts",
            "route_counts"]

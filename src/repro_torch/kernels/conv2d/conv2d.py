@@ -106,3 +106,17 @@ def matmul_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 
 matmul_bias_act.launches = 0
 matmul_bias_act.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def matmul_bias_act_meta(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         *, relu: bool = True) -> torch.Tensor:
+    """``matmul_bias_act`` on ``meta``: y [M, N] float32 and, on the
+    ``wgmma`` route, the split filter's scratch the card's wrapper
+    allocates; no launch, no arithmetic."""
+    del b, relu
+    M, K = x.shape
+    N = w.shape[1]
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if y.numel() and gemm_route(K) == "wgmma":
+        torch.empty((2, N, K), dtype=torch.float32, device=x.device)
+    return y

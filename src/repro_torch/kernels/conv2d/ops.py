@@ -12,12 +12,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.conv2d.conv2d import matmul_bias_act
+from repro_torch.kernels import charge, charged_unit
+from repro_torch.kernels.conv2d.conv2d import (matmul_bias_act,
+                                               matmul_bias_act_meta)
 from repro_torch.kernels.conv2d.ref import matmul_ref
 
 #: tensor device type -> GEMM: CUDA launches the kernel (or raises), the
-#: CPU takes the plain version; nothing falls back
-_BY_DEVICE = {"cuda": matmul_bias_act, "cpu": matmul_ref}
+#: CPU takes the plain version, ``meta`` makes the output's shape;
+#: nothing falls back
+_BY_DEVICE = {"cuda": matmul_bias_act, "cpu": matmul_ref,
+              "meta": matmul_bias_act_meta}
 
 
 #: the GEMM's K is padded to a multiple of this many features
@@ -61,6 +65,7 @@ def _im2col_padded(x: torch.Tensor, kh: int, kw: int, stride: int,
     return patches, (n, oh, ow)
 
 
+@charged_unit
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
            stride: int = 1, padding: int = 0,
            relu: bool = True) -> torch.Tensor:
@@ -77,6 +82,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         if patches.shape[1] != wm.shape[0]:
             wm = torch.cat([wm, wm.new_zeros(
                 (patches.shape[1] - wm.shape[0], oc))])
+    wm, b = wm.contiguous(), b.contiguous()
+    charge("conv2d", patches, wm, b)
     with torch.profiler.record_function("conv2d.gemm"):
-        y = gemm(patches, wm.contiguous(), b.contiguous(), relu=relu)
+        y = gemm(patches, wm, b, relu=relu)
     return y.reshape(n, oh, ow, oc)

@@ -122,3 +122,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          pos: torch.Tensor, *,
+                          cap: float = 0.0) -> torch.Tensor:
+    """``decode_attention`` on ``meta``: the output's shape and dtype, the
+    split partials the card's wrapper allocates (``decode_splits`` at the
+    H100 SXM's SMs); no launch, no arithmetic."""
+    del v, pos, cap
+    refuse_grad("decode_attention", "14.4 (training runs prefill "
+                "attention only)", q, k)
+    B, KV, G, D = q.shape
+    S = k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    n_split, _ = decode_splits(B, KV, S, sm_count(q.device))
+    torch.empty((B * KV * n_split * G * D,), dtype=torch.float32,
+                device=q.device)
+    torch.empty((B * KV * n_split * 2 * G,), dtype=torch.float32,
+                device=q.device)
+    return out

@@ -11,15 +11,19 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention.decode_attention import \
-    decode_attention
+from repro_torch.kernels import charge, charged_unit
+from repro_torch.kernels.decode_attention.decode_attention import (
+    decode_attention, decode_attention_meta)
 from repro_torch.kernels.decode_attention.ref import decode_ref
 
 #: tensor device type -> implementation: CUDA launches the kernel (or
-#: raises), the CPU takes the plain version; nothing falls back
-_BY_DEVICE = {"cuda": decode_attention, "cpu": decode_ref}
+#: raises), the CPU takes the plain version, ``meta`` makes the output's
+#: shape; nothing falls back
+_BY_DEVICE = {"cuda": decode_attention, "cpu": decode_ref,
+              "meta": decode_attention_meta}
 
 
+@charged_unit
 def decode_mha(q: torch.Tensor, k_cache: torch.Tensor,
                v_cache: torch.Tensor, pos: torch.Tensor, *,
                cap: float = 0.0) -> torch.Tensor:
@@ -30,9 +34,10 @@ def decode_mha(q: torch.Tensor, k_cache: torch.Tensor,
     b, _, h, d = q.shape
     kv = k_cache.shape[2]
     qg = q[:, 0].reshape(b, kv, h // kv, d).contiguous()
+    kt, vt = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
+    charge("decode_attention", qg, kt, vt, pos, cap=cap)
     with torch.profiler.record_function("attention.decode"):
-        out = fn(qg, k_cache.transpose(1, 2), v_cache.transpose(1, 2), pos,
-                 cap=cap)
+        out = fn(qg, kt, vt, pos, cap=cap)
     return out.reshape(b, 1, h, d)
 
 

@@ -225,3 +225,41 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         cap: float = 0.0, with_lse: bool = False):
+    """``flash_attention`` on ``meta``: its refusals on shapes and under
+    grad, outputs of its shapes and dtypes; no launch, no arithmetic."""
+    refuse_grad("flash_attention", "14.4: call ops.mha, whose autograd "
+                "Function launches flash_attention_bwd", q, k, v)
+    _check_shapes("flash_attention", q, k, v, causal, window)
+    B, H, S, D = q.shape
+    out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             cap: float = 0.0):
+    """``flash_attention_bwd`` on ``meta``: (dq, dk, dv) of its shapes and
+    dtypes and the scratch rows the card's wrapper allocates; no launch,
+    no arithmetic."""
+    del o, lse, do, cap
+    _check_shapes("flash_attention_bwd", q, k, v, causal, window)
+    B, H, S, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    dq = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq, torch.zeros_like(k, memory_format=torch.contiguous_format),\
+            torch.zeros_like(v, memory_format=torch.contiguous_format)
+    dk = torch.empty((B, KV, Sk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, KV, Sk, D), dtype=q.dtype, device=q.device)
+    pad = -(-S // BWD_ROW_PAD) * BWD_ROW_PAD
+    torch.empty(2 * B * H * pad, dtype=torch.float32, device=q.device)
+    return dq, dk, dv

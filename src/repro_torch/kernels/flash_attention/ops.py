@@ -18,8 +18,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import charge, charged_unit
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention, flash_attention_bwd)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_meta,
+    flash_attention_meta)
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref,
                                                      attention_ref)
@@ -29,12 +31,19 @@ def _flash_fwd(q, k, v, **kw):
     return flash_attention(q, k, v, with_lse=True, **kw)
 
 
+def _flash_fwd_meta(q, k, v, **kw):
+    return flash_attention_meta(q, k, v, with_lse=True, **kw)
+
+
 #: tensor device type -> implementation: CUDA launches the kernel (or
-#: raises), the CPU takes the plain version; nothing falls back
-_BY_DEVICE = {"cuda": flash_attention, "cpu": attention_ref}
+#: raises), the CPU takes the plain version, ``meta`` makes the output's
+#: shape; nothing falls back
+_BY_DEVICE = {"cuda": flash_attention, "cpu": attention_ref,
+              "meta": flash_attention_meta}
 #: the same for the training path: (forward with lse, backward)
 _TRAIN_BY_DEVICE = {"cuda": (_flash_fwd, flash_attention_bwd),
-                    "cpu": (attention_fwd_ref, attention_bwd_ref)}
+                    "cpu": (attention_fwd_ref, attention_bwd_ref),
+                    "meta": (_flash_fwd_meta, flash_attention_bwd_meta)}
 
 
 def _train_fns(t: torch.Tensor):
@@ -53,22 +62,29 @@ class FlashAttention(torch.autograd.Function):
     hands a broadcast view, which the bfloat16 route's TMA cannot read."""
 
     @staticmethod
+    @charged_unit
     def forward(ctx, q, k, v, causal, window, cap):
-        o, lse = _train_fns(q)[0](q, k, v, causal=causal, window=window,
-                                  cap=cap)
+        fwd = _train_fns(q)[0]
+        charge("flash_attention", q, k, v, causal=causal, window=window,
+               cap=cap, with_lse=True)
+        o, lse = fwd(q, k, v, causal=causal, window=window, cap=cap)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = dict(causal=causal, window=window, cap=cap)
         return o
 
     @staticmethod
+    @charged_unit
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         if 0 in do.stride():
             do = do.contiguous()
-        dq, dk, dv = _train_fns(do)[1](q, k, v, o, lse, do, **ctx.opts)
+        bwd = _train_fns(do)[1]
+        charge("flash_attention_bwd", q, k, v, o, lse, do, **ctx.opts)
+        dq, dk, dv = bwd(q, k, v, o, lse, do, **ctx.opts)
         return dq, dk, dv, None, None, None
 
 
+@charged_unit
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, window: int = 0,
         cap: float = 0.0) -> torch.Tensor:
@@ -84,6 +100,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                         or v.requires_grad):
             out = FlashAttention.apply(qh, kh, vh, causal, window, cap)
         else:
+            charge("flash_attention", qh, kh, vh, causal=causal,
+                   window=window, cap=cap)
             out = fn(qh, kh, vh, causal=causal, window=window, cap=cap)
     return out.transpose(1, 2)
 

@@ -76,3 +76,15 @@ def link_geometry(positions: torch.Tensor, active: torch.Tensor,
 
 
 link_geometry.launches = 0
+
+
+def link_geometry_meta(positions: torch.Tensor, active: torch.Tensor,
+                       gain_scale: Optional[torch.Tensor], *,
+                       params: RadioParams):
+    """``link_geometry`` on ``meta``: its three outputs' shapes and
+    dtypes; no launch, no arithmetic."""
+    del active, gain_scale, params
+    B, U = positions.shape[0], positions.shape[1]
+    out = tuple(torch.empty((B, U, U), dtype=torch.float32,
+                            device=positions.device) for _ in range(3))
+    return out

@@ -6,7 +6,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.channel import RadioParams
-from repro_torch.kernels.link_geometry.link_geometry import link_geometry
+from repro_torch.kernels import charge, charged_unit
+from repro_torch.kernels.link_geometry.link_geometry import (
+    link_geometry, link_geometry_meta)
 from repro_torch.kernels.link_geometry.ref import link_geometry_ref
 
 
@@ -22,12 +24,17 @@ def _plain(positions, active, gain_scale, params):
                              params=params)
 
 
+def _meta(positions, active, gain_scale, params):
+    return link_geometry_meta(positions, active, gain_scale, params=params)
+
+
 #: tensor device type -> implementation: CUDA launches the fused kernel
-#: (or raises), the CPU takes the plain four-pass version; nothing falls
-#: back from one to the other
-_BY_DEVICE = {"cuda": _kernel, "cpu": _plain}
+#: (or raises), the CPU takes the plain four-pass version, ``meta`` makes
+#: the outputs' shapes; nothing falls back from one to another
+_BY_DEVICE = {"cuda": _kernel, "cpu": _plain, "meta": _meta}
 
 
+@charged_unit
 def fused_link_geometry(positions: torch.Tensor, params: RadioParams,
                         active: Optional[torch.Tensor] = None,
                         gain_scale: Optional[torch.Tensor] = None):
@@ -45,4 +52,5 @@ def fused_link_geometry(positions: torch.Tensor, params: RadioParams,
     if impl is None:
         raise ValueError(f"fused_link_geometry: unsupported device "
                          f"{positions.device}")
+    charge("link_geometry", positions, active, gain_scale)
     return impl(positions, active, gain_scale, params)

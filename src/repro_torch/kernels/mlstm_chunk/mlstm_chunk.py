@@ -90,6 +90,31 @@ def mlstm_bwd_route(dtype: torch.dtype, s: int, d: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
+def bwd_workspace_bytes(B: int, S: int, H: int, D: int, route: str) -> int:
+    """Bytes of the backward's workspace at (B, S, H, D) on ``route``, as
+    the launcher's ``repro_mlstm_chunk_bwd_workspace`` carves it (each
+    slot a whole number of 16 bytes): the gates' b_t, mx_t and the
+    per-step den, dden_raw and db [BH, S]; m_c, dm's inter share, b_L and
+    max a [BH, NC]; dm's tile partials [BH, NC, NT^2] and [BH, NT^2]; n_c
+    and dn_{c+1} [BH, NC, D]; then on ``simt`` C_c and dC_{c+1} [BH, NC,
+    D, D] in float32, on ``wgmma`` the [BH, NC, NT^2, 64] partials of
+    dh . q C and the four bf16 planes of C_c and dC_{c+1} [BH, NC, DP,
+    DP] (NT tiles of 64 a side, DP = 64 NT).  The card's wrapper
+    allocates this many bytes and the launcher refuses a workspace of
+    another size (``invalid argument``), so a layout this copy does not
+    follow fails every launch."""
+    bh, nc = B * H, -(-S // BWD_CHUNK)
+    wg = route == "wgmma"
+    nt = -(-D // 64) if wg else -(-D // 32)
+    plane = bh * nc * (64 * nt) ** 2 // 2 if wg else 0   # floats
+    slots = [bh * S, bh * S, bh * nc, bh * S, bh * S, bh * S, bh * nc,
+             bh * nc * nt * nt, bh * nt * nt, bh * nc * D, bh * nc * D,
+             0 if wg else bh * nc * D * D, 0 if wg else bh * nc * D * D,
+             bh * nc * nt * nt * 64 if wg else 0, bh * nc, bh * nc,
+             plane, plane, plane, plane]
+    return 4 * sum(-(-n // 4) * 4 for n in slots)
+
+
 def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 i_pre: torch.Tensor, f_pre: torch.Tensor, C0: torch.Tensor,
                 n0: torch.Tensor, m0: torch.Tensor, scale: float
@@ -176,8 +201,8 @@ def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     all CUDA tensors on one device -> (dq, dk, dv in q's dtype; di, df
     [B, S, H], dC0, dn0, dm0 float32), on the current stream without
     synchronising, on ``mlstm_bwd_route``'s route (``wgmma``: q, k, v,
-    dh 16-byte aligned).  Its workspace is allocated here and freed with
-    the call's tensors."""
+    dh 16-byte aligned).  Its workspace (``bwd_workspace_bytes``) is
+    allocated here and freed with the call's tensors."""
     if q.dim() != 4 or any(tuple(t.shape) != tuple(q.shape)
                            for t in (k, v, dh)):
         raise ValueError(f"mlstm_chunk_bwd: want q, k, v, dh [B, S, H, D] "
@@ -221,11 +246,8 @@ def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     di, df = torch.empty_like(i_pre), torch.empty_like(f_pre)
     dC0, dn0, dm0 = (torch.empty_like(t) for t in (C0, n0, m0))
-    size = _build.launcher("mlstm_chunk_bwd",
-                           "repro_mlstm_chunk_bwd_workspace",
-                           [ctypes.c_int] * 5, ctypes.c_longlong)
     code = BWD_ROUTES.index(route)
-    nbytes = size(B, S, H, D, code)
+    nbytes = bwd_workspace_bytes(B, S, H, D, route)
     work = torch.empty((nbytes + 3) // 4, dtype=torch.float32,
                        device=q.device)
     fn = _build.launcher("mlstm_chunk_bwd", "repro_mlstm_chunk_bwd",
@@ -249,3 +271,37 @@ def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 mlstm_chunk_bwd.launches = 0
 mlstm_chunk_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
+
+
+def mlstm_chunk_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     i_pre: torch.Tensor, f_pre: torch.Tensor,
+                     C0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor,
+                     scale: float):
+    """``mlstm_chunk`` on ``meta``: (h, C1, n1, m1) of its shapes and
+    dtypes; no launch, no arithmetic."""
+    refuse_grad("mlstm_chunk", "14.8: call ops.mlstm, whose autograd "
+                "Function launches mlstm_chunk_bwd", q, k, v, i_pre, f_pre,
+                C0, n0, m0)
+    return (torch.empty_like(q),) + tuple(torch.empty_like(t)
+                                          for t in (C0, n0, m0))
+
+
+def mlstm_chunk_bwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         i_pre: torch.Tensor, f_pre: torch.Tensor,
+                         C0: torch.Tensor, n0: torch.Tensor,
+                         m0: torch.Tensor, scale: float, dh: torch.Tensor,
+                         dC1: Optional[torch.Tensor] = None,
+                         dn1: Optional[torch.Tensor] = None,
+                         dm1: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, ...]:
+    """``mlstm_chunk_bwd`` on ``meta``: its eight gradients' shapes and
+    dtypes and the workspace the card's wrapper allocates
+    (``bwd_workspace_bytes``); no launch, no arithmetic."""
+    B, S, H, D = q.shape
+    route = mlstm_bwd_route(q.dtype, S, D)
+    out = tuple(torch.empty_like(q) for _ in range(3)) + \
+        (torch.empty_like(i_pre), torch.empty_like(f_pre)) + \
+        tuple(torch.empty_like(t) for t in (C0, n0, m0))
+    torch.empty((bwd_workspace_bytes(B, S, H, D, route) + 3) // 4,
+                dtype=torch.float32, device=q.device)
+    return out

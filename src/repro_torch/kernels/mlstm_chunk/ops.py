@@ -14,17 +14,21 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (mlstm_chunk,
-                                                         mlstm_chunk_bwd)
+from repro_torch.kernels import charge, charged_unit
+from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
+    mlstm_chunk, mlstm_chunk_bwd, mlstm_chunk_bwd_meta, mlstm_chunk_meta)
 from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_bwd_ref,
                                                  mlstm_chunk_ref)
 
 #: tensor device type -> implementation: CUDA launches the kernel (or
-#: raises), the CPU takes the plain version; nothing falls back
-_BY_DEVICE = {"cuda": mlstm_chunk, "cpu": mlstm_chunk_ref}
+#: raises), the CPU takes the plain version, ``meta`` makes the outputs'
+#: shapes; nothing falls back
+_BY_DEVICE = {"cuda": mlstm_chunk, "cpu": mlstm_chunk_ref,
+              "meta": mlstm_chunk_meta}
 #: the same for the training path: (forward, backward)
 _TRAIN_BY_DEVICE = {"cuda": (mlstm_chunk, mlstm_chunk_bwd),
-                    "cpu": (mlstm_chunk_ref, mlstm_chunk_bwd_ref)}
+                    "cpu": (mlstm_chunk_ref, mlstm_chunk_bwd_ref),
+                    "meta": (mlstm_chunk_meta, mlstm_chunk_bwd_meta)}
 
 
 def _fns(table, t: torch.Tensor):
@@ -53,27 +57,33 @@ class MlstmChunk(torch.autograd.Function):
     the final state, and the same at any chunk length."""
 
     @staticmethod
+    @charged_unit
     def forward(ctx, q, k, v, i_pre, f_pre, C0, n0, m0, scale):
         ctx.set_materialize_grads(False)
-        out = _fns(_TRAIN_BY_DEVICE, q)[0](q, k, v, i_pre, f_pre, C0, n0,
-                                           m0, scale)
+        fwd = _fns(_TRAIN_BY_DEVICE, q)[0]
+        charge("mlstm_chunk", q, k, v, i_pre, f_pre, C0, n0, m0, scale)
+        out = fwd(q, k, v, i_pre, f_pre, C0, n0, m0, scale)
         ctx.save_for_backward(q, k, v, i_pre, f_pre, C0, n0, m0)
         ctx.scale = scale
         return out
 
     @staticmethod
+    @charged_unit
     def backward(ctx, dh, dC1, dn1, dm1):
         saved = ctx.saved_tensors
         q = saved[0]
         dh = torch.zeros_like(q) if dh is None else _aligned(dh)
         dstate = tuple(None if g is None else g.contiguous()
                        for g in (dC1, dn1, dm1))
-        grads = _fns(_TRAIN_BY_DEVICE, q)[1](*saved, ctx.scale, dh, *dstate)
+        bwd = _fns(_TRAIN_BY_DEVICE, q)[1]
+        charge("mlstm_chunk_bwd", *saved, ctx.scale, dh, *dstate)
+        grads = bwd(*saved, ctx.scale, dh, *dstate)
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad)) + \
             (None,)
 
 
+@charged_unit
 def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           i_pre: torch.Tensor, f_pre: torch.Tensor, C0: torch.Tensor,
           n0: torch.Tensor, m0: torch.Tensor, scale: float
@@ -88,6 +98,7 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                           m0)):
             return MlstmChunk.apply(q, k, v, i_pre, f_pre, C0, n0, m0,
                                     scale)
+        charge("mlstm_chunk", q, k, v, i_pre, f_pre, C0, n0, m0, scale)
         return fn(q, k, v, i_pre, f_pre, C0, n0, m0, scale)
 
 

@@ -188,3 +188,26 @@ def moe_matmul_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 moe_matmul_dx.launches = moe_matmul_dw.launches = 0
 moe_matmul_dx.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 moe_matmul_dw.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
+
+
+def moe_matmul_meta(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``moe_matmul`` on ``meta``: y [E, C, F] in ``x.dtype``; no launch,
+    no arithmetic."""
+    refuse_grad("moe_matmul", "14.6: call ops.expert_gemm, whose autograd "
+                "Function launches moe_matmul_dx and moe_matmul_dw", x, w)
+    E, C, _ = x.shape
+    return torch.empty((E, C, w.shape[2]), dtype=x.dtype, device=x.device)
+
+
+def moe_matmul_dx_meta(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``moe_matmul_dx`` on ``meta``: dx [E, C, D]; no launch, no
+    arithmetic."""
+    E, C, _ = dy.shape
+    return torch.empty((E, C, w.shape[1]), dtype=dy.dtype, device=dy.device)
+
+
+def moe_matmul_dw_meta(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """``moe_matmul_dw`` on ``meta``: dw [E, D, F]; no launch, no
+    arithmetic."""
+    E, _, D = x.shape
+    return torch.empty((E, D, dy.shape[2]), dtype=x.dtype, device=x.device)

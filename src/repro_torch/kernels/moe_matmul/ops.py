@@ -12,20 +12,25 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.moe_matmul.moe_matmul import (moe_matmul,
-                                                       moe_matmul_dw,
-                                                       moe_matmul_dx)
+from repro_torch.kernels import charge, charged_unit
+from repro_torch.kernels.moe_matmul.moe_matmul import (
+    moe_matmul, moe_matmul_dw, moe_matmul_dw_meta, moe_matmul_dx,
+    moe_matmul_dx_meta, moe_matmul_meta)
 from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
                                                 moe_matmul_dx_ref,
                                                 moe_matmul_ref)
 
 #: tensor device type -> implementation: CUDA launches the kernel (or
-#: raises), the CPU takes the plain version; nothing falls back
-_BY_DEVICE = {"cuda": moe_matmul, "cpu": moe_matmul_ref}
+#: raises), the CPU takes the plain version, ``meta`` makes the output's
+#: shape; nothing falls back
+_BY_DEVICE = {"cuda": moe_matmul, "cpu": moe_matmul_ref,
+              "meta": moe_matmul_meta}
 #: the same for the training path: (forward, dX, dW)
 _TRAIN_BY_DEVICE = {"cuda": (moe_matmul, moe_matmul_dx, moe_matmul_dw),
                     "cpu": (moe_matmul_ref, moe_matmul_dx_ref,
-                            moe_matmul_dw_ref)}
+                            moe_matmul_dw_ref),
+                    "meta": (moe_matmul_meta, moe_matmul_dx_meta,
+                             moe_matmul_dw_meta)}
 
 
 def _fns(table, t: torch.Tensor):
@@ -42,26 +47,37 @@ class ExpertGemm(torch.autograd.Function):
     dense: a loss such as ``y.sum()`` hands a broadcast view)."""
 
     @staticmethod
+    @charged_unit
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return _fns(_TRAIN_BY_DEVICE, x)[0](x, w)
+        fwd = _fns(_TRAIN_BY_DEVICE, x)[0]
+        charge("moe_matmul", x, w)
+        return fwd(x, w)
 
     @staticmethod
+    @charged_unit
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dy = dy.contiguous()
         _, fdx, fdw = _fns(_TRAIN_BY_DEVICE, dy)
-        dx = fdx(dy, w) if ctx.needs_input_grad[0] else None
-        dw = fdw(x, dy) if ctx.needs_input_grad[1] else None
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            charge("moe_matmul_dx", dy, w)
+            dx = fdx(dy, w)
+        if ctx.needs_input_grad[1]:
+            charge("moe_matmul_dw", x, dy)
+            dw = fdw(x, dy)
         return dx, dw
 
 
+@charged_unit
 def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped GEMM over the dispatched buffer: [E,C,D] @ [E,D,F]."""
     fn = _fns(_BY_DEVICE, x)
     with torch.profiler.record_function("moe.expert_gemm"):
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
             return ExpertGemm.apply(x, w)
+        charge("moe_matmul", x, w)
         return fn(x, w)
 
 

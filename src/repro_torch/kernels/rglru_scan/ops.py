@@ -14,16 +14,19 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import charge, charged_unit
 from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
-from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
-                                                       rglru_scan_bwd)
+from repro_torch.kernels.rglru_scan.rglru_scan import (
+    rglru_scan, rglru_scan_bwd, rglru_scan_bwd_meta, rglru_scan_meta)
 
 #: tensor device type -> implementation: CUDA launches the kernel (or
-#: raises), the CPU takes the plain version; nothing falls back
-_BY_DEVICE = {"cuda": rglru_scan, "cpu": rglru_ref}
+#: raises), the CPU takes the plain version, ``meta`` makes the outputs'
+#: shapes; nothing falls back
+_BY_DEVICE = {"cuda": rglru_scan, "cpu": rglru_ref, "meta": rglru_scan_meta}
 #: the same for the training path: (forward, backward)
 _TRAIN_BY_DEVICE = {"cuda": (rglru_scan, rglru_scan_bwd),
-                    "cpu": (rglru_ref, rglru_bwd_ref)}
+                    "cpu": (rglru_ref, rglru_bwd_ref),
+                    "meta": (rglru_scan_meta, rglru_scan_bwd_meta)}
 
 
 def _fns(table, t: torch.Tensor):
@@ -49,24 +52,31 @@ class LinearRecurrence(torch.autograd.Function):
     kernel reads no zeros)."""
 
     @staticmethod
+    @charged_unit
     def forward(ctx, a, b, h0):
         ctx.set_materialize_grads(False)
-        h, hT = _fns(_TRAIN_BY_DEVICE, a)[0](a, b, h0)
+        fwd = _fns(_TRAIN_BY_DEVICE, a)[0]
+        charge("rglru_scan", a, b, h0)
+        h, hT = fwd(a, b, h0)
         ctx.save_for_backward(a, h, h0)
         return h, hT
 
     @staticmethod
+    @charged_unit
     def backward(ctx, dh, dhT):
         a, h, h0 = ctx.saved_tensors
         dh = torch.zeros_like(h) if dh is None else _aligned(dh)
         if dhT is not None:
             dhT = dhT.contiguous()
-        da, db, dh0 = _fns(_TRAIN_BY_DEVICE, a)[1](a, h, h0, dh, dhT)
+        bwd = _fns(_TRAIN_BY_DEVICE, a)[1]
+        charge("rglru_scan_bwd", a, h, h0, dh, dhT)
+        da, db, dh0 = bwd(a, h, h0, dh, dhT)
         return tuple(g if need else None
                      for g, need in zip((da, db, dh0),
                                         ctx.needs_input_grad))
 
 
+@charged_unit
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h_t = a_t h_{t-1} + b_t over [B, T, W]; returns (h, h_T)."""
@@ -75,6 +85,7 @@ def linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
         if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
                                         or h0.requires_grad):
             return LinearRecurrence.apply(a, b, h0)
+        charge("rglru_scan", a, b, h0)
         return fn(a, b, h0)
 
 

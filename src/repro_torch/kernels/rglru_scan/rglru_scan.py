@@ -183,3 +183,21 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
 
 rglru_scan_bwd.launches = 0
 rglru_scan_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
+
+
+def rglru_scan_meta(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rglru_scan`` on ``meta``: (h, hT) of its shapes and dtypes; no
+    launch, no arithmetic."""
+    refuse_grad("rglru_scan", "14.7: call ops.linear_recurrence, whose "
+                "autograd Function launches rglru_scan_bwd", a, b, h0)
+    return torch.empty_like(a), torch.empty_like(h0)
+
+
+def rglru_scan_bwd_meta(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                        dh: torch.Tensor, dhT: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``rglru_scan_bwd`` on ``meta``: (da, db, dh0) of its shapes and
+    dtypes; no launch, no arithmetic."""
+    del h, dh, dhT
+    return torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)

@@ -3,8 +3,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import charge, charged_unit
 from repro_torch.kernels.tropical_dp.ref import chain_dp_ref
-from repro_torch.kernels.tropical_dp.tropical_dp import tropical_dp_chain
+from repro_torch.kernels.tropical_dp.tropical_dp import (
+    tropical_dp_chain, tropical_dp_chain_meta)
 
 
 def _chain_kernel(rate, sources, active, *tables):
@@ -13,10 +15,13 @@ def _chain_kernel(rate, sources, active, *tables):
 
 
 #: tensor device type -> implementation: CUDA launches the kernel (or
-#: raises), the CPU takes the plain version; nothing falls back
-_BY_DEVICE = {"cuda": _chain_kernel, "cpu": chain_dp_ref}
+#: raises), the CPU takes the plain version, ``meta`` makes the outputs'
+#: shapes; nothing falls back
+_BY_DEVICE = {"cuda": _chain_kernel, "cpu": chain_dp_ref,
+              "meta": tropical_dp_chain_meta}
 
 
+@charged_unit
 def chain_dp(rate: torch.Tensor, sources: torch.Tensor, active: torch.Tensor,
              order: torch.Tensor, prev_dev: torch.Tensor,
              bits_in: torch.Tensor, input_bits: torch.Tensor,
@@ -30,5 +35,7 @@ def chain_dp(rate: torch.Tensor, sources: torch.Tensor, active: torch.Tensor,
     fn = _BY_DEVICE.get(rate.device.type)
     if fn is None:
         raise ValueError(f"chain_dp: unsupported device {rate.device}")
+    charge("tropical_dp", rate, sources, active, order, prev_dev, bits_in,
+           input_bits, ct, ok)
     return fn(rate, sources, active, order, prev_dev, bits_in, input_bits,
               ct, ok)

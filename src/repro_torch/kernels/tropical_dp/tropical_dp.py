@@ -279,3 +279,16 @@ def tropical_dp_chain(rate: torch.Tensor, sources: torch.Tensor,
 
 tropical_dp_chain.launches = 0
 tropical_dp_chain.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def tropical_dp_chain_meta(rate: torch.Tensor, sources: torch.Tensor,
+                           active: torch.Tensor, order: torch.Tensor,
+                           prev_dev: torch.Tensor, bits_in: torch.Tensor,
+                           input_bits: torch.Tensor, ct: torch.Tensor,
+                           ok: torch.Tensor):
+    """``tropical_dp_chain`` on ``meta``: ``(assign, latency)`` of its
+    shapes and dtypes; no launch, no arithmetic."""
+    del active, order, prev_dev, bits_in, input_bits, ok
+    B, M, L = rate.shape[0], sources.shape[1], ct.shape[0]
+    return (torch.empty((B, M, L), dtype=torch.int32, device=rate.device),
+            torch.empty((B, M), dtype=torch.float32, device=rate.device))

@@ -23,7 +23,6 @@ import math
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.moe_matmul.ops import expert_gemm
 from repro_torch.models.layers import _ACT, dense_init, truncated_normal
@@ -57,6 +56,16 @@ def capacity(s: int, top_k: int, n_experts: int,
     return max(1, int(math.ceil(s * top_k * capacity_factor / n_experts)))
 
 
+def one_hot(idx: torch.Tensor, e: int, dtype: torch.dtype) -> torch.Tensor:
+    """``F.one_hot(idx, e)`` in ``dtype``, formed as its CUDA kernel forms
+    it (zeros, then a scatter of ones) on every device: ``F.one_hot``
+    reads the indices' range back to the host on the CPU and takes
+    another formulation on ``meta``, so the three devices would run three
+    programs (``launch.op_analysis`` counts them alike)."""
+    out = torch.zeros((*idx.shape, e), dtype=dtype, device=idx.device)
+    return out.scatter_(-1, idx.unsqueeze(-1), 1)
+
+
 def moe_route(p: Params, x: torch.Tensor, *, top_k: int,
               capacity_factor: float) -> Dict[str, torch.Tensor]:
     """Routing of x [B, S, d]: ``gate`` and ``idx`` [B, S, k] (the top-k
@@ -77,11 +86,11 @@ def moe_route(p: Params, x: torch.Tensor, *, top_k: int,
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
     me = probs.mean(dim=(0, 1))                                     # [E]
-    ce = F.one_hot(idx, e).to(torch.float32).mean(dim=(0, 1, 2))    # [E]
+    ce = one_hot(idx, e, torch.float32).mean(dim=(0, 1, 2))    # [E]
     aux = e * torch.sum(me * ce)
 
     idx_flat = idx.reshape(b, s * top_k)
-    onehot = F.one_hot(idx_flat, e).to(torch.int32)
+    onehot = one_hot(idx_flat, e, torch.int32)
     pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
     pos = torch.gather(pos, -1, idx_flat[..., None])[..., 0]
     return {"gate": gate, "idx": idx, "pos": pos, "keep": pos < cap,
@@ -162,7 +171,7 @@ def _expert_shard(index: Dict[str, int], router: torch.Tensor,
     gate, idx = gate[:, :top_k], idx[:, :top_k]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=0)
-    ce = F.one_hot(idx, e).to(torch.float32).mean(dim=(0, 1))
+    ce = one_hot(idx, e, torch.float32).mean(dim=(0, 1))
     aux = e * torch.sum(me * ce)
 
     lo = index["model"] * e_loc

@@ -42,6 +42,8 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.kernels import charge_collective, charged_unit
+
 #: Axis name of the 1-D fleet-rollout mesh (the B trajectory axis).
 FLEET_AXIS = "traj"
 
@@ -57,7 +59,8 @@ def _pin(dev) -> torch.device:
 
 
 def _checked(devs: Sequence, what: str) -> Tuple[torch.device, ...]:
-    """``devs`` pinned, all of one type, CUDA ones only with CUDA."""
+    """``devs`` pinned, all of one type, CUDA ones only with CUDA (or
+    ``meta``: the dry run lays a mesh of shapes over it)."""
     devs = tuple(_pin(d) for d in devs)
     if not devs:
         raise ValueError(f"{what} needs at least one device")
@@ -68,7 +71,7 @@ def _checked(devs: Sequence, what: str) -> Tuple[torch.device, ...]:
         if d.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{what}: {d} named but CUDA is not "
                                "available")
-        if d.type not in ("cuda", "cpu"):
+        if d.type not in ("cuda", "cpu", "meta"):
             raise ValueError(f"{what}: unsupported device {d}")
     return devs
 
@@ -441,6 +444,10 @@ def groups_along(mesh: Mesh, axes: Union[str, Sequence[str]]
     return list(groups.values())
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _reduce(values: Sequence[torch.Tensor], op) -> List[torch.Tensor]:
     """``op`` folded over ``values`` in order on the first value's
     device; the result placed on every value's device."""
@@ -450,25 +457,36 @@ def _reduce(values: Sequence[torch.Tensor], op) -> List[torch.Tensor]:
     return [acc.to(v.device) for v in values]
 
 
+@charged_unit
 def psum(values: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The shards' sum, added in shard order, on every shard's device."""
+    """The shards' sum, added in shard order, on every shard's device.
+    An op profiler charges it as an all-reduce: twice the result's bytes
+    a shard."""
+    charge_collective("all-reduce", 2 * _nbytes(values[0]), len(values))
     return _reduce(values, torch.add)
 
 
+@charged_unit
 def pmax(values: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The shards' elementwise max, on every shard's device."""
+    """The shards' elementwise max, on every shard's device (an
+    all-reduce to an op profiler)."""
+    charge_collective("all-reduce", 2 * _nbytes(values[0]), len(values))
     return _reduce(values, torch.maximum)
 
 
+@charged_unit
 def pmean(values: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """``psum`` divided by the number of shards."""
+    """``psum`` divided by the number of shards (one all-reduce)."""
     return [s / len(values) for s in psum(values)]
 
 
+@charged_unit
 def ppermute(values: Sequence[torch.Tensor],
              perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
     """Shard j gets shard i's value for each (i, j) of ``perm``, moved to
-    shard j's device; a shard no pair names gets zeros."""
+    shard j's device; a shard no pair names gets zeros.  An op profiler
+    charges a collective-permute of the result's bytes a shard."""
+    charge_collective("collective-permute", _nbytes(values[0]), len(values))
     out = [torch.zeros_like(v) for v in values]
     for i, j in perm:
         out[j] = values[i].to(values[j].device, non_blocking=True)

@@ -136,7 +136,8 @@ class PlanFnCache:
     shares ONE built function and its device-resident constants.
     ``builds`` counts builds per key: a steady workload builds once per
     signature.  LRU-bounded to ``maxsize`` signatures; evicting drops only
-    the cache's reference.
+    the cache's reference, and a key built again after its eviction counts
+    a second build (``debug.sanitized`` reports it as a re-build).
     """
 
     def __init__(self, maxsize: int = 64):
@@ -157,7 +158,6 @@ class PlanFnCache:
             while len(self._fns) >= self.maxsize:
                 old = next(iter(self._fns))
                 del self._fns[old]
-                self.builds.pop(old, None)
                 self.evictions += 1
         else:
             self.hits += 1

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, TrainConfig
+from repro_torch.kernels import charged_unit
 from repro_torch.optim.adamw import (adamw_update, clip_by_global_norm,
                                      init_opt_state)
 from repro_torch.optim.grad_compress import (compress_tree, decompress_tree,
@@ -71,6 +72,18 @@ def loss_fn(model, cfg: ArchConfig, params, batch: Batch) -> torch.Tensor:
         kwargs["extra_embeds"] = batch["patch_embeds"]
     return model.train_loss(params, batch["tokens"], batch["labels"],
                             **kwargs)
+
+
+@charged_unit
+def _learning_rate(schedule, step: torch.Tensor,
+                   device: torch.device) -> torch.Tensor:
+    """The step's learning rate, a 0-dim float32 on ``device``: the
+    schedule runs on the host from the step's value (bookkeeping an op
+    profiler charges nothing).  A ``meta`` step has no value to read, and
+    its rate is a ``meta`` stand-in."""
+    if step.device.type == "meta":
+        return torch.empty((), dtype=torch.float32, device=step.device)
+    return schedule(step.cpu()).to(device)
 
 
 def make_train_step(model, cfg: ArchConfig, tcfg: TrainConfig
@@ -140,7 +153,8 @@ def make_train_step(model, cfg: ArchConfig, tcfg: TrainConfig
             grads = decompress_tree(q, scales)
 
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        lr = schedule(state["opt"]["step"].cpu()).to(plist[0].device)
+        lr = _learning_rate(schedule, state["opt"]["step"],
+                            plist[0].device)
         adamw_update(params, grads, state["opt"], lr=lr, b1=tcfg.b1,
                      b2=tcfg.b2, eps=tcfg.eps,
                      weight_decay=tcfg.weight_decay)

@@ -47,6 +47,7 @@ from repro_torch.kernels.link_geometry.ops import \
     fused_link_geometry  # noqa: E402
 from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops  # noqa: E402
 from repro_torch.kernels.tropical_dp.ops import chain_dp  # noqa: E402
+from repro_torch.launch.op_analysis import OpProfiler  # noqa: E402
 from repro_torch.configs.base import ServeConfig  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -72,12 +73,22 @@ FIGURES = ("torch_fig2_latency_power", "torch_fig3_latency_memory",
            "torch_fig4_min_power", "torch_fig5_request_scaling")
 
 
+#: the port's scripts under ``scripts/`` (the reference's stay out: its
+#: ``make_roofline_table.py``, and ``compare_figure_rows.py``, which reads
+#: both packages' CSVs)
+PORT_SCRIPTS = ("profile_torch_", "probe_", "time_xlstm_train_step",
+                "make_torch_roofline_table")
+
+
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for sub in ("benchmarks", "examples"):
         out += [os.path.join(ROOT, sub, f)
                 for f in os.listdir(os.path.join(ROOT, sub))
                 if f.startswith("torch_") and f.endswith(".py")]
+    out += [os.path.join(ROOT, "scripts", f)
+            for f in os.listdir(os.path.join(ROOT, "scripts"))
+            if f.startswith(PORT_SCRIPTS) and f.endswith(".py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -116,6 +127,15 @@ def test_port_scan_covers_the_package_and_chip_smoke():
                 ("runtime", "train_loop.py"), ("runtime", "checkpoint.py")):
         assert os.path.join(ROOT, "src", "repro_torch", *sub) in files
     assert any(f.endswith(os.path.join("models", "cnn.py")) for f in files)
+    for name in ("make_torch_roofline_table", "time_xlstm_train_step",
+                 "profile_torch_lm", "probe_rglru_bwd"):
+        assert os.path.join(ROOT, "scripts", name + ".py") in files
+    for sub in (("launch", "roofline.py"), ("launch", "op_analysis.py"),
+                ("launch", "specs.py"), ("launch", "dryrun.py"),
+                ("debug", "__init__.py"), ("debug", "sanitize.py")):
+        assert os.path.join(ROOT, "src", "repro_torch", *sub) in files
+    assert os.path.join(ROOT, "scripts", "make_roofline_table.py") \
+        not in files
     assert len(files) >= 20
 
 
@@ -331,9 +351,25 @@ def test_block_def_rejects_an_unknown_kind():
         block_def("lstm")
 
 
+class OtherDevice(torch.Tensor):
+    """A tensor that names a device no dispatch table has (``mps``) and
+    runs no op: what a dispatcher must refuse before any work."""
+
+    @staticmethod
+    def __new__(cls, like):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, like.shape, dtype=like.dtype, device="mps")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} ran on an unsupported device")
+
+
 def test_mlstm_dispatch_raises_on_an_unsupported_device():
-    """The CPU takes the plain version without counting; a device with no
-    entry in the dispatch table raises before any work."""
+    """The CPU takes the plain version without counting; ``meta`` takes
+    the meta entry (shapes; no launch counted, and an op profiler records
+    the call on the card's route); a device with no entry in the
+    dispatch table raises before any work."""
     b, s, h, d = 1, 3, 2, 16
     q = torch.zeros((b, s, h, d))
     gates = torch.zeros((b, s, h))
@@ -344,9 +380,18 @@ def test_mlstm_dispatch_raises_on_an_unsupported_device():
     assert out.shape == q.shape and C.shape == (b, h, d, d)
     assert kernels.launch_counts() == NO_LAUNCHES
     meta = q.to("meta")
-    with pytest.raises(ValueError, match="mlstm: unsupported device meta"):
-        mlstm_ops.mlstm(meta, meta, meta, gates.to("meta"), gates.to("meta"),
-                        *(t.to("meta") for t in state), 0.25)
+    with OpProfiler() as prof:
+        out = mlstm_ops.mlstm(meta, meta, meta, gates.to("meta"),
+                              gates.to("meta"),
+                              *(t.to("meta") for t in state), 0.25)
+    assert [t.shape for t in out] == [q.shape, (b, h, d, d), (b, h, d),
+                                      (b, h)]
+    assert all(t.device.type == "meta" for t in out)
+    assert kernels.launch_counts() == NO_LAUNCHES
+    assert prof.profile.kernels["mlstm_chunk"]["simt"]["calls"] == 1
+    other = OtherDevice(q)
+    with pytest.raises(ValueError, match="mlstm: unsupported device mps"):
+        mlstm_ops.mlstm(other, other, other, gates, gates, *state, 0.25)
 
 
 def _chain_args():
@@ -372,16 +417,24 @@ def _chain_args():
 
 def test_chain_dp_dispatch_raises_on_an_unsupported_device():
     """The chain DP's dispatcher: CPU tensors take ``chain_dp_ref``
-    without counting a launch on either route; a device with no entry in
-    the dispatch table raises before any work."""
+    without counting a launch on either route; ``meta`` takes the meta
+    entry (no launch counted; an op profiler records the call on the
+    ``fused`` route); a device with no entry in the dispatch table raises
+    before any work."""
     args, L = _chain_args()
     kernels.reset_launch_counts()
     assign, latency = chain_dp(*args)
     assert assign.shape == (2, 3, L) and latency.shape == (2, 3)
     assert kernels.launch_counts() == NO_LAUNCHES
     assert kernels.route_counts()["tropical_dp"] == {"fused": 0, "step": 0}
-    with pytest.raises(ValueError, match="chain_dp: unsupported device meta"):
-        chain_dp(*(a.to("meta") for a in args))
+    with OpProfiler() as prof:
+        assign, latency = chain_dp(*(a.to("meta") for a in args))
+    assert assign.shape == (2, 3, L) and assign.device.type == "meta"
+    assert kernels.launch_counts() == NO_LAUNCHES
+    assert kernels.route_counts()["tropical_dp"] == {"fused": 0, "step": 0}
+    assert prof.profile.kernels["tropical_dp"]["fused"]["calls"] == 1
+    with pytest.raises(ValueError, match="chain_dp: unsupported device mps"):
+        chain_dp(OtherDevice(args[0]), *args[1:])
 
 
 @pytest.mark.parametrize("script", FIGURES)

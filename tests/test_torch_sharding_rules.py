@@ -300,7 +300,11 @@ def test_mesh_shape_positions_and_repeated_device():
     with pytest.raises(ValueError):
         t_sh.Mesh(np.array([CPU] * 4, dtype=object), ("data", "model"))
     with pytest.raises(ValueError, match="unsupported"):
-        t_sh.make_mesh((1,), ("data",), [torch.device("meta")])
+        t_sh.make_mesh((1,), ("data",), [torch.device("mps")])
+    # the dry run lays its meshes over meta entries
+    assert dict(t_sh.make_mesh((2, 2), ("data", "model"),
+                               [torch.device("meta")] * 4).shape) == \
+        {"data": 2, "model": 2}
 
 
 def test_launch_meshes_take_explicit_devices():
