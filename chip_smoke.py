@@ -1911,6 +1911,15 @@ def serve_lm(np, torch, model, params, scfg, requests, want):
     return done, timer, launches, peak
 
 
+def clone_cache(cache):
+    """A copy of a decode cache: a list of layer states, or under a mesh
+    a ``ShardedCache`` (its positions' lists)."""
+    from repro_torch.models.transformer import ShardedCache
+    if isinstance(cache, ShardedCache):
+        return ShardedCache(cache.sp, [clone_cache(b) for b in cache.blocks])
+    return [{k: t.clone() for k, t in c.items()} for c in cache]
+
+
 def lm_sides(torch, model, params, prompts, steps=4, extra=None):
     """One prefill (through ``make_prefill_step``, with ``extra``: the
     frames or patch embeddings) and ``steps`` decode steps three ways on
@@ -1934,8 +1943,7 @@ def lm_sides(torch, model, params, prompts, steps=4, extra=None):
     for name, ctx in sides.items():
         with ctx():
             logits[name] = [prefill(params, toks, extra)[0]]
-    caches = {name: [{k: t.clone() for k, t in c.items()} for c in cache]
-              for name in sides}
+    caches = {name: clone_cache(cache) for name in sides}
     refs = [ref]
     nxt = torch.argmax(ref, -1).to(torch.int32)[:, None]
     for i in range(steps):
@@ -4772,7 +4780,8 @@ def train_at_full_width(np, torch, device, f):
     bf16 compute on float32 masters, ``remat="full"``, WSD, the counters
     set to 0 just before and read just after: exactly ``train_launches``
     at 2 passes a microbatch, each on its bf16 route; loss and grad norm
-    finite every step and the loss falls; step walls, tokens/s, peak
+    finite every step and, over more than one step, the loss falls; step
+    walls, tokens/s, peak
     memory, model FLOP/s (6 N a token over the active parameters, a MoE
     layer's top-k experts of its E, plus 6 H D a kept causal (query, key)
     pair an attention layer; the recompute not counted).  Then the
@@ -4851,7 +4860,8 @@ def train_at_full_width(np, torch, device, f):
                   train_routes(torch, cfg, "bfloat16"))
     losses = [m["loss"] for m in metrics]
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
-               for m in metrics) or not losses[-1] < losses[0]:
+               for m in metrics) or \
+            (len(losses) > 1 and not losses[-1] < losses[0]):
         raise AssertionError(f"{cfg.name} training: metrics {metrics}")
     rec = {"model": cfg.name, "params": n_params, "init_s": init_s,
            "n_layers": cfg.n_layers, "active_params": active,
@@ -5316,9 +5326,11 @@ MLSTM_BWD_CASES = [
 #: another order), rtol 1e-4; a bfloat16 dq, dk, dv one output rounding
 #: more (rtol 1e-2)
 MLSTM_BWD_SHARE = 1e-4
-#: phase 45: xlstm-350m at full width and depth, as phase 36, the
-#: sequence cut to 1,024 and the gradient check at a quarter of it, as
-#: phase 36's: each token of a layer's sLSTM is a step of eager launches
+#: phase 45: xlstm-350m at full width and depth, as phase 36, one step
+#: (its gates are a step's launches, the gradient check and the backward's
+#: operands, none of which needs a second), the sequence cut to 1,024 and
+#: the gradient check at a quarter of it, as phase 36's: each token of a
+#: layer's sLSTM is a step of eager launches
 #: under autograd (ROADMAP item 21; PERF.md section 5 has the step walls
 #: at S 1,024 and 4,096).  The check computes in float32 on the initial
 #: parameters: in bf16 the model's gradients are chaotic at random init,
@@ -5327,7 +5339,7 @@ MLSTM_BWD_SHARE = 1e-4
 #: chunks change, against 0.007 in float32 at init (ROADMAP section 3,
 #: ``scripts/probe_xlstm_grad_gate.py``).  Its plain side runs the mLSTM
 #: at the kernels' chunks, its reordered side at 64 (``plain_kernels``)
-FULL_TRAIN_XLSTM = dict(FULL_TRAIN, arch="xlstm-350m", seq=1024,
+FULL_TRAIN_XLSTM = dict(FULL_TRAIN, arch="xlstm-350m", seq=1024, steps=1,
                         check_seq=256, check_dtype="float32",
                         check_at_init=True)
 
@@ -5707,6 +5719,14 @@ def counted(torch, fn, span="smoke.call"):
     return out, wall, kernels.launch_counts(), kernels.route_counts()
 
 
+def tp_sharded(model, mesh, batch) -> bool:
+    """Whether ``mesh``'s default rules give ``model`` its sharded
+    program for a batch of ``batch`` rows."""
+    from repro_torch.parallel.sharding import use_mesh_rules
+    with use_mesh_rules(mesh):
+        return model.spmd("prefill", batch) is not None
+
+
 def ep_tokens(np, torch, cfg, device):
     """Phase 46's prompt batch, ``EP_BATCH`` x ``EP_SEQ`` seeded ids."""
     return torch.as_tensor(np.random.default_rng(46).integers(
@@ -5754,68 +5774,97 @@ def ep_reduced(np, torch, device):
     """The reduced olmoe in float32 under a (2, 4) mesh of the card
     against the same mesh of the CPU: prefill (40 tokens, cache 48) and 4
     decode steps' logits within 1e-4; each card call's expert-GEMM
-    launches 3 x 8 a MoE layer, on ``simt`` (float32)."""
+    launches 3 x 8 a MoE layer, on ``simt`` (float32).  Twice: as the
+    reduced config (its 4 heads split over model: the sharded program,
+    a position's heads' attention launches), and with 2 heads, which
+    ``model`` does not divide (the layout gap ``attn_seq_shard``: the
+    program runs whole under the mesh, one attention launch a layer, its
+    MoE through ``moe_apply_expert_parallel``)."""
+    import dataclasses
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.parallel.sharding import make_mesh, use_mesh_rules
-    cfg = get_arch(EP_ARCH).reduced()
-    cpu = TransformerLM(cfg, device="cpu")
-    p_cpu = cpu.init(torch.Generator().manual_seed(0))
-    gpu = TransformerLM(cfg, device=device)
-    p_gpu = tree_map(lambda t: t.to(device), p_cpu)
+    base = get_arch(EP_ARCH).reduced()
     shape = EP_MESHES[-1]
     n = shape[0] * shape[1]
-    toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 40)), dtype=torch.int32)
-    want = {"moe_matmul": 3 * n * cfg.n_layers}
-    worst = 0.0
-    with torch.no_grad():
-        with use_mesh_rules(make_mesh(shape, ("data", "model"),
-                                      ["cpu"] * n)):
-            lc, cc = cpu.prefill(p_cpu, toks, 48)
-            cpu_logits = [lc]
-            for i in range(4):
-                nxt = torch.argmax(lc, -1).to(torch.int32)[:, None]
-                pos = torch.full((2, 1), 40 + i, dtype=torch.int32)
-                lc, cc = cpu.decode_step(p_cpu, nxt, pos, cc)
-                cpu_logits.append(lc)
-        with use_mesh_rules(make_mesh(shape, ("data", "model"),
-                                      [device] * n)):
-            (lg, cg), _, launches, routes = counted(
-                torch, lambda: gpu.prefill(p_gpu, toks.to(device), 48))
-            want_launches(f"{cfg.name} prefill", launches, routes,
-                          dict(want, flash_attention=cfg.n_layers),
-                          {"moe_matmul": "simt", "flash_attention": "simt"})
-            for i in range(5):
-                torch.testing.assert_close(lg.cpu(), cpu_logits[i],
-                                           atol=1e-4, rtol=1e-4)
-                worst = max(worst, float((lg.cpu() - cpu_logits[i])
-                                         .abs().max()))
-                if i == 4:
-                    break
-                nxt = torch.argmax(cpu_logits[i], -1).to(torch.int32)
-                pos = torch.full((2, 1), 40 + i, dtype=torch.int32)
+    out = {}
+    for program, heads_cfg in (("sharded", base.attention.n_heads),
+                               ("whole", 2)):
+        cfg = dataclasses.replace(base, attention=dataclasses.replace(
+            base.attention, n_heads=heads_cfg, n_kv_heads=heads_cfg))
+        cpu = TransformerLM(cfg, device="cpu")
+        p_cpu = cpu.init(torch.Generator().manual_seed(0))
+        gpu = TransformerLM(cfg, device=device)
+        p_gpu = tree_map(lambda t: t.to(device), p_cpu)
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 40)), dtype=torch.int32)
+        want = {"moe_matmul": 3 * n * cfg.n_layers}
+        if tp_sharded(gpu, card_mesh(torch, shape, device), 2) != \
+                (program == "sharded"):
+            raise AssertionError(f"{cfg.name} with {heads_cfg} heads under "
+                                 f"{shape}: not the {program} program")
+        heads = n if program == "sharded" else 1
+        worst = 0.0
+        with torch.no_grad():
+            with use_mesh_rules(make_mesh(shape, ("data", "model"),
+                                          ["cpu"] * n)):
+                lc, cc = cpu.prefill(p_cpu, toks, 48)
+                cpu_logits = [lc]
+                for i in range(4):
+                    nxt = torch.argmax(lc, -1).to(torch.int32)[:, None]
+                    pos = torch.full((2, 1), 40 + i, dtype=torch.int32)
+                    lc, cc = cpu.decode_step(p_cpu, nxt, pos, cc)
+                    cpu_logits.append(lc)
+            with use_mesh_rules(make_mesh(shape, ("data", "model"),
+                                          [device] * n)):
                 (lg, cg), _, launches, routes = counted(
-                    torch, lambda: gpu.decode_step(
-                        p_gpu, nxt[:, None].to(device), pos.to(device), cg))
-                want_launches(f"{cfg.name} decode", launches, routes,
-                              dict(want, decode_attention=cfg.n_layers),
-                              {"moe_matmul": "simt"})
-    log(f"  {cfg.name} float32 under a {shape} mesh: prefill + 4 decode "
-        f"logits card vs CPU (same mesh of CPU entries) max abs diff "
-        f"{worst:.3g}; {want['moe_matmul']} expert-GEMM launches a call")
-    return {"mesh": list(shape), "max_abs_diff": worst,
-            "moe_launches_per_call": want["moe_matmul"]}
+                    torch, lambda: gpu.prefill(p_gpu, toks.to(device), 48))
+                want_launches(f"{cfg.name} {program} prefill", launches,
+                              routes, dict(want, flash_attention=heads *
+                                           cfg.n_layers),
+                              {"moe_matmul": "simt",
+                               "flash_attention": "simt"})
+                for i in range(5):
+                    torch.testing.assert_close(lg.cpu(), cpu_logits[i],
+                                               atol=1e-4, rtol=1e-4)
+                    worst = max(worst, float((lg.cpu() - cpu_logits[i])
+                                             .abs().max()))
+                    if i == 4:
+                        break
+                    nxt = torch.argmax(cpu_logits[i], -1).to(torch.int32)
+                    pos = torch.full((2, 1), 40 + i, dtype=torch.int32)
+                    (lg, cg), _, launches, routes = counted(
+                        torch, lambda: gpu.decode_step(
+                            p_gpu, nxt[:, None].to(device), pos.to(device),
+                            cg))
+                    want_launches(f"{cfg.name} {program} decode", launches,
+                                  routes, dict(want, decode_attention=heads *
+                                               cfg.n_layers),
+                                  {"moe_matmul": "simt"})
+        log(f"  {cfg.name} ({heads_cfg} heads, the {program} program) "
+            f"float32 under a {shape} mesh: prefill + 4 decode logits card "
+            f"vs CPU (same mesh of CPU entries) max abs diff {worst:.3g}; "
+            f"{want['moe_matmul']} expert-GEMM and {heads * cfg.n_layers} "
+            f"attention launches a call")
+        out[program] = {"mesh": list(shape), "n_heads": heads_cfg,
+                        "max_abs_diff": worst,
+                        "moe_launches_per_call": want["moe_matmul"],
+                        "attention_launches_per_call": heads * cfg.n_layers}
+    return out
 
 
 def run_expert_parallel(np, torch, device, served):
     """Phase 46: olmoe-1b-7b at full width under ``use_mesh_rules`` of
     ``EP_MESHES``: one prefill of B 8 x S 1,024 and 4 decode steps, exact
     launches a call by route, beside the same calls without a mesh and
-    phase 16's served walls; the expert GEMM against its plain version
-    at every shard shape those calls launched (``hold_moe_matmul``); the
-    kernels against the plain versions inside the model under each mesh;
-    the reduced model card against CPU.  Returns its record."""
+    phase 16's served walls (under a mesh the whole model runs sharded:
+    each position's experts and heads); the expert GEMM against its
+    plain version at every shard shape those calls launched
+    (``hold_moe_matmul``), and the attention kernels at theirs
+    (``record_shard_calls``, ``hold_recorded``); the kernels against the
+    plain versions inside the model under each mesh; the reduced model
+    card against CPU, as the sharded program and as the whole program
+    under the mesh (``ep_reduced``).  Returns its record."""
     from repro_torch.models.moe import capacity
     from repro_torch.parallel.sharding import make_mesh, use_mesh_rules
     model, params, rec = init_full(torch, EP_ARCH, device)
@@ -5823,39 +5872,45 @@ def run_expert_parallel(np, torch, device, served):
     moe = cfg.moe
     toks = ep_tokens(np, torch, cfg, device)
     runs = {}
-    for shape in (None,) + EP_MESHES:
-        n = 1 if shape is None else shape[0] * shape[1]
-        mesh = None if shape is None else \
-            make_mesh(shape, ("data", "model"), [device] * n)
-        want = {"prefill": {"moe_matmul": 3 * n * cfg.n_layers,
-                            "flash_attention": cfg.n_layers},
-                "decode": {"moe_matmul": 3 * n * cfg.n_layers,
-                           "decode_attention": cfg.n_layers}}
-        ep_serve(torch, model, params, toks, mesh)            # warm-up
-        calls, logits = ep_serve(torch, model, params, toks, mesh, want)
-        b_loc = EP_BATCH // (1 if shape is None else shape[0])
-        seqs = 1 if shape is None else b_loc   # moe_apply counts a sequence
-        caps = {kind: capacity((EP_SEQ if kind == "prefill" else 1)
-                               * seqs, moe.top_k, moe.n_experts,
-                               moe.capacity_factor)
-                for kind in ("prefill", "decode")}
-        name = "none" if shape is None else f"{shape[0]}x{shape[1]}"
-        runs[name] = {
-            "mesh": None if shape is None else list(shape),
-            "prefill_s": calls[0][1],
-            "decode_step_ms": [c[1] * 1e3 for c in calls[1:]],
-            "launches_per_call": want, "cap": caps,
-            # moe_apply's [E, B cap, d]; a shard's [E / |model|, cap, d]
-            "buffer_prefill": [moe.n_experts // (1 if shape is None
-                                                 else shape[1]),
-                               caps["prefill"] * (EP_BATCH if shape is None
-                                                  else 1), cfg.d_model]}
-        log(f"  mesh {name}: prefill B {EP_BATCH} x S {EP_SEQ} "
-            f"{calls[0][1] * 1e3:.2f} ms, decode steps "
-            f"{[round(c[1] * 1e3, 2) for c in calls[1:]]} ms; "
-            f"{want['prefill']['moe_matmul']} expert-GEMM launches a call, "
-            f"all wgmma; each shard's cap {caps} (buffer "
-            f"{runs[name]['buffer_prefill']} in prefill)")
+    with record_shard_calls() as recorder:
+        for shape in (None,) + EP_MESHES:
+            n = 1 if shape is None else shape[0] * shape[1]
+            mesh = None if shape is None else \
+                make_mesh(shape, ("data", "model"), [device] * n)
+            # where the mesh's rules give the model its sharded program,
+            # every position runs its heads' attention too
+            heads = n if mesh is not None and tp_sharded(model, mesh,
+                                                         EP_BATCH) else 1
+            want = {"prefill": {"moe_matmul": 3 * n * cfg.n_layers,
+                                "flash_attention": heads * cfg.n_layers},
+                    "decode": {"moe_matmul": 3 * n * cfg.n_layers,
+                               "decode_attention": heads * cfg.n_layers}}
+            ep_serve(torch, model, params, toks, mesh)            # warm-up
+            calls, logits = ep_serve(torch, model, params, toks, mesh, want)
+            b_loc = EP_BATCH // (1 if shape is None else shape[0])
+            # moe_apply counts a sequence
+            seqs = 1 if shape is None else b_loc
+            caps = {kind: capacity((EP_SEQ if kind == "prefill" else 1)
+                                   * seqs, moe.top_k, moe.n_experts,
+                                   moe.capacity_factor)
+                    for kind in ("prefill", "decode")}
+            name = "none" if shape is None else f"{shape[0]}x{shape[1]}"
+            runs[name] = {
+                "mesh": None if shape is None else list(shape),
+                "prefill_s": calls[0][1],
+                "decode_step_ms": [c[1] * 1e3 for c in calls[1:]],
+                "launches_per_call": want, "cap": caps,
+                # moe_apply's [E, B cap, d]; a shard's [E / |model|, cap, d]
+                "buffer_prefill": [
+                    moe.n_experts // (1 if shape is None else shape[1]),
+                    caps["prefill"] * (EP_BATCH if shape is None else 1),
+                    cfg.d_model]}
+            log(f"  mesh {name}: prefill B {EP_BATCH} x S {EP_SEQ} "
+                f"{calls[0][1] * 1e3:.2f} ms, decode steps "
+                f"{[round(c[1] * 1e3, 2) for c in calls[1:]]} ms; "
+                f"{want['prefill']['moe_matmul']} expert-GEMM launches a "
+                f"call, all wgmma; each shard's cap {caps} (buffer "
+                f"{runs[name]['buffer_prefill']} in prefill)")
     p16 = served.get(EP_ARCH, {})
     log(f"  phase 16 served without a mesh (other shapes): prefill median "
         f"{p16.get('prefill_s_median')} s, decode step median "
@@ -5870,6 +5925,7 @@ def run_expert_parallel(np, torch, device, served):
                 gemm = (moe.n_experts // shape[1], cap, d, f)
                 held[str(list(gemm))] = hold_moe_matmul(
                     torch, 460 + len(held), gemm, torch.bfloat16, device)
+    held_attention = hold_recorded(torch, recorder.calls)
     gates = {}
     for shape in EP_MESHES:
         with use_mesh_rules(make_mesh(shape, ("data", "model"),
@@ -5883,6 +5939,7 @@ def run_expert_parallel(np, torch, device, served):
            "phase16_prefill_s_median": p16.get("prefill_s_median"),
            "phase16_decode_step_ms_median": p16.get("decode_step_ms_median"),
            "moe_matmul_at_shard_shapes_max_abs_err": held,
+           "attention_at_shard_shapes_max_abs_err": held_attention,
            "kernels_vs_plain_under_mesh": gates,
            "reduced": ep_reduced(np, torch, device)}
     del params, model
@@ -6329,6 +6386,656 @@ def run_sanitized_rollout(np, torch, device):
             "builds": sum(builds.values())}
 
 
+# ---------------------------------------------------------------------------
+# phases 51-52: the LMs under the reference's FSDP x TP rules over entries
+# of the card
+# ---------------------------------------------------------------------------
+
+#: phase 51: minicpm-2b at full width and depth, one training step under a
+#: (data, model) mesh of entries of the card.  Each microbatch's rows go
+#: over data, so a microbatch holds a row a data position: B 4 in 2
+#: microbatches (B 2 would leave one row for two positions); the gradient
+#: gate on 2 rows (a row a data position) of phase 36's ``check_seq``, in
+#: float32
+TP_TRAIN = dict(arch="minicpm-2b", mesh=(2, 4), batch=4, seq=2048,
+                microbatches=2, lr=1e-3, check_seq=FULL_TRAIN["check_seq"])
+#: the gradient gate's noise side, the same mesh through the plain
+#: versions against them without one, holds the program itself: its
+#: largest gap at most this share of a leaf's largest gradient (float32
+#: sums in another order move a gradient ~1e-6 of it; a fault of the
+#: sharded program, O(1))
+TP_NOISE_MAX = 1e-3
+#: phase 52: gemma2-9b at full width serving one prefill and decode steps
+#: under a (data, model) mesh (KV 8 over model 4: 2 KV heads a position)
+TP_SERVE = dict(arch="gemma2-9b", mesh=(2, 4), batch=8, seq=1024, steps=4)
+#: the reduced griffin model under a (2, 2) mesh, card against the CPU
+TP_REDUCED = dict(arch="recurrentgemma-9b", mesh=(2, 2), batch=2, seq=40,
+                  cache=48, steps=4)
+#: the kernels whose calls at shard shapes phases 51 and 52 record and hold
+TP_HELD = ("flash_attention", "flash_attention_bwd", "decode_attention",
+           "rglru_scan", "rglru_scan_bwd")
+
+
+def card_mesh(torch, shape, device):
+    from repro_torch.parallel.sharding import make_mesh
+    return make_mesh(shape, ("data", "model"),
+                     [device] * (shape[0] * shape[1]))
+
+
+class record_shard_calls:
+    """Inside this block the first call under a mesh of each kernel of
+    ``TP_HELD`` at each operand signature (shapes, dtypes, options) is
+    kept: its
+    operands copied as the ops module charged them (the ``charge`` each
+    ``kernels/<k>/ops.py`` calls before it launches).  ``calls`` maps the
+    signature to (kernel, operands, options)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.decode_attention import ops as dops
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.rglru_scan import ops as rops
+        from repro_torch.parallel.sharding import current_mesh
+        self.modules = (fops, dops, rops)
+        self.saved = [m.charge for m in self.modules]
+        self.calls = {}
+        real = self.saved[0]
+
+        def record(name, *args, **kw):
+            if name in TP_HELD and current_mesh() is not None:
+                key = (name,) + tuple(
+                    (tuple(a.shape), str(a.dtype), a.device.type)
+                    if hasattr(a, "shape") else a for a in args) + \
+                    tuple(sorted(kw.items()))
+                if key not in self.calls:
+                    self.calls[key] = (name, tuple(
+                        a.detach().clone() if hasattr(a, "detach") else a
+                        for a in args), dict(kw))
+            return real(name, *args, **kw)
+        for m in self.modules:
+            m.charge = record
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in zip(self.modules, self.saved):
+            m.charge = fn
+        return False
+
+
+def hold_recorded(torch, calls):
+    """Each recorded call (``record_shard_calls``) launched again on its
+    operands against its plain version: flash attention and its backward
+    and decode attention within ``ATTN_TOL`` (bf16 also
+    ``ATTN_BF16_ROUNDING``), the RG-LRU scans bitwise; each on its
+    route; two launches bitwise equal.  Returns each call's signature and
+    max abs error."""
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        bwd_route, flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
+    from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_route,
+                                                          rglru_scan,
+                                                          rglru_scan_bwd)
+    held = {}
+    for name, args, kw in calls.values():
+        dtype = args[0].dtype
+        dname = str(dtype).split(".")[1]
+        kw = {k: v for k, v in kw.items() if k != "with_lse"}
+        if name == "flash_attention":
+            fn, ref, route = flash_attention, attention_ref, \
+                "wgmma" if dtype == torch.bfloat16 else "simt"
+        elif name == "flash_attention_bwd":
+            fn, ref, route = flash_attention_bwd, attention_bwd_ref, \
+                bwd_route(dtype)
+        elif name == "decode_attention":
+            fn, ref, route = decode_attention, decode_ref, None
+        elif name == "rglru_scan":
+            fn, ref, route = rglru_scan, rglru_ref, \
+                rglru_route(dtype, args[0].shape[1], args[0].shape[2])
+        else:
+            fn, ref = rglru_scan_bwd, rglru_bwd_ref
+            route = rglru_route(dtype, args[0].shape[1], args[0].shape[2])
+        if route is None:
+            got = fn(*args, **kw)
+        else:
+            got, took = take_route(fn, lambda: fn(*args, **kw))
+            want_route(name, took, route)
+        again = fn(*args, **kw)
+        want = ref(*args, **kw)
+        torch.cuda.synchronize()
+        got, again, want = ((t,) if torch.is_tensor(t) else tuple(t)
+                            for t in (got, again, want))
+        err = 0.0
+        for g, a, w in zip(got, again, want):
+            if g is None:
+                continue
+            if not torch.equal(g, a):
+                raise AssertionError(f"{name} at {g.shape}: two launches "
+                                     f"differ")
+            if name.startswith("rglru"):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{name} at {g.shape}: not "
+                                         f"bitwise its plain version")
+            else:
+                torch.testing.assert_close(g.float(), w.float(),
+                                           **ATTN_TOL[dname])
+                if dtype == torch.bfloat16:
+                    torch.testing.assert_close(g.float(), w.float(),
+                                               **ATTN_BF16_ROUNDING)
+            err = max(err, float((g.double() - w.double()).abs().max()))
+        what = f"{name} {dname} " + " x ".join(
+            str(list(a.shape)) for a in args if torch.is_tensor(a)) + \
+            (f" {kw}" if kw else "")
+        held[what] = err
+        log(f"  {what}: {route or 'its'} route, max abs err {err:.3g}, "
+            f"two launches bitwise equal")
+    return held
+
+
+def tp_train_call(np, torch, device, one_position=None):
+    """Phase 51's training step built on ``device`` (the card or
+    ``meta``): (program, its state, the mesh, the model).  ``program(one)``
+    runs one ``make_train_step`` step under ``use_mesh_rules`` of
+    ``TP_TRAIN``'s mesh (``one`` as ``use_mesh_rules`` takes
+    ``one_position``, default ``one_position``)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import lm_data
+    from repro_torch.device import MetaGenerator
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import use_mesh_rules
+    from repro_torch.runtime.train_loop import init_state, make_train_step
+    f = TP_TRAIN
+    cfg = get_arch(f["arch"])
+    model = build_model(cfg, device)
+    gen = MetaGenerator() if device.type == "meta" else \
+        torch.Generator(device=device).manual_seed(0)
+    tcfg = TrainConfig(steps=2, lr=f["lr"], warmup_steps=0,
+                       microbatches=f["microbatches"], schedule="wsd")
+    state = init_state(model, gen, tcfg)
+    step = make_train_step(model, cfg, tcfg)
+    batch = next(lm_data(cfg, f["batch"], f["seq"], seed=51, prefetch=0))
+    mesh = card_mesh(torch, f["mesh"], device)
+
+    def program(one=one_position):
+        with use_mesh_rules(mesh, one_position=one):
+            return step(state, batch)[1]
+    return program, state, mesh, model
+
+
+def tp_grad_gate(np, torch, device, model, params, mesh):
+    """Phase 51's gradient gate, phase 36's per-leaf gate in float32 on
+    the initial parameters, at ``TP_TRAIN``'s check batch (2 rows of
+    phase 36's ``check_seq``, a row a data position): the loss and every
+    gradient under the mesh against the same without one, both through
+    the kernels; its noise side the same two runs through the plain
+    versions, which reorder the same sums.  Each leaf's gap, as a share
+    of its largest gradient, within the larger of ``LM_GAP`` x the
+    largest such share the plain sides give and ``GRAD_FLOOR_ULPS``
+    float32 ulps of that gradient; the loss within the larger of
+    ``LM_GAP`` x the plain sides' loss gap and ``GRAD_FLOOR_ULPS``
+    float32 ulps of it; the plain sides' own largest share within
+    ``TP_NOISE_MAX``."""
+    import dataclasses
+    import math
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import use_mesh_rules
+    from repro_torch.tree import leaves, leaves_with_paths
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    check = build_model(cfg, device)
+    plist = leaves(params)
+    rng = np.random.default_rng(51)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (2, TP_TRAIN["check_seq"] + 1)),
+                           device=device)
+
+    def grads(ctx, on_mesh):
+        with ctx, use_mesh_rules(mesh if on_mesh else None):
+            loss = check.train_loss(params, toks[:, :-1], toks[:, 1:])
+            loss.backward()
+        out = [torch.zeros_like(p) if p.grad is None else p.grad
+               for p in plist]
+        for p in plist:
+            p.grad = None
+        torch.cuda.synchronize()
+        return loss.item(), out
+
+    # each mesh side's gap from its side without a mesh, leaf by leaf on
+    # the card (two gradient sets held at a time)
+    losses, gaps = {}, {}
+    for side, ctx in (("plain", plain_kernels),
+                      ("unsharded", contextlib.nullcontext)):
+        losses[side], whole = grads(ctx(), False)
+        if side == "plain":
+            top = [float(g.abs().max()) for g in whole]
+        mesh_side = "plain_sharded" if side == "plain" else "sharded"
+        losses[mesh_side], split = grads(ctx(), True)
+        gaps[mesh_side] = [float((a - b).abs().max())
+                           for a, b in zip(split, whole)]
+        del whole, split
+        torch.cuda.empty_cache()
+
+    def rel(gap, t):
+        return gap / t if t else (0.0 if gap == 0 else math.inf)
+    noise = max(rel(g, t) for g, t in zip(gaps["plain_sharded"], top))
+    rows = []
+    for (path, _), gap, t in zip(leaves_with_paths(params), gaps["sharded"],
+                                 top):
+        floor = rel(GRAD_FLOOR_ULPS * float(float32_ulp(torch,
+                                                        torch.tensor(t))), t)
+        share = rel(gap, t)
+        rows.append((share / max(LM_GAP * noise, floor), path, share,
+                     floor > LM_GAP * noise))
+    rows.sort(reverse=True)
+    loss_limit = max(LM_GAP * abs(losses["plain_sharded"] - losses["plain"]),
+                     GRAD_FLOOR_ULPS * float(float32_ulp(
+                         torch, torch.tensor(losses["plain"]))))
+    loss_gap = abs(losses["sharded"] - losses["unsharded"])
+    gate = {"seq": TP_TRAIN["check_seq"], "rows": 2, "dtype": cfg.dtype,
+            "at_init": True, "leaves": len(rows),
+            "noise_side": "the mesh through the plain versions vs the "
+                          "plain versions without one",
+            "plain_sharded_largest_share": noise,
+            "worst_share_of_limit": rows[0][0],
+            "leaves_at_floor": sum(r[3] for r in rows),
+            "worst_leaves": [dict(zip(("share_of_limit", "leaf", "share",
+                                       "at_floor"), r)) for r in rows[:5]],
+            "losses": losses, "loss_gap": loss_gap, "loss_limit": loss_limit}
+    log(f"  {cfg.dtype} gate at 2 x {TP_TRAIN['check_seq']} (initial "
+        f"parameters): losses {losses} (gap {loss_gap:.3g}, limit "
+        f"{loss_limit:.3g}); worst leaf {rows[0][1]} at {rows[0][0]:.3g} "
+        f"of its limit (the plain versions' mesh gap, largest share "
+        f"{noise:.3g}; {gate['leaves_at_floor']} leaves at the floor)")
+    if rows[0][0] > 1.0 or loss_gap > loss_limit or not noise <= \
+            TP_NOISE_MAX:
+        raise AssertionError(f"phase 51: the mesh's gradients or loss leave "
+                             f"the gate: {gate}")
+    del check
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gate
+
+
+def run_tp_training(np, torch, device, smi):
+    """Phase 51: ``TP_TRAIN``'s step (minicpm-2b at full width and depth,
+    FSDP over data and TP over model, each position's block run in turn
+    on the card).  (a) the step on ``meta`` as one position's program
+    and as all 8: the one position's dot FLOPs, kernel calls and
+    collective bytes and counts x 8 equal all 8's; (b) on the card under
+    the op profiler: the aten products and traffic, the kernel calls and
+    the collectives equal all 8 positions' on ``meta`` exactly, and the
+    card's launch counters the launches of those kernel calls: flash and
+    its backward at H 9 a position, 2 x 40 x 8 forward and 40 x 8
+    backward launches a microbatch, all ``wgmma``; (c) the step again,
+    timed, the meta run's bytes within ``DRY_MEMORY_TOL`` of
+    ``max_memory_allocated`` above what the card held before the state
+    was made; metrics finite; (d) before the steps, phase 36's gradient
+    gate on the initial parameters beside the same model without a mesh
+    (``tp_grad_gate``, float32); (e) every kernel call
+    at its shard shape held against its plain version
+    (``hold_recorded``).  Returns the record."""
+    import math
+    from repro_torch import kernels
+    from repro_torch.launch.dryrun import run_program, storage_bytes
+    meta = torch.device("meta")
+    rec = {"card": smi, "config": dict(TP_TRAIN)}
+    marks = {"start": time.perf_counter()}
+    profiles = {}
+    program, state, _, _ = tp_train_call(np, torch, meta)
+    for one in (True, False):
+        t0 = time.perf_counter()
+        prof, mem = run_program(lambda: program(one), state)
+        profiles[one] = (prof.profile, mem, time.perf_counter() - t0,
+                         storage_bytes(state))
+        del prof
+    del program, state
+    one, whole = profiles[True][0], profiles[False][0]
+    n = TP_TRAIN["mesh"][0] * TP_TRAIN["mesh"][1]
+    times = {k: {r: {q: v * n for q, v in c.items()}
+                 for r, c in routes.items()}
+             for k, routes in one.kernel_calls().items()}
+    if one.dot_flops * n != whole.dot_flops or \
+            times != whole.kernel_calls() or \
+            {k: v * n for k, v in one.coll_bytes.items()} != \
+            whole.coll_bytes or \
+            {k: v * n for k, v in one.coll_count.items()} != \
+            whole.coll_count:
+        raise AssertionError(
+            f"phase 51: one position x {n} differs from all positions: dot "
+            f"{one.dot_flops * n} vs {whole.dot_flops}, collectives "
+            f"{one.coll_bytes} x {n} vs {whole.coll_bytes}")
+    log(f"  meta: one position's dot FLOPs, kernel calls and collectives "
+        f"x {n} == all {n} positions' ({one.dot_flops:.4g} FLOP a "
+        f"position; {dict(one.coll_bytes)} B a position; traced in "
+        f"{profiles[True][2]:.1f} s and {profiles[False][2]:.1f} s)")
+    marks["meta"] = time.perf_counter()
+    _, wmem, _, wargs = profiles[False]
+    predicted = wargs + wmem["output_size_in_bytes"] + \
+        wmem["temp_size_in_bytes"] - wmem["alias_size_in_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    program, state, mesh, model = tp_train_call(np, torch, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    marks["init"] = time.perf_counter()
+    with record_shard_calls() as gate_seen:
+        gate = tp_grad_gate(np, torch, device, model, state["params"], mesh)
+    marks["gate"] = time.perf_counter()
+    kernels.reset_launch_counts()
+    with record_shard_calls() as seen:
+        cprof, _ = run_program(program, state)
+    torch.cuda.synchronize()
+    claunch, croutes = card_launches()
+    mlaunch, mroutes = profile_launches(whole)
+    per_mb = {k: v * n for k, v in train_launches(model.cfg, 2).items()}
+    want = {k: v * TP_TRAIN["microbatches"] for k, v in per_mb.items()}
+    want_launches("phase 51 step", claunch, croutes, want,
+                  {k: "wgmma" for k in want})
+    if cprof.profile.counts() != whole.counts() or \
+            cprof.profile.coll_bytes != whole.coll_bytes or \
+            cprof.profile.coll_count != whole.coll_count or \
+            (mlaunch, mroutes) != (claunch, croutes):
+        ops, kern = op_differences(whole, cprof.profile)
+        for k, (m, c) in sorted(ops.items())[:20]:
+            log(f"  {k}: meta {m}, card {c}")
+        raise AssertionError(
+            f"phase 51: the card's counts differ from the meta run's: dot "
+            f"{cprof.profile.dot_flops} vs {whole.dot_flops}, traffic "
+            f"{cprof.profile.traffic_bytes} vs {whole.traffic_bytes}, "
+            f"collectives {cprof.profile.coll_bytes} vs {whole.coll_bytes}; "
+            f"kernels {kern}; launches {claunch} vs {mlaunch}")
+    log(f"  card under the op profiler: counts == the 8 positions' on meta "
+        f"(dot {whole.dot_flops:.4g} FLOP, traffic {whole.traffic_bytes:.4g}"
+        f" B, collectives {dict(whole.coll_bytes)} B, pod "
+        f"{whole.collectives.pod_bytes}); launches {claunch} (routes "
+        f"{croutes})")
+    del cprof
+    marks["profiled_step"] = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    metrics = program()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want_launches("phase 51 timed step", *card_launches(), want,
+                  {k: "wgmma" for k in want})
+    peak = torch.cuda.max_memory_allocated() - base
+    share = abs(predicted - peak) / peak
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"phase 51: metrics {metrics}")
+    log(f"  step: loss {metrics['loss']:.4f}, grad norm "
+        f"{metrics['grad_norm']:.4f}; wall {wall:.3f} s (CUDA events "
+        f"{start.elapsed_time(end):.1f} ms); predicted "
+        f"{predicted / 1e9:.3f} GB, card peak {peak / 1e9:.3f} GB above "
+        f"{base / 1e9:.3f} GB ({share * 100:.2f} % off) ({smi})")
+    if share > DRY_MEMORY_TOL:
+        raise AssertionError(f"phase 51: the meta run's {predicted} B is "
+                             f"{share * 100:.2f} % off the card's peak {peak}")
+    marks["timed_step"] = time.perf_counter()
+    del program, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = hold_recorded(torch, {**seen.calls, **gate_seen.calls})
+    marks["held"] = time.perf_counter()
+    names = list(marks)
+    rec["sub_walls_s"] = {b: marks[b] - marks[a]
+                          for a, b in zip(names, names[1:])}
+    log(f"  phase 51's parts: {rec['sub_walls_s']} s")
+    rec.update({
+        "init_s": init_s, "wall_s": wall,
+        "cuda_event_ms": start.elapsed_time(end), "metrics": metrics,
+        "launches": claunch, "routes": croutes,
+        "launches_per_microbatch": per_mb,
+        "tokens_per_s": TP_TRAIN["batch"] * TP_TRAIN["seq"] / wall,
+        "meta_trace_s": {"one_position": profiles[True][2],
+                         "all_positions": profiles[False][2]},
+        "dot_flops_a_position": one.dot_flops,
+        "collectives_a_position": {"bytes": dict(one.coll_bytes),
+                                   "count": dict(one.coll_count),
+                                   "pod_bytes": one.collectives.pod_bytes},
+        "predicted_bytes": predicted, "peak_bytes": peak,
+        "memory_base": base, "memory_share_off": share,
+        "grad_gate": gate, "held_at_shard_shapes": held})
+    return rec
+
+
+def tp_serve_sides(torch, model, params, toks, mesh, steps):
+    """One prefill and ``steps`` decode steps three ways on the card:
+    the plain versions without a mesh (the reference side), the same
+    with their sums reordered, and the kernels under ``mesh``, each
+    decoding from a copy of the plain side's prefill cache and fed its
+    greedy tokens; the mesh side's launches counted a call.  Returns the
+    sides' logits, the plain side's, and the mesh side's launches."""
+    from repro_torch import kernels
+    from repro_torch.parallel.sharding import use_mesh_rules
+    b, s = toks.shape
+    with torch.no_grad():
+        with plain_kernels():
+            ref, cache = model.prefill(params, toks, s + steps)
+        logits = {}
+        with plain_kernels(True):
+            logits["reordered"] = [model.prefill(params, toks,
+                                                 s + steps)[0]]
+        kernels.reset_launch_counts()
+        with use_mesh_rules(mesh):
+            out, _ = model.prefill(params, toks, s + steps)
+        torch.cuda.synchronize()
+        calls = [("prefill",) + card_launches()]
+        logits["mesh"] = [out]
+        caches = {side: clone_cache(cache) for side in ("reordered", "mesh")}
+        refs = [ref]
+        nxt = torch.argmax(ref, -1).to(torch.int32)[:, None]
+        for i in range(steps):
+            pos = torch.full((b, 1), s + i, dtype=torch.int32,
+                             device=toks.device)
+            with plain_kernels():
+                ref, cache = model.decode_step(params, nxt, pos, cache)
+            refs.append(ref)
+            with plain_kernels(True):
+                o, caches["reordered"] = model.decode_step(
+                    params, nxt, pos, caches["reordered"])
+            logits["reordered"].append(o)
+            kernels.reset_launch_counts()
+            with use_mesh_rules(mesh):
+                o, caches["mesh"] = model.decode_step(params, nxt, pos,
+                                                      caches["mesh"])
+            torch.cuda.synchronize()
+            calls.append(("decode",) + card_launches())
+            logits["mesh"].append(o)
+            nxt = torch.argmax(ref, -1).to(torch.int32)[:, None]
+    return logits, refs, calls
+
+
+def tp_logit_rule(torch, logits, refs, dtype):
+    """Phase 12's per-logit rule for the mesh side: each logit's gap from
+    the plain side within the larger of ``LM_GAP`` x the reordered plain
+    side's largest gap and, in bfloat16, ``LM_BF16_ULPS`` ulps of the
+    logit, in float32 ``LM_F32_TOL`` of it.  Returns the gaps and the
+    mesh side's largest share of its limit."""
+    gaps = logit_gaps(torch, logits, refs)
+    limit_abs = LM_GAP * gaps["reordered"]
+    share = 0.0
+    for a, r in zip(logits["mesh"], refs):
+        if dtype == "bfloat16":
+            own = LM_BF16_ULPS * bf16_ulp(torch, r)
+        else:
+            own = LM_F32_TOL["atol"] + LM_F32_TOL["rtol"] * r.float().abs()
+        gap = (a.float() - r.float()).abs()
+        share = max(share, float((gap / own.clamp_min(limit_abs)).max()))
+    return {"gaps": gaps, "limit_abs": limit_abs, "share": share}
+
+
+def run_tp_serving(np, torch, device, smi):
+    """Phase 52: ``TP_SERVE``'s model (gemma2-9b at full width) serving
+    one prefill of B 8 x S 1,024 and 4 decode steps under a (2, 4) mesh
+    of the card (heads, KV heads, MLP and vocabulary over model, FSDP
+    weights gathered over data, the KV cache by heads) beside the plain
+    versions without a mesh (``tp_serve_sides``), in bfloat16 and with
+    the same weights in float32: exact launches by route (flash 8
+    positions x 42 a prefill, on ``wgmma`` in bfloat16 and ``simt`` in
+    float32, decode attention 8 x 42 a step); phase 12's per-logit rule
+    (``tp_logit_rule``) gating the float32 logits and recorded for the
+    bfloat16 ones; the mesh side's walls beside the same calls without
+    a mesh; every kernel call at its shard shape held against its plain
+    version.  Then ``TP_REDUCED`` (the
+    reduced recurrentgemma in float32) under a (2, 2) mesh of the card
+    against the same mesh of the CPU.  Returns the record."""
+    from repro_torch.parallel.sharding import use_mesh_rules
+    f = TP_SERVE
+    model, params, rec = init_full(torch, f["arch"], device)
+    cfg = model.cfg
+    n = f["mesh"][0] * f["mesh"][1]
+    mesh = card_mesh(torch, f["mesh"], device)
+    toks = torch.as_tensor(np.random.default_rng(52).integers(
+        2, cfg.vocab_size, (f["batch"], f["seq"])), dtype=torch.int32,
+        device=device)
+    with record_shard_calls() as seen:
+        logits, refs, calls = tp_serve_sides(torch, model, params, toks,
+                                             mesh, f["steps"])
+    want = {"prefill": {"flash_attention": n * cfg.n_layers},
+            "decode": {"decode_attention": n * cfg.n_layers}}
+    for kind, launches, routes in calls:
+        want_launches(f"phase 52 {kind}", launches, routes, want[kind],
+                      {"flash_attention": "wgmma"} if kind == "prefill"
+                      else {})
+    bf16 = tp_logit_rule(torch, logits, refs, "bfloat16")
+    log(f"  {cfg.name} bfloat16 under {f['mesh']}: logit gaps from the plain "
+        f"side {bf16['gaps']}: the mesh side at {bf16['share']:.3g} of phase "
+        f"12's bf16 per-logit limit; launches a call "
+        f"{[(k, l) for k, l, _ in calls[:2]]}")
+    if bf16["share"] > 1.0:
+        raise AssertionError(f"phase 52: the mesh's bfloat16 logits leave "
+                             f"phase 12's per-logit rule: {bf16}")
+    walls = {}
+    b, s = toks.shape
+    for name, m in (("none", None), ("mesh", mesh)):
+        with torch.no_grad(), use_mesh_rules(m):
+            model.prefill(params, toks[:, :64], 64 + f["steps"])  # warm-up
+            (lg, cache), w, _, _ = counted(
+                torch, lambda: model.prefill(params, toks, s + f["steps"]))
+            steps = []
+            for i in range(f["steps"]):
+                nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
+                pos = torch.full((b, 1), s + i, dtype=torch.int32,
+                                 device=device)
+                (lg, cache), ws, _, _ = counted(
+                    torch, lambda: model.decode_step(params, nxt, pos,
+                                                     cache))
+                steps.append(ws * 1e3)
+        walls[name] = {"prefill_s": w, "decode_step_ms": steps}
+    log(f"  walls: {walls} ({smi})")
+    del logits, refs
+    # phase 12's float32 rule on the same weights in float32
+    import dataclasses
+    from repro_torch.models import build_model
+    params32 = tree_map(lambda t: t.float(), params)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                          device=device)
+    with record_shard_calls() as seen32:
+        logits, refs, calls32 = tp_serve_sides(torch, model32, params32,
+                                               toks, mesh, f["steps"])
+    for kind, launches, routes in calls32:
+        want_launches(f"phase 52 float32 {kind}", launches, routes,
+                      want[kind], {"flash_attention": "simt"}
+                      if kind == "prefill" else {})
+    f32 = tp_logit_rule(torch, logits, refs, "float32")
+    log(f"  {cfg.name} float32 under {f['mesh']}: logit gaps from the plain "
+        f"side {f32['gaps']}: the mesh side at {f32['share']:.3g} of phase "
+        f"12's float32 per-logit limit ({smi})")
+    if f32["share"] > 1.0:
+        raise AssertionError(f"phase 52: the mesh's float32 logits leave "
+                             f"phase 12's per-logit rule: {f32}")
+    del params32, model32, logits, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen.calls.update(seen32.calls)
+    held = hold_recorded(torch, seen.calls)
+    rec.update({"card": smi, "config": dict(f), "walls": walls,
+                "bfloat16": bf16, "float32": f32,
+                "launches_per_call": want, "held_at_shard_shapes": held,
+                "reduced": tp_reduced(np, torch, device)})
+    return rec
+
+
+def tp_reduced(np, torch, device):
+    """``TP_REDUCED``: the reduced recurrentgemma in float32 under a
+    (2, 2) mesh of the card against the same mesh of the CPU: prefill
+    and the decode steps' logits within 1e-4; each card call's launches
+    exact (a position's flash or decode attention a local-attention
+    layer, its RG-LRU scan an RG-LRU layer on prefill) and every kernel
+    call at its shard shape held against its plain version."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.cost_model import _block_kinds
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.parallel.sharding import use_mesh_rules
+    f = TP_REDUCED
+    cfg = get_arch(f["arch"]).reduced()
+    n = f["mesh"][0] * f["mesh"][1]
+    kinds = _block_kinds(cfg)
+    attn = sum(k.startswith("attn") for k in kinds)
+    rec_layers = sum(k == "rglru" for k in kinds)
+    cpu = TransformerLM(cfg, device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    gpu = TransformerLM(cfg, device=device)
+    p_gpu = tree_map(lambda t: t.to(device), p_cpu)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (f["batch"], f["seq"])), dtype=torch.int32)
+    outs = {}
+    with torch.no_grad(), record_shard_calls() as seen:
+        for side, model, params, dev in (("cpu", cpu, p_cpu, "cpu"),
+                                         ("card", gpu, p_gpu, device)):
+            card = side == "card"
+            with use_mesh_rules(card_mesh(torch, f["mesh"],
+                                          torch.device(dev))):
+                (lg, cache), _, launches, routes = counted(
+                    torch, lambda: model.prefill(params, toks.to(dev),
+                                                 f["cache"]))
+                if card:
+                    want_launches("reduced prefill", launches, routes,
+                                  {"flash_attention": n * attn,
+                                   "rglru_scan": n * rec_layers},
+                                  {"flash_attention": "simt"})
+                got = [lg.cpu()]
+                for i in range(f["steps"]):
+                    # both sides fed the CPU side's greedy tokens
+                    ref = outs["cpu"][i] if card else got[i]
+                    nxt = torch.argmax(ref, -1).to(torch.int32)[:, None]
+                    pos = torch.full((f["batch"], 1), f["seq"] + i,
+                                     dtype=torch.int32)
+                    (lg, cache), _, launches, routes = counted(
+                        torch, lambda: model.decode_step(
+                            params, nxt.to(dev), pos.to(dev), cache))
+                    if card:
+                        want_launches("reduced decode", launches, routes,
+                                      {"decode_attention": n * attn}, {})
+                    got.append(lg.cpu())
+            outs[side] = got
+    worst = 0.0
+    for a, b in zip(outs["card"], outs["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        worst = max(worst, float((a - b).abs().max()))
+    held = hold_recorded(torch, {k: v for k, v in seen.calls.items()
+                                 if v[1][0].device.type == "cuda"})
+    log(f"  {cfg.name} float32 under {f['mesh']}: prefill + "
+        f"{f['steps']} decode logits card vs CPU max abs diff {worst:.3g}")
+    return {"mesh": list(f["mesh"]), "max_abs_diff": worst,
+            "held_at_shard_shapes": held}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6519,6 +7226,22 @@ def main() -> int:
         launch_debug[key]["phase_wall_s"] = time.perf_counter() - t0
         log(f"  phase {phase}: {launch_debug[key]['phase_wall_s']:.3f} s "
             f"({smi})")
+    tp = {}
+    for phase, key, title, fn in (
+            (51, "training", f"{TP_TRAIN['arch']} trained at full width "
+             f"under a {TP_TRAIN['mesh']} mesh of the card (FSDP x TP)",
+             lambda np_, torch_, dev: run_tp_training(np_, torch_, dev,
+                                                      smi)),
+            (52, "serving", f"{TP_SERVE['arch']} served at full width "
+             f"under a {TP_SERVE['mesh']} mesh of the card, then "
+             f"{TP_REDUCED['arch']} reduced under {TP_REDUCED['mesh']}",
+             lambda np_, torch_, dev: run_tp_serving(np_, torch_, dev,
+                                                     smi))):
+        log(f"[{phase}] {title}")
+        t0 = time.perf_counter()
+        tp[key] = fn(np, torch, device)
+        tp[key]["phase_wall_s"] = time.perf_counter() - t0
+        log(f"  phase {phase}: {tp[key]['phase_wall_s']:.3f} s ({smi})")
     del train["kernel_errs"], train["mlstm_bwd_errs"]
     mlstm_timing = train.pop("mlstm_bwd_timing")
     xlstm_launches = train["xlstm-350m"]["launches"]
@@ -6578,6 +7301,7 @@ def main() -> int:
 
     rows.append(mlstm_bwd_row)
 
+    print(json.dumps({"tp_fsdp": tp}, default=str))
     print(json.dumps({"launch_debug": launch_debug}, default=str))
     print(json.dumps({"sharded_model": sharded_model}, default=str))
     print(json.dumps({"train": train}, default=str))

@@ -8,8 +8,9 @@ prints one table a mesh (the card, (16, 16), (2, 16, 16)) in the columns
 of ``scripts/make_roofline_table.py``: memory a device, the compute,
 memory and collective terms on the H100 SXM's constants, the bottleneck,
 MODEL_FLOPS and the useful ratio; the card's cells again as one row an
-arch; then the planner kernels' work a call and arithmetic intensity from
-``kernels.work.KERNEL_WORK``.  Every
+arch; the mesh cells that run one position's program as one row a cell,
+both meshes side by side; then the planner kernels' work a call and
+arithmetic intensity from ``kernels.work.KERNEL_WORK``.  Every
 figure is a prediction from the counted program, not a measurement.
 """
 from __future__ import annotations
@@ -26,10 +27,10 @@ ARCHS = ["minicpm-2b", "gemma2-9b", "phi4-mini-3.8b", "qwen1.5-4b",
          "xlstm-350m", "recurrentgemma-9b", "whisper-tiny", "qwen2-vl-2b",
          "granite-moe-1b-a400m", "olmoe-1b-7b"]
 MESHES = (("card", "one H100 SXM5 80GB (the whole cell on one card)"),
-          ("16x16", "single-pod 16x16 (256 cards; compute and memory split "
-                    "evenly)"),
-          ("2x16x16", "multi-pod 2x16x16 (512 cards; compute and memory "
-                      "split evenly)"))
+          ("16x16", "single-pod 16x16 (256 cards; a position's program, or "
+                    "the unsharded one split evenly)"),
+          ("2x16x16", "multi-pod 2x16x16 (512 cards; a position's program, "
+                      "or the unsharded one split evenly)"))
 CARD_BYTES = 80e9
 
 
@@ -110,6 +111,33 @@ def card_summary(recs):
     return "\n".join(rows)
 
 
+def position_summary(recs):
+    """The mesh cells that ran one position's program (``"split":
+    "position"``), a row a cell: under each mesh the memory a device and
+    the compute (C), memory (M) and collective (X) terms, with the pod
+    bytes a device where a group crosses pods."""
+    cells = sorted({(a, s) for a, s, m in recs
+                    if recs[a, s, m].get("split") == "position"},
+                   key=lambda c: (ARCHS.index(c[0]), ORDER.index(c[1])))
+    rows = ["| arch | shape | (16, 16) | (2, 16, 16) |", "|---|---|---|---|"]
+    for arch, shape in cells:
+        out = []
+        for mesh in ("16x16", "2x16x16"):
+            r = recs.get((arch, shape, mesh))
+            if r is None or r.get("split") != "position":
+                out.append("—")
+                continue
+            ro = r["roofline"]
+            mem = r["memory"]["total_bytes_per_device"] / 2 ** 30
+            pod = ro.get("pod_bytes_dev") or 0.0
+            out.append(f"{mem:.1f} GiB · C {fmt_s(ro['compute_s'])} · M "
+                       f"{fmt_s(ro['memory_s'])} · X "
+                       f"{fmt_s(ro['collective_s'])}"
+                       + (f" (pod {pod / 1e9:.2f} GB)" if pod else ""))
+        rows.append(f"| {arch} | {shape} | " + " | ".join(out) + " |")
+    return "\n".join(rows)
+
+
 def planner_kernel_table(B=64, M=8, L=12, S=8, U=16):
     """The two planner kernels' work a call from ``KERNEL_WORK`` at the
     reference's bench default shape: GFLOP a call, arithmetic intensity
@@ -159,6 +187,10 @@ def main(argv=None):
     if any(k[2] == "card" for k in recs):
         print("### One H100, a row an arch\n")
         print(card_summary(recs))
+        print()
+    if any(r.get("split") == "position" for r in recs.values()):
+        print("### A position's program on the reference's meshes\n")
+        print(position_summary(recs))
         print()
     print("### Planner kernels (KERNEL_WORK)\n")
     print(planner_kernel_table())

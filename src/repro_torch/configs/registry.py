@@ -25,6 +25,8 @@ _MODULES: Dict[str, str] = {      # the reference registry's order
 }
 _CNNS = {"lenet": "LENET", "alexnet": "ALEXNET"}
 LM_ARCHS = tuple(_MODULES)
+CNN_ARCHS = tuple(_CNNS)
+ALL_ARCHS = LM_ARCHS + CNN_ARCHS
 
 
 def get_arch(name: str) -> Union[ArchConfig, CNNConfig]:
@@ -50,4 +52,5 @@ def iter_cells(include_skipped: bool = True):
             yield cfg, shape, cfg.supports(shape)
 
 
-__all__ = ["LM_ARCHS", "get_arch", "get_shape", "iter_cells"]
+__all__ = ["ALL_ARCHS", "CNN_ARCHS", "LM_ARCHS", "get_arch", "get_shape",
+           "iter_cells"]

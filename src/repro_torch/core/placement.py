@@ -73,6 +73,14 @@ class PlacementProblem:
     def U(self) -> int:
         return len(self.devices)
 
+    def fits(self, dev: int, layer: int) -> bool:
+        """Whether ``layer`` fits ``dev``'s residual memory and compute
+        caps."""
+        d = self.devices[dev]
+        return (self.mem_used[dev] + self.memory[layer] <= d.mem_cap + 1e-9
+                and self.compute_used[dev] + self.compute[layer]
+                <= d.compute_cap + 1e-9)
+
     def transfer_time(self, i: int, k: int, bits: float) -> float:
         if i == k:
             return 0.0
@@ -135,12 +143,14 @@ BNB_NODE_LIMIT = 2_000_000
 # ---------------------------------------------------------------------------
 
 
-def solve_bnb(p: PlacementProblem) -> PlacementSolution:
+def solve_bnb(p: PlacementProblem, node_limit: int = BNB_NODE_LIMIT
+              ) -> PlacementSolution:
     """Exact DFS branch-and-bound on delta_{i,j}.
 
     Lower bound from layer j onward (admissible): for each remaining layer,
     the min over devices of compute time, ignoring caps and transfers (both
-    nonnegative).  Warm-started with the greedy solution.
+    nonnegative).  Warm-started with the greedy solution.  After
+    ``node_limit`` search nodes the best answer so far is kept.
     """
     L, U = p.L, p.U
     # per-layer min compute time over devices that could *ever* fit it alone
@@ -170,7 +180,7 @@ def solve_bnb(p: PlacementProblem) -> PlacementSolution:
     def dfs(j: int, cost: float) -> None:
         nonlocal best_lat, best, nodes
         nodes += 1
-        if nodes > BNB_NODE_LIMIT:
+        if nodes > node_limit:
             return
         if j == L:
             if cost < best_lat:

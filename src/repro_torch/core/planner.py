@@ -85,11 +85,14 @@ class LLHRPlanner:
              devices: Sequence[Device],
              requests: Sequence[int],
              positions: Optional[np.ndarray] = None,
+             act_scale: float = 1.0,
              t: int = 0) -> Tuple[Plan, List[PlacementProblem]]:
         """Produce a full LLHR plan.
 
         ``requests``: source UAV index per request.  ``positions``: [U, 2]
-        to skip P2 and plan at these positions.  ``t``: the simulator's
+        to skip P2 and plan at these positions.  ``act_scale``: scales
+        each layer's output bits K_j (quantised intermediate tensors,
+        e.g. 0.25 for int8 of float32).  ``t``: the simulator's
         frame index (``SwarmPlanner`` protocol), ignored: the LLHR plan is
         time-invariant, positions are re-optimized every call.
         """
@@ -109,7 +112,7 @@ class LLHRPlanner:
         pw = solve_power(dist, self.channel)
         rate = pw.rate_matrix(self.channel, dist)
         # --- P3: per-request layer placement ------------------------------
-        problems = [self._problem(model, devices, rate, src)
+        problems = [self._problem(model, devices, rate, src, act_scale)
                     for src in requests]
         # share residual caps across the request stream
         shared_mem = np.zeros(U)
@@ -166,10 +169,11 @@ class LLHRPlanner:
 
     # ------------------------------------------------------------------
     def _problem(self, model: ModelCost, devices: Sequence[Device],
-                 rate: np.ndarray, source: int) -> PlacementProblem:
+                 rate: np.ndarray, source: int,
+                 act_scale: float = 1.0) -> PlacementProblem:
         compute = np.array([l.flops for l in model.layers])
         memory = np.array([l.weight_bytes for l in model.layers])
-        act = np.array([l.act_bits for l in model.layers])
+        act = np.array([l.act_bits for l in model.layers]) * act_scale
         return PlacementProblem(compute, memory, act, list(devices), rate,
                                 source=source, input_bits=model.input_bits)
 

@@ -95,7 +95,10 @@ class SwarmSim:
     * ``"legacy"``  — force the host loop.
 
     Both backends serve the same request stream: ``requests_per_frame``
-    source draws a frame from ``np.random.default_rng(seed)``.  The
+    source draws a frame from ``np.random.default_rng(seed)``.  On the
+    rollout backend ``jitter_sigma_m`` (mobility jitter) and
+    ``battery_j`` (each UAV's charge) are live scenario axes of its
+    ``RolloutSpec``; the host loop does not model them.  The
     rollout runs on ``device`` (None = CUDA, raises without it;
     ``"cpu"`` takes the plain path).
     """
@@ -108,6 +111,8 @@ class SwarmSim:
     failure_frame: int = -1               # inject a UAV failure at this frame
     failure_uav: int = 0
     backend: str = "auto"
+    jitter_sigma_m: float = 0.0           # rollout-only mobility jitter
+    battery_j: float = float("inf")       # rollout-only per-UAV battery
     device: DeviceLike = None             # where the rollout runs
 
     def __post_init__(self):
@@ -133,7 +138,9 @@ class SwarmSim:
         planner = self.planner
         U = len(self.devices)
         spec = RolloutSpec(frames=frames,
-                           requests_per_frame=self.requests_per_frame)
+                           requests_per_frame=self.requests_per_frame,
+                           jitter_sigma_m=self.jitter_sigma_m,
+                           battery_j=self.battery_j)
         p2 = PositionSpec(steps=planner.position_steps,
                           radius=planner.radius) \
             if planner.optimize_positions else None

@@ -30,7 +30,7 @@ of ``parallel.sharding`` are charged units too (``charge_collective``).
 from __future__ import annotations
 
 import functools
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -71,12 +71,19 @@ def charge(name: str, *args, **kwargs) -> None:
         prof.record_kernel(name, work)
 
 
-def charge_collective(kind: str, nbytes: float, group: int) -> None:
-    """Record one collective of ``kind`` over ``group`` shards in the
-    active op profilers: ``nbytes`` moved by each shard (the reference's
-    accounting: an all-reduce 2x its result's bytes, the others 1x)."""
+def charge_collective(kind: str, nbytes: float, group: int,
+                      shards: Optional[int] = None,
+                      pod: bool = False) -> None:
+    """Record one collective of ``kind`` over a group of ``group`` shards
+    in the active op profilers: ``nbytes`` moved by each shard (the
+    reference's accounting: an all-reduce 2x its result's bytes, a
+    reduce-scatter its result's bytes times the group, the others 1x),
+    charged for ``shards`` of them (default the whole group; a program
+    that runs one position of a mesh charges that one), ``pod`` when the
+    group crosses pods."""
     for prof in list(PROFILERS):
-        prof.record_collective(kind, nbytes, group)
+        prof.record_collective(kind, nbytes, group,
+                               group if shards is None else shards, pod)
 
 
 def refuse_grad(fn: str, item: str, *tensors: torch.Tensor) -> None:

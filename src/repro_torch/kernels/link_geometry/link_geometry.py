@@ -88,3 +88,16 @@ def link_geometry_meta(positions: torch.Tensor, active: torch.Tensor,
     out = tuple(torch.empty((B, U, U), dtype=torch.float32,
                             device=positions.device) for _ in range(3))
     return out
+
+
+def link_geometry_fused(positions: torch.Tensor, active: torch.Tensor,
+                        gain_scale: Optional[torch.Tensor], *,
+                        params: RadioParams):
+    """The geometry stage's math on whole tensors of any device (the
+    reference's ``link_geometry_fused``, its kernel body run as one
+    program): positions [B, U, 2], active [B, U] (0/1 floats or bool),
+    gain_scale [B, U, U] or None -> (dist, threshold, rate), each
+    [B, U, U], in the plain version's four passes (``ref``)."""
+    from repro_torch.kernels.link_geometry.ref import link_geometry_ref
+    return link_geometry_ref(positions.to(torch.float32), active > 0,
+                             gain_scale, params=params)

@@ -298,6 +298,45 @@ def mlstm_chunk_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *dstate)
 
 
+def seq_step(C, n, m, qt, kt, vt, ip, fp):
+    """One step of the exact sequential mLSTM recurrence (the
+    reference's ``mlstm_ref`` / ``mlstm_seq_ref`` step), in float32 from
+    the carried state: (C, n, m, num / den)."""
+    log_f = log_sigmoid(fp)
+    m_new = torch.maximum(log_f + m, ip)
+    i_ = torch.exp(ip - m_new)
+    f_ = torch.exp(log_f + m - m_new)
+    kt, vt, qt = (t.to(torch.float32) for t in (kt, vt, qt))
+    C = f_[..., None, None] * C + i_[..., None, None] * \
+        (kt[..., :, None] * vt[..., None, :])
+    n = f_[..., None] * n + i_[..., None] * kt
+    num = torch.einsum("bhkv,bhk->bhv", C, qt)
+    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, qt)),
+                        torch.exp(-m_new))
+    return C, n, m_new, num / den[..., None]
+
+
+def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              i_pre: torch.Tensor, f_pre: torch.Tensor) -> torch.Tensor:
+    """The exact sequential recurrence from the zero state (the
+    reference's oracle ``kernels/mlstm_chunk/ref.py::mlstm_ref``): q, k,
+    v [B, H, S, D] (q pre-scaled), gates [B, H, S] -> h [B, H, S, D] in
+    q's dtype, one step at a time in float32."""
+    bsz, h, s, d = q.shape
+    dev = q.device
+    C = torch.zeros((bsz, h, d, d), dtype=torch.float32, device=dev)
+    n = torch.zeros((bsz, h, d), dtype=torch.float32, device=dev)
+    m = torch.full((bsz, h), NEG_BIG, dtype=torch.float32, device=dev)
+    ys = []
+    for t in range(s):
+        C, n, m, y = seq_step(C, n, m, q[:, :, t], k[:, :, t], v[:, :, t],
+                              i_pre[:, :, t].to(torch.float32),
+                              f_pre[:, :, t].to(torch.float32))
+        ys.append(y.to(q.dtype))
+    return torch.stack(ys, dim=2)
+
+
 __all__ = ["MODEL_CHUNK", "NEG_BIG", "chunk_bwd_math", "chunk_math",
            "log_sigmoid", "m0_holds_max", "mlstm_chunk_bwd_ref",
-           "mlstm_chunk_ref", "model_chunk", "raw_normaliser"]
+           "mlstm_chunk_ref", "mlstm_ref", "model_chunk", "raw_normaliser",
+           "seq_step"]

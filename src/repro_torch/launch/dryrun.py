@@ -14,10 +14,16 @@ The program is the port's own: ``make_train_step``'s step, ``prefill`` or
 default) is one H100 running the whole cell, the program the card would
 run.  Under the reference's (16, 16) and (2, 16, 16) meshes the
 arguments are exact (each input's block under its sharding,
-``launch.specs``); the compute and memory terms are the counted program
-split evenly over the devices (``"split": "even"``), and the collective
-term is null: the port runs a mesh's shards from the host and has no
-partitioner that would fix those bytes.
+``launch.specs``).  Where the reference's rules for the cell give the
+port's sharded program (``models.transformer.mesh_layout_gap``: the
+dense, MoE, VLM and hybrid LMs with heads over ``model``, and for
+prefill and decode KV caches by heads), the model runs under
+``use_mesh_rules`` on a mesh of ``meta`` entries, which runs one
+position's program (``"split": "position"``): its memory, FLOPs, bytes
+and collective bytes are that device's own, its pod bytes those of its
+groups that cross pods.  Other cells run the unsharded program, split
+evenly over the devices (``"split": "even"``), with no collective term
+and a reason that names the layout they wait for.
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ from repro_torch.launch.op_analysis import OpProfiler, _tensors
 from repro_torch.launch.roofline import build_roofline
 from repro_torch.launch.specs import argument_bytes, input_specs
 from repro_torch.models import build_model
-from repro_torch.parallel.sharding import make_mesh
+from repro_torch.models.transformer import MISSING_LAYOUT, mesh_layout_gap
+from repro_torch.parallel.sharding import make_mesh, use_mesh_rules
 from repro_torch.runtime.train_loop import make_train_step
 
 META = torch.device("meta")
@@ -50,9 +57,15 @@ CARD_MESH = MeshConfig((1, 1), ("data", "model"))
 MESHES = {"card": [CARD_MESH], "single": [SINGLE_POD_MESH],
           "multi": [MULTI_POD_MESH],
           "all": [CARD_MESH, SINGLE_POD_MESH, MULTI_POD_MESH]}
-COLLECTIVE_REASON = (
-    "the port runs a mesh's shards from the host and has no partitioner "
-    "that would fix a sharded program's collective bytes")
+
+
+def collective_reason(gap: str) -> str:
+    """Why a mesh cell splits its unsharded program evenly: the layout
+    it needs that the port does not run yet, and its ROADMAP item."""
+    item = MISSING_LAYOUT.get(gap, "ROADMAP queue 1 item 25")
+    return (f"the cell needs the {gap} layout, which the port's sharded "
+            f"program does not run yet ({item}); the unsharded program is "
+            f"split evenly and its collective bytes are unknown")
 
 
 def mesh_name(mesh_cfg: MeshConfig) -> str:
@@ -87,6 +100,12 @@ def cell_program(arch: str, shape_name: str, mesh_cfg: MeshConfig):
     kv_batch = (shape.global_batch % n_batch_shards == 0
                 and shape.global_batch > 1)
     inputs, shards = input_specs(cfg, shape, mesh, model, tcfg)
+    rules = dict(seq_shard_kv=seq_kv, attn_seq_shard=attn_seq,
+                 kv_batch_shard=kv_batch)
+    gap = None
+    if mesh_cfg.n_devices > 1:
+        with use_mesh_rules(mesh, **rules):
+            gap = mesh_layout_gap(cfg, mesh, shape.kind, shape.global_batch)
     if shape.kind == "train":
         step = make_train_step(model, cfg, tcfg)
 
@@ -109,10 +128,20 @@ def cell_program(arch: str, shape_name: str, mesh_cfg: MeshConfig):
             with torch.no_grad():
                 return model.decode_step(inputs["params"], inputs["tokens"],
                                          inputs["pos"], inputs["cache"])
+    if mesh_cfg.n_devices > 1 and gap is None:
+        whole = program
+
+        def program():
+            with use_mesh_rules(mesh, **rules):
+                return whole()
     meta = {"arch": arch, "shape": shape_name, "mesh": mesh_name(mesh_cfg),
             "n_chips": mesh_cfg.n_devices, "kind": shape.kind,
             "microbatches": mb, "seq_shard_kv": bool(seq_kv),
             "attn_seq_shard": bool(attn_seq), "kv_batch_shard": kv_batch}
+    if mesh_cfg.n_devices > 1:
+        meta["split"] = "even" if gap else "position"
+        if gap:
+            meta["layout_gap"] = gap
     return program, inputs, shards, meta
 
 
@@ -130,7 +159,8 @@ def run_program(program, inputs, n_chips: int = 1):
     (profiler, memory record per device).  ``inputs`` are the program's
     arguments: storages first seen there are not the block's; output
     leaves on an argument's storage are aliases.  With ``n_chips`` > 1
-    everything but the arguments is split evenly."""
+    everything but the arguments is split evenly (1 for one position's
+    program: its counts are a device's own)."""
     args = _tensors(inputs)
     arg_refs = {t.untyped_storage()._cdata for t in args}
     with OpProfiler(args[0].device.type) as prof:
@@ -162,9 +192,10 @@ def run_cell(arch: str, shape_name: str, mesh_cfg: MeshConfig,
                 print(f"[dryrun] SKIP {arch}/{shape_name}: {meta['reason']}")
             return record
         n = mesh_cfg.n_devices
+        per = 1 if meta.get("split") == "position" else n
         args = argument_bytes(inputs, shards)
         t1 = time.time()
-        prof, mem = run_program(program, inputs, n)
+        prof, mem = run_program(program, inputs, per)
         trace_s = time.time() - t1
         mem["argument_size_in_bytes"] = args
         mem["total_bytes_per_device"] = (
@@ -172,7 +203,8 @@ def run_cell(arch: str, shape_name: str, mesh_cfg: MeshConfig,
             - mem["alias_size_in_bytes"])
         cfg, shape = get_arch(arch), SHAPES_BY_NAME[shape_name]
         roof = build_roofline(prof.profile, model_flops(cfg, shape), n,
-                              collectives=record["mesh"] == "card")
+                              collectives=meta.get("split") != "even",
+                              devices_counted=per)
         record.update({
             "ok": True, "trace_s": round(trace_s, 3),
             "setup_s": round(t1 - t0, 3), "memory": mem,
@@ -182,9 +214,9 @@ def run_cell(arch: str, shape_name: str, mesh_cfg: MeshConfig,
                        "kernel_bytes": prof.profile.kernel_bytes,
                        "peak_bytes": prof.profile.peak_bytes},
             "kernels": prof.profile.kernel_calls()})
-        if n > 1:
-            record["split"] = "even"
-            record["collective_reason"] = COLLECTIVE_REASON
+        if meta.get("split") == "even":
+            record["collective_reason"] = collective_reason(
+                meta["layout_gap"])
         if verbose:
             tb = mem["total_bytes_per_device"]
             r = record["roofline"]

@@ -14,9 +14,12 @@ has no HLO, so this counts the program as it runs, op by op, under a
   the reference's ``_FREE_OPS``, with each eager op a kernel boundary);
 * the collectives the port's host collectives charge
   (``parallel.sharding.psum`` / ``pmax`` / ``pmean`` / ``ppermute``,
-  and ``optim.grad_compress.psum_compressed`` through them) by kind, in
-  the reference's accounting (an all-reduce 2x its result's bytes, the
-  others 1x), summed over the shards that take part;
+  ``optim.grad_compress.psum_compressed`` through them, and the sharded
+  program's ``Spmd`` collectives with their backwards) by kind, in the
+  reference's accounting (an all-reduce 2x its result's bytes, a
+  reduce-scatter its result's bytes times the group, the others 1x),
+  summed over the shards charged, with the bytes of groups that cross
+  pods and the schedule (``roofline.CollectiveStats``);
 * each hand-written kernel call by name and route, with its work
   (``kernels.work.KERNEL_WORK``).  While a kernel's public entry in
   ``kernels/<k>/ops.py`` runs (its autograd Function included), the ops
@@ -40,6 +43,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch import kernels
+from repro_torch.launch.roofline import CollectiveStats
 
 aten = torch.ops.aten
 
@@ -104,15 +108,22 @@ class OpProfile:
     kernels: Dict[str, Dict[Any, Dict[str, float]]] = field(
         default_factory=dict)
     kernel_bytes: float = 0.0
-    coll_bytes: Dict[str, float] = field(default_factory=dict)
-    coll_count: Dict[str, float] = field(default_factory=dict)
+    collectives: CollectiveStats = field(default_factory=CollectiveStats)
     peak_bytes: int = 0
     by_op: Dict[str, list] = field(
         default_factory=lambda: defaultdict(lambda: [0, 0.0, 0.0]))
 
     @property
+    def coll_bytes(self) -> Dict[str, float]:
+        return self.collectives.bytes_by_kind
+
+    @property
+    def coll_count(self) -> Dict[str, float]:
+        return self.collectives.count_by_kind
+
+    @property
     def total_coll_bytes(self) -> float:
-        return float(sum(self.coll_bytes.values()))
+        return self.collectives.total_bytes
 
     def kernel_calls(self) -> Dict[str, Dict[Any, Dict[str, float]]]:
         """``kernels`` as plain dicts (routes as strings), for equality
@@ -173,11 +184,15 @@ class OpProfiler(TorchDispatchMode):
         self.profile.flops_by_class[work.peak] += work.flops
         self.profile.kernel_bytes += work.bytes
 
-    def record_collective(self, kind: str, nbytes: float,
-                          group: int) -> None:
-        p = self.profile
-        p.coll_bytes[kind] = p.coll_bytes.get(kind, 0.0) + nbytes * group
-        p.coll_count[kind] = p.coll_count.get(kind, 0) + group
+    def record_collective(self, kind: str, nbytes: float, group: int,
+                          shards: Optional[int] = None,
+                          pod: bool = False) -> None:
+        """One collective over a group of ``group`` shards, ``nbytes``
+        moved by each of the ``shards`` charged (default the group), into
+        ``profile.collectives``."""
+        self.profile.collectives.add(kind, nbytes, group,
+                                     group if shards is None else shards,
+                                     pod)
 
     # -- the ops ------------------------------------------------------------
     def _died(self, key: int) -> None:

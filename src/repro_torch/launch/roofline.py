@@ -19,7 +19,7 @@ one kernel call's least time (``chip_smoke.py``'s bound column).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 # NVIDIA H100 SXM5 data sheet (dense, no sparsity), one card:
 BF16_FLOPS = 989e12          # bf16 tensor cores, FLOP/s
@@ -38,6 +38,41 @@ PEAK_BY_CLASS = {"bf16": BF16_FLOPS, "tf32": TF32_FLOPS, "fp32": FP32_FLOPS}
 PEAK_FLOPS = BF16_FLOPS
 ICI_BW = NVLINK_BW
 DCN_BW = POD_BW
+
+
+#: entries a collective record's schedule keeps, as the reference's
+SCHEDULE_CAP = 2000
+
+
+@dataclass
+class CollectiveStats:
+    """The collectives a program charged (the reference's
+    ``CollectiveStats``, which ``parse_collectives`` reads from HLO):
+    bytes and counts by kind and the bytes of groups that cross pods,
+    each summed over the shards charged, and the first
+    ``SCHEDULE_CAP`` collectives in program order."""
+
+    bytes_by_kind: Dict[str, float] = field(default_factory=dict)
+    count_by_kind: Dict[str, float] = field(default_factory=dict)
+    pod_bytes: float = 0.0
+    schedule: List[str] = field(default_factory=list)
+
+    @property
+    def total_bytes(self) -> float:
+        return float(sum(self.bytes_by_kind.values()))
+
+    def add(self, kind: str, nbytes: float, group: int, shards: int,
+            pod: bool) -> None:
+        """One collective over a group of ``group``: ``nbytes`` moved by
+        each of the ``shards`` shards charged."""
+        self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0.0) + \
+            nbytes * shards
+        self.count_by_kind[kind] = self.count_by_kind.get(kind, 0) + shards
+        if pod:
+            self.pod_bytes += nbytes * shards
+        if len(self.schedule) < SCHEDULE_CAP:
+            self.schedule.append(f"{kind}/{group}: {nbytes / 1e6:.2f} MB"
+                                 + (" [pod]" if pod else ""))
 
 
 @dataclass(frozen=True)
@@ -72,7 +107,9 @@ class Roofline:
     ``flops_dev`` by the peak that bounds each part (without it all of
     ``flops_dev`` runs at the bf16 peak).  ``coll_bytes_dev`` None means
     the collective term is unknown (``collective_s`` None, and the
-    bottleneck and step time are taken over the other two)."""
+    bottleneck and step time are taken over the other two);
+    ``collectives`` is the program's record (``CollectiveStats``), its
+    schedule included."""
 
     flops_dev: float
     bytes_dev: float
@@ -83,6 +120,7 @@ class Roofline:
     flops_by_class: Optional[Dict[str, float]] = None
     coll_bytes_by_kind: Dict[str, float] = field(default_factory=dict)
     coll_count_by_kind: Dict[str, float] = field(default_factory=dict)
+    collectives: Optional[CollectiveStats] = None
 
     @property
     def compute_s(self) -> float:
@@ -144,35 +182,45 @@ class Roofline:
             "n_chips": self.n_chips,
             "coll_bytes_by_kind": dict(self.coll_bytes_by_kind),
             "coll_count_by_kind": dict(self.coll_count_by_kind),
+            "schedule": list(self.collectives.schedule)
+            if self.collectives is not None else [],
         }
 
 
 def build_roofline(profile, model_flops: float, n_chips: int,
-                   collectives: bool = True) -> Roofline:
-    """The roofline of a counted program (``op_analysis.OpProfile``) split
-    evenly over ``n_chips``: the aten products by class plus each
-    kernel's ``KERNEL_WORK``, their traffic plus the kernels' bytes, and
-    the collectives it charged (summed over the shards that took part,
-    so divided by the chips too).  No counted collective crosses a pod:
-    the pod term is 0.  ``collectives=False``: the program ran unsharded
-    and its collective bytes are unknown (the term is None)."""
+                   collectives: bool = True,
+                   devices_counted: Optional[int] = None) -> Roofline:
+    """The roofline of a counted program (``op_analysis.OpProfile``) per
+    device: its counts divided by ``devices_counted``, the devices they
+    cover (default ``n_chips``: an unsharded program split evenly, or
+    every position of a mesh; 1 for one position's program).  The aten
+    products by class plus each kernel's ``KERNEL_WORK``, their traffic
+    plus the kernels' bytes, and the collectives it charged (summed over
+    the shards charged), the pod bytes those whose groups cross pods
+    moved.  ``collectives=False``: the program ran unsharded and its
+    collective bytes are unknown (the term is None)."""
     n = max(int(n_chips), 1)
-    by_class = {c: f / n for c, f in profile.flops_by_class.items()}
+    per = max(int(devices_counted or n), 1)
+    by_class = {c: f / per for c, f in profile.flops_by_class.items()}
+    stats = profile.collectives
     coll = pod = None
     if collectives:
-        coll, pod = profile.total_coll_bytes / n, 0.0
+        coll, pod = stats.total_bytes / per, stats.pod_bytes / per
     return Roofline(
         flops_dev=sum(by_class.values()),
-        bytes_dev=(profile.traffic_bytes + profile.kernel_bytes) / n,
+        bytes_dev=(profile.traffic_bytes + profile.kernel_bytes) / per,
         coll_bytes_dev=coll, pod_bytes_dev=pod, n_chips=n,
         model_flops=model_flops, flops_by_class=by_class,
-        coll_bytes_by_kind={k: v / n for k, v in profile.coll_bytes.items()}
+        coll_bytes_by_kind={k: v / per for k, v in
+                            stats.bytes_by_kind.items()}
         if collectives else {},
-        coll_count_by_kind={k: v / n for k, v in profile.coll_count.items()}
-        if collectives else {})
+        coll_count_by_kind={k: v / per for k, v in
+                            stats.count_by_kind.items()}
+        if collectives else {},
+        collectives=stats if collectives else None)
 
 
-__all__ = ["BF16_FLOPS", "DCN_BW", "FP32_FLOPS", "HBM_BW", "ICI_BW",
-           "KernelBound", "NVLINK_BW", "PEAK_BY_CLASS", "PEAK_FLOPS",
-           "POD_BW", "Roofline", "TF32_FLOPS", "build_roofline",
-           "kernel_bound"]
+__all__ = ["BF16_FLOPS", "CollectiveStats", "DCN_BW", "FP32_FLOPS", "HBM_BW",
+           "ICI_BW", "KernelBound", "NVLINK_BW", "PEAK_BY_CLASS", "PEAK_FLOPS",
+           "POD_BW", "Roofline", "SCHEDULE_CAP", "TF32_FLOPS",
+           "build_roofline", "kernel_bound"]

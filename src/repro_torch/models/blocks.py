@@ -13,7 +13,9 @@ MoE load-balancing loss is a training term: serving drops it, as the
 reference's prefill and decode do.  Under ``use_mesh_rules(mesh)`` with
 a ``model`` axis that divides the experts, the MoE MLP takes the
 expert-parallel path (``moe_apply_expert_parallel``), as the
-reference's does.
+reference's does.  ``BlockDef.apply_sharded`` runs an attention or
+RG-LRU block under the mesh's FSDP x TP layouts, position by position
+(``TransformerLM``'s sharded program).
 """
 from __future__ import annotations
 
@@ -24,9 +26,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import recurrent as rec_mod
-from repro_torch.models.layers import mlp, mlp_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (mlp, mlp_init, mlp_sharded, rmsnorm,
+                                       rmsnorm_init)
 from repro_torch.models.moe import (moe_apply, moe_apply_expert_parallel,
-                                   moe_init)
+                                   moe_init, moe_sharded)
 from repro_torch.parallel.sharding import current_mesh
 
 Params = Dict[str, Any]
@@ -227,19 +230,102 @@ def _xlstm_state_init(flavor: str) -> Callable:
     return init
 
 
+# ---------------------------------------------------------------------------
+# the blocks under a mesh (``TransformerLM``'s sharded program)
+# ---------------------------------------------------------------------------
+#
+# ``apply_sharded(sp, p, x, states, ctx) -> (x, new_states or aux)``:
+# ``p`` the layer's ``ShardedTree``, ``x`` / ``states`` / ``ctx.pos`` the
+# positions' lists; in ``train`` mode the second output is the positions'
+# auxiliary losses (their data shards' own, replicated over ``model``).
+
+
+def _norm_sharded(sp, p, name: str, x, cfg: ArchConfig):
+    scale = p.sub(name).gather("scale")
+    return [rmsnorm({"scale": s}, xk, cfg.norm_eps)
+            for s, xk in zip(scale, x)]
+
+
+def _add(xs, ys):
+    return [a + b for a, b in zip(xs, ys)]
+
+
+def _zeros_aux(x):
+    return [xk.new_zeros((), dtype=torch.float32) for xk in x]
+
+
+def _mlp_part_sharded(sp, p, x, cfg: ArchConfig):
+    """The block's MLP on ``x`` (after ``ln2``, before the residual add):
+    (y, the positions' aux losses or None)."""
+    h2 = _norm_sharded(sp, p, "ln2", x, cfg)
+    if not cfg.moe.enabled:
+        return mlp_sharded(sp, p.sub("mlp"), h2, cfg.act, cfg.glu), None
+    kw = dict(top_k=cfg.moe.top_k, act=cfg.act, glu=cfg.glu,
+              capacity_factor=cfg.moe.capacity_factor)
+    return moe_sharded(sp, p.sub("moe"), h2, **kw)
+
+
+def _attn_block_sharded(local: bool) -> Callable:
+    def apply(sp, p, x, states, ctx: Ctx):
+        cfg = ctx.cfg
+        a = cfg.attention
+        win = _attn_window(cfg, local)
+        kw = dict(cap=a.logit_softcap, theta=a.rope_theta,
+                  mrope=a.mrope_sections)
+        h = _norm_sharded(sp, p, "ln1", x, cfg)
+        if ctx.mode == "decode":
+            y, new = attn_mod.decode_attention_sharded(
+                sp, p.sub("attn"), h, ctx.pos, states, window=win, **kw)
+        else:
+            y, ks, vs = attn_mod.attention_sharded(
+                sp, p.sub("attn"), h, ctx.pos, window=win, **kw)
+            new = [_prefill_cache(kk, v, ctx, win) for kk, v in
+                   zip(ks, vs)] if ctx.mode == "prefill" else None
+        if p.has("ln1p"):
+            y = _norm_sharded(sp, p, "ln1p", y, cfg)
+        x = _add(x, y)
+        aux = None
+        if cfg.moe.enabled or cfg.d_ff:
+            y2, aux = _mlp_part_sharded(sp, p, x, cfg)
+            if p.has("ln2p"):
+                y2 = _norm_sharded(sp, p, "ln2p", y2, cfg)
+            x = _add(x, y2)
+        if ctx.mode != "train":
+            return x, new
+        return x, aux if aux is not None else _zeros_aux(x)
+    return apply
+
+
+def _rglru_block_sharded(sp, p, x, states, ctx: Ctx):
+    cfg = ctx.cfg
+    h = _norm_sharded(sp, p, "ln1", x, cfg)
+    y, new = rec_mod.rglru_block_sharded(sp, p.sub("rglru"), h, states,
+                                         decode=ctx.mode == "decode")
+    x = _add(x, y)
+    if cfg.d_ff:
+        y2, _ = _mlp_part_sharded(sp, p, x, cfg)
+        x = _add(x, y2)
+    if ctx.mode != "train":
+        return x, new
+    return x, _zeros_aux(x)
+
+
 class BlockDef(NamedTuple):
     init: Any
     apply: Any
     state_init: Any
+    apply_sharded: Any = None
 
 
 BLOCK_KINDS: Dict[str, BlockDef] = {
     "attn_full": BlockDef(_attn_block_init, _attn_block_apply(False),
-                          _attn_state_init(False)),
+                          _attn_state_init(False),
+                          _attn_block_sharded(False)),
     "attn_local": BlockDef(_attn_block_init, _attn_block_apply(True),
-                           _attn_state_init(True)),
+                           _attn_state_init(True),
+                           _attn_block_sharded(True)),
     "rglru": BlockDef(_rglru_block_init, _rglru_block_apply,
-                      _rglru_state_init),
+                      _rglru_state_init, _rglru_block_sharded),
     "slstm": BlockDef(_xlstm_block_init("slstm"), _xlstm_block_apply("slstm"),
                       _xlstm_state_init("slstm")),
     "mlstm": BlockDef(_xlstm_block_init("mlstm"), _xlstm_block_apply("mlstm"),

@@ -2,7 +2,9 @@
 ``models/layers.py``: initialisers, the per-head projections
 (``head_proj``, ``head_out``), ``rmsnorm``, ``layernorm``, the (gated)
 MLP, rotary embeddings (M-RoPE included), ``softcap``, the embedding
-lookup, the LM head and the training loss (``cross_entropy``).
+lookup, the LM head and the training loss (``cross_entropy``), and their
+counterparts under a mesh (``mlp_sharded``, ``embed_lookup_sharded``,
+``lm_head_sharded``, ``cross_entropy_sharded``).
 
 Parameters are dicts of tensors in the reference's layouts (``dense``
 weights ``[d_in, d_out]``, the embedding table ``[V, d]``).  Each weight
@@ -100,14 +102,19 @@ def mlp_init(d: int, d_ff: int, glu: bool, generator: torch.Generator,
     return p
 
 
-def mlp(p: Params, x: torch.Tensor, act: str, glu: bool) -> torch.Tensor:
+def mlp_hidden(p: Params, x: torch.Tensor, act: str,
+               glu: bool) -> torch.Tensor:
+    """The MLP's activations before ``w_out``: x [..., d] -> [..., d_ff]
+    (the columns ``p``'s ``w_in`` / ``w_gate`` hold)."""
     dt = x.dtype
     h = x @ p["w_in"].to(dt)
     if glu:
-        h = _ACT[act](x @ p["w_gate"].to(dt)) * h
-    else:
-        h = _ACT[act](h)
-    return h @ p["w_out"].to(dt)
+        return _ACT[act](x @ p["w_gate"].to(dt)) * h
+    return _ACT[act](h)
+
+
+def mlp(p: Params, x: torch.Tensor, act: str, glu: bool) -> torch.Tensor:
+    return mlp_hidden(p, x, act, glu) @ p["w_out"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +207,149 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll)
 
 
-__all__ = ["apply_rope", "cross_entropy", "dense_init", "embed_init",
-           "embed_lookup",
+# ---------------------------------------------------------------------------
+# Under a mesh: the reference's FSDP x TP layouts, run position by position
+# ---------------------------------------------------------------------------
+#
+# ``sp`` is the program's ``parallel.sharding.Spmd``, ``p`` a
+# ``param_sharding.ShardedTree`` of the layer's weights, activations are
+# lists of the positions' blocks: ``[B_loc, S, d]`` rows over the batch
+# axes, replicated over ``model`` (``act_btd``).
+
+
+class _WideProduct(torch.autograd.Function):
+    """x [M, K] @ w [K, N], both 16-bit, with a float32 output: on the
+    card (and ``meta``) cuBLAS's 16-bit product with a float32 result
+    (``torch.mm(..., out_dtype=)``, on the tensor cores), on the CPU the
+    product of the upcast operands (exact 16-bit products, float32 sums
+    either way).  The backward takes the output's gradient back to the
+    operands' dtype and forms dX and dW as the unsharded product's
+    backward does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cpu":
+            return x.float() @ w.float()
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x.t() @ g if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel block's partial product x [..., k] @ w [k, n]: for
+    16-bit x with a float32 result (``_WideProduct``: the tensor cores'
+    float32 sums kept), so the ``psum`` over ``model`` adds the partials
+    in float32 and the sum is rounded to x's dtype once, as the
+    unsharded product is."""
+    w = w.to(x.dtype)
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return x @ w
+    y = _WideProduct.apply(x.reshape(-1, x.shape[-1]), w)
+    return y.view(*x.shape[:-1], w.shape[-1])
+
+
+def mlp_sharded(sp, p, h, act: str, glu: bool):
+    """The MLP with ``w_in`` / ``w_gate`` column-parallel and ``w_out``
+    row-parallel over ``model`` (``act_btf``; its partial products
+    ``row_parallel``), one ``psum`` after; with a d_ff that ``model``
+    does not divide, every position runs it whole."""
+    tp = p.spec("w_in")[1] == "model"
+    if tp:
+        h = sp.pbroadcast(h, "model")
+    names = ("w_in", "w_out") + (("w_gate",) if glu else ())
+    ws = {n: p.gather(n) for n in names}
+    pk = [{n: ws[n][k] for n in names} for k in range(sp.n)]
+    if not tp:
+        return [mlp(q, hk, act, glu) for q, hk in zip(pk, h)]
+    ys = [row_parallel(mlp_hidden(q, hk, act, glu), q["w_out"])
+          for q, hk in zip(pk, h)]
+    return [y.to(x.dtype) for y, x in zip(sp.psum(ys, "model"), h)]
+
+
+def vocab_slice(sp, k: int, table_block: torch.Tensor) -> int:
+    """The first vocabulary id of position ``k``'s rows of a
+    vocab-parallel table block."""
+    return sp.index(k)["model"] * table_block.shape[0]
+
+
+def embed_lookup_sharded(sp, p, tokens, dtype: torch.dtype):
+    """The vocab-parallel lookup (``w_vd``): each position looks up the
+    ids in its slice of the table, zero elsewhere, and one ``psum`` over
+    ``model`` sums the slices; a table ``model`` does not split is
+    looked up whole."""
+    table = p.gather("table")
+    if p.spec("table")[0] != "model":
+        return [F.embedding(t, w.to(dtype)) for t, w in zip(tokens, table)]
+    out = []
+    for k, (t, w) in enumerate(zip(tokens, table)):
+        ids = t - vocab_slice(sp, k, w)
+        inside = (ids >= 0) & (ids < w.shape[0])
+        e = F.embedding(torch.where(inside, ids, torch.zeros_like(ids)),
+                        w.to(dtype))
+        out.append(e * inside[..., None].to(dtype))
+    return sp.psum(out, "model")
+
+
+def lm_head_sharded(sp, table, x, final_cap: float = 0.0,
+                    vocab_parallel: bool = True):
+    """Each position's logits over its slice of the vocabulary
+    (``act_btv``; the softcap on each slice), from the whole table
+    blocks ``table``; ``x`` replicated over ``model`` enters through
+    ``pbroadcast``."""
+    if vocab_parallel:
+        x = sp.pbroadcast(x, "model")
+    return [lm_head(w, xk, final_cap) for w, xk in zip(table, x)]
+
+
+def cross_entropy_sharded(sp, logits, labels, mask=None,
+                          vocab_parallel: bool = True) -> torch.Tensor:
+    """``cross_entropy`` of vocab-parallel logits, the full ``[B, S, V]``
+    never gathered: the logsumexp from a ``pmax`` and a ``psum`` over
+    ``model``, the label's logit from the position whose slice holds it
+    (a ``psum``), and the token mean over the batch axes (``psum`` of
+    the masked sums and the weights, or ``pmean`` of the shards' equal
+    means).  Returns the loss once (``Spmd.unreplicate``)."""
+    lg = [t.to(torch.float32) for t in logits]
+    if vocab_parallel:
+        mx = sp.pmax([t.amax(dim=-1) for t in lg], "model")
+        se = sp.psum([torch.exp(t - m[..., None]).sum(-1)
+                      for t, m in zip(lg, mx)], "model")
+        lse = [m + torch.log(e) for m, e in zip(mx, se)]
+        lls = []
+        for k, (t, lab) in enumerate(zip(lg, labels)):
+            ids = lab.long() - sp.index(k)["model"] * t.shape[-1]
+            inside = (ids >= 0) & (ids < t.shape[-1])
+            ll = torch.gather(t, -1, torch.where(
+                inside, ids, torch.zeros_like(ids))[..., None])[..., 0]
+            lls.append(ll * inside.to(torch.float32))
+        lls = sp.psum(lls, "model")
+    else:
+        lse = [torch.logsumexp(t, dim=-1) for t in lg]
+        lls = [torch.gather(t, -1, lab[..., None].long())[..., 0]
+               for t, lab in zip(lg, labels)]
+    nll = [a - b for a, b in zip(lse, lls)]
+    batch = sp.batch_axes()
+    if mask is not None:
+        ms = [m.to(torch.float32) for m in mask]
+        num = sp.psum([torch.sum(n * m) for n, m in zip(nll, ms)], batch)
+        den = sp.psum([torch.sum(m) for m in ms], batch)
+        loss = [a / torch.clamp(b, min=1.0) for a, b in zip(num, den)]
+    else:
+        loss = sp.pmean([torch.mean(n) for n in nll], batch)
+    return sp.unreplicate(loss)
+
+
+__all__ = ["apply_rope", "cross_entropy", "cross_entropy_sharded",
+           "dense_init", "embed_init", "embed_lookup", "embed_lookup_sharded",
            "head_out", "head_proj", "layernorm", "layernorm_init", "lm_head",
-           "mlp", "mlp_init", "mrope_bands", "rmsnorm", "rmsnorm_init",
-           "rope_freqs", "softcap", "truncated_normal"]
+           "lm_head_sharded", "mlp", "mlp_hidden", "mlp_init", "mlp_sharded",
+           "mrope_bands",
+           "rmsnorm", "rmsnorm_init", "rope_freqs", "row_parallel", "softcap",
+           "truncated_normal", "vocab_slice"]

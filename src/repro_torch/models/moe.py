@@ -12,13 +12,13 @@ adds nothing and gets zero combine weight).  The reference's buffer is
 the grouped GEMM kernel (``ops.expert_gemm``) with no transposed copy.
 The products are the same.  Routing, scatter and combine are plain
 PyTorch, as they are outside the Pallas kernel in the reference.
-``moe_apply_expert_parallel`` is the reference's expert-parallel path
-over a ``Mesh`` with a ``model`` axis: each shard dispatches its data
-shard's picks of its own experts into an ``[E_loc, cap, d]`` buffer.
+``moe_sharded`` is the reference's expert-parallel path inside the
+sharded program: each mesh position dispatches its data shard's picks of
+its own experts into an ``[E_loc, cap, d]`` buffer.
+``moe_apply_expert_parallel`` runs it over a ``Mesh`` for a whole input.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Dict, Tuple
 
@@ -26,9 +26,8 @@ import torch
 
 from repro_torch.kernels.moe_matmul.ops import expert_gemm
 from repro_torch.models.layers import _ACT, dense_init, truncated_normal
-from repro_torch.parallel.sharding import (P, assemble, batch_spec,
-                                           collective, field, pmean, psum,
-                                           run_shards)
+from repro_torch.parallel.param_sharding import shard_params
+from repro_torch.parallel.sharding import NamedSharding, P, Spmd, batch_spec
 
 Params = Dict[str, torch.Tensor]
 
@@ -149,32 +148,31 @@ def moe_apply(p: Params, x: torch.Tensor, *, top_k: int, act: str,
 # the two paths drop different picks.
 
 
-def _expert_shard(index: Dict[str, int], router: torch.Tensor,
-                  w_in: torch.Tensor, w_gate: torch.Tensor,
-                  w_out: torch.Tensor, xs: torch.Tensor, *, top_k: int,
-                  act: str, glu: bool, e: int, e_loc: int,
-                  capacity_factor: float
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One mesh position's share (the reference's ``local_fn``): xs
-    [B_loc, S, d] routed over all ``e`` experts; the picks of this
-    shard's experts [lo, lo + e_loc) (``w_*`` hold their weights;
-    ``w_gate`` is unread without GLU) dispatched, run and combined.
-    Returns (the shard's partial y [B_loc, S, d], the data shard's aux
-    loss)."""
-    dt = xs.dtype
-    b, s, d = xs.shape
-    t = b * s
-    xt = xs.reshape(t, d)
-    logits = xt @ router.to(dt)
+def _route_flat(router: torch.Tensor, xt: torch.Tensor, *, top_k: int,
+                e: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Routing of the flattened tokens xt [T, d] over all ``e`` experts:
+    (gate [T, k] renormalised, idx [T, k], the Switch aux loss)."""
+    logits = xt @ router.to(xt.dtype)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = gate[:, :top_k], idx[:, :top_k]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=0)
     ce = one_hot(idx, e, torch.float32).mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
+    return gate, idx, e * torch.sum(me * ce)
 
-    lo = index["model"] * e_loc
+
+def _local_experts(m: int, gate: torch.Tensor, idx: torch.Tensor,
+                   xt: torch.Tensor, w_in: torch.Tensor,
+                   w_gate: torch.Tensor, w_out: torch.Tensor, *,
+                   top_k: int, act: str, glu: bool, e: int, e_loc: int,
+                   capacity_factor: float) -> torch.Tensor:
+    """The picks of experts [m e_loc, (m + 1) e_loc) among the routed
+    tokens xt [T, d] dispatched into an [e_loc, cap, d] buffer, run and
+    combined: the partial output [T, d]."""
+    dt = xt.dtype
+    t, d = xt.shape
+    lo = m * e_loc
     idx_f, gate_f = idx.reshape(t * top_k), gate.reshape(t * top_k)
     mine = (idx_f >= lo) & (idx_f < lo + e_loc)
     loc_e = torch.where(mine, idx_f - lo, torch.full_like(idx_f, e_loc))
@@ -203,8 +201,39 @@ def _expert_shard(index: Dict[str, int], router: torch.Tensor,
     y_buf = expert_gemm(h, w_out.to(dt)).view(n_slots, d)
     y_tok = y_buf.index_select(0, torch.clamp(slot, max=n_slots - 1))
     w = (gate_f * keep.to(torch.float32)).to(dt)
-    y = (y_tok * w[:, None]).view(t, top_k, d).sum(dim=1)
-    return y.view(b, s, d), aux
+    return (y_tok * w[:, None]).view(t, top_k, d).sum(dim=1)
+
+
+def moe_sharded(sp, p, h, *, top_k: int, act: str, glu: bool,
+                capacity_factor: float = 1.25):
+    """The expert-parallel MoE inside the sharded program: each
+    position routes its data shard's tokens ``h`` (replicated over
+    ``model``) with the router gathered from its FSDP shards, runs its
+    E / |model| experts (``w_edf``, ``w_efd``) on their picks, and one
+    ``psum`` over ``model`` sums the partial outputs.  The routing is
+    replicated over ``model``: the tokens and gates enter the experts'
+    computation through ``pbroadcast``.  Returns (y, the positions' aux
+    losses, their data shards' own)."""
+    e = p.local("w_in")[0].shape[0] * sp.mesh.shape["model"]
+    e_loc = p.local("w_in")[0].shape[0]
+    router = p.gather("router")
+    names = ("w_in", "w_out") + (("w_gate",) if glu else ())
+    ws = {n: p.gather(n) for n in names}
+    flat = [hk.reshape(-1, hk.shape[-1]) for hk in h]
+    routed = [_route_flat(r, xt, top_k=top_k, e=e)
+              for r, xt in zip(router, flat)]
+    gates = sp.pbroadcast([g for g, _, _ in routed], "model")
+    xts = sp.pbroadcast(flat, "model")
+    ys = []
+    for k in range(sp.n):
+        y = _local_experts(sp.index(k)["model"], gates[k], routed[k][1],
+                           xts[k], ws["w_in"][k],
+                           ws["w_gate"][k] if glu else None,
+                           ws["w_out"][k], top_k=top_k, act=act, glu=glu,
+                           e=e, e_loc=e_loc,
+                           capacity_factor=capacity_factor)
+        ys.append(y.view(h[k].shape))
+    return sp.psum(ys, "model"), [a for _, _, a in routed]
 
 
 def moe_apply_expert_parallel(p: Params, x: torch.Tensor, *, top_k: int,
@@ -213,28 +242,32 @@ def moe_apply_expert_parallel(p: Params, x: torch.Tensor, *, top_k: int,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d] on x's device, aux loss): the
     reference's expert-parallel MoE over ``mesh`` (a ``Mesh`` with a
-    ``model`` axis dividing the experts; B split over its batch axes).
-    A position's shard gets its data shard's tokens and its experts'
-    weights on its device, launches the expert GEMM three times (two
-    without GLU) over its [E_loc, cap, d] buffer, ``cap`` counted over
-    the data shard's B_loc S tokens; the partial outputs are summed over
-    ``model`` in shard order, the aux loss averaged over every shard."""
-    e = p["w_in"].shape[0]
-    e_loc = e // mesh.shape["model"]
-    bb = batch_spec(mesh)[0]          # the batch's axes, or None
-    experts = P("model", None, None)
-    outs = run_shards(
-        functools.partial(_expert_shard, top_k=top_k, act=act, glu=glu, e=e,
-                          e_loc=e_loc, capacity_factor=capacity_factor),
-        mesh, (P(None, None), experts, experts if glu else P(None), experts,
-               P(bb, None, None)),
-        p["router"], p["w_in"], p.get("w_gate", x.new_zeros(1)), p["w_out"],
-        x)
-    ys = collective(field(outs, 0), mesh, "model", psum)
-    auxes = collective(field(outs, 1), mesh, mesh.axis_names, pmean)
-    y = assemble(ys, mesh, P(bb, None, None), device=x.device)
-    return y, auxes.flat[0].to(x.device)
+    ``model`` axis dividing the experts; B split over its batch axes),
+    ``moe_sharded`` on every position of ``mesh``: a position holds its
+    data shard's tokens and its experts' weights, launches the expert
+    GEMM three times (two without GLU) over its [E_loc, cap, d] buffer,
+    ``cap`` counted over the data shard's B_loc S tokens; the partial
+    outputs are summed over ``model`` in shard order, the aux loss
+    averaged over the data shards."""
+    sp = Spmd(mesh, one_position=False)
+    rows, experts = P(batch_spec(mesh)[0], None, None), P("model", None, None)
+    names = ("w_in", "w_out") + (("w_gate",) if glu else ())
+    specs = {"x": rows, "router": P(None, None),
+             **{n: experts for n in names}}
+    held = shard_params(sp, {"x": x, "router": p["router"],
+                             **{n: p[n] for n in names}},
+                        {n: NamedSharding(mesh, s_) for n, s_ in
+                         specs.items()})
+    ys, auxes = moe_sharded(sp, held, held.local("x"), top_k=top_k,
+                            act=act, glu=glu,
+                            capacity_factor=capacity_factor)
+    # each data shard's output, and the aux loss, once: their cotangents
+    # reach every replica over ``model`` whole, as a replicated output's do
+    y = torch.cat([sp.unreplicate([ys[k] for k in g]).to(x.device)
+                   for g in sp.groups("model")], dim=0)
+    aux = sp.unreplicate(sp.pmean(auxes, sp.batch_axes()))
+    return y, aux.to(x.device)
 
 
 __all__ = ["capacity", "moe_apply", "moe_apply_expert_parallel", "moe_init",
-           "moe_route"]
+           "moe_route", "moe_sharded"]

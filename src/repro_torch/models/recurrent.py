@@ -21,15 +21,16 @@ the compute dtype.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.mlstm_chunk.ops import mlstm
-from repro_torch.kernels.mlstm_chunk.ref import NEG_BIG
+from repro_torch.kernels.mlstm_chunk.ref import NEG_BIG, seq_step
 from repro_torch.kernels.rglru_scan.ops import linear_recurrence
 from repro_torch.models.layers import (_ACT, dense_init, head_out,
-                                       head_proj, truncated_normal)
+                                       head_proj, row_parallel,
+                                       truncated_normal)
 
 Params = Dict[str, torch.Tensor]
 
@@ -65,13 +66,17 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
-def _rglru_gates(p: Params, x: torch.Tensor
+def _rglru_gates(p: Params, x: torch.Tensor,
+                 x_in: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [..., w] post-conv activations -> (a, gated input), both in
-    ``x.dtype``; the decay in float32."""
+    ``x.dtype``; the decay in float32.  ``x_in``: the whole width the
+    gates' products read where ``x`` and the gate weights' columns are a
+    block of it (width-parallel under a mesh); default ``x``."""
     dt = x.dtype
-    r = torch.sigmoid(x @ p["w_a"].to(dt) + p["b_a"].to(dt))
-    i = torch.sigmoid(x @ p["w_i"].to(dt) + p["b_i"].to(dt))
+    x_in = x if x_in is None else x_in
+    r = torch.sigmoid(x_in @ p["w_a"].to(dt) + p["b_a"].to(dt))
+    i = torch.sigmoid(x_in @ p["w_i"].to(dt) + p["b_i"].to(dt))
     log_a = -_RGLRU_C * _softplus(p["log_lambda"].to(torch.float32)) \
         * r.to(torch.float32)
     a = torch.exp(log_a)
@@ -79,15 +84,17 @@ def _rglru_gates(p: Params, x: torch.Tensor
     return a.to(dt), beta.to(dt) * i * x
 
 
-def rglru_seq(p: Params, x: torch.Tensor, h0: torch.Tensor
+def rglru_seq(p: Params, x: torch.Tensor, h0: torch.Tensor,
+              x_in: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence RG-LRU.  x: [B, S, w]; h0: [B, w] -> (h [B, S, w],
     h_S [B, w]), both in ``x.dtype``.  Under grad the recurrence runs on
     float32 a, b and h0 and h is cast back, as the reference's ``a32,
     b32`` scan: the backward's ``da_t = lambda_t h_{t-1}`` takes the
     float32 h.  The values equal the serving call's bitwise (the kernel
-    computes in float32 either way and rounds h once)."""
-    a, b = _rglru_gates(p, x)
+    computes in float32 either way and rounds h once).  ``x_in``: as
+    ``_rglru_gates``."""
+    a, b = _rglru_gates(p, x, x_in)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or
                                     h0.requires_grad):
         f32 = torch.float32
@@ -100,10 +107,12 @@ def rglru_seq(p: Params, x: torch.Tensor, h0: torch.Tensor
     return h, h_last
 
 
-def rglru_step(p: Params, x: torch.Tensor, h: torch.Tensor
+def rglru_step(p: Params, x: torch.Tensor, h: torch.Tensor,
+               x_in: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decode step in the compute dtype.  x: [B, w], h: [B, w]."""
-    a, b = _rglru_gates(p, x)
+    """One decode step in the compute dtype.  x: [B, w], h: [B, w];
+    ``x_in`` as ``_rglru_gates``."""
+    a, b = _rglru_gates(p, x, x_in)
     h_new = a * h + b
     return h_new, h_new
 
@@ -126,6 +135,26 @@ def causal_conv1d_step(w: torch.Tensor, x: torch.Tensor, buf: torch.Tensor
     return out, hist[:, 1:]
 
 
+def _conv(w: torch.Tensor, u: torch.Tensor, state, decode: bool
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's causal conv of u [B, S, w]: (its output, the history
+    a later decode step reads)."""
+    if decode:
+        return causal_conv1d_step(w, u[:, 0], state["conv"])
+    return causal_conv1d(w, u), u[:, -(w.shape[0] - 1):]
+
+
+def _recur(p: Params, conv_out: torch.Tensor, h: torch.Tensor,
+           decode: bool, x_in: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU over the conv's output from state h: (y [B, S, w], the
+    new state)."""
+    if decode:
+        h_new, y = rglru_step(p, conv_out, h, x_in)
+        return y[:, None], h_new
+    return rglru_seq(p, conv_out, h, x_in)
+
+
 def rglru_block_apply(p: Params, x: torch.Tensor,
                       state: Dict[str, torch.Tensor], decode: bool
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -135,18 +164,47 @@ def rglru_block_apply(p: Params, x: torch.Tensor,
     dt = x.dtype
     gate = _ACT["gelu"](x @ p["w_gate"].to(dt))
     u = x @ p["w_x"].to(dt)
-    if decode:
-        conv_out, conv_buf = causal_conv1d_step(p["conv_w"], u[:, 0],
-                                                state["conv"])
-        h_new, y = rglru_step(p, conv_out, state["h"])
-        y = y[:, None]
-    else:
-        conv_out = causal_conv1d(p["conv_w"], u)
-        y, h_new = rglru_seq(p, conv_out, state["h"])
-        k = p["conv_w"].shape[0]
-        conv_buf = u[:, -(k - 1):]          # history for subsequent decode
+    conv_out, conv_buf = _conv(p["conv_w"], u, state, decode)
+    y, h_new = _recur(p, conv_out, state["h"], decode)
     out = (gate * y) @ p["w_out"].to(dt)
     return out, {"h": h_new, "conv": conv_buf.contiguous()}
+
+
+def rglru_block_sharded(sp, p, x, states, decode: bool):
+    """``rglru_block_apply`` width-parallel over ``model`` (``state_bw``):
+    ``w_x`` / ``w_gate`` column-parallel, the conv and the scan on each
+    position's channels (``ops.linear_recurrence`` at W / |model|), the
+    gates' products reading the whole conv output (an ``all_gather``
+    over ``model``) into their own columns, and ``w_out`` row-parallel
+    with one ``psum``.  ``x``, ``states``: the positions' lists (states
+    None for prefill)."""
+    names = ("w_x", "w_gate", "w_out", "conv_w", "w_a", "w_i", "b_a",
+             "b_i", "log_lambda")
+    tp = p.spec("w_x")[1] == "model"
+    if tp:
+        x = sp.pbroadcast(x, "model")
+    ws = {n: p.gather(n) for n in names}
+    pk = [{n: ws[n][k] for n in names} for k in range(sp.n)]
+    dt = x[0].dtype
+    gate = [_ACT["gelu"](xk @ q["w_gate"].to(dt)) for xk, q in zip(x, pk)]
+    u = [xk @ q["w_x"].to(dt) for xk, q in zip(x, pk)]
+    conv = [_conv(q["conv_w"], uk, st, decode)
+            for q, uk, st in zip(pk, u, states or [None] * sp.n)]
+    conv_out, conv_buf = [c[0] for c in conv], [c[1] for c in conv]
+    whole = sp.all_gather(conv_out, "model", conv_out[0].dim() - 1) \
+        if tp else conv_out
+    ys, new = [], []
+    for k in range(sp.n):
+        h0 = states[k]["h"] if decode else x[k].new_zeros(
+            (x[k].shape[0], conv_out[k].shape[-1]))
+        y, h_new = _recur(pk[k], conv_out[k], h0, decode, whole[k])
+        out = gate[k] * y
+        ys.append(row_parallel(out, pk[k]["w_out"]) if tp
+                  else out @ pk[k]["w_out"].to(dt))
+        new.append({"h": h_new, "conv": conv_buf[k].contiguous()})
+    if tp:
+        ys = [y.to(dt) for y in sp.psum(ys, "model")]
+    return ys, new
 
 
 def rglru_block_state(batch: int, width: int, conv_size: int, dtype,
@@ -206,6 +264,26 @@ def mlstm_seq(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]
     h, C, n, m = mlstm(q, k, v, i_pre, f_pre, state["C"], state["n"],
                        state["m"], scale)
     return head_out(h, p["wo"]), {"C": C, "n": n, "m": m}
+
+
+def mlstm_seq_ref(p: Params, x: torch.Tensor,
+                  state: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The sequential mLSTM over x [B, S, d] from ``state`` (the
+    reference's oracle ``mlstm_seq_ref``): one exact stabilised step at
+    a time in float32 (``ref.seq_step``), q scaled by 1 / sqrt(D).
+    Returns (y [B, S, d], the final state ``C, n, m``)."""
+    dt = x.dtype
+    q, k, v, i_pre, f_pre = _mlstm_qkvg(p, x)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    C, n, m = state["C"], state["n"], state["m"]
+    ys = []
+    for t in range(x.shape[1]):
+        C, n, m, y = seq_step(C, n, m, q[:, t].to(torch.float32) * scale,
+                              k[:, t], v[:, t], i_pre[:, t], f_pre[:, t])
+        ys.append(y.to(dt))
+    y = head_out(torch.stack(ys, dim=1), p["wo"])
+    return y, {"C": C, "n": n, "m": m}
 
 
 def mlstm_state(batch: int, n_heads: int, head_dim: int, device
@@ -275,6 +353,6 @@ def slstm_state(batch: int, n_heads: int, head_dim: int, dtype, device
 
 
 __all__ = ["causal_conv1d", "causal_conv1d_step", "mlstm_init", "mlstm_seq",
-           "mlstm_state", "rglru_block_apply", "rglru_block_state",
-           "rglru_init", "rglru_seq", "rglru_step", "slstm_init", "slstm_seq",
-           "slstm_state"]
+           "mlstm_seq_ref", "mlstm_state", "rglru_block_apply",
+           "rglru_block_sharded", "rglru_block_state", "rglru_init",
+           "rglru_seq", "rglru_step", "slstm_init", "slstm_seq", "slstm_state"]

@@ -20,6 +20,13 @@ compute dtype at use, so the results agree and the memory is half.
 Training holds float32 master weights (``init(dtype=torch.float32)``);
 the layers cast each to the compute dtype at use, as the reference's
 ``_cast_compute`` does once a step.
+
+Under ``use_mesh_rules`` with the reference's FSDP x TP rules the dense,
+MoE, VLM and hybrid families run sharded (``mesh_layout_gap`` says where
+they do): each mesh position runs its block of every layer in turn
+(``parallel.sharding.Spmd``), prefill and decode hold the KV cache by
+heads (``ShardedCache``), and ``train_loss_sharded`` is the training
+program ``make_train_step`` runs on the positions' parameter blocks.
 """
 from __future__ import annotations
 
@@ -27,15 +34,22 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cost_model import _block_kinds as block_kinds
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.attention import local_heads
 from repro_torch.models.blocks import Ctx, block_def
-from repro_torch.models.layers import (cross_entropy, embed_init,
-                                       embed_lookup, lm_head, rmsnorm,
+from repro_torch.models.layers import (cross_entropy, cross_entropy_sharded,
+                                       embed_init, embed_lookup,
+                                       embed_lookup_sharded, lm_head,
+                                       lm_head_sharded, rmsnorm,
                                        rmsnorm_init, truncated_normal)
+from repro_torch.parallel.param_sharding import ShardedTree, shard_params
+from repro_torch.parallel.sharding import (PartitionSpec, Spmd,
+                                           batch_spec, current_mesh,
+                                           current_spmd, logical_spec)
 from repro_torch.tree import leaves_with_paths
 
 Params = Dict[str, Any]
@@ -45,6 +59,60 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: layers a period of the reference's scanned stack, by attention pattern
 #: (xLSTM's period is 2)
 _PERIOD = {"full": 1, "local": 1, "alternating": 2, "griffin": 3}
+
+
+#: the families this slice runs under a mesh's FSDP x TP layouts
+SHARDED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+#: the layout a family or a rule needs that the port does not run yet,
+#: and its ROADMAP item
+MISSING_LAYOUT = {
+    "attn_seq_shard": "ROADMAP queue 1 item 25.1",
+    "seq_shard_kv": "ROADMAP queue 1 item 25.2",
+    "audio": "ROADMAP queue 1 item 25.3",
+    "ssm": "ROADMAP queue 1 item 25.3",
+}
+
+
+def mesh_layout_gap(cfg: ArchConfig, mesh, kind: str,
+                    batch: Optional[int] = None) -> Optional[str]:
+    """None where the current rules on ``mesh`` give ``cfg``'s ``kind``
+    program (``train``, ``prefill``, ``decode``) this slice's layouts
+    (FSDP over ``data``, heads, MLP, vocabulary and RG-LRU width over
+    ``model``, KV caches by heads, the batch rows over the batch axes);
+    else the layout it would need (a key of ``MISSING_LAYOUT``, or
+    ``batch`` where the rows do not split, ``experts`` where ``model``
+    does not divide them)."""
+    if cfg.family not in SHARDED_FAMILIES:
+        return cfg.family
+    n_model = mesh.shape.get("model", 1)
+    bthd, kv = logical_spec("act_bthd"), logical_spec("kv_bskd")
+    if kind != "train" and kv is not None and kv[1] == "model":
+        return "seq_shard_kv"
+    if (bthd is not None and bthd[1] == "model") or \
+            cfg.attention.n_heads % n_model:
+        return "attn_seq_shard"
+    try:
+        local_heads(cfg.attention.n_heads, cfg.attention.n_kv_heads,
+                    n_model, 0)
+    except ValueError:
+        return "attn_seq_shard"
+    if cfg.moe.enabled and cfg.moe.n_experts % n_model:
+        return "experts"
+    n_batch = math.prod(mesh.shape[a] for a in ("pod", "data")
+                        if a in mesh.shape)
+    if batch is not None and batch % n_batch:
+        return "batch"
+    return None
+
+
+class ShardedCache:
+    """A decode cache held by position, as ``prefill`` and
+    ``decode_step`` return it under a mesh: ``blocks[k]`` is position
+    k's list of layer states (``kv_bskd``: its rows and KV heads;
+    ``state_bw``: its rows and RG-LRU channels)."""
+
+    def __init__(self, sp: Spmd, blocks: List[Cache]):
+        self.sp, self.blocks = sp, blocks
 
 
 class TransformerLM:
@@ -159,6 +227,177 @@ class TransformerLM:
         return x, aux
 
     # ------------------------------------------------------------------
+    # the sharded program (under ``use_mesh_rules``)
+    # ------------------------------------------------------------------
+    def spmd(self, kind: str, batch: Optional[int] = None
+             ) -> Optional[Spmd]:
+        """The sharded program's positions where the current mesh and
+        rules give this model's ``kind`` program this slice's layouts
+        (``mesh_layout_gap``), else None (the program runs whole, its
+        MoE expert-parallel where ``model`` divides the experts).  Raises
+        where only the ``batch`` rows keep the program from its layouts:
+        they must split over the batch axes (``ContinuousBatcher`` pads
+        them), so which program a mesh runs never depends on the rows."""
+        mesh = current_mesh()
+        if mesh is None or "model" not in mesh.axis_names:
+            return None
+        gap = mesh_layout_gap(self.cfg, mesh, kind, batch)
+        if gap == "batch":
+            n = math.prod(mesh.shape[a] for a in ("pod", "data")
+                          if a in mesh.shape)
+            raise ValueError(f"{self.cfg.name}: {batch} rows do not split "
+                             f"over the mesh's {n} batch positions; pad "
+                             f"them to a multiple of {n}")
+        return None if gap is not None else current_spmd()
+
+    def _rows(self, sp: Spmd, t: Optional[torch.Tensor]):
+        """The positions' rows of a batch tensor (views on one
+        position's program)."""
+        if t is None:
+            return None
+        spec = (batch_spec(sp.mesh)[0],) + (None,) * (t.dim() - 1)
+        return sp.split(t, spec, copy=False if sp.one_position else None)
+
+    def _positions_sharded(self, sp: Spmd, b: int, s: int) -> list:
+        pos = torch.arange(s, dtype=torch.int32, device=sp.device(0))
+        pos = self._mrope_axes(pos[None, :].expand(b, s))
+        return [pos.to(sp.device(k)) for k in range(sp.n)]
+
+    def _embed_sharded(self, sp: Spmd, P: ShardedTree, tokens, extra):
+        x = embed_lookup_sharded(sp, P.sub("embed"), tokens, self.dtype)
+        if self.embed_scale is not None:
+            x = [xk * self.embed_scale for xk in x]
+        if extra is not None:
+            x = [torch.cat([e.to(self.dtype), xk], dim=1)
+                 for e, xk in zip(extra, x)]
+        return x
+
+    def _head_sharded(self, sp: Spmd, P: ShardedTree, x):
+        """(each position's logits over its vocabulary slice, whether the
+        vocabulary is split over ``model``)."""
+        cfg = self.cfg
+        scale = P.sub("final_norm").gather("scale")
+        x = [rmsnorm({"scale": sc_}, xk, cfg.norm_eps)
+             for sc_, xk in zip(scale, x)]
+        tree, name = (P.sub("embed"), "table") if cfg.tie_embeddings \
+            else (P.sub("head"), "w")
+        vp = tree.spec(name)[0] == "model"
+        return lm_head_sharded(sp, tree.gather(name), x,
+                               cfg.final_logit_softcap, vp), vp
+
+    def _logits_out(self, sp: Spmd, logits, vp: bool) -> torch.Tensor:
+        """The positions' last-position logits as one [B, V] (the
+        position's own block on one position's program)."""
+        spec = PartitionSpec(batch_spec(sp.mesh)[0], "model" if vp else None)
+        return sp.assemble(logits, spec, self.device)
+
+    def train_loss_sharded(self, sp: Spmd, P: ShardedTree, tokens, labels,
+                           extra_embeds=None, mask=None) -> torch.Tensor:
+        """``train_loss`` on the positions' blocks: ``P`` the parameters
+        held by position, ``tokens`` / ``labels`` / ``extra_embeds`` /
+        ``mask`` the positions' rows.  Each layer (a ``checkpoint`` region
+        under ``cfg.remat``) runs position by position; the loss is the
+        vocab-parallel cross-entropy's, the MoE's aux losses (each data
+        shard's own, as the reference's expert-parallel path takes them)
+        averaged over the batch axes.  A recompute reruns its whole layer
+        (no early stop), its weights' gathers and collectives included,
+        as the reference's ``jax.checkpoint`` does."""
+        cfg = self.cfg
+        x = self._embed_sharded(sp, P, tokens, extra_embeds)
+        b, s = x[0].shape[:2]
+        ctx = Ctx(cfg, "train", self._positions_sharded(sp, b, s))
+        remat = cfg.remat != "none"
+        aux = None
+        for i, blk in enumerate(self.blocks):
+            lp = P.sub("layers", i)
+            if remat:
+                with set_checkpoint_early_stop(False):
+                    x, a = checkpoint(blk.apply_sharded, sp, lp, x, None,
+                                      ctx, use_reentrant=False)
+            else:
+                x, a = blk.apply_sharded(sp, lp, x, None, ctx)
+            aux = a if aux is None else [u + v for u, v in zip(aux, a)]
+        if extra_embeds is not None:
+            x = [xk[:, extra_embeds[0].shape[1]:] for xk in x]
+        logits, vp = self._head_sharded(sp, P, x)
+        loss = cross_entropy_sharded(sp, logits, labels, mask, vp)
+        if cfg.moe.enabled:
+            mean_aux = sp.unreplicate(sp.pmean(aux, sp.batch_axes()))
+            loss = loss + cfg.moe.aux_loss_weight * mean_aux / \
+                max(cfg.n_layers, 1)
+        return loss
+
+    def _held(self, sp: Spmd, params) -> ShardedTree:
+        """The parameters by position: ``params`` itself where it is a
+        ``ShardedTree`` already (a server shards its weights once),
+        else ``shard_params``."""
+        return params if isinstance(params, ShardedTree) \
+            else shard_params(sp, params)
+
+    def _prefill_sharded(self, sp: Spmd, params,
+                         tokens: torch.Tensor, cache_len: int,
+                         extra_embeds: Optional[torch.Tensor]):
+        P = self._held(sp, params)
+        x = self._embed_sharded(sp, P, self._rows(sp, tokens),
+                                self._rows(sp, extra_embeds))
+        b, s = x[0].shape[:2]
+        ctx = Ctx(self.cfg, "prefill", self._positions_sharded(sp, b, s),
+                  cache_len=cache_len)
+        caches: List[Cache] = [[] for _ in range(sp.n)]
+        for i, blk in enumerate(self.blocks):
+            x, st = blk.apply_sharded(sp, P.sub("layers", i), x, None, ctx)
+            for k in range(sp.n):
+                caches[k].append(st[k])
+        logits, vp = self._head_sharded(sp, P, [xk[:, -1:] for xk in x])
+        return self._logits_out(sp, [t[:, 0] for t in logits], vp), \
+            ShardedCache(sp, caches)
+
+    def _cache_blocks(self, sp: Spmd, cache: Cache) -> List[Cache]:
+        """A whole decode cache's blocks by position (contiguous copies
+        on their devices; views on one position's program)."""
+        a = self.cfg.attention
+        n_model = sp.mesh.shape["model"]
+        out: List[Cache] = []
+        for k in range(sp.n):
+            m = sp.index(k)["model"]
+            layers = []
+            for kind, st in zip(self.kinds, cache):
+                blk = {}
+                for name, t in st.items():
+                    t = sp.block(t, (batch_spec(sp.mesh)[0],), k,
+                                 copy=False)
+                    if kind.startswith("attn"):
+                        _, _, lo, n = local_heads(a.n_heads, a.n_kv_heads,
+                                                  n_model, m)
+                        t = t.narrow(2, lo, n)
+                    else:
+                        w = t.shape[-1] // n_model
+                        t = t.narrow(t.dim() - 1, m * w, w)
+                    if not sp.one_position:
+                        t = t.contiguous().to(sp.device(k))
+                    blk[name] = t
+                layers.append(blk)
+            out.append(layers)
+        return out
+
+    def _decode_sharded(self, sp: Spmd, params: Params,
+                        tokens: torch.Tensor, pos: torch.Tensor,
+                        cache) -> Tuple[torch.Tensor, ShardedCache]:
+        if not isinstance(cache, ShardedCache):
+            cache = ShardedCache(sp, self._cache_blocks(sp, cache))
+        P = self._held(sp, params)
+        x = self._embed_sharded(sp, P, self._rows(sp, tokens), None)
+        pos = [self._mrope_axes(p_) for p_ in self._rows(sp, pos)]
+        ctx = Ctx(self.cfg, "decode", pos)
+        for i, blk in enumerate(self.blocks):
+            x, st = blk.apply_sharded(sp, P.sub("layers", i), x,
+                                      [c[i] for c in cache.blocks], ctx)
+            for k in range(sp.n):
+                cache.blocks[k][i] = st[k]
+        logits, vp = self._head_sharded(sp, P, x)
+        return self._logits_out(sp, [t[:, 0] for t in logits], vp), cache
+
+    # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
     def train_loss(self, params: Params, tokens: torch.Tensor,
@@ -169,7 +408,16 @@ class TransformerLM:
         [B, S_text]; ``extra_embeds`` [B, P, d] (the VLM's patches) go in
         front and the loss is taken on the text positions only.  With MoE
         layers the loss adds ``aux_loss_weight`` times the layers' mean
-        load-balancing loss, as the reference does."""
+        load-balancing loss, as the reference does.  Under a mesh whose
+        rules give this slice's layouts the program runs sharded
+        (``train_loss_sharded``; the parameters' gradients are their
+        blocks' gradients assembled)."""
+        sp = self.spmd("train", tokens.shape[0])
+        if sp is not None:
+            return self.train_loss_sharded(
+                sp, shard_params(sp, params), self._rows(sp, tokens),
+                self._rows(sp, labels), self._rows(sp, extra_embeds),
+                self._rows(sp, mask))
         x = self._embed(params, tokens, extra_embeds)
         b, s = x.shape[:2]
         ctx = Ctx(self.cfg, "train", self._positions(b, s))
@@ -192,7 +440,16 @@ class TransformerLM:
         mLSTM block and ``{"c", "n", "h", "m"}`` for an sLSTM block).
         ``extra_embeds`` [B, P, d] (the VLM's patch embeddings) are put in
         front of the prompt: the sequence is P + S long, and decoding goes
-        on at position P + S."""
+        on at position P + S.  Under a mesh whose rules give this slice's
+        layouts the program runs sharded: ``params`` may be held by
+        position already (a ``ShardedTree`` from ``shard_params``), the
+        cache is a ``ShardedCache``, the logits assembled from the
+        positions' blocks (one position's own block on a mesh of
+        ``meta`` entries)."""
+        sp = self.spmd("prefill", tokens.shape[0])
+        if sp is not None:
+            return self._prefill_sharded(sp, params, tokens, cache_len,
+                                         extra_embeds)
         x = self._embed(params, tokens, extra_embeds)
         b, s = x.shape[:2]
         ctx = Ctx(self.cfg, "prefill", self._positions(b, s),
@@ -207,7 +464,13 @@ class TransformerLM:
                     pos: torch.Tensor, cache: Cache
                     ) -> Tuple[torch.Tensor, Cache]:
         """One token per sequence.  tokens [B, 1]; pos [B, 1] int32.
-        Returns (logits [B, V], the cache, updated in place)."""
+        Returns (logits [B, V], the cache, updated in place).  Under a
+        mesh (as ``prefill``) the cache returned is a ``ShardedCache``; a
+        whole cache passed in is split into the positions' blocks
+        first."""
+        sp = self.spmd("decode", tokens.shape[0])
+        if sp is not None:
+            return self._decode_sharded(sp, params, tokens, pos, cache)
         x = self._embed(params, tokens)
         ctx = Ctx(self.cfg, "decode", self._mrope_axes(pos))
         for i, (blk, p) in enumerate(zip(self.blocks, params["layers"])):
@@ -220,4 +483,5 @@ class TransformerLM:
                                self.device) for blk in self.blocks]
 
 
-__all__ = ["TransformerLM"]
+__all__ = ["MISSING_LAYOUT", "SHARDED_FAMILIES", "ShardedCache",
+           "TransformerLM", "mesh_layout_gap"]

@@ -1,5 +1,7 @@
 """Leaf-path-based parameter and cache sharding rules (the reference's
-``parallel/param_sharding.py``).
+``parallel/param_sharding.py``), and a parameter tree held by position
+for the sharded program (``shard_params``, ``ShardedTree``,
+``gather_weight``).
 
 FSDP(data) x TP(model): weight matrices shard their model-parallel dim on
 "model" and (ZeRO-3 style) a second dim on the innermost batch axis.  The
@@ -15,10 +17,13 @@ leaf of the same name and shape: no leaf here is stacked.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.parallel.sharding import (Mesh, NamedSharding,
-                                           PartitionSpec as P)
+                                           PartitionSpec as P, Spmd)
+from repro_torch.tree import leaves, unflatten_like
 
 Tree = Any
 
@@ -147,4 +152,132 @@ def cache_shardings(mesh: Mesh, tree: Tree,
     return _map_with_names(one, tree)
 
 
-__all__ = ["cache_shardings", "param_shardings"]
+# ---------------------------------------------------------------------------
+# a parameter tree held by position, and each weight's gather at its use
+# ---------------------------------------------------------------------------
+
+
+def _get(tree: Tree, keys: Sequence) -> Tree:
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
+def owns(sp: Spmd, spec: Sequence, k: int) -> bool:
+    """Whether position ``k`` holds its block of a ``spec`` leaf first:
+    index 0 along every axis the spec does not split (the replica that
+    writes the block back, and counts it once in a norm)."""
+    named = {a for e in spec if e is not None
+             for a in (e if isinstance(e, tuple) else (e,))}
+    return all(i == 0 for a, i in sp.index(k).items() if a not in named)
+
+
+def gather_weight(sp: Spmd, ws: List[torch.Tensor], spec: Sequence,
+                  partial: bool = False) -> List[torch.Tensor]:
+    """The positions' stored blocks ``ws`` of a ``spec`` weight made
+    whole for use: all-gathered over ``data`` along its FSDP dimension
+    (the backward reduce-scatters the gradient back to the shard), or,
+    without one, ``pbroadcast`` over ``data`` (the gradient all-reduced);
+    ``pbroadcast`` over ``pod`` (each pod computes other rows); and with
+    ``partial`` (the positions' uses differ along ``model``, where the
+    spec does not split it) ``pbroadcast`` over ``model`` too."""
+    mesh = sp.mesh
+    spec = tuple(spec) + (None,) * (ws[0].dim() - len(spec))
+    fs = [d for d, e in enumerate(spec) if e == "data"]
+    named = {e for e in spec if e is not None}
+    for axis in ("pod", "data", "model"):
+        if axis not in mesh.shape or mesh.shape[axis] == 1 or \
+                axis in named:
+            continue
+        if axis == "model" and not partial:
+            continue
+        ws = sp.pbroadcast(ws, axis)
+    if fs and mesh.shape["data"] > 1:
+        ws = sp.all_gather(ws, "data", fs[0])
+    return ws
+
+
+class ShardedTree:
+    """A tree held by position: ``blocks[k]`` is position k's tree of
+    blocks (``Spmd.positions`` order), ``specs`` the tree of the leaves'
+    ``NamedSharding``s (``param_shardings``).  ``sub`` descends into
+    both, ``local`` gives a leaf's blocks and ``gather`` its blocks made
+    whole for use (``gather_weight``)."""
+
+    def __init__(self, sp: Spmd, blocks: List[Tree], specs: Tree):
+        self.sp, self.blocks, self.specs = sp, blocks, specs
+
+    def sub(self, *keys) -> "ShardedTree":
+        return ShardedTree(self.sp, [_get(b, keys) for b in self.blocks],
+                           _get(self.specs, keys))
+
+    def has(self, key) -> bool:
+        return key in self.specs
+
+    def spec(self, *keys) -> Tuple:
+        return tuple(_get(self.specs, keys).spec)
+
+    def local(self, *keys) -> List[torch.Tensor]:
+        return [_get(b, keys) for b in self.blocks]
+
+    def gather(self, *keys, partial: bool = False) -> List[torch.Tensor]:
+        return gather_weight(self.sp, self.local(*keys), self.spec(*keys),
+                             partial)
+
+
+class _Distribute(torch.autograd.Function):
+    """A global leaf's blocks, one a position; the gradient is the blocks'
+    gradients assembled, each block's from the position that owns it
+    (the replicas hold it alike)."""
+
+    @staticmethod
+    def forward(ctx, sp, spec, copy, x):
+        ctx.sp, ctx.spec, ctx.shape = sp, spec, x.shape
+        ctx.device = x.device
+        return tuple(sp.block(x, spec, k, copy) for k in range(sp.n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        sp = ctx.sp
+        if sp.one_position:
+            g = gs[0].new_zeros(ctx.shape)
+            sp.block(g, ctx.spec, 0, copy=False).copy_(gs[0])
+        else:
+            g = sp.assemble(list(gs), ctx.spec, ctx.device)
+        return None, None, None, g
+
+
+def shard_params(sp: Spmd, params: Tree, specs: Optional[Tree] = None,
+                 as_leaves: bool = False) -> ShardedTree:
+    """``params`` held by position under ``specs`` (a tree of
+    ``NamedSharding``s, default ``param_shardings``): views of each leaf
+    where it lies on the position's device (the positions that share a
+    card hold no second copy; the dry run's arguments stay its
+    arguments), else copies on that device (``Spmd.block``).  Where a
+    leaf requires grad its blocks are ``_Distribute``'s outputs, whose
+    gradient reaches the leaf; with ``as_leaves`` they are detached
+    leaves of their own that require grad (the sharded train step,
+    which updates them on the shard)."""
+    specs = specs if specs is not None else param_shardings(sp.mesh,
+                                                            params)
+    copy = False if sp.one_position else None
+    flat, flat_specs = leaves(params), leaves(specs)
+    per_leaf = []
+    for x, ns in zip(flat, flat_specs):
+        spec = tuple(ns.spec)
+        if as_leaves:
+            blocks = [sp.block(x.detach(), spec, k, copy).requires_grad_(
+                x.requires_grad) for k in range(sp.n)]
+        elif x.requires_grad and torch.is_grad_enabled():
+            blocks = list(_Distribute.apply(sp, spec, copy, x))
+        else:
+            blocks = [sp.block(x.detach(), spec, k, copy)
+                      for k in range(sp.n)]
+        per_leaf.append(blocks)
+    blocks = [unflatten_like(params, [b[k] for b in per_leaf])
+              for k in range(sp.n)]
+    return ShardedTree(sp, blocks, specs)
+
+
+__all__ = ["ShardedTree", "cache_shardings", "gather_weight", "owns",
+           "param_shardings", "shard_params"]

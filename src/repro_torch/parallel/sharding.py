@@ -21,9 +21,18 @@ thread, and model code asks ``current_mesh`` / ``logical_spec``.  The
 host runs a mesh's shards in turn: ``run_shards`` (and
 ``shard_map_compat``, which assembles the outputs) calls a function once
 a mesh position, in row-major order, on that position's block of
-each input, and the collectives (``psum``, ``pmax``, ``pmean``,
+each input (``Spmd``'s positions and blocks), and the collectives (``psum``, ``pmax``, ``pmean``,
 ``ppermute``) are plain functions over the shards' values in mesh order,
 each summed or compared in that fixed order, so a run repeats bitwise.
+
+**The sharded program.** ``Spmd`` runs a model's layers under a mesh's
+rules position by position, region by region: a value is a list of the
+positions' blocks, and its collectives (``psum``, ``pmax``,
+``pbroadcast``, ``all_gather``, ``psum_scatter``) are autograd Functions
+whose backwards are the transposed collectives, each charging its bytes
+(and whether its group crosses ``pod``) to the op profiler.  On a mesh
+of ``meta`` entries it runs the first position only, the program a
+device of the mesh would run.
 
 Axis vocabulary
   batch axes   -> ("pod", "data")   (pod present only on the multi-pod mesh)
@@ -278,12 +287,15 @@ def default_rules(mesh: Mesh, seq_shard_kv: bool = False,
 
 @contextmanager
 def use_mesh_rules(mesh: Optional[Mesh],
-                   rules: Optional[Dict[str, PartitionSpec]] = None, **kw):
+                   rules: Optional[Dict[str, PartitionSpec]] = None,
+                   one_position: Optional[bool] = None, **kw):
     """Make ``mesh`` and its rules (default ``default_rules(mesh, **kw)``)
-    current for model code run in this thread; None clears them."""
+    current for model code run in this thread; None clears them.
+    ``one_position``: whether a sharded program runs the first position
+    only (``Spmd``; default: where every entry is ``meta``)."""
     prev = getattr(_state, "ctx", None)
     _state.ctx = None if mesh is None else \
-        (mesh, rules or default_rules(mesh, **kw))
+        (mesh, rules or default_rules(mesh, **kw), one_position)
     try:
         yield
     finally:
@@ -298,6 +310,13 @@ def logical_spec(name: str) -> Optional[PartitionSpec]:
 def current_mesh() -> Optional[Mesh]:
     ctx = getattr(_state, "ctx", None)
     return None if ctx is None else ctx[0]
+
+
+def current_spmd() -> Optional["Spmd"]:
+    """The positions a sharded program runs on the current mesh (as
+    ``use_mesh_rules`` set them), or None without a mesh."""
+    ctx = getattr(_state, "ctx", None)
+    return None if ctx is None else Spmd(ctx[0], one_position=ctx[2])
 
 
 def sc(x, name: str):
@@ -343,24 +362,10 @@ def shard_of(x: torch.Tensor, mesh: Mesh, spec: Sequence,
              pos: Tuple[int, ...]) -> torch.Tensor:
     """Mesh position ``pos``'s block of ``x`` under ``spec`` (a dimension
     split over axes a1, a2, ... is cut into size(a1) size(a2) ... equal
-    blocks, indexed row-major), contiguous, on the position's device."""
-    dev = mesh.devices[pos]
-    if x.device.type != dev.type:
-        raise ValueError(f"a mesh of {dev.type} devices given a tensor on "
-                         f"{x.device}")
-    if len(spec) > x.dim():
-        raise ValueError(f"spec {tuple(spec)} for a {x.dim()}-d tensor")
-    for dim, entry in enumerate(spec):
-        axes = _axes_of(entry)
-        if not axes:
-            continue
-        i, n = _block_index(mesh, axes, mesh.index(pos))
-        if x.shape[dim] % n:
-            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
-                             f"split into {n} blocks over {axes}")
-        blk = x.shape[dim] // n
-        x = x.narrow(dim, i * blk, blk)
-    return x.contiguous().to(dev, non_blocking=True)
+    blocks, indexed row-major), contiguous, on the position's device
+    (``Spmd.block``)."""
+    sp = Spmd(mesh, one_position=False)
+    return sp.block(x, spec, sp.positions.index(tuple(pos))).contiguous()
 
 
 def assemble(blocks: np.ndarray, mesh: Mesh, spec: Sequence,
@@ -396,10 +401,11 @@ def run_shards(f: Callable, mesh: Mesh, in_specs: Sequence,
     blocks of ``args`` under ``in_specs``, on its device.  Returns the
     object array of the positions' outputs, for the caller's
     collectives."""
+    sp = Spmd(mesh, one_position=False)
     outs = np.empty(mesh.devices.shape, dtype=object)
-    for pos in mesh.positions():
-        outs[pos] = f(mesh.index(pos), *[shard_of(a, mesh, s, pos)
-                                          for a, s in zip(args, in_specs)])
+    for k, pos in enumerate(sp.positions):
+        outs[pos] = f(sp.index(k), *[sp.block(a, s, k).contiguous()
+                                     for a, s in zip(args, in_specs)])
     return outs
 
 
@@ -506,10 +512,257 @@ def collective(blocks: np.ndarray, mesh: Mesh,
     return out
 
 
-__all__ = ["FLEET_AXIS", "Mesh", "NamedSharding", "P", "PartitionSpec",
+# ---------------------------------------------------------------------------
+# the sharded program: each position's block, region by region
+# ---------------------------------------------------------------------------
+#
+# A sharded program holds one tensor a mesh position for each value (a
+# list in ``Spmd.positions`` order) and runs the positions in turn, region
+# by region; the collectives below combine the positions' values between
+# regions.  Their gradients follow the reference's ``shard_map``: a value
+# replicated over an axis carries its whole cotangent on every replica,
+# so ``psum``'s backward is the identity and ``pbroadcast`` (the identity,
+# where a replicated value enters a computation that differs along the
+# axis) sums its cotangents; ``all_gather``'s backward is
+# ``psum_scatter`` and the reverse.  Each collective and each backward
+# charges its bytes to the active op profilers.
+
+
+def _axes_tuple(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class Spmd:
+    """The positions a sharded program runs on ``mesh``: every position
+    in row-major order, or, on a mesh of ``meta`` entries (the dry run,
+    where every block of an even split is alike), the first position
+    only (``one_position``): its collectives then make that position's
+    outputs and charge its own bytes, as a device of the mesh would."""
+
+    def __init__(self, mesh: Mesh, one_position: Optional[bool] = None):
+        self.mesh = mesh
+        if one_position is None:
+            one_position = all(d.type == "meta" for d in mesh.devices.flat)
+        self.one_position = bool(one_position)
+        every = mesh.positions()
+        self.positions = every[:1] if self.one_position else every
+
+    @property
+    def n(self) -> int:
+        """Positions this program runs."""
+        return len(self.positions)
+
+    def index(self, k: int) -> Dict[str, int]:
+        return self.mesh.index(self.positions[k])
+
+    def device(self, k: int) -> torch.device:
+        return self.mesh.devices[self.positions[k]]
+
+    def size(self, axes) -> int:
+        return math.prod(self.mesh.shape[a] for a in _axes_tuple(axes)
+                         if a in self.mesh.shape)
+
+    def batch_axes(self) -> Tuple[str, ...]:
+        return _batch_axes(self.mesh)
+
+    def groups(self, axes) -> List[List[int]]:
+        """Indices into ``positions`` of the positions that differ only
+        along ``axes``, a group each, in row-major order over them."""
+        axes = _axes_tuple(axes)
+        groups: Dict[tuple, List[int]] = {}
+        for k, pos in enumerate(self.positions):
+            key = tuple(i for a, i in zip(self.mesh.axis_names, pos)
+                        if a not in axes)
+            groups.setdefault(key, []).append(k)
+        return list(groups.values())
+
+    def crosses_pod(self, axes) -> bool:
+        return "pod" in _axes_tuple(axes) and self.mesh.shape.get("pod",
+                                                                   1) > 1
+
+    def block(self, x: torch.Tensor, spec: Sequence, k: int,
+              copy: Optional[bool] = None) -> torch.Tensor:
+        """Position ``k``'s block of ``x`` under ``spec``: a view of ``x``
+        where it lies on the position's device (positions that share a
+        card share its storage), else a contiguous copy on that device;
+        ``copy`` True or False forces one or the other."""
+        if x.device.type != self.device(k).type:
+            raise ValueError(f"a mesh of {self.device(k).type} devices "
+                             f"given a tensor on {x.device}")
+        if len(spec) > x.dim():
+            raise ValueError(f"spec {tuple(spec)} for a {x.dim()}-d tensor")
+        idx = self.index(k)
+        for dim, entry in enumerate(spec):
+            axes = _axes_of(entry)
+            if axes:
+                i, n = _block_index(self.mesh, axes, idx)
+                if x.shape[dim] % n:
+                    raise ValueError(f"dimension {dim} of "
+                                     f"{tuple(x.shape)} does not split "
+                                     f"into {n} blocks over {axes}")
+                blk = x.shape[dim] // n
+                x = x.narrow(dim, i * blk, blk)
+        if copy is None:
+            copy = x.device != self.device(k)
+        if not copy:
+            return x
+        return x.to(self.device(k), copy=True,
+                    memory_format=torch.contiguous_format)
+
+    def split(self, x: torch.Tensor, spec: Sequence,
+              copy: Optional[bool] = None) -> List[torch.Tensor]:
+        """Every position's block of ``x`` under ``spec``."""
+        return [self.block(x, spec, k, copy) for k in range(self.n)]
+
+    def assemble(self, xs: Sequence[torch.Tensor], spec: Sequence,
+                 device: Optional[torch.device] = None) -> torch.Tensor:
+        """The tensor the positions' blocks ``xs`` make under ``spec``
+        (``assemble``); on one position, its block."""
+        if self.one_position:
+            return xs[0]
+        arr = np.empty(self.mesh.devices.shape, dtype=object)
+        for k, pos in enumerate(self.positions):
+            arr[pos] = xs[k]
+        return assemble(arr, self.mesh, spec, device)
+
+    # -- the collectives, over each group along ``axes`` --------------------
+    def psum(self, xs, axes):
+        """The sum over ``axes`` on every position (an all-reduce); its
+        backward is the identity."""
+        return _collective(self, axes, "psum", "identity", 0, xs)
+
+    def pmean(self, xs, axes):
+        n = self.size(axes)
+        return [x / n for x in self.psum(xs, axes)]
+
+    def pmax(self, xs, axes):
+        """The elementwise max over ``axes`` (an all-reduce), without a
+        gradient: the sharded logsumexp's stabiliser."""
+        return _collective(self, axes, "pmax", None, 0,
+                           [x.detach() for x in xs])
+
+    def pbroadcast(self, xs, axes):
+        """The identity, where a value replicated over ``axes`` enters a
+        computation that differs along them: its backward sums the
+        positions' cotangents over ``axes`` (an all-reduce)."""
+        return _collective(self, axes, "identity", "psum", 0, xs)
+
+    def all_gather(self, xs, axes, dim: int):
+        """The group's blocks concatenated along ``dim`` in group order,
+        on every position; the backward is ``psum_scatter``."""
+        return _collective(self, axes, "all_gather", "psum_scatter", dim,
+                           xs)
+
+    def psum_scatter(self, xs, axes, dim: int):
+        """The sum over ``axes``, position i of the group keeping block i
+        of it along ``dim`` (a reduce-scatter); the backward is
+        ``all_gather``."""
+        return _collective(self, axes, "psum_scatter", "all_gather", dim,
+                           xs)
+
+    def unreplicate(self, xs) -> torch.Tensor:
+        """The value every position holds alike (a loss after its
+        ``pmean``), once: its cotangent reaches every position's copy
+        whole, as a replicated output's does."""
+        return _Unreplicate.apply(*xs)
+
+
+_KIND = {"psum": "all-reduce", "pmax": "all-reduce",
+         "all_gather": "all-gather", "psum_scatter": "reduce-scatter"}
+
+
+def _wide(x: torch.Tensor, op: str) -> torch.Tensor:
+    """A sum's accumulator: float32 for 16-bit values."""
+    if op != "pmax" and x.dtype in (torch.bfloat16, torch.float16):
+        return x.float()
+    return x
+
+
+@charged_unit
+def _run_collective(sp: Spmd, axes, op: str, dim: int,
+                    xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``op`` over each group of ``xs`` along ``axes``, charged: each
+    group's bytes a shard for the shards present (on one position, the
+    group's size is the mesh's and the other shards' values are taken
+    to be alike).  Sums of 16-bit values are added in float32 and
+    rounded once, as the unsharded product's accumulator is; the bytes
+    charged are the values' own."""
+    out: List[Optional[torch.Tensor]] = [None] * len(xs)
+    size = sp.size(axes)
+    pod = sp.crosses_pod(axes)
+    for group in sp.groups(axes):
+        vals = [xs[k] for k in group]
+        if op == "identity":
+            res = vals
+        elif op in ("psum", "pmax"):
+            fold = torch.add if op == "psum" else torch.maximum
+            acc = _wide(vals[0], op)
+            for v in vals[1:]:
+                acc = fold(acc, _wide(v.to(acc.device), op))
+            res = [acc.to(sp.device(k), vals[0].dtype, copy=True)
+                   for k in group]
+        elif op == "all_gather":
+            if sp.one_position:
+                full = torch.cat([vals[0]] * size, dim=dim)
+            else:
+                full = torch.cat([v.to(vals[0].device) for v in vals], dim)
+            res = [full.to(sp.device(k), copy=True) for k in group]
+        elif op == "psum_scatter":
+            acc = _wide(vals[0], op)
+            for v in vals[1:]:
+                acc = acc + _wide(v.to(acc.device), op)
+            blk = acc.shape[dim] // size
+            res = [acc.narrow(dim, (j if not sp.one_position else 0) * blk,
+                              blk).to(sp.device(k), vals[0].dtype, copy=True)
+                   for j, k in enumerate(group)]
+        else:
+            raise ValueError(f"unknown collective {op!r}")
+        if op != "identity" and size > 1:
+            nbytes = _nbytes(res[0])
+            if op in ("psum", "pmax"):
+                nbytes *= 2
+            elif op == "psum_scatter":
+                nbytes *= size
+            charge_collective(_KIND[op], nbytes, size, len(group), pod)
+        for k, r in zip(group, res):
+            out[k] = r
+    return out
+
+
+class _Collective(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sp, axes, op, back, dim, *xs):
+        ctx.sp, ctx.axes, ctx.back, ctx.dim = sp, axes, back, dim
+        return tuple(_run_collective(sp, axes, op, dim, xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        if ctx.back is None:
+            raise RuntimeError("this collective has no gradient")
+        return (None,) * 5 + tuple(_run_collective(ctx.sp, ctx.axes,
+                                                   ctx.back, ctx.dim, gs))
+
+
+def _collective(sp: Spmd, axes, op: str, back: Optional[str], dim: int,
+                xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    return list(_Collective.apply(sp, axes, op, back, dim, *xs))
+
+
+class _Unreplicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.devices = [x.device for x in xs]
+        return xs[0].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(g.to(d, copy=True) for d in ctx.devices)
+
+
+__all__ = ["FLEET_AXIS", "Mesh", "NamedSharding", "P", "PartitionSpec", "Spmd",
            "assemble", "batch_spec", "collective", "current_mesh",
-           "default_rules", "field", "fleet_mesh", "groups_along",
-           "logical_spec", "make_mesh", "mesh_signature", "named_sharding",
-           "pad_to_multiple", "pmax", "pmean", "ppermute", "psum",
-           "run_shards", "sc", "shard_map_compat", "shard_of",
+           "current_spmd", "default_rules", "field", "fleet_mesh",
+           "groups_along", "logical_spec", "make_mesh", "mesh_signature",
+           "named_sharding", "pad_to_multiple", "pmax", "pmean", "ppermute",
+           "psum", "run_shards", "sc", "shard_map_compat", "shard_of",
            "use_mesh_rules"]

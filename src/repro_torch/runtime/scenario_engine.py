@@ -329,6 +329,11 @@ class ScenarioEngine:
         """Total builds paid for THIS engine's cache entries."""
         return self.plan_cache.build_count(self._cache_keys_used)
 
+    def plan_cache_info(self) -> Dict[str, object]:
+        """The shared plan cache's entries, hits, misses and builds
+        (``PlanFnCache.info``)."""
+        return self.plan_cache.info()
+
     # ------------------------------------------------------------------
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         x = np.asarray(x)

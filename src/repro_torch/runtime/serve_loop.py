@@ -13,6 +13,7 @@ first maximal logit, as ``jnp.argmax`` does.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ServeConfig
+from repro_torch.parallel.sharding import current_mesh, pad_to_multiple
 
 
 def make_prefill_step(model, cfg: ArchConfig, cache_len: int):
@@ -92,7 +94,16 @@ class ContinuousBatcher:
     sampling generator (temperature > 0).  ``max_pending`` bounds the
     admission queue: a full queue makes ``submit`` report backpressure
     (return ``False``, counted in ``rejected``); ``None`` leaves it
-    unbounded.  Runs on the model's device.
+    unbounded.  Runs on the model's device.  Under ``use_mesh_rules``
+    every batch runs at a multiple of the batch axes' positions: filler
+    rows of token 0 make up the last data shard (``filler_rows`` counts
+    them; their tokens are dropped), as GSPMD pads an uneven split, so
+    the rows always split and the program a mesh gives the model is the
+    same from one batch to the next.  Where that is the model's sharded
+    program the weights are held by position once (``shard_params``) and
+    each batch's cache is a ``ShardedCache``.  A filler row's tokens are
+    routed with its data shard's in an expert-parallel MoE, whose
+    capacity is counted over the data shard.
     """
 
     def __init__(self, model, cfg: ArchConfig, scfg: ServeConfig, params,
@@ -111,6 +122,30 @@ class ContinuousBatcher:
         self.decode_step = make_decode_step(model, scfg.temperature)
         self.pending: List[Request] = []
         self.active: List[Request] = []
+        self._held = None          # (mesh, the weights held by position)
+        self.filler_rows = 0
+
+    @staticmethod
+    def _rows(n: int) -> int:
+        """The rows a batch of ``n`` requests runs at: ``n`` rounded up to
+        a multiple of the current mesh's batch axes' positions."""
+        mesh = current_mesh()
+        if mesh is None:
+            return n
+        return pad_to_multiple(n, math.prod(
+            mesh.shape[a] for a in ("pod", "data") if a in mesh.shape))
+
+    def _params(self, batch: int):
+        """The weights for a batch of ``batch`` rows: held by position,
+        once a mesh, where the model runs this batch sharded."""
+        sp = self.model.spmd("decode", batch) \
+            if hasattr(self.model, "spmd") else None
+        if sp is None:
+            return self.params
+        if self._held is None or self._held[0] != sp.mesh:
+            from repro_torch.parallel.param_sharding import shard_params
+            self._held = (sp.mesh, shard_params(sp, self.params))
+        return self._held[1]
 
     def submit(self, req: Request) -> bool:
         """Enqueue ``req``; returns ``False`` (backpressure, request NOT
@@ -139,7 +174,13 @@ class ContinuousBatcher:
             reqs = self.active
             toks = torch.as_tensor(self._batch_prompts(reqs),
                                    device=self.device)
-            logits, cache = self.prefill_step(self.params, toks)
+            rows = self._rows(len(reqs))
+            if rows > len(reqs):
+                toks = torch.cat([toks, toks.new_zeros(
+                    (rows - len(reqs), toks.shape[1]))])
+                self.filler_rows += rows - len(reqs)
+            params = self._params(rows)
+            logits, cache = self.prefill_step(params, toks)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             pos = toks.shape[1]
             for r, t in zip(reqs, nxt.tolist()):
@@ -149,10 +190,10 @@ class ContinuousBatcher:
                         self.scfg.max_seq - pos - 1, max_steps)
             cur = nxt[:, None]
             for s in range(max(steps, 0)):
-                p = torch.full((len(reqs), 1), pos + s, dtype=torch.int32,
+                p = torch.full((rows, 1), pos + s, dtype=torch.int32,
                                device=self.device)
-                cur_next, cache = self.decode_step(self.params, cache, cur,
-                                                   p, gen)
+                cur_next, cache = self.decode_step(params, cache, cur, p,
+                                                   gen)
                 for r, t in zip(reqs, cur_next.tolist()):
                     r.out.append(t)
                 cur = cur_next[:, None]

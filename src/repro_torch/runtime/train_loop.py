@@ -27,6 +27,7 @@ from repro_torch.optim.adamw import (adamw_update, clip_by_global_norm,
 from repro_torch.optim.grad_compress import (compress_tree, decompress_tree,
                                              init_error)
 from repro_torch.optim.schedules import SCHEDULES
+from repro_torch.parallel.param_sharding import owns, shard_params
 from repro_torch.tree import leaves, unflatten_like
 
 State = Dict[str, Any]
@@ -106,6 +107,11 @@ def make_train_step(model, cfg: ArchConfig, tcfg: TrainConfig
         params = state["params"]
         plist = leaves(params)
         batch = batch_to(batch, plist[0].device)
+        sp = model.spmd("train", next(iter(batch.values())).shape[0]) \
+            if hasattr(model, "spmd") else None
+        if sp is not None:
+            return _sharded_step(model, cfg, tcfg, schedule, sp, state,
+                                 batch)
         mb = tcfg.microbatches
         for p in plist:
             p.grad = None
@@ -163,6 +169,110 @@ def make_train_step(model, cfg: ArchConfig, tcfg: TrainConfig
         return state, metrics
 
     return train_step
+
+
+def _microbatches(batch: Dict[str, torch.Tensor], mb: int):
+    """The batch's ``mb`` leading-row slices; refuses leaves of unequal
+    leading size and a batch ``mb`` does not divide (the reference
+    reshapes to (mb, b // mb, ...))."""
+    sizes = {k: v.shape[0] for k, v in batch.items()}
+    b = next(iter(sizes.values()))
+    if len(set(sizes.values())) != 1:
+        raise ValueError(
+            f"batch leaves disagree on their leading size: {sizes}")
+    if b % mb:
+        raise ValueError(f"microbatches={mb} does not divide the "
+                         f"batch of {b}")
+    return [{k: v[i * (b // mb):(i + 1) * (b // mb)]
+             for k, v in batch.items()} for i in range(mb)]
+
+
+def _block_of(sp, x: torch.Tensor, spec, k: int) -> torch.Tensor:
+    """Position ``k``'s block of a state tensor: a view where it lives on
+    the position's device, else a copy on it."""
+    view = sp.block(x, spec, k, copy=False)
+    return view if view.device == sp.device(k) else \
+        view.to(sp.device(k), copy=True)
+
+
+def _sharded_step(model, cfg: ArchConfig, tcfg: TrainConfig, schedule,
+                  sp, state: State, batch: Dict[str, torch.Tensor]):
+    """The train step under a mesh: each position holds its blocks of
+    the parameters as leaves of their own (``shard_params``), each
+    microbatch's rows go over the batch axes and its loss runs sharded
+    (``train_loss_sharded``: the weights all-gathered at each use and
+    their gradients reduce-scattered back to the shard), the clip's
+    global norm is a ``psum`` of the positions' sums of squares over the
+    blocks they own, and AdamW updates each block once, on the position
+    that owns it (its replicas hold the same block and the same gradient,
+    and are dropped after the step), with its blocks of the moments.  The
+    parameter blocks are written back to the state's tensors; the
+    moments are updated in place where the position's device holds them
+    (on a mesh of ``meta`` entries every block is a view)."""
+    if tcfg.grad_compress:
+        raise NotImplementedError(
+            "grad_compress under a mesh: the sharded step reduce-"
+            "scatters full-precision gradients")
+    params = state["params"]
+    P = shard_params(sp, params, as_leaves=True)
+    mb = tcfg.microbatches
+    loss = None
+    for micro in _microbatches(batch, mb):
+        rows = {k: model._rows(sp, v) for k, v in micro.items()}
+        part = model.train_loss_sharded(
+            sp, P, rows["tokens"], rows["labels"],
+            rows.get("patch_embeds"), rows.get("mask"))
+        part.backward()
+        loss = part.detach() if loss is None else loss + part.detach()
+    loss = loss / mb
+    specs = [tuple(ns.spec) for ns in leaves(P.specs)]
+    blocks = [leaves(b) for b in P.blocks]
+    grads = []
+    for k in range(sp.n):
+        gk = []
+        for x in blocks[k]:
+            g = x.grad if x.grad is not None else torch.zeros_like(x)
+            x.grad = None
+            gk.append(g.div_(mb) if mb > 1 else g)
+        grads.append(gk)
+    sq = [sum((torch.sum(torch.square(g.to(torch.float32)))
+               for g, spec in zip(grads[k], specs) if owns(sp, spec, k)),
+              torch.zeros((), device=sp.device(k))) for k in range(sp.n)]
+    norm = torch.sqrt(sp.unreplicate(sp.psum(sq, sp.mesh.axis_names)))
+    scale = torch.clamp(tcfg.grad_clip / torch.clamp(norm, min=1e-9),
+                        max=1.0)
+    lr = _learning_rate(schedule, state["opt"]["step"],
+                        leaves(params)[0].device)
+    step = state["opt"]["step"]
+    trees = [leaves(params), leaves(state["opt"]["m"]),
+             leaves(state["opt"]["v"])]
+    with torch.no_grad():
+        for k in range(sp.n):
+            mine = [i for i, spec in enumerate(specs) if owns(sp, spec, k)]
+            g = [grads[k][i].mul_(scale.to(grads[k][i].device,
+                                           grads[k][i].dtype))
+                 for i in mine]
+            # the moments' blocks: views where the position's device holds
+            # the state, else copies written back after the update
+            m, v = ([_block_of(sp, t[i], specs[i], k) for i in mine]
+                    for t in trees[1:])
+            opt = {"m": m, "v": v, "step": step}
+            adamw_update([blocks[k][i] for i in mine], g, opt,
+                         lr=lr.to(sp.device(k)), b1=tcfg.b1, b2=tcfg.b2,
+                         eps=tcfg.eps, weight_decay=tcfg.weight_decay)
+            if not sp.one_position:
+                for tree, per_pos in zip(trees, ([blocks[k][i] for i in mine],
+                                                 m, v)):
+                    for i, x in zip(mine, per_pos):
+                        view = sp.block(tree[i], specs[i], k, copy=False)
+                        if view.untyped_storage()._cdata != \
+                                x.untyped_storage()._cdata:
+                            view.copy_(x)
+            grads[k] = None
+        state["opt"]["step"] = opt["step"]
+    metrics = {"loss": loss, "grad_norm": norm, "lr": lr,
+               "step": state["opt"]["step"]}
+    return state, metrics
 
 
 def train_loop(model, cfg: ArchConfig, tcfg: TrainConfig, data_iter,
