@@ -71,7 +71,10 @@ Phases, each raising on failure (the script then exits non-zero):
     (1, 1000), the serving run's shapes (B 8 at S 1345, its first
     prefill, and at S 2048, the timed one), olmoe-1b-7b's (B 8, H 16,
     KV 16, S 1024, D 128) and recurrentgemma-9b's (H 16 over KV 1, D 256,
-    window 2048, B 8 at S 1536 and B 1 at S 3072), every flash launch on
+    window 2048, B 8 at S 1536 and B 1 at S 3072), row blocks at a query
+    offset (``FLASH_OFFSETS``: minicpm-2b's last block of 8, rows 256,
+    keys 2,048, offset 1,792; offsets off a kv tile, with and without a
+    window), every flash launch on
     the wgmma route in bfloat16 and the SIMT route in float32; decode at
     the reference's grid and gemma2-9b's decode (B 8, KV 8, G 2, S 4096,
     D 256, cap 50, pos with 0 and S - 1), and with pos at the split-KV
@@ -111,7 +114,9 @@ Phases, each raising on failure (the script then exits non-zero):
     and a W 102, each launch on the TMA-ring route where rows are a
     multiple of 16 bytes and on the SIMT route otherwise (W 102); decode
     attention at G = 16 (B 8, KV 1, 2048 slots, D 256),
-    random pos and pos at the split edges;
+    random pos and pos at the split edges, and with its log-sum-exp at G 2
+    and G 16 (``DECODE_LSE``: the output bitwise the call without it, rows
+    with a negative pos 0 and ``-inf``);
     each two launches bitwise equal;
 15. the reduced granite-moe, olmoe and recurrentgemma in float32, card
     against the CPU plain path, as phase 11;
@@ -263,7 +268,8 @@ Phases, each raising on failure (the script then exits non-zero):
     none), qwen2-vl-2b's (H 12, KV 2, D 128), whisper-tiny's non-causal
     S 1,500 and cross Sq 448 x Sk 1,500, ragged Sq / Sk of 1, 65 and
     1,000, recurrentgemma-9b's (H 16 over KV 1, S 4,096, D 256, window
-    2,048); two backward launches bitwise equal, each on its dtype's
+    2,048), and row blocks at a query offset (``BWD_OFFSET_CASES``); two
+    backward launches bitwise equal, each on its dtype's
     route (bfloat16 ``wgmma``, float32 ``simt``); the
     forward with ``with_lse`` on its dtype's route, its output bitwise
     the serving launch's, its lse the plain version's;
@@ -391,13 +397,34 @@ Phases, each raising on failure (the script then exits non-zero):
 50. the sanitizer on the main path: the AlexNet U 8, B 256 rollout
     (``SANITIZE_T`` frames) inside ``sanitized(PLAN_FN_CACHE)`` after its
     one build: no NaN and no build; fed one position at +inf it raises
-    ``FloatingPointError`` naming the op on the card that made the NaN.
+    ``FloatingPointError`` naming the op on the card that made the NaN;
+51. minicpm-2b trained under a (2, 4) mesh of the card (FSDP x TP);
+52. gemma2-9b served under a (2, 4) mesh, then the reduced
+    recurrentgemma under (2, 2) against the CPU;
+53. minicpm-2b (36 heads and KV heads on a model axis of 8) under a
+    (1, 8) mesh: a training step under ``attn_seq_shard`` (rows over
+    model, the flash kernels at each block's query offset) with the
+    float32 gradient gate, the card's kernel calls and counts those of
+    the dry run of all 8 positions, the dry run's last position exactly
+    its share of all 8 (all 8 less the other 7 run on their own), its
+    bytes within ``DRY_MEMORY_TOL``; then a prefill (both layouts) and 4
+    decode steps (``seq_shard_kv``) under phase 12's logit rule; then the
+    flash kernels at the last row block's shape, beside SDPA under the
+    same mask and its backward, and decode attention with its
+    log-sum-exp timed (``SEQ_TIMED``);
+54. gemma2-9b (KV 8 on 16) under a (1, 16) mesh and ``seq_shard_kv``:
+    a prefill and 4 decode steps (the cache's blocks merged by their
+    log-sum-exps) under phase 12's rule; the reduced gemma2-9b and
+    recurrentgemma-9b with a cache longer than their window against the
+    CPU.  Phases 51-54 hold every kernel call at its shard shape against
+    its plain version.
 
 Every phase's bound column reads the kernel's work from
 ``kernels.work.KERNEL_WORK`` and the card's rates from ``launch.roofline``
 (``kernel_bound``).
 
-The last lines are the dry-run and sanitizer record (phases 49-50), the
+The last lines are the sharded LMs' record (phases 51-54), the dry-run
+and sanitizer record (phases 49-50), the
 sharded-model record (phases 46-48), the training
 record, the pipeline planner's, the
 sharded rollout's and the serving example's records, the serving layers'
@@ -489,6 +516,11 @@ ATTN_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
 #: version agree in float32, so their bf16 outputs differ by at most one
 #: rounding (2^-7 relative), far inside the reference's band
 ATTN_BF16_ROUNDING = dict(atol=1e-3, rtol=1e-2)
+#: a library call timed beside a kernel computes the same function: its
+#: largest gap from the plain version within this share of the plain
+#: version's largest value (SDPA rounds in its own order, a few bf16
+#: ulps; a wrong mask moves whole rows)
+LIBRARY_SAME_FUNCTION = 0.02
 #: the mLSTM kernel against its plain version: h and the float32 state
 #: within the reference's kernel-test tolerance (the kernel's chunks of
 #: 32 against the plain version's 256 or S); a bfloat16 h one output
@@ -1496,6 +1528,17 @@ def decode_edge_case(torch, seed, b, kv, g, s, d, dtype, device):
     return q, k, v, pos, length
 
 
+#: phase 10's row blocks at a query offset, (b, h, kv, sq, sk, offset, d,
+#: window, cap), causal: minicpm-2b's last block of 8 at S 2,048 (rows
+#: 256, keys 2,048, offset 1,792), offsets that are no multiple of a kv
+#: tile (a tile straddles the shifted diagonal), with a window and a cap
+FLASH_OFFSETS = [(1, 36, 36, 256, 2048, 1792, 64, 0, 0.0),
+                 (1, 16, 8, 130, 450, 300, 256, 0, 50.0),
+                 (1, 16, 8, 200, 1100, 900, 256, 128, 50.0),
+                 (2, 8, 4, 100, 300, 129, 128, 0, 30.0),
+                 (1, 4, 2, 70, 300, 129, 64, 16, 0.0)]
+
+
 def check_attention_kernels(np, torch, device):
     """Both attention kernels against their plain versions on the card,
     float32 and bfloat16 at the reference's tolerance, two launches
@@ -1504,7 +1547,10 @@ def check_attention_kernels(np, torch, device):
     window 0 and 1024), ragged S (1, 1000), the serving run's prefill
     shapes (B 8 at S 1345 and 2048), olmoe-1b-7b's (B 8, H 16, KV 16,
     S 1024, D 128) and recurrentgemma-9b's (H 16 over KV 1, D 256, window
-    2048: B 8 at S 1536, and B 1 at S 3072, where the window bites), each
+    2048: B 8 at S 1536, and B 1 at S 3072, where the window bites), and
+    row blocks at a query offset (``FLASH_OFFSETS``: minicpm-2b's last
+    block of 8, offsets off a kv tile, so a tile straddles the shifted
+    diagonal, causal with and without a window), each
     flash launch on the wgmma route in bfloat16 and the SIMT route in
     float32; decode at the reference's grid and gemma2-9b's decode (B 8,
     KV 8, G 2, S 4096, D 256, cap 50); bfloat16 also within one output
@@ -1546,11 +1592,19 @@ def check_attention_kernels(np, torch, device):
             torch.testing.assert_close(got.float(), ref.float(),
                                        **ATTN_BF16_ROUNDING)
 
+    # row blocks at a query offset: s is (q rows, keys, offset)
+    flash += [(b, h, kv, (sq, sk, off), d, True, window, cap)
+              for b, h, kv, sq, sk, off, d, window, cap in FLASH_OFFSETS]
     for dtype in (torch.float32, torch.bfloat16):
         for i, (b, h, kv, s, d, causal, window, cap) in enumerate(flash):
-            q, k, v = flash_case(torch, 100 + i, b, h, kv, s, d, dtype,
-                                 device)
             kw = dict(causal=causal, window=window, cap=cap)
+            if isinstance(s, tuple):
+                q, k, v = flash_cross_case(torch, 100 + i, b, h, kv, s[0],
+                                           s[1], d, dtype, device)
+                kw["q_offset"] = s[2]
+            else:
+                q, k, v = flash_case(torch, 100 + i, b, h, kv, s, d, dtype,
+                                     device)
             got, route = take_route(flash_attention, lambda: flash_attention(
                 q, k, v, **kw))
             want_route("flash_attention", route,
@@ -1565,8 +1619,10 @@ def check_attention_kernels(np, torch, device):
             err = float((got.double() - ref.double()).abs().max())
             if (b, s) == (8, 2048) and dtype == torch.bfloat16:
                 errs["flash_attention"] = err
+            at = f"Sq={s[0]} Sk={s[1]} offset={s[2]}" \
+                if isinstance(s, tuple) else f"S={s}"
             log(f"  flash_attention {str(dtype)[6:]} B={b} H={h} KV={kv} "
-                f"S={s} D={d} causal={causal} window={window} cap={cap}: "
+                f"{at} D={d} causal={causal} window={window} cap={cap}: "
                 f"{route} route, max abs err {err:.3g}, two launches "
                 f"bitwise equal")
         for i, (b, kv, g, s, d, cap) in enumerate(decode + decode_edges):
@@ -2403,8 +2459,9 @@ def check_moe_rglru_kernels(np, torch, device):
     bytes, ``simt`` otherwise); decode attention at recurrentgemma's
     decode (B 8, KV 1, G 16, a 2048-slot window cache, D 256) within
     ``ATTN_TOL`` and, in
-    bfloat16, one output rounding.  Phase 18 checks both kernels again at the shapes it
-    times."""
+    bfloat16, one output rounding, then with its log-sum-exp
+    (``hold_decode_lse``).  Phase 18 checks both kernels again at the
+    shapes it times."""
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_ref
@@ -2465,6 +2522,63 @@ def check_moe_rglru_kernels(np, torch, device):
                 f"pos={pos.tolist()}"
                 f"{f' (split length {length})' if edge else ''}: max abs "
                 f"err {err:.3g}, two launches bitwise equal")
+        hold_decode_lse(torch, dtype, device)
+
+
+#: phase 14's decode attention with its log-sum-exp, (b, kv, g, s, d,
+#: cap): gemma2-9b's G 2 at phase 54's block of a 1,040-slot cache split
+#: over 16, and over a whole 4,096-slot cache; recurrentgemma-9b's G 16
+#: (the tensor-core kernel in bfloat16)
+DECODE_LSE = [(8, 8, 2, 1040 // 16, 256, 50.0), (8, 1, 16, 512, 256, 0.0),
+              (4, 8, 2, 4096, 256, 50.0)]
+
+
+def hold_decode_lse(torch, dtype, device):
+    """Phase 14: ``decode_attention(return_lse=True)`` against its plain
+    version at ``DECODE_LSE``: the output (float32) rounded to the dtype
+    bitwise the call without the lse, it within ``ATTN_TOL`` (bf16 also
+    ``ATTN_BF16_ROUNDING``) and the lse within float32's, rows whose pos
+    is
+    negative (a block wholly past the position) 0 and ``-inf``, no NaN;
+    two launches bitwise equal."""
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    dname = str(dtype).split(".")[1]
+    for i, (b, kv, g, s, d, cap) in enumerate(DECODE_LSE):
+        q, k, v, _ = decode_case(torch, 520 + i, b, kv, g, s, d, dtype,
+                                 device)
+        pos = torch.tensor(([-1, s - 1, 0, -s, s // 2, 3, -2, s - 2] * b)[:b],
+                           dtype=torch.int32, device=device)
+        out, lse = decode_attention(q, k, v, pos, cap=cap, return_lse=True)
+        out2, lse2 = decode_attention(q, k, v, pos, cap=cap,
+                                      return_lse=True)
+        plain = decode_attention(q, k, v, pos, cap=cap)
+        ref, ref_lse = decode_ref(q, k, v, pos, cap=cap, return_lse=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"decode_attention lse {b, kv, g, s, d}: "
+                                 f"two launches differ")
+        if out.dtype != torch.float32 or not torch.equal(out.to(dtype),
+                                                          plain):
+            raise AssertionError(f"decode_attention lse {b, kv, g, s, d}: "
+                                 f"the output moved when lse was asked for")
+        empty = pos < 0
+        if not (bool(torch.isneginf(lse[empty]).all()) and
+                not bool(out[empty].any()) and
+                not bool(torch.isnan(ref).any() | torch.isnan(ref_lse).any())):
+            raise AssertionError(f"decode_attention lse {b, kv, g, s, d}: "
+                                 f"an empty row is not 0 and -inf")
+        torch.testing.assert_close(out, ref, **ATTN_TOL[dname])
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(out, ref, **ATTN_BF16_ROUNDING)
+        torch.testing.assert_close(lse, ref_lse, **ATTN_TOL["float32"])
+        full = ~empty
+        err = float((lse[full] - ref_lse[full]).abs().max())
+        log(f"  decode_attention {dname} with lse B={b} KV={kv} G={g} S={s} "
+            f"D={d} cap={cap} pos={pos.tolist()}: output bitwise the call "
+            f"without it, lse max abs err {err:.3g}, empty rows 0 and -inf, "
+            f"two launches bitwise equal")
 
 
 def held_at_timed_shape(torch, name, got, want, d):
@@ -3838,6 +3952,8 @@ def time_slice_attention(torch, device, served, errs):
     launch of that kernel there, whatever the layer (the counters do not
     tell the encoder's, the decoder's and the cross calls apart)."""
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_ref
@@ -4235,6 +4351,16 @@ BWD_CASES = [
     (1, 8, 2, 1500, 1500, 128, True, 512, 0.0),
     (1, 16, 1, 4096, 4096, 256, True, 2048, 0.0),
 ]
+#: phase 33's row blocks at a query offset, each a ``BWD_CASES`` entry and
+#: its offset: minicpm-2b's last block of 8 at S 2,048 (rows 256, keys
+#: 2,048, offset 1,792), gemma2-9b's heads with a window and a cap at an
+#: offset off a tile, recurrentgemma-9b's KV 1 at D 256
+BWD_OFFSET_CASES = [
+    (1, 36, 36, 256, 2048, 64, True, 0, 0.0, 1792),
+    (1, 16, 8, 200, 1100, 256, True, 128, 50.0, 900),
+    (1, 16, 1, 129, 700, 256, True, 0, 0.0, 300),
+    (2, 6, 2, 100, 333, 32, True, 0, 30.0, 129),
+]
 #: phase 34's timed shapes, bfloat16: the row's and its sub-entry's
 BWD_TIMED = {"minicpm-2b": BWD_CASES[0], "gemma2-9b": BWD_CASES[1]}
 #: phases 35 (the first four) and 40 (the MoE and griffin models): the
@@ -4302,7 +4428,8 @@ def check_flash_bwd(np, torch, device):
     """Phase 33: the forward with ``with_lse`` (the output bitwise the
     serving launch's, lse within the float32 tolerance of the plain
     version's) and the backward kernel against ``attention_bwd_ref`` on
-    the same o and lse at ``BWD_CASES``, float32 and bfloat16
+    the same o and lse at ``BWD_CASES`` and, at a query offset, at
+    ``BWD_OFFSET_CASES``, float32 and bfloat16
     (``ATTN_TOL``, bf16 also ``ATTN_BF16_ROUNDING``); two backward launches
     bitwise equal; each forward and each backward launch on its dtype's
     route (bfloat16 ``wgmma``, float32 ``simt``).  Returns the bf16 max
@@ -4314,9 +4441,11 @@ def check_flash_bwd(np, torch, device):
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for i, case in enumerate(BWD_CASES):
-            b, h, kv, sq, sk, d, causal, window, cap = case
+        for i, case in enumerate(BWD_CASES + BWD_OFFSET_CASES):
+            b, h, kv, sq, sk, d, causal, window, cap = case[:9]
             kw = dict(causal=causal, window=window, cap=cap)
+            if len(case) > 9:
+                kw["q_offset"] = case[9]
             q, k, v, do = bwd_case(torch, 400 + i, case, dtype, device)
             plain_o = flash_attention(q, k, v, **kw)
             (o, lse), route = take_route(flash_attention, lambda: (
@@ -4350,7 +4479,8 @@ def check_flash_bwd(np, torch, device):
                 if timed == case and dtype == torch.bfloat16:
                     errs[arch] = err
             log(f"  flash_attention_bwd {dname} B={b} H={h} KV={kv} Sq={sq} "
-                f"Sk={sk} D={d} causal={causal} window={window} cap={cap}: "
+                f"Sk={sk} offset={kw.get('q_offset', 0)} D={d} "
+                f"causal={causal} window={window} cap={cap}: "
                 f"max abs err {err:.3g}, lse err "
                 f"{float((lse - ref_lse).abs().max()):.3g}, forward on "
                 f"{route}, backward on {broute}, two backward launches "
@@ -5777,9 +5907,9 @@ def ep_reduced(np, torch, device):
     launches 3 x 8 a MoE layer, on ``simt`` (float32).  Twice: as the
     reduced config (its 4 heads split over model: the sharded program,
     a position's heads' attention launches), and with 2 heads, which
-    ``model`` does not divide (the layout gap ``attn_seq_shard``: the
-    program runs whole under the mesh, one attention launch a layer, its
-    MoE through ``moe_apply_expert_parallel``)."""
+    ``model`` does not divide (the gap ``heads``: the rules ask for heads
+    over model, so the program runs whole under the mesh, one attention
+    launch a layer, its MoE through ``moe_apply_expert_parallel``)."""
     import dataclasses
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.transformer import TransformerLM
@@ -6411,9 +6541,28 @@ TP_SERVE = dict(arch="gemma2-9b", mesh=(2, 4), batch=8, seq=1024, steps=4)
 #: the reduced griffin model under a (2, 2) mesh, card against the CPU
 TP_REDUCED = dict(arch="recurrentgemma-9b", mesh=(2, 2), batch=2, seq=40,
                   cache=48, steps=4)
-#: the kernels whose calls at shard shapes phases 51 and 52 record and hold
+#: the kernels whose calls at shard shapes phases 51-54 record and hold
 TP_HELD = ("flash_attention", "flash_attention_bwd", "decode_attention",
            "rglru_scan", "rglru_scan_bwd")
+#: phase 53: minicpm-2b at full width under a (1, 8) mesh, whose 36 heads
+#: and 36 KV heads ``model`` does not divide: training under
+#: ``attn_seq_shard`` (256 rows a position a microbatch), serving with the
+#: prefill under both layouts and decode under ``seq_shard_kv`` (a cache
+#: of 1,032 slots, 129 a position)
+SEQ_TRAIN = dict(TP_TRAIN, mesh=(1, 8), batch=2)
+SEQ_TRAIN_RULES = dict(attn_seq_shard=True)
+SEQ_SERVE = dict(arch="minicpm-2b", mesh=(1, 8), batch=8, seq=1024, steps=4,
+                 cache=1032)
+SEQ_PREFILL_RULES = dict(attn_seq_shard=True, seq_shard_kv=True)
+SEQ_DECODE_RULES = dict(seq_shard_kv=True)
+#: phase 54: gemma2-9b at full width under a (1, 16) mesh, its KV 8 on 16:
+#: ``seq_shard_kv`` (heads over model, the cache by slots: 1,040 slots, 65
+#: a position); then the reduced gemma2-9b and recurrentgemma-9b with a
+#: cache longer than their window (rolling buffers split over model)
+KV_SERVE = dict(arch="gemma2-9b", mesh=(1, 16), batch=8, seq=1024, steps=4,
+                cache=1040)
+KV_REDUCED = (dict(TP_REDUCED, arch="gemma2-9b", mesh=(1, 4)),
+              dict(TP_REDUCED, mesh=(1, 4)))
 
 
 def card_mesh(torch, shape, device):
@@ -6464,10 +6613,11 @@ class record_shard_calls:
 def hold_recorded(torch, calls):
     """Each recorded call (``record_shard_calls``) launched again on its
     operands against its plain version: flash attention and its backward
-    and decode attention within ``ATTN_TOL`` (bf16 also
-    ``ATTN_BF16_ROUNDING``), the RG-LRU scans bitwise; each on its
-    route; two launches bitwise equal.  Returns each call's signature and
-    max abs error."""
+    (at a query offset too) and decode attention (with its log-sum-exp
+    too, ``-inf`` where a block holds no valid slot) within ``ATTN_TOL``
+    (bf16 also ``ATTN_BF16_ROUNDING``), the RG-LRU scans bitwise; each on
+    its route; two launches bitwise equal.  Returns each call's signature
+    and max abs error over its finite values."""
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_ref
@@ -6525,7 +6675,9 @@ def hold_recorded(torch, calls):
                 if dtype == torch.bfloat16:
                     torch.testing.assert_close(g.float(), w.float(),
                                                **ATTN_BF16_ROUNDING)
-            err = max(err, float((g.double() - w.double()).abs().max()))
+            gap = (g.double() - w.double()).abs()
+            err = max(err, float(torch.where(torch.isfinite(w), gap,
+                                             0.0).max()))
         what = f"{name} {dname} " + " x ".join(
             str(list(a.shape)) for a in args if torch.is_tensor(a)) + \
             (f" {kw}" if kw else "")
@@ -6535,11 +6687,12 @@ def hold_recorded(torch, calls):
     return held
 
 
-def tp_train_call(np, torch, device, one_position=None):
-    """Phase 51's training step built on ``device`` (the card or
+def tp_train_call(np, torch, device, one_position=None, f=TP_TRAIN,
+                  rules=None):
+    """Phase 51's (``f``'s) training step built on ``device`` (the card or
     ``meta``): (program, its state, the mesh, the model).  ``program(one)``
     runs one ``make_train_step`` step under ``use_mesh_rules`` of
-    ``TP_TRAIN``'s mesh (``one`` as ``use_mesh_rules`` takes
+    ``f``'s mesh and ``rules`` (``one`` as ``use_mesh_rules`` takes
     ``one_position``, default ``one_position``)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_arch
@@ -6548,7 +6701,6 @@ def tp_train_call(np, torch, device, one_position=None):
     from repro_torch.models import build_model
     from repro_torch.parallel.sharding import use_mesh_rules
     from repro_torch.runtime.train_loop import init_state, make_train_step
-    f = TP_TRAIN
     cfg = get_arch(f["arch"])
     model = build_model(cfg, device)
     gen = MetaGenerator() if device.type == "meta" else \
@@ -6561,15 +6713,16 @@ def tp_train_call(np, torch, device, one_position=None):
     mesh = card_mesh(torch, f["mesh"], device)
 
     def program(one=one_position):
-        with use_mesh_rules(mesh, one_position=one):
+        with use_mesh_rules(mesh, one_position=one, **(rules or {})):
             return step(state, batch)[1]
     return program, state, mesh, model
 
 
-def tp_grad_gate(np, torch, device, model, params, mesh):
+def tp_grad_gate(np, torch, device, model, params, mesh, f=TP_TRAIN,
+                 rules=None, phase=51):
     """Phase 51's gradient gate, phase 36's per-leaf gate in float32 on
-    the initial parameters, at ``TP_TRAIN``'s check batch (2 rows of
-    phase 36's ``check_seq``, a row a data position): the loss and every
+    the initial parameters, at ``f``'s check batch (2 rows of phase 36's
+    ``check_seq``) under the mesh and ``rules``: the loss and every
     gradient under the mesh against the same without one, both through
     the kernels; its noise side the same two runs through the plain
     versions, which reorder the same sums.  Each leaf's gap, as a share
@@ -6589,11 +6742,12 @@ def tp_grad_gate(np, torch, device, model, params, mesh):
     plist = leaves(params)
     rng = np.random.default_rng(51)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                        (2, TP_TRAIN["check_seq"] + 1)),
+                                        (2, f["check_seq"] + 1)),
                            device=device)
 
     def grads(ctx, on_mesh):
-        with ctx, use_mesh_rules(mesh if on_mesh else None):
+        with ctx, use_mesh_rules(mesh if on_mesh else None,
+                                 **(rules or {})):
             loss = check.train_loss(params, toks[:, :-1], toks[:, 1:])
             loss.backward()
         out = [torch.zeros_like(p) if p.grad is None else p.grad
@@ -6634,7 +6788,7 @@ def tp_grad_gate(np, torch, device, model, params, mesh):
                      GRAD_FLOOR_ULPS * float(float32_ulp(
                          torch, torch.tensor(losses["plain"]))))
     loss_gap = abs(losses["sharded"] - losses["unsharded"])
-    gate = {"seq": TP_TRAIN["check_seq"], "rows": 2, "dtype": cfg.dtype,
+    gate = {"seq": f["check_seq"], "rows": 2, "dtype": cfg.dtype,
             "at_init": True, "leaves": len(rows),
             "noise_side": "the mesh through the plain versions vs the "
                           "plain versions without one",
@@ -6644,27 +6798,56 @@ def tp_grad_gate(np, torch, device, model, params, mesh):
             "worst_leaves": [dict(zip(("share_of_limit", "leaf", "share",
                                        "at_floor"), r)) for r in rows[:5]],
             "losses": losses, "loss_gap": loss_gap, "loss_limit": loss_limit}
-    log(f"  {cfg.dtype} gate at 2 x {TP_TRAIN['check_seq']} (initial "
+    log(f"  {cfg.dtype} gate at 2 x {f['check_seq']} (initial "
         f"parameters): losses {losses} (gap {loss_gap:.3g}, limit "
         f"{loss_limit:.3g}); worst leaf {rows[0][1]} at {rows[0][0]:.3g} "
         f"of its limit (the plain versions' mesh gap, largest share "
         f"{noise:.3g}; {gate['leaves_at_floor']} leaves at the floor)")
     if rows[0][0] > 1.0 or loss_gap > loss_limit or not noise <= \
             TP_NOISE_MAX:
-        raise AssertionError(f"phase 51: the mesh's gradients or loss leave "
-                             f"the gate: {gate}")
+        raise AssertionError(f"phase {phase}: the mesh's gradients or loss "
+                             f"leave the gate: {gate}")
     del check
     gc.collect()
     torch.cuda.empty_cache()
     return gate
 
 
-def run_tp_training(np, torch, device, smi):
+def seq_share(one, others, n_data):
+    """The dot FLOPs, kernel calls and collective bytes and counts of
+    ``one``'s program and ``others``' (op profiles) summed, times
+    ``n_data`` alike positions along data."""
+    def added(a, b):
+        if isinstance(a, dict) or isinstance(b, dict):
+            a, b = a or {}, b or {}
+            return {k: added(a.get(k, 0), b.get(k, 0)) for k in {*a, *b}}
+        return a + b
+
+    def scaled(t):
+        if isinstance(t, dict):
+            return {k: scaled(v) for k, v in t.items()}
+        return t * n_data
+    out = {}
+    for p in [one, *others]:
+        out = added(out, {"dot_flops": p.dot_flops,
+                          "kernels": p.kernel_calls(),
+                          "coll_bytes": dict(p.coll_bytes),
+                          "coll_count": dict(p.coll_count)})
+    return scaled(out)
+
+
+def run_tp_training(np, torch, device, smi, f=TP_TRAIN, rules=None,
+                    phase=51):
     """Phase 51: ``TP_TRAIN``'s step (minicpm-2b at full width and depth,
     FSDP over data and TP over model, each position's block run in turn
-    on the card).  (a) the step on ``meta`` as one position's program
-    and as all 8: the one position's dot FLOPs, kernel calls and
-    collective bytes and counts x 8 equal all 8's; (b) on the card under
+    on the card); phase 53 runs ``SEQ_TRAIN`` under ``attn_seq_shard``
+    (``f``, ``rules``).  (a) the step on ``meta`` as one position's
+    program and as all 8: the one position's dot FLOPs, kernel calls and
+    collective bytes and counts x 8 equal all 8's where every position's
+    block is alike; under ``attn_seq_shard``, where the last rows attend
+    to the most keys, they equal the last position's share of all 8's:
+    all 8's less the other positions along model run each on its own
+    (``seq_share``); (b) on the card under
     the op profiler: the aten products and traffic, the kernel calls and
     the collectives equal all 8 positions' on ``meta`` exactly, and the
     card's launch counters the launches of those kernel calls: flash and
@@ -6681,36 +6864,62 @@ def run_tp_training(np, torch, device, smi):
     from repro_torch import kernels
     from repro_torch.launch.dryrun import run_program, storage_bytes
     meta = torch.device("meta")
-    rec = {"card": smi, "config": dict(TP_TRAIN)}
+    rec = {"card": smi, "config": dict(f), "rules": dict(rules or {})}
     marks = {"start": time.perf_counter()}
     profiles = {}
-    program, state, _, _ = tp_train_call(np, torch, meta)
+    even = not (rules or {}).get("attn_seq_shard")
+    program, state, _, _ = tp_train_call(np, torch, meta, f=f, rules=rules)
     for one in (True, False):
         t0 = time.perf_counter()
         prof, mem = run_program(lambda: program(one), state)
         profiles[one] = (prof.profile, mem, time.perf_counter() - t0,
                          storage_bytes(state))
         del prof
+    # under rows the positions along model differ: each of the others
+    # run on its own, so that the last one's share of all positions'
+    # run is what they leave
+    others = []
+    for m in range(0 if even else f["mesh"][1] - 1):
+        prof, _ = run_program(lambda m=m: program(m), state)
+        others.append(prof.profile)
+        del prof
     del program, state
     one, whole = profiles[True][0], profiles[False][0]
-    n = TP_TRAIN["mesh"][0] * TP_TRAIN["mesh"][1]
+    n = f["mesh"][0] * f["mesh"][1]
     times = {k: {r: {q: v * n for q, v in c.items()}
                  for r, c in routes.items()}
              for k, routes in one.kernel_calls().items()}
-    if one.dot_flops * n != whole.dot_flops or \
+    if not even:
+        times = whole.kernel_calls()
+        share = seq_share(one, others, f["mesh"][0])
+        if share != seq_share(whole, [], 1):
+            raise AssertionError(
+                f"phase {phase}: the last position's program differs from "
+                f"its share of all positions' (all less the other "
+                f"positions' own programs): {share} vs "
+                f"{seq_share(whole, [], 1)}")
+        log(f"  meta: the last position's dot FLOPs, kernel calls and "
+            f"collectives == all {n} positions' less the other "
+            f"{len(others)} along model run on their own (its dot FLOPs "
+            f"{one.dot_flops:.4g}, x {n} = {one.dot_flops * n:.4g} beside "
+            f"all {n} positions' {whole.dot_flops:.4g}: its row block "
+            f"attends to the most keys; its collectives "
+            f"{dict(one.coll_bytes)} B)")
+    elif one.dot_flops * n != whole.dot_flops or \
             times != whole.kernel_calls() or \
             {k: v * n for k, v in one.coll_bytes.items()} != \
             whole.coll_bytes or \
             {k: v * n for k, v in one.coll_count.items()} != \
             whole.coll_count:
         raise AssertionError(
-            f"phase 51: one position x {n} differs from all positions: dot "
-            f"{one.dot_flops * n} vs {whole.dot_flops}, collectives "
+            f"phase {phase}: one position x {n} differs from all positions: "
+            f"dot {one.dot_flops * n} vs {whole.dot_flops}, collectives "
             f"{one.coll_bytes} x {n} vs {whole.coll_bytes}")
-    log(f"  meta: one position's dot FLOPs, kernel calls and collectives "
-        f"x {n} == all {n} positions' ({one.dot_flops:.4g} FLOP a "
-        f"position; {dict(one.coll_bytes)} B a position; traced in "
-        f"{profiles[True][2]:.1f} s and {profiles[False][2]:.1f} s)")
+    if even:
+        log(f"  meta: one position's dot FLOPs, kernel calls and collectives "
+            f"x {n} == all {n} positions' ({one.dot_flops:.4g} FLOP a "
+            f"position; {dict(one.coll_bytes)} B a position; traced in "
+            f"{profiles[True][2]:.1f} s and {profiles[False][2]:.1f} s)")
     marks["meta"] = time.perf_counter()
     _, wmem, _, wargs = profiles[False]
     predicted = wargs + wmem["output_size_in_bytes"] + \
@@ -6720,12 +6929,14 @@ def run_tp_training(np, torch, device, smi):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    program, state, mesh, model = tp_train_call(np, torch, device)
+    program, state, mesh, model = tp_train_call(np, torch, device, f=f,
+                                                rules=rules)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     marks["init"] = time.perf_counter()
     with record_shard_calls() as gate_seen:
-        gate = tp_grad_gate(np, torch, device, model, state["params"], mesh)
+        gate = tp_grad_gate(np, torch, device, model, state["params"], mesh,
+                            f, rules, phase)
     marks["gate"] = time.perf_counter()
     kernels.reset_launch_counts()
     with record_shard_calls() as seen:
@@ -6734,8 +6945,8 @@ def run_tp_training(np, torch, device, smi):
     claunch, croutes = card_launches()
     mlaunch, mroutes = profile_launches(whole)
     per_mb = {k: v * n for k, v in train_launches(model.cfg, 2).items()}
-    want = {k: v * TP_TRAIN["microbatches"] for k, v in per_mb.items()}
-    want_launches("phase 51 step", claunch, croutes, want,
+    want = {k: v * f["microbatches"] for k, v in per_mb.items()}
+    want_launches(f"phase {phase} step", claunch, croutes, want,
                   {k: "wgmma" for k in want})
     if cprof.profile.counts() != whole.counts() or \
             cprof.profile.coll_bytes != whole.coll_bytes or \
@@ -6745,7 +6956,7 @@ def run_tp_training(np, torch, device, smi):
         for k, (m, c) in sorted(ops.items())[:20]:
             log(f"  {k}: meta {m}, card {c}")
         raise AssertionError(
-            f"phase 51: the card's counts differ from the meta run's: dot "
+            f"phase {phase}: the card's counts differ from the meta run's: dot "
             f"{cprof.profile.dot_flops} vs {whole.dot_flops}, traffic "
             f"{cprof.profile.traffic_bytes} vs {whole.traffic_bytes}, "
             f"collectives {cprof.profile.coll_bytes} vs {whole.coll_bytes}; "
@@ -6767,21 +6978,22 @@ def run_tp_training(np, torch, device, smi):
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    want_launches("phase 51 timed step", *card_launches(), want,
+    want_launches(f"phase {phase} timed step", *card_launches(), want,
                   {k: "wgmma" for k in want})
     peak = torch.cuda.max_memory_allocated() - base
     share = abs(predicted - peak) / peak
     metrics = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"phase 51: metrics {metrics}")
+        raise AssertionError(f"phase {phase}: metrics {metrics}")
     log(f"  step: loss {metrics['loss']:.4f}, grad norm "
         f"{metrics['grad_norm']:.4f}; wall {wall:.3f} s (CUDA events "
         f"{start.elapsed_time(end):.1f} ms); predicted "
         f"{predicted / 1e9:.3f} GB, card peak {peak / 1e9:.3f} GB above "
         f"{base / 1e9:.3f} GB ({share * 100:.2f} % off) ({smi})")
     if share > DRY_MEMORY_TOL:
-        raise AssertionError(f"phase 51: the meta run's {predicted} B is "
-                             f"{share * 100:.2f} % off the card's peak {peak}")
+        raise AssertionError(f"phase {phase}: the meta run's {predicted} B "
+                             f"is {share * 100:.2f} % off the card's peak "
+                             f"{peak}")
     marks["timed_step"] = time.perf_counter()
     del program, state, model
     gc.collect()
@@ -6791,13 +7003,13 @@ def run_tp_training(np, torch, device, smi):
     names = list(marks)
     rec["sub_walls_s"] = {b: marks[b] - marks[a]
                           for a, b in zip(names, names[1:])}
-    log(f"  phase 51's parts: {rec['sub_walls_s']} s")
+    log(f"  phase {phase}'s parts: {rec['sub_walls_s']} s")
     rec.update({
         "init_s": init_s, "wall_s": wall,
         "cuda_event_ms": start.elapsed_time(end), "metrics": metrics,
         "launches": claunch, "routes": croutes,
         "launches_per_microbatch": per_mb,
-        "tokens_per_s": TP_TRAIN["batch"] * TP_TRAIN["seq"] / wall,
+        "tokens_per_s": f["batch"] * f["seq"] / wall,
         "meta_trace_s": {"one_position": profiles[True][2],
                          "all_positions": profiles[False][2]},
         "dot_flops_a_position": one.dot_flops,
@@ -6810,26 +7022,30 @@ def run_tp_training(np, torch, device, smi):
     return rec
 
 
-def tp_serve_sides(torch, model, params, toks, mesh, steps):
+def tp_serve_sides(torch, model, params, toks, mesh, steps, cache_len=None,
+                   pre=None, dec=None):
     """One prefill and ``steps`` decode steps three ways on the card:
     the plain versions without a mesh (the reference side), the same
-    with their sums reordered, and the kernels under ``mesh``, each
-    decoding from a copy of the plain side's prefill cache and fed its
+    with their sums reordered, and the kernels under ``mesh`` (the
+    prefill under the rules ``pre``, decode under ``dec``), each
+    decoding from a copy of the plain side's prefill cache (of
+    ``cache_len`` slots, default the prompt and the steps) and fed its
     greedy tokens; the mesh side's launches counted a call.  Returns the
     sides' logits, the plain side's, and the mesh side's launches."""
     from repro_torch import kernels
     from repro_torch.parallel.sharding import use_mesh_rules
     b, s = toks.shape
+    cache_len = cache_len or s + steps
     with torch.no_grad():
         with plain_kernels():
-            ref, cache = model.prefill(params, toks, s + steps)
+            ref, cache = model.prefill(params, toks, cache_len)
         logits = {}
         with plain_kernels(True):
             logits["reordered"] = [model.prefill(params, toks,
-                                                 s + steps)[0]]
+                                                 cache_len)[0]]
         kernels.reset_launch_counts()
-        with use_mesh_rules(mesh):
-            out, _ = model.prefill(params, toks, s + steps)
+        with use_mesh_rules(mesh, **(pre or {})):
+            out, _ = model.prefill(params, toks, cache_len)
         torch.cuda.synchronize()
         calls = [("prefill",) + card_launches()]
         logits["mesh"] = [out]
@@ -6847,7 +7063,7 @@ def tp_serve_sides(torch, model, params, toks, mesh, steps):
                     params, nxt, pos, caches["reordered"])
             logits["reordered"].append(o)
             kernels.reset_launch_counts()
-            with use_mesh_rules(mesh):
+            with use_mesh_rules(mesh, **(dec or {})):
                 o, caches["mesh"] = model.decode_step(params, nxt, pos,
                                                       caches["mesh"])
             torch.cuda.synchronize()
@@ -6876,7 +7092,8 @@ def tp_logit_rule(torch, logits, refs, dtype):
     return {"gaps": gaps, "limit_abs": limit_abs, "share": share}
 
 
-def run_tp_serving(np, torch, device, smi):
+def run_tp_serving(np, torch, device, smi, f=TP_SERVE, pre=None, dec=None,
+                   phase=52, reduced=None, float32=True):
     """Phase 52: ``TP_SERVE``'s model (gemma2-9b at full width) serving
     one prefill of B 8 x S 1,024 and 4 decode steps under a (2, 4) mesh
     of the card (heads, KV heads, MLP and vocabulary over model, FSDP
@@ -6890,10 +7107,16 @@ def run_tp_serving(np, torch, device, smi):
     a mesh; every kernel call at its shard shape held against its plain
     version.  Then ``TP_REDUCED`` (the
     reduced recurrentgemma in float32) under a (2, 2) mesh of the card
-    against the same mesh of the CPU.  Returns the record."""
+    against the same mesh of the CPU (``reduced``: the configs of that
+    part, each as ``tp_reduced`` takes it).  Phases 53 and 54 run their
+    configs (``f``, its cache) under the sequence layouts' rules: ``pre``
+    for the prefill, ``dec`` for decode; phase 54 without the float32
+    side (``float32``: its reduced models hold float32 card against CPU,
+    and phase 53 the float32 merge at full width).  Returns the record."""
     from repro_torch.parallel.sharding import use_mesh_rules
-    f = TP_SERVE
     model, params, rec = init_full(torch, f["arch"], device)
+    cache_len = f.get("cache", f["seq"] + f["steps"])
+    sides = dict(cache_len=cache_len, pre=pre, dec=dec)
     cfg = model.cfg
     n = f["mesh"][0] * f["mesh"][1]
     mesh = card_mesh(torch, f["mesh"], device)
@@ -6902,11 +7125,11 @@ def run_tp_serving(np, torch, device, smi):
         device=device)
     with record_shard_calls() as seen:
         logits, refs, calls = tp_serve_sides(torch, model, params, toks,
-                                             mesh, f["steps"])
+                                             mesh, f["steps"], **sides)
     want = {"prefill": {"flash_attention": n * cfg.n_layers},
             "decode": {"decode_attention": n * cfg.n_layers}}
     for kind, launches, routes in calls:
-        want_launches(f"phase 52 {kind}", launches, routes, want[kind],
+        want_launches(f"phase {phase} {kind}", launches, routes, want[kind],
                       {"flash_attention": "wgmma"} if kind == "prefill"
                       else {})
     bf16 = tp_logit_rule(torch, logits, refs, "bfloat16")
@@ -6915,41 +7138,66 @@ def run_tp_serving(np, torch, device, smi):
         f"12's bf16 per-logit limit; launches a call "
         f"{[(k, l) for k, l, _ in calls[:2]]}")
     if bf16["share"] > 1.0:
-        raise AssertionError(f"phase 52: the mesh's bfloat16 logits leave "
-                             f"phase 12's per-logit rule: {bf16}")
+        raise AssertionError(f"phase {phase}: the mesh's bfloat16 logits "
+                             f"leave phase 12's per-logit rule: {bf16}")
     walls = {}
     b, s = toks.shape
     for name, m in (("none", None), ("mesh", mesh)):
-        with torch.no_grad(), use_mesh_rules(m):
-            model.prefill(params, toks[:, :64], 64 + f["steps"])  # warm-up
-            (lg, cache), w, _, _ = counted(
-                torch, lambda: model.prefill(params, toks, s + f["steps"]))
+        with torch.no_grad():
+            with use_mesh_rules(m, **(pre or {})):
+                model.prefill(params, toks[:, :64], cache_len)  # warm-up
+                (lg, cache), w, _, _ = counted(
+                    torch, lambda: model.prefill(params, toks, cache_len))
             steps = []
             for i in range(f["steps"]):
                 nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
                 pos = torch.full((b, 1), s + i, dtype=torch.int32,
                                  device=device)
-                (lg, cache), ws, _, _ = counted(
-                    torch, lambda: model.decode_step(params, nxt, pos,
-                                                     cache))
+                with use_mesh_rules(m, **(dec or {})):
+                    (lg, cache), ws, _, _ = counted(
+                        torch, lambda: model.decode_step(params, nxt, pos,
+                                                         cache))
                 steps.append(ws * 1e3)
         walls[name] = {"prefill_s": w, "decode_step_ms": steps}
     log(f"  walls: {walls} ({smi})")
     del logits, refs
-    # phase 12's float32 rule on the same weights in float32
-    import dataclasses
-    from repro_torch.models import build_model
-    params32 = tree_map(lambda t: t.float(), params)
+    params32 = tree_map(lambda t: t.float(), params) if float32 else None
     del params, model
     gc.collect()
     torch.cuda.empty_cache()
+    f32 = tp_float32_side(torch, cfg, params32, toks, mesh, f, phase, sides,
+                          want, seen, smi) if float32 else None
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = hold_recorded(torch, seen.calls)
+    rec.update({"card": smi, "config": dict(f), "walls": walls,
+                "rules": {"prefill": dict(pre or {}),
+                          "decode": dict(dec or {})},
+                "bfloat16": bf16, "float32": f32,
+                "launches_per_call": want, "held_at_shard_shapes": held,
+                "reduced": [tp_reduced(np, torch, device, r, dec)
+                            for r in (reduced if reduced is not None
+                                      else [TP_REDUCED])]})
+    return rec
+
+
+def tp_float32_side(torch, cfg, params32, toks, mesh, f, phase, sides, want,
+                    seen, smi):
+    """``run_tp_serving``'s float32 side: phase 12's float32 rule on the
+    same weights in float32 (``tp_serve_sides``, exact launches by route,
+    the simt flash route), its shard calls added to ``seen``.  Returns
+    the rule's record."""
+    import dataclasses
+    from repro_torch.models import build_model
     model32 = build_model(dataclasses.replace(cfg, dtype="float32"),
-                          device=device)
+                          device=toks.device)
     with record_shard_calls() as seen32:
         logits, refs, calls32 = tp_serve_sides(torch, model32, params32,
-                                               toks, mesh, f["steps"])
+                                               toks, mesh, f["steps"],
+                                               **sides)
     for kind, launches, routes in calls32:
-        want_launches(f"phase 52 float32 {kind}", launches, routes,
+        want_launches(f"phase {phase} float32 {kind}", launches, routes,
                       want[kind], {"flash_attention": "simt"}
                       if kind == "prefill" else {})
     f32 = tp_logit_rule(torch, logits, refs, "float32")
@@ -6957,32 +7205,205 @@ def run_tp_serving(np, torch, device, smi):
         f"side {f32['gaps']}: the mesh side at {f32['share']:.3g} of phase "
         f"12's float32 per-logit limit ({smi})")
     if f32["share"] > 1.0:
-        raise AssertionError(f"phase 52: the mesh's float32 logits leave "
-                             f"phase 12's per-logit rule: {f32}")
-    del params32, model32, logits, refs
+        raise AssertionError(f"phase {phase}: the mesh's float32 logits "
+                             f"leave phase 12's per-logit rule: {f32}")
+    seen.calls.update(seen32.calls)
+    return f32
+
+
+def run_seq_rows(np, torch, device, smi):
+    """Phase 53: minicpm-2b at full width under ``SEQ_TRAIN``'s (1, 8)
+    mesh of the card, whose 36 heads and KV heads ``model`` does not
+    divide.  Training under ``attn_seq_shard`` (``run_tp_training``: the
+    rows over model, weights FSDP-only, K/V all-gathered, the flash
+    kernels at each position's query offset; the float32 gradient gate
+    at ``check_seq``, the card's kernel calls and counts those of the
+    dry run of all 8 positions on ``meta``, its bytes within
+    ``DRY_MEMORY_TOL`` of ``max_memory_allocated``), then serving
+    ``SEQ_SERVE`` (``run_tp_serving``: the prefill under both layouts,
+    decode under ``seq_shard_kv``, phase 12's logit rule against the
+    unsharded run, bfloat16 and float32, walls beside it), then the
+    flash kernels at the last position's shard shape timed
+    (``time_seq_kernels``).  Returns the record."""
+    rec = {"training": run_tp_training(np, torch, device, smi, SEQ_TRAIN,
+                                       SEQ_TRAIN_RULES, 53)}
     gc.collect()
     torch.cuda.empty_cache()
-    seen.calls.update(seen32.calls)
-    held = hold_recorded(torch, seen.calls)
-    rec.update({"card": smi, "config": dict(f), "walls": walls,
-                "bfloat16": bf16, "float32": f32,
-                "launches_per_call": want, "held_at_shard_shapes": held,
-                "reduced": tp_reduced(np, torch, device)})
+    rec["serving"] = run_tp_serving(np, torch, device, smi, SEQ_SERVE,
+                                    SEQ_PREFILL_RULES, SEQ_DECODE_RULES, 53,
+                                    reduced=())
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["kernel_times"] = time_seq_kernels(torch, device, smi)
     return rec
 
 
-def tp_reduced(np, torch, device):
-    """``TP_REDUCED``: the reduced recurrentgemma in float32 under a
-    (2, 2) mesh of the card against the same mesh of the CPU: prefill
-    and the decode steps' logits within 1e-4; each card call's launches
-    exact (a position's flash or decode attention a local-attention
-    layer, its RG-LRU scan an RG-LRU layer on prefill) and every kernel
-    call at its shard shape held against its plain version."""
+def run_seq_kv(np, torch, device, smi):
+    """Phase 54: gemma2-9b at full width under ``KV_SERVE``'s (1, 16)
+    mesh of the card (KV 8 on 16: ``seq_shard_kv``; a softcap): one
+    prefill of B 8 x S 1,024 (heads over model, the cache by slots) and
+    4 decode steps (each position's block of 65 slots, the blocks merged
+    by their log-sum-exps), phase 12's rule in bfloat16, then
+    ``KV_REDUCED``: the
+    reduced gemma2-9b and recurrentgemma-9b with a cache longer than
+    their window, card against CPU within 1e-4.  Returns the record."""
+    return run_tp_serving(np, torch, device, smi, KV_SERVE,
+                          SEQ_DECODE_RULES, SEQ_DECODE_RULES, 54,
+                          reduced=KV_REDUCED, float32=False)
+
+
+#: the shard shapes timed beside their unsharded calls, bfloat16: phase
+#: 53's flash forward and backward (minicpm-2b at S 2,048, the last of 8
+#: row blocks: 256 rows, 2,048 keys, offset 1,792) and phase 54's decode
+#: attention (gemma2-9b at B 8, a block of 65 of 1,040 slots, all 16
+#: heads) with and without the log-sum-exp
+SEQ_TIMED = dict(flash=(1, 36, 36, 2048, 64, 8), decode=(8, 8, 2, 1040, 256,
+                                                         16, 50.0))
+
+
+def same_function(torch, want, got):
+    """The largest gap of a library call's outputs ``got`` from the plain
+    version's ``want``, raised where it passes
+    ``LIBRARY_SAME_FUNCTION`` of ``want``'s largest value."""
+    err = max_abs_err(torch, want, got)
+    top = max(float(w.float().abs().max()) for w in want)
+    if not err <= LIBRARY_SAME_FUNCTION * top:
+        raise AssertionError(f"the library call differs from the plain "
+                             f"version by {err} (largest value {top})")
+    return err
+
+
+def time_seq_kernels(torch, device, smi):
+    """The kernels at ``SEQ_TIMED``'s shard shapes on the card, each held
+    against its plain version first (``ATTN_BF16_ROUNDING``), timed in a
+    CUDA graph beside the plain version, the library call and the bound
+    from this run's shapes (``KERNEL_WORK``): the flash forward and its
+    backward at the last row block, beside the same kernel's call over
+    the whole sequence at offset 0 and the n blocks' calls summed, the
+    library SDPA under the same mask (``causal_lower_right`` at an
+    offset, ``is_causal`` at 0) and its ``autograd.grad``, each held
+    against the plain version too;
+    decode attention with its log-sum-exp beside the call without it."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels.decode_attention.decode_attention import \
+        decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+    bf = torch.bfloat16
+    b, h, kv, s, d, n = SEQ_TIMED["flash"]
+    c = s // n
+    q, k, v, do = bwd_case(torch, 530, (b, h, kv, s, s, d), bf, device)
+    out = {}
+
+    def flash_entry(off, rows):
+        qb, dob = q[:, :, off:off + rows], do[:, :, off:off + rows]
+        kb, vb = k[:, :, :off + rows], v[:, :, :off + rows]
+        kw = dict(causal=True, q_offset=off) if off else dict(causal=True)
+        o, lse = flash_attention(qb, kb, vb, with_lse=True, **kw)
+        # SDPA under the same mask: query row i at key position off + i
+        # (``causal_lower_right``), ``is_causal`` at offset 0; its
+        # backward is ``torch.autograd.grad`` of its output, as phase 34's
+        mask = dict(attn_mask=causal_lower_right(rows, off + rows)) if off \
+            else dict(is_causal=True)
+        qc, kc, vc = (t.detach().contiguous().requires_grad_()
+                      for t in (qb, kb, vb))
+        doc = dob.contiguous()
+        lib_out = F.scaled_dot_product_attention(qc, kc, vc, **mask)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (qc, kc, vc), doc, retain_graph=True)
+        with torch.no_grad():
+            fwd = attention_entry(
+                torch, lambda: flash_attention(qb, kb, vb, **kw),
+                lambda: attention_ref(qb, kb, vb, **kw),
+                lambda: F.scaled_dot_product_attention(qc, kc, vc, **mask),
+                KERNEL_WORK["flash_attention"](qb, kb, vb, **kw), 10,
+                max_abs_err(torch, attention_ref(qb, kb, vb, **kw),
+                            flash_attention(qb, kb, vb, **kw)),
+                [b, h, kv, rows, off + rows, d, off], None)
+        fwd["library_max_abs_err"] = same_function(
+            torch, [attention_ref(qb, kb, vb, **kw)], [lib_out.detach()])
+        got = flash_attention_bwd(qb, kb, vb, o, lse, dob, **kw)
+        want = attention_bwd_ref(qb, kb, vb, o, lse, dob, **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(),
+                                       **ATTN_BF16_ROUNDING)
+        lib_err = same_function(torch, want, lib_bwd())
+        work = KERNEL_WORK["flash_attention_bwd"](qb, kb, vb, o, lse, dob,
+                                                  **kw)
+        kern = lambda: flash_attention_bwd(  # noqa: E731
+            qb, kb, vb, o, lse, dob, **kw)
+        bwd = {"shape": [b, h, kv, rows, off + rows, d, off],
+               "max_abs_err": max(max_abs_err(torch, w, g)
+                                  for g, w in zip(got, want)),
+               "ms": time_ms(torch, kern, 10, graph=True),
+               "eager_ms": time_ms(torch, kern, 10, graph=False),
+               "plain_ms": time_ms(torch, lambda: attention_bwd_ref(
+                   qb, kb, vb, o, lse, dob, **kw), 3, graph=True),
+               # eager, as phase 34's: autograd runs the backward on the
+               # forward's stream, outside a capture; beside eager_ms
+               "library_ms": time_ms(torch, lib_bwd, 10, graph=False),
+               "library": "autograd.grad of F.scaled_dot_product_attention"
+                          " (eager)", "library_max_abs_err": lib_err,
+               **bound_keys(work)}
+        del lib_out, qc, kc, vc, doc
+        return fwd, bwd
+
+    last = flash_entry(s - c, c)
+    whole = flash_entry(0, s)
+    blocks = [flash_entry(m * c, c) for m in range(n - 1)] + [last]
+    for i, name in enumerate(("flash_attention", "flash_attention_bwd")):
+        out[name] = {"last_block": last[i], "whole_at_offset_0": whole[i],
+                     "blocks_summed_ms": sum(e[i]["ms"] for e in blocks),
+                     "blocks_summed_bound_ms": sum(e[i]["bound_ms"]
+                                                   for e in blocks)}
+    bd, kvd, g, size, dd, nd, cap = SEQ_TIMED["decode"]
+    blk = size // nd
+    qd, kd, vd, _ = decode_case(torch, 531, bd, kvd, g, blk, dd, bf, device)
+    pos = torch.full((bd,), blk - 1, dtype=torch.int32, device=device)
+    q_h = qd.reshape(bd, kvd * g, 1, dd)
+    entries = {}
+    for key, lse in (("with_lse", True), ("without_lse", False)):
+        kw = dict(cap=cap, return_lse=True) if lse else dict(cap=cap)
+
+        def kern(kw=kw):
+            res = decode_attention(qd, kd, vd, pos, **kw)
+            return res[0] if lse else res
+
+        def plain(kw=kw):
+            res = decode_ref(qd, kd, vd, pos, **kw)
+            return res[0] if lse else res
+        entries[key] = attention_entry(
+            torch, kern, plain,
+            lambda: F.scaled_dot_product_attention(q_h, kd, vd,
+                                                   enable_gqa=True),
+            KERNEL_WORK["decode_attention"](qd, kd, vd, pos, **kw), 20,
+            max_abs_err(torch, plain(), kern()), [bd, kvd, g, blk, dd],
+            None)
+    out["decode_attention"] = entries
+    for name, e in out.items():
+        log(f"  {name} at the shard shapes, bf16: {json.dumps(e, default=str)}"
+            f" ({smi})")
+    return out
+
+
+def tp_reduced(np, torch, device, f=TP_REDUCED, rules=None):
+    """``TP_REDUCED`` (``f``): the reduced recurrentgemma in float32
+    under a (2, 2) mesh of the card against the same mesh of the CPU,
+    under ``rules`` (phase 54: ``seq_shard_kv``, a cache longer than the
+    window): prefill and the decode steps' logits within 1e-4; each card
+    call's launches exact (a position's flash or decode attention an
+    attention layer, its RG-LRU scan an RG-LRU layer on prefill) and
+    every kernel call at its shard shape held against its plain
+    version."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.cost_model import _block_kinds
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.parallel.sharding import use_mesh_rules
-    f = TP_REDUCED
     cfg = get_arch(f["arch"]).reduced()
     n = f["mesh"][0] * f["mesh"][1]
     kinds = _block_kinds(cfg)
@@ -7000,7 +7421,8 @@ def tp_reduced(np, torch, device):
                                          ("card", gpu, p_gpu, device)):
             card = side == "card"
             with use_mesh_rules(card_mesh(torch, f["mesh"],
-                                          torch.device(dev))):
+                                          torch.device(dev)),
+                                **(rules or {})):
                 (lg, cache), _, launches, routes = counted(
                     torch, lambda: model.prefill(params, toks.to(dev),
                                                  f["cache"]))
@@ -7030,9 +7452,10 @@ def tp_reduced(np, torch, device):
         worst = max(worst, float((a - b).abs().max()))
     held = hold_recorded(torch, {k: v for k, v in seen.calls.items()
                                  if v[1][0].device.type == "cuda"})
-    log(f"  {cfg.name} float32 under {f['mesh']}: prefill + "
+    log(f"  {cfg.name} float32 under {f['mesh']} {rules or {}}: prefill + "
         f"{f['steps']} decode logits card vs CPU max abs diff {worst:.3g}")
-    return {"mesh": list(f["mesh"]), "max_abs_diff": worst,
+    return {"model": cfg.name, "mesh": list(f["mesh"]),
+            "rules": dict(rules or {}), "max_abs_diff": worst,
             "held_at_shard_shapes": held}
 
 
@@ -7236,7 +7659,15 @@ def main() -> int:
              f"under a {TP_SERVE['mesh']} mesh of the card, then "
              f"{TP_REDUCED['arch']} reduced under {TP_REDUCED['mesh']}",
              lambda np_, torch_, dev: run_tp_serving(np_, torch_, dev,
-                                                     smi))):
+                                                     smi)),
+            (53, "seq_rows", f"{SEQ_TRAIN['arch']} trained and served at "
+             f"full width under a {SEQ_TRAIN['mesh']} mesh of the card "
+             f"(attn_seq_shard, seq_shard_kv)",
+             lambda np_, torch_, dev: run_seq_rows(np_, torch_, dev, smi)),
+            (54, "seq_kv", f"{KV_SERVE['arch']} served at full width under "
+             f"a {KV_SERVE['mesh']} mesh of the card (seq_shard_kv), then "
+             f"the reduced gemma2-9b and recurrentgemma-9b",
+             lambda np_, torch_, dev: run_seq_kv(np_, torch_, dev, smi))):
         log(f"[{phase}] {title}")
         t0 = time.perf_counter()
         tp[key] = fn(np, torch, device)
@@ -7300,6 +7731,11 @@ def main() -> int:
                 for m in sharded["meshes"]}}
 
     rows.append(mlstm_bwd_row)
+    # the attention kernels at phase 53's and 54's shard shapes
+    seq_times = tp["seq_rows"].pop("kernel_times")
+    for row in rows:
+        if row["name"] in seq_times:
+            row["seq_shard"] = seq_times[row["name"]]
 
     print(json.dumps({"tp_fsdp": tp}, default=str))
     print(json.dumps({"launch_debug": launch_debug}, default=str))

@@ -50,6 +50,15 @@
 //    NSPLIT partials in split order (m = max m_j; l and acc summed with
 //    weights exp(m_j - m); out = acc / max(l, 1e-30)), so two launches are
 //    bitwise equal.  An empty partial carries weight exp(-1e30 - m) = 0.
+//    Given an lse pointer (float32 [B, KV, G]) it also stores the row's
+//    log-sum-exp m + log(l) of its masked logits, or -inf where l = 0 (no
+//    valid slot: pos[b] < 0, which a block of a cache split over a mesh's
+//    `model` axis gets when it lies wholly past the position; out is 0
+//    there), and out is float32 whatever the inputs' dtype: the blocks'
+//    (out, lse) then merge across `model` in float32, each block's output
+//    unrounded (a bf16 output a block adds a rounding the whole cache's
+//    call does not make).  Serving passes a null pointer and stores
+//    nothing more.
 //
 // The workspace (partials) is allocated by the wrapper (torch.empty),
 // sized from S.  Measured on an H100 SXM (PERF.md section 6): gemma2's
@@ -606,7 +615,7 @@ template <typename T>
 __global__ void __launch_bounds__(256)
 decode_merge_kernel(const float* __restrict__ part_acc,
                     const float* __restrict__ part_ml, T* __restrict__ out,
-                    int G, int D, int NSPLIT) {
+                    float* __restrict__ lse, int G, int D, int NSPLIT) {
   extern __shared__ float wts[];                   // [NSPLIT] m, then w
   float* ls = wts + NSPLIT;                        // [NSPLIT] l
   __shared__ float tot[2];                         // m, l
@@ -638,6 +647,9 @@ decode_merge_kernel(const float* __restrict__ part_acc,
     }
   }
   __syncthreads();
+  if (lse != nullptr && tid == 0)
+    lse[bkv * G + g] = tot[1] > 0.f ? tot[0] + logf(tot[1])
+                                    : __int_as_float(0xff800000);
   const float den = fmaxf(tot[1], 1e-30f);
   const float* pacc = part_acc + (bkv * NSPLIT * G + g) * D;
   for (int d = tid; d < D; d += blockDim.x) {
@@ -652,6 +664,7 @@ decode_merge_kernel(const float* __restrict__ part_acc,
 struct Args {
   const void *q, *k, *v, *pos;
   void* out;
+  float* lse;
   float *part_acc, *part_ml;
   int B, KV, G, S, L, NSPLIT;
   long long st[6];
@@ -659,13 +672,18 @@ struct Args {
   cudaStream_t stream;
 };
 
+// the merge into out of the inputs' dtype T, or, with an lse, float32
 template <typename T, int D>
 int merge(const Args& a) {
   constexpr unsigned threads = D < 32 ? 32 : D;
-  decode_merge_kernel<T>
-      <<<dim3((unsigned)(a.B * a.KV), (unsigned)a.G), threads,
-         2 * a.NSPLIT * sizeof(float), a.stream>>>(
-          a.part_acc, a.part_ml, (T*)a.out, a.G, D, a.NSPLIT);
+  const dim3 grid((unsigned)(a.B * a.KV), (unsigned)a.G);
+  const size_t smem = 2 * a.NSPLIT * sizeof(float);
+  if (a.lse != nullptr)
+    decode_merge_kernel<float><<<grid, threads, smem, a.stream>>>(
+        a.part_acc, a.part_ml, (float*)a.out, a.lse, a.G, D, a.NSPLIT);
+  else
+    decode_merge_kernel<T><<<grid, threads, smem, a.stream>>>(
+        a.part_acc, a.part_ml, (T*)a.out, nullptr, a.G, D, a.NSPLIT);
   return (int)cudaGetLastError();
 }
 
@@ -729,20 +747,22 @@ int dispatch_d(int D, const Args& a) {
 }  // namespace
 
 // dtype 0 = float32, 1 = bfloat16; q and out are [B, KV, G, D]
-// contiguous; k/v strides in elements over (b, kv head, slot), the head
-// dimension contiguous, rows 16-byte aligned; pos is [B] int32.  Splits
+// contiguous (out float32 when lse is given, else of the dtype); k/v strides in elements over (b, kv head, slot), the head
+// dimension contiguous, rows 16-byte aligned; pos is [B] int32 (a
+// negative entry: no valid slot); lse is null or float32 [B, KV, G].  Splits
 // NSPLIT of L slots (NSPLIT L >= S); part_acc holds B KV NSPLIT G D
 // floats and part_ml B KV NSPLIT 2 G.  Two launches on `stream`.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* pos, void* out,
-    void* part_acc, void* part_ml, int B, int KV, int G, int S, int D,
+    void* lse, void* part_acc, void* part_ml, int B, int KV, int G, int S, int D,
     int L, int NSPLIT, int dtype, long long ksb, long long ksh,
     long long kss, long long vsb, long long vsh, long long vss,
     float scale, float cap, void* stream) {
   if (B <= 0 || KV <= 0 || G <= 0 || G > GMAX || S <= 0 || L <= 0 ||
       NSPLIT <= 0 || NSPLIT > MAX_SPLITS || (long long)NSPLIT * L < S)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, pos, out, (float*)part_acc, (float*)part_ml,
+  const Args a{q, k, v, pos, out, (float*)lse, (float*)part_acc,
+               (float*)part_ml,
                B, KV, G, S, L, NSPLIT, {ksb, ksh, kss, vsb, vsh, vss},
                scale, cap, (cudaStream_t)stream};
   if (dtype == 0) return dispatch_d<float>(D, a);

@@ -13,6 +13,13 @@
 // encoder's frames: Sq the prompt, Sk 1,500), which the wrapper allows
 // only without a causal mask or a window (Sk = Sq otherwise).
 //
+// Query offset: under a mask, query row q may stand at position qoff + q
+// (a row block of a sequence split over a mesh's `model` axis, against
+// the sequence's first Sk >= qoff + Sq keys); every key range and mask
+// below compares qoff + q with the key index.  At qoff = 0 every range and
+// mask is the launch's without an offset, so its output is that launch's
+// bit for bit.
+//
 // Bound: operations.  At gemma2-9b's prefill (B 8, H 16, D 256, S in the
 // thousands) a causal launch does 2 B H S^2 D flops (QK^T and PV, half of
 // the square each) on a few hundred MB, hundreds of flops per byte.
@@ -111,7 +118,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        long long qsb, long long qsh, long long qss,
                        long long ksb, long long ksh, long long kss,
                        long long vsb, long long vsh, long long vss,
-                       int causal, int window, float scale, float cap) {
+                       int causal, int window, int qoff, float scale,
+                       float cap) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                          // [BQ][D + PAD]
   float* Ks = Qs + BQ * (D + PAD);           // [BK][D + PAD]
@@ -134,8 +142,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D, BQ>(Qs, D + PAD, qb, qss, q0, Sq);
 
   // kv tiles holding an unmasked key for some row of this block
-  const int k_hi = causal ? min(q_last, Sk - 1) : Sk - 1;
-  const int k_lo = window ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(qoff + q_last, Sk - 1) : Sk - 1;
+  const int k_lo = window ? max(0, qoff + q0 - window + 1) : 0;
   const int kt_lo = k_lo / BK, kt_hi = k_hi / BK;
 
   float m[4], l[4], acc[4][NJ][4];
@@ -185,7 +193,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // scale, softcap, mask, then the online-softmax update per row
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
+      const int qp = qoff + q0 + ty * 4 + i;
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -277,8 +285,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int H, int KV, int Sq, int Sk,
-           const long long* st, int causal, int window, float scale,
-           float cap, cudaStream_t stream) {
+           const long long* st, int causal, int window, int qoff,
+           float scale, float cap, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
   auto kern = flash_attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -289,21 +297,21 @@ int launch(const void* q, const void* k, const void* v, void* out,
       (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, H, H / KV, Sq, Sk,
       st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, window,
-      scale, cap);
+      qoff, scale, cap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
                void* out, float* lse, int B, int H, int KV, int Sq, int Sk,
-               const long long* st, int causal, int window, float scale,
-               float cap, cudaStream_t s) {
+               const long long* st, int causal, int window, int qoff,
+               float scale, float cap, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 32: return launch<T, 32>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 64: return launch<T, 64>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 128: return launch<T, 128>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 256: return launch<T, 256>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 16: return launch<T, 16>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, qoff, scale, cap, s);
+    case 32: return launch<T, 32>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, qoff, scale, cap, s);
+    case 64: return launch<T, 64>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, qoff, scale, cap, s);
+    case 128: return launch<T, 128>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, qoff, scale, cap, s);
+    case 256: return launch<T, 256>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, qoff, scale, cap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -347,7 +355,7 @@ struct Tile {
 // units: z = cap tanh(s scale / cap) log2(e), or s scale log2(e).
 struct Softmax {
   float to_u, cap2, cap;
-  int Sk, causal, window;
+  int Sk, causal, window, qoff;
 
   __device__ __forceinline__ void operator()(
       float (&sc)[32], int r, int k0, bool edge, float (&m)[2],
@@ -361,7 +369,7 @@ struct Softmax {
         float z = sc[4 * j + i] * to_u;
         if (cap != 0.f) z = cap2 * hopper::tanh_ex2(z);
         if (edge) {
-          const int qp = r + 8 * (i >> 1);
+          const int qp = qoff + r + 8 * (i >> 1);
           const int kp = k0 + 8 * j + 2 * (lane % 4) + (i & 1);
           bool ok = kp < Sk;
           if (causal) ok = ok && qp >= kp;
@@ -405,7 +413,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv,
                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                    int H, int group, int Sq, int Sk, int causal, int window,
-                   float scale, float cap) {
+                   int qoff, float scale, float cap) {
   using T = Tile<D>;
   constexpr int SW = T::SW, EC = T::EC, NWG = T::NWG, WQ = T::WQ;
   constexpr int KV_TILE = T::KV_BYTES;
@@ -425,8 +433,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = qt * WQ;
   const int q_last = min(q0 + WQ, Sq) - 1;
   // kv tiles holding an unmasked key for some row of this block
-  const int k_hi = causal ? min(q_last, Sk - 1) : Sk - 1;
-  const int k_lo = window ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(qoff + q_last, Sk - 1) : Sk - 1;
+  const int k_lo = window ? max(0, qoff + q0 - window + 1) : 0;
   const int kt_lo = k_lo / BK, nt = k_hi / BK - kt_lo + 1;
   // warpgroup index, warp-uniform for the compiler
   const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -475,11 +483,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int r = wr0 + 16 * w4 + lane / 4;  // this thread's rows r, r + 8
     const uint8_t* qw = Qs + wgi * WG_ROWS * SW;
     const Softmax softmax{cap != 0.f ? scale / cap : scale * LOG2E,
-                          cap * LOG2E, cap, Sk, causal, window};
+                          cap * LOG2E, cap, Sk, causal, window, qoff};
     // this warpgroup's live tiles [t0, t1]: the others hold no unmasked
     // key for its rows and would add exactly nothing (see the header)
-    const int wk_lo = window ? max(0, wr0 - window + 1) : 0;
-    const int wk_hi = causal ? min(wr0 + WG_ROWS - 1, k_hi) : k_hi;
+    const int wk_lo = window ? max(0, qoff + wr0 - window + 1) : 0;
+    const int wk_hi = causal ? min(qoff + wr0 + WG_ROWS - 1, k_hi) : k_hi;
     const int t0 = max(wk_lo / BK - kt_lo, 0);
     const int t1 = min(wk_hi / BK - kt_lo, nt - 1);
 
@@ -488,8 +496,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // a tile that needs the per-element mask: one reaching past Sk (TMA
     // reads those keys as zeros, whose zero logits the mask must remove)
     auto edge = [&](int k0) {
-      return k0 + BK > Sk || (causal && k0 + BK - 1 > wr0) ||
-             (window && wr0 + WG_ROWS - 1 - k0 >= window);
+      return k0 + BK > Sk || (causal && k0 + BK - 1 > qoff + wr0) ||
+             (window && qoff + wr0 + WG_ROWS - 1 - k0 >= window);
     };
     // S = Q K^T over D in k16 steps: A = Q (K-major), B = K (K-major)
     auto qk = [&](float (&sc)[32], int t) {
@@ -623,7 +631,7 @@ template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int B, int H, int KV, int Sq, int Sk,
                  const long long* st,
-                 int causal, int window, float scale, float cap,
+                 int causal, int window, int qoff, float scale, float cap,
                  cudaStream_t stream) {
   using T = Tile<D>;
   constexpr int WQ = T::WQ;
@@ -652,21 +660,21 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)((Sq + WQ - 1) / WQ), (unsigned)H, (unsigned)B);
   kern<<<grid, T::THREADS, bytes, stream>>>(
       maps[0], maps[1], maps[2], (__nv_bfloat16*)out, lse, H, H / KV, Sq, Sk,
-      causal, window, scale, cap);
+      causal, window, qoff, scale, cap);
   return (int)cudaGetLastError();
 }
 
 int dispatch_wgmma(int D, const void* q, const void* k, const void* v,
                    void* out, float* lse, int B, int H, int KV, int Sq,
                    int Sk,
-                   const long long* st, int causal, int window, float scale,
-                   float cap, cudaStream_t s) {
+                   const long long* st, int causal, int window, int qoff,
+                   float scale, float cap, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_wgmma<16>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 32: return launch_wgmma<32>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 64: return launch_wgmma<64>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 128: return launch_wgmma<128>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
-    case 256: return launch_wgmma<256>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, scale, cap, s);
+    case 16: return launch_wgmma<16>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, qoff, scale, cap, s);
+    case 32: return launch_wgmma<32>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, qoff, scale, cap, s);
+    case 64: return launch_wgmma<64>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, qoff, scale, cap, s);
+    case 128: return launch_wgmma<128>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, qoff, scale, cap, s);
+    case 256: return launch_wgmma<256>(q, k, v, out, lse, B, H, KV, Sq, Sk, st, causal, window, qoff, scale, cap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -676,7 +684,9 @@ int dispatch_wgmma(int D, const void* q, const void* k, const void* v,
 // dtype 0 = float32 (simt route), 1 = bfloat16 (wgmma route: pointers
 // 16-byte aligned, strides multiples of 8); strides in elements, (b, head,
 // s) for each of q (Sq rows), k and v (Sk rows), the head dimension
-// contiguous; out is [B, H, Sq, D]; lse is null or float32 [B, H, Sq].
+// contiguous; out is [B, H, Sq, D]; lse is null or float32 [B, H, Sq];
+// qoff (>= 0, only under a mask, Sk >= qoff + Sq) places query row q at
+// position qoff + q.
 // *route is set to the route launched: 1 = wgmma, 0 = simt.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, void* lse,
@@ -684,18 +694,19 @@ extern "C" int repro_flash_attention(
     int KV, int Sq, int Sk, int D, int dtype, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, int causal, int window,
-    float scale, float cap, void* stream, int* route) {
-  if (B <= 0 || H <= 0 || KV <= 0 || Sq <= 0 || Sk <= 0 || H % KV != 0)
+    int qoff, float scale, float cap, void* stream, int* route) {
+  if (B <= 0 || H <= 0 || KV <= 0 || Sq <= 0 || Sk <= 0 || H % KV != 0 ||
+      qoff < 0 || (qoff > 0 && ((!causal && !window) || Sk < qoff + Sq)))
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   cudaStream_t s = (cudaStream_t)stream;
   *route = dtype == 1;
   if (dtype == 0)
     return dispatch_d<float>(D, q, k, v, out, (float*)lse, B, H, KV, Sq, Sk,
-                             st, causal, window, scale, cap, s);
+                             st, causal, window, qoff, scale, cap, s);
   if (dtype == 1)
     return dispatch_wgmma(D, q, k, v, out, (float*)lse, B, H, KV, Sq, Sk,
-                          st, causal, window, scale, cap, s);
+                          st, causal, window, qoff, scale, cap, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,11 @@
 //   dQ[q]    = sum_k dS[q, k] k[k]
 //
 // (the factor 1 - tanh^2 only under a softcap).  The mask is the
-// forward's: k < Sk, q >= k when causal, q - k < window with a window.
+// forward's: k < Sk, q >= k when causal, q - k < window with a window,
+// query row q at position qoff + q under a query offset (a row block of a
+// sequence split over a mesh's `model` axis, the forward's qoff): the key
+// and query ranges below shift by it, and keys that no query of the launch
+// reads get dK = dV = 0, written (they go into a reduce-scatter).
 // Inputs float32 or bfloat16 (any strides over (b, head, s) with the head
 // dimension contiguous), all math in float32 accumulators, dq [B, H, Sq,
 // D] and dk, dv [B, KV, Sk, D] contiguous in the inputs' dtype.
@@ -254,12 +258,14 @@ __device__ __forceinline__ void mm_nn(float (&acc)[RI][NJ][4],
   }
 }
 
+// the pairs the forward keeps: qp a query row of the launch (at position
+// qoff + qp), kp a key
 struct Mask {
-  int Sq, Sk, causal, window;
+  int Sq, Sk, causal, window, qoff;
   __device__ __forceinline__ bool operator()(int qp, int kp) const {
     bool ok = qp < Sq && kp < Sk;
-    if (causal) ok = ok && qp >= kp;
-    if (window) ok = ok && qp - kp < window;
+    if (causal) ok = ok && qoff + qp >= kp;
+    if (window) ok = ok && qoff + qp - kp < window;
     return ok;
   }
 };
@@ -368,9 +374,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D, BK>(Vs, v + b * st.v[0] + kvh * st.v[1], st.v[2], k0, Sk);
 
   // query tiles holding an unmasked query for some key of this tile
-  const int q_lo = mask.causal ? k0 : 0;
-  const int q_hi = mask.window ? min(Sq - 1, k_last + mask.window - 1)
-                               : Sq - 1;
+  const int q_lo = mask.causal ? max(0, k0 - mask.qoff) : 0;
+  const int q_hi = mask.window
+                       ? min(Sq - 1, k_last + mask.window - 1 - mask.qoff)
+                       : Sq - 1;
   const int qt_lo = q_lo / BQ, qt_hi = q_lo <= q_hi ? q_hi / BQ : -1;
 
   float dka[RI][NJ][4], dva[RI][NJ][4];
@@ -460,8 +467,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * st.v[0] + kvh * st.v[1];
 
   // the key tiles the forward visits for these rows
-  const int k_hi = mask.causal ? min(q_last, Sk - 1) : Sk - 1;
-  const int k_lo = mask.window ? max(0, q0 - mask.window + 1) : 0;
+  const int k_hi = mask.causal ? min(mask.qoff + q_last, Sk - 1) : Sk - 1;
+  const int k_lo = mask.window ? max(0, mask.qoff + q0 - mask.window + 1)
+                               : 0;
 
   float acc[RI][NJ][4];
 #pragma unroll
@@ -732,15 +740,16 @@ __device__ __forceinline__ void dkdv_consumer(
   for (int t = 0; t < nt; ++t) {
     const int s = t % STAGES;
     const int q0 = (feed.qt_lo + t % feed.nq) * BT;
-    const bool live = k0w < Sk && (!mask.causal || q0 + BT - 1 >= k0w) &&
-                      (!mask.window || q0 - kmax < mask.window);
+    const int qa = mask.qoff + q0;             // the tile's first position
+    const bool live = k0w < Sk && (!mask.causal || qa + BT - 1 >= k0w) &&
+                      (!mask.window || qa - kmax < mask.window);
     hopper::mbar_wait(&feed.full[s], (t / STAGES) & 1);
     if (live) {
       // a tile with a masked pair: queries past Sq or keys past Sk (TMA's
       // zero rows), above the diagonal, outside the window
       const bool edge = q0 + BT > Sq || k0w + WG_ROWS > Sk ||
-                        (mask.causal && q0 < k0w + WG_ROWS - 1) ||
-                        (mask.window && q0 + BT - 1 - k0w >= mask.window);
+                        (mask.causal && qa < k0w + WG_ROWS - 1) ||
+                        (mask.window && qa + BT - 1 - k0w >= mask.window);
       const uint64_t ak = hopper::opaque(
           hopper::desc<SW>(Ks + sub * WG_ROWS * SW, 16, 8 * SW));
       const uint64_t av = hopper::opaque(
@@ -895,10 +904,12 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int Sq = mask.Sq, Sk = mask.Sk;
   const int kvh = blockIdx.y, b = blockIdx.z, group = H / KV;
   const int k0 = blockIdx.x * KEYS, k_last = min(k0 + KEYS, Sk) - 1;
-  // a head's query tiles holding an unmasked query for some key here
-  const int q_lo = mask.causal ? k0 : 0;
-  const int q_hi = mask.window ? min(Sq - 1, k_last + mask.window - 1)
-                               : Sq - 1;
+  // a head's query tiles holding an unmasked query for some key here (none:
+  // zeros are stored)
+  const int q_lo = mask.causal ? max(0, k0 - mask.qoff) : 0;
+  const int q_hi = mask.window
+                       ? min(Sq - 1, k_last + mask.window - 1 - mask.qoff)
+                       : Sq - 1;
   const int qt_lo = q_lo / BT;
   const int nq = q_lo <= q_hi ? q_hi / BT - qt_lo + 1 : 0;
   const int nt = group * nq;
@@ -971,8 +982,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
   const int q0 = qt * ROWS, q_last = min(q0 + ROWS, Sq) - 1;
   // the key tiles the forward visits for these rows
-  const int k_hi = mask.causal ? min(q_last, Sk - 1) : Sk - 1;
-  const int k_lo = mask.window ? max(0, q0 - mask.window + 1) : 0;
+  const int k_hi = mask.causal ? min(mask.qoff + q_last, Sk - 1) : Sk - 1;
+  const int k_lo = mask.window ? max(0, mask.qoff + q0 - mask.window + 1)
+                               : 0;
   const int kt_lo = k_lo / BT, nt = k_hi / BT - kt_lo + 1;
   const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
@@ -1019,8 +1031,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float L[2] = {lse2[rows + r], lse2[rows + r + 8]};
     const float E[2] = {delta[rows + r], delta[rows + r + 8]};
     // this warpgroup's live tiles [t0, t1], as the forward's
-    const int wk_lo = mask.window ? max(0, wr0 - mask.window + 1) : 0;
-    const int wk_hi = mask.causal ? min(wr0 + WG_ROWS - 1, k_hi) : k_hi;
+    const int wa = mask.qoff + wr0;        // its first row's position
+    const int wk_lo = mask.window ? max(0, wa - mask.window + 1) : 0;
+    const int wk_hi = mask.causal ? min(wa + WG_ROWS - 1, k_hi) : k_hi;
     const int t0 = max(wk_lo / BT - kt_lo, 0);
     const int t1 = min(wk_hi / BT - kt_lo, nt - 1);
     const uint8_t* qw = Qs + wgi * WG_ROWS * SW;
@@ -1038,9 +1051,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         // a tile with a masked pair: keys past Sk (TMA's zero rows),
         // rows past Sq, above the diagonal, outside the window
         const bool edge = k0 + BT > Sk || wr0 + WG_ROWS > Sq ||
-                          (mask.causal && k0 + BT - 1 > wr0) ||
+                          (mask.causal && k0 + BT - 1 > wa) ||
                           (mask.window &&
-                           wr0 + WG_ROWS - 1 - k0 >= mask.window);
+                           wa + WG_ROWS - 1 - k0 >= mask.window);
         const uint64_t aq = hopper::opaque(hopper::desc<SW>(qw, 16, 8 * SW));
         const uint64_t ao = hopper::opaque(hopper::desc<SW>(ow, 16, 8 * SW));
         const uint64_t bk = hopper::opaque(
@@ -1213,18 +1226,22 @@ constexpr int ROW_PAD = 128;
 // 16-byte in float32); lse is float32 [B, H, Sq]; `scratch` float32 of 2 B
 // H Sp floats, Sp = Sq rounded up to a multiple of 128 (delta, and the
 // wgmma route's padded lse); dq [B, H, Sq, D], dk and dv [B, KV, Sk, D]
-// contiguous.  Three kernels on `stream`; returns the first launch error.
+// contiguous; qoff (>= 0, only under a mask, Sk >= qoff + Sq) places
+// query row q at position qoff + q.  Three kernels on `stream`; returns
+// the first launch error.
 // *route is set to the route launched: 1 = wgmma, 0 = simt.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* scratch, void* dq, void* dk,
     void* dv, int B, int H, int KV, int Sq, int Sk, int D, int dtype,
-    const long long* st, int causal, int window, float scale, float cap,
-    void* stream, int* route) {
-  if (B <= 0 || H <= 0 || KV <= 0 || Sq <= 0 || Sk <= 0 || H % KV != 0)
+    const long long* st, int causal, int window, int qoff, float scale,
+    float cap, void* stream, int* route) {
+  if (B <= 0 || H <= 0 || KV <= 0 || Sq <= 0 || Sk <= 0 || H % KV != 0 ||
+      qoff < 0 || (qoff > 0 && ((!causal && !window) || Sk < qoff + Sq)))
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, dout, (const float*)lse, (float*)scratch, dq, dk, dv,
-         B, H, KV, Sq, Sk, {}, Mask{Sq, Sk, causal, window}, scale, cap};
+         B, H, KV, Sq, Sk, {}, Mask{Sq, Sk, causal, window, qoff}, scale,
+         cap};
   for (int i = 0; i < 3; ++i) {
     a.st.q[i] = st[i];
     a.st.k[i] = st[3 + i];

@@ -15,7 +15,13 @@ shared-memory ring) into a float32 partial (workspace from
 order.  bfloat16 with more than 8 query heads a kv head forms q kᵀ and
 P V on the tensor cores (``mma.sync``); other shapes on the SIMT cores.
 A call is two CUDA launches, counted once in ``launches``, and is
-deterministic launch to launch.
+deterministic launch to launch.  With ``return_lse`` the merge also
+writes each query head's log-sum-exp of its masked logits (``-inf``
+where no slot is valid) and the output in float32, so the partial
+results of a cache split over ``model`` merge across it in float32
+(``models.attention.decode_attention_seq_kv``); rounded to the inputs'
+dtype, that output is the call without ``return_lse`` bit for bit.  A
+row whose ``pos`` is negative has no valid slot and gives 0.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_attention.flash_attention import (
     HEAD_DIMS, check_operand)
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 6 + [ctypes.c_float] * 2
              + [ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -65,12 +71,14 @@ def decode_splits(B: int, KV: int, S: int, n_sm: int):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     pos: torch.Tensor, *,
-                     cap: float = 0.0) -> torch.Tensor:
+                     pos: torch.Tensor, *, cap: float = 0.0,
+                     return_lse: bool = False):
     """q [B,KV,G,D] contiguous (G <= 16; D in 16, 32, 64, 128, 256); k/v
-    [B,KV,S,D] (strided views allowed with D contiguous); pos [B] int32;
-    float32 or bfloat16, all on one CUDA device -> [B,KV,G,D] in
-    ``q.dtype``, on the current stream without synchronising.  Raises
+    [B,KV,S,D] (strided views allowed with D contiguous); pos [B] int32
+    (negative: no valid slot); float32 or bfloat16, all on one CUDA
+    device -> [B,KV,G,D] in ``q.dtype`` (with ``return_lse`` the pair
+    (out float32, lse float32 [B,KV,G])), on the current stream without
+    synchronising.  Raises
     under grad: training never decodes, and no backward is planned
     (ROADMAP queue 1 item 14.4)."""
     refuse_grad("decode_attention", "14.4 (training runs prefill "
@@ -97,9 +105,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: pos must be a contiguous CUDA "
                          f"int32 tensor of shape ({B},) on {q.device}; got "
                          f"{pos.device} {pos.dtype} {tuple(pos.shape)}")
-    out = torch.empty_like(q)
+    out, lse = _outputs(q, return_lse)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     scale = 1.0 / math.sqrt(D)
     n_split, length = decode_splits(B, KV, S, sm_count(q.device))
     part_acc = torch.empty((B * KV * n_split * G * D,), dtype=torch.float32,
@@ -112,21 +120,30 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B,
+                 out.data_ptr(), lse.data_ptr() if return_lse else None,
+                 part_acc.data_ptr(), part_ml.data_ptr(), B,
                  KV, G, S, D, length, n_split, _DTYPES[q.dtype],
                  *k.stride()[:3], *v.stride()[:3], float(scale), float(cap),
                  stream)
     _build.check_launch(lib, "decode_attention", err)
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0
 
 
+def _outputs(q: torch.Tensor, return_lse: bool):
+    """(out, lse or None): out in ``q.dtype``, or float32 with the lse."""
+    if not return_lse:
+        return torch.empty_like(q), None
+    return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+            torch.empty(q.shape[:3], dtype=torch.float32, device=q.device))
+
+
 def decode_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          pos: torch.Tensor, *,
-                          cap: float = 0.0) -> torch.Tensor:
+                          pos: torch.Tensor, *, cap: float = 0.0,
+                          return_lse: bool = False):
     """``decode_attention`` on ``meta``: the output's shape and dtype, the
     split partials the card's wrapper allocates (``decode_splits`` at the
     H100 SXM's SMs); no launch, no arithmetic."""
@@ -135,12 +152,12 @@ def decode_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "attention only)", q, k)
     B, KV, G, D = q.shape
     S = k.shape[2]
-    out = torch.empty_like(q)
+    out, lse = _outputs(q, return_lse)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     n_split, _ = decode_splits(B, KV, S, sm_count(q.device))
     torch.empty((B * KV * n_split * G * D,), dtype=torch.float32,
                 device=q.device)
     torch.empty((B * KV * n_split * 2 * G,), dtype=torch.float32,
                 device=q.device)
-    return out
+    return (out, lse) if return_lse else out

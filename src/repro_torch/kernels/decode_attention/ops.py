@@ -26,8 +26,11 @@ _BY_DEVICE = {"cuda": decode_attention, "cpu": decode_ref,
 @charged_unit
 def decode_mha(q: torch.Tensor, k_cache: torch.Tensor,
                v_cache: torch.Tensor, pos: torch.Tensor, *,
-               cap: float = 0.0) -> torch.Tensor:
-    """q [B,1,H,D]; caches [B,S,KV,D]; pos [B] int32 -> [B,1,H,D]."""
+               cap: float = 0.0, return_lse: bool = False):
+    """q [B,1,H,D]; caches [B,S,KV,D]; pos [B] int32 -> [B,1,H,D]; with
+    ``return_lse`` the pair (out float32, lse float32 [B,H]): each head's
+    log-sum-exp of its masked logits, ``-inf`` (and out 0) for a row
+    whose ``pos`` is negative."""
     fn = _BY_DEVICE.get(q.device.type)
     if fn is None:
         raise ValueError(f"decode_mha: unsupported device {q.device}")
@@ -35,9 +38,12 @@ def decode_mha(q: torch.Tensor, k_cache: torch.Tensor,
     kv = k_cache.shape[2]
     qg = q[:, 0].reshape(b, kv, h // kv, d).contiguous()
     kt, vt = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
-    charge("decode_attention", qg, kt, vt, pos, cap=cap)
+    charge("decode_attention", qg, kt, vt, pos, cap=cap,
+           return_lse=return_lse)
     with torch.profiler.record_function("attention.decode"):
-        out = fn(qg, kt, vt, pos, cap=cap)
+        out = fn(qg, kt, vt, pos, cap=cap, return_lse=return_lse)
+    if return_lse:
+        return out[0].reshape(b, 1, h, d), out[1].reshape(b, h)
     return out.reshape(b, 1, h, d)
 
 

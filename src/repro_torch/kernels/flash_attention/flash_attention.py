@@ -7,7 +7,10 @@ with a causal mask, a sliding window and a tanh logit softcap, GQA by
 running sum clamped at ``1e-30``; float32 math from float32 or bfloat16
 inputs, output in ``q.dtype``.  The keys may be longer or shorter than
 the queries (Sk != Sq: cross-attention, which the TPU kernel's single S
-does not take) when neither the causal mask nor a window is set.  Bound
+does not take) when neither the causal mask nor a window is set; under a
+mask, ``q_offset`` places query row i at position ``q_offset + i`` over
+the first ``Sk >= q_offset + Sq`` keys (a row block of a sequence split
+over ``model``, ``models.attention.attention_seq_sharded``).  Bound
 by operations at the serving
 shapes (4 B H S^2 D / 2 flops for causal rows, at the H100's 989 bf16
 TFLOP/s).  Two routes, counted in ``flash_attention.launches_by_route``:
@@ -45,7 +48,7 @@ from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_attention.ref import check_key_length
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-             + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+             + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
              + [ctypes.c_float] * 2 + [ctypes.c_void_p]
              + [ctypes.POINTER(ctypes.c_int)])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,7 +57,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 ROUTES = ("simt", "wgmma")
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                  + [ctypes.POINTER(ctypes.c_longlong)]
-                 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
                  + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 #: the backward's launcher route codes: SIMT fp32 products (float32),
 #: bf16 ``wgmma`` + TMA (bfloat16)
@@ -82,14 +85,15 @@ def check_operand(fn: str, name: str, t: torch.Tensor, ref: torch.Tensor,
 
 
 def _check_shapes(fn: str, q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor, causal: bool, window: int) -> None:
+                  v: torch.Tensor, causal: bool, window: int,
+                  q_offset: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{fn}: want q [B,H,Sq,D], k/v [B,KV,Sk,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     H, D = q.shape[1], q.shape[3]
     KV = k.shape[1]
-    check_key_length(fn, q.shape[2], k.shape[2], causal, window)
+    check_key_length(fn, q.shape[2], k.shape[2], causal, window, q_offset)
     if q.dtype not in _DTYPES or D not in HEAD_DIMS or KV < 1 or H % KV:
         raise ValueError(f"{fn}: dtype {q.dtype} (want float32 or "
                          f"bfloat16), head dim {D} (want {HEAD_DIMS}), "
@@ -112,9 +116,11 @@ def check_tma(fn: str, *named) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    cap: float = 0.0, with_lse: bool = False):
+                    cap: float = 0.0, with_lse: bool = False,
+                    q_offset: int = 0):
     """q [B,H,Sq,D]; k/v [B,KV,Sk,D] (KV divides H; D in 16, 32, 64, 128,
-    256; Sk >= 1, and Sk = Sq when ``causal`` or ``window`` is set;
+    256; Sk >= 1, and Sk = Sq when ``causal`` or ``window`` is set, or Sk
+    >= q_offset + Sq with query row i at position ``q_offset + i``;
     float32 or bfloat16, all one dtype, on one CUDA device; strided views
     allowed with D contiguous) -> [B,H,Sq,D] contiguous, in ``q.dtype``,
     on the current stream without synchronising; with ``with_lse`` the
@@ -122,7 +128,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``ops.mha``)."""
     refuse_grad("flash_attention", "14.4: call ops.mha, whose autograd "
                 "Function launches flash_attention_bwd", q, k, v)
-    _check_shapes("flash_attention", q, k, v, causal, window)
+    _check_shapes("flash_attention", q, k, v, causal, window, q_offset)
     B, H, S, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:      # the wgmma route reads by TMA
@@ -146,8 +152,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  lse.data_ptr() if with_lse else None,
                  B, H, KV, S, Sk, D, _DTYPES[q.dtype],
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 int(causal), int(window), float(scale), float(cap), stream,
-                 ctypes.byref(route))
+                 int(causal), int(window), int(q_offset), float(scale),
+                 float(cap), stream, ctypes.byref(route))
     _build.check_launch(lib, "flash_attention", err)
     flash_attention.launches += 1
     flash_attention.launches_by_route[ROUTES[route.value]] += 1
@@ -167,17 +173,19 @@ def bwd_route(dtype: torch.dtype) -> str:
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, cap: float = 0.0):
+                        window: int = 0, cap: float = 0.0,
+                        q_offset: int = 0):
     """The gradient of ``flash_attention``: q [B,H,Sq,D], k/v [B,KV,Sk,D],
     the forward's output o and the output's gradient do [B,H,Sq,D] (one
     dtype, strided views allowed with D contiguous and rows aligned to 4
     elements), the forward's lse float32 [B,H,Sq] -> (dq [B,H,Sq,D], dk,
-    dv [B,KV,Sk,D]) contiguous in ``q.dtype``, with float32 math; three
+    dv [B,KV,Sk,D]) contiguous in ``q.dtype`` (zeros at keys that no
+    query reads, at a ``q_offset``), with float32 math; three
     kernels (delta, dK/dV, dQ) on the current stream, counted as one
     launch on its route (``bwd_route``).  The bfloat16 route reads q, k, v
     and do by TMA and refuses, before building, operands it cannot read
     (``check_tma``)."""
-    _check_shapes("flash_attention_bwd", q, k, v, causal, window)
+    _check_shapes("flash_attention_bwd", q, k, v, causal, window, q_offset)
     B, H, S, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if bwd_route(q.dtype) == "wgmma":
@@ -214,7 +222,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KV, S, Sk,
                  D, _DTYPES[q.dtype], strides, int(causal), int(window),
-                 float(1.0 / math.sqrt(D)), float(cap), stream,
+                 int(q_offset), float(1.0 / math.sqrt(D)), float(cap), stream,
                  ctypes.byref(route))
     _build.check_launch(_build.load("flash_attention_bwd"),
                         "flash_attention_bwd", err)
@@ -229,12 +237,13 @@ flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         cap: float = 0.0, with_lse: bool = False):
+                         cap: float = 0.0, with_lse: bool = False,
+                         q_offset: int = 0):
     """``flash_attention`` on ``meta``: its refusals on shapes and under
     grad, outputs of its shapes and dtypes; no launch, no arithmetic."""
     refuse_grad("flash_attention", "14.4: call ops.mha, whose autograd "
                 "Function launches flash_attention_bwd", q, k, v)
-    _check_shapes("flash_attention", q, k, v, causal, window)
+    _check_shapes("flash_attention", q, k, v, causal, window, q_offset)
     B, H, S, D = q.shape
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
@@ -246,12 +255,12 @@ def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, do: torch.Tensor, *,
                              causal: bool = True, window: int = 0,
-                             cap: float = 0.0):
+                             cap: float = 0.0, q_offset: int = 0):
     """``flash_attention_bwd`` on ``meta``: (dq, dk, dv) of its shapes and
     dtypes and the scratch rows the card's wrapper allocates; no launch,
     no arithmetic."""
     del o, lse, do, cap
-    _check_shapes("flash_attention_bwd", q, k, v, causal, window)
+    _check_shapes("flash_attention_bwd", q, k, v, causal, window, q_offset)
     B, H, S, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     dq = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)

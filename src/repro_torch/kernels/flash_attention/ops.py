@@ -63,13 +63,13 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     @charged_unit
-    def forward(ctx, q, k, v, causal, window, cap):
+    def forward(ctx, q, k, v, causal, window, cap, q_offset):
         fwd = _train_fns(q)[0]
-        charge("flash_attention", q, k, v, causal=causal, window=window,
-               cap=cap, with_lse=True)
-        o, lse = fwd(q, k, v, causal=causal, window=window, cap=cap)
+        opts = dict(causal=causal, window=window, cap=cap, q_offset=q_offset)
+        charge("flash_attention", q, k, v, with_lse=True, **opts)
+        o, lse = fwd(q, k, v, **opts)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = dict(causal=causal, window=window, cap=cap)
+        ctx.opts = opts
         return o
 
     @staticmethod
@@ -81,15 +81,16 @@ class FlashAttention(torch.autograd.Function):
         bwd = _train_fns(do)[1]
         charge("flash_attention_bwd", q, k, v, o, lse, do, **ctx.opts)
         dq, dk, dv = bwd(q, k, v, o, lse, do, **ctx.opts)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 @charged_unit
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True, window: int = 0,
-        cap: float = 0.0) -> torch.Tensor:
+        causal: bool = True, window: int = 0, cap: float = 0.0,
+        q_offset: int = 0) -> torch.Tensor:
     """q [B,Sq,H,D]; k/v [B,Sk,KV,D] -> [B,Sq,H,D] (positions are
-    indices: causal and window masks need Sk = Sq; without them the keys
+    indices: causal and window masks need Sk = Sq, or Sk >= q_offset + Sq
+    with query row i at position ``q_offset + i``; without them the keys
     may be of any length, as for cross-attention)."""
     fn = _BY_DEVICE.get(q.device.type)
     if fn is None:
@@ -98,11 +99,13 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.profiler.record_function("attention.flash"):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            out = FlashAttention.apply(qh, kh, vh, causal, window, cap)
+            out = FlashAttention.apply(qh, kh, vh, causal, window, cap,
+                                       q_offset)
         else:
-            charge("flash_attention", qh, kh, vh, causal=causal,
-                   window=window, cap=cap)
-            out = fn(qh, kh, vh, causal=causal, window=window, cap=cap)
+            opts = dict(causal=causal, window=window, cap=cap,
+                        q_offset=q_offset)
+            charge("flash_attention", qh, kh, vh, **opts)
+            out = fn(qh, kh, vh, **opts)
     return out.transpose(1, 2)
 
 

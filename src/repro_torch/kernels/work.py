@@ -105,29 +105,39 @@ def conv2d_work(x, w, b) -> KernelWork:
     return KernelWork(2.0 * M * N * K, nbytes, "fp32", "simt")
 
 
-def kept_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """The (query, key) pairs the masks keep (masks need Sk = Sq)."""
+def _sum_to(n: int) -> int:
+    """1 + 2 + ... + n (0 for n <= 0)."""
+    return n * (n + 1) // 2 if n > 0 else 0
+
+
+def kept_pairs(sq: int, sk: int, causal: bool, window: int,
+               q_offset: int = 0) -> int:
+    """The (query, key) pairs the masks keep, query row i at position
+    ``q_offset + i`` (masks need Sk >= q_offset + Sq): a row at position
+    p keeps keys j <= p (causal) with p - j < window, or every key from p
+    - window + 1 on (a window alone)."""
     if not causal and not window:
         return sq * sk
-    s = sq
+    lo, hi = q_offset, q_offset + sq         # positions [lo, hi)
     if causal:
-        if not window or window >= s:
-            return s * (s + 1) // 2
-        return window * (window + 1) // 2 + (s - window) * window
-    if window >= s:
-        return s * s
-    return s * s - (s - window) * (s - window + 1) // 2
+        # sum over p of min(p + 1, window) (p + 1 without a window)
+        if not window:
+            return _sum_to(hi) - _sum_to(lo)
+        below = max(0, min(hi, window) - lo)    # rows with p + 1 <= window
+        return _sum_to(lo + below) - _sum_to(lo) + (sq - below) * window
+    # sum over p of sk - max(0, p - window + 1)
+    return sq * sk - (_sum_to(hi - window) - _sum_to(lo - window))
 
 
 def flash_work(q, k, v, *, causal=True, window=0, cap=0.0,
-               with_lse=False) -> KernelWork:
+               with_lse=False, q_offset=0) -> KernelWork:
     """Prefill attention q [B, H, Sq, D], k/v [B, KV, Sk, D]: two products
     of 2 D operations a kept pair and head; q, k, v read, the output
     written (and the log-sum-exp, float32, with ``with_lse``); on the
     bf16 tensor cores in bfloat16 (``wgmma``), fp32 SIMT in float32
-    (``simt``)."""
+    (``simt``); query row i at position ``q_offset + i``."""
     B, H, S, D = q.shape
-    pairs = kept_pairs(S, k.shape[2], causal, window)
+    pairs = kept_pairs(S, k.shape[2], causal, window, q_offset)
     nbytes = _nbytes(q, k, v) + _elt(q) * B * H * S * D
     if with_lse:
         nbytes += 4 * B * H * S
@@ -137,29 +147,32 @@ def flash_work(q, k, v, *, causal=True, window=0, cap=0.0,
 
 
 def flash_bwd_work(q, k, v, o, lse, do, *, causal=True, window=0,
-                   cap=0.0) -> KernelWork:
+                   cap=0.0, q_offset=0) -> KernelWork:
     """The attention backward: five products of 2 D operations a kept
     pair and head (S and dP recomputed, dV, dK, dQ); q, k, v, o, dO and
     the log-sum-exp read, dq, dk, dv written; ``bwd_route``'s route."""
     from repro_torch.kernels.flash_attention.flash_attention import \
         bwd_route
     B, H, S, D = q.shape
-    pairs = kept_pairs(S, k.shape[2], causal, window)
+    pairs = kept_pairs(S, k.shape[2], causal, window, q_offset)
     nbytes = _nbytes(q, k, v, o, lse, do) + _nbytes(q, k, v)
     return KernelWork(10.0 * B * H * D * pairs, nbytes,
                       "bf16" if _is_bf16(q) else "fp32", bwd_route(q.dtype))
 
 
-def decode_work(q, k, v, pos, *, cap=0.0) -> KernelWork:
+def decode_work(q, k, v, pos, *, cap=0.0, return_lse=False) -> KernelWork:
     """One decode step's attention, q [B, KV, G, D] against the caches
     [B, KV, S, D] over every slot (the shapes bound it; a row stops at
     ``pos``, which the count does not read): two products of 2 D
     operations a slot and query head; q and the caches read, the output
-    written, pos read.  bfloat16 with G > 8 and D >= 64 forms them on the
+    written (float32 with ``return_lse``, and the log-sum-exp), pos
+    read.  bfloat16 with G > 8 and D >= 64 forms them on the
     tensor cores (``mma.sync``), other shapes in fp32."""
     B, KV, G, D = q.shape
     S = k.shape[2]
     nbytes = 2 * _nbytes(q) + _nbytes(k, v, pos)
+    if return_lse:
+        nbytes += (4 - _elt(q)) * q.numel() + 4 * B * KV * G
     tc = _is_bf16(q) and G > 8 and D >= 64
     return KernelWork(4.0 * B * KV * G * D * S, nbytes,
                       "bf16" if tc else "fp32")

@@ -16,14 +16,18 @@ run.  Under the reference's (16, 16) and (2, 16, 16) meshes the
 arguments are exact (each input's block under its sharding,
 ``launch.specs``).  Where the reference's rules for the cell give the
 port's sharded program (``models.transformer.mesh_layout_gap``: the
-dense, MoE, VLM and hybrid LMs with heads over ``model``, and for
-prefill and decode KV caches by heads), the model runs under
-``use_mesh_rules`` on a mesh of ``meta`` entries, which runs one
-position's program (``"split": "position"``): its memory, FLOPs, bytes
-and collective bytes are that device's own, its pod bytes those of its
-groups that cross pods.  Other cells run the unsharded program, split
-evenly over the devices (``"split": "even"``), with no collective term
-and a reason that names the layout they wait for.
+dense, MoE, VLM and hybrid LMs with heads over ``model``, the dense and
+VLM ones with their rows over it under ``attn_seq_shard``, and for
+prefill and decode KV caches by heads or, under ``seq_shard_kv``, by
+slots), the model runs under ``use_mesh_rules`` on a mesh of ``meta``
+entries, which runs one position's program (``"split": "position"``,
+and ``"position"`` names it: the last along ``model``, whose row block
+attends to the whole K/V prefix): its memory, FLOPs, bytes and
+collective bytes are that device's own, its pod bytes those of its
+groups that cross pods.  Other cells (whisper-tiny's and xlstm-350m's)
+run the unsharded program, split evenly over the devices (``"split":
+"even"``), with no collective term and a reason that names the layout
+they wait for.
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ from repro_torch.launch.roofline import build_roofline
 from repro_torch.launch.specs import argument_bytes, input_specs
 from repro_torch.models import build_model
 from repro_torch.models.transformer import MISSING_LAYOUT, mesh_layout_gap
-from repro_torch.parallel.sharding import make_mesh, use_mesh_rules
+from repro_torch.parallel.sharding import Spmd, make_mesh, use_mesh_rules
 from repro_torch.runtime.train_loop import make_train_step
 
 META = torch.device("meta")
@@ -142,6 +146,8 @@ def cell_program(arch: str, shape_name: str, mesh_cfg: MeshConfig):
         meta["split"] = "even" if gap else "position"
         if gap:
             meta["layout_gap"] = gap
+        else:
+            meta["position"] = mesh.index(Spmd(mesh).positions[0])
     return program, inputs, shards, meta
 
 

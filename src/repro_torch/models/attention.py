@@ -14,10 +14,20 @@ own, a decode step's through the decode kernel with every slot valid.
 Layouts are the reference's: ``wq``/``wk``/``wv`` ``[d, heads, Dh]``,
 ``wo`` ``[H, Dh, d]``, activations ``[B, S, heads, Dh]``, caches
 ``[B, size, KV, Dh]``.
+
+Under a mesh (``parallel.sharding.Spmd``) attention runs head-parallel
+over ``model`` (``attention_sharded``, ``decode_attention_sharded``), or
+in the reference's two sequence layouts: ``attn_seq_shard``
+(``attention_seq_sharded``: each position's rows, K/V all-gathered over
+``model``, the flash kernel at a query-row offset) and ``seq_shard_kv``
+(``decode_attention_seq_kv``: each position's block of the cache's
+slots, the decode kernel's partial results merged across ``model`` by
+their log-sum-exps; ``cache_block`` cuts a prefill's whole cache into
+those blocks).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -283,7 +293,156 @@ def decode_attention_sharded(sp, p, h, pos, caches, *, window: int = 0,
     return _summed(sp, ys, h), caches
 
 
-__all__ = ["attention", "attention_sharded", "attn_init",
+def _ws(sp, p, names):
+    """The weights ``names`` (those the layer has) gathered whole, one
+    dict a position."""
+    ws = {n: p.gather(n) for n in names if p.has(n)}
+    return [{n: w[k] for n, w in ws.items()} for k in range(sp.n)]
+
+
+_QKV = ("wq", "wk", "wv", "bq", "bk", "bv")
+
+
+def attention_seq_sharded(sp, p, h, pos, *, causal: bool = True,
+                          window: int = 0, cap: float = 0.0,
+                          theta: float = 10000.0,
+                          mrope: Tuple[int, ...] = ()):
+    """``attention`` under ``attn_seq_shard`` (``sp.seq_rows``): position
+    m holds rows ``[m c, (m + 1) c)`` of the sequence (``h`` its rows,
+    ``pos`` their rotary positions) and the layer's whole weights
+    (FSDP-only, gathered as partial uses), projects q / k / v for its
+    rows, all-gathers K and V over ``model`` (the backward
+    reduce-scatters their gradients) and runs ``ops.mha`` at query offset
+    ``m c`` against the keys ``[0, (m + 1) c)``; ``wo`` on its rows, no
+    collective after.  Returns (y, the whole K and V on each position,
+    [B, S, KV, Dh], for the decode cache)."""
+    ws = _ws(sp, p, _QKV + ("wo",))
+    qkv = [_qkv(w, hk, pk, theta, mrope) for w, hk, pk in zip(ws, h, pos)]
+    qs = [t[0] for t in qkv]
+    ks = sp.all_gather([t[1] for t in qkv], "model", 1)
+    vs = sp.all_gather([t[2] for t in qkv], "model", 1)
+    ys = []
+    for k in range(sp.n):
+        c = qs[k].shape[1]
+        end = (sp.index(k)["model"] + 1) * c
+        o = mha(qs[k], ks[k][:, :end], vs[k][:, :end], causal=causal,
+                window=window, cap=cap, q_offset=end - c)
+        ys.append(head_out(o, ws[k]["wo"]))
+    return ys, ks, vs
+
+
+def all_kv_heads(sp, xs, n_heads: int, n_kv: int) -> List[torch.Tensor]:
+    """Every KV head on each position, from the positions' head blocks
+    (``local_heads``) ``xs`` [B, S, kv heads, Dh]: an all-gather over
+    ``model`` along the heads, a head held by several positions (``model``
+    above the KV heads) taken once."""
+    n = sp.mesh.shape["model"]
+    full = sp.all_gather(xs, "model", 2)
+    kv_n = local_heads(n_heads, n_kv, n, 0)[3]
+    if kv_n * n == n_kv:
+        return full
+    first = {}
+    for m in range(n):
+        _, _, lo, cnt = local_heads(n_heads, n_kv, n, m)
+        for j in range(lo, lo + cnt):
+            first.setdefault(j, m * kv_n + j - lo)
+    idx = [first[j] for j in range(n_kv)]
+    return [t.index_select(2, torch.tensor(idx, device=t.device))
+            for t in full]
+
+
+def cache_view(sp, k: int, t: torch.Tensor, n_heads: int,
+               n_kv: int) -> torch.Tensor:
+    """Position ``k``'s view of one cache tensor whose rows are its own
+    (``[B_loc, size, KV, Dh]``): slots ``[m L, (m + 1) L)`` under
+    ``sp.seq_kv`` (L = size / |model|), else its KV heads
+    (``local_heads``)."""
+    n, m = sp.mesh.shape["model"], sp.index(k)["model"]
+    if sp.seq_kv:
+        if t.shape[1] % n:
+            raise ValueError(f"a cache of {t.shape[1]} slots does not "
+                             f"split over a model axis of {n}")
+        blk = t.shape[1] // n
+        return t.narrow(1, m * blk, blk)
+    _, _, lo, cnt = local_heads(n_heads, n_kv, n, m)
+    return t.narrow(2, lo, cnt)
+
+
+def cache_block(sp, k: int, cache: Dict[str, torch.Tensor], n_heads: int,
+                n_kv: int) -> Dict[str, torch.Tensor]:
+    """Position ``k``'s block of a decode cache whose rows are its own
+    (``cache_view``), contiguous."""
+    return {name: cache_view(sp, k, t, n_heads, n_kv).contiguous()
+            for name, t in cache.items()}
+
+
+def decode_attention_seq_kv(sp, p, h, pos, caches, *, window: int = 0,
+                            cap: float = 0.0, theta: float = 10000.0,
+                            mrope: Tuple[int, ...] = ()):
+    """``decode_attention`` under ``seq_shard_kv`` (``sp.seq_kv``):
+    position m holds slots ``[m L, (m + 1) L)`` of every KV head's cache
+    (a rolling cache of ``size`` slots split alike).  Every position
+    forms q for all H heads and the new k / v for all KV heads (where
+    ``model`` splits the heads, its own heads' all-gathered over it); the
+    position owning slot ``pos % size`` writes them, row by row; each
+    runs ``ops.decode_mha(return_lse=True)`` against its block up to its
+    local bound ``min(pos, size - 1) - m L`` (negative: no valid slot,
+    output 0 and lse ``-inf``); the blocks merge in float32, M =
+    ``pmax(lse)``, o = ``psum(o e^(lse - M)) / psum(e^(lse - M))``.  Then
+    each position takes its heads for a row-parallel ``wo`` and one
+    ``psum``, or, where ``wo`` is whole, the whole output.  Returns (y,
+    the caches, updated in place)."""
+    heads = p.spec("wq")[1] == "model"
+    if heads:
+        n_heads, n_kv = _head_counts(sp, p)
+        qs, ks, vs = _qkv_sharded(sp, p, h, pos, theta, mrope)
+        qs = sp.all_gather(qs, "model", 2)
+        ks, vs = (all_kv_heads(sp, t, n_heads, n_kv) for t in (ks, vs))
+    else:
+        ws = _ws(sp, p, _QKV)
+        qkv = [_qkv(w, hk, pk, theta, mrope)
+               for w, hk, pk in zip(ws, h, pos)]
+        qs, ks, vs = ([t[i] for t in qkv] for i in range(3))
+    n = sp.mesh.shape["model"]
+    outs, lses = [], []
+    for k in range(sp.n):
+        c = caches[k]
+        kc, vc = c["k"], c["v"]
+        b, blk = kc.shape[:2]
+        lo = sp.index(k)["model"] * blk
+        cur = (pos[k][..., 0] if pos[k].dim() == 3 else pos[k])[:, 0]
+        local = cur % (blk * n) - lo
+        own = ((local >= 0) & (local < blk))[:, None, None]
+        rows = torch.arange(b, device=kc.device)
+        slot = local.clamp(0, blk - 1).long()
+        kc[rows, slot] = torch.where(own, ks[k][:, 0].to(kc.dtype),
+                                     kc[rows, slot])
+        vc[rows, slot] = torch.where(own, vs[k][:, 0].to(vc.dtype),
+                                     vc[rows, slot])
+        last = (torch.clamp(cur, max=blk * n - 1) - lo).to(torch.int32)
+        o, lse = decode_mha(qs[k], kc, vc, last, cap=cap, return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    top = sp.pmax(lses, "model")
+    wts = [torch.exp(lse - mx) for lse, mx in zip(lses, top)]
+    num = sp.psum([o.float() * w[:, None, :, None]
+                   for o, w in zip(outs, wts)], "model")
+    den = sp.psum(wts, "model")
+    o = [(a / d[:, None, :, None]).to(hk.dtype)
+         for a, d, hk in zip(num, den, h)]
+    if heads:
+        wo = p.gather("wo")
+        ys = []
+        for k in range(sp.n):
+            q_lo, hq = wo[k].shape[0] * sp.index(k)["model"], wo[k].shape[0]
+            ys.append(_head_out_partial(o[k][:, :, q_lo:q_lo + hq], wo[k]))
+        return _summed(sp, ys, h), caches
+    wo = p.gather("wo")
+    return [head_out(ok, w) for ok, w in zip(o, wo)], caches
+
+
+__all__ = ["all_kv_heads", "attention", "attention_seq_sharded",
+           "attention_sharded", "attn_init", "cache_block", "cache_view",
            "cross_decode_attention", "decode_attention",
-           "decode_attention_sharded", "flat_cache", "init_cache",
-           "local_heads", "proj"]
+           "decode_attention_seq_kv", "decode_attention_sharded",
+           "flat_cache", "init_cache", "local_heads", "proj"]

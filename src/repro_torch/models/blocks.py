@@ -15,7 +15,10 @@ a ``model`` axis that divides the experts, the MoE MLP takes the
 expert-parallel path (``moe_apply_expert_parallel``), as the
 reference's does.  ``BlockDef.apply_sharded`` runs an attention or
 RG-LRU block under the mesh's FSDP x TP layouts, position by position
-(``TransformerLM``'s sharded program).
+(``TransformerLM``'s sharded program); an attention block takes the
+rules' sequence layouts from its ``Spmd`` (``seq_rows``: its rows and
+K/V all-gathered; ``seq_kv``: the KV cache by slots), the RG-LRU and MoE
+parts keep theirs.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ class Ctx(NamedTuple):
     mode: str                   # 'prefill' | 'decode' | 'train'
     pos: torch.Tensor           # [B, S] int32, [B, S, 3] under M-RoPE
     cache_len: int = 0          # decode cache size (flat)
+    seq_len: int = 0            # a padded prefill's real rows (0: all)
 
 
 def _norms_init(cfg: ArchConfig, post: bool, device) -> Params:
@@ -274,13 +278,16 @@ def _attn_block_sharded(local: bool) -> Callable:
                   mrope=a.mrope_sections)
         h = _norm_sharded(sp, p, "ln1", x, cfg)
         if ctx.mode == "decode":
-            y, new = attn_mod.decode_attention_sharded(
-                sp, p.sub("attn"), h, ctx.pos, states, window=win, **kw)
+            fn = attn_mod.decode_attention_seq_kv if sp.seq_kv else \
+                attn_mod.decode_attention_sharded
+            y, new = fn(sp, p.sub("attn"), h, ctx.pos, states, window=win,
+                        **kw)
         else:
-            y, ks, vs = attn_mod.attention_sharded(
-                sp, p.sub("attn"), h, ctx.pos, window=win, **kw)
-            new = [_prefill_cache(kk, v, ctx, win) for kk, v in
-                   zip(ks, vs)] if ctx.mode == "prefill" else None
+            fn = attn_mod.attention_seq_sharded if sp.seq_rows else \
+                attn_mod.attention_sharded
+            y, ks, vs = fn(sp, p.sub("attn"), h, ctx.pos, window=win, **kw)
+            new = _prefill_blocks(sp, ks, vs, ctx, win) \
+                if ctx.mode == "prefill" else None
         if p.has("ln1p"):
             y = _norm_sharded(sp, p, "ln1p", y, cfg)
         x = _add(x, y)
@@ -294,6 +301,26 @@ def _attn_block_sharded(local: bool) -> Callable:
             return x, new
         return x, aux if aux is not None else _zeros_aux(x)
     return apply
+
+
+def _prefill_blocks(sp, ks, vs, ctx: Ctx, win: int):
+    """The positions' blocks of the decode-ready cache from a sharded
+    prefill's K/V: head-parallel, each position's own heads' cache; under
+    ``sp.seq_kv`` or ``sp.seq_rows``, the whole cache (``_prefill_cache``
+    of every KV head over the real rows: the K/V ``attention_seq_sharded``
+    gathered, or the positions' heads all-gathered, ``all_kv_heads``), cut
+    to the position's block (``attention.cache_block``: its slots, or
+    under ``seq_rows`` alone its KV heads)."""
+    if not (sp.seq_rows or sp.seq_kv):
+        return [_prefill_cache(kk, v, ctx, win) for kk, v in zip(ks, vs)]
+    a = ctx.cfg.attention
+    if not sp.seq_rows:
+        ks, vs = (attn_mod.all_kv_heads(sp, t, a.n_heads, a.n_kv_heads)
+                  for t in (ks, vs))
+    real = ctx.seq_len or ks[0].shape[1]
+    return [attn_mod.cache_block(
+        sp, k, _prefill_cache(kk[:, :real], v[:, :real], ctx, win),
+        a.n_heads, a.n_kv_heads) for k, (kk, v) in enumerate(zip(ks, vs))]
 
 
 def _rglru_block_sharded(sp, p, x, states, ctx: Ctx):

@@ -214,7 +214,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 # ``sp`` is the program's ``parallel.sharding.Spmd``, ``p`` a
 # ``param_sharding.ShardedTree`` of the layer's weights, activations are
 # lists of the positions' blocks: ``[B_loc, S, d]`` rows over the batch
-# axes, replicated over ``model`` (``act_btd``).
+# axes, replicated over ``model`` (``act_btd``); under ``sp.seq_rows``
+# (``attn_seq_shard``) ``[B_loc, S / |model|, d]``, a block of the
+# sequence's rows a position.  There the norms, the MLP, the embedding
+# and the head run row-wise on whole weights, FSDP-only and gathered as
+# partial uses (``ShardedTree.gather``), so their gradients sum over
+# ``model``; the loss is the mean over every global token that counts.
 
 
 class _WideProduct(torch.autograd.Function):
@@ -282,10 +287,11 @@ def vocab_slice(sp, k: int, table_block: torch.Tensor) -> int:
 def embed_lookup_sharded(sp, p, tokens, dtype: torch.dtype):
     """The vocab-parallel lookup (``w_vd``): each position looks up the
     ids in its slice of the table, zero elsewhere, and one ``psum`` over
-    ``model`` sums the slices; a table ``model`` does not split is
-    looked up whole."""
+    ``model`` sums the slices; a table ``model`` does not split, or one
+    gathered whole for the rows of ``sp.seq_rows``, is looked up
+    whole."""
     table = p.gather("table")
-    if p.spec("table")[0] != "model":
+    if sp.seq_rows or p.spec("table")[0] != "model":
         return [F.embedding(t, w.to(dtype)) for t, w in zip(tokens, table)]
     out = []
     for k, (t, w) in enumerate(zip(tokens, table)):
@@ -315,7 +321,11 @@ def cross_entropy_sharded(sp, logits, labels, mask=None,
     ``model``, the label's logit from the position whose slice holds it
     (a ``psum``), and the token mean over the batch axes (``psum`` of
     the masked sums and the weights, or ``pmean`` of the shards' equal
-    means).  Returns the loss once (``Spmd.unreplicate``)."""
+    means).  Under ``sp.seq_rows`` each position's logits are its rows'
+    over the whole vocabulary, and the mean is over every token of the
+    batch axes and ``model`` (``psum`` of the sums and of the counts:
+    the positions may hold different numbers of tokens, a VLM's patch
+    rows holding none).  Returns the loss once (``Spmd.unreplicate``)."""
     lg = [t.to(torch.float32) for t in logits]
     if vocab_parallel:
         mx = sp.pmax([t.amax(dim=-1) for t in lg], "model")
@@ -336,6 +346,10 @@ def cross_entropy_sharded(sp, logits, labels, mask=None,
                for t, lab in zip(lg, labels)]
     nll = [a - b for a, b in zip(lse, lls)]
     batch = sp.batch_axes()
+    if sp.seq_rows:
+        batch = batch + ("model",)
+        if mask is None:
+            mask = [torch.ones_like(n) for n in nll]
     if mask is not None:
         ms = [m.to(torch.float32) for m in mask]
         num = sp.psum([torch.sum(n * m) for n, m in zip(nll, ms)], batch)

@@ -25,8 +25,12 @@ Under ``use_mesh_rules`` with the reference's FSDP x TP rules the dense,
 MoE, VLM and hybrid families run sharded (``mesh_layout_gap`` says where
 they do): each mesh position runs its block of every layer in turn
 (``parallel.sharding.Spmd``), prefill and decode hold the KV cache by
-heads (``ShardedCache``), and ``train_loss_sharded`` is the training
-program ``make_train_step`` runs on the positions' parameter blocks.
+heads, or by slots under ``seq_shard_kv`` (``ShardedCache``), and
+``train_loss_sharded`` is the training program ``make_train_step`` runs
+on the positions' parameter blocks.  Under ``attn_seq_shard`` (dense and
+VLM) the rows of the sequence, the VLM's patch embeddings in front, are
+split over ``model`` (a prefill whose rows ``model`` does not divide is
+padded at the end, past every real row's causal reach).
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cost_model import _block_kinds as block_kinds
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import local_heads
+from repro_torch.models.attention import cache_view, local_heads
 from repro_torch.models.blocks import Ctx, block_def
 from repro_torch.models.layers import (cross_entropy, cross_entropy_sharded,
                                        embed_init, embed_lookup,
@@ -48,8 +52,8 @@ from repro_torch.models.layers import (cross_entropy, cross_entropy_sharded,
                                        rmsnorm_init, truncated_normal)
 from repro_torch.parallel.param_sharding import ShardedTree, shard_params
 from repro_torch.parallel.sharding import (PartitionSpec, Spmd,
-                                           batch_spec, current_mesh,
-                                           current_spmd, logical_spec)
+                                           current_mesh, current_spmd,
+                                           logical_spec, rule_splits)
 from repro_torch.tree import leaves_with_paths
 
 Params = Dict[str, Any]
@@ -66,41 +70,57 @@ SHARDED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
 #: the layout a family or a rule needs that the port does not run yet,
 #: and its ROADMAP item
 MISSING_LAYOUT = {
-    "attn_seq_shard": "ROADMAP queue 1 item 25.1",
-    "seq_shard_kv": "ROADMAP queue 1 item 25.2",
     "audio": "ROADMAP queue 1 item 25.3",
     "ssm": "ROADMAP queue 1 item 25.3",
+    "attn_seq_shard_moe": "ROADMAP queue 1 item 25.4",
+    "attn_seq_shard_hybrid": "ROADMAP queue 1 item 25.4",
 }
+
+
+def _heads_split(cfg: ArchConfig, n_model: int) -> bool:
+    """Whether ``model`` splits the heads into blocks that read whole KV
+    groups (``local_heads``)."""
+    try:
+        local_heads(cfg.attention.n_heads, cfg.attention.n_kv_heads,
+                    n_model, 0)
+    except ValueError:
+        return False
+    return True
 
 
 def mesh_layout_gap(cfg: ArchConfig, mesh, kind: str,
                     batch: Optional[int] = None) -> Optional[str]:
     """None where the current rules on ``mesh`` give ``cfg``'s ``kind``
-    program (``train``, ``prefill``, ``decode``) this slice's layouts
-    (FSDP over ``data``, heads, MLP, vocabulary and RG-LRU width over
-    ``model``, KV caches by heads, the batch rows over the batch axes);
-    else the layout it would need (a key of ``MISSING_LAYOUT``, or
-    ``batch`` where the rows do not split, ``experts`` where ``model``
-    does not divide them)."""
+    program (``train``, ``prefill``, ``decode``) the port's sharded
+    layouts (FSDP over ``data``; heads, MLP, vocabulary and RG-LRU width
+    over ``model``, or under ``attn_seq_shard`` the rows of the sequence,
+    for dense and VLM models; KV caches by heads, or by slots under
+    ``seq_shard_kv``; the batch rows over the batch axes); else the gap:
+    a key of ``MISSING_LAYOUT`` (a layout the port does not run yet),
+    ``heads`` where the rules ask for heads over ``model`` that it does
+    not divide (the program runs whole, as the rules give it; decode
+    under ``seq_shard_kv`` needs no head split), ``batch`` where the rows
+    do not split, ``experts`` where ``model`` does not divide them."""
     if cfg.family not in SHARDED_FAMILIES:
         return cfg.family
     n_model = mesh.shape.get("model", 1)
-    bthd, kv = logical_spec("act_bthd"), logical_spec("kv_bskd")
-    if kind != "train" and kv is not None and kv[1] == "model":
-        return "seq_shard_kv"
-    if (bthd is not None and bthd[1] == "model") or \
-            cfg.attention.n_heads % n_model:
-        return "attn_seq_shard"
-    try:
-        local_heads(cfg.attention.n_heads, cfg.attention.n_kv_heads,
-                    n_model, 0)
-    except ValueError:
-        return "attn_seq_shard"
+    rows = kind != "decode" and rule_splits("act_btd", 1)
+    seq_kv = kind != "train" and rule_splits("kv_bskd", 1)
+    heads = _heads_split(cfg, n_model)
+    if rows and cfg.family in ("moe", "hybrid"):
+        return f"attn_seq_shard_{cfg.family}"
+    if rows:
+        if kind == "prefill" and not seq_kv and not heads:
+            return "heads"              # a cache by heads needs the split
+    elif not heads and not (kind == "decode" and seq_kv):
+        return "heads"
     if cfg.moe.enabled and cfg.moe.n_experts % n_model:
         return "experts"
     n_batch = math.prod(mesh.shape[a] for a in ("pod", "data")
                         if a in mesh.shape)
-    if batch is not None and batch % n_batch:
+    kv = logical_spec("kv_bskd")
+    replicated = kind != "train" and kv is not None and kv[0] is None
+    if batch is not None and batch % n_batch and not replicated:
         return "batch"
     return None
 
@@ -108,8 +128,9 @@ def mesh_layout_gap(cfg: ArchConfig, mesh, kind: str,
 class ShardedCache:
     """A decode cache held by position, as ``prefill`` and
     ``decode_step`` return it under a mesh: ``blocks[k]`` is position
-    k's list of layer states (``kv_bskd``: its rows and KV heads;
-    ``state_bw``: its rows and RG-LRU channels)."""
+    k's list of layer states (``kv_bskd``: its rows and KV heads, or
+    under ``seq_shard_kv`` its rows and block of slots; ``state_bw``: its
+    rows and RG-LRU channels)."""
 
     def __init__(self, sp: Spmd, blocks: List[Cache]):
         self.sp, self.blocks = sp, blocks
@@ -248,22 +269,54 @@ class TransformerLM:
             raise ValueError(f"{self.cfg.name}: {batch} rows do not split "
                              f"over the mesh's {n} batch positions; pad "
                              f"them to a multiple of {n}")
-        return None if gap is not None else current_spmd()
+        return None if gap is not None else current_spmd(kind)
 
     def _rows(self, sp: Spmd, t: Optional[torch.Tensor]):
         """The positions' rows of a batch tensor (views on one
         position's program)."""
         if t is None:
             return None
-        spec = (batch_spec(sp.mesh)[0],) + (None,) * (t.dim() - 1)
+        spec = (sp.batch_entry(),) + (None,) * (t.dim() - 1)
         return sp.split(t, spec, copy=False if sp.one_position else None)
 
+    def _row_block(self, sp: Spmd, k: int, total: int) -> Tuple[int, int]:
+        """(first row, rows) of position k's block of a sequence of
+        ``total`` rows under ``sp.seq_rows`` (all of them otherwise)."""
+        if not sp.seq_rows:
+            return 0, total
+        n = sp.mesh.shape["model"]
+        if total % n:
+            raise ValueError(f"{self.cfg.name}: {total} rows do not split "
+                             f"over a model axis of {n}")
+        c = total // n
+        return sp.index(k)["model"] * c, c
+
     def _positions_sharded(self, sp: Spmd, b: int, s: int) -> list:
-        pos = torch.arange(s, dtype=torch.int32, device=sp.device(0))
-        pos = self._mrope_axes(pos[None, :].expand(b, s))
-        return [pos.to(sp.device(k)) for k in range(sp.n)]
+        """The positions' rotary positions of a sequence of ``s`` rows
+        (each position's own rows under ``sp.seq_rows``; the three M-RoPE
+        axes alike)."""
+        out = []
+        for k in range(sp.n):
+            lo, c = self._row_block(sp, k, s)
+            pos = torch.arange(lo, lo + c, dtype=torch.int32,
+                               device=sp.device(k))
+            out.append(self._mrope_axes(pos[None, :].expand(b, c)))
+        return out
 
     def _embed_sharded(self, sp: Spmd, P: ShardedTree, tokens, extra):
+        """The positions' embedded rows.  Under ``sp.seq_rows`` a
+        position embeds only the token rows of its block of the sequence
+        (the patch embeddings, in front, taken as they are), the whole
+        table gathered."""
+        if sp.seq_rows:
+            n_extra = extra[0].shape[1] if extra is not None else 0
+            total = n_extra + tokens[0].shape[1]
+            cut = [self._text_rows(sp, k, total, n_extra)
+                   for k in range(sp.n)]
+            tokens = [t[:, c0 - n_extra:c1 - n_extra]
+                      for t, (_, c0, c1) in zip(tokens, cut)]
+            if extra is not None:
+                extra = [e[:, lo:c0] for e, (lo, c0, _) in zip(extra, cut)]
         x = embed_lookup_sharded(sp, P.sub("embed"), tokens, self.dtype)
         if self.embed_scale is not None:
             x = [xk * self.embed_scale for xk in x]
@@ -281,14 +334,14 @@ class TransformerLM:
              for sc_, xk in zip(scale, x)]
         tree, name = (P.sub("embed"), "table") if cfg.tie_embeddings \
             else (P.sub("head"), "w")
-        vp = tree.spec(name)[0] == "model"
+        vp = tree.spec(name)[0] == "model" and not sp.seq_rows
         return lm_head_sharded(sp, tree.gather(name), x,
                                cfg.final_logit_softcap, vp), vp
 
     def _logits_out(self, sp: Spmd, logits, vp: bool) -> torch.Tensor:
         """The positions' last-position logits as one [B, V] (the
         position's own block on one position's program)."""
-        spec = PartitionSpec(batch_spec(sp.mesh)[0], "model" if vp else None)
+        spec = PartitionSpec(sp.batch_entry(), "model" if vp else None)
         return sp.assemble(logits, spec, self.device)
 
     def train_loss_sharded(self, sp: Spmd, P: ShardedTree, tokens, labels,
@@ -303,8 +356,10 @@ class TransformerLM:
         (no early stop), its weights' gathers and collectives included,
         as the reference's ``jax.checkpoint`` does."""
         cfg = self.cfg
+        n_extra = extra_embeds[0].shape[1] if extra_embeds is not None \
+            else 0
+        b, s = tokens[0].shape[0], n_extra + tokens[0].shape[1]
         x = self._embed_sharded(sp, P, tokens, extra_embeds)
-        b, s = x[0].shape[:2]
         ctx = Ctx(cfg, "train", self._positions_sharded(sp, b, s))
         remat = cfg.remat != "none"
         aux = None
@@ -317,8 +372,17 @@ class TransformerLM:
             else:
                 x, a = blk.apply_sharded(sp, lp, x, None, ctx)
             aux = a if aux is None else [u + v for u, v in zip(aux, a)]
-        if extra_embeds is not None:
-            x = [xk[:, extra_embeds[0].shape[1]:] for xk in x]
+        if sp.seq_rows:
+            # each position's text rows, and their labels and mask
+            cut = [self._text_rows(sp, k, s, n_extra) for k in range(sp.n)]
+            x = [xk[:, c0 - lo:c1 - lo] for xk, (lo, c0, c1) in zip(x, cut)]
+            labels = [t[:, c0 - n_extra:c1 - n_extra]
+                      for t, (_, c0, c1) in zip(labels, cut)]
+            if mask is not None:
+                mask = [t[:, c0 - n_extra:c1 - n_extra]
+                        for t, (_, c0, c1) in zip(mask, cut)]
+        elif extra_embeds is not None:
+            x = [xk[:, n_extra:] for xk in x]
         logits, vp = self._head_sharded(sp, P, x)
         loss = cross_entropy_sharded(sp, logits, labels, mask, vp)
         if cfg.moe.enabled:
@@ -326,6 +390,15 @@ class TransformerLM:
             loss = loss + cfg.moe.aux_loss_weight * mean_aux / \
                 max(cfg.n_layers, 1)
         return loss
+
+    def _text_rows(self, sp: Spmd, k: int, total: int,
+                   n_extra: int) -> Tuple[int, int, int]:
+        """(first row of position k's block, first and end text row in
+        it, as sequence rows) under ``sp.seq_rows``: the rows past the
+        ``n_extra`` patch rows."""
+        lo, c = self._row_block(sp, k, total)
+        c0 = min(max(lo, n_extra), lo + c)
+        return lo, c0, lo + c
 
     def _held(self, sp: Spmd, params) -> ShardedTree:
         """The parameters by position: ``params`` itself where it is a
@@ -338,23 +411,46 @@ class TransformerLM:
                          tokens: torch.Tensor, cache_len: int,
                          extra_embeds: Optional[torch.Tensor]):
         P = self._held(sp, params)
+        n_extra = extra_embeds.shape[1] if extra_embeds is not None else 0
+        real = n_extra + tokens.shape[1]
+        if sp.seq_rows:
+            # rows padded at the end to a multiple of |model|: past every
+            # real row's causal reach, and cut from the cache
+            pad = -real % sp.mesh.shape["model"]
+            tokens = torch.cat([tokens, tokens.new_zeros(
+                (tokens.shape[0], pad))], dim=1) if pad else tokens
         x = self._embed_sharded(sp, P, self._rows(sp, tokens),
                                 self._rows(sp, extra_embeds))
-        b, s = x[0].shape[:2]
+        b, s = x[0].shape[0], n_extra + tokens.shape[1]
         ctx = Ctx(self.cfg, "prefill", self._positions_sharded(sp, b, s),
-                  cache_len=cache_len)
+                  cache_len=cache_len, seq_len=real)
         caches: List[Cache] = [[] for _ in range(sp.n)]
         for i, blk in enumerate(self.blocks):
             x, st = blk.apply_sharded(sp, P.sub("layers", i), x, None, ctx)
             for k in range(sp.n):
                 caches[k].append(st[k])
-        logits, vp = self._head_sharded(sp, P, [xk[:, -1:] for xk in x])
-        return self._logits_out(sp, [t[:, 0] for t in logits], vp), \
-            ShardedCache(sp, caches)
+        # the last real row: in the block of position ``owner`` on ``model``
+        owner, last = 0, real - 1
+        if sp.seq_rows:
+            c = s // sp.mesh.shape["model"]
+            owner, last = divmod(real - 1, c)
+        x = [xk[:, min(last, xk.shape[1] - 1)][:, None] for xk in x]
+        if sp.seq_rows:
+            # the reference's x[:, -1:] under GSPMD: the owner's row sent
+            # to one position (a collective-permute), the head's logits
+            # then all-reduced (``from_index``)
+            sp.charge("collective-permute",
+                      x[0].numel() * x[0].element_size(), "model")
+        logits, vp = self._head_sharded(sp, P, x)
+        logits = [t[:, 0] for t in logits]
+        if sp.seq_rows:
+            logits = sp.from_index(logits, "model", owner)
+        return self._logits_out(sp, logits, vp), ShardedCache(sp, caches)
 
     def _cache_blocks(self, sp: Spmd, cache: Cache) -> List[Cache]:
         """A whole decode cache's blocks by position (contiguous copies
-        on their devices; views on one position's program)."""
+        on their devices; views on one position's program): an attention
+        layer's by its KV heads, or by slots under ``sp.seq_kv``."""
         a = self.cfg.attention
         n_model = sp.mesh.shape["model"]
         out: List[Cache] = []
@@ -364,12 +460,10 @@ class TransformerLM:
             for kind, st in zip(self.kinds, cache):
                 blk = {}
                 for name, t in st.items():
-                    t = sp.block(t, (batch_spec(sp.mesh)[0],), k,
+                    t = sp.block(t, (sp.batch_entry(),), k,
                                  copy=False)
                     if kind.startswith("attn"):
-                        _, _, lo, n = local_heads(a.n_heads, a.n_kv_heads,
-                                                  n_model, m)
-                        t = t.narrow(2, lo, n)
+                        t = cache_view(sp, k, t, a.n_heads, a.n_kv_heads)
                     else:
                         w = t.shape[-1] // n_model
                         t = t.narrow(t.dim() - 1, m * w, w)

@@ -166,21 +166,32 @@ def _get(tree: Tree, keys: Sequence) -> Tree:
 def owns(sp: Spmd, spec: Sequence, k: int) -> bool:
     """Whether position ``k`` holds its block of a ``spec`` leaf first:
     index 0 along every axis the spec does not split (the replica that
-    writes the block back, and counts it once in a norm)."""
+    writes the block back, and counts it once in a norm).  One
+    position's program (``Spmd.one_position``) owns every block it
+    holds, as a device of the mesh updates its own."""
+    if sp.one_position:
+        return True
     named = {a for e in spec if e is not None
              for a in (e if isinstance(e, tuple) else (e,))}
     return all(i == 0 for a, i in sp.index(k).items() if a not in named)
 
 
 def gather_weight(sp: Spmd, ws: List[torch.Tensor], spec: Sequence,
-                  partial: bool = False) -> List[torch.Tensor]:
+                  partial: Optional[bool] = None) -> List[torch.Tensor]:
     """The positions' stored blocks ``ws`` of a ``spec`` weight made
     whole for use: all-gathered over ``data`` along its FSDP dimension
     (the backward reduce-scatters the gradient back to the shard), or,
     without one, ``pbroadcast`` over ``data`` (the gradient all-reduced);
     ``pbroadcast`` over ``pod`` (each pod computes other rows); and with
     ``partial`` (the positions' uses differ along ``model``, where the
-    spec does not split it) ``pbroadcast`` over ``model`` too."""
+    spec does not split it) ``pbroadcast`` over ``model`` too.  Under
+    ``sp.seq_rows`` (the default of ``partial`` there) every use is
+    partial, each position's rows its own, and a weight ``model`` splits
+    (the embedding table's vocabulary) is all-gathered over it as well:
+    each position reads the whole table, and the backward
+    reduce-scatters the rows' gradients back."""
+    if partial is None:
+        partial = sp.seq_rows
     mesh = sp.mesh
     spec = tuple(spec) + (None,) * (ws[0].dim() - len(spec))
     fs = [d for d, e in enumerate(spec) if e == "data"]
@@ -194,6 +205,9 @@ def gather_weight(sp: Spmd, ws: List[torch.Tensor], spec: Sequence,
         ws = sp.pbroadcast(ws, axis)
     if fs and mesh.shape["data"] > 1:
         ws = sp.all_gather(ws, "data", fs[0])
+    if sp.seq_rows and mesh.shape.get("model", 1) > 1:
+        for dim in (d for d, e in enumerate(spec) if e == "model"):
+            ws = sp.all_gather(ws, "model", dim)
     return ws
 
 
@@ -220,31 +234,41 @@ class ShardedTree:
     def local(self, *keys) -> List[torch.Tensor]:
         return [_get(b, keys) for b in self.blocks]
 
-    def gather(self, *keys, partial: bool = False) -> List[torch.Tensor]:
+    def gather(self, *keys,
+               partial: Optional[bool] = None) -> List[torch.Tensor]:
         return gather_weight(self.sp, self.local(*keys), self.spec(*keys),
                              partial)
 
 
 class _Distribute(torch.autograd.Function):
-    """A global leaf's blocks, one a position; the gradient is the blocks'
-    gradients assembled, each block's from the position that owns it
-    (the replicas hold it alike)."""
+    """A global leaf's blocks at the positions ``mine`` that own them
+    (``owns``); the gradient is those blocks' gradients assembled (a
+    replica's cotangent is already the sum over its replicas: the
+    collectives' backwards add them, so the other positions' blocks take
+    no gradient)."""
 
     @staticmethod
-    def forward(ctx, sp, spec, copy, x):
-        ctx.sp, ctx.spec, ctx.shape = sp, spec, x.shape
+    def forward(ctx, sp, spec, copy, mine, x):
+        ctx.sp, ctx.spec, ctx.shape, ctx.mine = sp, spec, x.shape, mine
         ctx.device = x.device
-        return tuple(sp.block(x, spec, k, copy) for k in range(sp.n))
+        out = tuple(sp.block(x, spec, k, copy) for k in mine)
+        ctx.blocks = [(b.shape, b.dtype, b.device) for b in out]
+        return out
 
     @staticmethod
     def backward(ctx, *gs):
         sp = ctx.sp
+        gs = [torch.zeros(s, dtype=t, device=d) if g is None else g
+              for (s, t, d), g in zip(ctx.blocks, gs)]
         if sp.one_position:
             g = gs[0].new_zeros(ctx.shape)
             sp.block(g, ctx.spec, 0, copy=False).copy_(gs[0])
         else:
-            g = sp.assemble(list(gs), ctx.spec, ctx.device)
-        return None, None, None, g
+            full = [None] * sp.n
+            for k, gk in zip(ctx.mine, gs):
+                full[k] = gk
+            g = sp.assemble(full, ctx.spec, ctx.device)
+        return None, None, None, None, g
 
 
 def shard_params(sp: Spmd, params: Tree, specs: Optional[Tree] = None,
@@ -254,25 +278,30 @@ def shard_params(sp: Spmd, params: Tree, specs: Optional[Tree] = None,
     where it lies on the position's device (the positions that share a
     card hold no second copy; the dry run's arguments stay its
     arguments), else copies on that device (``Spmd.block``).  Where a
-    leaf requires grad its blocks are ``_Distribute``'s outputs, whose
-    gradient reaches the leaf; with ``as_leaves`` they are detached
-    leaves of their own that require grad (the sharded train step,
-    which updates them on the shard)."""
-    specs = specs if specs is not None else param_shardings(sp.mesh,
-                                                            params)
+    leaf requires grad the blocks of the positions that own them
+    (``owns``) are ``_Distribute``'s outputs, whose gradient reaches the
+    leaf; with ``as_leaves`` they are detached leaves of their own that
+    require grad (the sharded train step, which updates them on the
+    shard).  A replica's block takes no gradient: the collectives'
+    backwards sum the replicas' cotangents into its owner's.  Under
+    ``sp.seq_rows`` the default specs keep weights FSDP-only
+    (``model_shard=False``: the rows carry ``model``)."""
+    specs = specs if specs is not None else param_shardings(
+        sp.mesh, params, model_shard=not sp.seq_rows)
     copy = False if sp.one_position else None
     flat, flat_specs = leaves(params), leaves(specs)
     per_leaf = []
     for x, ns in zip(flat, flat_specs):
         spec = tuple(ns.spec)
+        mine = tuple(k for k in range(sp.n) if owns(sp, spec, k))
+        blocks = [sp.block(x.detach(), spec, k, copy) for k in range(sp.n)]
         if as_leaves:
-            blocks = [sp.block(x.detach(), spec, k, copy).requires_grad_(
-                x.requires_grad) for k in range(sp.n)]
+            for k in mine:
+                blocks[k].requires_grad_(x.requires_grad)
         elif x.requires_grad and torch.is_grad_enabled():
-            blocks = list(_Distribute.apply(sp, spec, copy, x))
-        else:
-            blocks = [sp.block(x.detach(), spec, k, copy)
-                      for k in range(sp.n)]
+            for k, b in zip(mine, _Distribute.apply(sp, spec, copy, mine,
+                                                    x)):
+                blocks[k] = b
         per_leaf.append(blocks)
     blocks = [unflatten_like(params, [b[k] for b in per_leaf])
               for k in range(sp.n)]

@@ -31,8 +31,15 @@ positions' blocks, and its collectives (``psum``, ``pmax``,
 ``pbroadcast``, ``all_gather``, ``psum_scatter``) are autograd Functions
 whose backwards are the transposed collectives, each charging its bytes
 (and whether its group crosses ``pod``) to the op profiler.  On a mesh
-of ``meta`` entries it runs the first position only, the program a
-device of the mesh would run.
+of ``meta`` entries it runs one position only, the program a device of
+the mesh would run: the last along ``model`` (index 0 along the other
+axes), which under the sequence layouts holds the last row block or the
+last cache block, the most attention work.  Its layouts are the rules':
+``seq_rows`` (``attn_seq_shard``: a position holds a block of the
+sequence's rows, weights FSDP-only, K/V all-gathered over ``model``)
+and ``seq_kv`` (``seq_shard_kv``: a position holds a block of the KV
+cache's slots; decode merges the blocks' partial attention by their
+log-sum-exps).
 
 Axis vocabulary
   batch axes   -> ("pod", "data")   (pod present only on the multi-pod mesh)
@@ -288,11 +295,12 @@ def default_rules(mesh: Mesh, seq_shard_kv: bool = False,
 @contextmanager
 def use_mesh_rules(mesh: Optional[Mesh],
                    rules: Optional[Dict[str, PartitionSpec]] = None,
-                   one_position: Optional[bool] = None, **kw):
+                   one_position: Union[bool, int, None] = None, **kw):
     """Make ``mesh`` and its rules (default ``default_rules(mesh, **kw)``)
     current for model code run in this thread; None clears them.
-    ``one_position``: whether a sharded program runs the first position
-    only (``Spmd``; default: where every entry is ``meta``)."""
+    ``one_position``: whether a sharded program runs one position only,
+    or the index along ``model`` of that one position (``Spmd``; default:
+    one, the last along ``model``, where every entry is ``meta``)."""
     prev = getattr(_state, "ctx", None)
     _state.ctx = None if mesh is None else \
         (mesh, rules or default_rules(mesh, **kw), one_position)
@@ -312,11 +320,33 @@ def current_mesh() -> Optional[Mesh]:
     return None if ctx is None else ctx[0]
 
 
-def current_spmd() -> Optional["Spmd"]:
+def rule_splits(name: str, dim: int, axis: str = "model") -> bool:
+    """Whether the current rules split dimension ``dim`` of the logical
+    name ``name`` over ``axis`` (``act_btd`` 1: ``attn_seq_shard``'s
+    rows; ``kv_bskd`` 1: ``seq_shard_kv``'s cache slots)."""
+    spec = logical_spec(name)
+    return spec is not None and len(spec) > dim and spec[dim] == axis
+
+
+def current_spmd(kind: Optional[str] = None) -> Optional["Spmd"]:
     """The positions a sharded program runs on the current mesh (as
-    ``use_mesh_rules`` set them), or None without a mesh."""
+    ``use_mesh_rules`` set them), or None without a mesh.  For a model
+    program of ``kind`` (``train``, ``prefill``, ``decode``) its layouts
+    follow the rules: rows over ``model`` (``attn_seq_shard``) but in
+    decode, whose one new token has no rows to split, and the cache's
+    slots over ``model`` (``seq_shard_kv``) where a cache is made or
+    read."""
     ctx = getattr(_state, "ctx", None)
-    return None if ctx is None else Spmd(ctx[0], one_position=ctx[2])
+    if ctx is None:
+        return None
+    kv = logical_spec("kv_bskd")
+    return Spmd(ctx[0], one_position=ctx[2],
+                seq_rows=kind in ("train", "prefill") and
+                rule_splits("act_btd", 1),
+                seq_kv=kind in ("prefill", "decode") and
+                rule_splits("kv_bskd", 1),
+                batch_rows=kind == "train" or kv is None or
+                kv[0] is not None)
 
 
 def sc(x, name: str):
@@ -534,18 +564,37 @@ def _axes_tuple(axes) -> Tuple[str, ...]:
 
 class Spmd:
     """The positions a sharded program runs on ``mesh``: every position
-    in row-major order, or, on a mesh of ``meta`` entries (the dry run,
-    where every block of an even split is alike), the first position
-    only (``one_position``): its collectives then make that position's
-    outputs and charge its own bytes, as a device of the mesh would."""
+    in row-major order, or, on a mesh of ``meta`` entries (the dry run),
+    one position only (``one_position``): the last along ``model`` (or
+    the index along it that ``one_position`` gives) and the first along
+    every other axis, whose blocks are the largest (under ``seq_rows``
+    its rows attend to the whole K/V prefix; a split by heads, experts
+    or width gives every position alike blocks).  Its collectives then
+    make that position's outputs and charge its own bytes, as a device
+    of the mesh would.  ``seq_rows`` and ``seq_kv``
+    are the program's sequence layouts, ``batch_rows`` whether its batch
+    rows split over the batch axes (serving under
+    ``kv_batch_shard=False`` replicates them over those axes, as the
+    reference does a batch of one) (``current_spmd``)."""
 
-    def __init__(self, mesh: Mesh, one_position: Optional[bool] = None):
+    def __init__(self, mesh: Mesh,
+                 one_position: Union[bool, int, None] = None,
+                 seq_rows: bool = False, seq_kv: bool = False,
+                 batch_rows: bool = True):
         self.mesh = mesh
+        at = mesh.shape.get("model", 1) - 1
         if one_position is None:
             one_position = all(d.type == "meta" for d in mesh.devices.flat)
+        elif not isinstance(one_position, bool):
+            at, one_position = int(one_position), True
         self.one_position = bool(one_position)
-        every = mesh.positions()
-        self.positions = every[:1] if self.one_position else every
+        self.seq_rows, self.seq_kv = bool(seq_rows), bool(seq_kv)
+        self.batch_rows = bool(batch_rows)
+        if self.one_position:
+            self.positions = [tuple(at if a == "model" else 0
+                                    for a in mesh.shape)]
+        else:
+            self.positions = mesh.positions()
 
     @property
     def n(self) -> int:
@@ -564,6 +613,11 @@ class Spmd:
 
     def batch_axes(self) -> Tuple[str, ...]:
         return _batch_axes(self.mesh)
+
+    def batch_entry(self):
+        """The spec entry of a batch dimension: the batch axes, or None
+        where the rows are replicated over them (``batch_rows``)."""
+        return batch_spec(self.mesh)[0] if self.batch_rows else None
 
     def groups(self, axes) -> List[List[int]]:
         """Indices into ``positions`` of the positions that differ only
@@ -641,6 +695,31 @@ class Spmd:
         return _collective(self, axes, "pmax", None, 0,
                            [x.detach() for x in xs])
 
+    def from_index(self, xs, axis: str, i: int) -> List[torch.Tensor]:
+        """Each position given the value of the position at index ``i``
+        along ``axis`` in its group (on one position, its own): where one
+        position's block holds a result, as the last row of a prefill.
+        The host reads the block it chooses; the transfer is charged as
+        GSPMD makes it, an all-reduce over ``axis`` to which the other
+        positions add zeros."""
+        out = list(xs)
+        for group in self.groups(axis):
+            if len(group) > 1:
+                for k in group:
+                    out[k] = xs[group[i]]
+        self.charge("all-reduce", 2 * _nbytes(xs[0]), axis)
+        return out
+
+    def charge(self, kind: str, nbytes: int, axes) -> None:
+        """Charge one ``kind`` collective of ``nbytes`` a shard over
+        ``axes`` to the positions this program runs: a transfer the host
+        makes by its choice of block (``from_index``)."""
+        size = self.size(axes)
+        if size > 1:
+            for group in self.groups(axes):
+                charge_collective(kind, nbytes, size, len(group),
+                                  self.crosses_pod(axes))
+
     def pbroadcast(self, xs, axes):
         """The identity, where a value replicated over ``axes`` enters a
         computation that differs along them: its backward sums the
@@ -680,33 +759,43 @@ def _wide(x: torch.Tensor, op: str) -> torch.Tensor:
 
 @charged_unit
 def _run_collective(sp: Spmd, axes, op: str, dim: int,
-                    xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+                    xs: Sequence[torch.Tensor],
+                    need: Optional[Sequence[bool]] = None
+                    ) -> List[Optional[torch.Tensor]]:
     """``op`` over each group of ``xs`` along ``axes``, charged: each
     group's bytes a shard for the shards present (on one position, the
     group's size is the mesh's and the other shards' values are taken
     to be alike).  Sums of 16-bit values are added in float32 and
     rounded once, as the unsharded product's accumulator is; the bytes
-    charged are the values' own."""
+    charged are the values' own.  ``need`` (a backward's inputs that take
+    a gradient) leaves the other positions' results None: a weight's
+    replicas over eight entries of one card would otherwise each hold a
+    copy of its gradient."""
     out: List[Optional[torch.Tensor]] = [None] * len(xs)
     size = sp.size(axes)
     pod = sp.crosses_pod(axes)
+    need = [True] * len(xs) if need is None else need
     for group in sp.groups(axes):
         vals = [xs[k] for k in group]
         if op == "identity":
             res = vals
+            shape = vals[0].shape
         elif op in ("psum", "pmax"):
             fold = torch.add if op == "psum" else torch.maximum
             acc = _wide(vals[0], op)
             for v in vals[1:]:
                 acc = fold(acc, _wide(v.to(acc.device), op))
             res = [acc.to(sp.device(k), vals[0].dtype, copy=True)
-                   for k in group]
+                   if need[k] else None for k in group]
+            shape = acc.shape
         elif op == "all_gather":
             if sp.one_position:
                 full = torch.cat([vals[0]] * size, dim=dim)
             else:
                 full = torch.cat([v.to(vals[0].device) for v in vals], dim)
-            res = [full.to(sp.device(k), copy=True) for k in group]
+            res = [full.to(sp.device(k), copy=True) if need[k] else None
+                   for k in group]
+            shape = full.shape
         elif op == "psum_scatter":
             acc = _wide(vals[0], op)
             for v in vals[1:]:
@@ -714,11 +803,12 @@ def _run_collective(sp: Spmd, axes, op: str, dim: int,
             blk = acc.shape[dim] // size
             res = [acc.narrow(dim, (j if not sp.one_position else 0) * blk,
                               blk).to(sp.device(k), vals[0].dtype, copy=True)
-                   for j, k in enumerate(group)]
+                   if need[k] else None for j, k in enumerate(group)]
+            shape = acc.narrow(dim, 0, blk).shape
         else:
             raise ValueError(f"unknown collective {op!r}")
         if op != "identity" and size > 1:
-            nbytes = _nbytes(res[0])
+            nbytes = math.prod(shape) * vals[0].element_size()
             if op in ("psum", "pmax"):
                 nbytes *= 2
             elif op == "psum_scatter":
@@ -739,8 +829,9 @@ class _Collective(torch.autograd.Function):
     def backward(ctx, *gs):
         if ctx.back is None:
             raise RuntimeError("this collective has no gradient")
-        return (None,) * 5 + tuple(_run_collective(ctx.sp, ctx.axes,
-                                                   ctx.back, ctx.dim, gs))
+        return (None,) * 5 + tuple(_run_collective(
+            ctx.sp, ctx.axes, ctx.back, ctx.dim, gs,
+            ctx.needs_input_grad[5:]))
 
 
 def _collective(sp: Spmd, axes, op: str, back: Optional[str], dim: int,
@@ -764,5 +855,5 @@ __all__ = ["FLEET_AXIS", "Mesh", "NamedSharding", "P", "PartitionSpec", "Spmd",
            "current_spmd", "default_rules", "field", "fleet_mesh",
            "groups_along", "logical_spec", "make_mesh", "mesh_signature",
            "named_sharding", "pad_to_multiple", "pmax", "pmean", "ppermute",
-           "psum", "run_shards", "sc", "shard_map_compat", "shard_of",
-           "use_mesh_rules"]
+           "psum", "rule_splits", "run_shards", "sc", "shard_map_compat",
+           "shard_of", "use_mesh_rules"]

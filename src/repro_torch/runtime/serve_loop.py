@@ -100,10 +100,12 @@ class ContinuousBatcher:
     them; their tokens are dropped), as GSPMD pads an uneven split, so
     the rows always split and the program a mesh gives the model is the
     same from one batch to the next.  Where that is the model's sharded
-    program the weights are held by position once (``shard_params``) and
-    each batch's cache is a ``ShardedCache``.  A filler row's tokens are
-    routed with its data shard's in an expert-parallel MoE, whose
-    capacity is counted over the data shard.
+    program the weights are held by position once for each layout it
+    runs (``shard_params``: FSDP-only for a prefill under
+    ``attn_seq_shard``, by heads for decode) and each batch's cache is a
+    ``ShardedCache`` (by slots under ``seq_shard_kv``).  A filler row's
+    tokens are routed with its data shard's in an expert-parallel MoE,
+    whose capacity is counted over the data shard.
     """
 
     def __init__(self, model, cfg: ArchConfig, scfg: ServeConfig, params,
@@ -122,7 +124,7 @@ class ContinuousBatcher:
         self.decode_step = make_decode_step(model, scfg.temperature)
         self.pending: List[Request] = []
         self.active: List[Request] = []
-        self._held = None          # (mesh, the weights held by position)
+        self._held = {}            # (mesh, rows) -> the weights by position
         self.filler_rows = 0
 
     @staticmethod
@@ -135,17 +137,19 @@ class ContinuousBatcher:
         return pad_to_multiple(n, math.prod(
             mesh.shape[a] for a in ("pod", "data") if a in mesh.shape))
 
-    def _params(self, batch: int):
-        """The weights for a batch of ``batch`` rows: held by position,
-        once a mesh, where the model runs this batch sharded."""
-        sp = self.model.spmd("decode", batch) \
+    def _params(self, kind: str, batch: int):
+        """The weights for a ``kind`` call (``prefill``, ``decode``) on a
+        batch of ``batch`` rows: held by position, once a mesh and
+        layout, where the model runs this batch sharded."""
+        sp = self.model.spmd(kind, batch) \
             if hasattr(self.model, "spmd") else None
         if sp is None:
             return self.params
-        if self._held is None or self._held[0] != sp.mesh:
+        key = (sp.mesh, sp.seq_rows)
+        if key not in self._held:
             from repro_torch.parallel.param_sharding import shard_params
-            self._held = (sp.mesh, shard_params(sp, self.params))
-        return self._held[1]
+            self._held[key] = shard_params(sp, self.params)
+        return self._held[key]
 
     def submit(self, req: Request) -> bool:
         """Enqueue ``req``; returns ``False`` (backpressure, request NOT
@@ -179,8 +183,9 @@ class ContinuousBatcher:
                 toks = torch.cat([toks, toks.new_zeros(
                     (rows - len(reqs), toks.shape[1]))])
                 self.filler_rows += rows - len(reqs)
-            params = self._params(rows)
-            logits, cache = self.prefill_step(params, toks)
+            logits, cache = self.prefill_step(self._params("prefill", rows),
+                                              toks)
+            params = self._params("decode", rows)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             pos = toks.shape[1]
             for r, t in zip(reqs, nxt.tolist()):

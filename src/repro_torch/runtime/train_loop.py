@@ -198,8 +198,10 @@ def _block_of(sp, x: torch.Tensor, spec, k: int) -> torch.Tensor:
 def _sharded_step(model, cfg: ArchConfig, tcfg: TrainConfig, schedule,
                   sp, state: State, batch: Dict[str, torch.Tensor]):
     """The train step under a mesh: each position holds its blocks of
-    the parameters as leaves of their own (``shard_params``), each
-    microbatch's rows go over the batch axes and its loss runs sharded
+    the parameters as leaves of their own (``shard_params``; FSDP-only
+    under ``attn_seq_shard``), each microbatch's rows go over the batch
+    axes (and, under ``attn_seq_shard``, each row's sequence over
+    ``model``, ``train_loss_sharded``) and its loss runs sharded
     (``train_loss_sharded``: the weights all-gathered at each use and
     their gradients reduce-scattered back to the shard), the clip's
     global norm is a ``psum`` of the positions' sums of squares over the
@@ -230,7 +232,10 @@ def _sharded_step(model, cfg: ArchConfig, tcfg: TrainConfig, schedule,
     grads = []
     for k in range(sp.n):
         gk = []
-        for x in blocks[k]:
+        for x, spec in zip(blocks[k], specs):
+            if not owns(sp, spec, k):        # a replica: no gradient
+                gk.append(None)
+                continue
             g = x.grad if x.grad is not None else torch.zeros_like(x)
             x.grad = None
             gk.append(g.div_(mb) if mb > 1 else g)

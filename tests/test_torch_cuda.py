@@ -528,6 +528,136 @@ def test_decode_attention_at_split_edges(cuda, b, kv, g, s, d, cap, dtype):
                                    rtol=1e-2)
 
 
+#: (b, h, kv, sq, sk, q_offset, d, causal, window, cap): row blocks of a
+#: sequence split over a mesh's ``model`` axis (query row i at position
+#: q_offset + i over the first sk >= q_offset + sq keys): minicpm-2b's last
+#: block of 8 (rows 256, keys 2,048, offset 1,792), offsets that are not a
+#: multiple of a kv tile (a tile straddles the shifted diagonal), windows
+#: shorter than a tile, a softcap, a window without the causal mask, and
+#: more keys than the block's last position reads
+OFFSET_CASES = [(1, 4, 4, 256, 2048, 1792, 64, True, 0, 0.0),
+                (2, 4, 2, 100, 300, 200, 32, True, 16, 5.0),
+                (1, 4, 2, 130, 450, 300, 128, True, 0, 50.0),
+                (1, 2, 1, 64, 1000, 900, 256, True, 64, 50.0),
+                (2, 6, 6, 33, 130, 67, 16, True, 0, 0.0),
+                (1, 2, 2, 50, 230, 150, 64, False, 40, 0.0),
+                (1, 4, 2, 70, 300, 129, 64, True, 0, 0.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,sq,sk,off,d,causal,window,cap",
+                         OFFSET_CASES)
+def test_flash_attention_at_a_query_offset_matches_plain(
+        cuda, b, h, kv, sq, sk, off, d, causal, window, cap, dtype):
+    """The forward (with and without its log-sum-exp) and the backward at
+    a query offset against their plain versions, on each dtype's route;
+    two launches bitwise equal; the bfloat16 ones also within one output
+    rounding of plain; keys past the block's last position get dK = dV =
+    0."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        bwd_route, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_fwd_ref)
+    rng = np.random.default_rng(sq * 5 + sk + off)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=(b, s, n, d)),
+                                   dtype=torch.float32, device=cuda)
+                   .to(dtype).transpose(1, 2)
+                   for s, n in ((sq, h), (sk, kv), (sk, kv), (sq, h)))
+    kw = dict(causal=causal, window=window, cap=cap, q_offset=off)
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    o, lse = flash_attention(q, k, v, with_lse=True, **kw)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    grads2 = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    ref, ref_lse = attention_fwd_ref(q, k, v, **kw)
+    ref_grads = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert kernels.route_counts()["flash_attention"] == \
+        {"simt": 0, "wgmma": 0, route: 3}
+    assert kernels.route_counts()["flash_attention_bwd"] == dict(
+        {"simt": 0, "wgmma": 0}, **{bwd_route(dtype): 2})
+    assert torch.equal(got, again) and torch.equal(got, o)
+    torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, **ATTN_TOL[torch.float32])
+    for name, g, a, r in zip("qkv", grads, grads2, ref_grads):
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(g.float(), r.float(), **ATTN_TOL[dtype])
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(g.float(), r.float(), atol=1e-3,
+                                       rtol=1e-2)
+    if causal and sk > off + sq:
+        assert not grads[1][:, :, off + sq:].any()
+        assert not grads[2][:, :, off + sq:].any()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-3,
+                                   rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_at_offset_zero_is_the_launch_without_one(cuda,
+                                                                   dtype):
+    """``q_offset=0`` gives the call without it bit for bit, forward and
+    backward."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_bwd
+    rng = np.random.default_rng(34)
+    q, k, v, do = (torch.as_tensor(rng.normal(size=(2, 300, 4, 64)),
+                                   dtype=torch.float32, device=cuda)
+                   .to(dtype).transpose(1, 2) for _ in range(4))
+    kw = dict(causal=True, window=100, cap=50.0)
+    o, lse = flash_attention(q, k, v, with_lse=True, **kw)
+    o0, lse0 = flash_attention(q, k, v, with_lse=True, q_offset=0, **kw)
+    g = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    g0 = flash_attention_bwd(q, k, v, o, lse, do, q_offset=0, **kw)
+    assert torch.equal(o, o0) and torch.equal(lse, lse0)
+    assert all(torch.equal(a, b) for a, b in zip(g, g0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,kv,g,s,d,cap", [
+    (4, 8, 2, 512, 256, 50.0), (4, 1, 16, 512, 256, 0.0),
+    (3, 2, 16, 300, 64, 50.0), (4, 4, 2, 100, 64, 0.0)])
+def test_decode_attention_returns_its_lse(cuda, b, kv, g, s, d, cap, dtype):
+    """``return_lse``: the output, float32, rounded to the dtype bitwise
+    the call without it, each query
+    head's log-sum-exp within float32's tolerance of the plain version's;
+    a row whose pos is negative (a cache block wholly past the position)
+    gives 0 and -inf, never NaN; two launches bitwise equal.  G 2
+    (gemma2-9b) and G 16 (recurrentgemma-9b, the tensor-core kernel in
+    bfloat16)."""
+    rng = np.random.default_rng(s + g + 7)
+    q = torch.as_tensor(rng.normal(size=(b, kv, g, d)), dtype=torch.float32,
+                        device=cuda).to(dtype)
+    k, v = (torch.as_tensor(rng.normal(size=(b, s, kv, d)),
+                            dtype=torch.float32, device=cuda)
+            .to(dtype).transpose(1, 2) for _ in range(2))
+    pos = torch.as_tensor(([-1, s - 1, 0, -s, s // 2] * b)[:b],
+                          dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    out, lse = decode_attention(q, k, v, pos, cap=cap, return_lse=True)
+    out2, lse2 = decode_attention(q, k, v, pos, cap=cap, return_lse=True)
+    plain = decode_attention(q, k, v, pos, cap=cap)
+    ref, ref_lse = decode_ref(q, k, v, pos, cap=cap, return_lse=True)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == 3
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert out.dtype == torch.float32 and torch.equal(out.to(dtype), plain)
+    assert lse.shape == (b, kv, g) and lse.dtype == torch.float32
+    empty = pos < 0
+    assert bool(torch.isneginf(lse[empty]).all())
+    assert not out[empty].any() and not ref[empty].any()
+    assert not torch.isnan(ref).any() and not torch.isnan(ref_lse).any()
+    torch.testing.assert_close(out, ref, **ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-2)
+    torch.testing.assert_close(lse, ref_lse, **ATTN_TOL[torch.float32])
+
+
 #: tolerances of the expert GEMM: float32 sums in another order grow
 #: with sqrt(D); bfloat16 outputs one rounding apart
 MOE_TOL = {torch.float32: lambda d: dict(atol=1e-5 * d ** 0.5, rtol=1e-4),

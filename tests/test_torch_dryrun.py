@@ -39,6 +39,7 @@ from repro_torch.launch.op_analysis import OpProfiler  # noqa: E402
 from repro_torch.launch.specs import (argument_bytes,  # noqa: E402
                                       input_specs)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.layers import mrope_bands  # noqa: E402
 from repro_torch.parallel.sharding import make_mesh  # noqa: E402
 from repro_torch.runtime.train_loop import (init_state,  # noqa: E402
                                             make_train_step)
@@ -108,6 +109,9 @@ def test_meta_counts_equal_the_cpus(arch, kind):
     counts, launches = {}, {}
     for device in ("cpu", "meta"):
         program, inputs = _program(arch, kind, device)
+        # M-RoPE's bands are made once a process and device: cold on both
+        # sides, whichever qwen2-vl runs came before in this process
+        mrope_bands.cache_clear()
         kernels.reset_launch_counts()
         with OpProfiler(None if device == "cpu" else "meta") as prof:
             prof.arguments(inputs)
@@ -346,10 +350,10 @@ def test_full_size_cells_run_on_meta(arch, shape, tmp_path):
 
 
 def test_a_mesh_cell_splits_evenly_with_no_collective_term():
-    rec = dryrun.run_cell("gemma2-9b", "long_500k",
+    rec = dryrun.run_cell("xlstm-350m", "decode_32k",
                           MeshConfig((2, 16, 16), ("pod", "data", "model")),
                           verbose=False)
-    card = dryrun.run_cell("gemma2-9b", "long_500k", dryrun.CARD_MESH,
+    card = dryrun.run_cell("xlstm-350m", "decode_32k", dryrun.CARD_MESH,
                            verbose=False)
     assert rec["split"] == "even" and rec["collective_reason"]
     assert rec["roofline"]["collective_s"] is None

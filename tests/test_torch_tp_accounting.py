@@ -22,8 +22,16 @@ the reference's meshes (``launch.dryrun``'s one-position split).
   repeats (the K/V projections of KV heads held on two positions, the
   MoE router on every ``model`` position), the argument bytes the specs'
   exact figures; the multi-pod train cell's gradient reduction crosses
-  pods; gemma2-9b ``prefill_32k`` keeps the even split with a reason
-  naming ``seq_shard_kv``.
+  pods; whisper-tiny and xlstm-350m keep the even split with a reason
+  naming their family's layout; gemma2-9b ``prefill_32k``
+  (``seq_shard_kv``) and minicpm-2b ``train_4k`` (``attn_seq_shard``)
+  run one position, the last along ``model``, with a collective term.
+* Under the sequence layouts (the 6-head minicpm-2b at (1, 4) and
+  (2, 4): training and prefill by rows, prefill and decode with the
+  cache by slots) the positions differ, so the one position the dry run
+  reports is held to its own share: all positions' dot FLOPs, kernel
+  calls and collectives less the other positions' own programs are
+  exactly the last position's program's.
 """
 import dataclasses
 
@@ -234,13 +242,100 @@ def test_the_multi_pod_train_cell_reduces_gradients_across_pods(cells):
 
 
 def test_cells_outside_the_slice_keep_the_even_split():
-    rec = dryrun.run_cell("gemma2-9b", "prefill_32k", SINGLE_POD_MESH,
-                          verbose=False)
-    assert rec["split"] == "even" and rec["seq_shard_kv"] is True
-    assert "seq_shard_kv" in rec["collective_reason"]
-    assert "ROADMAP" in rec["collective_reason"]
-    assert rec["roofline"]["collective_s"] is None
-    whisper = dryrun.run_cell("whisper-tiny", "decode_32k", SINGLE_POD_MESH,
+    for arch, family in (("whisper-tiny", "audio"), ("xlstm-350m", "ssm")):
+        rec = dryrun.run_cell(arch, "decode_32k", SINGLE_POD_MESH,
                               verbose=False)
-    assert whisper["split"] == "even"
-    assert "audio" in whisper["collective_reason"]
+        assert rec["split"] == "even" and rec["layout_gap"] == family
+        assert family in rec["collective_reason"]
+        assert "ROADMAP" in rec["collective_reason"]
+        assert rec["roofline"]["collective_s"] is None
+    last = {"data": 0, "model": 15}
+    for arch, shape, flag in (("gemma2-9b", "prefill_32k", "seq_shard_kv"),
+                              ("minicpm-2b", "train_4k", "attn_seq_shard")):
+        rec = dryrun.run_cell(arch, shape, SINGLE_POD_MESH, verbose=False)
+        assert rec["ok"] is True, rec.get("traceback")
+        assert rec["split"] == "position" and rec[flag] is True
+        assert rec["position"] == last and "collective_reason" not in rec
+        assert rec["roofline"]["collective_s"] > 0
+        assert rec["roofline"]["coll_bytes_by_kind"]["all-gather"] > 0
+
+
+# ---------------------------------------------------------------------------
+# one position's program under the sequence layouts
+# ---------------------------------------------------------------------------
+
+#: a program kind -> the rules it runs under (``attn_seq_shard``: rows
+#: over ``model``; ``seq_shard_kv``: the cache's slots over it)
+SEQ_RULES = {"train": dict(attn_seq_shard=True),
+             "prefill": dict(attn_seq_shard=True, seq_shard_kv=True),
+             "decode": dict(seq_shard_kv=True)}
+
+
+def _seq_profile(kind, shape, one):
+    """What one ``kind`` program of minicpm-2b reduced to 6 heads (which
+    do not divide a ``model`` of 4) charges on a mesh of ``meta``
+    entries: every position's (``one`` False) or the one at index
+    ``one`` along ``model``."""
+    cfg = get_arch("minicpm-2b").reduced()
+    cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, n_heads=6, n_kv_heads=6))
+    meta = torch.device("meta")
+    model = TransformerLM(cfg, meta)
+    params = model.init(MetaGenerator())
+    toks = torch.zeros((B, S + 1), dtype=torch.long, device=meta)
+    mesh = make_mesh(shape, ("data", "model"), [meta] * int(np.prod(shape)))
+    with torch.no_grad():
+        _, cache = model.prefill(params, toks[:, :S], 2 * S)
+    with use_mesh_rules(mesh, one_position=one, **SEQ_RULES[kind]), \
+            OpProfiler("meta") as prof:
+        if kind == "train":
+            for p in leaves(params):
+                p.requires_grad_(True)
+            model.train_loss(params, toks[:, :-1], toks[:, 1:]).backward()
+        elif kind == "prefill":
+            with torch.no_grad():
+                model.prefill(params, toks[:, :S], 2 * S)
+        else:
+            pos = torch.full((B, 1), S, dtype=torch.int32, device=meta)
+            with torch.no_grad():
+                model.decode_step(params, toks[:, S:S + 1], pos, cache)
+    return prof.profile
+
+
+def _share(p):
+    """The figures one position's program must repeat: dot FLOPs,
+    kernel calls with their work, collective bytes and counts by kind."""
+    return {"dot": p.dot_flops, "kernels": p.kernel_calls(),
+            "coll_bytes": dict(p.coll_bytes),
+            "coll_count": dict(p.coll_count)}
+
+
+def _added(a, b):
+    if isinstance(a, dict):
+        return {k: _added(a.get(k, 0), b.get(k, 0)) for k in {*a, *b}}
+    return a + b
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 4)])
+@pytest.mark.parametrize("kind", list(SEQ_RULES))
+def test_the_last_position_is_its_share_of_every_position(kind, shape):
+    """The dry run reports the last position along ``model`` as a
+    device's own: all positions' run less the other positions' own runs
+    (each along ``model``, times the data positions, which are alike) is
+    exactly the last position's run, whose rows under ``attn_seq_shard``
+    attend to the most keys."""
+    n_data, n_model = shape
+    every = _share(_seq_profile(kind, shape, False))
+    own = [_share(_seq_profile(kind, shape, m)) for m in range(n_model)]
+    rest = own[0]
+    for o in own[1:-1]:
+        rest = _added(rest, o)
+    scale = lambda t: {k: scale(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t * n_data  # noqa: E731
+    assert _added(scale(rest), scale(own[-1])) == every
+    assert own[-1]["coll_bytes"] and own[-1]["kernels"]
+    if SEQ_RULES[kind].get("attn_seq_shard"):
+        flash = [o["kernels"]["flash_attention"] for o in own]
+        assert flash[-1] != flash[0]
+    else:
+        assert own[-1] == own[0]

@@ -351,17 +351,32 @@ def test_the_sharded_path_is_taken_and_refused_where_it_should_be():
         with pytest.raises(ValueError, match="do not split"):
             model.spmd("train", 3)                 # rows do not split
     with use_mesh_rules(mesh, attn_seq_shard=True):
-        assert model.spmd("prefill", 4) is None
+        # the rows over model: a prefill's and a training loss's; decode,
+        # one token a row, keeps the head split
+        for kind in ("prefill", "train"):
+            sp = model.spmd(kind, 4)
+            assert sp.n == 4 and sp.seq_rows and not sp.seq_kv
+        assert not model.spmd("decode", 4).seq_rows
     with use_mesh_rules(mesh, seq_shard_kv=True):
-        assert model.spmd("train", 4) is not None
-        assert model.spmd("decode", 4) is None
+        assert not model.spmd("train", 4).seq_kv
+        for kind in ("prefill", "decode"):
+            sp = model.spmd(kind, 4)
+            assert sp.n == 4 and sp.seq_kv and not sp.seq_rows
     wide = TransformerLM(dataclasses.replace(
         cfg, attention=dataclasses.replace(cfg.attention, n_heads=6,
                                            n_kv_heads=6)), CPU)
     with use_mesh_rules(mesh):
         assert wide.spmd("train", 4) is not None
-    with use_mesh_rules(make_mesh((1, 4), ("data", "model"), [CPU] * 4)):
+    wide_mesh = make_mesh((1, 4), ("data", "model"), [CPU] * 4)
+    with use_mesh_rules(wide_mesh):
         assert wide.spmd("train", 4) is None       # 6 heads on 4
+        assert wide.spmd("decode", 4) is None
+    with use_mesh_rules(wide_mesh, attn_seq_shard=True, seq_shard_kv=True):
+        assert wide.spmd("train", 4).seq_rows
+        assert wide.spmd("prefill", 4).seq_rows
+    with use_mesh_rules(wide_mesh, seq_shard_kv=True):
+        assert wide.spmd("decode", 4).seq_kv
+        assert wide.spmd("prefill", 4) is None     # heads, and no rows
 
 
 def test_the_batcher_serves_a_mesh_with_weights_held_once():
@@ -382,7 +397,7 @@ def test_the_batcher_serves_a_mesh_with_weights_held_once():
     with use_mesh_rules(make_mesh((2, 2), ("data", "model"), [CPU] * 4)):
         got, batcher = serve()
     assert got == plain
-    assert batcher._held is not None
+    assert batcher._held
 
 
 def test_the_batcher_pads_a_batch_the_data_shards_do_not_split():
@@ -406,7 +421,7 @@ def test_the_batcher_pads_a_batch_the_data_shards_do_not_split():
         got, batcher = serve()
     assert got == plain
     assert (unpadded.filler_rows, batcher.filler_rows) == (0, 1)
-    assert batcher._held is not None
+    assert batcher._held
 
 
 def test_a_whole_cache_is_split_for_a_sharded_decode_step():
