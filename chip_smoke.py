@@ -351,8 +351,10 @@ Phases, each raising on failure (the script then exits non-zero):
     forward and a chunk backward an mLSTM layer, float32: on ``simt``);
 45. xlstm-350m at full width and depth (24 layers, d 1,024, tied) trained
     as phase 36 with S cut to 1,024 (``FULL_TRAIN_XLSTM``: the sLSTM is a
-    step loop of eager launches): exactly 2 x 12 mLSTM forward launches
-    (``wgmma``) and 12 backward launches (``wgmma``) a microbatch and no
+    step loop of eager launches; cut to 8 layers its float32 gate read
+    1.04 of its limit, against 0.81 at 24, so its depth stays): exactly
+    2 x 12 mLSTM forward launches (``wgmma``) and 12 backward launches
+    (``wgmma``) a microbatch and no
     other kernel; the in-model gradient gate at S 256 on the initial
     parameters in float32 compute (on ``simt``), the plain side's mLSTM at
     the kernels' chunks (32 forward, 64 backward), the reordered side's at
@@ -417,13 +419,34 @@ Phases, each raising on failure (the script then exits non-zero):
     log-sum-exps) under phase 12's rule; the reduced gemma2-9b and
     recurrentgemma-9b with a cache longer than their window against the
     CPU.  Phases 51-54 hold every kernel call at its shard shape against
-    its plain version.
+    its plain version.  Phases 52 and 54 run gemma2-9b cut to 14 of its
+    42 layers, 51 and 53 minicpm-2b cut to 20 of its 40 (depth, for the
+    smoke's time: every width, layout, kernel and gate stays);
+55. whisper-tiny at full width and depth under a (2, 4) mesh (6 heads on
+    a model axis of 4): a training step under ``attn_seq_shard`` (the
+    decoder's rows and the encoder's 1,500 frames, padded to 1,504, over
+    model; K/V gathered and cut to the real frames) gated as phase 53's,
+    a prefill under both layouts (the cross cache by slots, 375 a
+    position) and 4 decode steps under ``seq_shard_kv``, phase 12's rule
+    in bfloat16 and float32; the reduced whisper (3 heads) under (2, 2)
+    card against CPU;
+56. xlstm-350m at full width cut to 4 layers under a (1, 8) mesh: a
+    training step with the rows over model, each position's recurrence
+    starting from the state its predecessor hands on (one position x 8
+    == all 8 on meta, the hand-off charged as a collective-permute), a
+    prefill and 4 decode steps on the key-block decode step (32 key rows
+    a position, the partial sums merged over model), the reduced xLSTM
+    (3 heads) under (2, 2) card against CPU; phases 55 and 56 hold every
+    kernel call at its shard shape (the mLSTM's backward at a position
+    with the state's gradient its successor handed back) against its
+    plain version; phase 19 holds the key-block mode against its plain
+    version, and 57 times it (``DECODE_BLOCK_TIMED``).
 
 Every phase's bound column reads the kernel's work from
 ``kernels.work.KERNEL_WORK`` and the card's rates from ``launch.roofline``
 (``kernel_bound``).
 
-The last lines are the sharded LMs' record (phases 51-54), the dry-run
+The last lines are the sharded LMs' record (phases 51-56), the dry-run
 and sanitizer record (phases 49-50), the
 sharded-model record (phases 46-48), the training
 record, the pipeline planner's, the
@@ -1654,7 +1677,8 @@ def check_attention_kernels(np, torch, device):
 class plain_kernels:
     """Inside this block a CUDA tensor takes the LM kernels' plain
     versions (the dispatch tables' ``cuda`` entries swapped: flash and
-    decode attention, the expert GEMM, the RG-LRU scan, the mLSTM chunk,
+    decode attention, the expert GEMM, the RG-LRU scan, the mLSTM chunk
+    and its key-block decode step,
     and training's triples and pairs: flash forward-with-lse and
     backward, the expert GEMM and its dX and dW, the RG-LRU scan and its
     reverse scan, the mLSTM chunk and its backward, the last pair at the
@@ -1683,8 +1707,8 @@ class plain_kernels:
         from repro_torch.kernels.mlstm_chunk import ops as lops
         from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
             BWD_CHUNK, CHUNK, mlstm_route)
-        from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_bwd_ref,
-                                                         mlstm_chunk_ref)
+        from repro_torch.kernels.mlstm_chunk.ref import (
+            mlstm_chunk_bwd_ref, mlstm_chunk_ref, mlstm_decode_block_ref)
         from repro_torch.kernels.moe_matmul import ops as mops
         from repro_torch.kernels.moe_matmul.ref import (moe_matmul_dw_ref,
                                                         moe_matmul_dx_ref,
@@ -1695,8 +1719,11 @@ class plain_kernels:
         tables = (fops._BY_DEVICE, dops._BY_DEVICE, mops._BY_DEVICE,
                   rops._BY_DEVICE, lops._BY_DEVICE, fops._TRAIN_BY_DEVICE,
                   mops._TRAIN_BY_DEVICE, rops._TRAIN_BY_DEVICE,
-                  lops._TRAIN_BY_DEVICE)
+                  lops._TRAIN_BY_DEVICE, lops._BLOCK_BY_DEVICE)
         self.saved = [(t, t["cuda"]) for t in tables]
+        # the key-block decode step's plain version on either side: its
+        # sums are over one block's rows
+        lops._BLOCK_BY_DEVICE["cuda"] = mlstm_decode_block_ref
         if self.reorder:
             def flip(x):
                 return x.flip(-1)
@@ -3849,12 +3876,17 @@ def log_steps(run, what):
         f"{run['launches']}")
 
 
-def init_full(torch, arch, device):
-    """``arch`` at full width on the card, weights from a seeded card
-    generator: (model, params, record of the init)."""
+def init_full(torch, arch, device, n_layers=None):
+    """``arch`` at full width on the card (cut to ``n_layers`` where
+    given: depth, never width), weights from a seeded card generator:
+    (model, params, record of the init)."""
+    import dataclasses
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import build_model
-    model = build_model(get_arch(arch), device=device)
+    cfg = get_arch(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg, device=device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=device).manual_seed(0))
@@ -6521,14 +6553,16 @@ def run_sanitized_rollout(np, torch, device):
 # of the card
 # ---------------------------------------------------------------------------
 
-#: phase 51: minicpm-2b at full width and depth, one training step under a
+#: phase 51: minicpm-2b at full width, cut to 20 of its 40 layers for the
+#: smoke's time (every width, kernel and gate stays), one training step under a
 #: (data, model) mesh of entries of the card.  Each microbatch's rows go
 #: over data, so a microbatch holds a row a data position: B 4 in 2
 #: microbatches (B 2 would leave one row for two positions); the gradient
 #: gate on 2 rows (a row a data position) of phase 36's ``check_seq``, in
 #: float32
 TP_TRAIN = dict(arch="minicpm-2b", mesh=(2, 4), batch=4, seq=2048,
-                microbatches=2, lr=1e-3, check_seq=FULL_TRAIN["check_seq"])
+                microbatches=2, lr=1e-3, check_seq=FULL_TRAIN["check_seq"],
+                n_layers=20)
 #: the gradient gate's noise side, the same mesh through the plain
 #: versions against them without one, holds the program itself: its
 #: largest gap at most this share of a leaf's largest gradient (float32
@@ -6536,33 +6570,73 @@ TP_TRAIN = dict(arch="minicpm-2b", mesh=(2, 4), batch=4, seq=2048,
 #: sharded program, O(1))
 TP_NOISE_MAX = 1e-3
 #: phase 52: gemma2-9b at full width serving one prefill and decode steps
-#: under a (data, model) mesh (KV 8 over model 4: 2 KV heads a position)
-TP_SERVE = dict(arch="gemma2-9b", mesh=(2, 4), batch=8, seq=1024, steps=4)
+#: under a (data, model) mesh (KV 8 over model 4: 2 KV heads a position),
+#: cut to 14 of its 42 layers (7 local / global pairs) for the smoke's
+#: time: every layout, kernel and gate of the 42 stays
+#: (``n_layers`` here and in phases 45, 53 and 54 cuts depth, never width)
+TP_SERVE = dict(arch="gemma2-9b", mesh=(2, 4), batch=8, seq=1024, steps=4,
+                n_layers=14)
 #: the reduced griffin model under a (2, 2) mesh, card against the CPU
 TP_REDUCED = dict(arch="recurrentgemma-9b", mesh=(2, 2), batch=2, seq=40,
                   cache=48, steps=4)
 #: the kernels whose calls at shard shapes phases 51-54 record and hold
 TP_HELD = ("flash_attention", "flash_attention_bwd", "decode_attention",
-           "rglru_scan", "rglru_scan_bwd")
+           "rglru_scan", "rglru_scan_bwd", "mlstm_chunk", "mlstm_chunk_bwd",
+           "mlstm_decode_block")
 #: phase 53: minicpm-2b at full width under a (1, 8) mesh, whose 36 heads
 #: and 36 KV heads ``model`` does not divide: training under
 #: ``attn_seq_shard`` (256 rows a position a microbatch), serving with the
 #: prefill under both layouts and decode under ``seq_shard_kv`` (a cache
-#: of 1,032 slots, 129 a position)
+#: of 1,032 slots, 129 a position); cut to 20 of its 40 layers
 SEQ_TRAIN = dict(TP_TRAIN, mesh=(1, 8), batch=2)
 SEQ_TRAIN_RULES = dict(attn_seq_shard=True)
 SEQ_SERVE = dict(arch="minicpm-2b", mesh=(1, 8), batch=8, seq=1024, steps=4,
-                 cache=1032)
+                 cache=1032, n_layers=20)
 SEQ_PREFILL_RULES = dict(attn_seq_shard=True, seq_shard_kv=True)
 SEQ_DECODE_RULES = dict(seq_shard_kv=True)
 #: phase 54: gemma2-9b at full width under a (1, 16) mesh, its KV 8 on 16:
 #: ``seq_shard_kv`` (heads over model, the cache by slots: 1,040 slots, 65
-#: a position); then the reduced gemma2-9b and recurrentgemma-9b with a
-#: cache longer than their window (rolling buffers split over model)
+#: a position), cut to 14 of its 42 layers; then the reduced gemma2-9b
+#: and recurrentgemma-9b with a cache longer than their window (rolling
+#: buffers split over model)
 KV_SERVE = dict(arch="gemma2-9b", mesh=(1, 16), batch=8, seq=1024, steps=4,
-                cache=1040)
+                cache=1040, n_layers=14)
 KV_REDUCED = (dict(TP_REDUCED, arch="gemma2-9b", mesh=(1, 4)),
               dict(TP_REDUCED, mesh=(1, 4)))
+
+
+#: phase 55: whisper-tiny at full width and depth (4 + 4 layers, d 384, 6
+#: heads, vocab 51,865, 1,500 frames) under a (2, 4) mesh of the card,
+#: whose 6 heads model does not divide: one training step under
+#: ``attn_seq_shard`` (the decoder's rows and the encoder's frames, 1,500
+#: padded to 1,504, over model), a prefill under both layouts (the cross
+#: cache by slots, 375 a position) and 4 decode steps under
+#: ``seq_shard_kv``
+WHISPER_TRAIN = dict(arch="whisper-tiny", mesh=(2, 4), batch=4, seq=1024,
+                     microbatches=2, lr=1e-3, check_seq=512)
+WHISPER_SERVE = dict(arch="whisper-tiny", mesh=(2, 4), batch=8, seq=1024,
+                     steps=4, cache=1032)
+#: phase 56: xlstm-350m at full width (d 1,024, H 4, D 256, vocab 50,304)
+#: cut to 4 of its 24 layers (2 sLSTM + 2 mLSTM) under a (1, 8) mesh: one
+#: training step (128 rows a position, two 64-step chunks, the state
+#: handed on along model), a prefill and 4 decode steps on the key-block
+#: mode (32 key rows a position)
+XLSTM_TRAIN = dict(arch="xlstm-350m", n_layers=4, mesh=(1, 8), batch=2,
+                   seq=1024, microbatches=1, lr=1e-3, check_seq=512)
+XLSTM_SERVE = dict(arch="xlstm-350m", n_layers=4, mesh=(1, 8), batch=8,
+                   seq=1024, steps=4, cache=1032)
+#: phases 55 and 56's reduced models (3 heads, which model 2 does not
+#: divide; whisper's 16 frames by slots) in float32 under a (2, 2) mesh of
+#: the card against the same mesh of the CPU
+FAMILY_REDUCED = {"whisper-tiny": dict(arch="whisper-tiny", heads=3,
+                                       frames=16, mesh=(2, 2), batch=2,
+                                       seq=40, cache=48, steps=4),
+                  "xlstm-350m": dict(arch="xlstm-350m", heads=3,
+                                     mesh=(2, 2), batch=2, seq=40,
+                                     cache=48, steps=4)}
+#: the key-block decode step timed at phase 56's shape: B 8, H 4, the
+#: last of 8 blocks of 32 key rows of D 256, bfloat16
+DECODE_BLOCK_TIMED = (8, 4, 32, 256)
 
 
 def card_mesh(torch, shape, device):
@@ -6582,9 +6656,10 @@ class record_shard_calls:
     def __enter__(self):
         from repro_torch.kernels.decode_attention import ops as dops
         from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.mlstm_chunk import ops as lops
         from repro_torch.kernels.rglru_scan import ops as rops
         from repro_torch.parallel.sharding import current_mesh
-        self.modules = (fops, dops, rops)
+        self.modules = (fops, dops, rops, lops)
         self.saved = [m.charge for m in self.modules]
         self.calls = {}
         real = self.saved[0]
@@ -6634,6 +6709,14 @@ def hold_recorded(torch, calls):
         dtype = args[0].dtype
         dname = str(dtype).split(".")[1]
         kw = {k: v for k, v in kw.items() if k != "with_lse"}
+        if name.startswith("mlstm"):
+            err, route = hold_mlstm_call(torch, name, args)
+            what = f"{name} {dname} " + " x ".join(
+                str(list(a.shape)) for a in args if torch.is_tensor(a))
+            held[what] = err
+            log(f"  {what}: {route} route, max abs err {err:.3g}, two "
+                f"launches bitwise equal")
+            continue
         if name == "flash_attention":
             fn, ref, route = flash_attention, attention_ref, \
                 "wgmma" if dtype == torch.bfloat16 else "simt"
@@ -6687,6 +6770,85 @@ def hold_recorded(torch, calls):
     return held
 
 
+def hold_mlstm_call(torch, name, args):
+    """One recorded mLSTM kernel call (``hold_recorded``) launched again
+    on its operands against its plain version: the chunk kernel
+    (``held_mlstm``, at its route's chunks), its backward
+    (``held_mlstm_bwd``, at ``BWD_CHUNK``; at a position of a chain its
+    final state's gradients are those its successor handed back), the
+    key-block decode step (every output within ``MLSTM_TOL``), each on
+    its route, two launches bitwise equal.  Returns (max abs error, the
+    route)."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
+        BWD_CHUNK, CHUNK, mlstm_bwd_route, mlstm_chunk, mlstm_chunk_bwd,
+        mlstm_decode_block, mlstm_route)
+    from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_bwd_ref,
+                                                     mlstm_chunk_ref,
+                                                     mlstm_decode_block_ref)
+    q = args[0]
+    if name == "mlstm_chunk":
+        fn, route = mlstm_chunk, mlstm_route(q.dtype, q.shape[1])
+        ref = lambda: mlstm_chunk_ref(*args, chunk=CHUNK[route])  # noqa
+    elif name == "mlstm_chunk_bwd":
+        fn = mlstm_chunk_bwd
+        route = mlstm_bwd_route(q.dtype, q.shape[1], q.shape[-1])
+        ref = lambda: mlstm_chunk_bwd_ref(*args, chunk=BWD_CHUNK)  # noqa
+    else:
+        fn, route = mlstm_decode_block, "decode_block"
+        ref = lambda: mlstm_decode_block_ref(*args)  # noqa: E731
+    got, took = take_route(fn, lambda: fn(*args))
+    want_route(name, took, route)
+    again = fn(*args)
+    want = ref()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} at {list(q.shape)}: two launches "
+                             f"differ")
+    if name == "mlstm_chunk":
+        err = held_mlstm(torch, got, want, q.dtype)
+    elif name == "mlstm_chunk_bwd":
+        err = held_mlstm_bwd(torch, got, want, "at its shard shape")[1]
+    else:
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, **MLSTM_TOL)
+        err = max(float((a.double() - w.double()).abs().max())
+                  for a, w in zip(got, want))
+    return err, route
+
+
+def serve_launches(cfg, n, dtype):
+    """The launches of a prefill and of a decode step of ``cfg`` on ``n``
+    positions, and the route each takes in ``dtype``: a flash call an
+    attention layer (whisper's encoder layers and its decoder's self and
+    cross attention) and a decode call a decoder attention; an xLSTM's
+    mLSTM chunk a prefill and its key-block decode step a decode step, an
+    mLSTM layer each."""
+    from repro_torch.core.cost_model import _block_kinds
+    flash = "wgmma" if dtype == "bfloat16" else "simt"
+    if cfg.family == "ssm":
+        mls = n * sum(k == "mlstm" for k in _block_kinds(cfg))
+        return ({"prefill": {"mlstm_chunk": mls},
+                 "decode": {"mlstm_decode_block": mls}},
+                {"prefill": {"mlstm_chunk": flash},
+                 "decode": {"mlstm_decode_block": "decode_block"}})
+    pre = dec = cfg.n_layers
+    if cfg.family == "audio":
+        pre, dec = attention_calls(cfg), 2 * cfg.n_layers
+    return ({"prefill": {"flash_attention": n * pre},
+             "decode": {"decode_attention": n * dec}},
+            {"prefill": {"flash_attention": flash}, "decode": {}})
+
+
+def serve_frames(np, torch, cfg, batch, device):
+    """Seeded frame embeddings for whisper's prefill (None for the other
+    families)."""
+    if cfg.family != "audio":
+        return None
+    return torch.as_tensor(np.random.default_rng(55).normal(
+        size=(batch, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+        device=device)
+
+
 def tp_train_call(np, torch, device, one_position=None, f=TP_TRAIN,
                   rules=None):
     """Phase 51's (``f``'s) training step built on ``device`` (the card or
@@ -6694,14 +6856,16 @@ def tp_train_call(np, torch, device, one_position=None, f=TP_TRAIN,
     runs one ``make_train_step`` step under ``use_mesh_rules`` of
     ``f``'s mesh and ``rules`` (``one`` as ``use_mesh_rules`` takes
     ``one_position``, default ``one_position``)."""
+    import dataclasses
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_arch
-    from repro_torch.data.pipeline import lm_data
     from repro_torch.device import MetaGenerator
     from repro_torch.models import build_model
     from repro_torch.parallel.sharding import use_mesh_rules
     from repro_torch.runtime.train_loop import init_state, make_train_step
     cfg = get_arch(f["arch"])
+    if f.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=f["n_layers"])
     model = build_model(cfg, device)
     gen = MetaGenerator() if device.type == "meta" else \
         torch.Generator(device=device).manual_seed(0)
@@ -6709,7 +6873,7 @@ def tp_train_call(np, torch, device, one_position=None, f=TP_TRAIN,
                        microbatches=f["microbatches"], schedule="wsd")
     state = init_state(model, gen, tcfg)
     step = make_train_step(model, cfg, tcfg)
-    batch = next(lm_data(cfg, f["batch"], f["seq"], seed=51, prefetch=0))
+    batch = train_batch(np, cfg, f["batch"], f["seq"], 51)
     mesh = card_mesh(torch, f["mesh"], device)
 
     def program(one=one_position):
@@ -6731,7 +6895,9 @@ def tp_grad_gate(np, torch, device, model, params, mesh, f=TP_TRAIN,
     float32 ulps of that gradient; the loss within the larger of
     ``LM_GAP`` x the plain sides' loss gap and ``GRAD_FLOOR_ULPS``
     float32 ulps of it; the plain sides' own largest share within
-    ``TP_NOISE_MAX``."""
+    ``TP_NOISE_MAX``.  A key bias (whisper's ``bk``), whose gradient is
+    zero in exact arithmetic, takes the model's largest gradient for its
+    own."""
     import dataclasses
     import math
     from repro_torch.models import build_model
@@ -6744,11 +6910,15 @@ def tp_grad_gate(np, torch, device, model, params, mesh, f=TP_TRAIN,
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                         (2, f["check_seq"] + 1)),
                            device=device)
+    extra = () if cfg.family != "audio" else (torch.as_tensor(
+        rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32),
+        device=device),)
 
     def grads(ctx, on_mesh):
         with ctx, use_mesh_rules(mesh if on_mesh else None,
                                  **(rules or {})):
-            loss = check.train_loss(params, toks[:, :-1], toks[:, 1:])
+            loss = check.train_loss(params, toks[:, :-1], toks[:, 1:],
+                                    *extra)
             loss.backward()
         out = [torch.zeros_like(p) if p.grad is None else p.grad
                for p in plist]
@@ -6765,6 +6935,11 @@ def tp_grad_gate(np, torch, device, model, params, mesh, f=TP_TRAIN,
         losses[side], whole = grads(ctx(), False)
         if side == "plain":
             top = [float(g.abs().max()) for g in whole]
+            # a key bias's gradient is zero in exact arithmetic (the
+            # softmax ignores a constant added to a row's scores): its
+            # float32 noise is held against the model's largest gradient
+            top = [max(top) if path.endswith("['bk']") else t
+                   for (path, _), t in zip(leaves_with_paths(params), top)]
         mesh_side = "plain_sharded" if side == "plain" else "sharded"
         losses[mesh_side], split = grads(ctx(), True)
         gaps[mesh_side] = [float((a - b).abs().max())
@@ -6851,7 +7026,7 @@ def run_tp_training(np, torch, device, smi, f=TP_TRAIN, rules=None,
     the op profiler: the aten products and traffic, the kernel calls and
     the collectives equal all 8 positions' on ``meta`` exactly, and the
     card's launch counters the launches of those kernel calls: flash and
-    its backward at H 9 a position, 2 x 40 x 8 forward and 40 x 8
+    its backward at H 9 a position, 2 x 20 x 8 forward and 20 x 8
     backward launches a microbatch, all ``wgmma``; (c) the step again,
     timed, the meta run's bytes within ``DRY_MEMORY_TOL`` of
     ``max_memory_allocated`` above what the card held before the state
@@ -6867,7 +7042,11 @@ def run_tp_training(np, torch, device, smi, f=TP_TRAIN, rules=None,
     rec = {"card": smi, "config": dict(f), "rules": dict(rules or {})}
     marks = {"start": time.perf_counter()}
     profiles = {}
-    even = not (rules or {}).get("attn_seq_shard")
+    # under rows the positions along model differ but for the xLSTM's,
+    # whose row blocks all run the same recurrence (its hand-off charged
+    # alike at every position)
+    even = not (rules or {}).get("attn_seq_shard") or \
+        f["arch"] == "xlstm-350m"
     program, state, _, _ = tp_train_call(np, torch, meta, f=f, rules=rules)
     for one in (True, False):
         t0 = time.perf_counter()
@@ -6944,7 +7123,10 @@ def run_tp_training(np, torch, device, smi, f=TP_TRAIN, rules=None,
     torch.cuda.synchronize()
     claunch, croutes = card_launches()
     mlaunch, mroutes = profile_launches(whole)
-    per_mb = {k: v * n for k, v in train_launches(model.cfg, 2).items()}
+    # WhisperLM runs its layers without recomputation
+    passes = 1 if model.cfg.family == "audio" else 2
+    per_mb = {k: v * n for k, v in train_launches(model.cfg,
+                                                  passes).items()}
     want = {k: v * f["microbatches"] for k, v in per_mb.items()}
     want_launches(f"phase {phase} step", claunch, croutes, want,
                   {k: "wgmma" for k in want})
@@ -7023,29 +7205,34 @@ def run_tp_training(np, torch, device, smi, f=TP_TRAIN, rules=None,
 
 
 def tp_serve_sides(torch, model, params, toks, mesh, steps, cache_len=None,
-                   pre=None, dec=None):
+                   pre=None, dec=None, frames=None):
     """One prefill and ``steps`` decode steps three ways on the card:
     the plain versions without a mesh (the reference side), the same
     with their sums reordered, and the kernels under ``mesh`` (the
     prefill under the rules ``pre``, decode under ``dec``), each
     decoding from a copy of the plain side's prefill cache (of
     ``cache_len`` slots, default the prompt and the steps) and fed its
-    greedy tokens; the mesh side's launches counted a call.  Returns the
-    sides' logits, the plain side's, and the mesh side's launches."""
+    greedy tokens; the mesh side's launches counted a call.  ``frames``:
+    whisper's, through every prefill.  Returns the sides' logits, the
+    plain side's, and the mesh side's launches."""
     from repro_torch import kernels
     from repro_torch.parallel.sharding import use_mesh_rules
     b, s = toks.shape
     cache_len = cache_len or s + steps
+
+    def prefill():
+        if frames is not None:
+            return model.prefill(params, toks, frames, cache_len)
+        return model.prefill(params, toks, cache_len)
     with torch.no_grad():
         with plain_kernels():
-            ref, cache = model.prefill(params, toks, cache_len)
+            ref, cache = prefill()
         logits = {}
         with plain_kernels(True):
-            logits["reordered"] = [model.prefill(params, toks,
-                                                 cache_len)[0]]
+            logits["reordered"] = [prefill()[0]]
         kernels.reset_launch_counts()
         with use_mesh_rules(mesh, **(pre or {})):
-            out, _ = model.prefill(params, toks, cache_len)
+            out, _ = prefill()
         torch.cuda.synchronize()
         calls = [("prefill",) + card_launches()]
         logits["mesh"] = [out]
@@ -7100,8 +7287,10 @@ def run_tp_serving(np, torch, device, smi, f=TP_SERVE, pre=None, dec=None,
     weights gathered over data, the KV cache by heads) beside the plain
     versions without a mesh (``tp_serve_sides``), in bfloat16 and with
     the same weights in float32: exact launches by route (flash 8
-    positions x 42 a prefill, on ``wgmma`` in bfloat16 and ``simt`` in
-    float32, decode attention 8 x 42 a step); phase 12's per-logit rule
+    positions x its layers (42, cut to 14) a prefill, on ``wgmma`` in
+    bfloat16 and ``simt`` in float32, decode attention 8 x its layers a
+    step; ``serve_launches``, which also gives whisper's and the xLSTM's);
+    phase 12's per-logit rule
     (``tp_logit_rule``) gating the float32 logits and recorded for the
     bfloat16 ones; the mesh side's walls beside the same calls without
     a mesh; every kernel call at its shard shape held against its plain
@@ -7114,10 +7303,12 @@ def run_tp_serving(np, torch, device, smi, f=TP_SERVE, pre=None, dec=None,
     side (``float32``: its reduced models hold float32 card against CPU,
     and phase 53 the float32 merge at full width).  Returns the record."""
     from repro_torch.parallel.sharding import use_mesh_rules
-    model, params, rec = init_full(torch, f["arch"], device)
+    model, params, rec = init_full(torch, f["arch"], device,
+                                   f.get("n_layers"))
     cache_len = f.get("cache", f["seq"] + f["steps"])
-    sides = dict(cache_len=cache_len, pre=pre, dec=dec)
     cfg = model.cfg
+    frames = serve_frames(np, torch, cfg, f["batch"], device)
+    sides = dict(cache_len=cache_len, pre=pre, dec=dec, frames=frames)
     n = f["mesh"][0] * f["mesh"][1]
     mesh = card_mesh(torch, f["mesh"], device)
     toks = torch.as_tensor(np.random.default_rng(52).integers(
@@ -7126,12 +7317,12 @@ def run_tp_serving(np, torch, device, smi, f=TP_SERVE, pre=None, dec=None,
     with record_shard_calls() as seen:
         logits, refs, calls = tp_serve_sides(torch, model, params, toks,
                                              mesh, f["steps"], **sides)
-    want = {"prefill": {"flash_attention": n * cfg.n_layers},
-            "decode": {"decode_attention": n * cfg.n_layers}}
+    want, routes_by = serve_launches(cfg, n, "bfloat16")
     for kind, launches, routes in calls:
         want_launches(f"phase {phase} {kind}", launches, routes, want[kind],
-                      {"flash_attention": "wgmma"} if kind == "prefill"
-                      else {})
+                      routes_by[kind])
+    rec["decode_launches"] = sum(c[1].get("mlstm_decode_block", 0)
+                                 for c in calls if c[0] == "decode")
     bf16 = tp_logit_rule(torch, logits, refs, "bfloat16")
     log(f"  {cfg.name} bfloat16 under {f['mesh']}: logit gaps from the plain "
         f"side {bf16['gaps']}: the mesh side at {bf16['share']:.3g} of phase "
@@ -7142,12 +7333,17 @@ def run_tp_serving(np, torch, device, smi, f=TP_SERVE, pre=None, dec=None,
                              f"leave phase 12's per-logit rule: {bf16}")
     walls = {}
     b, s = toks.shape
+
+    def prefill(t):
+        if frames is not None:
+            return model.prefill(params, t, frames, cache_len)
+        return model.prefill(params, t, cache_len)
     for name, m in (("none", None), ("mesh", mesh)):
         with torch.no_grad():
             with use_mesh_rules(m, **(pre or {})):
-                model.prefill(params, toks[:, :64], cache_len)  # warm-up
-                (lg, cache), w, _, _ = counted(
-                    torch, lambda: model.prefill(params, toks, cache_len))
+                prefill(toks[:, :64])                           # warm-up
+                (lg, cache), w, _, _ = counted(torch,
+                                               lambda: prefill(toks))
             steps = []
             for i in range(f["steps"]):
                 nxt = torch.argmax(lg, -1).to(torch.int32)[:, None]
@@ -7167,6 +7363,7 @@ def run_tp_serving(np, torch, device, smi, f=TP_SERVE, pre=None, dec=None,
     torch.cuda.empty_cache()
     f32 = tp_float32_side(torch, cfg, params32, toks, mesh, f, phase, sides,
                           want, seen, smi) if float32 else None
+    del frames
     del params32
     gc.collect()
     torch.cuda.empty_cache()
@@ -7196,10 +7393,11 @@ def tp_float32_side(torch, cfg, params32, toks, mesh, f, phase, sides, want,
         logits, refs, calls32 = tp_serve_sides(torch, model32, params32,
                                                toks, mesh, f["steps"],
                                                **sides)
+    routes_by = serve_launches(cfg, f["mesh"][0] * f["mesh"][1],
+                               "float32")[1]
     for kind, launches, routes in calls32:
         want_launches(f"phase {phase} float32 {kind}", launches, routes,
-                      want[kind], {"flash_attention": "simt"}
-                      if kind == "prefill" else {})
+                      want[kind], routes_by[kind])
     f32 = tp_logit_rule(torch, logits, refs, "float32")
     log(f"  {cfg.name} float32 under {f['mesh']}: logit gaps from the plain "
         f"side {f32['gaps']}: the mesh side at {f32['share']:.3g} of phase "
@@ -7391,6 +7589,213 @@ def time_seq_kernels(torch, device, smi):
     return out
 
 
+def family_reduced(np, torch, device, f, pre, dec):
+    """``FAMILY_REDUCED[arch]`` (``f``): the reduced whisper-tiny or
+    xlstm-350m with 3 heads, in float32, under ``f``'s mesh of the card
+    against the same mesh of the CPU: the prefill under ``pre`` and the
+    decode steps under ``dec`` (both sides fed the CPU side's greedy
+    tokens), the logits within 1e-4; each card call's launches exact by
+    route (``serve_launches``), every kernel call at its shard shape held
+    against its plain version."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import use_mesh_rules
+    cfg = get_arch(f["arch"]).reduced()
+    cfg = dataclasses.replace(cfg, d_model=16 * f["heads"],
+                              attention=dataclasses.replace(
+                                  cfg.attention, n_heads=f["heads"],
+                                  n_kv_heads=f["heads"]))
+    if f.get("frames"):
+        cfg = dataclasses.replace(cfg, enc_seq=f["frames"])
+    n = f["mesh"][0] * f["mesh"][1]
+    want, routes_by = serve_launches(cfg, n, "float32")
+    cpu = build_model(cfg, device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device=device)
+    p_gpu = tree_map(lambda t: t.to(device), p_cpu)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (f["batch"], f["seq"])),
+                           dtype=torch.int32)
+    frames = serve_frames(np, torch, cfg, f["batch"], "cpu")
+    outs = {}
+    with torch.no_grad(), record_shard_calls() as seen:
+        for side, model, params, dev in (("cpu", cpu, p_cpu, "cpu"),
+                                         ("card", gpu, p_gpu, device)):
+            card = side == "card"
+            mesh = card_mesh(torch, f["mesh"], torch.device(dev))
+            extra = () if frames is None else (frames.to(dev),)
+            with use_mesh_rules(mesh, **pre):
+                (lg, cache), _, launches, routes = counted(
+                    torch, lambda: model.prefill(params, toks.to(dev),
+                                                 *extra, f["cache"]))
+            if card:
+                want_launches("reduced prefill", launches, routes,
+                              want["prefill"], routes_by["prefill"])
+            got = [lg.cpu()]
+            for i in range(f["steps"]):
+                ref = outs["cpu"][i] if card else got[i]
+                nxt = torch.argmax(ref, -1).to(torch.int32)[:, None]
+                pos = torch.full((f["batch"], 1), f["seq"] + i,
+                                 dtype=torch.int32)
+                with use_mesh_rules(mesh, **dec):
+                    (lg, cache), _, launches, routes = counted(
+                        torch, lambda: model.decode_step(
+                            params, nxt.to(dev), pos.to(dev), cache))
+                if card:
+                    want_launches("reduced decode", launches, routes,
+                                  want["decode"], routes_by["decode"])
+                got.append(lg.cpu())
+            outs[side] = got
+    worst = 0.0
+    for a, b in zip(outs["card"], outs["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        worst = max(worst, float((a - b).abs().max()))
+    held = hold_recorded(torch, {k: v for k, v in seen.calls.items()
+                                 if v[1][0].device.type == "cuda"})
+    log(f"  {cfg.name} float32 under {f['mesh']}: prefill {pre} + "
+        f"{f['steps']} decode steps {dec}: logits card vs CPU max abs diff "
+        f"{worst:.3g}")
+    return {"model": cfg.name, "mesh": list(f["mesh"]),
+            "rules": {"prefill": dict(pre), "decode": dict(dec)},
+            "max_abs_diff": worst, "held_at_shard_shapes": held}
+
+
+def run_seq_family(np, torch, device, smi, train, serve, phase):
+    """Phases 55 and 56: ``train``'s step (``run_tp_training`` under
+    ``attn_seq_shard``: the float32 gradient gate, the mesh against no
+    mesh, its noise side the mesh through the plain versions; the meta
+    run of one position x the mesh's positions against all of them,
+    where whisper's positions differ (its causal rows) by each position's
+    own program, ``seq_share``; the card's counts those of all positions
+    on ``meta``, its bytes within ``DRY_MEMORY_TOL``; launches by route;
+    every kernel call at its shard shape held against its plain version),
+    then ``serve``'s prefill under both layouts and its decode steps
+    under ``seq_shard_kv`` (``run_tp_serving``: phase 12's logit rule in
+    bfloat16 and float32, exact launches by route), then the reduced
+    model under a (2, 2) mesh, card against CPU (``family_reduced``).
+    Returns the record."""
+    rec = {"training": run_tp_training(np, torch, device, smi, train,
+                                       SEQ_TRAIN_RULES, phase)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["serving"] = run_tp_serving(np, torch, device, smi, serve,
+                                    SEQ_PREFILL_RULES, SEQ_DECODE_RULES,
+                                    phase, reduced=())
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["reduced"] = family_reduced(np, torch, device,
+                                    FAMILY_REDUCED[train["arch"]],
+                                    SEQ_PREFILL_RULES, SEQ_DECODE_RULES)
+    return rec
+
+
+def check_decode_block(torch, device):
+    """Phase 19's key-block decode step (``mlstm_decode_block``) against
+    its plain version on the card from nonzero states, float32 and
+    bfloat16: each block's num, den, C1, n1 and m1 within ``MLSTM_TOL``,
+    two launches bitwise equal, every launch on ``decode_block``; the
+    blocks' sums divided once (``decode_block_merge``) against the whole
+    decode step of the same operands (the decode route), h within
+    ``MLSTM_TOL`` (bfloat16: ``MLSTM_BF16_TOL``), and the blocks' C1 and
+    n1 its rows.  Returns the largest error."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
+        mlstm_chunk, mlstm_decode_block)
+    from repro_torch.kernels.mlstm_chunk.ref import (decode_block_merge,
+                                                     mlstm_decode_block_ref)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for i, (b, h, dk, d) in enumerate([(8, 4, 32, 256), (8, 4, 16, 256),
+                                           (1, 4, 64, 256), (2, 3, 8, 16),
+                                           (3, 2, 32, 64)]):
+            q, k, v, ip, fp, C0, n0, m0 = mlstm_operands(
+                torch, 960 + i, b, 1, h, d, dtype, device)
+            scale = 1.0 / d ** 0.5
+            whole = mlstm_chunk(q, k, v, ip, fp, C0, n0, m0, scale)
+            num = den = 0
+            for j in range(d // dk):
+                rows = slice(j * dk, (j + 1) * dk)
+                args = tuple(t.contiguous() for t in (
+                    q[..., rows], k[..., rows], v, ip, fp, C0[:, :, rows],
+                    n0[:, :, rows], m0))
+                got, route = take_route(
+                    mlstm_decode_block,
+                    lambda: mlstm_decode_block(*args, scale))
+                want_route("mlstm_decode_block", route, "decode_block")
+                again = mlstm_decode_block(*args, scale)
+                want = mlstm_decode_block_ref(*args, scale)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                    raise AssertionError(f"mlstm_decode_block {b, h, dk, d}:"
+                                         f" two launches differ")
+                for a, w in zip(got, want):
+                    torch.testing.assert_close(a, w, **MLSTM_TOL)
+                    worst = max(worst, float((a - w).abs().max()))
+                torch.testing.assert_close(got[2], whole[1][:, :, rows],
+                                           **MLSTM_TOL)
+                torch.testing.assert_close(got[3], whole[2][:, :, rows],
+                                           **MLSTM_TOL)
+                num, den = num + got[0], den + got[1]
+            merged = decode_block_merge(num, den, got[4])
+            torch.testing.assert_close(
+                merged.float(), whole[0].float(),
+                **(MLSTM_TOL if dtype == torch.float32 else MLSTM_BF16_TOL))
+            log(f"  mlstm_decode_block {dname} B={b} H={h} DK={dk} D={d} "
+                f"(decode_block route, {d // dk} blocks): max abs err "
+                f"{worst:.3g} against the plain version, the blocks merged "
+                f"against the whole decode step, two launches bitwise "
+                f"equal")
+    return worst
+
+
+def time_decode_block(torch, device, launches, err):
+    """The key-block decode step at ``DECODE_BLOCK_TIMED`` (phase 56's
+    last position) in bfloat16, beside its plain version and its bound
+    from this run's shapes (no PyTorch call computes it), checked against
+    the plain version at that shape first.  Returns the ``kernels``
+    row."""
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import mlstm_decode_block
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_decode_block_ref
+    b, h, dk, d = DECODE_BLOCK_TIMED
+    q, k, v, ip, fp, C0, n0, m0 = mlstm_operands(
+        torch, 970, b, 1, h, d, torch.bfloat16, device)
+    rows = slice(d - dk, d)
+    args = tuple(t.contiguous() for t in (q[..., rows], k[..., rows], v, ip,
+                                          fp, C0[:, :, rows], n0[:, :, rows],
+                                          m0))
+    scale = 1.0 / d ** 0.5
+    kern = lambda: mlstm_decode_block(*args, scale)        # noqa: E731
+    plain = lambda: mlstm_decode_block_ref(*args, scale)   # noqa: E731
+    got, route = take_route(mlstm_decode_block, kern)
+    want = plain()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **MLSTM_TOL)
+    at_shape = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    work = KERNEL_WORK["mlstm_decode_block"](*args, scale)
+    ms = time_ms(torch, kern, 20, graph=True)
+    row = {"name": "mlstm_decode_block", "route": "cuda",
+           "source": "src/repro_torch/csrc/mlstm_chunk.cu",
+           "replaces": "src/repro/kernels/mlstm_chunk/mlstm_chunk.py:81",
+           "kernel_route": route, "launches": launches,
+           "max_abs_err": max(err, at_shape), "shape": [b, h, dk, d],
+           "dtype": "bfloat16", "ms": ms,
+           "eager_ms": time_ms(torch, kern, 20, graph=False),
+           "plain_ms": time_ms(torch, plain, 5, graph=True),
+           "plain_eager_ms": time_ms(torch, plain, 5, graph=False),
+           **bound_keys(work), "bytes": work.bytes,
+           "operations": work.flops, "gb_per_s": work.bytes / ms / 1e6,
+           "library_ms": None, "library": None, "plain_timing": "graph"}
+    log(f"  mlstm_decode_block B={b} H={h} DK={dk} D={d} bf16 ({route} "
+        f"route): max abs err {at_shape:.3g}; {ms:.4f} ms in a graph, "
+        f"{row['eager_ms']:.4f} ms eager ({row['gb_per_s']:.1f} GB/s); "
+        f"plain {row['plain_ms']:.4f} ms (graph; {row['plain_eager_ms']:.4f}"
+        f" eager); bound {row['bound_ms']:.5f} ms ({row['bound_by']}: "
+        f"{work.bytes} B, {work.flops:.4g} operations)")
+    return row
+
+
 def tp_reduced(np, torch, device, f=TP_REDUCED, rules=None):
     """``TP_REDUCED`` (``f``): the reduced recurrentgemma in float32
     under a (2, 2) mesh of the card against the same mesh of the CPU,
@@ -7527,8 +7932,10 @@ def main() -> int:
     rows += time_moe_rglru(torch, device, served)
     next(r for r in rows if r["name"] == "decode_attention")["g16"] = \
         time_decode_g16(torch, device, served)
-    log("[19] mLSTM chunk kernel against its plain version on the card")
+    log("[19] mLSTM chunk kernel and its decode route's key-block mode "
+        "against their plain versions on the card")
     check_mlstm_kernel(np, torch, device)
+    block_err = check_decode_block(torch, device)
     log("[20] reduced xLSTM LM: card against the CPU plain path")
     check_reduced_lms(np, torch, device, ("xlstm-350m",))
     log("[21] LM serving path: xlstm-350m at full width through "
@@ -7667,7 +8074,18 @@ def main() -> int:
             (54, "seq_kv", f"{KV_SERVE['arch']} served at full width under "
              f"a {KV_SERVE['mesh']} mesh of the card (seq_shard_kv), then "
              f"the reduced gemma2-9b and recurrentgemma-9b",
-             lambda np_, torch_, dev: run_seq_kv(np_, torch_, dev, smi))):
+             lambda np_, torch_, dev: run_seq_kv(np_, torch_, dev, smi)),
+            (55, "whisper", f"whisper-tiny trained and served at full width "
+             f"and depth under a {WHISPER_TRAIN['mesh']} mesh of the card "
+             f"(attn_seq_shard, seq_shard_kv), then reduced under (2, 2)",
+             lambda np_, torch_, dev: run_seq_family(
+                 np_, torch_, dev, smi, WHISPER_TRAIN, WHISPER_SERVE, 55)),
+            (56, "xlstm", f"xlstm-350m (full width, {XLSTM_TRAIN['n_layers']}"
+             f" layers) trained and served under a {XLSTM_TRAIN['mesh']} "
+             f"mesh of the card, the state handed on along model and the "
+             f"decode state by key rows, then reduced under (2, 2)",
+             lambda np_, torch_, dev: run_seq_family(
+                 np_, torch_, dev, smi, XLSTM_TRAIN, XLSTM_SERVE, 56))):
         log(f"[{phase}] {title}")
         t0 = time.perf_counter()
         tp[key] = fn(np, torch, device)
@@ -7731,6 +8149,11 @@ def main() -> int:
                 for m in sharded["meshes"]}}
 
     rows.append(mlstm_bwd_row)
+    log("[57] the key-block decode step's time (CUDA events), phase 56's "
+        "shape")
+    rows.append(time_decode_block(
+        torch, device, tp["xlstm"]["serving"]["decode_launches"],
+        block_err))
     # the attention kernels at phase 53's and 54's shard shapes
     seq_times = tp["seq_rows"].pop("kernel_times")
     for row in rows:

@@ -115,7 +115,9 @@ def position_summary(recs):
     """The mesh cells that ran one position's program (``"split":
     "position"``), a row a cell: under each mesh the memory a device and
     the compute (C), memory (M) and collective (X) terms, with the pod
-    bytes a device where a group crosses pods."""
+    bytes a device where a group crosses pods, and an xLSTM cell's chain
+    (the positions along ``model`` that wait on each other's recurrent
+    state, which a device's terms do not show)."""
     cells = sorted({(a, s) for a, s, m in recs
                     if recs[a, s, m].get("split") == "position"},
                    key=lambda c: (ARCHS.index(c[0]), ORDER.index(c[1])))
@@ -133,7 +135,9 @@ def position_summary(recs):
             out.append(f"{mem:.1f} GiB · C {fmt_s(ro['compute_s'])} · M "
                        f"{fmt_s(ro['memory_s'])} · X "
                        f"{fmt_s(ro['collective_s'])}"
-                       + (f" (pod {pod / 1e9:.2f} GB)" if pod else ""))
+                       + (f" (pod {pod / 1e9:.2f} GB)" if pod else "")
+                       + (f" · chain {r['chain']}" if r.get("chain", 1) > 1
+                          else ""))
         rows.append(f"| {arch} | {shape} | " + " | ".join(out) + " |")
     return "\n".join(rows)
 

@@ -83,7 +83,12 @@
 //   owns a 16-column strip of C, streams it with 16-byte loads and stores
 //   (256 threads, each 16 B a row on D / 64 rows, all issued before any
 //   use), and reduces q C over the strip by warp shuffles and one pass
-//   through shared memory in a fixed order.
+//   through shared memory in a fixed order.  Its key-block mode
+//   (repro_mlstm_decode_block) holds DK of the D key rows of C and n, as
+//   a position of a mesh whose model axis splits the key dimension does,
+//   and writes the block's partial numerator and raw denominator in
+//   float32 in place of h: the caller sums them over the blocks (a psum)
+//   and divides.
 // * simt (float32, S > 1): the first port's kernel, unchanged (wgmma has no
 //   float32 input).  Chunks of LC = 32 steps; grid (B H, D / DV), each
 //   block holding C[:, v-tile] (DV = 64: 64 KB) and n, m in shared memory
@@ -958,7 +963,13 @@ constexpr int TPR = VS / 4;        // threads a row, 16 B each
 constexpr int RG = THREADS / TPR;  // row groups
 constexpr int WARPS = THREADS / 32;
 
-template <typename T, int D>
+// BLOCK: the key-block mode.  The launch holds DK of the D key rows
+// (q, k, C's rows and n of those rows; v, the gates and m whole) and
+// writes, in place of h, the block's partial numerator num [B, H, D] and
+// raw denominator den [B, H] in float32, undivided: their sums over the
+// key blocks are the step's q C (scale carry) + sw v and rowsum sw +
+// (q . n) scale carry, and h = num / max(|den|, exp(-m1)).
+template <typename T, int D, bool BLOCK>
 __global__ void __launch_bounds__(THREADS)
 mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ ig,
@@ -967,8 +978,11 @@ mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ n0,
                     const float* __restrict__ m0, T* __restrict__ h,
                     float* __restrict__ C1, float* __restrict__ n1,
-                    float* __restrict__ m1, float scale) {
-  constexpr int RPT = (D + RG - 1) / RG;     // C rows a thread
+                    float* __restrict__ m1, float scale,
+                    float* __restrict__ num, float* __restrict__ den,
+                    int DK) {
+  constexpr int RPT = (D + RG - 1) / RG;     // C rows a thread, at most
+  const int dk = BLOCK ? DK : D;             // key rows this launch holds
   __shared__ float qs[D], ks[D];
   __shared__ float red[WARPS][VS];
   __shared__ float dots[2];
@@ -983,8 +997,8 @@ mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int d = rg + r * RG;
-    cv[r] = d < D ? *reinterpret_cast<const float4*>(
-                        C0 + (bh * D + d) * D + v0 + c4)
+    cv[r] = d < dk ? *reinterpret_cast<const float4*>(
+                         C0 + (bh * dk + d) * D + v0 + c4)
                   : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   constexpr int QPT = (D + THREADS - 1) / THREADS;
@@ -992,15 +1006,15 @@ mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < QPT; ++r) {
     const int d = tid + r * THREADS;
-    qv[r] = d < D ? to_f(q[bh * D + d]) : 0.f;
-    kv[r] = d < D ? to_f(k[bh * D + d]) : 0.f;
+    qv[r] = d < dk ? to_f(q[bh * dk + d]) : 0.f;
+    kv[r] = d < dk ? to_f(k[bh * dk + d]) : 0.f;
   }
   constexpr int NPL = (D + 31) / 32;     // n a lane of warp 1
   float nv[NPL];
 #pragma unroll
   for (int r = 0; r < NPL; ++r) {
     const int d = lane + 32 * r;
-    nv[r] = warp == 1 && d < D ? n0[bh * D + d] : 0.f;
+    nv[r] = warp == 1 && d < dk ? n0[bh * dk + d] : 0.f;
   }
   float vv[4];
 #pragma unroll
@@ -1010,7 +1024,7 @@ mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < QPT; ++r) {
     const int d = tid + r * THREADS;
-    if (d < D) {
+    if (d < dk) {
       qs[d] = qv[r];
       ks[d] = kv[r];
     }
@@ -1021,7 +1035,7 @@ mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < NPL; ++r) {
       const int d = lane + 32 * r;
-      if (d < D) acc = fmaf(qs[d], warp == 0 ? ks[d] : nv[r], acc);
+      if (d < dk) acc = fmaf(qs[d], warp == 0 ? ks[d] : nv[r], acc);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
@@ -1032,7 +1046,7 @@ mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float p[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
-    const float qd = rg + r * RG < D ? qs[rg + r * RG] : 0.f;
+    const float qd = rg + r * RG < dk ? qs[rg + r * RG] : 0.f;
     p[0] = fmaf(qd, cv[r].x, p[0]);
     p[1] = fmaf(qd, cv[r].y, p[1]);
     p[2] = fmaf(qd, cv[r].z, p[2]);
@@ -1050,18 +1064,18 @@ mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the one-step chunk's gates (every thread alike)
   const float lf = -(fmaxf(y, 0.f) + log1pf(expf(-fabsf(y))));
   const float a = ip - lf, mx = fmaxf(m, a);
-  const float carry = expf(m - mx), dk = expf(a - mx);
+  const float carry = expf(m - mx), dkey = expf(a - mx);
   // C <- carry C + (k exp(a - mx)) v^T, n and m alike
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int d = rg + r * RG;
-    if (d < D) {
-      const float kd = ks[d] * dk;
+    if (d < dk) {
+      const float kd = ks[d] * dkey;
       const float4 o = make_float4(fmaf(carry, cv[r].x, kd * vv[0]),
                                    fmaf(carry, cv[r].y, kd * vv[1]),
                                    fmaf(carry, cv[r].z, kd * vv[2]),
                                    fmaf(carry, cv[r].w, kd * vv[3]));
-      *reinterpret_cast<float4*>(C1 + (bh * D + d) * D + v0 + c4) = o;
+      *reinterpret_cast<float4*>(C1 + (bh * dk + d) * D + v0 + c4) = o;
     }
   }
   __syncthreads();
@@ -1069,14 +1083,20 @@ mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float inter = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) inter += red[w][tid];
-    const float sw = dots[0] * scale * dk;
-    const float den =
-        fmaxf(fabsf(sw + dots[1] * scale * carry), expf(-(lf + mx)));
-    store1(h + bh * D + v0 + tid, (inter * (scale * carry) + sw * vt) / den);
+    const float sw = dots[0] * scale * dkey;
+    const float den_raw = sw + dots[1] * scale * carry;
+    const float part = inter * (scale * carry) + sw * vt;
+    if constexpr (BLOCK) {
+      num[bh * D + v0 + tid] = part;
+      if (blockIdx.y == 0 && tid == 0) den[bh] = den_raw;
+    } else {
+      store1(h + bh * D + v0 + tid,
+             part / fmaxf(fabsf(den_raw), expf(-(lf + mx))));
+    }
   }
   if (blockIdx.y == 0) {
-    for (int d = tid; d < D; d += THREADS)
-      n1[bh * D + d] = carry * n0[bh * D + d] + ks[d] * dk;
+    for (int d = tid; d < dk; d += THREADS)
+      n1[bh * dk + d] = carry * n0[bh * dk + d] + ks[d] * dkey;
     if (tid == 0) m1[bh] = lf + mx;
   }
 }
@@ -1084,9 +1104,20 @@ mlstm_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const Args& x) {
   const dim3 grid((unsigned)(x.B * x.H), (unsigned)(D / VS));
-  mlstm_decode_kernel<T, D><<<grid, THREADS, 0, x.stream>>>(
+  mlstm_decode_kernel<T, D, false><<<grid, THREADS, 0, x.stream>>>(
       (const T*)x.q, (const T*)x.k, (const T*)x.v, x.ig, x.fg, x.C0, x.n0,
-      x.m0, (T*)x.h, x.C1, x.n1, x.m1, x.scale);
+      x.m0, (T*)x.h, x.C1, x.n1, x.m1, x.scale, nullptr, nullptr, D);
+  return (int)cudaGetLastError();
+}
+
+// the key-block mode: DK of the D key rows, num and den in place of h
+template <typename T, int D>
+int launch_block(const Args& x, float* num, float* den, int DK) {
+  if (DK < 1 || DK > D) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(x.B * x.H), (unsigned)(D / VS));
+  mlstm_decode_kernel<T, D, true><<<grid, THREADS, 0, x.stream>>>(
+      (const T*)x.q, (const T*)x.k, (const T*)x.v, x.ig, x.fg, x.C0, x.n0,
+      x.m0, nullptr, x.C1, x.n1, x.m1, x.scale, num, den, DK);
   return (int)cudaGetLastError();
 }
 
@@ -1142,6 +1173,37 @@ extern "C" int repro_mlstm_chunk(const void* q, const void* k, const void* v,
                (cudaStream_t)stream};
   if (dtype == 0) return by_dim<float>(D, route, x);
   if (dtype == 1) return by_dim<__nv_bfloat16>(D, route, x);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The decode route's key-block mode (S = 1): q, k [B, 1, H, DK] (a block
+// of DK key rows), v [B, 1, H, D], gates [B, 1, H], C0 [B, H, DK, D], n0
+// [B, H, DK], m0 [B, H] -> num [B, H, D] and den [B, H] float32 (the
+// block's partial numerator and raw denominator, undivided), C1, n1 of
+// the block and m1; dtype and D as repro_mlstm_chunk, 1 <= DK <= D.
+extern "C" int repro_mlstm_decode_block(
+    const void* q, const void* k, const void* v, const void* ig,
+    const void* fg, const void* C0, const void* n0, const void* m0,
+    void* num, void* den, void* C1, void* n1, void* m1, int B, int H,
+    int DK, int D, int dtype, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || (long long)B * H > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const Args x{q, k, v, (const float*)ig, (const float*)fg,
+               (const float*)C0, (const float*)n0, (const float*)m0,
+               nullptr, (float*)C1, (float*)n1, (float*)m1, B, 1, H, scale,
+               (cudaStream_t)stream};
+  float *nm = (float*)num, *dn = (float*)den;
+#define REPRO_BLOCK(T)                                          \
+  switch (D) {                                                  \
+    case 16: return dec::launch_block<T, 16>(x, nm, dn, DK);    \
+    case 32: return dec::launch_block<T, 32>(x, nm, dn, DK);    \
+    case 64: return dec::launch_block<T, 64>(x, nm, dn, DK);    \
+    case 128: return dec::launch_block<T, 128>(x, nm, dn, DK);  \
+    case 256: return dec::launch_block<T, 256>(x, nm, dn, DK);  \
+  }
+  if (dtype == 0) { REPRO_BLOCK(float) }
+  if (dtype == 1) { REPRO_BLOCK(__nv_bfloat16) }
+#undef REPRO_BLOCK
   return (int)cudaErrorInvalidValue;
 }
 

@@ -105,8 +105,8 @@ def _wrappers():
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_bwd)
     from repro_torch.kernels.link_geometry.link_geometry import link_geometry
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (mlstm_chunk,
-                                                             mlstm_chunk_bwd)
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
+        mlstm_chunk, mlstm_chunk_bwd, mlstm_decode_block)
     from repro_torch.kernels.moe_matmul.moe_matmul import (
         moe_matmul, moe_matmul_dw, moe_matmul_dx)
     from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
@@ -120,7 +120,8 @@ def _wrappers():
             "decode_attention": decode_attention, "moe_matmul": moe_matmul,
             "moe_matmul_dx": moe_matmul_dx, "moe_matmul_dw": moe_matmul_dw,
             "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd,
-            "mlstm_chunk": mlstm_chunk, "mlstm_chunk_bwd": mlstm_chunk_bwd}
+            "mlstm_chunk": mlstm_chunk, "mlstm_chunk_bwd": mlstm_chunk_bwd,
+            "mlstm_decode_block": mlstm_decode_block}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -134,7 +135,8 @@ def launch_counts() -> Dict[str, int]:
 def route_counts() -> Dict[str, Dict[str, int]]:
     """Launches by route since the last ``reset_launch_counts``, for the
     kernels that count them (``wgmma`` / ``simt``, the
-    RG-LRU scan's ``tma`` / ``simt``, the mLSTM's ``decode`` besides, the
+    RG-LRU scan's ``tma`` / ``simt``, the mLSTM's ``decode`` besides and
+    its key-block mode's ``decode_block``, the
     chain DP's ``fused`` / ``step``, where ``step`` counts the step-kernel
     launches of the solves on that route)."""
     return {name: dict(fn.launches_by_route)

@@ -22,6 +22,11 @@ dtype and ``S`` alone and counted in ``mlstm_chunk.launches_by_route``:
 * ``simt`` (float32, ``S > 1``): chunks of 32 steps, a SIMT block per
   (b, head, value tile) holding its tile of ``C`` in shared memory.
 
+``mlstm_decode_block`` is the ``decode`` route's key-block mode, its own
+wrapper with its own counts (route ``decode_block``): one step on a
+block of the state's key rows, the block's partial numerator and
+denominator returned undivided for a ``psum`` over ``model``.
+
 Every route is deterministic launch to launch.
 
 The backward ``mlstm_chunk_bwd`` (``csrc/mlstm_chunk_bwd.cu``; no Pallas
@@ -185,6 +190,93 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 mlstm_chunk.launches = 0
 mlstm_chunk.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+_BLOCK_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + \
+    [ctypes.c_float, ctypes.c_void_p]
+
+
+def mlstm_decode_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       i_pre: torch.Tensor, f_pre: torch.Tensor,
+                       C0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor,
+                       scale: float) -> Tuple[torch.Tensor, ...]:
+    """The ``decode`` route's key-block mode (``csrc/mlstm_chunk.cu``,
+    ``repro_mlstm_decode_block``): one step on DK of the D key rows of the
+    state, as a position of a mesh whose ``model`` axis splits them holds
+    it.  q, k [B, 1, H, DK] and v [B, 1, H, D] contiguous, of one dtype
+    (float32 or bfloat16), the gates [B, 1, H], C0 [B, H, DK, D], n0
+    [B, H, DK] and m0 [B, H] contiguous float32, all CUDA tensors on one
+    device; D in ``HEAD_DIMS``, 1 <= DK <= D -> (num [B, H, D], den
+    [B, H]: the block's partial numerator and raw denominator in float32,
+    undivided; C1, n1 of the block, m1), as ``ref.mlstm_decode_block_ref``.
+    Counted in ``launches`` and ``launches_by_route["decode_block"]``."""
+    refuse_grad("mlstm_decode_block", "25.3: the key-block decode step "
+                "serves; training runs the chunk kernels on row blocks", q,
+                k, v, i_pre, f_pre, C0, n0, m0)
+    if q.dim() != 4 or q.shape[1] != 1 or tuple(k.shape) != tuple(q.shape):
+        raise ValueError(f"mlstm_decode_block: want q, k [B, 1, H, DK] of "
+                         f"one shape; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    B, _, H, DK = q.shape
+    D = v.shape[-1]
+    want = {"v": (B, 1, H, D), "i_pre": (B, 1, H), "f_pre": (B, 1, H),
+            "C0": (B, H, DK, D), "n0": (B, H, DK), "m0": (B, H)}
+    got = {"v": v, "i_pre": i_pre, "f_pre": f_pre, "C0": C0, "n0": n0,
+           "m0": m0}
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(f"mlstm_decode_block: {name} must be {shape}; "
+                             f"got {tuple(got[name].shape)}")
+    if D not in HEAD_DIMS or not 1 <= DK <= D or B * H > MAX_ROWS:
+        raise ValueError(f"mlstm_decode_block: head dim {D} (want one of "
+                         f"{HEAD_DIMS}), key rows {DK} (want 1..{D}), "
+                         f"B x H {B * H}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.dtype not in _DTYPES or \
+                t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"mlstm_decode_block: {name} must be a "
+                             f"contiguous CUDA float32 or bfloat16 tensor "
+                             f"of q's dtype; got {t.device} {t.dtype}")
+    for name in ("i_pre", "f_pre", "C0", "n0", "m0"):
+        t = got[name]
+        if t.device != q.device or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"mlstm_decode_block: {name} must be a "
+                             f"contiguous CUDA float32 tensor on "
+                             f"{q.device}; got {t.device} {t.dtype}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    num, den = torch.empty((B, H, D), **f32), torch.empty((B, H), **f32)
+    C1, n1, m1 = (torch.empty_like(t) for t in (C0, n0, m0))
+    fn = _build.launcher("mlstm_chunk", "repro_mlstm_decode_block",
+                         _BLOCK_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in (q, k, v, i_pre, f_pre, C0, n0, m0,
+                                          num, den, C1, n1, m1)),
+                 B, H, DK, D, _DTYPES[q.dtype], float(scale), stream)
+    _build.check_launch(_build.load("mlstm_chunk"), "mlstm_decode_block",
+                        err)
+    mlstm_decode_block.launches += 1
+    mlstm_decode_block.launches_by_route["decode_block"] += 1
+    return num, den, C1, n1, m1
+
+
+mlstm_decode_block.launches = 0
+mlstm_decode_block.launches_by_route = {"decode_block": 0}
+
+
+def mlstm_decode_block_meta(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, i_pre: torch.Tensor,
+                            f_pre: torch.Tensor, C0: torch.Tensor,
+                            n0: torch.Tensor, m0: torch.Tensor,
+                            scale: float) -> Tuple[torch.Tensor, ...]:
+    """``mlstm_decode_block`` on ``meta``: (num, den, C1, n1, m1) of its
+    shapes and dtypes; no launch, no arithmetic."""
+    B, _, H, _ = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty((B, H, v.shape[-1]), **f32),
+            torch.empty((B, H), **f32)) + \
+        tuple(torch.empty_like(t) for t in (C0, n0, m0))
 
 
 def mlstm_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

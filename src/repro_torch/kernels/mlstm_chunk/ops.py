@@ -16,15 +16,21 @@ import torch
 
 from repro_torch.kernels import charge, charged_unit
 from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
-    mlstm_chunk, mlstm_chunk_bwd, mlstm_chunk_bwd_meta, mlstm_chunk_meta)
+    mlstm_chunk, mlstm_chunk_bwd, mlstm_chunk_bwd_meta, mlstm_chunk_meta,
+    mlstm_decode_block, mlstm_decode_block_meta)
 from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_bwd_ref,
-                                                 mlstm_chunk_ref)
+                                                 mlstm_chunk_ref,
+                                                 mlstm_decode_block_ref)
 
 #: tensor device type -> implementation: CUDA launches the kernel (or
 #: raises), the CPU takes the plain version, ``meta`` makes the outputs'
 #: shapes; nothing falls back
 _BY_DEVICE = {"cuda": mlstm_chunk, "cpu": mlstm_chunk_ref,
               "meta": mlstm_chunk_meta}
+#: the same for the decode step on a block of the state's key rows
+_BLOCK_BY_DEVICE = {"cuda": mlstm_decode_block,
+                    "cpu": mlstm_decode_block_ref,
+                    "meta": mlstm_decode_block_meta}
 #: the same for the training path: (forward, backward)
 _TRAIN_BY_DEVICE = {"cuda": (mlstm_chunk, mlstm_chunk_bwd),
                     "cpu": (mlstm_chunk_ref, mlstm_chunk_bwd_ref),
@@ -102,4 +108,23 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return fn(q, k, v, i_pre, f_pre, C0, n0, m0, scale)
 
 
-__all__ = ["MlstmChunk", "mlstm"]
+@charged_unit
+def mlstm_decode_block_step(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, i_pre: torch.Tensor,
+                            f_pre: torch.Tensor, C0: torch.Tensor,
+                            n0: torch.Tensor, m0: torch.Tensor, scale: float
+                            ) -> Tuple[torch.Tensor, ...]:
+    """One decode step on a block of DK of the state's D key rows: q, k
+    [B, 1, H, DK] (the block's rows, q unscaled), v [B, 1, H, D], gates
+    [B, 1, H] float32, C0 [B, H, DK, D], n0 [B, H, DK], m0 [B, H] ->
+    (num [B, H, D], den [B, H], C1, n1, m1), num and den the block's
+    partial sums, undivided (``ref.mlstm_decode_block_ref``); the
+    decode kernel's key-block mode on a CUDA tensor."""
+    fn = _fns(_BLOCK_BY_DEVICE, q)
+    with torch.profiler.record_function("mlstm.decode_block"):
+        charge("mlstm_decode_block", q, k, v, i_pre, f_pre, C0, n0, m0,
+               scale)
+        return fn(q, k, v, i_pre, f_pre, C0, n0, m0, scale)
+
+
+__all__ = ["MlstmChunk", "mlstm", "mlstm_decode_block_step"]

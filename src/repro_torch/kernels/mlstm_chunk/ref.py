@@ -7,6 +7,11 @@ in float32 and in the reference's operation order.  By default it cuts
 of ``S`` when 256 does not divide it); ``chunk=`` sets another length,
 the last chunk ragged.
 
+``mlstm_decode_block_ref`` is the decode step on a block of the
+state's key rows, its partial numerator and denominator undivided (the
+decode kernel's key-block mode); ``decode_block_merge`` divides their
+sums over the blocks.
+
 ``mlstm_chunk_bwd_ref`` is its backward, written out chunk by chunk in
 float32 (not autograd: the backward kernel needs a like-for-like plain
 version).  Per chunk of L steps, in ``chunk_math``'s notation: b =
@@ -298,6 +303,51 @@ def mlstm_chunk_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *dstate)
 
 
+def mlstm_decode_block_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, i_pre: torch.Tensor,
+                           f_pre: torch.Tensor, C0: torch.Tensor,
+                           n0: torch.Tensor, m0: torch.Tensor, scale: float
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The decode step (S = 1) on a block of DK of the D key rows, as a
+    position of a mesh whose ``model`` axis splits the state's key
+    dimension holds it: q, k [B, 1, H, DK] (the block's rows of q, k), v
+    [B, 1, H, D], the gates [B, 1, H], C0 [B, H, DK, D], n0 [B, H, DK]
+    and m0 [B, H] (whole) -> (num [B, H, D], den [B, H], C1 [B, H, DK,
+    D], n1 [B, H, DK], m1 [B, H]), float32.  num and den are the block's
+    partial numerator ``(q C0) scale carry + sw v`` and raw denominator
+    ``sw + (q . n0) scale carry`` (sw = scale (q . k) exp(a - mx)), in
+    ``chunk_math``'s order within the block and undivided: summed over
+    the blocks they are the one-step chunk's num and den_raw, and h =
+    num / max(|den|, exp(-m1))."""
+    f32 = torch.float32
+    q, k, v = (t[:, 0].to(f32) for t in (q, k, v))
+    ip, fp = i_pre[:, 0].to(f32), f_pre[:, 0].to(f32)
+    C0, n0, m0 = C0.to(f32), n0.to(f32), m0.to(f32)
+    b = log_sigmoid(fp)
+    a = ip - b
+    mx = torch.maximum(m0, a)
+    inter_scale = torch.exp(m0 - mx)
+    w = torch.exp(a - mx)
+    sw = torch.einsum("bhd,bhd->bh", q, k) * scale * w
+    inter = torch.einsum("bhd,bhdv->bhv", q, C0) * \
+        (scale * inter_scale)[..., None]
+    num = inter + sw[..., None] * v
+    den = sw + torch.einsum("bhd,bhd->bh", q, n0) * scale * inter_scale
+    C1 = inter_scale[..., None, None] * C0 + \
+        torch.einsum("bhd,bhv,bh->bhdv", k, v, w)
+    n1 = inter_scale[..., None] * n0 + k * w[..., None]
+    return num, den, C1, n1, b + mx
+
+
+def decode_block_merge(num: torch.Tensor, den: torch.Tensor,
+                       m1: torch.Tensor) -> torch.Tensor:
+    """h [B, 1, H, D] float32 from the blocks' summed ``num`` [B, H, D]
+    and ``den`` [B, H] (``mlstm_decode_block_ref``) and the new m1:
+    ``num / max(|den|, exp(-m1))``."""
+    return (num / torch.maximum(torch.abs(den), torch.exp(-m1))[..., None]
+            )[:, None]
+
+
 def seq_step(C, n, m, qt, kt, vt, ip, fp):
     """One step of the exact sequential mLSTM recurrence (the
     reference's ``mlstm_ref`` / ``mlstm_seq_ref`` step), in float32 from
@@ -337,6 +387,7 @@ def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = ["MODEL_CHUNK", "NEG_BIG", "chunk_bwd_math", "chunk_math",
-           "log_sigmoid", "m0_holds_max", "mlstm_chunk_bwd_ref",
+           "decode_block_merge", "log_sigmoid", "m0_holds_max",
+           "mlstm_decode_block_ref", "mlstm_chunk_bwd_ref",
            "mlstm_chunk_ref", "mlstm_ref", "model_chunk", "raw_normaliser",
            "seq_step"]

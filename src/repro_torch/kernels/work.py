@@ -267,6 +267,21 @@ def mlstm_work(q, k, v, i_pre, f_pre, C0, n0, m0, scale) -> KernelWork:
                       "bf16" if route == "wgmma" else "fp32", route)
 
 
+def mlstm_decode_block_work(q, k, v, i_pre, f_pre, C0, n0, m0,
+                            scale) -> KernelWork:
+    """The decode step on a block of DK of D key rows: per (b, head) the
+    two DK x D products (q C and the rank-one update of C) and q . k, q .
+    n and n's update, 2 operations a multiply-add, on fp32 lanes; q, k,
+    v, the gates and the state block read, num and den written in
+    float32 and the state block written (route ``decode_block``)."""
+    b, _, h, dk = q.shape
+    d = v.shape[-1]
+    nbytes = _nbytes(q, k, v, i_pre, f_pre) + 4 * b * h * (d + 1) \
+        + 2 * b * h * (dk * d + dk + 1) * 4
+    return KernelWork(2.0 * b * h * (2 * dk * d + 3 * dk), nbytes, "fp32",
+                      "decode_block")
+
+
 def mlstm_bwd_work(q, k, v, i_pre, f_pre, C0, n0, m0, scale, dh, dC1=None,
                    dn1=None, dm1=None) -> KernelWork:
     """The mLSTM backward in ``BWD_CHUNK`` chunks: per chunk of l steps
@@ -306,6 +321,7 @@ KERNEL_WORK = {
     "rglru_scan_bwd": rglru_bwd_work,
     "mlstm_chunk": mlstm_work,
     "mlstm_chunk_bwd": mlstm_bwd_work,
+    "mlstm_decode_block": mlstm_decode_block_work,
 }
 
 

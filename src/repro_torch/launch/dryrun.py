@@ -16,18 +16,24 @@ run.  Under the reference's (16, 16) and (2, 16, 16) meshes the
 arguments are exact (each input's block under its sharding,
 ``launch.specs``).  Where the reference's rules for the cell give the
 port's sharded program (``models.transformer.mesh_layout_gap``: the
-dense, MoE, VLM and hybrid LMs with heads over ``model``, the dense and
-VLM ones with their rows over it under ``attn_seq_shard``, and for
-prefill and decode KV caches by heads or, under ``seq_shard_kv``, by
-slots), the model runs under ``use_mesh_rules`` on a mesh of ``meta``
-entries, which runs one position's program (``"split": "position"``,
-and ``"position"`` names it: the last along ``model``, whose row block
-attends to the whole K/V prefix): its memory, FLOPs, bytes and
-collective bytes are that device's own, its pod bytes those of its
-groups that cross pods.  Other cells (whisper-tiny's and xlstm-350m's)
-run the unsharded program, split evenly over the devices (``"split":
-"even"``), with no collective term and a reason that names the layout
-they wait for.
+dense, MoE, VLM and hybrid LMs with heads over ``model``, the dense,
+VLM, xLSTM and whisper ones with their rows over it under
+``attn_seq_shard``, and for prefill and decode KV caches by heads or,
+under ``seq_shard_kv``, by slots, an xLSTM's decode state by key rows
+and ``head_dim``), the model runs under ``use_mesh_rules`` on a mesh of
+``meta`` entries, which runs one position's program (``"split":
+"position"``, and ``"position"`` names it: the last along ``model``,
+whose row block attends to the whole K/V prefix and, for an xLSTM,
+receives its recurrent state from its predecessor, a collective-permute
+charged in each layer): its memory, FLOPs, bytes and collective bytes
+are that device's own, its pod bytes those of its groups that cross
+pods.  An xLSTM cell's record names its ``"chain"``: the positions
+along ``model`` that run one after another, each waiting for its
+predecessor's state (|model| under ``attn_seq_shard``, 1 in decode),
+which a device's roofline terms do not show.  Cells with a layout the
+port does not run yet (``MISSING_LAYOUT``) run the unsharded program,
+split evenly over the devices (``"split": "even"``), with no collective
+term and a reason that names the layout they wait for.
 """
 from __future__ import annotations
 
@@ -148,6 +154,10 @@ def cell_program(arch: str, shape_name: str, mesh_cfg: MeshConfig):
             meta["layout_gap"] = gap
         else:
             meta["position"] = mesh.index(Spmd(mesh).positions[0])
+            if cfg.family == "ssm":
+                # the positions along model that run one after another,
+                # each waiting for its predecessor's recurrent state
+                meta["chain"] = mesh_cfg.shape[-1] if attn_seq else 1
     return program, inputs, shards, meta
 
 

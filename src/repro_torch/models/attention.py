@@ -23,7 +23,11 @@ in the reference's two sequence layouts: ``attn_seq_shard``
 (``decode_attention_seq_kv``: each position's block of the cache's
 slots, the decode kernel's partial results merged across ``model`` by
 their log-sum-exps; ``cache_block`` cuts a prefill's whole cache into
-those blocks).
+those blocks).  Whisper's encoder and cross-attention run
+``attention_seq_sharded`` non-causally over keys gathered and cut to
+their real length (``kv_seq_sharded``), and a decode step's
+cross-attention reads a cross cache held by slots, by heads or whole
+(``cross_decode_sharded``).
 """
 from __future__ import annotations
 
@@ -306,7 +310,8 @@ _QKV = ("wq", "wk", "wv", "bq", "bk", "bv")
 def attention_seq_sharded(sp, p, h, pos, *, causal: bool = True,
                           window: int = 0, cap: float = 0.0,
                           theta: float = 10000.0,
-                          mrope: Tuple[int, ...] = ()):
+                          mrope: Tuple[int, ...] = (), keys: int = 0,
+                          kv=None):
     """``attention`` under ``attn_seq_shard`` (``sp.seq_rows``): position
     m holds rows ``[m c, (m + 1) c)`` of the sequence (``h`` its rows,
     ``pos`` their rotary positions) and the layer's whole weights
@@ -314,21 +319,53 @@ def attention_seq_sharded(sp, p, h, pos, *, causal: bool = True,
     rows, all-gathers K and V over ``model`` (the backward
     reduce-scatters their gradients) and runs ``ops.mha`` at query offset
     ``m c`` against the keys ``[0, (m + 1) c)``; ``wo`` on its rows, no
-    collective after.  Returns (y, the whole K and V on each position,
-    [B, S, KV, Dh], for the decode cache)."""
+    collective after.  ``causal=False`` (whisper's encoder): every row
+    reads every key, the gathered keys cut to their ``keys`` real rows
+    first (0: all; a sequence padded to a multiple of |model| needs no
+    key mask then, and its padded query rows are computed and dropped).
+    ``kv`` (the positions' whole K and V, gathered and cut already:
+    cross-attention) projects q alone.  Returns (y, the whole K and V on
+    each position, [B, S, KV, Dh], for the decode cache)."""
     ws = _ws(sp, p, _QKV + ("wo",))
-    qkv = [_qkv(w, hk, pk, theta, mrope) for w, hk, pk in zip(ws, h, pos)]
-    qs = [t[0] for t in qkv]
-    ks = sp.all_gather([t[1] for t in qkv], "model", 1)
-    vs = sp.all_gather([t[2] for t in qkv], "model", 1)
+    if kv is None:
+        qkv = [_qkv(w, hk, pk, theta, mrope)
+               for w, hk, pk in zip(ws, h, pos)]
+        qs = [t[0] for t in qkv]
+        ks = sp.all_gather([t[1] for t in qkv], "model", 1)
+        vs = sp.all_gather([t[2] for t in qkv], "model", 1)
+    else:
+        qs = [proj(w, hk, "wq", "bq") for w, hk in zip(ws, h)]
+        if theta:
+            qs = [apply_rope(q, pk, theta, mrope) for q, pk in zip(qs, pos)]
+        ks, vs = kv
     ys = []
     for k in range(sp.n):
-        c = qs[k].shape[1]
-        end = (sp.index(k)["model"] + 1) * c
-        o = mha(qs[k], ks[k][:, :end], vs[k][:, :end], causal=causal,
-                window=window, cap=cap, q_offset=end - c)
+        if causal:
+            c = qs[k].shape[1]
+            end = (sp.index(k)["model"] + 1) * c
+            o = mha(qs[k], ks[k][:, :end], vs[k][:, :end], causal=True,
+                    window=window, cap=cap, q_offset=end - c)
+        else:
+            n = keys or ks[k].shape[1]
+            o = mha(qs[k], ks[k][:, :n], vs[k][:, :n], causal=False,
+                    cap=cap)
         ys.append(head_out(o, ws[k]["wo"]))
     return ys, ks, vs
+
+
+def kv_seq_sharded(sp, p, x, keys: int = 0):
+    """Cross-attention's K and V under ``attn_seq_shard``: each position
+    projects its own rows of ``x`` (the encoder's output) with the
+    layer's whole ``wk`` / ``wv`` (and biases), and they are all-gathered
+    over ``model`` and cut to their ``keys`` real rows (0: all).  Returns
+    the positions' whole K and V."""
+    ws = _ws(sp, p, ("wk", "wv", "bk", "bv"))
+    out = []
+    for w, b in (("wk", "bk"), ("wv", "bv")):
+        full = sp.all_gather([proj(q, xk, w, b) for q, xk in zip(ws, x)],
+                             "model", 1)
+        out.append([t[:, :keys] if keys else t for t in full])
+    return out
 
 
 def all_kv_heads(sp, xs, n_heads: int, n_kv: int) -> List[torch.Tensor]:
@@ -423,6 +460,35 @@ def decode_attention_seq_kv(sp, p, h, pos, caches, *, window: int = 0,
         o, lse = decode_mha(qs[k], kc, vc, last, cap=cap, return_lse=True)
         outs.append(o)
         lses.append(lse)
+    return _merged_out(sp, p, outs, lses, h, heads), caches
+
+
+def _all_q(sp, p, h, pos, theta: float, mrope: Tuple[int, ...],
+           heads: bool):
+    """Every q head on each position: where ``model`` splits the heads,
+    each position's own all-gathered over it, else projected whole."""
+    if heads:
+        h = sp.pbroadcast(h, "model")
+        wq = p.gather("wq")
+        bq = p.gather("bq") if p.has("bq") else [None] * sp.n
+        qs = []
+        for k in range(sp.n):
+            q = head_proj(h[k], wq[k])
+            q = q + bq[k].to(q.dtype) if bq[k] is not None else q
+            qs.append(apply_rope(q, pos[k], theta, mrope) if theta else q)
+        return sp.all_gather(qs, "model", 2)
+    ws = _ws(sp, p, ("wq", "bq"))
+    qs = [proj(w, hk, "wq", "bq") for w, hk in zip(ws, h)]
+    return [apply_rope(q, pk, theta, mrope) if theta else q
+            for q, pk in zip(qs, pos)]
+
+
+def _merged_out(sp, p, outs, lses, h, heads: bool):
+    """The positions' partial attention over their blocks of slots merged
+    in float32 by their log-sum-exps (M = ``pmax(lse)``, o =
+    ``psum(o e^(lse - M)) / psum(e^(lse - M))``), then ``wo``: each
+    position's heads row-parallel and one ``psum`` where ``model`` splits
+    the heads, else whole."""
     top = sp.pmax(lses, "model")
     wts = [torch.exp(lse - mx) for lse, mx in zip(lses, top)]
     num = sp.psum([o.float() * w[:, None, :, None]
@@ -430,19 +496,63 @@ def decode_attention_seq_kv(sp, p, h, pos, caches, *, window: int = 0,
     den = sp.psum(wts, "model")
     o = [(a / d[:, None, :, None]).to(hk.dtype)
          for a, d, hk in zip(num, den, h)]
+    wo = p.gather("wo")
     if heads:
-        wo = p.gather("wo")
         ys = []
         for k in range(sp.n):
             q_lo, hq = wo[k].shape[0] * sp.index(k)["model"], wo[k].shape[0]
             ys.append(_head_out_partial(o[k][:, :, q_lo:q_lo + hq], wo[k]))
-        return _summed(sp, ys, h), caches
-    wo = p.gather("wo")
-    return [head_out(ok, w) for ok, w in zip(o, wo)], caches
+        return _summed(sp, ys, h)
+    return [head_out(ok, w) for ok, w in zip(o, wo)]
+
+
+def cross_decode_sharded(sp, p, h, kvs, layout: str):
+    """``cross_decode_attention`` under a mesh, the cross K/V held as
+    ``param_sharding.cache_shardings`` lays them out (``layout``):
+    ``slots`` (each position a block of the frames' slots, every slot
+    valid: every q head on each position, ``ops.decode_mha(return_lse=
+    True)`` on the block and the blocks merged by their log-sum-exps as
+    ``decode_attention_seq_kv`` merges them, no write), ``heads`` (each
+    position its KV heads, ``model`` splitting the q heads too: the
+    decode kernel on its heads, ``wo`` row-parallel and one ``psum``) or
+    ``whole`` (every position the whole cache and every head).  ``kvs``:
+    the positions' (K, V) blocks.  Returns y."""
+    heads = p.spec("wq")[1] == "model"
+    none = [None] * sp.n
+    if layout == "heads":
+        if not heads:
+            raise ValueError("a cross cache by heads reads q heads split "
+                             "over model")
+        h = sp.pbroadcast(h, "model")
+        ws = {n: p.gather(n) for n in ("wq", "bq") if p.has(n)}
+        qs = [proj({n: w[k] for n, w in ws.items()}, h[k], "wq", "bq")
+              for k in range(sp.n)]
+        ys = []
+        for k, (q, (kb, vb), w) in enumerate(zip(qs, kvs, p.gather("wo"))):
+            last = torch.full((q.shape[0],), kb.shape[1] - 1,
+                              dtype=torch.int32, device=q.device)
+            ys.append(_head_out_partial(decode_mha(q, kb, vb, last), w))
+        return _summed(sp, ys, h)
+    qs = _all_q(sp, p, h, none, 0.0, (), heads)
+    if layout == "whole":
+        return [head_out(decode_mha(q, kb, vb, torch.full(
+            (q.shape[0],), kb.shape[1] - 1, dtype=torch.int32,
+            device=q.device)), w)
+            for q, (kb, vb), w in zip(qs, kvs, p.gather("wo"))]
+    outs, lses = [], []
+    for q, (kb, vb) in zip(qs, kvs):
+        last = torch.full((q.shape[0],), kb.shape[1] - 1, dtype=torch.int32,
+                          device=q.device)
+        o, lse = decode_mha(q, kb, vb, last, return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    return _merged_out(sp, p, outs, lses, h, heads)
 
 
 __all__ = ["all_kv_heads", "attention", "attention_seq_sharded",
            "attention_sharded", "attn_init", "cache_block", "cache_view",
-           "cross_decode_attention", "decode_attention",
+           "cross_decode_attention", "cross_decode_sharded",
+           "decode_attention",
            "decode_attention_seq_kv", "decode_attention_sharded",
-           "flat_cache", "init_cache", "local_heads", "proj"]
+           "flat_cache", "init_cache", "kv_seq_sharded", "local_heads",
+           "proj"]

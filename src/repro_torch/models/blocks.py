@@ -13,12 +13,14 @@ MoE load-balancing loss is a training term: serving drops it, as the
 reference's prefill and decode do.  Under ``use_mesh_rules(mesh)`` with
 a ``model`` axis that divides the experts, the MoE MLP takes the
 expert-parallel path (``moe_apply_expert_parallel``), as the
-reference's does.  ``BlockDef.apply_sharded`` runs an attention or
-RG-LRU block under the mesh's FSDP x TP layouts, position by position
+reference's does.  ``BlockDef.apply_sharded`` runs an attention,
+RG-LRU or xLSTM block under the mesh's layouts, position by position
 (``TransformerLM``'s sharded program); an attention block takes the
 rules' sequence layouts from its ``Spmd`` (``seq_rows``: its rows and
 K/V all-gathered; ``seq_kv``: the KV cache by slots), the RG-LRU and MoE
-parts keep theirs.
+parts keep theirs; an xLSTM block's rows run block after block along
+``model``, each from the state its predecessor hands on, and its decode
+state is split along its widest trailing dimension.
 """
 from __future__ import annotations
 
@@ -337,6 +339,32 @@ def _rglru_block_sharded(sp, p, x, states, ctx: Ctx):
     return x, _zeros_aux(x)
 
 
+def _xlstm_block_sharded(flavor: str) -> Callable:
+    cell = rec_mod.mlstm_sharded if flavor == "mlstm" else \
+        rec_mod.slstm_sharded
+
+    def apply(sp, p, x, states, ctx: Ctx):
+        """An xLSTM block under a mesh: ``ln1`` on each position's rows,
+        the cell with its rows handed on along ``model`` (train, prefill)
+        or on the positions' state blocks (decode), the MLP where the
+        config has one; a prefill leaves each position its block of the
+        final state (``rec_mod.final_state_blocks``)."""
+        cfg = ctx.cfg
+        h = _norm_sharded(sp, p, "ln1", x, cfg)
+        decode = ctx.mode == "decode"
+        y, new = cell(sp, p.sub("cell"), h, states, decode, ctx.seq_len)
+        if ctx.mode == "prefill":
+            new = rec_mod.final_state_blocks(sp, new, flavor)
+        x = _add(x, y)
+        if cfg.d_ff:
+            y2, _ = _mlp_part_sharded(sp, p, x, cfg)
+            x = _add(x, y2)
+        if ctx.mode != "train":
+            return x, new
+        return x, _zeros_aux(x)
+    return apply
+
+
 class BlockDef(NamedTuple):
     init: Any
     apply: Any
@@ -354,9 +382,11 @@ BLOCK_KINDS: Dict[str, BlockDef] = {
     "rglru": BlockDef(_rglru_block_init, _rglru_block_apply,
                       _rglru_state_init, _rglru_block_sharded),
     "slstm": BlockDef(_xlstm_block_init("slstm"), _xlstm_block_apply("slstm"),
-                      _xlstm_state_init("slstm")),
+                      _xlstm_state_init("slstm"),
+                      _xlstm_block_sharded("slstm")),
     "mlstm": BlockDef(_xlstm_block_init("mlstm"), _xlstm_block_apply("mlstm"),
-                      _xlstm_state_init("mlstm")),
+                      _xlstm_state_init("mlstm"),
+                      _xlstm_block_sharded("mlstm")),
 }
 
 

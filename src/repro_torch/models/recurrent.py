@@ -25,12 +25,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.mlstm_chunk.ops import mlstm
-from repro_torch.kernels.mlstm_chunk.ref import NEG_BIG, seq_step
+from repro_torch.kernels.mlstm_chunk.ops import (mlstm,
+                                                 mlstm_decode_block_step)
+from repro_torch.kernels.mlstm_chunk.ref import (NEG_BIG, decode_block_merge,
+                                                 seq_step)
 from repro_torch.kernels.rglru_scan.ops import linear_recurrence
 from repro_torch.models.layers import (_ACT, dense_init, head_out,
                                        head_proj, row_parallel,
                                        truncated_normal)
+from repro_torch.parallel.param_sharding import state_model_dim
 
 Params = Dict[str, torch.Tensor]
 
@@ -240,13 +243,19 @@ def mlstm_init(d: int, n_heads: int, head_dim: int,
     return p
 
 
-def _mlstm_qkvg(p: Params, x: torch.Tensor):
+def _mlstm_qkvg(p: Params, x: torch.Tensor,
+                rows: Optional[Tuple[int, int]] = None):
     """q, k, v [B, S, H, D] in ``x.dtype``; the gate pre-activations
-    [B, S, H] in float32, their bias added in the compute dtype."""
+    [B, S, H] in float32, their bias added in the compute dtype.
+    ``rows`` (first, count): q and k of that block of the D key rows only
+    (the key-block decode step)."""
     dt = x.dtype
-    q, k, v = (head_proj(x, p[n]) for n in ("wq", "wk", "wv"))
+    wq, wk = p["wq"], p["wk"]
+    if rows is not None:
+        wq, wk = (w.narrow(2, *rows) for w in (wq, wk))
+    q, k, v = (head_proj(x, w) for w in (wq, wk, p["wv"]))
     gates = x @ p["w_if"].to(dt) + p["b_if"].to(dt)
-    h = q.shape[2]
+    h = v.shape[2]
     i_pre = gates[..., :h].to(torch.float32).contiguous()
     f_pre = gates[..., h:].to(torch.float32).contiguous()
     return q, k, v, i_pre, f_pre
@@ -320,27 +329,45 @@ def slstm_seq(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor]
     ``h`` carried in the compute dtype.  Returns (y [B, S, d], the final
     state ``c, n, h, m`` [B, H, D])."""
     dt = x.dtype
-    _, g, nh, hd = p["w_in"].shape
     pre_all = head_proj(x, p["w_in"]) + p["b"].to(dt)     # [B, S, 4, H, D]
     # r as [H, D, 4 D]: one batched product over the heads a step
-    r = p["r"].to(dt).permute(1, 2, 0, 3).reshape(nh, hd, g * hd)
+    r = _slstm_r(p["r"], dt)
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     ys = []
     for t in range(x.shape[1]):
-        rec = torch.bmm(h.transpose(0, 1), r).unflatten(-1, (g, hd))
-        z_all = (pre_all[:, t] + rec.permute(1, 2, 0, 3)).to(torch.float32)
-        i_pre, f_pre, z_pre, o_pre = z_all.unbind(1)
-        log_f_m = -_softplus(-f_pre) + m
-        m_new = torch.maximum(log_f_m, i_pre)
-        i_ = torch.exp(i_pre - m_new)
-        f_ = torch.exp(log_f_m - m_new)
-        c = f_ * c + i_ * torch.tanh(z_pre)
-        n = f_ * n + i_
-        h = (torch.sigmoid(o_pre) * c / torch.clamp(n, min=1.0)).to(dt)
-        m = m_new
+        c, n, h, m = _slstm_step(pre_all[:, t], h, r, c, n, m, dt)
         ys.append(h)
     y = head_out(torch.stack(ys, dim=1), p["wo"])
     return y, {"c": c, "n": n, "h": h, "m": m}
+
+
+def _slstm_r(r: torch.Tensor, dt) -> torch.Tensor:
+    """r [4, H, D_in, D_out] as [H, D_in, 4 D_out] in ``dt``: one batched
+    product over the heads a step."""
+    g, nh, hd, out = r.shape
+    return r.to(dt).permute(1, 2, 0, 3).reshape(nh, hd, g * out)
+
+
+def _slstm_step(pre_t: torch.Tensor, h: torch.Tensor, r: torch.Tensor,
+                c: torch.Tensor, n: torch.Tensor, m: torch.Tensor, dt):
+    """One sLSTM step: ``pre_t`` [B, 4, H, Do] the input pre-activations
+    of the Do state columns the step updates, ``h`` [B, H, D] the whole
+    previous output, ``r`` those columns' recurrent matrix
+    (``_slstm_r``), ``c``, ``n``, ``m`` the columns' state -> (c, n, h,
+    m) of those columns."""
+    g = pre_t.shape[1]
+    rec = torch.bmm(h.transpose(0, 1), r).unflatten(-1, (g, r.shape[-1] //
+                                                         g))
+    z_all = (pre_t + rec.permute(1, 2, 0, 3)).to(torch.float32)
+    i_pre, f_pre, z_pre, o_pre = z_all.unbind(1)
+    log_f_m = -_softplus(-f_pre) + m
+    m_new = torch.maximum(log_f_m, i_pre)
+    i_ = torch.exp(i_pre - m_new)
+    f_ = torch.exp(log_f_m - m_new)
+    c = f_ * c + i_ * torch.tanh(z_pre)
+    n = f_ * n + i_
+    h = (torch.sigmoid(o_pre) * c / torch.clamp(n, min=1.0)).to(dt)
+    return c, n, h, m_new
 
 
 def slstm_state(batch: int, n_heads: int, head_dim: int, dtype, device
@@ -352,7 +379,186 @@ def slstm_state(batch: int, n_heads: int, head_dim: int, dtype, device
             "m": torch.full(shape, NEG_BIG, **f32)}
 
 
-__all__ = ["causal_conv1d", "causal_conv1d_step", "mlstm_init", "mlstm_seq",
-           "mlstm_seq_ref", "mlstm_state", "rglru_block_apply",
+# ---------------------------------------------------------------------------
+# xLSTM under a mesh: row blocks handed on along ``model``, and the decode
+# state split along its widest trailing dimension (``cache_shardings``)
+# ---------------------------------------------------------------------------
+
+_MLSTM_W = ("wq", "wk", "wv", "wo", "w_if", "b_if")
+_SLSTM_W = ("w_in", "r", "b", "wo")
+_STATE_NAMES = {"mlstm": ("C", "n", "m"), "slstm": ("c", "n", "h", "m")}
+
+
+def _gathered(sp, p, names):
+    """The layer's weights ``names`` gathered whole, one dict a position:
+    over ``data`` (``ShardedTree.gather``) and, where the rules split a
+    dimension over ``model`` (decode's TP rules split the sLSTM's
+    ``w_in [d, 4, H, D]`` along its four gates where ``model`` divides
+    4), all-gathered over ``model`` too."""
+    ws = {}
+    for n in names:
+        w = p.gather(n)
+        if not sp.seq_rows:
+            for dim, e in enumerate(p.spec(n)):
+                if e == "model":
+                    w = sp.all_gather(w, "model", dim)
+        ws[n] = w
+    return [{n: ws[n][k] for n in names} for k in range(sp.n)]
+
+
+def state_block(sp, k: int, t: torch.Tensor) -> torch.Tensor:
+    """Position ``k``'s view of a recurrent-state leaf whose rows are its
+    own, as ``param_sharding.cache_shardings`` lays it out: the widest
+    trailing dimension (the first of the widest) split over ``model``
+    where ``model`` divides it, else whole (the mLSTM's ``C [B, H, D, D]``
+    and ``n`` by key rows, ``m [B, H]`` whole at a ``model`` that does not
+    divide the heads; the sLSTM's four leaves by ``head_dim``)."""
+    n = sp.mesh.shape["model"]
+    dim = state_model_dim(t.shape, n)
+    if dim is None:
+        return t
+    c = t.shape[dim] // n
+    return t.narrow(dim, sp.index(k)["model"] * c, c)
+
+
+def _key_rows(sp, k: int, d: int) -> Tuple[int, int]:
+    """(first, count) of position ``k``'s block of a state dimension of
+    ``d`` split over ``model``."""
+    n = sp.mesh.shape["model"]
+    if d % n:
+        raise ValueError(f"a state dimension of {d} does not split over a "
+                         f"model axis of {n}")
+    return sp.index(k)["model"] * (d // n), d // n
+
+
+def _chain(sp, h, init, step, real: int = 0):
+    """``step(k, state, rows) -> (y, final state)`` position by position,
+    in row-major order, each position starting from the state its
+    predecessor along ``model`` hands on (``Spmd.hand_on``), the first
+    from ``init(k)``.  ``real`` (a padded prefill's real rows of the
+    whole sequence; 0: all): a position steps over its real rows only,
+    its padded rows' outputs zero, and one with none hands its starting
+    state on, so the state stops at the last real row.  Returns the
+    positions' outputs and final states."""
+    ys, finals = [None] * sp.n, [None] * sp.n
+    for k in range(sp.n):
+        prev = sp.prev_along(k)
+        st = sp.hand_on(k, None if prev is None else finals[prev],
+                        init(k) if prev is None else None, anchor=h[k])
+        c = h[k].shape[1]
+        mine = c if not real else \
+            min(max(real - sp.index(k)["model"] * c, 0), c)
+        if mine == 0:
+            ys[k], finals[k] = torch.zeros_like(h[k]), tuple(st)
+            continue
+        y, finals[k] = step(k, st, h[k] if mine == c else h[k][:, :mine])
+        ys[k] = y if mine == c else torch.cat(
+            [y, y.new_zeros((y.shape[0], c - mine, y.shape[2]))], dim=1)
+    return ys, finals
+
+
+def final_state_blocks(sp, finals, flavor: str):
+    """Each position's block (``state_block``) of a chain's final state,
+    the last position's along ``model`` given to every position of its
+    group (``Spmd.from_index``: GSPMD's all-reduce to which the others
+    add zeros): the decode cache a prefill leaves."""
+    names = _STATE_NAMES[flavor]
+    last = sp.mesh.shape["model"] - 1
+    whole = [sp.from_index([f[i] for f in finals], "model", last)
+             for i in range(len(names))]
+    return [{name: state_block(sp, k, whole[i][k]).contiguous().to(
+        sp.device(k)) for i, name in enumerate(names)}
+        for k in range(sp.n)]
+
+
+def mlstm_sharded(sp, p, h, states, decode: bool, real: int = 0):
+    """``mlstm_seq`` under a mesh (``p`` the layer's ``ShardedTree``,
+    ``h`` / ``states`` the positions' lists).  Rows over ``model``
+    (``sp.seq_rows``, train and prefill): each position projects its own
+    rows with the weights gathered whole and runs ``ops.mlstm`` from the
+    state its predecessor along ``model`` hands on (``_chain``; ``real``
+    a padded prefill's real rows); returns
+    (y, the positions' final states ``(C, n, m)``).  Decode: each position
+    holds its block of the key rows of ``C`` and ``n`` (``state_block``)
+    and ``m`` whole, forms q and k for its rows and v whole, runs the
+    decode kernel's key-block mode (``ops.mlstm_decode_block_step``) and
+    the blocks' partial numerators and denominators are summed over
+    ``model`` (two ``psum``s, float32) before the one division; returns
+    (y, the new state blocks)."""
+    ws = _gathered(sp, p, _MLSTM_W)
+    nh, d = ws[0]["wq"].shape[1:]
+    scale = 1.0 / math.sqrt(d)
+    if decode:
+        nums, dens, new = [], [], []
+        for k in range(sp.n):
+            rows = _key_rows(sp, k, d)
+            q, kk, v, i_pre, f_pre = _mlstm_qkvg(ws[k], h[k], rows)
+            st = states[k]
+            num, den, C, n, m = mlstm_decode_block_step(
+                q.contiguous(), kk.contiguous(), v.contiguous(), i_pre,
+                f_pre, st["C"], st["n"], st["m"], scale)
+            nums.append(num)
+            dens.append(den)
+            new.append({"C": C, "n": n, "m": m})
+        nums, dens = sp.psum(nums, "model"), sp.psum(dens, "model")
+        ys = [head_out(decode_block_merge(a, b, st["m"]).to(x.dtype),
+                       w["wo"])
+              for a, b, st, x, w in zip(nums, dens, new, h, ws)]
+        return ys, new
+
+    def init(k):
+        return tuple(mlstm_state(h[k].shape[0], nh, d,
+                                 sp.device(k)).values())
+
+    def step(k, st, rows):
+        q, kk, v, i_pre, f_pre = _mlstm_qkvg(ws[k], rows)
+        out, C, n, m = mlstm(q, kk, v, i_pre, f_pre, *st, scale)
+        return head_out(out, ws[k]["wo"]), (C, n, m)
+    return _chain(sp, h, init, step, real)
+
+
+def slstm_sharded(sp, p, h, states, decode: bool, real: int = 0):
+    """``slstm_seq`` under a mesh.  Rows over ``model`` (train and
+    prefill): each position runs the step loop on its own rows from the
+    state its predecessor hands on (``_chain``), so each token runs once;
+    returns (y, the final states ``(c, n, h, m)``).  Decode: each
+    position holds its block of ``head_dim`` of the four state leaves;
+    ``h`` is all-gathered over ``model``, each position forms the
+    recurrent term and the gates of its columns and updates them, and the
+    new ``h`` blocks are all-gathered for the output projection; returns
+    (y, the new state blocks)."""
+    ws = _gathered(sp, p, _SLSTM_W)
+    dt = h[0].dtype
+    _, _, nh, d = ws[0]["w_in"].shape
+    if decode:
+        prev = sp.all_gather([st["h"] for st in states], "model", 2)
+        new = []
+        for k in range(sp.n):
+            lo, c = _key_rows(sp, k, d)
+            w, st = ws[k], states[k]
+            pre = head_proj(h[k], w["w_in"].narrow(3, lo, c)) + \
+                w["b"].narrow(2, lo, c).to(dt)
+            r = _slstm_r(w["r"].narrow(3, lo, c), dt)
+            cs, ns, hs, ms = _slstm_step(pre[:, 0], prev[k], r, st["c"],
+                                         st["n"], st["m"], dt)
+            new.append({"c": cs, "n": ns, "h": hs, "m": ms})
+        whole = sp.all_gather([st["h"] for st in new], "model", 2)
+        return [head_out(hw[:, None], w["wo"])
+                for hw, w in zip(whole, ws)], new
+
+    def init(k):
+        return tuple(slstm_state(h[k].shape[0], nh, d, dt,
+                                 sp.device(k)).values())
+
+    def step(k, st, rows):
+        y, fin = slstm_seq(ws[k], rows, dict(zip(_STATE_NAMES["slstm"], st)))
+        return y, tuple(fin[n] for n in _STATE_NAMES["slstm"])
+    return _chain(sp, h, init, step, real)
+
+
+__all__ = ["causal_conv1d", "causal_conv1d_step", "final_state_blocks",
+           "mlstm_init", "mlstm_seq", "mlstm_seq_ref", "mlstm_sharded",
+           "mlstm_state", "rglru_block_apply",
            "rglru_block_sharded", "rglru_block_state", "rglru_init",
-           "rglru_seq", "rglru_step", "slstm_init", "slstm_seq", "slstm_state"]
+           "rglru_seq", "rglru_step", "slstm_init", "slstm_seq", "slstm_sharded",
+           "slstm_state", "state_block"]

@@ -22,15 +22,17 @@ the layers cast each to the compute dtype at use, as the reference's
 ``_cast_compute`` does once a step.
 
 Under ``use_mesh_rules`` with the reference's FSDP x TP rules the dense,
-MoE, VLM and hybrid families run sharded (``mesh_layout_gap`` says where
-they do): each mesh position runs its block of every layer in turn
+MoE, VLM, hybrid and xLSTM families run sharded (``mesh_layout_gap`` says
+where they do; whisper's sharded program is ``WhisperLM``'s): each mesh position runs its block of every layer in turn
 (``parallel.sharding.Spmd``), prefill and decode hold the KV cache by
 heads, or by slots under ``seq_shard_kv`` (``ShardedCache``), and
 ``train_loss_sharded`` is the training program ``make_train_step`` runs
-on the positions' parameter blocks.  Under ``attn_seq_shard`` (dense and
-VLM) the rows of the sequence, the VLM's patch embeddings in front, are
-split over ``model`` (a prefill whose rows ``model`` does not divide is
-padded at the end, past every real row's causal reach).
+on the positions' parameter blocks.  Under ``attn_seq_shard`` (dense,
+VLM and xLSTM) the rows of the sequence, the VLM's patch embeddings in
+front, are split over ``model`` (a prefill whose rows ``model`` does not
+divide is padded at the end, past every real row's causal reach; an
+xLSTM position runs its recurrence on its real rows only, so the state
+it hands on stops at the last real row).
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from repro_torch.models.layers import (cross_entropy, cross_entropy_sharded,
                                        embed_lookup_sharded, lm_head,
                                        lm_head_sharded, rmsnorm,
                                        rmsnorm_init, truncated_normal)
+from repro_torch.models.recurrent import state_block
 from repro_torch.parallel.param_sharding import ShardedTree, shard_params
 from repro_torch.parallel.sharding import (PartitionSpec, Spmd,
                                            current_mesh, current_spmd,
@@ -65,15 +68,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _PERIOD = {"full": 1, "local": 1, "alternating": 2, "griffin": 3}
 
 
-#: the families this slice runs under a mesh's FSDP x TP layouts
-SHARDED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+#: the families the port runs under a mesh's layouts (``audio`` is
+#: ``models.whisper.WhisperLM``)
+SHARDED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 #: the layout a family or a rule needs that the port does not run yet,
 #: and its ROADMAP item
 MISSING_LAYOUT = {
-    "audio": "ROADMAP queue 1 item 25.3",
-    "ssm": "ROADMAP queue 1 item 25.3",
     "attn_seq_shard_moe": "ROADMAP queue 1 item 25.4",
     "attn_seq_shard_hybrid": "ROADMAP queue 1 item 25.4",
+    "audio_heads": "ROADMAP queue 1 item 25.5",
+    "ssm_heads": "ROADMAP queue 1 item 25.5",
 }
 
 
@@ -94,25 +98,35 @@ def mesh_layout_gap(cfg: ArchConfig, mesh, kind: str,
     program (``train``, ``prefill``, ``decode``) the port's sharded
     layouts (FSDP over ``data``; heads, MLP, vocabulary and RG-LRU width
     over ``model``, or under ``attn_seq_shard`` the rows of the sequence,
-    for dense and VLM models; KV caches by heads, or by slots under
-    ``seq_shard_kv``; the batch rows over the batch axes); else the gap:
-    a key of ``MISSING_LAYOUT`` (a layout the port does not run yet),
+    for dense, VLM, xLSTM and whisper models, an xLSTM's recurrence
+    handed on along ``model`` row block by row block; KV caches by heads,
+    or by slots under ``seq_shard_kv``; an xLSTM's decode state along
+    its widest trailing dimension; whisper's cross cache by slots, by
+    heads or whole, as ``cache_shardings`` holds it; the batch rows over
+    the batch axes); else the gap: a key of ``MISSING_LAYOUT`` (a layout
+    the port does not run yet: among them whisper's and xLSTM's heads
+    over ``model``, but for whisper's decode under ``seq_shard_kv``),
     ``heads`` where the rules ask for heads over ``model`` that it does
     not divide (the program runs whole, as the rules give it; decode
-    under ``seq_shard_kv`` needs no head split), ``batch`` where the rows
-    do not split, ``experts`` where ``model`` does not divide them."""
+    under ``seq_shard_kv``, and an xLSTM's decode, need no head split),
+    ``batch`` where the rows do not split, ``experts`` where ``model``
+    does not divide them."""
     if cfg.family not in SHARDED_FAMILIES:
         return cfg.family
     n_model = mesh.shape.get("model", 1)
     rows = kind != "decode" and rule_splits("act_btd", 1)
     seq_kv = kind != "train" and rule_splits("kv_bskd", 1)
     heads = _heads_split(cfg, n_model)
+    ssm = cfg.family == "ssm"
+    if heads and cfg.family in ("audio", "ssm") and not (
+            cfg.family == "audio" and kind == "decode" and seq_kv):
+        return f"{cfg.family}_heads"
     if rows and cfg.family in ("moe", "hybrid"):
         return f"attn_seq_shard_{cfg.family}"
     if rows:
-        if kind == "prefill" and not seq_kv and not heads:
+        if kind == "prefill" and not seq_kv and not heads and not ssm:
             return "heads"              # a cache by heads needs the split
-    elif not heads and not (kind == "decode" and seq_kv):
+    elif not heads and not (kind == "decode" and (seq_kv or ssm)):
         return "heads"
     if cfg.moe.enabled and cfg.moe.n_experts % n_model:
         return "experts"
@@ -123,6 +137,28 @@ def mesh_layout_gap(cfg: ArchConfig, mesh, kind: str,
     if batch is not None and batch % n_batch and not replicated:
         return "batch"
     return None
+
+
+def sharded_program(cfg: ArchConfig, kind: str,
+                    batch: Optional[int] = None) -> Optional[Spmd]:
+    """The sharded program's positions where the current mesh and rules
+    give ``cfg``'s ``kind`` program the port's layouts
+    (``mesh_layout_gap``), else None (the program runs whole, its MoE
+    expert-parallel where ``model`` divides the experts).  Raises where
+    only the ``batch`` rows keep the program from its layouts: they must
+    split over the batch axes (``ContinuousBatcher`` pads them), so which
+    program a mesh runs never depends on the rows."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return None
+    gap = mesh_layout_gap(cfg, mesh, kind, batch)
+    if gap == "batch":
+        n = math.prod(mesh.shape[a] for a in ("pod", "data")
+                      if a in mesh.shape)
+        raise ValueError(f"{cfg.name}: {batch} rows do not split over the "
+                         f"mesh's {n} batch positions; pad them to a "
+                         f"multiple of {n}")
+    return None if gap is not None else current_spmd(kind)
 
 
 class ShardedCache:
@@ -136,7 +172,53 @@ class ShardedCache:
         self.sp, self.blocks = sp, blocks
 
 
-class TransformerLM:
+class ShardedModel:
+    """What the LMs' sharded programs share (``TransformerLM``,
+    ``whisper.WhisperLM``): the positions a program runs on
+    (``spmd``), the positions' batch rows and row blocks, the logits
+    assembled and the weights held by position; ``self.cfg``,
+    ``self.device``."""
+
+    def spmd(self, kind: str, batch: Optional[int] = None
+             ) -> Optional[Spmd]:
+        """``sharded_program`` of this model's config."""
+        return sharded_program(self.cfg, kind, batch)
+
+    def _rows(self, sp: Spmd, t: Optional[torch.Tensor]):
+        """The positions' rows of a batch tensor (views on one
+        position's program)."""
+        if t is None:
+            return None
+        spec = (sp.batch_entry(),) + (None,) * (t.dim() - 1)
+        return sp.split(t, spec, copy=False if sp.one_position else None)
+
+    def _row_block(self, sp: Spmd, k: int, total: int) -> Tuple[int, int]:
+        """(first row, rows) of position k's block of a sequence of
+        ``total`` rows under ``sp.seq_rows`` (all of them otherwise)."""
+        if not sp.seq_rows:
+            return 0, total
+        n = sp.mesh.shape["model"]
+        if total % n:
+            raise ValueError(f"{self.cfg.name}: {total} rows do not split "
+                             f"over a model axis of {n}")
+        c = total // n
+        return sp.index(k)["model"] * c, c
+
+    def _logits_out(self, sp: Spmd, logits, vp: bool) -> torch.Tensor:
+        """The positions' last-position logits as one [B, V] (the
+        position's own block on one position's program)."""
+        spec = PartitionSpec(sp.batch_entry(), "model" if vp else None)
+        return sp.assemble(logits, spec, self.device)
+
+    def _held(self, sp: Spmd, params) -> ShardedTree:
+        """The parameters by position: ``params`` itself where it is a
+        ``ShardedTree`` already (a server shards its weights once),
+        else ``shard_params``."""
+        return params if isinstance(params, ShardedTree) \
+            else shard_params(sp, params)
+
+
+class TransformerLM(ShardedModel):
     """Functional LM on ``device`` (``None`` = the card; raises without
     one): parameters are plain dicts of tensors, the methods pure except
     that ``decode_step`` writes the new K/V into the cache in place (an
@@ -250,47 +332,6 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # the sharded program (under ``use_mesh_rules``)
     # ------------------------------------------------------------------
-    def spmd(self, kind: str, batch: Optional[int] = None
-             ) -> Optional[Spmd]:
-        """The sharded program's positions where the current mesh and
-        rules give this model's ``kind`` program this slice's layouts
-        (``mesh_layout_gap``), else None (the program runs whole, its
-        MoE expert-parallel where ``model`` divides the experts).  Raises
-        where only the ``batch`` rows keep the program from its layouts:
-        they must split over the batch axes (``ContinuousBatcher`` pads
-        them), so which program a mesh runs never depends on the rows."""
-        mesh = current_mesh()
-        if mesh is None or "model" not in mesh.axis_names:
-            return None
-        gap = mesh_layout_gap(self.cfg, mesh, kind, batch)
-        if gap == "batch":
-            n = math.prod(mesh.shape[a] for a in ("pod", "data")
-                          if a in mesh.shape)
-            raise ValueError(f"{self.cfg.name}: {batch} rows do not split "
-                             f"over the mesh's {n} batch positions; pad "
-                             f"them to a multiple of {n}")
-        return None if gap is not None else current_spmd(kind)
-
-    def _rows(self, sp: Spmd, t: Optional[torch.Tensor]):
-        """The positions' rows of a batch tensor (views on one
-        position's program)."""
-        if t is None:
-            return None
-        spec = (sp.batch_entry(),) + (None,) * (t.dim() - 1)
-        return sp.split(t, spec, copy=False if sp.one_position else None)
-
-    def _row_block(self, sp: Spmd, k: int, total: int) -> Tuple[int, int]:
-        """(first row, rows) of position k's block of a sequence of
-        ``total`` rows under ``sp.seq_rows`` (all of them otherwise)."""
-        if not sp.seq_rows:
-            return 0, total
-        n = sp.mesh.shape["model"]
-        if total % n:
-            raise ValueError(f"{self.cfg.name}: {total} rows do not split "
-                             f"over a model axis of {n}")
-        c = total // n
-        return sp.index(k)["model"] * c, c
-
     def _positions_sharded(self, sp: Spmd, b: int, s: int) -> list:
         """The positions' rotary positions of a sequence of ``s`` rows
         (each position's own rows under ``sp.seq_rows``; the three M-RoPE
@@ -337,12 +378,6 @@ class TransformerLM:
         vp = tree.spec(name)[0] == "model" and not sp.seq_rows
         return lm_head_sharded(sp, tree.gather(name), x,
                                cfg.final_logit_softcap, vp), vp
-
-    def _logits_out(self, sp: Spmd, logits, vp: bool) -> torch.Tensor:
-        """The positions' last-position logits as one [B, V] (the
-        position's own block on one position's program)."""
-        spec = PartitionSpec(sp.batch_entry(), "model" if vp else None)
-        return sp.assemble(logits, spec, self.device)
 
     def train_loss_sharded(self, sp: Spmd, P: ShardedTree, tokens, labels,
                            extra_embeds=None, mask=None) -> torch.Tensor:
@@ -400,13 +435,6 @@ class TransformerLM:
         c0 = min(max(lo, n_extra), lo + c)
         return lo, c0, lo + c
 
-    def _held(self, sp: Spmd, params) -> ShardedTree:
-        """The parameters by position: ``params`` itself where it is a
-        ``ShardedTree`` already (a server shards its weights once),
-        else ``shard_params``."""
-        return params if isinstance(params, ShardedTree) \
-            else shard_params(sp, params)
-
     def _prefill_sharded(self, sp: Spmd, params,
                          tokens: torch.Tensor, cache_len: int,
                          extra_embeds: Optional[torch.Tensor]):
@@ -450,7 +478,9 @@ class TransformerLM:
     def _cache_blocks(self, sp: Spmd, cache: Cache) -> List[Cache]:
         """A whole decode cache's blocks by position (contiguous copies
         on their devices; views on one position's program): an attention
-        layer's by its KV heads, or by slots under ``sp.seq_kv``."""
+        layer's by its KV heads, or by slots under ``sp.seq_kv``; an
+        xLSTM layer's along each leaf's widest trailing dimension
+        (``state_block``)."""
         a = self.cfg.attention
         n_model = sp.mesh.shape["model"]
         out: List[Cache] = []
@@ -464,6 +494,8 @@ class TransformerLM:
                                  copy=False)
                     if kind.startswith("attn"):
                         t = cache_view(sp, k, t, a.n_heads, a.n_kv_heads)
+                    elif kind in ("mlstm", "slstm"):
+                        t = state_block(sp, k, t)
                     else:
                         w = t.shape[-1] // n_model
                         t = t.narrow(t.dim() - 1, m * w, w)
@@ -578,4 +610,4 @@ class TransformerLM:
 
 
 __all__ = ["MISSING_LAYOUT", "SHARDED_FAMILIES", "ShardedCache",
-           "TransformerLM", "mesh_layout_gap"]
+           "TransformerLM", "mesh_layout_gap", "sharded_program"]

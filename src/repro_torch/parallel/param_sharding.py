@@ -109,6 +109,29 @@ def param_shardings(mesh: Mesh, tree: Tree, fsdp: bool = True,
     return _map_with_names(one, tree)
 
 
+def kv_model_dim(shape: Sequence[int], n_model: int,
+                 seq_shard: bool) -> Optional[int]:
+    """The dimension of a KV leaf ``[.., B, S, KV, hd]`` that
+    ``cache_shardings`` splits over a ``model`` axis of ``n_model``: the
+    slots S under ``seq_shard`` where ``model`` divides them, else the KV
+    heads where it divides them, else None (held whole)."""
+    bd = len(shape) - 4
+    if seq_shard and shape[bd + 1] % n_model == 0:
+        return bd + 1
+    return bd + 2 if shape[bd + 2] % n_model == 0 else None
+
+
+def state_model_dim(shape: Sequence[int], n_model: int) -> Optional[int]:
+    """The dimension of a recurrent-state leaf ``[B, ...]`` that
+    ``cache_shardings`` splits over a ``model`` axis of ``n_model``: the
+    widest trailing one (the first of the widest) where ``model`` divides
+    it, else None."""
+    if len(shape) < 2:
+        return None
+    cand = max(range(1, len(shape)), key=lambda i: shape[i])
+    return cand if shape[cand] % n_model == 0 else None
+
+
 def cache_shardings(mesh: Mesh, tree: Tree,
                     seq_shard: bool = False) -> Tree:
     """Decode-cache tree -> shardings.
@@ -135,18 +158,13 @@ def cache_shardings(mesh: Mesh, tree: Tree,
             bd = nd - 4
             if shape[bd] % n_batch == 0 and shape[bd] > 1:
                 spec[bd] = bb
-            if seq_shard and shape[bd + 1] % mesh.shape["model"] == 0:
-                spec[bd + 1] = "model"      # sequence-sharded KV
-            elif shape[bd + 2] % mesh.shape["model"] == 0:
-                spec[bd + 2] = "model"      # head-sharded KV
+            dim = kv_model_dim(shape, mesh.shape["model"], seq_shard)
         else:
             if shape[0] % n_batch == 0 and shape[0] > 1:
                 spec[0] = bb
-            # shard the widest trailing dim on model
-            if nd > 1:
-                cand = max(range(1, nd), key=lambda i: shape[i])
-                if shape[cand] % mesh.shape["model"] == 0:
-                    spec[cand] = "model"
+            dim = state_model_dim(shape, mesh.shape["model"])
+        if dim is not None:
+            spec[dim] = "model"
         return NamedSharding(mesh, P(*spec))
 
     return _map_with_names(one, tree)
@@ -308,5 +326,6 @@ def shard_params(sp: Spmd, params: Tree, specs: Optional[Tree] = None,
     return ShardedTree(sp, blocks, specs)
 
 
-__all__ = ["ShardedTree", "cache_shardings", "gather_weight", "owns",
-           "param_shardings", "shard_params"]
+__all__ = ["ShardedTree", "cache_shardings", "gather_weight",
+           "kv_model_dim", "owns", "param_shardings", "shard_params",
+           "state_model_dim"]

@@ -36,7 +36,9 @@ the mesh would run: the last along ``model`` (index 0 along the other
 axes), which under the sequence layouts holds the last row block or the
 last cache block, the most attention work.  Its layouts are the rules':
 ``seq_rows`` (``attn_seq_shard``: a position holds a block of the
-sequence's rows, weights FSDP-only, K/V all-gathered over ``model``)
+sequence's rows, weights FSDP-only, K/V all-gathered over ``model``; a
+recurrence runs block after block along ``model``, each position
+starting from the state its predecessor hands on, ``hand_on``)
 and ``seq_kv`` (``seq_shard_kv``: a position holds a block of the KV
 cache's slots; decode merges the blocks' partial attention by their
 log-sum-exps).
@@ -739,6 +741,40 @@ class Spmd:
         return _collective(self, axes, "psum_scatter", "all_gather", dim,
                            xs)
 
+    def prev_along(self, k: int, axis: str = "model") -> Optional[int]:
+        """The index into ``positions`` of the position one step before
+        position ``k`` along ``axis`` (in row-major order it runs
+        before k), or None where k is the first along it or this
+        program does not run that position (one position's)."""
+        pos = list(self.positions[k])
+        i = self.mesh.axis_names.index(axis)
+        if pos[i] == 0:
+            return None
+        pos[i] -= 1
+        pos = tuple(pos)
+        return self.positions.index(pos) if pos in self.positions else None
+
+    def hand_on(self, k: int, prev, init, anchor=None,
+                axis: str = "model") -> List[torch.Tensor]:
+        """Position ``k``'s starting state in a chain along ``axis`` (a
+        recurrence whose rows are split over it, each block starting
+        where the one before stopped): its predecessor's final state
+        ``prev`` (a tuple of tensors) moved onto its device, or ``init``
+        where it has none: the first along ``axis``, or on one
+        position's program a position whose predecessor it does not run
+        (there it receives ``init``'s values, a ``meta`` stand-in in the
+        dry run).  A collective-permute along ``axis`` that every
+        position of a group takes part in (each sends its final state on
+        and receives its predecessor's), charged for position k, the
+        state's bytes, once in the forward and once in the backward,
+        where the state's gradient goes back to the predecessor.
+        ``anchor`` (the position's rows entering the chain) ties the
+        backward, and its charge, to the graph at every position, the
+        first too."""
+        src = tuple(prev if prev is not None else init)
+        nbytes = sum(_nbytes(t) for t in src)
+        return list(_HandOn.apply(self, k, axis, nbytes, anchor, *src))
+
     def unreplicate(self, xs) -> torch.Tensor:
         """The value every position holds alike (a loss after its
         ``pmean``), once: its cotangent reaches every position's copy
@@ -837,6 +873,35 @@ class _Collective(torch.autograd.Function):
 def _collective(sp: Spmd, axes, op: str, back: Optional[str], dim: int,
                 xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return list(_Collective.apply(sp, axes, op, back, dim, *xs))
+
+
+class _HandOn(torch.autograd.Function):
+    """``Spmd.hand_on``'s transfer: the state onto position k's device,
+    its gradient back onto the source's; one collective-permute shard
+    charged each way."""
+
+    @staticmethod
+    @charged_unit
+    def forward(ctx, sp, k, axis, nbytes, anchor, *xs):
+        ctx.sp, ctx.k, ctx.axis, ctx.nbytes = sp, k, axis, nbytes
+        ctx.devices = [x.device for x in xs]
+        _charge_permute(sp, axis, nbytes)
+        return tuple(x.to(sp.device(k), copy=True) for x in xs)
+
+    @staticmethod
+    @charged_unit
+    def backward(ctx, *gs):
+        _charge_permute(ctx.sp, ctx.axis, ctx.nbytes)
+        return (None,) * 5 + tuple(
+            None if g is None else g.to(d, copy=True)
+            for g, d in zip(gs, ctx.devices))
+
+
+def _charge_permute(sp: Spmd, axis: str, nbytes: int) -> None:
+    size = sp.size(axis)
+    if size > 1:
+        charge_collective("collective-permute", nbytes, size, 1,
+                          sp.crosses_pod(axis))
 
 
 class _Unreplicate(torch.autograd.Function):

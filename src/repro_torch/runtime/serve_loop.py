@@ -70,11 +70,15 @@ def make_decode_step(model, temperature: float = 0.0):
 
 @dataclass
 class Request:
+    """One request: its prompt, and ``extra``, whisper's frame
+    embeddings [enc_seq, d] (required for family ``audio``) or the VLM's
+    patch embeddings [P, d] (optional), on the model's device."""
     rid: int
     prompt: List[int]
     max_new: int = 16
     out: List[int] = field(default_factory=list)
     done: bool = False
+    extra: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -105,7 +109,9 @@ class ContinuousBatcher:
     ``attn_seq_shard``, by heads for decode) and each batch's cache is a
     ``ShardedCache`` (by slots under ``seq_shard_kv``).  A filler row's
     tokens are routed with its data shard's in an expert-parallel MoE,
-    whose capacity is counted over the data shard.
+    whose capacity is counted over the data shard.  A request's
+    ``extra`` goes in with its prompt (whisper's frames, where a filler
+    row's are zeros; a VLM's patches, decoding then from past them).
     """
 
     def __init__(self, model, cfg: ArchConfig, scfg: ServeConfig, params,
@@ -169,6 +175,18 @@ class ContinuousBatcher:
             toks[i, -len(seq):] = seq          # left-pad
         return toks
 
+    def _batch_extra(self, reqs: List[Request], rows: int
+                     ) -> Optional[torch.Tensor]:
+        """The requests' ``extra`` embeddings stacked [rows, P, d] (zeros
+        for the filler rows), or None where no request has them."""
+        if all(r.extra is None for r in reqs):
+            return None
+        ex = [r.extra for r in reqs]
+        like = next(e for e in ex if e is not None)
+        ex = [torch.zeros_like(like) if e is None else e for e in ex]
+        ex += [torch.zeros_like(like)] * (rows - len(reqs))
+        return torch.stack(ex).to(self.device)
+
     def run(self, max_steps: int = 1000) -> List[Request]:
         done: List[Request] = []
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -183,11 +201,12 @@ class ContinuousBatcher:
                 toks = torch.cat([toks, toks.new_zeros(
                     (rows - len(reqs), toks.shape[1]))])
                 self.filler_rows += rows - len(reqs)
+            extra = self._batch_extra(reqs, rows)
             logits, cache = self.prefill_step(self._params("prefill", rows),
-                                              toks)
+                                              toks, extra)
             params = self._params("decode", rows)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-            pos = toks.shape[1]
+            pos = decode_start(self.cfg, toks, extra)
             for r, t in zip(reqs, nxt.tolist()):
                 r.out.append(t)
             # decode until any slot finishes, then re-batch

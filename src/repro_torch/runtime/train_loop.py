@@ -210,7 +210,8 @@ def _sharded_step(model, cfg: ArchConfig, tcfg: TrainConfig, schedule,
     and are dropped after the step), with its blocks of the moments.  The
     parameter blocks are written back to the state's tensors; the
     moments are updated in place where the position's device holds them
-    (on a mesh of ``meta`` entries every block is a view)."""
+    (on a mesh of ``meta`` entries every block is a view).  Whisper's
+    frames and the VLM's patch embeddings go with their rows."""
     if tcfg.grad_compress:
         raise NotImplementedError(
             "grad_compress under a mesh: the sharded step reduce-"
@@ -221,9 +222,10 @@ def _sharded_step(model, cfg: ArchConfig, tcfg: TrainConfig, schedule,
     loss = None
     for micro in _microbatches(batch, mb):
         rows = {k: model._rows(sp, v) for k, v in micro.items()}
+        extra = rows.get("frames") if cfg.family == "audio" else \
+            rows.get("patch_embeds")
         part = model.train_loss_sharded(
-            sp, P, rows["tokens"], rows["labels"],
-            rows.get("patch_embeds"), rows.get("mask"))
+            sp, P, rows["tokens"], rows["labels"], extra, rows.get("mask"))
         part.backward()
         loss = part.detach() if loss is None else loss + part.detach()
     loss = loss / mb

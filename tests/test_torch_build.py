@@ -380,8 +380,8 @@ def test_route_counts_reset_with_the_launch_counts():
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_bwd)
-    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (mlstm_chunk,
-                                                            mlstm_chunk_bwd)
+    from repro_torch.kernels.mlstm_chunk.mlstm_chunk import (
+        mlstm_chunk, mlstm_chunk_bwd, mlstm_decode_block)
     from repro_torch.kernels.moe_matmul.moe_matmul import (
         moe_matmul, moe_matmul_dw, moe_matmul_dx)
     from repro_torch.kernels.rglru_scan.rglru_scan import (rglru_scan,
@@ -390,8 +390,10 @@ def test_route_counts_reset_with_the_launch_counts():
              for f in (flash_attention, flash_attention_bwd, moe_matmul,
                        matmul_bias_act, rglru_scan, mlstm_chunk,
                        tdp.tropical_dp_chain, moe_matmul_dx, moe_matmul_dw,
-                       rglru_scan_bwd, mlstm_chunk_bwd)]
+                       rglru_scan_bwd, mlstm_chunk_bwd, mlstm_decode_block)]
     try:
+        mlstm_decode_block.launches = 3
+        mlstm_decode_block.launches_by_route["decode_block"] = 3
         mlstm_chunk_bwd.launches = 13
         mlstm_chunk_bwd.launches_by_route.update(wgmma=12, simt=1)
         moe_matmul_dx.launches = 73
@@ -425,7 +427,8 @@ def test_route_counts_reset_with_the_launch_counts():
                           "moe_matmul_dx": {"simt": 1, "wgmma": 72},
                           "moe_matmul_dw": {"simt": 1, "wgmma": 70},
                           "rglru_scan_bwd": {"simt": 1, "tma": 5},
-                          "mlstm_chunk_bwd": {"simt": 1, "wgmma": 12}}
+                          "mlstm_chunk_bwd": {"simt": 1, "wgmma": 12},
+                          "mlstm_decode_block": {"decode_block": 3}}
         kernels.reset_launch_counts()
         assert kernels.route_counts() == {
             "flash_attention": {"simt": 0, "wgmma": 0},
@@ -438,7 +441,8 @@ def test_route_counts_reset_with_the_launch_counts():
             "moe_matmul_dx": {"simt": 0, "wgmma": 0},
             "moe_matmul_dw": {"simt": 0, "wgmma": 0},
             "rglru_scan_bwd": {"simt": 0, "tma": 0},
-            "mlstm_chunk_bwd": {"simt": 0, "wgmma": 0}}
+            "mlstm_chunk_bwd": {"simt": 0, "wgmma": 0},
+            "mlstm_decode_block": {"decode_block": 0}}
         assert kernels.launch_counts()["moe_matmul"] == 0
         assert kernels.launch_counts()["moe_matmul_dx"] == 0
         assert kernels.launch_counts()["moe_matmul_dw"] == 0
@@ -448,6 +452,7 @@ def test_route_counts_reset_with_the_launch_counts():
         assert kernels.launch_counts()["rglru_scan"] == 0
         assert kernels.launch_counts()["mlstm_chunk"] == 0
         assert kernels.launch_counts()["mlstm_chunk_bwd"] == 0
+        assert kernels.launch_counts()["mlstm_decode_block"] == 0
         assert kernels.launch_counts()["tropical_dp"] == 0
     finally:
         for f, n, routes in saved:

@@ -349,17 +349,48 @@ def test_full_size_cells_run_on_meta(arch, shape, tmp_path):
         assert json.load(fh)["roofline"] == roof
 
 
-def test_a_mesh_cell_splits_evenly_with_no_collective_term():
-    rec = dryrun.run_cell("xlstm-350m", "decode_32k",
-                          MeshConfig((2, 16, 16), ("pod", "data", "model")),
+def _moe_with_12_heads(monkeypatch):
+    """granite-moe-1b-a400m given 12 heads (which a model axis of 16 does
+    not divide) and 2 layers: a cell whose rules ask for a layout the
+    port does not run yet (``attn_seq_shard_moe``, ROADMAP item 25.4; no
+    registry cell has one)."""
+    import dataclasses
+    real = dryrun.get_arch
+
+    def get(name):
+        cfg = real(name)
+        if name == "granite-moe-1b-a400m":
+            cfg = dataclasses.replace(cfg, n_layers=2, attention=(
+                dataclasses.replace(cfg.attention, n_heads=12,
+                                    n_kv_heads=4)))
+        return cfg
+    monkeypatch.setattr(dryrun, "get_arch", get)
+
+
+def test_a_mesh_cell_splits_evenly_with_no_collective_term(monkeypatch):
+    """A cell with a layout gap that stays open (a MoE model under
+    ``attn_seq_shard``) splits its unsharded program evenly, with no
+    collective term; xlstm-350m's decode cell, which waited for item 25.3,
+    runs one position's program, its collectives charged, its record
+    naming the chain (1 in decode: no hand-off)."""
+    _moe_with_12_heads(monkeypatch)
+    multi = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+    rec = dryrun.run_cell("granite-moe-1b-a400m", "prefill_32k", multi,
                           verbose=False)
-    card = dryrun.run_cell("xlstm-350m", "decode_32k", dryrun.CARD_MESH,
-                           verbose=False)
+    card = dryrun.run_cell("granite-moe-1b-a400m", "prefill_32k",
+                           dryrun.CARD_MESH, verbose=False)
     assert rec["split"] == "even" and rec["collective_reason"]
+    assert rec["layout_gap"] == "attn_seq_shard_moe"
+    assert "25.4" in rec["collective_reason"]
     assert rec["roofline"]["collective_s"] is None
     assert rec["roofline"]["flops_dev"] * 512 == \
         pytest.approx(card["roofline"]["flops_dev"])
     assert rec["memory"]["temp_size_in_bytes"] * 512 == \
         pytest.approx(card["memory"]["temp_size_in_bytes"])
+    # the arguments' own blocks (FSDP-only weights under the rows' rules)
     assert rec["memory"]["argument_size_in_bytes"] < \
-        card["memory"]["argument_size_in_bytes"] / 16
+        card["memory"]["argument_size_in_bytes"]
+    xl = dryrun.run_cell("xlstm-350m", "decode_32k", multi, verbose=False)
+    assert xl["ok"] is True, xl.get("traceback")
+    assert xl["split"] == "position" and "collective_reason" not in xl
+    assert xl["roofline"]["collective_s"] > 0 and xl["chain"] == 1

@@ -264,6 +264,11 @@ def _entries():
         ("mlstm_chunk_bwd", mlr.mlstm_chunk_bwd_ref, ml.mlstm_chunk_bwd_meta,
          ml_args + (0.25, f(2, 5, 2, 16)), {}, "mlstm_chunk_bwd",
          "simt"),
+        ("mlstm_decode_block", mlr.mlstm_decode_block_ref,
+         ml.mlstm_decode_block_meta,
+         (f(2, 1, 2, 4), f(2, 1, 2, 4), f(2, 1, 2, 16), f(2, 1, 2),
+          f(2, 1, 2), f(2, 2, 4, 16), f(2, 2, 4), f(2, 2), 0.25), {},
+         "mlstm_decode_block", "decode_block"),
     ]
 
 

@@ -65,7 +65,8 @@ NO_LAUNCHES = {"link_geometry": 0, "tropical_dp": 0, "tropical_dp_step": 0,
                "conv2d": 0, "flash_attention": 0, "flash_attention_bwd": 0,
                "decode_attention": 0, "moe_matmul": 0, "moe_matmul_dx": 0,
                "moe_matmul_dw": 0, "rglru_scan": 0, "rglru_scan_bwd": 0,
-               "mlstm_chunk": 0, "mlstm_chunk_bwd": 0}
+               "mlstm_chunk": 0, "mlstm_chunk_bwd": 0,
+               "mlstm_decode_block": 0}
 
 
 EXAMPLE = os.path.join(ROOT, "examples", "torch_uav_swarm_sim.py")

@@ -241,14 +241,37 @@ def test_the_multi_pod_train_cell_reduces_gradients_across_pods(cells):
     assert len(roof["schedule"]) <= 2000
 
 
-def test_cells_outside_the_slice_keep_the_even_split():
-    for arch, family in (("whisper-tiny", "audio"), ("xlstm-350m", "ssm")):
+def test_cells_outside_the_slice_keep_the_even_split(monkeypatch):
+    """whisper-tiny's and xlstm-350m's decode cells run one position's
+    program (item 25.3): no reason, a collective term, the xLSTM's record
+    naming its chain; the even split stays where a layout gap is open (a
+    MoE model whose heads ``model`` does not divide, under
+    ``attn_seq_shard``: item 25.4)."""
+    import dataclasses
+    for arch in ("whisper-tiny", "xlstm-350m"):
         rec = dryrun.run_cell(arch, "decode_32k", SINGLE_POD_MESH,
                               verbose=False)
-        assert rec["split"] == "even" and rec["layout_gap"] == family
-        assert family in rec["collective_reason"]
-        assert "ROADMAP" in rec["collective_reason"]
-        assert rec["roofline"]["collective_s"] is None
+        assert rec["ok"] is True, rec.get("traceback")
+        assert rec["split"] == "position" and "layout_gap" not in rec
+        assert "collective_reason" not in rec
+        assert rec["roofline"]["collective_s"] > 0
+        assert ("chain" in rec) == (arch == "xlstm-350m")
+    real = dryrun.get_arch
+
+    def get(name):
+        cfg = real(name)
+        if name == "granite-moe-1b-a400m":
+            cfg = dataclasses.replace(cfg, n_layers=2, attention=(
+                dataclasses.replace(cfg.attention, n_heads=12,
+                                    n_kv_heads=4)))
+        return cfg
+    monkeypatch.setattr(dryrun, "get_arch", get)
+    rec = dryrun.run_cell("granite-moe-1b-a400m", "prefill_32k",
+                          SINGLE_POD_MESH, verbose=False)
+    assert rec["split"] == "even" and \
+        rec["layout_gap"] == "attn_seq_shard_moe"
+    assert "ROADMAP" in rec["collective_reason"]
+    assert rec["roofline"]["collective_s"] is None
     last = {"data": 0, "model": 15}
     for arch, shape, flag in (("gemma2-9b", "prefill_32k", "seq_shard_kv"),
                               ("minicpm-2b", "train_4k", "attn_seq_shard")):
